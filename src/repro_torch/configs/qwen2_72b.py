@@ -1,0 +1,19 @@
+"""qwen2-72b [dense]: 80L d8192 64H (GQA kv=8) d_ff 29568, vocab 152064.
+
+[arXiv:2407.10671] QKV bias, GQA, swiglu, rmsnorm.
+"""
+
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-72b",
+    family="dense",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=29568,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1e6,
+)

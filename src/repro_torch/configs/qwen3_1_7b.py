@@ -1,0 +1,21 @@
+"""qwen3-1.7b [dense]: 28L d2048 16H (GQA kv=8) d_ff 6144, vocab 151936.
+
+[hf:Qwen/Qwen3-1.7B] qk_norm, head_dim 128, tied embeddings.
+"""
+
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-1.7b",
+    family="dense",
+    n_layers=28,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=8,
+    d_head=128,
+    d_ff=6144,
+    vocab_size=151936,
+    qk_norm=True,
+    rope_theta=1e6,
+    tie_embeddings=True,
+)
