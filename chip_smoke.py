@@ -10,13 +10,25 @@ Phases, each fatal on failure:
   4. kernel C (fused paged decode) against its plain version on the card;
   5. the paged engine at qwen3-1.7b widths (2 layers, float32) on the
      kernels, every emitted token teacher-forced against the plain path;
-  6. the main path: qwen3-1.7b at full width and depth (28 layers, bf16,
-     seeded random weights) served by the paged engine (the main path) and
-     the dense-slab engine, each with its own kernel launch counts, held
-     against its prefill ticks and decode steps; with ``--profile``, the
-     paged run once more under torch.profiler (device busy share and the
-     kernels that take the most device time; adds minutes);
-  7. a ``{"kernels": [...]}`` summary line, the card line, and last the
+  6. the serving path: qwen3-1.7b at full width and depth (28 layers, bf16,
+     seeded random weights) served by the paged engine and the dense-slab
+     engine, each with its own kernel launch counts, held against its
+     prefill ticks and decode steps; with ``--profile``, the paged run once
+     more under torch.profiler (device busy share and the kernels that take
+     the most device time; adds minutes);
+  7. kernels B1 and B2 (flash backward: dq; dk/dv) against their plain
+     version on the card, in float32 on the backward test cases and in
+     bf16 at the training shape, each run twice and required bitwise equal;
+     B1, B2 and A timed at the training shape beside SDPA;
+  8. one training step at qwen3-1.7b widths (2 layers, float32) on the
+     kernels against the plain path: loss, every gradient, and the
+     parameters after one AdamW step;
+  9. the training path: qwen3-1.7b at full width and depth through the
+     ``Trainer`` (AdamW, float32 parameters, bf16 compute, remat "full"),
+     batch 2 x seq 4096, one warmup step and three timed steps whose launch
+     counts must be 56 of A, 28 of B1 and 28 of B2 per step; with
+     ``--profile``, one more step under torch.profiler;
+ 10. a ``{"kernels": [...]}`` summary line, the card line, and last the
      ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -25,7 +37,9 @@ checkout of the repository.  Timings are CUDA-event medians after warmup.
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -432,6 +446,20 @@ def serve_run(torch, dev, bundle, params, *, n_requests, paged, seed=0):
     return s
 
 
+def device_rows(torch, prof):
+    """``(device us, count, name)`` of every kernel in a profile, largest first."""
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        rows.append((us, evt.count, evt.key))
+    rows.sort(reverse=True)
+    return rows
+
+
 def profile_run(torch, dev, bundle, params, unprofiled_wall_s):
     """The paged run once more under torch.profiler: device busy time (sum of kernel
     times on the one stream) against the profiled wall, and the kernels that
@@ -443,15 +471,7 @@ def profile_run(torch, dev, bundle, params, unprofiled_wall_s):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         s = serve_run(torch, dev, bundle, params, n_requests=16, paged=True)
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        rows.append((us, evt.count, evt.key))
-    rows.sort(reverse=True)
+    rows = device_rows(torch, prof)
     busy_s = sum(r[0] for r in rows) / 1e6
     log(f"  profiled paged run: wall {s['wall_s']:.3f} s, device busy {busy_s:.3f} s "
         f"({100 * busy_s / s['wall_s']:.1f}%), idle {100 * (1 - busy_s / s['wall_s']):.1f}%; "
@@ -468,7 +488,6 @@ def profile_run(torch, dev, bundle, params, unprofiled_wall_s):
 def phase_full(torch, dev, with_profile):
     from repro_torch.configs import ARCHS
     from repro_torch.core.api import ParallelContext
-    from repro_torch.kernels.flash_attention import flash_attention_fwd_cuda
     from repro_torch.kernels.paged_attention import paged_decode_fwd_cuda
     from repro_torch.models.registry import build_model
 
@@ -482,22 +501,22 @@ def phase_full(torch, dev, with_profile):
     torch.cuda.reset_peak_memory_stats()
     runs, launches = {}, {}
     for path, n_requests, paged in (("paged", 16, True), ("dense", 4, False)):
-        flash_attention_fwd_cuda.launches = 0
-        paged_decode_fwd_cuda.launches = 0
+        reset_launch_counts()
         s = serve_run(torch, dev, bundle, params, n_requests=n_requests, paged=paged)
-        got = {"flash_attention_fwd": flash_attention_fwd_cuda.launches,
-               "paged_decode_fwd": paged_decode_fwd_cuda.launches}
+        got = {**launch_counts(), "paged_decode_fwd": paged_decode_fwd_cuda.launches}
         # every prefill tick runs A twice per layer (resident + chunk-local
-        # partial); a decode step runs C (paged) or A (dense) once per layer
+        # partial); a decode step runs C (paged) or A (dense) once per layer;
+        # serving runs no backward
         L, ticks, steps = cfg.n_layers, s["prefill_steps"], s["decode_steps"]
         want = ({"flash_attention_fwd": 2 * L * ticks, "paged_decode_fwd": L * steps} if paged
                 else {"flash_attention_fwd": 2 * L * ticks + L * steps, "paged_decode_fwd": 0})
+        want.update(flash_attention_bwd_dq=0, flash_attention_bwd_dkv=0)
         if got != want:
             raise AssertionError(f"{path} path: launches {got}, expected {want} from "
                                  f"{ticks} prefill ticks and {steps} decode steps")
         runs[path], launches[path] = s, got
-    if min(launches["paged"].values()) == 0:
-        raise AssertionError(f"a kernel was not launched on the main path: {launches}")
+    if min(launches["paged"]["flash_attention_fwd"], launches["paged"]["paged_decode_fwd"]) == 0:
+        raise AssertionError(f"a kernel was not launched on the paged path: {launches}")
     peak = torch.cuda.max_memory_allocated()
     for name, s in runs.items():
         log(f"  run {name}: {s['requests']} requests, {s['tokens']} tokens "
@@ -515,6 +534,393 @@ def phase_full(torch, dev, with_profile):
                                          "peak_bytes": peak, "launches": launches,
                                          "profile_paged": prof}))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: kernels B1 and B2
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [
+    # id, (B, Sq, Sk, Hq, Hkv, D), causal, layout, window: the JAX package's
+    # backward cases (tests/test_kernels.py::BWD_CASES), then D=128 GQA, a
+    # ragged edge (no multiple of the kernels' 32-row tiles, Sq != Sk) and
+    # dead rows (queries before every key; a batch row of padding keys)
+    ("causal", (1, 128, 128, 2, 2, 32), True, "contig", None),
+    ("noncausal", (1, 128, 128, 2, 2, 32), False, "contig", None),
+    ("gqa", (2, 128, 128, 4, 2, 32), True, "contig", None),
+    ("mqa", (1, 128, 128, 4, 1, 64), True, "contig", None),
+    ("zigzag", (1, 256, 256, 2, 2, 32), True, "zigzag", None),
+    ("zigzag_gqa", (1, 256, 256, 4, 2, 32), True, "zigzag", None),
+    ("window", (1, 256, 256, 2, 2, 32), True, "contig", 64),
+    ("gqa_d128", (2, 256, 256, 16, 8, 128), True, "contig", None),
+    ("ragged", (2, 37, 45, 4, 2, 32), True, "offset", None),
+    ("dead_rows", (2, 256, 256, 2, 2, 64), True, "dead", None),
+]
+TRAIN_SHAPE = dict(B=2, S=4096, Hq=16, Hkv=8, D=128)  # qwen3-1.7b, batch 2 x seq 4096
+
+
+def zigzag_order(S, P):
+    half = S // (2 * P)
+    zz = []
+    for j in range(P):
+        zz += list(range(j * half, (j + 1) * half))
+        zz += list(range((2 * P - 1 - j) * half, (2 * P - j) * half))
+    return zz
+
+
+def bwd_positions(torch, dev, B, Sq, Sk, layout):
+    qp = torch.arange(Sq, device=dev, dtype=torch.int32)
+    kp = torch.arange(Sk, device=dev, dtype=torch.int32)
+    if layout == "zigzag":
+        qp = kp = torch.tensor(zigzag_order(Sq, 4), device=dev, dtype=torch.int32)
+    elif layout == "offset":
+        qp = qp + 8
+    qp = qp.expand(B, Sq).contiguous()
+    kp = kp.expand(B, Sk).contiguous()
+    if layout == "dead":
+        qp[0, :16] = -1
+        kp[1] = PAD_POS
+    return qp, kp
+
+
+def bwd_bytes_flops(q, k, q_pos, k_pos, causal, window, flops_per_pair_dim, out_tensors):
+    """Inputs read once (q, dout, live K/V, lse/delta/dlse, positions), the
+    float32 gradients written once, and ``flops_per_pair_dim * D`` flops per
+    visible (query, key, head): 6 for B1 (s, dp, dq), 8 for B2 (s, dp, dk, dv)."""
+    from repro_torch.kernels.ref import visibility_mask
+
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    live_keys = int((k_pos < PAD_POS // 2).sum())
+    e = q.element_size()
+    nbytes = (2 * q.numel() * e + 2 * live_keys * Hkv * D * e + 3 * B * Sq * Hq * 4
+              + (q_pos.numel() + k_pos.numel()) * 4 + sum(t.numel() * 4 for t in out_tensors))
+    pairs = int(visibility_mask(q_pos, k_pos, causal=causal, window=window).sum())
+    return nbytes, float(flops_per_pair_dim) * D * Hq * pairs
+
+
+def run_bwd(torch, q, k, v, qp, kp, dout, dlse, causal, window, out=None, lse=None):
+    """B1 and B2 twice each (bitwise equal or raise) and the plain backward,
+    on the same inputs; ``out``/``lse`` default to the plain forward's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ops import pick_block
+
+    scale = 1.0 / q.shape[-1] ** 0.5
+    Sq, Sk = q.shape[1], k.shape[1]
+    if out is None:
+        out, lse = fa.flash_attention_fwd_torch(q, k, v, qp, kp, causal=causal, window=window,
+                                                scale=scale, block_k=pick_block(Sk, 512))
+        lse = lse.contiguous()  # the plain version returns a transposed view
+    delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
+    args = (q, k, v, qp, kp, dout, lse, delta, dlse)
+    kw = dict(causal=causal, window=window, scale=scale)
+
+    def kernels():
+        return (fa.flash_attention_bwd_dq_cuda(*args, **kw),
+                *fa.flash_attention_bwd_dkv_cuda(*args, **kw))
+
+    got, again = kernels(), kernels()
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: two runs on the same inputs differ")
+    want = fa.flash_attention_bwd_torch(q, k, v, qp, kp, out, lse, dout, dlse, causal=causal,
+                                        window=window, scale=scale,
+                                        block_q=pick_block(Sq, 512), block_k=pick_block(Sk, 512))
+    return got, want, args, kw
+
+
+def compare_grads(torch, name, got, want, atol, rtol):
+    """Raise unless each of dq/dk/dv is finite and within ``atol + rtol *
+    |plain|`` of the plain version.  Returns the largest |error|."""
+    worst = 0.0
+    for g_name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name} {g_name}: not finite")
+        err = (g - w).abs()
+        if not torch.all(err <= atol + rtol * w.abs()):
+            raise AssertionError(f"{name} {g_name}: max |err| {float(err.max()):.3e}")
+        worst = max(worst, float(err.max()))
+    log(f"  ok {name}: max|grad err| {worst:.3e}, a second run bitwise equal")
+    return worst
+
+
+def phase_bwd(torch, dev, train_shape=TRAIN_SHAPE):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ops import pick_block
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # float32: both sides sum float32 products of the same inputs, only in
+    # another order, so 1e-4 absolute plus 1e-4 relative holds.
+    for case_id, (B, Sq, Sk, Hq, Hkv, D), causal, layout, window in BWD_CASES:
+        qp, kp = bwd_positions(torch, dev, B, Sq, Sk, layout)
+        q, dout = rnd((B, Sq, Hq, D)), rnd((B, Sq, Hq, D))
+        k, v = rnd((B, Sk, Hkv, D)), rnd((B, Sk, Hkv, D))
+        dlse = rnd((B, Sq, Hq))  # the TokenRing partial's lse cotangent
+        got, want, _, _ = run_bwd(torch, q, k, v, qp, kp, dout, dlse, causal, window)
+        compare_grads(torch, f"B1/B2 f32 {case_id} {(B, Sq, Sk, Hq, Hkv, D)}", got, want,
+                      atol=1e-4, rtol=1e-4)
+        if layout == "dead":
+            dq, dk, dv = got
+            for dead in (dq[0, :16], dq[1], dk[1], dv[1]):
+                if not torch.equal(dead, torch.zeros_like(dead)):
+                    raise AssertionError("B1/B2: gradients of rows that see no key are not 0")
+
+    # bf16 inputs at the training shape, causal; out/lse from kernel A, as
+    # on the training path.  The gradients are float32 on both sides, from
+    # the same bf16 values: sums of up to 2*4096 float32 terms in another
+    # order, held to 1e-3 absolute plus 1e-3 relative.
+    B, S, Hq, Hkv, D = (train_shape[x] for x in ("B", "S", "Hq", "Hkv", "D"))
+    bf = torch.bfloat16
+    q, dout = rnd((B, S, Hq, D), bf), rnd((B, S, Hq, D), bf)
+    k, v = rnd((B, S, Hkv, D), bf), rnd((B, S, Hkv, D), bf)
+    dlse = rnd((B, S, Hq))
+    qp = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
+    scale = 1.0 / D ** 0.5
+
+    def fwd():
+        return fa.flash_attention_fwd_cuda(q, k, v, qp, qp, causal=True, window=None,
+                                           scale=scale)
+
+    out, lse = fwd()
+    blk = pick_block(S, 512)  # the plain versions' tile
+    a_err = compare("A bf16 training shape", (out, lse), fa.flash_attention_fwd_torch(
+        q, k, v, qp, qp, causal=True, window=None, scale=scale, block_k=blk),
+        **tolerances(bf))
+    got, want, args, kw = run_bwd(torch, q, k, v, qp, qp, dout, dlse, True, None, out, lse)
+    shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
+    err = compare_grads(torch, f"B1/B2 bf16 training shape {shape}", got, want, atol=1e-3,
+                        rtol=1e-3)
+
+    ms_dq = time_ms(lambda: fa.flash_attention_bwd_dq_cuda(*args, **kw), iters=3, reps=3)
+    ms_dkv = time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(*args, **kw), iters=3, reps=3)
+    plain_bwd_ms = time_ms(lambda: fa.flash_attention_bwd_torch(
+        q, k, v, qp, qp, out, lse, dout, dlse, causal=True, window=None, scale=scale,
+        block_q=blk, block_k=blk), iters=1, reps=3)
+    ms_a = time_ms(fwd, iters=3, reps=3)
+    plain_fwd_ms = time_ms(lambda: fa.flash_attention_fwd_torch(
+        q, k, v, qp, qp, causal=True, window=None, scale=scale, block_k=blk), iters=1, reps=3)
+    # yardsticks only: SDPA gives no lse, so its backward has no dlse term
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    lib_fwd_ms = time_ms(sdpa, iters=5)
+    o_t, do_t = sdpa(), dout.transpose(1, 2)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(o_t, (qt, kt, vt), do_t,
+                                                     retain_graph=True), iters=5)
+    rows = {}
+    for name, ms, per_pair, outs in (("dq", ms_dq, 6, got[:1]), ("dkv", ms_dkv, 8, got[1:])):
+        nbytes, flops = bwd_bytes_flops(q, k, qp, qp, True, None, per_pair, outs)
+        bms, by = bound(nbytes, flops, "bfloat16")
+        rows[name] = dict(ms=ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms, bound_ms=bms,
+                          bound_by=by, max_abs_err=err, shape=shape,
+                          plain_and_library_compute="dq, dk and dv in one call")
+        log(f"  B {name}: kernel {ms:.3f} ms, bound {bms:.4f} ms ({by}), "
+            f"{flops / ms / 1e9:.2f} TFLOP/s")
+    nbytes, flops = flash_bytes_flops(q, k, qp, qp, True, None)
+    bms, by = bound(nbytes, flops, "bfloat16")
+    rows["fwd"] = dict(ms=ms_a, plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms, bound_ms=bms,
+                       bound_by=by, max_abs_err=a_err, shape=shape)
+    log(f"  training shape: A {ms_a:.3f} ms (plain {plain_fwd_ms:.3f}, sdpa {lib_fwd_ms:.3f}, "
+        f"bound {bms:.4f} {by}, {flops / ms_a / 1e9:.2f} TFLOP/s); backward plain "
+        f"{plain_bwd_ms:.3f} ms, sdpa backward {lib_bwd_ms:.3f} ms")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 8 and 9: training
+# ---------------------------------------------------------------------------
+
+
+def named_leaves(tree, prefix=""):
+    """``(name, tensor)`` in ``optim.adamw.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in named_leaves(tree[key], f"{prefix}.{key}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, sub in enumerate(tree) for x in named_leaves(sub, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
+TRAIN_KERNELS = {"flash_attention_fwd": "flash_attention_fwd_cuda",
+                 "flash_attention_bwd_dq": "flash_attention_bwd_dq_cuda",
+                 "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_cuda"}
+
+
+def launch_counts():
+    from repro_torch.kernels import flash_attention as fa
+
+    return {name: getattr(fa, fn).launches for name, fn in TRAIN_KERNELS.items()}
+
+
+def reset_launch_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    for fn in TRAIN_KERNELS.values():
+        getattr(fa, fn).launches = 0
+    pa.paged_decode_fwd_cuda.launches = 0
+
+
+def train_launches_per_step(cfg):
+    """remat "full" runs A in the forward and again in each block's
+    recompute; B1 and B2 once per layer."""
+    L = cfg.n_layers
+    return {"flash_attention_fwd": (2 if cfg.remat == "full" else 1) * L,
+            "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L}
+
+
+def phase_train_checked(torch, dev, cfg=None, B=2, S=512):
+    """One step at qwen3-1.7b widths, 2 layers, float32: kernels vs plain."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.launch.train_step import value_and_grad
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import adamw_init, adamw_update, tree_map
+    from repro_torch.runtime.trainer import batch_to_device
+
+    cfg = cfg or ARCHS["qwen3-1.7b"].with_(n_layers=2, dtype="float32")
+    kern = build_model(cfg, ParallelContext(device="cuda"))
+    plain = build_model(cfg, ParallelContext(impl="torch", device="cuda"))
+    p_kern = kern.init(0, training=True)
+    p_plain = tree_map(lambda t: t.detach().clone(), p_kern)
+    batch = batch_to_device(next(SyntheticDataset(SyntheticConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=1))), dev)
+    before = launch_counts()
+    (l_kern, _), g_kern = value_and_grad(kern.loss, p_kern, batch)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in launch_counts().items()}
+    if ran != train_launches_per_step(cfg):
+        raise AssertionError(f"phase 8: kernel launches {ran}, expected "
+                             f"{train_launches_per_step(cfg)}")
+    before = launch_counts()
+    (l_plain, _), g_plain = value_and_grad(plain.loss, p_plain, batch)
+    if launch_counts() != before:
+        raise AssertionError("phase 8: the plain path launched a kernel")
+    # Everything but attention runs the same float32 ops on both sides, and
+    # attention differs only in the order of float32 sums: the loss is held
+    # to 1e-5 relative, each gradient leaf to 1e-4 of its largest |value|.
+    l_err = abs(float(l_kern) - float(l_plain))
+    if not (math.isfinite(float(l_kern)) and l_err <= 1e-5 * abs(float(l_plain))):
+        raise AssertionError(f"phase 8: loss {float(l_kern)} vs plain {float(l_plain)}")
+    worst = 0.0
+    for (name, a), (_, b) in zip(named_leaves(g_kern), named_leaves(g_plain)):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if not (torch.isfinite(a).all() and rel <= 1e-4):
+            raise AssertionError(f"phase 8: gradient {name} off by {rel:.3e} of its max")
+        worst = max(worst, rel)
+    # One AdamW step each.  A first Adam step moves each element by about
+    # lr * sign(gradient), so an element whose gradient is within the error
+    # above of 0 may step up to 2*lr apart on the two sides: every element is
+    # held to 2*lr.  An element whose gradient is at least 1e-2 of its leaf's
+    # largest (100x the gradient limit, so its sign is certain) is held to
+    # 0.05*lr.
+    lr = 1e-5
+    adamw_update(g_kern, adamw_init(p_kern), p_kern, lr=lr)
+    adamw_update(g_plain, adamw_init(p_plain), p_plain, lr=lr)
+    p_err = sure_err = 0.0
+    n_apart = 0
+    for (name, a), (_, b), (_, g) in zip(named_leaves(p_kern), named_leaves(p_plain),
+                                         named_leaves(g_plain)):
+        d = (a.detach() - b.detach()).abs()
+        sure = g.abs() >= 1e-2 * g.abs().max()
+        d_sure = float(d[sure].max()) if sure.any() else 0.0
+        if float(d.max()) > 2 * lr or d_sure > 0.05 * lr:
+            raise AssertionError(f"phase 8: parameter {name} after AdamW off by "
+                                 f"{float(d.max()):.3e} ({d_sure:.3e} where the gradient is sure)")
+        p_err, sure_err = max(p_err, float(d.max())), max(sure_err, d_sure)
+        n_apart += int((d > 0.05 * lr).sum())
+    log(f"  ok phase 8: loss {float(l_kern):.6f} vs plain {float(l_plain):.6f} (|err| "
+        f"{l_err:.2e}); worst gradient leaf off by {worst:.2e} of its max; parameters after "
+        f"AdamW (lr {lr}) within {p_err:.2e} ({sure_err:.2e} where the gradient is sure), "
+        f"{n_apart} elements apart by more than 0.05*lr; launches {ran}")
+
+
+def profile_step(torch, fn, wall_s):
+    """``fn`` once under torch.profiler: device busy share and the kernels
+    that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof_wall = time.perf_counter() - t0
+    rows = device_rows(torch, prof)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    log(f"  profiled step: wall {prof_wall:.3f} s, device busy {busy_s:.3f} s "
+        f"({100 * busy_s / prof_wall:.1f}%); against the unprofiled step {wall_s:.3f} s: busy "
+        f"{100 * busy_s / wall_s:.1f}%, idle {100 * (1 - busy_s / wall_s):.1f}%")
+    for us, count, key in rows[:12]:
+        log(f"    {us / 1e3:10.2f} ms {100 * us / 1e6 / busy_s:5.1f}% x{count:6d} {key[:90]}")
+    return {"wall_s": prof_wall, "device_busy_s": busy_s, "unprofiled_wall_s": wall_s,
+            "top": [{"ms": us / 1e3, "count": c, "kernel": k[:120]} for us, c, k in rows[:12]]}
+
+
+def phase_train_full(torch, dev, with_profile, cfg=None, B=2, S=4096, steps=3):
+    """The training path: qwen3-1.7b at full width and depth through the
+    Trainer, one warmup step and ``steps`` timed steps."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig, n_params
+
+    cfg = cfg or ARCHS["qwen3-1.7b"]
+    bundle = build_model(cfg, ParallelContext(device="cuda"))
+    trainer = Trainer(bundle, TrainerConfig(lr=3e-4, warmup_steps=1, total_steps=1 + steps))
+    data = SyntheticDataset(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                            global_batch=B, seed=0, layout=cfg.layout,
+                                            sp_degree=bundle.pctx.sp_degree))
+    t0 = time.perf_counter()
+    state = trainer.init_state(0)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {cfg.n_layers} layers, {n_params(state['params']) / 1e9:.3f}B "
+        f"parameters in {cfg.param_dtype}, compute {cfg.dtype}, remat {cfg.remat}; batch {B} x "
+        f"seq {S}; seeded init {time.perf_counter() - t0:.1f} s")
+    step_log = lambda m: log("  " + m)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    state, hist = trainer.run(state, data, steps=1, log_every=1, log=step_log)  # warmup
+    peak_first = torch.cuda.max_memory_allocated()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state, timed = trainer.run(state, data, steps=1 + steps, log_every=1, log=step_log)
+    peak = torch.cuda.max_memory_allocated()
+    got = launch_counts()
+    want = {k: v * steps for k, v in train_launches_per_step(cfg).items()}
+    if got != want:
+        raise AssertionError(f"training path: launches {got} over {steps} steps, expected {want}")
+    losses = hist + timed
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training path: losses {losses}")
+    step_s = trainer.step_seconds[1:]
+    med = statistics.median(step_s)
+    res = {"arch": cfg.name, "batch": B, "seq": S, "steps_timed": steps, "step_s": step_s,
+           "median_step_s": med, "tokens_per_s": B * S / med,
+           "first_step_s": trainer.step_seconds[0], "losses": losses,
+           "peak_bytes_timed_steps": peak, "peak_bytes_first_step": peak_first,
+           "launches": got}
+    log(f"  timed steps {[round(x, 4) for x in step_s]} s: median {med:.4f} s = "
+        f"{B * S / med:.1f} tok/s; losses {[round(x, 4) for x in losses]}; peak memory "
+        f"{peak / 2**30:.2f} GiB (first step {peak_first / 2**30:.2f} GiB); launches {got}")
+    if with_profile:
+        res["profile"] = profile_step(torch, lambda: trainer.run(
+            state, data, steps=2 + steps, log=lambda m: None), med)
+    log("RESULT training " + json.dumps(res))
+    return got
+
+
+def free_device_memory(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -571,22 +977,44 @@ def main() -> int:
     paged_row = phase_paged(torch, dev)
     log("== phase 5: paged engine on the kernels, teacher-forced vs the plain path")
     phase_e2e_checked(torch, dev)
-    log("== phase 6: qwen3-1.7b full width and depth (main path)")
-    launches = phase_full(torch, dev, "--profile" in sys.argv[1:])
+    log("== phase 6: qwen3-1.7b full width and depth, serving")
+    profile = "--profile" in sys.argv[1:]
+    launches = phase_full(torch, dev, profile)
+    free_device_memory(torch)
+    log("== phase 7: kernels B1 and B2 (flash backward) vs plain")
+    bwd_rows = phase_bwd(torch, dev)
+    free_device_memory(torch)
+    log("== phase 8: one training step on the kernels vs the plain path")
+    phase_train_checked(torch, dev)
+    free_device_memory(torch)
+    log("== phase 9: qwen3-1.7b full width and depth, training (main path)")
+    launches["train"] = phase_train_full(torch, dev, profile)
 
-    # `launches` is the main path's count (the paged serving run);
-    # `launches_by_path` gives each driven path's own count, each read from
-    # counters set to 0 just before that run.
+    # `launches` is the count of each kernel's own slice path (training for
+    # A, B1 and B2; paged serving for C); `launches_by_path` gives every
+    # driven path's count, each read from counters set to 0 just before that
+    # run.
     def by_path(name):
-        return {path: counts[name] for path, counts in launches.items()}
+        return {path: counts.get(name, 0) for path, counts in launches.items()}
 
+    bwd = "src/repro/kernels/flash_attention.py:476"
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_fwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:244",
-         "launches": launches["paged"]["flash_attention_fwd"],
-         "launches_by_path": by_path("flash_attention_fwd"), **flash_rows[256],
-         "decode_shape": flash_rows[1]},
+         "launches": launches["train"]["flash_attention_fwd"],
+         "launches_by_path": by_path("flash_attention_fwd"), **bwd_rows["fwd"],
+         "serving_prefill_shape": flash_rows[256], "decode_shape": flash_rows[1]},
+        {"name": "flash_attention_bwd_dq", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_bwd.cu",
+         "replaces": bwd, "pallas_body": "src/repro/kernels/flash_attention.py:367",
+         "launches": launches["train"]["flash_attention_bwd_dq"],
+         "launches_by_path": by_path("flash_attention_bwd_dq"), **bwd_rows["dq"]},
+        {"name": "flash_attention_bwd_dkv", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_bwd.cu",
+         "replaces": bwd, "pallas_body": "src/repro/kernels/flash_attention.py:415",
+         "launches": launches["train"]["flash_attention_bwd_dkv"],
+         "launches_by_path": by_path("flash_attention_bwd_dkv"), **bwd_rows["dkv"]},
         {"name": "paged_decode_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/paged_attention.py:192",

@@ -1,7 +1,6 @@
 """Flash-attention forward: the CUDA kernel's wrapper and its plain version.
 
-Counterpart of ``repro.kernels.flash_attention`` (forward only; the
-backward kernels come with the training slice).
+Counterpart of ``repro.kernels.flash_attention``.
 
 * :func:`flash_attention_fwd_cuda` launches kernel A,
   ``csrc/flash_fwd.cu``, which replaces the Pallas TPU kernel
@@ -12,9 +11,19 @@ backward kernels come with the training slice).
 * :func:`flash_attention_fwd_torch` is the plain version: a loop over KV
   blocks with the same online-softmax update, used for CPU tensors and as
   the kernel's yardstick on the card.
+* :func:`flash_attention_bwd_dq_cuda` and :func:`flash_attention_bwd_dkv_cuda`
+  launch kernels B1 and B2, ``csrc/flash_bwd.cu``, which replace the two
+  Pallas kernels of ``flash_attention_bwd_pallas`` (``_bwd_dq_kernel`` and
+  ``_bwd_dkv_kernel``).  Same bound and the same tile skip as kernel A; B2
+  sums the GQA group inside one block, without atomics, so gradients are
+  bitwise reproducible.
+* :func:`flash_attention_bwd_torch` is their plain version, a port of
+  ``ops._xla_flash_bwd``: the same recompute, ``+ dlse`` term and skip
+  predicate.
 
-Both return the TokenRing partial ``(out, lse)``; rows that see no key give
-``out = 0, lse = -inf``.
+The forward returns the TokenRing partial ``(out, lse)``; rows that see no
+key give ``out = 0, lse = -inf`` and, in the backward, exactly zero
+gradients.
 """
 
 from __future__ import annotations
@@ -28,7 +37,11 @@ from repro_torch.kernels.ref import NEG_INF, PAD_POS, visibility_mask
 __all__ = [
     "flash_attention_fwd_cuda",
     "flash_attention_fwd_torch",
+    "flash_attention_bwd_dq_cuda",
+    "flash_attention_bwd_dkv_cuda",
+    "flash_attention_bwd_torch",
     "tile_skip",
+    "tile_skip_grid",
     "tile_mask",
     "check_kernel_args",
 ]
@@ -44,6 +57,26 @@ def tile_skip(q_pos, k_pos, *, causal: bool, window: int | None) -> bool:
         skip = skip or int(q_pos.max()) < k_min
     if window is not None:
         skip = skip or int(k_pos.max()) <= int(q_pos.min()) - window
+    return skip
+
+
+def tile_skip_grid(q_pos, k_pos, bq: int, bk: int, *, causal: bool, window: int | None):
+    """Per-(batch, q-tile, kv-tile) dead-tile predicate, ``(B, nq, nk)`` bool:
+    the vectorized :func:`tile_skip` (port of ``ops._tile_skip_grid``)."""
+    B, Sq = q_pos.shape
+    Sk = k_pos.shape[1]
+    nq, nk = Sq // bq, Sk // bk
+    qp = q_pos.reshape(B, nq, bq)
+    kp = k_pos.reshape(B, nk, bk)
+    q_max = qp.amax(dim=-1)
+    k_min = kp.amin(dim=-1)
+    skip = (k_min >= PAD_POS // 2)[:, None, :].expand(B, nq, nk)
+    if causal:
+        skip = skip | (q_max[:, :, None] < k_min[:, None, :])
+    if window is not None:
+        q_min = qp.amin(dim=-1)
+        k_max = kp.amax(dim=-1)
+        skip = skip | (k_max[:, None, :] <= q_min[:, :, None] - window)
     return skip
 
 
@@ -87,9 +120,69 @@ def flash_attention_fwd_torch(q, k, v, q_pos, k_pos, *, causal: bool, window: in
     return out.transpose(1, 2).to(q.dtype), lse.transpose(1, 2)
 
 
+def flash_attention_bwd_torch(q, k, v, q_pos, k_pos, out, lse, dout, dlse, *, causal: bool,
+                              window: int | None, scale: float, block_q: int, block_k: int):
+    """Plain blockwise flash backward (port of ``ops._xla_flash_bwd``)
+    -> ``(dq, dk, dv)`` in float32.
+
+    Same recompute as kernels B1/B2: ``p = exp(s - lse)``, ``ds = p * (dp -
+    delta + dlse) * scale`` with ``delta = rowsum(dout * out)``; rows whose
+    lse is ``-inf`` take lse and dlse as 0.  A (q-tile, kv-tile) pair is
+    skipped when it is dead for every batch row.  ``dlse=None`` is zero.
+    ``Sq % block_q == 0`` and ``Sk % block_k == 0``.
+    """
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    bq, bk = block_q, block_k
+    nq, nk = Sq // bq, Sk // bk
+    qf = q.float()
+    doutf = dout.float()
+    delta = (doutf * out.float()).sum(dim=-1)
+    row_valid = ~torch.isneginf(lse)
+    dlse = torch.zeros_like(lse) if dlse is None else dlse.float()
+    dlse = torch.where(row_valid, dlse, 0.0)
+    lse_safe = torch.where(row_valid, lse, 0.0)
+    # (B,Sq,Hq) -> (B,Hq,Sq): the score tiles' layout
+    lse_t, delta_t, dlse_t = (x.transpose(1, 2) for x in (lse_safe, delta, dlse))
+    skip = tile_skip_grid(q_pos, k_pos, bq, bk, causal=causal, window=window).all(dim=0)
+
+    dq = torch.zeros((B, Sq, Hq, D), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Sk, Hkv, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for ik in range(nk):
+        ks = slice(ik * bk, (ik + 1) * bk)
+        kb = k[:, ks].float().repeat_interleave(group, dim=2)
+        vb = v[:, ks].float().repeat_interleave(group, dim=2)
+        kp = k_pos[:, ks]
+        for iq in range(nq):
+            if bool(skip[iq, ik]):
+                continue
+            qs = slice(iq * bq, (iq + 1) * bq)
+            qb, dob = qf[:, qs], doutf[:, qs]
+            s = torch.einsum("bqhd,bkhd->bhqk", qb, kb) * scale
+            mask = visibility_mask(q_pos[:, qs], kp, causal=causal, window=window)[:, None]
+            s = torch.where(mask, s, NEG_INF)
+            p = torch.where(mask, torch.exp(s - lse_t[:, :, qs, None]), 0.0)
+            dp = torch.einsum("bqhd,bkhd->bhqk", dob, vb)
+            ds = p * (dp - delta_t[:, :, qs, None] + dlse_t[:, :, qs, None]) * scale
+            dq[:, qs] += torch.einsum("bhqk,bkhd->bqhd", ds, kb)
+            dk_t = torch.einsum("bhqk,bqhd->bkhd", ds, qb)
+            dv_t = torch.einsum("bhqk,bqhd->bkhd", p, dob)
+            dk[:, ks] += dk_t.reshape(B, bk, Hkv, group, D).sum(dim=3)
+            dv[:, ks] += dv_t.reshape(B, bk, Hkv, group, D).sum(dim=3)
+    return dq, dk, dv
+
+
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = {"flash_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_void_p]}
+_BWD_ARGTYPES = {
+    "flash_bwd_dq": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float,
+                                                                    ctypes.c_void_p],
+    "flash_bwd_dkv": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_float,
+                                                                     ctypes.c_void_p],
+}
 
 
 def check_kernel_args(name: str, device, dtype, D: int, ints=(), floats=()):
@@ -97,7 +190,8 @@ def check_kernel_args(name: str, device, dtype, D: int, ints=(), floats=()):
     one CUDA device, a supported dtype and head dim, contiguous tensors."""
     for t in (*floats, *ints):
         if not t.is_cuda or t.device != device:
-            raise ValueError(f"{name}: every tensor must be on {device}, got {t.device}")
+            raise ValueError(f"{name}: every tensor must be on one CUDA device ({device}), "
+                             f"got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
     for t in floats:
@@ -151,3 +245,77 @@ def flash_attention_fwd_cuda(q, k, v, q_pos, k_pos, *, causal: bool, window: int
 
 
 flash_attention_fwd_cuda.launches = 0
+
+
+def _check_bwd_args(name, q, k, v, q_pos, k_pos, dout, lse, delta, dlse):
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    check_kernel_args(name, q.device, q.dtype, D, ints=(q_pos, k_pos),
+                      floats=(q, k, v, dout))
+    if k.shape != (B, Sk, Hkv, D) or v.shape != k.shape or dout.shape != q.shape or Hq % Hkv:
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} dout{tuple(dout.shape)}")
+    if q_pos.shape != (B, Sq) or k_pos.shape != (B, Sk):
+        raise ValueError(f"{name}: positions must be (B,Sq)/(B,Sk)")
+    for t in (lse, delta, dlse):
+        if t.dtype != torch.float32 or t.shape != (B, Sq, Hq):
+            raise ValueError(f"{name}: lse/delta/dlse must be float32 (B,Sq,Hq)")
+    check_kernel_args(name, q.device, torch.float32, D, floats=(lse, delta, dlse))
+
+
+def _bwd_scalars(q, k, causal, window, scale):
+    B, Sq, Hq, D = q.shape
+    return (B, Sq, k.shape[1], Hq, k.shape[2], D, _KERNEL_DTYPES[q.dtype], int(causal),
+            int(window is not None), int(window or 0), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_attention_bwd_dq_cuda(q, k, v, q_pos, k_pos, dout, lse, delta, dlse, *,
+                                causal: bool, window: int | None, scale: float):
+    """Launch kernel B1 (``csrc/flash_bwd.cu``) -> ``dq (B,Sq,Hq,D)`` float32.
+
+    ``q/dout (B,Sq,Hq,D)``, ``k/v (B,Sk,Hkv,D)`` float32 or bfloat16,
+    ``lse``/``delta = rowsum(dout*out)``/``dlse`` ``(B,Sq,Hq)`` float32,
+    positions int32, all contiguous on one CUDA device.  Raises on anything
+    else; never falls back.
+    """
+    from repro_torch.kernels._build import load_library
+
+    name = "flash_attention_bwd_dq_cuda"
+    _check_bwd_args(name, q, k, v, q_pos, k_pos, dout, lse, delta, dlse)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    err = load_library("flash_bwd", _BWD_ARGTYPES).flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dlse.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(), dq.data_ptr(),
+        *_bwd_scalars(q, k, causal, window, scale))
+    _raise_on(err, name)
+    flash_attention_bwd_dq_cuda.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv_cuda(q, k, v, q_pos, k_pos, dout, lse, delta, dlse, *,
+                                 causal: bool, window: int | None, scale: float):
+    """Launch kernel B2 (``csrc/flash_bwd.cu``) -> ``(dk, dv)``, each
+    ``(B,Sk,Hkv,D)`` float32.  Same arguments and checks as
+    :func:`flash_attention_bwd_dq_cuda`."""
+    from repro_torch.kernels._build import load_library
+
+    name = "flash_attention_bwd_dkv_cuda"
+    _check_bwd_args(name, q, k, v, q_pos, k_pos, dout, lse, delta, dlse)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    if dk.numel() == 0:
+        return dk, dv
+    err = load_library("flash_bwd", _BWD_ARGTYPES).flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dlse.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), *_bwd_scalars(q, k, causal, window, scale))
+    _raise_on(err, name)
+    flash_attention_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dq_cuda.launches = 0
+flash_attention_bwd_dkv_cuda.launches = 0

@@ -1,7 +1,8 @@
-"""Model-level attention: projections + RoPE + the serving attention core
-(port of the serving entry points of ``repro.models.attention``).
+"""Model-level attention: projections + RoPE + the attention core (port of
+``repro.models.attention``): :func:`attention` is the training path, the
+others are the serving entry points.
 
-The JAX functions return new cache arrays; here the cache tensors are
+The JAX serving functions return new cache arrays; here the cache tensors are
 updated in place (``index_put_`` through a drop plan, see
 ``serving.kv_cache.drop_plan``) and the functions return only ``y``.
 Each write happens after the layer's attention has read the pre-write
@@ -10,7 +11,13 @@ cache, exactly where the JAX code writes.
 
 from __future__ import annotations
 
-from repro_torch.core.api import ParallelContext, sp_decode, sp_decode_paged, sp_prefill
+from repro_torch.core.api import (
+    ParallelContext,
+    sp_attention,
+    sp_decode,
+    sp_decode_paged,
+    sp_prefill,
+)
 from repro_torch.models.layers import (
     apply_norm,
     apply_rope,
@@ -23,6 +30,7 @@ from repro_torch.serving.kv_cache import apply_drop, gather_pages
 
 __all__ = [
     "attention_init",
+    "attention",
     "attention_prefill_chunk",
     "attention_prefill_chunk_paged",
     "attention_decode",
@@ -30,14 +38,17 @@ __all__ = [
 ]
 
 
-def attention_init(gen, cfg, device="cuda"):
+def attention_init(gen, cfg, device="cuda", training: bool = False):
+    """Projection weights in ``cfg.dtype`` (serving) or ``cfg.param_dtype``
+    (``training``), see ``models.layers``; norm scales in ``cfg.param_dtype``."""
     d, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    kw = dict(bias=cfg.qkv_bias, dtype=cfg.dtype, device=device)
+    wdt = cfg.param_dtype if training else cfg.dtype
+    kw = dict(bias=cfg.qkv_bias, dtype=wdt, device=device)
     p = {
         "wq": dense_init(gen, d, Hq * Dh, **kw),
         "wk": dense_init(gen, d, Hkv * Dh, **kw),
         "wv": dense_init(gen, d, Hkv * Dh, **kw),
-        "wo": dense_init(gen, Hq * Dh, d, dtype=cfg.dtype, device=device),
+        "wo": dense_init(gen, Hq * Dh, d, dtype=wdt, device=device),
     }
     if cfg.qk_norm:
         p["q_norm"] = norm_init(Dh, dtype=cfg.param_dtype, device=device)
@@ -63,6 +74,16 @@ def _project_qkv(p, x, positions, cfg):
 def _out_proj(p, out, cfg):
     B, S = out.shape[:2]
     return dense(p["wo"], out.reshape(B, S, -1), torch_dtype(cfg.dtype))
+
+
+def attention(p, x, positions, *, cfg, pctx: ParallelContext, window: int | None = None,
+              causal: bool | None = None):
+    """Self-attention over ``x (B,S,d)`` with global ``positions (B,S)``:
+    the training path, no cache."""
+    causal = cfg.causal if causal is None else causal
+    q, k, v = _project_qkv(p, x, positions, cfg)
+    out = sp_attention(q, k, v, positions, positions, pctx=pctx, causal=causal, window=window)
+    return _out_proj(p, out, cfg)
 
 
 def attention_prefill_chunk(p, x, positions, k_cache, v_cache, pos_cache, write_plan, *,

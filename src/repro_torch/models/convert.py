@@ -15,24 +15,26 @@ from repro_torch.models.layers import torch_dtype
 
 __all__ = ["from_jax_params"]
 
-# Leaves stored in the compute dtype (cast once at load, see models.layers);
-# every other leaf (norm scale/bias) keeps cfg.param_dtype.
+# Leaves the serving layout stores in the compute dtype (cast once at load,
+# see models.layers); every other leaf (norm scale/bias), and every leaf of
+# the training layout, keeps cfg.param_dtype.
 _COMPUTE_LEAVES = ("w", "b", "table")
 
 
-def _leaf(name, a, cfg, device):
-    dt = torch_dtype(cfg.dtype if name in _COMPUTE_LEAVES else cfg.param_dtype)
+def _leaf(name, a, cfg, device, training):
+    serve_cast = name in _COMPUTE_LEAVES and not training
+    dt = torch_dtype(cfg.dtype if serve_cast else cfg.param_dtype)
     return torch.from_numpy(np.asarray(a, np.float32).copy()).to(device=device, dtype=dt)
 
 
-def _convert(tree, cfg, device, index=None):
+def _convert(tree, cfg, device, training, index=None):
     out = {}
     for name, sub in tree.items():
         if isinstance(sub, dict):
-            out[name] = _convert(sub, cfg, device, index)
+            out[name] = _convert(sub, cfg, device, training, index)
         else:
             a = np.asarray(sub)
-            out[name] = _leaf(name, a if index is None else a[index], cfg, device)
+            out[name] = _leaf(name, a if index is None else a[index], cfg, device, training)
     return out
 
 
@@ -42,16 +44,18 @@ def _n_stacked(tree) -> int:
     raise ValueError("empty layer tree")
 
 
-def from_jax_params(cfg, tree, device="cuda"):
-    """Port's parameter dict from the JAX ``init_lm`` tree (numpy leaves)."""
+def from_jax_params(cfg, tree, device="cuda", training: bool = False):
+    """Port's parameter dict from the JAX ``init_lm`` tree (numpy leaves), in
+    the training layout (every leaf in ``cfg.param_dtype``) or, by default,
+    the serving one."""
     n = _n_stacked(tree["layers"])
     if n != cfg.n_layers:
         raise ValueError(f"tree has {n} stacked layers, config {cfg.n_layers}")
     params = {
-        "embed": _convert(tree["embed"], cfg, device),
-        "layers": [_convert(tree["layers"], cfg, device, l) for l in range(n)],
-        "final_norm": _convert(tree["final_norm"], cfg, device),
+        "embed": _convert(tree["embed"], cfg, device, training),
+        "layers": [_convert(tree["layers"], cfg, device, training, l) for l in range(n)],
+        "final_norm": _convert(tree["final_norm"], cfg, device, training),
     }
     if "lm_head" in tree:
-        params["lm_head"] = _convert(tree["lm_head"], cfg, device)
+        params["lm_head"] = _convert(tree["lm_head"], cfg, device, training)
     return params

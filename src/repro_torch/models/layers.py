@@ -3,12 +3,18 @@
 Parameters are plain nested dicts of tensors.  Compute runs in
 ``cfg.dtype`` with float32 norms, RoPE and softmax, as in the JAX package.
 
-Dtype note: the JAX package stores parameters in ``cfg.param_dtype`` and
-``dense()`` casts the weights to the compute dtype on every call.  The port
-makes that cast once, at load (:func:`init_lm` / ``convert.from_jax_params``
-store dense weights and the embedding table in ``cfg.dtype``; norm scales
-stay in ``cfg.param_dtype``).  Casting once or on every call rounds the same
-values to the same numbers, so the results are identical.
+Dtype note: the JAX package stores every parameter in ``cfg.param_dtype``
+and ``dense()`` casts the weights to the compute dtype on every call.  The
+port has two storage layouts, chosen by the ``training`` argument of
+``transformer.init_lm`` and ``convert.from_jax_params``:
+
+* training (``training=True``, what the trainer and the training tests
+  pass): every leaf in ``cfg.param_dtype``, as the JAX tree, so AdamW updates
+  the float32 values and ``dense()`` casts them on each call;
+* serving (the default): the cast is made once, at load: dense weights and
+  the embedding table in ``cfg.dtype``, norm scales in ``cfg.param_dtype``.
+  Casting once or on every call rounds the same values to the same numbers,
+  so the forward results are identical.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
     "torch_dtype",
@@ -28,6 +35,8 @@ __all__ = [
     "apply_rope",
     "mlp_init",
     "mlp",
+    "chunked_cross_entropy",
+    "lm_cross_entropy",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -127,3 +136,48 @@ def mlp(p, x, *, mlp_type: str = "swiglu", compute_dtype=torch.bfloat16):
         h = F.gelu(dense(p["in"], x, compute_dtype), approximate="tanh")
         return dense(p["out"], h, compute_dtype)
     raise ValueError(mlp_type)
+
+
+def _chunk_ce_sum(xb, w, lb, mb, compute_dtype):
+    """Summed masked CE of one ``(B, chunk)`` slice of the sequence."""
+    logits = (xb.to(compute_dtype) @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lb.long()[..., None])[..., 0]
+    return ((lse - gold) * mb).sum()
+
+
+def chunked_cross_entropy(x, w_lm, labels, *, mask=None, chunk: int = 1024,
+                          compute_dtype=torch.bfloat16):
+    """Mean CE of ``softmax(x @ w_lm)`` vs labels, computed in seq chunks.
+
+    ``x (B,S,d)``, ``w_lm (d,V)``, ``labels (B,S)``, optional ``mask (B,S)``.
+    Only ``(B, chunk, V)`` logits exist at a time.  With grad enabled each
+    chunk is checkpointed: its logits are recomputed in the backward instead
+    of kept (about 10 GB at vocab 151936, batch 2 x 4096), with the same
+    values.  Returns ``(mean_loss, total_weight)``.
+    """
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    w = w_lm.to(compute_dtype)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    wsum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        xb, lb, mb = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            ce = checkpoint(_chunk_ce_sum, xb, w, lb, mb, compute_dtype, use_reentrant=False)
+        else:
+            ce = _chunk_ce_sum(xb, w, lb, mb, compute_dtype)
+        tot = tot + ce
+        wsum = wsum + mb.sum()
+    return tot / torch.clamp(wsum, min=1.0), wsum
+
+
+def lm_cross_entropy(x, w_lm, labels, *, mask=None, chunk: int = 1024,
+                     compute_dtype=torch.bfloat16):
+    """LM-head cross entropy (single device: the chunked path)."""
+    return chunked_cross_entropy(x, w_lm, labels, mask=mask, chunk=chunk,
+                                 compute_dtype=compute_dtype)

@@ -1,5 +1,5 @@
-"""Model registry: one bundle of serving callables per family (port of the
-serving part of ``repro.models.registry``; dense family only).
+"""Model registry: one bundle of training and serving callables per family
+(port of ``repro.models.registry``; dense family only).
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ __all__ = ["ModelBundle", "build_model"]
 class ModelBundle:
     cfg: ArchConfig
     pctx: ParallelContext
-    init: Callable[[int], Any]  # seed -> params on pctx.device
+    init: Callable[..., Any]  # (seed, training=False) -> params on pctx.device
+    loss: Callable[..., Any]  # (params, batch) -> (loss, metrics)
     decode_step: Callable[..., Any]  # (params, tokens (B,), state, active=None)
     init_serve_state: Callable[..., Any]  # (batch, max_len, device)
     prefill_chunk: Callable[..., Any]  # (params, tokens (B,C), state, n_valid (B,))
@@ -31,18 +32,19 @@ class ModelBundle:
 def build_model(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (this slice serves the dense family)"
+            f"family {cfg.family!r} is not ported yet (the port covers the dense family)"
         )
     from repro_torch.models import transformer as T
 
-    def init(seed: int):
+    def init(seed: int, training: bool = False):
         gen = torch.Generator(device=pctx.device).manual_seed(seed)
-        return T.init_lm(cfg, gen, device=pctx.device)
+        return T.init_lm(cfg, gen, device=pctx.device, training=training)
 
     return ModelBundle(
         cfg=cfg,
         pctx=pctx,
         init=init,
+        loss=lambda params, batch: T.lm_loss(params, batch, cfg=cfg, pctx=pctx),
         decode_step=lambda params, tok, state, active=None: T.lm_decode_step(
             params, tok, state, active, cfg=cfg, pctx=pctx),
         init_serve_state=lambda B, max_len, device: T.init_decode_cache(

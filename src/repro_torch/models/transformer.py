@@ -1,10 +1,13 @@
-"""Dense decoder-only transformer: init and serving steps (port of the
-serving part of ``repro.models.transformer``).
+"""Dense decoder-only transformer: init, the training forward and loss, and
+the serving steps (port of the dense family of ``repro.models.transformer``).
 
 Parameters are a plain dict: ``embed``/``final_norm``/``lm_head`` as in the
 JAX tree, ``layers`` a list of per-layer dicts (the JAX tree stacks them on
 a leading L dim; ``convert.from_jax_params`` unstacks).  The layer loop is a
-Python loop.
+Python loop.  The training forward (:func:`lm_apply`) applies ``cfg.remat``
+per block: ``"full"`` recomputes each block in the backward
+(``torch.utils.checkpoint``, so kernel A runs twice per layer and step),
+``"none"`` keeps its activations; ``"dots"`` is not ported.
 
 Serve state is a dict of tensors laid out like the JAX pytree (K/V stacked
 over layers).  The JAX steps return a new state; here each step updates the
@@ -17,9 +20,11 @@ layers (``serving.kv_cache.drop_plan``).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ref import PAD_POS
 from repro_torch.models.attention import (
+    attention,
     attention_decode,
     attention_decode_paged,
     attention_init,
@@ -30,6 +35,7 @@ from repro_torch.models.layers import (
     apply_norm,
     dense_init,
     embed_init,
+    lm_cross_entropy,
     mlp,
     mlp_init,
     norm_init,
@@ -46,6 +52,8 @@ from repro_torch.serving.kv_cache import (
 
 __all__ = [
     "init_lm",
+    "lm_apply",
+    "lm_loss",
     "init_decode_cache",
     "init_paged_decode_cache",
     "lm_prefill_chunk",
@@ -55,33 +63,35 @@ __all__ = [
 ]
 
 
-def _layer_init(gen, cfg, device):
+def _layer_init(gen, cfg, device, training):
     return {
-        "attn": attention_init(gen, cfg, device),
+        "attn": attention_init(gen, cfg, device, training),
         "ln1": norm_init(cfg.d_model, norm_type=cfg.norm_type, dtype=cfg.param_dtype,
                          device=device),
         "ln2": norm_init(cfg.d_model, norm_type=cfg.norm_type, dtype=cfg.param_dtype,
                          device=device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, mlp_type=cfg.mlp_type, dtype=cfg.dtype,
-                        device=device),
+        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, mlp_type=cfg.mlp_type,
+                        dtype=cfg.param_dtype if training else cfg.dtype, device=device),
     }
 
 
-def init_lm(cfg, gen: torch.Generator, device="cuda"):
+def init_lm(cfg, gen: torch.Generator, device="cuda", training: bool = False):
     """Random parameters from ``gen`` (a generator on ``device``), with the
-    JAX init's distributions.  Dense weights and the embedding table are
-    stored in ``cfg.dtype`` (see ``models.layers``), norms in
-    ``cfg.param_dtype``."""
+    JAX init's distributions.  ``training`` stores every leaf in
+    ``cfg.param_dtype``, as the JAX tree; by default (serving) dense weights
+    and the embedding table are stored in ``cfg.dtype`` and norms in
+    ``cfg.param_dtype`` (see ``models.layers``)."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    wdt = cfg.param_dtype if training else cfg.dtype
     params = {
-        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype=cfg.dtype, device=device),
-        "layers": [_layer_init(gen, cfg, device) for _ in range(cfg.n_layers)],
+        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype=wdt, device=device),
+        "layers": [_layer_init(gen, cfg, device, training) for _ in range(cfg.n_layers)],
         "final_norm": norm_init(cfg.d_model, norm_type=cfg.norm_type, dtype=cfg.param_dtype,
                                 device=device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype=cfg.dtype,
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype=wdt,
                                        device=device)
     return params
 
@@ -101,15 +111,51 @@ def _embed(params, token_ids, cfg):
     return params["embed"]["table"][token_ids.long()].to(torch_dtype(cfg.dtype))
 
 
+def _block(p_l, x, cfg, attend):
+    """One pre-norm block; ``attend(p_attn, h)`` is its attention."""
+    h = apply_norm(p_l["ln1"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
+    x = x + attend(p_l["attn"], h)
+    h = apply_norm(p_l["ln2"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
+    return x + mlp(p_l["mlp"], h, mlp_type=cfg.mlp_type, compute_dtype=torch_dtype(cfg.dtype))
+
+
 def _layers(params, x, cfg, attend):
     """Run every block; ``attend(l, p_attn, h)`` is the layer's attention."""
-    dt = torch_dtype(cfg.dtype)
     for l, p_l in enumerate(params["layers"]):
-        h = apply_norm(p_l["ln1"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
-        x = x + attend(l, p_l["attn"], h)
-        h = apply_norm(p_l["ln2"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
-        x = x + mlp(p_l["mlp"], h, mlp_type=cfg.mlp_type, compute_dtype=dt)
+        x = _block(p_l, x, cfg, lambda p, h, l=l: attend(l, p, h))
     return apply_norm(params["final_norm"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
+
+
+def lm_apply(params, tokens, positions, *, cfg, pctx):
+    """Full forward, returns ``(hidden (B,S,d), aux)``; ``aux`` is the MoE
+    router loss, 0 for the dense family."""
+    if cfg.remat not in ("none", "full"):
+        if cfg.remat == "dots":
+            raise NotImplementedError("remat='dots' is not ported (no config uses it)")
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+    def block(p_l, x):
+        return _block(p_l, x, cfg, lambda p, h: attention(p, h, positions, cfg=cfg, pctx=pctx,
+                                                          window=cfg.window))
+
+    x = _embed(params, tokens, cfg)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    for p_l in params["layers"]:
+        x = checkpoint(block, p_l, x, use_reentrant=False) if remat else block(p_l, x)
+    x = apply_norm(params["final_norm"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_loss(params, batch, *, cfg, pctx):
+    """Causal LM loss; ``batch``: tokens/labels/positions (+mask) tensors.
+    Returns ``(total, metrics)``."""
+    x, aux = lm_apply(params, batch["tokens"], batch["positions"], cfg=cfg, pctx=pctx)
+    dt = torch_dtype(cfg.dtype)
+    loss, denom = lm_cross_entropy(x, _lm_head_w(params, cfg).to(dt), batch["labels"],
+                                   mask=batch.get("mask"), chunk=cfg.logits_chunk,
+                                   compute_dtype=dt)
+    total = loss + cfg.router_aux_coef * aux / max(cfg.n_layers, 1)
+    return total, {"ce_loss": loss, "aux_loss": aux, "tokens": denom}
 
 
 def _last_valid(x, n_valid):

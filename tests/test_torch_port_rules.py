@@ -1,5 +1,6 @@
 """Rules of the PyTorch port: it imports neither JAX nor the JAX package,
-and it never falls back from the card to the CPU."""
+and it never falls back from the card to the CPU (kernel wrappers, forward
+and backward, and the entry points)."""
 
 import ast
 from pathlib import Path
@@ -43,6 +44,26 @@ def test_cuda_impl_never_falls_back_to_cpu():
     with pytest.raises(ValueError, match="must be on"):
         flash_attention_fwd_cuda(x, x, x, p, p, causal=True, window=None, scale=1.0)
     assert flash_attention_fwd_cuda.launches == before
+
+
+@pytest.mark.parametrize("name", ["flash_attention_bwd_dq_cuda", "flash_attention_bwd_dkv_cuda"])
+def test_backward_wrappers_never_fall_back_to_cpu(name):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    wrapper = getattr(fa, name)
+    x = torch.zeros((1, 4, 1, 32))
+    p = torch.zeros((1, 4), dtype=torch.int32)
+    rows = torch.zeros((1, 4, 1))
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="must be on"):
+        wrapper(x, x, x, p, p, x, rows, rows, rows, causal=True, window=None, scale=1.0)
+    assert wrapper.launches == before
+    # impl="cuda" through the autograd Function refuses CPU tensors as well
+    q = x.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="impl='cuda' needs CUDA tensors"):
+        ops.flash_attention(q, x, x, causal=True, impl="cuda")
+    assert wrapper.launches == before
 
 
 def test_engine_on_cuda_without_a_card_raises(monkeypatch):
