@@ -6,7 +6,10 @@
 Phases, each fatal on failure:
   1. toolchain: torch, CUDA, nvcc and the card's name and power limit;
   2. build every kernel in ``src/repro_torch/csrc`` with nvcc (sm_90a);
-  3. kernel A (flash forward) against its plain version on the card;
+  3. kernel A (flash forward) against its plain version on the card, in
+     float32 and bf16, the zigzag, window, dead-row and ragged edge cases
+     included; each call's log names the instance that served it (the
+     wgmma instance: bf16, D 64/128, Sq > 4; else the CUDA-core one);
   4. kernel C (fused paged decode) against its plain version on the card;
   5. the paged engine at qwen3-1.7b widths (2 layers, float32) on the
      kernels, every emitted token teacher-forced against the plain path;
@@ -22,7 +25,8 @@ Phases, each fatal on failure:
      B1, B2 and A timed at the training shape beside SDPA;
   8. one training step at qwen3-1.7b widths (2 layers, float32) on the
      kernels against the plain path: loss, every gradient, and the
-     parameters after one AdamW step;
+     parameters after one AdamW step; then one bf16 step (kernel A's wgmma
+     instance feeding B1/B2): loss and every gradient;
   9. the training path: qwen3-1.7b at full width and depth through the
      ``Trainer`` (AdamW, float32 parameters, bf16 compute, remat "full"),
      batch 2 x seq 4096, one warmup step and three timed steps whose launch
@@ -167,6 +171,16 @@ def phase_flash(torch, dev):
                                             scale=scale, block_k=pick_block(k.shape[1], 512))
         return got, want
 
+    def short(dtype):
+        return {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+
+    def check(label, q, k, v, qp, kp, causal, window):
+        """Kernel vs plain at the tolerances of q's type; the log names the
+        instance of kernel A that served the call."""
+        inst = fa.flash_fwd_instance(q.dtype, q.shape[1], q.shape[-1])
+        name = f"A {short(q.dtype)} {label} [{inst}]"
+        return compare(name, *run(q, k, v, qp, kp, causal, window), **tolerances(q.dtype))
+
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rnd(shape, dtype):
@@ -179,31 +193,53 @@ def phase_flash(torch, dev):
                     (B, Sk, Hkv, D), dtype)
                 qp = torch.arange(Sq, device=dev, dtype=torch.int32).expand(B, Sq).contiguous()
                 kp = torch.arange(Sk, device=dev, dtype=torch.int32).expand(B, Sk).contiguous()
-                compare(f"A {str(dtype)[6:]} {(B, Sq, Sk, Hq, Hkv, D)} causal={causal}",
-                        *run(q, k, v, qp, kp, causal, None), **tolerances(dtype))
-    # zigzag positions (P = 4), sliding window, dead rows
+                check(f"{(B, Sq, Sk, Hq, Hkv, D)} causal={causal}", q, k, v, qp, kp, causal,
+                      None)
+    # zigzag positions (P = 4), sliding window, dead rows: each in float32
+    # (the CUDA-core instance) and in bf16 (the wgmma instance at D = 64)
     S, P = 256, 4
     half = S // (2 * P)
     zz = []
     for j in range(P):
         zz += list(range(j * half, (j + 1) * half))
         zz += list(range((2 * P - 1 - j) * half, (2 * P - j) * half))
-    q, k, v = (rnd((2, S, 2, 64), torch.float32) for _ in range(3))
+    q32, k32, v32 = (rnd((2, S, 2, 64), torch.float32) for _ in range(3))
     zp = torch.tensor(zz, device=dev, dtype=torch.int32).expand(2, S).contiguous()
-    compare("A f32 zigzag", *run(q, k, v, zp, zp, True, None), **tolerances(torch.float32))
     ar = torch.arange(S, device=dev, dtype=torch.int32).expand(2, S).contiguous()
-    compare("A f32 window=48", *run(q, k, v, ar, ar, True, 48), **tolerances(torch.float32))
-    kp = ar.clone()
-    kp[1] = PAD_POS
-    qp = ar.clone()
-    qp[0, :16] = -1
-    compare("A f32 dead rows", *run(q, k, v, qp, kp, True, None), **tolerances(torch.float32))
-    # ragged edge: lengths that are no multiple of the kernel's tiles
-    q, k, v = rnd((2, 37, 4, 32), torch.float32), rnd((2, 45, 2, 32), torch.float32), rnd(
-        (2, 45, 2, 32), torch.float32)
-    qp = (torch.arange(37, device=dev, dtype=torch.int32) + 8).expand(2, 37).contiguous()
-    kp = torch.arange(45, device=dev, dtype=torch.int32).expand(2, 45).contiguous()
-    compare("A f32 ragged 37x45", *run(q, k, v, qp, kp, True, None), **tolerances(torch.float32))
+    kp_dead = ar.clone()
+    kp_dead[1] = PAD_POS
+    qp_dead = ar.clone()
+    qp_dead[0, :16] = -1
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+        check("zigzag", q, k, v, zp, zp, True, None)
+        check("window=48", q, k, v, ar, ar, True, 48)
+        check("dead rows", q, k, v, qp_dead, kp_dead, True, None)
+    # ragged edges: lengths that are no multiple of either instance's tiles.
+    # The D=64/128 cases draw from a generator of their own, so the serving
+    # shapes below get the same data as in earlier runs of this script.
+    gen_ragged = torch.Generator(device=dev).manual_seed(1)
+    for (Sq, Sk, D) in ((37, 45, 32), (37 + 128, 45 + 128, 64), (37 + 128, 45 + 128, 128)):
+        g = gen if D == 32 else gen_ragged
+        q32, k32, v32 = (torch.randn(shape, generator=g, device=dev)
+                         for shape in ((2, Sq, 4, D), (2, Sk, 2, D), (2, Sk, 2, D)))
+        qp = (torch.arange(Sq, device=dev, dtype=torch.int32) + 8).expand(2, Sq).contiguous()
+        kp = torch.arange(Sk, device=dev, dtype=torch.int32).expand(2, Sk).contiguous()
+        for dtype in (torch.float32, torch.bfloat16):
+            check(f"ragged {Sq}x{Sk} D={D}", q32.to(dtype), k32.to(dtype), v32.to(dtype), qp, kp,
+                  True, None)
+    # no keys at all: every row is dead, exactly (0, -inf), on both instances
+    qp = torch.arange(165, device=dev, dtype=torch.int32).expand(1, 165).contiguous()
+    kp = torch.empty((1, 0), device=dev, dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((1, 165, 2, 128), generator=gen_ragged, device=dev).to(dtype)
+        k = torch.empty((1, 0, 1, 128), device=dev, dtype=dtype)
+        out, lse = fa.flash_attention_fwd_cuda(q, k, k, qp, kp, causal=True, window=None,
+                                               scale=128 ** -0.5)
+        inst = fa.flash_fwd_instance(dtype, 165, 128)
+        if not (torch.equal(out, torch.zeros_like(out)) and torch.isneginf(lse).all()):
+            raise AssertionError(f"A {short(dtype)} no keys [{inst}]: rows are not (0, -inf)")
+        log(f"  ok A {short(dtype)} no keys Sq=165 Sk=0 [{inst}]: every row exactly (0, -inf)")
 
     # serving shapes of qwen3-1.7b: B=8, Hq=16, Hkv=8, D=128, Sk=2048 (the
     # resident call of a prefill chunk and the dense decode call), each held
@@ -219,19 +255,16 @@ def phase_flash(torch, dev):
     qc, kc, vc = (rnd(shape, torch.float32) for shape in ((B, 256, Hq, D), (B, 256, Hkv, D),
                                                           (B, 256, Hkv, D)))
     for dtype in (torch.float32, torch.bfloat16):
-        compare(f"A {dict(float32='f32', bfloat16='bf16')[str(dtype)[6:]]} chunk-local Sq=Sk=256",
-                *run(qc.to(dtype), kc.to(dtype), vc.to(dtype), cp, cp, True, None),
-                **tolerances(dtype))
+        check("chunk-local Sq=Sk=256", qc.to(dtype), kc.to(dtype), vc.to(dtype), cp, cp, True,
+              None)
     rows = {}
     for Sq in (1, 256):
         q32 = rnd((B, Sq, Hq, D), torch.float32)
         q = q32.to(torch.bfloat16)
         qp = (rng_lengths[:, None] - (1 if Sq == 1 else 0)
               + torch.arange(Sq, device=dev)[None]).to(torch.int32).contiguous()
-        compare(f"A f32 serving Sq={Sq} Sk={Sk}", *run(q32, k32, v32, qp, kp, True, None),
-                **tolerances(torch.float32))
-        err = compare(f"A bf16 serving Sq={Sq} Sk={Sk}", *run(q, k, v, qp, kp, True, None),
-                      **tolerances(torch.bfloat16))
+        check(f"serving Sq={Sq} Sk={Sk}", q32, k32, v32, qp, kp, True, None)
+        err = check(f"serving Sq={Sq} Sk={Sk}", q, k, v, qp, kp, True, None)
         scale = 1.0 / D ** 0.5
         ms = time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True,
                                                          window=None, scale=scale))
@@ -244,9 +277,11 @@ def phase_flash(torch, dev):
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
         nbytes, flops = flash_bytes_flops(q, k, qp, kp, True, None)
         bms, by = bound(nbytes, flops, "bfloat16")
+        inst = fa.flash_fwd_instance(q.dtype, Sq, D)
         rows[Sq] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                        max_abs_err=err, shape=f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} bf16")
-        log(f"  A serving Sq={Sq}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                        max_abs_err=err, instance=inst,
+                        shape=f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} bf16")
+        log(f"  A serving Sq={Sq} [{inst}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
             f"{flops / ms / 1e9:.1f} TFLOP/s")
     return rows
@@ -460,6 +495,16 @@ def device_rows(torch, prof):
     return rows
 
 
+def port_kernel_rows(rows, busy_s):
+    """Log and return the profile rows of the port's own kernels (``rt::``),
+    whether or not they are among the largest."""
+    mine = [r for r in rows if "rt::" in r[2]]
+    for us, count, key in mine:
+        log(f"    port kernel {us / 1e3:10.2f} ms {100 * us / 1e6 / busy_s:5.1f}% x{count:6d} "
+            f"{key[:70]}")
+    return [{"ms": us / 1e3, "count": c, "kernel": k[:120]} for us, c, k in mine]
+
+
 def profile_run(torch, dev, bundle, params, unprofiled_wall_s):
     """The paged run once more under torch.profiler: device busy time (sum of kernel
     times on the one stream) against the profiled wall, and the kernels that
@@ -482,7 +527,8 @@ def profile_run(torch, dev, bundle, params, unprofiled_wall_s):
         log(f"    {us / 1e3:10.2f} ms {100 * us / 1e6 / busy_s:5.1f}% x{count:6d} {key[:90]}")
     return {"wall_s": s["wall_s"], "device_busy_s": busy_s,
             "unprofiled_wall_s": unprofiled_wall_s,
-            "top": [{"ms": us / 1e3, "count": c, "kernel": k[:120]} for us, c, k in rows[:10]]}
+            "top": [{"ms": us / 1e3, "count": c, "kernel": k[:120]} for us, c, k in rows[:10]],
+            "port_kernels": port_kernel_rows(rows, busy_s)}
 
 
 def phase_full(torch, dev, with_profile):
@@ -689,9 +735,10 @@ def phase_bwd(torch, dev, train_shape=TRAIN_SHAPE):
 
     out, lse = fwd()
     blk = pick_block(S, 512)  # the plain versions' tile
-    a_err = compare("A bf16 training shape", (out, lse), fa.flash_attention_fwd_torch(
-        q, k, v, qp, qp, causal=True, window=None, scale=scale, block_k=blk),
-        **tolerances(bf))
+    a_err = compare(f"A bf16 training shape [{fa.flash_fwd_instance(bf, S, D)}]", (out, lse),
+                    fa.flash_attention_fwd_torch(q, k, v, qp, qp, causal=True, window=None,
+                                                 scale=scale, block_k=blk),
+                    **tolerances(bf))
     got, want, args, kw = run_bwd(torch, q, k, v, qp, qp, dout, dlse, True, None, out, lse)
     shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
     err = compare_grads(torch, f"B1/B2 bf16 training shape {shape}", got, want, atol=1e-3,
@@ -726,9 +773,10 @@ def phase_bwd(torch, dev, train_shape=TRAIN_SHAPE):
             f"{flops / ms / 1e9:.2f} TFLOP/s")
     nbytes, flops = flash_bytes_flops(q, k, qp, qp, True, None)
     bms, by = bound(nbytes, flops, "bfloat16")
+    inst = fa.flash_fwd_instance(q.dtype, S, D)
     rows["fwd"] = dict(ms=ms_a, plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms, bound_ms=bms,
-                       bound_by=by, max_abs_err=a_err, shape=shape)
-    log(f"  training shape: A {ms_a:.3f} ms (plain {plain_fwd_ms:.3f}, sdpa {lib_fwd_ms:.3f}, "
+                       bound_by=by, max_abs_err=a_err, instance=inst, shape=shape)
+    log(f"  training shape: A [{inst}] {ms_a:.3f} ms (plain {plain_fwd_ms:.3f}, sdpa {lib_fwd_ms:.3f}, "
         f"bound {bms:.4f} {by}, {flops / ms_a / 1e9:.2f} TFLOP/s); backward plain "
         f"{plain_bwd_ms:.3f} ms, sdpa backward {lib_bwd_ms:.3f} ms")
     return rows
@@ -776,17 +824,17 @@ def train_launches_per_step(cfg):
             "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L}
 
 
-def phase_train_checked(torch, dev, cfg=None, B=2, S=512):
-    """One step at qwen3-1.7b widths, 2 layers, float32: kernels vs plain."""
-    from repro_torch.configs import ARCHS
+def kernels_vs_plain_step(torch, dev, cfg, B, S):
+    """One loss-and-gradient step of ``cfg`` on the kernels and one on the
+    plain path, from the same parameters and batch.  Returns both losses,
+    gradients and parameters, and the kernel launches of the first."""
     from repro_torch.core.api import ParallelContext
     from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
     from repro_torch.launch.train_step import value_and_grad
     from repro_torch.models.registry import build_model
-    from repro_torch.optim.adamw import adamw_init, adamw_update, tree_map
+    from repro_torch.optim.adamw import tree_map
     from repro_torch.runtime.trainer import batch_to_device
 
-    cfg = cfg or ARCHS["qwen3-1.7b"].with_(n_layers=2, dtype="float32")
     kern = build_model(cfg, ParallelContext(device="cuda"))
     plain = build_model(cfg, ParallelContext(impl="torch", device="cuda"))
     p_kern = kern.init(0, training=True)
@@ -804,18 +852,36 @@ def phase_train_checked(torch, dev, cfg=None, B=2, S=512):
     (l_plain, _), g_plain = value_and_grad(plain.loss, p_plain, batch)
     if launch_counts() != before:
         raise AssertionError("phase 8: the plain path launched a kernel")
+    return l_kern, l_plain, g_kern, g_plain, p_kern, p_plain, ran
+
+
+def worst_leaf(torch, g_kern, g_plain, limit):
+    """Largest ``max|kernel - plain| / max|plain|`` over the gradient leaves;
+    raises if a leaf is not finite or is above ``limit``."""
+    worst = 0.0
+    for (name, a), (_, b) in zip(named_leaves(g_kern), named_leaves(g_plain)):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if not (torch.isfinite(a).all() and rel <= limit):
+            raise AssertionError(f"phase 8: gradient {name} off by {rel:.3e} of its max")
+        worst = max(worst, rel)
+    return worst
+
+
+def phase_train_checked(torch, dev, cfg=None, B=2, S=512):
+    """One step at qwen3-1.7b widths, 2 layers, float32: kernels vs plain."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+
+    cfg = cfg or ARCHS["qwen3-1.7b"].with_(n_layers=2, dtype="float32")
+    l_kern, l_plain, g_kern, g_plain, p_kern, p_plain, ran = kernels_vs_plain_step(
+        torch, dev, cfg, B, S)
     # Everything but attention runs the same float32 ops on both sides, and
     # attention differs only in the order of float32 sums: the loss is held
     # to 1e-5 relative, each gradient leaf to 1e-4 of its largest |value|.
     l_err = abs(float(l_kern) - float(l_plain))
     if not (math.isfinite(float(l_kern)) and l_err <= 1e-5 * abs(float(l_plain))):
         raise AssertionError(f"phase 8: loss {float(l_kern)} vs plain {float(l_plain)}")
-    worst = 0.0
-    for (name, a), (_, b) in zip(named_leaves(g_kern), named_leaves(g_plain)):
-        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-        if not (torch.isfinite(a).all() and rel <= 1e-4):
-            raise AssertionError(f"phase 8: gradient {name} off by {rel:.3e} of its max")
-        worst = max(worst, rel)
+    worst = worst_leaf(torch, g_kern, g_plain, 1e-4)
     # One AdamW step each.  A first Adam step moves each element by about
     # lr * sign(gradient), so an element whose gradient is within the error
     # above of 0 may step up to 2*lr apart on the two sides: every element is
@@ -843,6 +909,37 @@ def phase_train_checked(torch, dev, cfg=None, B=2, S=512):
         f"{n_apart} elements apart by more than 0.05*lr; launches {ran}")
 
 
+def phase_train_checked_bf16(torch, dev, cfg=None, B=2, S=512):
+    """One step at qwen3-1.7b widths, 2 layers, bf16 compute (float32
+    parameters): kernel A's wgmma instance feeds B1/B2 on the training path;
+    loss and gradients against the plain path."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = cfg or ARCHS["qwen3-1.7b"].with_(n_layers=2)
+    inst = fa.flash_fwd_instance(torch.bfloat16, S, cfg.d_head)
+    l_kern, l_plain, g_kern, g_plain, _, _, ran = kernels_vs_plain_step(torch, dev, cfg, B, S)
+    # The two sides differ only in attention's forward: the wgmma instance
+    # rounds P to bf16 for its P V product (2^-9 relative per term) where the
+    # plain version multiplies float32 P, and sums in another order; both
+    # round out to bf16, so out can land one bf16 step (2^-8 relative)
+    # apart.  Every product around attention runs in bf16 on both sides and
+    # carries such a flip on into the gradients, and the q/k-norm scales'
+    # gradients (sums over every token and head) lose most to cancellation.
+    # A CPU emulation of the instance's rounding
+    # (tests/test_torch_flash_fwd_numerics.py) in this 2-layer step at d 512
+    # and d 1024 put the loss 4e-6 and 1e-5 apart (relative) and the worst
+    # leaf 1.0e-2 and 1.5e-2 of its largest value.  Limits: loss 1e-4
+    # relative, every gradient leaf 5e-2 of its largest |value|.
+    l_err = abs(float(l_kern) - float(l_plain))
+    if not (math.isfinite(float(l_kern)) and l_err <= 1e-4 * abs(float(l_plain))):
+        raise AssertionError(f"phase 8 bf16: loss {float(l_kern)} vs plain {float(l_plain)}")
+    worst = worst_leaf(torch, g_kern, g_plain, 5e-2)
+    log(f"  ok phase 8 bf16 [{inst}]: loss {float(l_kern):.6f} vs plain {float(l_plain):.6f} "
+        f"(|err| {l_err:.2e}); worst gradient leaf off by {worst:.2e} of its max; "
+        f"launches {ran}")
+
+
 def profile_step(torch, fn, wall_s):
     """``fn`` once under torch.profiler: device busy share and the kernels
     that take the most device time."""
@@ -862,7 +959,8 @@ def profile_step(torch, fn, wall_s):
     for us, count, key in rows[:12]:
         log(f"    {us / 1e3:10.2f} ms {100 * us / 1e6 / busy_s:5.1f}% x{count:6d} {key[:90]}")
     return {"wall_s": prof_wall, "device_busy_s": busy_s, "unprofiled_wall_s": wall_s,
-            "top": [{"ms": us / 1e3, "count": c, "kernel": k[:120]} for us, c, k in rows[:12]]}
+            "top": [{"ms": us / 1e3, "count": c, "kernel": k[:120]} for us, c, k in rows[:12]],
+            "port_kernels": port_kernel_rows(rows, busy_s)}
 
 
 def phase_train_full(torch, dev, with_profile, cfg=None, B=2, S=4096, steps=3):
@@ -967,9 +1065,14 @@ def main() -> int:
     log(f"  built {info['built']} in {info['seconds']:.2f} s")
     for name, text in info["ptxas"].items():
         for line in text.splitlines():
-            spills = "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
-            if "registers" in line or spills:
+            if any(x in line for x in ("registers", "spill", "Compiling entry", "C75")):
                 log(f"  ptxas {name}: {line.strip()}")
+    from repro_torch.kernels import flash_attention as fa
+
+    log("  kernel A wgmma instance: 384 threads (producer warpgroup at 40 registers, two "
+        "consumer warpgroups at 232 by setmaxnreg); dynamic shared memory "
+        f"{fa.flash_fwd_smem_bytes(128, 4096)} B at D=128, "
+        f"{fa.flash_fwd_smem_bytes(64, 4096)} B at D=64 (Sk=4096)")
 
     log("== phase 3: kernel A (flash forward) vs plain")
     flash_rows = phase_flash(torch, dev)
@@ -986,6 +1089,8 @@ def main() -> int:
     free_device_memory(torch)
     log("== phase 8: one training step on the kernels vs the plain path")
     phase_train_checked(torch, dev)
+    free_device_memory(torch)
+    phase_train_checked_bf16(torch, dev)
     free_device_memory(torch)
     log("== phase 9: qwen3-1.7b full width and depth, training (main path)")
     launches["train"] = phase_train_full(torch, dev, profile)

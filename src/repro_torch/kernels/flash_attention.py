@@ -4,10 +4,14 @@ Counterpart of ``repro.kernels.flash_attention``.
 
 * :func:`flash_attention_fwd_cuda` launches kernel A,
   ``csrc/flash_fwd.cu``, which replaces the Pallas TPU kernel
-  ``repro.kernels.flash_attention.flash_attention_fwd_pallas``.  It is
-  bound on this card by shared-memory traffic of its float32 CUDA-core
-  products (see the source note in the ``.cu`` file); its design keeps the
-  online-softmax state on chip and skips dead KV tiles whole.
+  ``repro.kernels.flash_attention.flash_attention_fwd_pallas``.  It has two
+  instances behind one C entry (:func:`flash_fwd_instance` says which takes
+  a call): bf16 calls with D 64/128 and Sq > 4 (training, serving prefill)
+  run on the tensor cores, with TMA-fed K/V tiles, ``wgmma`` products and
+  the online softmax in registers, and are bound by the tensor-core rate;
+  float32 calls, the dense decode (Sq <= 4) and D = 32 run on the CUDA
+  cores, bound by shared-memory traffic.  Both skip dead KV tiles whole
+  (see the source note in the ``.cu`` file).
 * :func:`flash_attention_fwd_torch` is the plain version: a loop over KV
   blocks with the same online-softmax update, used for CPU tensors and as
   the kernel's yardstick on the card.
@@ -37,6 +41,8 @@ from repro_torch.kernels.ref import NEG_INF, PAD_POS, visibility_mask
 __all__ = [
     "flash_attention_fwd_cuda",
     "flash_attention_fwd_torch",
+    "flash_fwd_instance",
+    "flash_fwd_smem_bytes",
     "flash_attention_bwd_dq_cuda",
     "flash_attention_bwd_dkv_cuda",
     "flash_attention_bwd_torch",
@@ -176,7 +182,8 @@ def flash_attention_bwd_torch(q, k, v, q_pos, k_pos, out, lse, dout, dlse, *, ca
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = {"flash_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
-             + [ctypes.c_float, ctypes.c_void_p]}
+             + [ctypes.c_float, ctypes.c_void_p],
+             "flash_fwd_wgmma_smem": [ctypes.c_int] * 2}
 _BWD_ARGTYPES = {
     "flash_bwd_dq": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                                     ctypes.c_void_p],
@@ -209,6 +216,24 @@ def check_kernel_args(name: str, device, dtype, D: int, ints=(), floats=()):
 def _raise_on(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def flash_fwd_instance(dtype, Sq: int, D: int) -> str:
+    """Which instance of kernel A takes a call: ``"wgmma"`` (bf16, ``D`` 64
+    or 128, ``Sq > 4``) or ``"cuda_core"`` (everything else: float32, the
+    dense decode ``Sq <= 4``, ``D = 32``).  Mirrors ``takes_wgmma`` in
+    ``csrc/flash_fwd.cu``."""
+    if dtype == torch.bfloat16 and D in (64, 128) and Sq > 4:
+        return "wgmma"
+    return "cuda_core"
+
+
+def flash_fwd_smem_bytes(D: int, Sk: int) -> int:
+    """Dynamic shared memory of one block of the wgmma instance (builds the
+    library on first use; needs the CUDA toolchain)."""
+    from repro_torch.kernels._build import load_library
+
+    return load_library("flash_fwd", _ARGTYPES).flash_fwd_wgmma_smem(D, Sk)
 
 
 def flash_attention_fwd_cuda(q, k, v, q_pos, k_pos, *, causal: bool, window: int | None,
