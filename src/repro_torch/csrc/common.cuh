@@ -1,5 +1,6 @@
 // Shared helpers of the attention kernels: element conversion, the
-// position mask, the online-softmax constants and warp reductions.
+// position mask, the whole-tile flag, the online-softmax constants and
+// warp reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,6 +33,33 @@ __device__ __forceinline__ bool visible(int qp, int kp, bool causal, bool has_wi
   if (causal) m = m && (qp >= kp);
   if (has_window) m = m && (qp - kp < window);
   return m;
+}
+
+__device__ __forceinline__ int warp_min_i(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ int warp_max_i(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// The flag of one (q-tile, KV tile) pair from the position ranges of its
+// real queries [qmin, qmax] and of its keys [kmin, kmax] (a missing key
+// counts as padding): 0 dead (the Pallas `_tile_skip`: every key padding,
+// causally after every query, or left of every query's window), 1 every
+// key visible to every query, 2 masked element by element.
+__device__ __forceinline__ int tile_flag(int qmin, int qmax, int kmin, int kmax, bool causal,
+                                         bool windowed, int window) {
+  bool skip = kmin >= kPadHalf;
+  if (causal) skip = skip || qmax < kmin;
+  if (windowed) skip = skip || kmax <= qmin - window;
+  bool whole = kmax < kPadHalf;
+  if (causal) whole = whole && qmin >= kmax;
+  if (windowed) whole = whole && qmax - kmin < window;
+  return skip ? 0 : (whole ? 1 : 2);
 }
 
 __device__ __forceinline__ float warp_max(float x) {

@@ -290,16 +290,6 @@ struct Smem {
   static size_t bytes(int nk) { return 1024 + kFlags + 4 * static_cast<size_t>(nk); }
 };
 
-__device__ __forceinline__ int warp_min_i(int x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ int warp_max_i(int x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -307,14 +297,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t db) {
-  if constexpr (D == 128)
-    wgmma_rs_n128(o, a, db);
-  else
-    wgmma_rs_n64(o, a, db);
 }
 
 template <int D>
@@ -379,15 +361,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       lo = warp_min_i(lo);
       hi = warp_max_i(hi);
-      if (lane == 0) {
-        bool skip = lo >= kPadHalf;  // the Pallas `_tile_skip`
-        if (is_causal) skip = skip || qmax < lo;
-        if (windowed) skip = skip || hi <= qmin - window;
-        bool whole = hi < kPadHalf;  // every key visible to every row
-        if (is_causal) whole = whole && qmin >= hi;
-        if (windowed) whole = whole && qmax - lo < window;
-        flags[t] = skip ? 0 : (whole ? 1 : 2);
-      }
+      if (lane == 0) flags[t] = tile_flag(qmin, qmax, lo, hi, is_causal, windowed, window);
     }
   }
   __syncthreads();
@@ -535,7 +509,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
       const uint64_t dv = sw128_desc(v_addr, kRegion, 1024);
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) wgmma_pv<D>(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
+      for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<D>(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs<D / 2>(o);
@@ -566,45 +540,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled lives in libcuda, not the runtime; it is looked up through the
-// runtime so the library needs no -lcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    return (err == cudaSuccess && res == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiledFn>(p)
-                                                                      : nullptr;
-  }();
-  return fn;
-}
-
-// A (B, S, H, D) bf16 tensor as a 4-D map (D, H, S, B): boxes of 64 columns
-// of one head and 128 rows, 128-byte swizzled; rows past S read as zero.
-static cudaError_t make_map(CUtensorMap* map, const void* base, int D, int H, int S, int B) {
-  const EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2, (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, 128, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* qp, const int* kp,
                    void* out, float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
@@ -614,11 +549,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qp, c
     return cudaErrorMisalignedAddress;
   CUtensorMap tq, tk, tv;
   cudaError_t err;
-  if ((err = make_map(&tq, q, D, Hq, Sq, B)) != cudaSuccess) return err;
+  if ((err = make_bf16_map(&tq, q, D, Hq, Sq, B, kBQ)) != cudaSuccess) return err;
   // With no keys there is no KV tile to load, but a map needs a nonzero
   // extent and an address: it is built over one row of q and never read.
-  if ((err = make_map(&tk, Sk ? k : q, D, Hkv, Sk ? Sk : 1, B)) != cudaSuccess) return err;
-  if ((err = make_map(&tv, Sk ? v : q, D, Hkv, Sk ? Sk : 1, B)) != cudaSuccess) return err;
+  if ((err = make_bf16_map(&tk, Sk ? k : q, D, Hkv, Sk ? Sk : 1, B, kBK)) != cudaSuccess)
+    return err;
+  if ((err = make_bf16_map(&tv, Sk ? v : q, D, Hkv, Sk ? Sk : 1, B, kBK)) != cudaSuccess)
+    return err;
   const size_t smem = Smem<D>::bytes((Sk + kBK - 1) / kBK);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   auto kern = flash_fwd_wgmma_kernel<D>;

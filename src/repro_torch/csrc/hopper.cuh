@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tile loads,
 // wgmma shared-memory descriptors and the warpgroup products the kernels
-// use.  No CUTLASS/CuTe: each helper is the one PTX instruction it names.
+// use, and the host-side builder of the TMA tensor maps.  No CUTLASS/CuTe:
+// each device helper is the one PTX instruction it names.
 //
 // Shared-memory tiles are 128-byte-swizzled regions of 128-byte rows
 // (64 bf16 values), 1024-byte aligned, exactly as a TMA load with
@@ -8,6 +9,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -139,6 +141,32 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D(64xN64) (+)= A(64x16, smem) * B(16xN64, smem), both K-major, f32 accumulate
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D(64xN) (+)= A * B, both K-major from shared memory, N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  if constexpr (N == 128)
+    wgmma_ss_n128(d, da, db, accumulate);
+  else
+    wgmma_ss_n64(d, da, db, accumulate);
+}
+
 // D(64xN64) += A(64x16, registers) * B(16xN64, smem, MN-major), f32 accumulate
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
   asm volatile(
@@ -175,6 +203,59 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64xN) += A(registers) * B(MN-major, smem), N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  if constexpr (N == 128)
+    wgmma_rs_n128(d, a, db);
+  else
+    wgmma_rs_n64(d, a, db);
+}
+
+// ---- tensor maps (host) ----------------------------------------------------
+
+// cuTensorMapEncodeTiled lives in libcuda, not the runtime; it is looked up
+// through the runtime so the libraries need no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    return (err == cudaSuccess && res == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiledFn>(p)
+                                                                      : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, S, H, D) bf16 tensor as a 4-D map (D, H, S, B): boxes of 64 columns
+// of one head and `box_rows` rows, 128-byte swizzled; rows past S read as
+// zero.
+static inline cudaError_t make_bf16_map(CUtensorMap* map, const void* base, int D, int H, int S,
+                                        int B, int box_rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2, (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace rt

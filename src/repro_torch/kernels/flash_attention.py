@@ -18,9 +18,12 @@ Counterpart of ``repro.kernels.flash_attention``.
 * :func:`flash_attention_bwd_dq_cuda` and :func:`flash_attention_bwd_dkv_cuda`
   launch kernels B1 and B2, ``csrc/flash_bwd.cu``, which replace the two
   Pallas kernels of ``flash_attention_bwd_pallas`` (``_bwd_dq_kernel`` and
-  ``_bwd_dkv_kernel``).  Same bound and the same tile skip as kernel A; B2
-  sums the GQA group inside one block, without atomics, so gradients are
-  bitwise reproducible.
+  ``_bwd_dkv_kernel``).  Each has two instances behind its C entry
+  (:func:`flash_bwd_instance` says which takes a call): bf16 calls with D
+  64/128 run on the tensor cores (TMA-fed tiles, ``wgmma`` products, P and
+  dS rounded to bf16 as operands), float32 calls and D = 32 on the CUDA
+  cores.  Both use kernel A's tile skip; B2 sums the GQA group inside one
+  block, without atomics, so gradients are bitwise reproducible.
 * :func:`flash_attention_bwd_torch` is their plain version, a port of
   ``ops._xla_flash_bwd``: the same recompute, ``+ dlse`` term and skip
   predicate.
@@ -46,6 +49,7 @@ __all__ = [
     "flash_attention_bwd_dq_cuda",
     "flash_attention_bwd_dkv_cuda",
     "flash_attention_bwd_torch",
+    "flash_bwd_instance",
     "tile_skip",
     "tile_skip_grid",
     "tile_mask",
@@ -189,6 +193,7 @@ _BWD_ARGTYPES = {
                                                                     ctypes.c_void_p],
     "flash_bwd_dkv": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                                      ctypes.c_void_p],
+    "flash_bwd_takes_wgmma": [ctypes.c_int] * 2,
 }
 
 
@@ -234,6 +239,24 @@ def flash_fwd_smem_bytes(D: int, Sk: int) -> int:
     from repro_torch.kernels._build import load_library
 
     return load_library("flash_fwd", _ARGTYPES).flash_fwd_wgmma_smem(D, Sk)
+
+
+def flash_bwd_instance(dtype, D: int) -> str:
+    """Which instance of kernels B1 and B2 takes a call: ``"wgmma"`` (bf16,
+    ``D`` 64 or 128) or ``"cuda_core"`` (float32, ``D = 32``).  Mirrors
+    ``takes_wgmma_bwd`` in ``csrc/flash_bwd.cu``."""
+    if dtype == torch.bfloat16 and D in (64, 128):
+        return "wgmma"
+    return "cuda_core"
+
+
+def flash_bwd_instance_built(dtype, D: int) -> str:
+    """:func:`flash_bwd_instance` as the built library decides it (builds the
+    library on first use; needs the CUDA toolchain)."""
+    from repro_torch.kernels._build import load_library
+
+    lib = load_library("flash_bwd", _BWD_ARGTYPES)
+    return "wgmma" if lib.flash_bwd_takes_wgmma(int(dtype == torch.bfloat16), D) else "cuda_core"
 
 
 def flash_attention_fwd_cuda(q, k, v, q_pos, k_pos, *, causal: bool, window: int | None,
