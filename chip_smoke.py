@@ -8,17 +8,21 @@ Phases, each fatal on failure:
   2. build every kernel in ``src/repro_torch/csrc`` with nvcc (sm_90a);
   3. kernel A (flash forward) against its plain version on the card, in
      float32 and bf16, the zigzag, window, dead-row and ragged edge cases
-     included; each call's log names the instance that served it (the
-     wgmma instance: bf16, D 64/128, Sq > 4; else the CUDA-core one);
-  4. kernel C (fused paged decode) against its plain version on the card;
-  5. the paged engine at qwen3-1.7b widths (2 layers, float32) on the
-     kernels, every emitted token teacher-forced against the plain path;
+     included, and the decode cases (Sq 1 and 3, GQA groups 1/2/8, window,
+     dead rows, ragged Sk) each run twice and required bitwise equal; each
+     call's log names the instance that served it (decode: Sq <= 4; wgmma:
+     bf16, D 64/128, Sq > 4; else the CUDA-core one);
+  4. kernel C (fused paged decode) against its plain version on the card,
+     each case run twice and required bitwise equal;
+  5. the paged engine and the dense-slab engine at qwen3-1.7b widths (2
+     layers, float32) on the kernels, every emitted token teacher-forced
+     against the plain path;
   6. the serving path: qwen3-1.7b at full width and depth (28 layers, bf16,
      seeded random weights) served by the paged engine and the dense-slab
      engine, each with its own kernel launch counts, held against its
-     prefill ticks and decode steps; with ``--profile``, the paged run once
-     more under torch.profiler (device busy share and the kernels that take
-     the most device time; adds minutes);
+     prefill ticks and decode steps; with ``--profile``, the paged and the
+     dense-slab runs once more under torch.profiler (device busy share and
+     the kernels that take the most device time; adds minutes);
   7. kernels B1 and B2 (flash backward: dq; dk/dv) against their plain
      version on the card, in float32 on the backward test cases (the
      CUDA-core instances), in bf16 at the training shape and on zigzag,
@@ -39,7 +43,10 @@ Phases, each fatal on failure:
      ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
-checkout of the repository.  Timings are CUDA-event medians after warmup.
+checkout of the repository.  Timings are CUDA-event medians after warmup;
+the serving-shape rows of kernels A and C also give each call's device
+time from torch.profiler (their ``ms``), which leaves out the host's time
+between launches.
 """
 
 from __future__ import annotations
@@ -91,6 +98,24 @@ def time_ms(fn, iters: int = 10, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def device_ms(fn, iters: int = 30) -> float:
+    """Device time of one call: the kernels' own time on the card (sum of
+    every kernel the call launches, from torch.profiler) over ``iters``
+    calls.  Unlike :func:`time_ms` it leaves out the host's time between
+    launches, which a call of a few tens of microseconds can exceed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / iters / 1e3
 
 
 def compare(name, got, want, atol, rtol, lse_tol):
@@ -179,10 +204,18 @@ def phase_flash(torch, dev):
 
     def check(label, q, k, v, qp, kp, causal, window):
         """Kernel vs plain at the tolerances of q's type; the log names the
-        instance of kernel A that served the call."""
+        instance of kernel A that served the call.  A decode-instance call
+        runs twice and must be bitwise equal (its splits merge in a fixed
+        order)."""
         inst = fa.flash_fwd_instance(q.dtype, q.shape[1], q.shape[-1])
         name = f"A {short(q.dtype)} {label} [{inst}]"
-        return compare(name, *run(q, k, v, qp, kp, causal, window), **tolerances(q.dtype))
+        got, want = run(q, k, v, qp, kp, causal, window)
+        if inst == "decode":
+            again, _ = run(q, k, v, qp, kp, causal, window)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"{name}: two runs on the same inputs differ")
+            name += " bitwise repeatable"
+        return compare(name, got, want, **tolerances(q.dtype))
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -244,6 +277,8 @@ def phase_flash(torch, dev):
             raise AssertionError(f"A {short(dtype)} no keys [{inst}]: rows are not (0, -inf)")
         log(f"  ok A {short(dtype)} no keys Sq=165 Sk=0 [{inst}]: every row exactly (0, -inf)")
 
+    phase_flash_decode(torch, dev, check)
+
     # serving shapes of qwen3-1.7b: B=8, Hq=16, Hkv=8, D=128, Sk=2048 (the
     # resident call of a prefill chunk and the dense decode call), each held
     # in float32 and in bfloat16; timed in bfloat16, the model's type.
@@ -269,25 +304,94 @@ def phase_flash(torch, dev):
         check(f"serving Sq={Sq} Sk={Sk}", q32, k32, v32, qp, kp, True, None)
         err = check(f"serving Sq={Sq} Sk={Sk}", q, k, v, qp, kp, True, None)
         scale = 1.0 / D ** 0.5
-        ms = time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True,
-                                                         window=None, scale=scale))
-        plain_ms = time_ms(lambda: fa.flash_attention_fwd_torch(
-            q, k, v, qp, kp, causal=True, window=None, scale=scale, block_k=512), iters=3)
         mask = (kp[:, None, None, :] < PAD_POS // 2) & (qp[:, None, :, None] >= kp[:, None, None, :])
         # yardstick only: SDPA gives out without lse; KV repeated for GQA
         qt = q.transpose(1, 2)
         kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2) for x in (k, v))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        fns = (lambda: fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True, window=None,
+                                                   scale=scale),
+               lambda: fa.flash_attention_fwd_torch(q, k, v, qp, kp, causal=True, window=None,
+                                                    scale=scale, block_k=512),
+               lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        # CUDA events around the calls (host gaps between launches included)
+        ev_ms, ev_plain, ev_lib = (time_ms(f, iters=it) for f, it in zip(fns, (10, 3, 10)))
+        # the kernels' own device time (torch.profiler)
+        ms, plain_ms, lib_ms = (device_ms(f, iters=it) for f, it in zip(fns, (30, 3, 30)))
         nbytes, flops = flash_bytes_flops(q, k, qp, kp, True, None)
         bms, by = bound(nbytes, flops, "bfloat16")
         inst = fa.flash_fwd_instance(q.dtype, Sq, D)
         rows[Sq] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                        max_abs_err=err, instance=inst,
+                        event_ms=ev_ms, event_plain_ms=ev_plain, event_library_ms=ev_lib,
+                        max_abs_err=err, instance=inst, timing="device time (torch.profiler)",
                         shape=f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} bf16")
-        log(f"  A serving Sq={Sq} [{inst}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        log(f"  A serving Sq={Sq} [{inst}]: device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms; events kernel {ev_ms:.4f} ms, plain {ev_plain:.4f} ms, "
+            f"sdpa {ev_lib:.4f} ms; bound {bms:.4f} ms ({by}), "
+            f"{flops / ms / 1e9:.1f} TFLOP/s at device time")
     return rows
+
+
+# Decode-instance cases of kernel A (Sq <= 4): id, (B, Sq, Sk, Hq, Hkv, D),
+# causal, window, layout.  GQA groups 1, 2 and 8 at Sq 1 and 3 (1 to 24 rows
+# a block), 32 rows of one KV head at Sq 4 (two row chunks of 64), a window,
+# dead rows, ragged Sk (no multiple of a tile or of a split), Sk shorter
+# than one tile, D 64 and 32, and a non-causal call.
+DECODE_CASES = [
+    (f"g{Hq // Hkv} Sq={Sq}", (3, Sq, 1000, Hq, Hkv, 128), True, None, "lengths")
+    for Sq in (1, 3) for Hq, Hkv in ((4, 4), (8, 4), (16, 2))
+] + [
+    ("mqa 32/1 Sq=4", (2, 4, 456, 32, 1, 128), True, None, "lengths"),
+    ("window=48", (3, 1, 488, 8, 4, 128), True, 48, "lengths"),
+    ("window=48 Sq=3", (3, 3, 488, 8, 4, 128), True, 48, "lengths"),
+    ("dead rows", (3, 3, 472, 8, 4, 128), True, None, "dead"),
+    ("Sk=20 < tile", (2, 1, 20, 8, 4, 128), True, None, "lengths"),
+    ("D=64", (3, 3, 1000, 8, 4, 64), True, None, "lengths"),
+    ("D=32", (3, 1, 1000, 8, 2, 32), True, None, "lengths"),
+    ("noncausal", (2, 3, 300, 8, 4, 128), False, None, "lengths"),
+]
+
+
+def decode_positions(torch, dev, B, Sq, Sk, layout, gen):
+    """Each batch row's used length drawn in [1, Sk] (the first is Sk), keys
+    past it padding, and its Sq queries at the last Sq positions.  "dead":
+    batch row 1 has only padding keys and the first query of batch row 0
+    precedes every key."""
+    lengths = torch.randint(1, Sk + 1, (B,), generator=gen, device=dev)
+    lengths[0] = Sk
+    ar = torch.arange(Sk, device=dev, dtype=torch.int32)[None]
+    kp = torch.where(ar < lengths[:, None], ar, PAD_POS).to(torch.int32).contiguous()
+    qp = (lengths[:, None] - Sq + torch.arange(Sq, device=dev)[None]).to(torch.int32)
+    if layout == "dead":
+        kp[1] = PAD_POS
+        qp[0, 0] = -1
+    return qp.contiguous(), kp
+
+
+def phase_flash_decode(torch, dev, check):
+    """Kernel A's decode instance on DECODE_CASES in float32 and bf16, each
+    run twice (bitwise equal) by ``check``; then a call with no keys."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for case_id, (B, Sq, Sk, Hq, Hkv, D), causal, window, layout in DECODE_CASES:
+        qp, kp = decode_positions(torch, dev, B, Sq, Sk, layout, gen)
+        q32, k32, v32 = (torch.randn(shape, generator=gen, device=dev)
+                         for shape in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+        for dtype in (torch.float32, torch.bfloat16):
+            check(f"decode {case_id} {(B, Sq, Sk, Hq, Hkv, D)}", q32.to(dtype), k32.to(dtype),
+                  v32.to(dtype), qp, kp, causal, window)
+    qp = torch.zeros((2, 1), device=dev, dtype=torch.int32)
+    kp = torch.empty((2, 0), device=dev, dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((2, 1, 8, 128), generator=gen, device=dev).to(dtype)
+        k = torch.empty((2, 0, 4, 128), device=dev, dtype=dtype)
+        out, lse = fa.flash_attention_fwd_cuda(q, k, k, qp, kp, causal=True, window=None,
+                                               scale=128 ** -0.5)
+        inst = fa.flash_fwd_instance(dtype, 1, 128)
+        if not (torch.equal(out, torch.zeros_like(out)) and torch.isneginf(lse).all()):
+            raise AssertionError(f"A {dtype} no keys [{inst}]: rows are not (0, -inf)")
+        log(f"  ok A {str(dtype)[6:]} decode no keys Sq=1 Sk=0 [{inst}]: every row exactly "
+            "(0, -inf)")
 
 
 # ---------------------------------------------------------------------------
@@ -300,10 +404,13 @@ PAGED_CASES = [
     ("ps8_mqa", 8, (4, 1), (8, 23), None),
     ("ps16_boundary", 16, (4, 4), (15, 16, 17, 64), None),
     ("ps8_window", 8, (4, 2), (40, 7), 16),
-    # rows longer than one split of the kernel, so the merge pass combines
+    # rows longer than one split of the kernel, so the merge combines
     # several partials (the plain version never splits)
     ("ps4_splits", 4, (8, 2), (300, 77, 129), None),
     ("ps8_window_splits", 8, (4, 2), (500, 33), 40),
+    # GQA groups 8 and 16: the decode core's two- and four-row-group layouts
+    ("ps16_group8", 16, (16, 2), (200, 31), None),
+    ("ps16_group16", 16, (16, 1), (600, 5), None),
 ]
 
 
@@ -334,6 +441,7 @@ def paged_case_data(case_id, ps, heads, lengths, D=32):
 
 
 def phase_paged(torch, dev):
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
 
     def to_dev(data, dtype):
@@ -341,20 +449,30 @@ def phase_paged(torch, dev):
                 .contiguous() for x in data]
 
     def run(data, lengths, window):
+        """Kernel (run twice: bitwise equal or raise) and plain version."""
         q, kp, vp, pos, bt, qp = data
         scale = 1.0 / q.shape[-1] ** 0.5
         got = pa.paged_decode_fwd_cuda(q, kp, vp, pos, bt, qp, window=window, scale=scale)
+        again = pa.paged_decode_fwd_cuda(q, kp, vp, pos, bt, qp, window=window, scale=scale)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError("C: two runs on the same inputs differ")
         want = pa.paged_decode_fwd_torch(q, kp, vp, pos, bt, qp, lengths=lengths, window=window,
                                          scale=scale, block_k=512)
         return got, want
+
+    def splits(data):
+        q, kp, _, _, bt, _ = data
+        B, _, Hq, _ = q.shape
+        n_pages, ps, Hkv, _ = kp.shape
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        return fa.decode_split_rule(bt.shape[1] * ps, fa.decode_units(B, Hq, Hkv, 1), sms)[1]
 
     for dtype in (torch.float32, torch.bfloat16):
         for case_id, ps, heads, lengths, window in PAGED_CASES:
             data = to_dev(paged_case_data(case_id, ps, heads, lengths), dtype)
             lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
-            splits = -(-data[4].shape[1] // pa.entries_per_split(ps))
-            compare(f"C {str(dtype)[6:]} {case_id} ({splits} splits)", *run(data, lens, window),
-                    **tolerances(dtype))
+            compare(f"C {str(dtype)[6:]} {case_id} ({splits(data)} splits) bitwise repeatable",
+                    *run(data, lens, window), **tolerances(dtype))
     # alias poisoning: the page a clamped sentinel would alias holds huge,
     # live-looking K/V at visible positions; an unmapped row stays (0, -inf)
     raw = paged_case_data("dead", 4, (4, 2), (9, 5))
@@ -377,28 +495,31 @@ def phase_paged(torch, dev):
     lengths = rng.integers(128, 2049, 8).tolist()
     raw = paged_case_data("serving", 16, (16, 8), tuple(lengths), D=128)
     lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
-    splits = -(-raw[4].shape[1] // pa.entries_per_split(16))
-    compare(f"C f32 serving ps=16 ({splits} splits)", *run(to_dev(raw, torch.float32), lens, None),
-            **tolerances(torch.float32))
+    data = to_dev(raw, torch.float32)
+    compare(f"C f32 serving ps=16 ({splits(data)} splits) bitwise repeatable",
+            *run(data, lens, None), **tolerances(torch.float32))
     data = to_dev(raw, torch.bfloat16)
-    err = compare(f"C bf16 serving ps=16 ({splits} splits)", *run(data, lens, None),
-                  **tolerances(torch.bfloat16))
+    err = compare(f"C bf16 serving ps=16 ({splits(data)} splits) bitwise repeatable",
+                  *run(data, lens, None), **tolerances(torch.bfloat16))
     q, kp, vp, pos, bt, qp = data
     scale = 1.0 / 128 ** 0.5
-    ms = time_ms(lambda: pa.paged_decode_fwd_cuda(q, kp, vp, pos, bt, qp, window=None,
-                                                  scale=scale), iters=20)
-    plain_ms = time_ms(lambda: pa.paged_decode_fwd_torch(q, kp, vp, pos, bt, qp, lengths=lens,
-                                                         window=None, scale=scale, block_k=512),
-                       iters=5)
+    kern = lambda: pa.paged_decode_fwd_cuda(q, kp, vp, pos, bt, qp, window=None,  # noqa: E731
+                                            scale=scale)
+    plain = lambda: pa.paged_decode_fwd_torch(q, kp, vp, pos, bt, qp, lengths=lens,  # noqa: E731
+                                              window=None, scale=scale, block_k=512)
+    ev_ms, ev_plain = time_ms(kern, iters=20), time_ms(plain, iters=5)
+    ms, plain_ms = device_ms(kern), device_ms(plain, iters=5)
     pages_used = int((bt < kp.shape[0]).sum())
     ps, Hkv, D = 16, 8, 128
     nbytes = (pages_used * ps * Hkv * D * 2 * 2 + pages_used * ps * 4 + bt.numel() * 4
               + 2 * q.numel() * 2 + q.shape[0] * q.shape[2] * 4)
     flops = 4.0 * D * 16 * sum(lengths)
     bms, by = bound(nbytes, flops, "bfloat16")
-    log(f"  C serving: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-        f"{nbytes / ms / 1e6:.1f} GB/s over {pages_used} pages")
+    log(f"  C serving: device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; events kernel "
+        f"{ev_ms:.4f} ms, plain {ev_plain:.4f} ms; bound {bms:.4f} ms ({by}), "
+        f"{nbytes / ms / 1e6:.1f} GB/s over {pages_used} pages at device time")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
+                event_ms=ev_ms, event_plain_ms=ev_plain, timing="device time (torch.profiler)",
                 max_abs_err=err, shape=f"B=8 ps=16 Hq=16 Hkv=8 D=128 pages={pages_used} bf16")
 
 
@@ -416,8 +537,10 @@ def make_prompts(n, lo, hi, vocab, seed=0):
 
 
 def phase_e2e_checked(torch, dev):
-    """qwen3-1.7b widths, 2 layers, float32: paged engine on the kernels,
-    each emitted token teacher-forced against the plain path on the card."""
+    """qwen3-1.7b widths, 2 layers, float32: the paged engine (kernels A and
+    C) and the dense-slab engine (kernel A, its decode instance for every
+    decode step), each emitted token teacher-forced against the plain path
+    on the card."""
     from repro_torch.configs import ARCHS
     from repro_torch.core.api import ParallelContext
     from repro_torch.kernels.flash_attention import flash_attention_fwd_cuda
@@ -428,34 +551,40 @@ def phase_e2e_checked(torch, dev):
     cfg = ARCHS["qwen3-1.7b"].with_(n_layers=2, dtype="float32")
     bundle = build_model(cfg, ParallelContext(device="cuda"))
     params = bundle.init(0)
-    max_len = 512
-    eng = ServingEngine(bundle, params, max_batch=4, max_len=max_len, prefill_chunk=128,
-                        token_budget=256, page_size=16, device=dev)
-    a0, c0 = flash_attention_fwd_cuda.launches, paged_decode_fwd_cuda.launches
-    reqs = [eng.submit(p, max_new_tokens=16) for p in make_prompts(6, 40, 300, cfg.vocab_size)]
-    eng.run()
-    if flash_attention_fwd_cuda.launches == a0 or paged_decode_fwd_cuda.launches == c0:
-        raise AssertionError("phase 5 did not run through both kernels")
     plain = build_model(cfg, ParallelContext(impl="torch", device="cuda"))
-    worst = 0.0
-    for r in reqs:
-        if len(r.output) != 16:
-            raise AssertionError(f"request {r.uid} emitted {len(r.output)} tokens")
-        state = plain.init_serve_state(1, max_len, dev)
-        head = torch.from_numpy(r.prompt[:-1][None].copy()).to(dev)
-        plain.prefill_chunk(params, head, state,
-                            torch.tensor([head.shape[1]], device=dev, dtype=torch.int32))
-        feed = [int(r.prompt[-1])] + r.output[:-1]
-        for t, (tok_in, tok_out) in enumerate(zip(feed, r.output)):
-            logits, state = plain.decode_step(params, torch.tensor([tok_in], device=dev), state)
-            row = logits[0].float()
-            gap = float(row.max() - row[tok_out])
-            worst = max(worst, gap)
-            if gap > 1e-3:
-                raise AssertionError(f"req {r.uid} step {t}: token {tok_out} is {gap:.2e} "
-                                     "below the plain path's max logit")
-    log(f"  ok phase 5: {len(reqs)} requests x 16 tokens within 1e-3 of the plain path "
-        f"(worst gap {worst:.2e})")
+    max_len = 512
+    for path, kw in (("paged", dict(page_size=16)), ("dense-slab", {})):
+        eng = ServingEngine(bundle, params, max_batch=4, max_len=max_len, prefill_chunk=128,
+                            token_budget=256, device=dev, **kw)
+        a0, c0 = flash_attention_fwd_cuda.launches, paged_decode_fwd_cuda.launches
+        reqs = [eng.submit(p, max_new_tokens=16)
+                for p in make_prompts(6, 40, 300, cfg.vocab_size)]
+        eng.run()
+        ran_a = flash_attention_fwd_cuda.launches - a0
+        ran_c = paged_decode_fwd_cuda.launches - c0
+        if ran_a == 0 or (ran_c == 0) == (path == "paged"):
+            raise AssertionError(f"phase 5 {path}: launches A {ran_a}, C {ran_c}")
+        worst = 0.0
+        for r in reqs:
+            if len(r.output) != 16:
+                raise AssertionError(f"{path} request {r.uid} emitted {len(r.output)} tokens")
+            state = plain.init_serve_state(1, max_len, dev)
+            head = torch.from_numpy(r.prompt[:-1][None].copy()).to(dev)
+            plain.prefill_chunk(params, head, state,
+                                torch.tensor([head.shape[1]], device=dev, dtype=torch.int32))
+            feed = [int(r.prompt[-1])] + r.output[:-1]
+            for t, (tok_in, tok_out) in enumerate(zip(feed, r.output)):
+                logits, state = plain.decode_step(params, torch.tensor([tok_in], device=dev),
+                                                  state)
+                row = logits[0].float()
+                gap = float(row.max() - row[tok_out])
+                worst = max(worst, gap)
+                if gap > 1e-3:
+                    raise AssertionError(f"{path} req {r.uid} step {t}: token {tok_out} is "
+                                         f"{gap:.2e} below the plain path's max logit")
+        del eng
+        log(f"  ok phase 5 {path}: {len(reqs)} requests x 16 tokens within 1e-3 of the plain "
+            f"path (worst gap {worst:.2e}); launches A {ran_a}, C {ran_c}")
 
 
 def serve_run(torch, dev, bundle, params, *, n_requests, paged, seed=0):
@@ -508,20 +637,21 @@ def port_kernel_rows(rows, busy_s):
     return [{"ms": us / 1e3, "count": c, "kernel": k[:120]} for us, c, k in mine]
 
 
-def profile_run(torch, dev, bundle, params, unprofiled_wall_s):
-    """The paged run once more under torch.profiler: device busy time (sum of kernel
-    times on the one stream) against the profiled wall, and the kernels that
-    take the most device time.  The profiler adds host time per op, so its
-    wall is above the unprofiled run's; the busy time over the unprofiled
-    run's wall (same requests, same kernels) is printed beside it as the
-    estimate of the unprofiled run's busy share."""
+def profile_run(torch, dev, bundle, params, unprofiled_wall_s, paged=True):
+    """The paged (or dense-slab) run once more under torch.profiler: device
+    busy time (sum of kernel times on the one stream) against the profiled
+    wall, and the kernels that take the most device time.  The profiler adds
+    host time per op, so its wall is above the unprofiled run's; the busy
+    time over the unprofiled run's wall (same requests, same kernels) is
+    printed beside it as the estimate of the unprofiled run's busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        s = serve_run(torch, dev, bundle, params, n_requests=16, paged=True)
+        s = serve_run(torch, dev, bundle, params, n_requests=16 if paged else 4, paged=paged)
     rows = device_rows(torch, prof)
     busy_s = sum(r[0] for r in rows) / 1e6
-    log(f"  profiled paged run: wall {s['wall_s']:.3f} s, device busy {busy_s:.3f} s "
+    log(f"  profiled {'paged' if paged else 'dense-slab'} run: wall {s['wall_s']:.3f} s, "
+        f"device busy {busy_s:.3f} s "
         f"({100 * busy_s / s['wall_s']:.1f}%), idle {100 * (1 - busy_s / s['wall_s']):.1f}%; "
         f"against the unprofiled wall {unprofiled_wall_s:.3f} s: busy "
         f"{100 * busy_s / unprofiled_wall_s:.1f}%, idle "
@@ -575,13 +705,15 @@ def phase_full(torch, dev, with_profile):
             f"{s['decode_steps']} decode steps, {s['preemptions']} preemptions, "
             f"launches {launches[name]}")
     log(f"  peak memory {peak / 2**30:.2f} GiB")
-    prof = (profile_run(torch, dev, bundle, params, runs["paged"]["wall_s"])
-            if with_profile else None)
+    prof = {path: profile_run(torch, dev, bundle, params, runs[path]["wall_s"],
+                              paged=path == "paged")
+            for path in ("paged", "dense")} if with_profile else {}
     log("RESULT serving " + json.dumps({**{k: {kk: vv for kk, vv in v.items()
                                                  if not isinstance(vv, dict)}
                                              for k, v in runs.items()},
                                          "peak_bytes": peak, "launches": launches,
-                                         "profile_paged": prof}))
+                                         "profile_paged": prof.get("paged"),
+                                         "profile_dense": prof.get("dense")}))
     return launches
 
 
@@ -1167,12 +1299,17 @@ def main() -> int:
         f"{fa.flash_fwd_smem_bytes(64, 4096)} B at D=64 (Sk=4096)")
     log("  kernels B1/B2 wgmma instances: 384 threads (producer warpgroup at 24 registers, two "
         "consumer warpgroups at 240 by setmaxnreg)")
+    log("  decode core (A's decode instance, kernel C; csrc/decode.cuh): 128 threads a block, "
+        "32-key tiles through a 3-stage cp.async ring, splits aiming at "
+        f"{fa.DECODE_BLOCKS_PER_SM} blocks per SM "
+        f"({torch.cuda.get_device_properties(dev).multi_processor_count} SMs)")
 
     log("== phase 3: kernel A (flash forward) vs plain")
     flash_rows = phase_flash(torch, dev)
     log("== phase 4: kernel C (paged decode) vs plain")
     paged_row = phase_paged(torch, dev)
-    log("== phase 5: paged engine on the kernels, teacher-forced vs the plain path")
+    log("== phase 5: paged and dense-slab engines on the kernels, teacher-forced vs the plain "
+        "path")
     phase_e2e_checked(torch, dev)
     log("== phase 6: qwen3-1.7b full width and depth, serving")
     launches = phase_full(torch, dev, profile)
@@ -1201,7 +1338,11 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_fwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:244",
          "launches": launches["train"]["flash_attention_fwd"],
-         "launches_by_path": by_path("flash_attention_fwd"), **bwd_rows["fwd"],
+         "launches_by_path": by_path("flash_attention_fwd"),
+         "device_kernels": {"wgmma": ["rt::wg::flash_fwd_wgmma_kernel<D>"],
+                            "decode": ["rt::dec::decode_kernel<T, D, WR, RW, false>"],
+                            "cuda_core": ["rt::flash_fwd_kernel<T, D>"]},
+         **bwd_rows["fwd"],
          "serving_prefill_shape": flash_rows[256], "decode_shape": flash_rows[1]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_bwd.cu",
@@ -1218,7 +1359,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/paged_attention.py:192",
          "launches": launches["paged"]["paged_decode_fwd"],
          "launches_by_path": by_path("paged_decode_fwd"),
-         "device_kernels": ["paged_decode_split_kernel", "paged_decode_merge_kernel"],
+         "device_kernels": ["rt::dec::decode_kernel<T, D, WR, RW, true>"],
          **paged_row},
     ]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

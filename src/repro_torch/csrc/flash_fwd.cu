@@ -13,6 +13,21 @@
 // whole (the Pallas `_tile_skip` predicate).  Ragged Sq and Sk are masked
 // in the kernel.  One C entry, `flash_fwd`, picks the instance:
 //
+// * The decode instance (every call with Sq <= 4: the dense decode step;
+//   float32 and bf16, D 32/64/128): the dense instance of the split-KV decode
+//   core in decode.cuh, shared with kernel C.  One block of 128 threads per
+//   (KV head, batch row, split of the KV range) holds the whole GQA group x
+//   Sq rows, so K and V are read once per group; the split count comes from
+//   the SM count and Sk (`decode_split_rule`); the split's key positions are
+//   read once and dead 32-key tiles dropped by warp reductions; live tiles
+//   (rows of (B,Sk,Hkv,D) at stride Hkv*D) stream through a 3-stage cp.async
+//   ring in their stored type; scores are shuffle-reduced dot products of
+//   16-byte lane vectors, the online softmax and P V stay in registers; the
+//   last block of each (KV head, batch row) merges the splits in split order
+//   (bitwise repeatable).  What bounds it: the bytes of the live keys over
+//   the memory rate.  One launch of `rt::dec::decode_kernel<T, D, WR, RW,
+//   false>`.
+//
 // * The wgmma instance (bf16, D 64 or 128, Sq > 4: the training
 //   calls and the serving prefill calls).  One block of 384 threads per
 //   (128-row q-tile, query head, batch row).  Warpgroup 0 is the producer:
@@ -40,29 +55,30 @@
 //   warpgroups are not scheduled against each other (no ping-pong), so
 //   the tensor cores idle while exponentials run.
 //
-// * The CUDA-core instance (float32 inputs, the dense decode Sq <= 4, and
-//   D = 32): one block of 128 threads per (q-tile of 32 rows, or 4 at
-//   decode, head, batch row) walks KV tiles of 32 keys with the softmax
-//   state in shared memory and float32 products on the CUDA cores, one
-//   multiply-add per shared-memory read: bound by shared-memory bandwidth,
-//   far from the tensor-core rate.  It is exact to float32 and stays as
-//   the reference instance and for decode.
+// * The CUDA-core instance (float32 inputs and D = 32, Sq > 4): one block
+//   of 128 threads per (q-tile of 32 rows, head, batch row) walks KV tiles
+//   of 32 keys with the softmax state in shared memory and float32 products
+//   on the CUDA cores, one multiply-add per shared-memory read: bound by
+//   shared-memory bandwidth, far from the tensor-core rate.  It is exact to
+//   float32 and stays as the reference instance.
 #include <type_traits>
 
 #include "common.cuh"
+#include "decode.cuh"
 #include "hopper.cuh"
 
 namespace rt {
 
 constexpr int kBK = 32;  // keys per tile: one per lane in the softmax pass
+constexpr int kBQ = 32;  // q rows per block
 
-template <int D, int BQ>
+template <int D>
 constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (BQ * D + kBK * (D + 1) + kBK * D + BQ * kBK + 3 * BQ) +
-         sizeof(int) * (BQ + kBK);
+  return sizeof(float) * (kBQ * D + kBK * (D + 1) + kBK * D + kBQ * kBK + 3 * kBQ) +
+         sizeof(int) * (kBQ + kBK);
 }
 
-template <typename T, int D, int BQ>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ q_pos,
@@ -70,38 +86,38 @@ __global__ void __launch_bounds__(kThreads)
                      float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int causal,
                      int has_window, int window, float scale) {
   static_assert(kThreads % D == 0, "D must divide the block");
-  static_assert((BQ * D) % kThreads == 0 && (BQ * kBK) % kThreads == 0, "tile split");
-  constexpr int RPT = BQ * D / kThreads;  // accumulator rows per thread
+  static_assert((kBQ * D) % kThreads == 0 && (kBQ * kBK) % kThreads == 0, "tile split");
+  constexpr int RPT = kBQ * D / kThreads;  // accumulator rows per thread
   constexpr int RSTEP = kThreads / D;
-  constexpr int SPT = BQ * kBK / kThreads;  // scores per thread
+  constexpr int SPT = kBQ * kBK / kThreads;  // scores per thread
   constexpr int SSTEP = kThreads / kBK;
   constexpr int KS = D + 1;  // padded K row: lanes on distinct keys hit distinct banks
 
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sK = sQ + BQ * D;
+  float* sK = sQ + kBQ * D;
   float* sV = sK + kBK * KS;
   float* sP = sV + kBK * D;
-  float* sM = sP + BQ * kBK;
-  float* sL = sM + BQ;
-  float* sA = sL + BQ;
-  int* sQp = reinterpret_cast<int*>(sA + BQ);
-  int* sKp = sQp + BQ;
+  float* sM = sP + kBQ * kBK;
+  float* sL = sM + kBQ;
+  float* sA = sL + kBQ;
+  int* sQp = reinterpret_cast<int*>(sA + kBQ);
+  int* sKp = sQp + kBQ;
   __shared__ int s_qmin, s_qmax;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const bool is_causal = causal != 0, windowed = has_window != 0;
 
-  for (int i = tid; i < BQ * D; i += kThreads) {
+  for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, s = q0 + r;
     sQ[i] = s < Sq ? to_f(q[(((size_t)b * Sq + s) * Hq + h) * D + i % D]) * scale : 0.f;
   }
-  for (int r = tid; r < BQ; r += kThreads) {
+  for (int r = tid; r < kBQ; r += kThreads) {
     const int s = q0 + r;
     sQp[r] = s < Sq ? q_pos[(size_t)b * Sq + s] : 0;
     sM[r] = kNegInf;
@@ -110,7 +126,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (tid == 0) {
     int lo = INT32_MAX, hi = INT32_MIN;
-    for (int r = 0; r < BQ && q0 + r < Sq; ++r) {
+    for (int r = 0; r < kBQ && q0 + r < Sq; ++r) {
       lo = min(lo, sQp[r]);
       hi = max(hi, sQp[r]);
     }
@@ -170,7 +186,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    for (int r = warp; r < BQ; r += kThreads / 32) {
+    for (int r = warp; r < kBQ; r += kThreads / 32) {
       const int qp = sQp[r];
       softmax_row(
           sP + r * kBK, kBK,
@@ -197,7 +213,7 @@ __global__ void __launch_bounds__(kThreads)
       out[(((size_t)b * Sq + s) * Hq + h) * D + d] = from_f<T>(o);
     }
   }
-  for (int r = tid; r < BQ; r += kThreads) {
+  for (int r = tid; r < kBQ; r += kThreads) {
     const int s = q0 + r;
     if (s < Sq) {
       const float l = sL[r];
@@ -206,37 +222,28 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D, int BQ>
+// The CUDA-core instance's launch; bf16 at D 64/128 is the wgmma
+// instance's (Sq > 4) or the decode instance's (Sq <= 4).
+template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* qp,
                        const int* kp, void* out, float* lse, int B, int Sq, int Sk, int Hq,
                        int Hkv, int causal, int has_window, int window, float scale,
                        cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<D, BQ>();
-  auto kern = flash_fwd_kernel<T, D, BQ>;
-  // The shared-memory opt-in is set once per template instance (per process).
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return attr;
-  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), qp, kp,
-      static_cast<T*>(out), lse, Sq, Sk, Hq, Hkv, causal, has_window, window, scale);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t pick_rows(const void* q, const void* k, const void* v, const int* qp,
-                      const int* kp, void* out, float* lse, int B, int Sq, int Sk, int Hq,
-                      int Hkv, int causal, int has_window, int window, float scale,
-                      cudaStream_t stream) {
-  if (Sq <= 4)
-    return launch_fwd<T, D, 4>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
-                               has_window, window, scale, stream);
-  if constexpr (std::is_same_v<T, __nv_bfloat16> && D != 32)
-    return cudaErrorInvalidValue;  // the wgmma instance's calls
-  else
-    return launch_fwd<T, D, 32>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
-                                has_window, window, scale, stream);
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && D != 32) {
+    return cudaErrorInvalidValue;
+  } else {
+    constexpr size_t smem = fwd_smem_bytes<D>();
+    auto kern = flash_fwd_kernel<T, D>;
+    // The shared-memory opt-in is set once per template instance (per process).
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr != cudaSuccess) return attr;
+    dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
+    kern<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), qp, kp,
+        static_cast<T*>(out), lse, Sq, Sk, Hq, Hkv, causal, has_window, window, scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>
@@ -246,14 +253,14 @@ cudaError_t pick_dim(int D, const void* q, const void* k, const void* v, const i
                      cudaStream_t stream) {
   switch (D) {
     case 32:
-      return pick_rows<T, 32>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
-                              has_window, window, scale, stream);
-    case 64:
-      return pick_rows<T, 64>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
-                              has_window, window, scale, stream);
-    case 128:
-      return pick_rows<T, 128>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
+      return launch_fwd<T, 32>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
                                has_window, window, scale, stream);
+    case 64:
+      return launch_fwd<T, 64>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
+                               has_window, window, scale, stream);
+    case 128:
+      return launch_fwd<T, 128>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
+                                has_window, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -571,7 +578,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qp, c
 }  // namespace wg
 
 // Which instance takes a call (mirrored by `flash_fwd_instance` in
-// kernels/flash_attention.py).
+// kernels/flash_attention.py): every call with Sq <= 4 goes to the decode
+// instance, bf16 calls with D 64/128 and Sq > 4 to the wgmma instance, the
+// rest (float32, D = 32) to the CUDA-core instance.
+inline bool takes_decode(int Sq) { return Sq <= 4; }
 inline bool takes_wgmma(int bf16, int D, int Sq) {
   return bf16 && (D == 64 || D == 128) && Sq > 4;
 }
@@ -579,15 +589,45 @@ inline bool takes_wgmma(int bf16, int D, int Sq) {
 }  // namespace rt
 
 // C entry: returns the cudaError_t of the launch (0 on success).
-// `bf16` selects __nv_bfloat16 inputs/outputs, else float32.
+// `bf16` selects __nv_bfloat16 inputs/outputs, else float32.  The decode
+// instance (Sq <= 4) splits the KV range into ceil(ceil(Sk/32) /
+// tiles_per_split) splits; with more than one it needs the float32 scratch
+// `part_out` (splits, B*Sq*Hq, D), `part_lse` (splits, B*Sq*Hq) and the int32
+// `counters` (B*Hkv*ceil(group*Sq/64)), zero at rest and left zero.  The
+// other instances ignore those four arguments.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* q_pos,
-                         const void* k_pos, void* out, void* lse, int B, int Sq, int Sk,
-                         int Hq, int Hkv, int D, int bf16, int causal, int has_window,
-                         int window, float scale, void* stream) {
+                         const void* k_pos, void* out, void* lse, void* part_out,
+                         void* part_lse, void* counters, int B, int Sq, int Sk, int Hq, int Hkv,
+                         int D, int bf16, int causal, int has_window, int window, float scale,
+                         int tiles_per_split, void* stream) {
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(k_pos);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rt::takes_decode(Sq)) {
+    rt::dec::Args a{};
+    a.q = q;
+    a.k = k;
+    a.v = v;
+    a.q_pos = qp;
+    a.k_pos = kp;
+    a.out = out;
+    a.lse = l;
+    a.part_out = static_cast<float*>(part_out);
+    a.part_lse = static_cast<float*>(part_lse);
+    a.counters = static_cast<int*>(counters);
+    a.B = B;
+    a.Sq = Sq;
+    a.Sk = Sk;
+    a.Hq = Hq;
+    a.Hkv = Hkv;
+    a.causal = causal;
+    a.has_window = has_window;
+    a.window = window;
+    a.scale = scale;
+    a.tiles_per_split = tiles_per_split;
+    return (int)rt::dec::run<false>(a, D, bf16, s);
+  }
   if (rt::takes_wgmma(bf16, D, Sq)) {
     if (D == 128)
       return (int)rt::wg::launch<128>(q, k, v, qp, kp, out, l, B, Sq, Sk, Hq, Hkv, causal,

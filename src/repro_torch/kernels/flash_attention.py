@@ -4,14 +4,18 @@ Counterpart of ``repro.kernels.flash_attention``.
 
 * :func:`flash_attention_fwd_cuda` launches kernel A,
   ``csrc/flash_fwd.cu``, which replaces the Pallas TPU kernel
-  ``repro.kernels.flash_attention.flash_attention_fwd_pallas``.  It has two
+  ``repro.kernels.flash_attention.flash_attention_fwd_pallas``.  It has three
   instances behind one C entry (:func:`flash_fwd_instance` says which takes
-  a call): bf16 calls with D 64/128 and Sq > 4 (training, serving prefill)
-  run on the tensor cores, with TMA-fed K/V tiles, ``wgmma`` products and
-  the online softmax in registers, and are bound by the tensor-core rate;
-  float32 calls, the dense decode (Sq <= 4) and D = 32 run on the CUDA
-  cores, bound by shared-memory traffic.  Both skip dead KV tiles whole
-  (see the source note in the ``.cu`` file).
+  a call): the dense decode (every call with Sq <= 4) runs on the split-KV
+  decode core ``csrc/decode.cuh`` shared with kernel C (the KV range split
+  over blocks by :func:`decode_split_rule`, cp.async-fed tiles, scores and
+  P V in registers, the splits merged in a fixed order by the last block),
+  bound by the bytes of the live keys; bf16 calls with D 64/128 and Sq > 4
+  (training, serving prefill) run on the tensor cores, with TMA-fed K/V
+  tiles, ``wgmma`` products and the online softmax in registers, and are
+  bound by the tensor-core rate; float32 and D = 32 calls with Sq > 4 run
+  on the CUDA cores, bound by shared-memory traffic.  All skip dead KV
+  tiles whole (see the source notes in the ``.cu`` files).
 * :func:`flash_attention_fwd_torch` is the plain version: a loop over KV
   blocks with the same online-softmax update, used for CPU tensors and as
   the kernel's yardstick on the card.
@@ -46,6 +50,8 @@ __all__ = [
     "flash_attention_fwd_torch",
     "flash_fwd_instance",
     "flash_fwd_smem_bytes",
+    "decode_split_rule",
+    "decode_scratch",
     "flash_attention_bwd_dq_cuda",
     "flash_attention_bwd_dkv_cuda",
     "flash_attention_bwd_torch",
@@ -185,8 +191,8 @@ def flash_attention_bwd_torch(q, k, v, q_pos, k_pos, out, lse, dout, dlse, *, ca
 
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = {"flash_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
-             + [ctypes.c_float, ctypes.c_void_p],
+_ARGTYPES = {"flash_fwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
              "flash_fwd_wgmma_smem": [ctypes.c_int] * 2}
 _BWD_ARGTYPES = {
     "flash_bwd_dq": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float,
@@ -224,13 +230,74 @@ def _raise_on(err: int, name: str):
 
 
 def flash_fwd_instance(dtype, Sq: int, D: int) -> str:
-    """Which instance of kernel A takes a call: ``"wgmma"`` (bf16, ``D`` 64
-    or 128, ``Sq > 4``) or ``"cuda_core"`` (everything else: float32, the
-    dense decode ``Sq <= 4``, ``D = 32``).  Mirrors ``takes_wgmma`` in
-    ``csrc/flash_fwd.cu``."""
-    if dtype == torch.bfloat16 and D in (64, 128) and Sq > 4:
+    """Which instance of kernel A takes a call: ``"decode"`` (every call with
+    ``Sq <= 4``), ``"wgmma"`` (bf16, ``D`` 64 or 128, ``Sq > 4``) or
+    ``"cuda_core"`` (the rest: float32 and ``D = 32`` with ``Sq > 4``).
+    Mirrors ``takes_decode`` and ``takes_wgmma`` in ``csrc/flash_fwd.cu``."""
+    if Sq <= DECODE_MAX_SQ:
+        return "decode"
+    if dtype == torch.bfloat16 and D in (64, 128):
         return "wgmma"
     return "cuda_core"
+
+
+# The split-KV decode core (csrc/decode.cuh), shared by kernel A's decode
+# instance and kernel C.
+DECODE_MAX_SQ = 4  # query rows per batch row that A's decode instance takes
+DECODE_TILE_KEYS = 32  # keys per KV tile (csrc kTK)
+DECODE_MAX_ROWS = 64  # query rows (group x Sq) one block holds (csrc kMaxRows)
+DECODE_MAX_SPLIT_TILES = 64  # tiles of one split at most (csrc kMaxSplitTiles)
+DECODE_BLOCKS_PER_SM = 4  # blocks the split rule aims for on each SM
+
+
+def decode_split_rule(n_keys: int, units: int, sm_count: int) -> tuple[int, int]:
+    """``(tiles_per_split, splits)`` of a decode call over ``n_keys`` keys
+    (dense ``Sk``; paged ``W * page_size``) with ``units`` blocks per split
+    (batch rows x KV heads x row chunks) on a card of ``sm_count`` SMs: about
+    ``DECODE_BLOCKS_PER_SM`` blocks per SM, each split at least one 32-key
+    tile and at most ``DECODE_MAX_SPLIT_TILES``.  The kernels take
+    ``tiles_per_split`` and derive ``splits = ceil(tiles / tiles_per_split)``
+    the same way."""
+    n_tiles = max(1, -(-n_keys // DECODE_TILE_KEYS))
+    want = max(1, -(-DECODE_BLOCKS_PER_SM * sm_count // units))
+    per = min(-(-n_tiles // min(n_tiles, want)), DECODE_MAX_SPLIT_TILES)
+    return per, -(-n_tiles // per)
+
+
+def decode_units(B: int, Hq: int, Hkv: int, Sq: int) -> int:
+    """Blocks of one split: batch rows x KV heads x chunks of
+    ``DECODE_MAX_ROWS`` query rows (the GQA group x Sq)."""
+    return B * Hkv * -(-(Hq // Hkv) * Sq // DECODE_MAX_ROWS)
+
+
+_SM_COUNT: dict[int, int] = {}
+_COUNTERS: dict[int, torch.Tensor] = {}
+
+
+def decode_scratch(device, B: int, Sq: int, Hq: int, Hkv: int, D: int, n_keys: int):
+    """What a decode launch needs besides its inputs: ``tiles_per_split``
+    and the float32 partials ``(part_out, part_lse)`` plus the int32 merge
+    counters, or three ``None`` when one split covers the range.  The
+    counters are zero at rest and every launch leaves them zero, so one
+    buffer per device serves every call on the device's stream."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    units = decode_units(B, Hq, Hkv, Sq)
+    per, splits = decode_split_rule(n_keys, units, _SM_COUNT[idx])
+    if splits == 1:
+        return per, None, None, None
+    rows = B * Sq * Hq
+    counters = _COUNTERS.get(idx)
+    if counters is None or counters.numel() < units:
+        counters = _COUNTERS[idx] = torch.zeros(units, dtype=torch.int32, device=device)
+    part_out = torch.empty((splits, rows, D), dtype=torch.float32, device=device)
+    part_lse = torch.empty((splits, rows), dtype=torch.float32, device=device)
+    return per, part_out, part_lse, counters
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def flash_fwd_smem_bytes(D: int, Sk: int) -> int:
@@ -282,11 +349,17 @@ def flash_attention_fwd_cuda(q, k, v, q_pos, k_pos, *, causal: bool, window: int
     lse = torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
+    per, part_out, part_lse, counters = 1, None, None, None
+    if flash_fwd_instance(q.dtype, Sq, D) == "decode":
+        for t in (k, v):
+            if t.data_ptr() % 16:
+                raise ValueError("flash_attention_fwd_cuda: k/v must be 16-byte aligned")
+        per, part_out, part_lse, counters = decode_scratch(q.device, B, Sq, Hq, Hkv, D, Sk)
     err = load_library("flash_fwd", _ARGTYPES).flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), B, Sq, Sk, Hq, Hkv, D,
-        _KERNEL_DTYPES[q.dtype], int(causal), int(window is not None),
-        int(window or 0), float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), lse.data_ptr(), _ptr(part_out), _ptr(part_lse), _ptr(counters),
+        B, Sq, Sk, Hq, Hkv, D, _KERNEL_DTYPES[q.dtype], int(causal), int(window is not None),
+        int(window or 0), float(scale), per, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_attention_fwd_cuda")
     flash_attention_fwd_cuda.launches += 1
     return out, lse

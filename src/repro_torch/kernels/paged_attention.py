@@ -6,12 +6,15 @@ Counterpart of ``repro.kernels.paged_attention``.
   which replaces the Pallas TPU kernel
   ``repro.kernels.paged_attention.paged_decode_fwd_pallas``.  It reads the
   page pool in place through the block table (no gathered view).  Its bound
-  on this card is the bytes of the mapped pages over the memory rate; the
-  kernel splits each block-table row over several blocks (flash-decoding)
-  and merges the splits' partials with the lse-weighted Update() in a second
-  pass; see the source note in the ``.cu`` file.  One wrapper call (one
-  count in ``launches``) launches both passes, the device kernels
-  ``paged_decode_split_kernel`` and ``paged_decode_merge_kernel``.
+  on this card is the bytes of the mapped pages over the memory rate.  It is
+  the paged instance of the split-KV decode core ``csrc/decode.cuh``, shared
+  with kernel A's decode instance: the request's logical key range is split
+  over blocks by :func:`~repro_torch.kernels.flash_attention.decode_split_rule`
+  (from the SM count and the table width), 32-key tiles stream through a
+  cp.async ring, and the last block of each (KV head, batch row) merges the
+  splits in split order; see the source note in ``decode.cuh``.  One wrapper
+  call (one count in ``launches``) is one launch of the device kernel
+  ``rt::dec::decode_kernel<..., true>``.
 * :func:`paged_decode_fwd_torch` is the plain version: gather the
   block-table view (``serving.kv_cache``) and run the plain flash forward
   over it, exactly the JAX ``impl="xla"`` oracle.
@@ -28,25 +31,19 @@ import torch
 
 from repro_torch.kernels.flash_attention import (
     _KERNEL_DTYPES,
+    _ptr,
     _raise_on,
     check_kernel_args,
+    decode_scratch,
     flash_attention_fwd_torch,
 )
 from repro_torch.kernels.ref import PAD_POS
 
-__all__ = ["paged_decode_fwd_cuda", "paged_decode_fwd_torch", "page_skip", "page_mask",
-           "entries_per_split"]
+__all__ = ["paged_decode_fwd_cuda", "paged_decode_fwd_torch", "page_skip", "page_mask"]
 
 MAX_GROUP = 16  # query heads per KV head the kernel holds (csrc kMaxGroup)
-SPLIT_KEYS = 128  # keys each split block of the kernel covers
-_ARGTYPES = {"paged_decode": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+_ARGTYPES = {"paged_decode": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
-
-
-def entries_per_split(ps: int) -> int:
-    """Block-table entries per split: ``SPLIT_KEYS`` keys' worth of pages, at
-    least one page."""
-    return max(1, SPLIT_KEYS // ps)
 
 
 def page_skip(entry: int, k_pos, q_pos: int, *, n_pages: int, window: int | None = None) -> bool:
@@ -111,21 +108,18 @@ def paged_decode_fwd_cuda(q, k_pool, v_pool, pos_pool, block_tables, q_pos, *,
         raise ValueError(f"{name}: bad pos_pool/block_tables/q_pos shapes")
     for t in (k_pool, v_pool):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: pools must be 16-byte aligned for vector loads")
+            raise ValueError(f"{name}: pools must be 16-byte aligned for 16-byte copies")
     out = torch.empty_like(q)
     lse = torch.empty((B, 1, Hq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    per_split = entries_per_split(ps)
-    splits = -(-W // per_split)
-    part_out = torch.empty((splits, B, Hq, D), dtype=torch.float32, device=q.device)
-    part_lse = torch.empty((splits, B, Hq), dtype=torch.float32, device=q.device)
+    per, part_out, part_lse, counters = decode_scratch(q.device, B, 1, Hq, Hkv, D, W * ps)
     err = load_library("paged_decode", _ARGTYPES).paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pos_pool.data_ptr(),
         block_tables.data_ptr(), q_pos.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        part_out.data_ptr(), part_lse.data_ptr(), B, n_pages, ps, Hq, Hkv, W, D,
+        _ptr(part_out), _ptr(part_lse), _ptr(counters), B, n_pages, ps, Hq, Hkv, W, D,
         _KERNEL_DTYPES[q.dtype], int(window is not None), int(window or 0), float(scale),
-        per_split, torch.cuda.current_stream(q.device).cuda_stream)
+        per, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, name)
     paged_decode_fwd_cuda.launches += 1
     return out, lse

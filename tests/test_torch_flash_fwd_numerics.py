@@ -169,14 +169,15 @@ def test_wgmma_rounding_ragged(D):
 
 
 def test_instance_dispatch():
-    """Which instance of kernel A takes which call (``takes_wgmma`` in the
-    CUDA source): bf16 prefill and training calls go to wgmma; float32, the
-    dense decode (Sq <= 4) and D = 32 stay on the CUDA-core kernel."""
+    """Which instance of kernel A takes which call (``takes_decode`` and
+    ``takes_wgmma`` in the CUDA source): bf16 prefill and training calls go
+    to wgmma; the dense decode (Sq <= 4) to the decode instance; float32 and
+    D = 32 with Sq > 4 stay on the CUDA-core kernel."""
     bf, f32 = torch.bfloat16, torch.float32
     assert flash_fwd_instance(bf, 4096, 128) == "wgmma"  # training
     assert flash_fwd_instance(bf, 256, 128) == "wgmma"  # prefill
     assert flash_fwd_instance(bf, 5, 64) == "wgmma"
-    assert flash_fwd_instance(bf, 4, 128) == "cuda_core"  # dense decode
-    assert flash_fwd_instance(bf, 1, 128) == "cuda_core"
+    assert flash_fwd_instance(bf, 4, 128) == "decode"  # dense decode
+    assert flash_fwd_instance(bf, 1, 128) == "decode"
     assert flash_fwd_instance(bf, 256, 32) == "cuda_core"
     assert flash_fwd_instance(f32, 4096, 128) == "cuda_core"
