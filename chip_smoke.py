@@ -39,7 +39,24 @@ Phases, each fatal on failure:
      batch 2 x seq 4096, one warmup step and three timed steps whose launch
      counts must be 56 of A, 28 of B1 and 28 of B2 per step; with
      ``--profile``, one more step under torch.profiler;
- 10. a ``{"kernels": [...]}`` summary line, the card line, and last the
+ 10. the ring strategies (tokenring with its accumulator travelling in
+     float32 and in bf16, tokenring_faithful, ring, ring_bidir) on the
+     virtual ring of P = 2, 4 and 8 ranks folded into the batch dimension
+     of the card, at qwen3-1.7b attention widths in bf16 and float32:
+     forward (out, lse) and q/k/v gradients on the kernels against the same
+     ring on the plain versions, overlap=True bitwise equal to
+     overlap=False, launches equal to the schedule's Computes, link bytes
+     equal to the cost model; TokenRing at the training shape under
+     torch.profiler (the side stream's copies against the compute stream's
+     kernels) with the overlap=True and overlap=False wall times; one
+     2-layer float32 training step through TokenRing at P = 4 against the
+     plain path;
+ 11. the ring training path (this slice's main path): qwen3-1.7b at full
+     width and depth through the ``Trainer`` with TokenRing over 4 virtual
+     ranks, as phase 9 otherwise, launch counts 448 of A, 224 of B1 and 224
+     of B2 per step, then the same steps with overlap=False; with
+     ``--profile``, one more step under torch.profiler;
+ 12. a ``{"kernels": [...]}`` summary line, the card line, and last the
      ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -118,9 +135,10 @@ def device_ms(fn, iters: int = 30) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / iters / 1e3
 
 
-def compare(name, got, want, atol, rtol, lse_tol):
+def compare(name, got, want, atol, rtol, lse_tol, quiet=False):
     """Raise unless kernel ``(out, lse)`` matches the plain version; dead
-    rows (plain lse = -inf) must be exactly (0, -inf).  Returns max |err|."""
+    rows (plain lse = -inf) must be exactly (0, -inf).  Returns max |err|
+    (and logs it unless ``quiet``)."""
     import torch
 
     (out, lse), (ref_out, ref_lse) = got, want
@@ -139,7 +157,8 @@ def compare(name, got, want, atol, rtol, lse_tol):
     max_lerr = float(lerr.max()) if lerr.numel() else 0.0
     if not (ok_out and ok_lse) or not torch.isfinite(out.float()).all():
         raise AssertionError(f"{name}: max |out err| {max_err:.3e}, max |lse err| {max_lerr:.3e}")
-    log(f"  ok {name}: max|out err| {max_err:.3e} max|lse err| {max_lerr:.3e}")
+    if not quiet:
+        log(f"  ok {name}: max|out err| {max_err:.3e} max|lse err| {max_lerr:.3e}")
     return max_err
 
 
@@ -411,6 +430,8 @@ PAGED_CASES = [
     # GQA groups 8 and 16: the decode core's two- and four-row-group layouts
     ("ps16_group8", 16, (16, 2), (200, 31), None),
     ("ps16_group16", 16, (16, 1), (600, 5), None),
+    # MQA with a group of 32: 8 rows a warp (no cap at 16 since the row chunks)
+    ("ps16_group32_mqa", 16, (32, 1), (300, 40), None),
 ]
 
 
@@ -838,14 +859,17 @@ def run_bwd(torch, q, k, v, qp, kp, dout, dlse, causal, window, out=None, lse=No
     return got, want, args, kw
 
 
-def compare_grads(torch, name, got, want, atol=0.0, rtol=0.0, row=0.0, l2=None, dead=None):
+def compare_grads(torch, name, got, want, atol=0.0, rtol=0.0, row=0.0, l2=None, dead=None,
+                  elementwise=True, quiet=False):
     """Raise unless each of dq/dk/dv is finite and within ``atol + rtol *
     |plain| + row * rms(plain row)`` of the plain version elementwise (a row
-    is the D values of one (batch, position, head)), ``||err|| <= l2 *
-    ||plain||`` when ``l2`` is given, and, given ``dead = (rows, keys)``, the
-    dq rows that see no key and the dk/dv rows of keys that no query sees
-    are exactly 0.  Returns the largest |error|."""
-    worst, readings = 0.0, []
+    is the D values of one (batch, position, head); ``elementwise=False``
+    skips this), ``||err|| <= l2 * ||plain||`` when ``l2`` is given, and,
+    given ``dead = (rows, keys)``, the dq rows that see no key and the dk/dv
+    rows of keys that no query sees are exactly 0.  Returns the largest
+    |error| and the readings ``(max |err|/rms(row), ||err||/||plain||)`` of
+    each gradient (logged unless ``quiet``)."""
+    worst, readings, pairs = 0.0, [], []
     for g_name, g, w in zip(("dq", "dk", "dv"), got, want):
         if not torch.isfinite(g).all():
             raise AssertionError(f"{name} {g_name}: not finite")
@@ -853,7 +877,8 @@ def compare_grads(torch, name, got, want, atol=0.0, rtol=0.0, row=0.0, l2=None, 
         rms = w.pow(2).mean(dim=-1, keepdim=True).sqrt()
         rel_row = float((err / rms).nan_to_num(0.0, posinf=float("inf")).max())
         rel_l2 = float(err.norm() / w.norm())
-        if not torch.all(err <= atol + rtol * w.abs() + row * rms):
+        pairs.append((rel_row, rel_l2))
+        if elementwise and not torch.all(err <= atol + rtol * w.abs() + row * rms):
             raise AssertionError(f"{name} {g_name}: max |err| {float(err.max()):.3e}, "
                                  f"max |err|/rms(row) {rel_row:.3e}")
         if l2 is not None and not rel_l2 <= l2:
@@ -868,9 +893,10 @@ def compare_grads(torch, name, got, want, atol=0.0, rtol=0.0, row=0.0, l2=None, 
                 raise AssertionError(f"{name} {g_name}: gradients of rows that see no key, or "
                                      "of keys that no query sees, are not exactly 0")
         n_dead = f", {int(rows.sum())} dead (row, head) and {int(keys.sum())} unseen keys exactly 0"
-    log(f"  ok {name}: max|grad err| {worst:.3e} (max |err|/rms(row) / ||err||/||plain||: "
-        f"{', '.join(readings)}){n_dead}, a second run bitwise equal")
-    return worst
+    if not quiet:
+        log(f"  ok {name}: max|grad err| {worst:.3e} (max |err|/rms(row) / ||err||/||plain||: "
+            f"{', '.join(readings)}){n_dead}, a second run bitwise equal")
+    return worst, pairs
 
 
 def dead_masks(torch, lse, qp, kp, causal, window):
@@ -937,8 +963,8 @@ def phase_bwd(torch, dev, train_shape=TRAIN_SHAPE):
     got, want, args, kw = run_bwd(torch, q, k, v, qp, qp, dout, dlse, True, None, out, lse)
     shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
     inst = fa.flash_bwd_instance_built(bf, D)
-    err = compare_grads(torch, f"B1/B2 bf16 training shape {shape} [{inst}]", got, want,
-                        dead=dead_masks(torch, lse, qp, qp, True, None), **BWD_BF16_LIMIT)
+    err, _ = compare_grads(torch, f"B1/B2 bf16 training shape {shape} [{inst}]", got, want,
+                           dead=dead_masks(torch, lse, qp, qp, True, None), **BWD_BF16_LIMIT)
 
     ms_dq = time_ms(lambda: fa.flash_attention_bwd_dq_cuda(*args, **kw), iters=3, reps=3)
     ms_dkv = time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(*args, **kw), iters=3, reps=3)
@@ -1039,18 +1065,20 @@ def reset_launch_counts():
     pa.paged_decode_fwd_cuda.launches = 0
 
 
-def train_launches_per_step(cfg):
+def train_launches_per_step(cfg, computes: int = 1):
     """remat "full" runs A in the forward and again in each block's
-    recompute; B1 and B2 once per layer."""
-    L = cfg.n_layers
+    recompute; B1 and B2 once per layer.  ``computes``: flash calls of one
+    attention layer (the ring schedule's Compute count; 1 at SP 1)."""
+    L = cfg.n_layers * computes
     return {"flash_attention_fwd": (2 if cfg.remat == "full" else 1) * L,
             "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L}
 
 
-def kernels_vs_plain_step(torch, dev, cfg, B, S):
+def kernels_vs_plain_step(torch, dev, cfg, B, S, **pctx_kw):
     """One loss-and-gradient step of ``cfg`` on the kernels and one on the
-    plain path, from the same parameters and batch.  Returns both losses,
-    gradients and parameters, and the kernel launches of the first."""
+    plain path, from the same parameters and batch (``pctx_kw``: the SP
+    degree and strategy of both).  Returns both losses, gradients and
+    parameters, and the kernel launches of the first."""
     from repro_torch.core.api import ParallelContext
     from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
     from repro_torch.launch.train_step import value_and_grad
@@ -1058,19 +1086,22 @@ def kernels_vs_plain_step(torch, dev, cfg, B, S):
     from repro_torch.optim.adamw import tree_map
     from repro_torch.runtime.trainer import batch_to_device
 
-    kern = build_model(cfg, ParallelContext(device="cuda"))
-    plain = build_model(cfg, ParallelContext(impl="torch", device="cuda"))
+    kern = build_model(cfg, ParallelContext(device="cuda", **pctx_kw))
+    plain = build_model(cfg, ParallelContext(impl="torch", device="cuda", **pctx_kw))
+    P = kern.pctx.sp_degree
+    computes = ring_computes(kern.pctx.strategy, P) if P > 1 else 1
     p_kern = kern.init(0, training=True)
     p_plain = tree_map(lambda t: t.detach().clone(), p_kern)
     batch = batch_to_device(next(SyntheticDataset(SyntheticConfig(
-        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=1))), dev)
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=1, layout=cfg.layout,
+        sp_degree=P))), dev)
     before = launch_counts()
     (l_kern, _), g_kern = value_and_grad(kern.loss, p_kern, batch)
     torch.cuda.synchronize()
     ran = {k: v - before[k] for k, v in launch_counts().items()}
-    if ran != train_launches_per_step(cfg):
+    if ran != train_launches_per_step(cfg, computes):
         raise AssertionError(f"phase 8: kernel launches {ran}, expected "
-                             f"{train_launches_per_step(cfg)}")
+                             f"{train_launches_per_step(cfg, computes)}")
     before = launch_counts()
     (l_plain, _), g_plain = value_and_grad(plain.loss, p_plain, batch)
     if launch_counts() != before:
@@ -1090,14 +1121,15 @@ def worst_leaf(torch, g_kern, g_plain, limit):
     return worst
 
 
-def phase_train_checked(torch, dev, cfg=None, B=2, S=512):
-    """One step at qwen3-1.7b widths, 2 layers, float32: kernels vs plain."""
+def phase_train_checked(torch, dev, cfg=None, B=2, S=512, label="phase 8", **pctx_kw):
+    """One step at qwen3-1.7b widths, 2 layers, float32: kernels vs plain
+    (``pctx_kw``: the SP degree and strategy of both sides)."""
     from repro_torch.configs import ARCHS
     from repro_torch.optim.adamw import adamw_init, adamw_update
 
     cfg = cfg or ARCHS["qwen3-1.7b"].with_(n_layers=2, dtype="float32")
     l_kern, l_plain, g_kern, g_plain, p_kern, p_plain, ran = kernels_vs_plain_step(
-        torch, dev, cfg, B, S)
+        torch, dev, cfg, B, S, **pctx_kw)
     # Everything but attention runs the same float32 ops on both sides, and
     # attention differs only in the order of float32 sums: the loss is held
     # to 1e-5 relative, each gradient leaf to 1e-4 of its largest |value|.
@@ -1126,7 +1158,7 @@ def phase_train_checked(torch, dev, cfg=None, B=2, S=512):
                                  f"{float(d.max()):.3e} ({d_sure:.3e} where the gradient is sure)")
         p_err, sure_err = max(p_err, float(d.max())), max(sure_err, d_sure)
         n_apart += int((d > 0.05 * lr).sum())
-    log(f"  ok phase 8: loss {float(l_kern):.6f} vs plain {float(l_plain):.6f} (|err| "
+    log(f"  ok {label}: loss {float(l_kern):.6f} vs plain {float(l_plain):.6f} (|err| "
         f"{l_err:.2e}); worst gradient leaf off by {worst:.2e} of its max; parameters after "
         f"AdamW (lr {lr}) within {p_err:.2e} ({sure_err:.2e} where the gradient is sure), "
         f"{n_apart} elements apart by more than 0.05*lr; launches {ran}")
@@ -1239,6 +1271,404 @@ def phase_train_full(torch, dev, with_profile, cfg=None, B=2, S=4096, steps=3):
     return got
 
 
+# ---------------------------------------------------------------------------
+# phases 10 and 11: the ring (TokenRing and the ring baselines) on the
+# virtual ring of P ranks folded into the batch dimension of one card
+# ---------------------------------------------------------------------------
+
+RING_VARIANTS = [  # (label, strategy, travel dtype of TokenRing's accumulator)
+    ("tokenring", "tokenring", "float32"),
+    ("tokenring travel bf16", "tokenring", "bfloat16"),
+    ("tokenring_faithful", "tokenring_faithful", "float32"),
+    ("ring", "ring", "float32"),
+    ("ring_bidir", "ring_bidir", "float32"),
+]
+RING_HEADS = (16, 8, 128)  # qwen3-1.7b attention: Hq, Hkv, D
+RING_S_LOC = {"bfloat16": 1024, "float32": 512}  # local rows a rank (bidir halves: 512, 256)
+
+
+def ring_computes(strategy, P):
+    """Flash calls of one pass of the strategy's schedule at ring size P."""
+    from repro_torch.core.strategies import get_strategy
+
+    sched = get_strategy(strategy).schedule_spec(P).schedule
+    return sum(len(st.computes) for st in sched.all_steps())
+
+
+def ring_positions(torch, dev, B, S, P):
+    from repro_torch.core.zigzag import zigzag_positions
+
+    pos = torch.cat([zigzag_positions(S, P, j, device=dev) for j in range(P)])
+    return pos.expand(B, S).contiguous()
+
+
+def ring_run(torch, strategy, travel, P, impl, overlap, q, k, v, pos, w, wl):
+    """One ring forward ``(out, lse)`` on global tensors (the strategy's
+    per-rank callable on the ranks folded into the batch dimension) and the
+    gradients of ``sum(out*w) + sum(lse*wl)`` (live rows) for q, k and v.
+    Returns them with the ring's forward link and position bytes."""
+    from repro_torch.core.collectives import VirtualRing, fold_ranks, unfold_ranks
+    from repro_torch.core.strategies import get_strategy
+
+    ring = VirtualRing(P, q.device)
+    xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    fq, fk, fv, fp = (fold_ranks(x, P) for x in (*xs, pos))
+    extra = {"travel_dtype": travel} if strategy == "tokenring" else {}
+    out, lse = get_strategy(strategy).fn(fq, fk, fv, fp, fp, ring=ring, causal=True, impl=impl,
+                                         overlap=overlap, return_lse=True, **extra)
+    out, lse = unfold_ranks(out, P), unfold_ranks(lse, P)
+    sent = (dict(ring.link_bytes), dict(ring.position_bytes))
+    live = torch.where(torch.isneginf(lse), 0.0, lse)
+    grads = torch.autograd.grad((out.float() * w).sum() + (live * wl).sum(), xs)
+    return out.detach(), lse.detach(), grads, sent
+
+
+def ring_inputs(torch, dev, gen, B, S, dtype):
+    Hq, Hkv, D = RING_HEADS
+
+    def rnd(shape, dt=dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    return (rnd((B, S, Hq, D)), rnd((B, S, Hkv, D)), rnd((B, S, Hkv, D)),
+            rnd((B, S, Hq, D), torch.float32), rnd((B, S, Hq), torch.float32))
+
+
+class EachCall:
+    """Inside a ring run on the kernels, hold every flash call against the
+    plain version on the same inputs: kernel A's ``(out, lse)`` at phase
+    3's limits, B1/B2's float32 ``(dq, dk, dv)`` at phase 7's (per row and
+    per tensor in bf16, 1e-4 in float32; rows that see no key and keys that
+    no query sees exactly 0).  These are the calls that pair one rank's
+    query block with another rank's keys (Sq != Sk, whole blocks masked).
+    Keeps the count and the worst readings."""
+
+    def __init__(self, torch, name):
+        self.torch, self.name = torch, name
+        self.calls = {"fwd": 0, "bwd": 0}
+        self.out_err = self.row = self.l2 = 0.0
+        self.dead = 0
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.ops, self.fwd, self.bwd = ops, ops._flash_fwd, ops._flash_bwd
+        ops._flash_fwd, ops._flash_bwd = self._fwd, self._bwd
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._flash_fwd, self.ops._flash_bwd = self.fwd, self.bwd
+
+    def _fwd(self, cfg, q, k, v, qp, kp):
+        import dataclasses
+
+        got = self.fwd(cfg, q, k, v, qp, kp)
+        if cfg.resolve_impl(q.device) == "cuda":
+            want = self.fwd(dataclasses.replace(cfg, impl="torch"), q, k, v, qp, kp)
+            err = compare(f"{self.name} A call {self.calls['fwd']}", got, want,
+                          **tolerances(q.dtype), quiet=True)
+            self.out_err = max(self.out_err, err)
+            self.calls["fwd"] += 1
+        return got
+
+    def _bwd(self, cfg, q, k, v, qp, kp, out, lse, dout, dlse):
+        import dataclasses
+
+        got = self.bwd(cfg, q, k, v, qp, kp, out, lse, dout, dlse)
+        if cfg.resolve_impl(q.device) == "cuda":
+            want = self.bwd(dataclasses.replace(cfg, impl="torch"), q, k, v, qp, kp, out, lse,
+                            dout, dlse)
+            limit = (BWD_BF16_LIMIT if q.dtype == self.torch.bfloat16
+                     else dict(atol=1e-4, rtol=1e-4))
+            dead = dead_masks(self.torch, lse, qp, kp, cfg.causal, cfg.window)
+            _, pairs = compare_grads(self.torch, f"{self.name} B1/B2 call {self.calls['bwd']}",
+                                     got, want, dead=dead, quiet=True, **limit)
+            self.row = max([self.row] + [r for r, _ in pairs])
+            self.l2 = max([self.l2] + [x for _, x in pairs])
+            self.dead += int(dead[0].sum())
+            self.calls["bwd"] += 1
+        return got
+
+
+def phase_ring(torch, dev, ps=(2, 4, 8), s_loc=RING_S_LOC, profile_shape=TRAIN_SHAPE):
+    """Every ported strategy on the virtual ring, kernels against the same
+    ring on the plain versions on the card; then the overlap trace.
+
+    Limits.  Every kernel call inside the ring is held to phase 3's and
+    phase 7's limits (:class:`EachCall`).  The ring's own forward (out, lse)
+    is held to phase 3's limits, those of bf16 where the inputs or the
+    travelling accumulator are bf16 (the accumulator is rounded to bf16 at
+    every merge).  Its gradients: float32 within 1e-4 absolute plus 1e-4
+    relative elementwise; bf16 (inputs or accumulator) within phase 7's
+    per-tensor limit, ||err|| <= 5e-3 ||plain||, and not per row: the
+    gradients of bf16 inputs are stored in bf16 (the flash Function returns
+    them in the input's type, as the reference's VJP does) and summed over
+    the P blocks in bf16, so one bf16 rounding of a large block term in a
+    row whose sum nearly cancels is large against that row's final RMS.
+    The phase logs the same per-row reading for one SP-1 flash call with
+    bf16 gradients, which shows it too (PERF.md has the readings).
+    """
+    from repro_torch.core.strategies import get_strategy, strategy_cost
+    from repro_torch.kernels.ops import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    Hq, Hkv, D = RING_HEADS
+    B = 1
+    checked, worst = 0, {"calls_row": 0.0, "calls_l2": 0.0, "ring_l2_bf16": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype)[6:]
+        for P in ps:
+            S = s_loc[dname] * P
+            pos = ring_positions(torch, dev, B, S, P)
+            q, k, v, w, wl = ring_inputs(torch, dev, gen, B, S, dtype)
+            for label, strategy, travel in RING_VARIANTS:
+                name = f"ring {label} P={P} {dname} (B={B} S={S} S_loc={S // P})"
+                n = ring_computes(strategy, P)
+                reset_launch_counts()
+                got = ring_run(torch, strategy, travel, P, "cuda", True, q, k, v, pos, w, wl)
+                torch.cuda.synchronize()
+                ran = launch_counts()
+                want_launches = {"flash_attention_fwd": n, "flash_attention_bwd_dq": n,
+                                 "flash_attention_bwd_dkv": n}
+                if ran != want_launches:
+                    raise AssertionError(f"{name}: launches {ran}, expected {want_launches} "
+                                         f"(the schedule's {n} Computes)")
+                with EachCall(torch, name) as each:
+                    seq = ring_run(torch, strategy, travel, P, "cuda", False, q, k, v, pos, w,
+                                   wl)
+                if each.calls != {"fwd": n, "bwd": n}:
+                    raise AssertionError(f"{name}: checked calls {each.calls}, expected {n}")
+                for what, a, b in zip(("out", "lse", "dq", "dk", "dv"),
+                                      (got[0], got[1], *got[2]), (seq[0], seq[1], *seq[2])):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{name}: overlap=True and overlap=False differ "
+                                             f"in {what}")
+                plain = ring_run(torch, strategy, travel, P, "torch", True, q, k, v, pos, w, wl)
+                # the ring is as precise as its least precise arithmetic: a
+                # float32 ring whose accumulator travels in bf16 takes bf16 limits
+                least = torch.bfloat16 if travel == "bfloat16" else dtype
+                err = compare(f"{name} forward", got[:2], plain[:2], **tolerances(least),
+                              quiet=True)
+                grads = [g.float() for g in got[2]], [g.float() for g in plain[2]]
+                if least == torch.float32:
+                    _, pairs = compare_grads(torch, name, *grads, atol=1e-4, rtol=1e-4,
+                                             quiet=True)
+                else:
+                    _, pairs = compare_grads(torch, name, *grads, l2=BWD_BF16_LIMIT["l2"],
+                                             elementwise=False, quiet=True)
+                    worst["ring_l2_bf16"] = max([worst["ring_l2_bf16"]] + [x for _, x in pairs])
+                worst["calls_row"] = max(worst["calls_row"], each.row)
+                worst["calls_l2"] = max(worst["calls_l2"], each.l2)
+                (link, pos_bytes) = got[3]
+                cost = strategy_cost(get_strategy(strategy), B, S, Hq, Hkv, D, P,
+                                     bytes_per_elem=q.element_size(), travel_dtype=travel)
+                if strategy == "tokenring_faithful" and dtype != torch.float32:
+                    bytes_note = ("bytes not compared: the model prices the partial at "
+                                  "float32, it travels in bf16")
+                elif link != {"fwd": cost.fwd_bytes, "bwd": cost.bwd_bytes}:
+                    raise AssertionError(f"{name}: link bytes {link}, cost model "
+                                         f"{cost.fwd_bytes}/{cost.bwd_bytes}")
+                else:
+                    bytes_note = f"link bytes {link['fwd']:.0f}/{link['bwd']:.0f} = cost model"
+                log(f"  ok {name}: launches {n}/{n}/{n} = Computes; {n}+{n} kernel calls vs "
+                    f"plain (worst out {each.out_err:.2e}, grads row {each.row:.2e} / l2 "
+                    f"{each.l2:.2e}, {each.dead} dead (row, head) exactly 0); ring vs plain ring:"
+                    f" out {err:.2e}, grads row/l2 "
+                    f"{' '.join(f'{r:.2e}/{x:.2e}' for r, x in pairs)}; overlap True/False "
+                    f"bitwise equal; {bytes_note}, position bytes {pos_bytes['fwd']:.0f}/"
+                    f"{pos_bytes['bwd']:.0f} apart")
+                checked += 1
+    log(f"  {checked} ring cases passed; worst kernel call: grads {worst['calls_row']:.2e} of "
+        f"the row RMS, {worst['calls_l2']:.2e} relative L2; worst bf16 ring gradient "
+        f"{worst['ring_l2_bf16']:.2e} relative L2")
+    # the per-row reading of one SP-1 flash call whose gradients come back in
+    # bf16 (the input's type), for comparison with the rings' (logged only)
+    S = s_loc["bfloat16"] * 2
+    qp = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
+    q, k, v, w, wl = ring_inputs(torch, dev, gen, B, S, torch.bfloat16)
+    sp1 = {}
+    for impl in ("cuda", "torch"):
+        xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        out, lse = flash_attention(*xs, q_pos=qp, k_pos=qp, causal=True, impl=impl)
+        sp1[impl] = [g.float() for g in torch.autograd.grad(
+            (out.float() * w).sum() + (lse * wl).sum(), xs)]
+    _, pairs = compare_grads(torch, "SP-1 flash, bf16 gradients", sp1["cuda"], sp1["torch"],
+                             l2=BWD_BF16_LIMIT["l2"], elementwise=False, quiet=True)
+    worst["sp1_bf16_grads_row_l2"] = pairs
+    log(f"  one SP-1 flash call (B={B} S={S}, bf16, causal), gradients in bf16, kernels vs "
+        f"plain: row/l2 {' '.join(f'{r:.2e}/{x:.2e}' for r, x in pairs)}")
+    return {**ring_overlap_trace(torch, dev, gen, **profile_shape), "worst": worst,
+            "cases": checked}
+
+
+def interval_union(spans):
+    """Sorted, disjoint union of ``(start, end)`` spans."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def covered(spans, cover):
+    """Length of ``spans`` (a disjoint union) lying inside ``cover`` (one too)."""
+    total, j = 0.0, 0
+    for a, b in spans:
+        while j < len(cover) and cover[j][1] <= a:
+            j += 1
+        i = j
+        while i < len(cover) and cover[i][0] < b:
+            total += min(b, cover[i][1]) - max(a, cover[i][0])
+            i += 1
+    return total
+
+
+def stream_shares(trace_path):
+    """From a torch.profiler chrome trace: the compute stream (the one that
+    runs the port's kernels), the device time of the other streams (the
+    ring's copies), the compute stream's kernel time, and the share of the
+    copy time that lies under a running compute-stream kernel."""
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+           and "dur" in e]
+    stream = lambda e: e.get("args", {}).get("stream", e.get("tid"))  # noqa: E731
+    mine = [stream(e) for e in gpu if "rt::" in e.get("name", "")]
+    compute = max(set(mine), key=mine.count)
+    side = [(e["ts"], e["ts"] + e["dur"]) for e in gpu if stream(e) != compute]
+    kern = [(e["ts"], e["ts"] + e["dur"]) for e in gpu
+            if stream(e) == compute and e.get("cat") == "kernel"]
+    side_u, kern_u = interval_union(side), interval_union(kern)
+    copy_us = sum(b - a for a, b in side_u)
+    span_us = max(e["ts"] + e["dur"] for e in gpu) - min(e["ts"] for e in gpu)
+    busy_us = sum(b - a for a, b in interval_union(side + kern))
+    return {"compute_stream": compute, "gpu_span_ms": span_us / 1e3,
+            "device_busy_share": busy_us / span_us,
+            "side_streams": sorted({str(stream(e)) for e in gpu if stream(e) != compute}),
+            "copy_ms": copy_us / 1e3, "copy_events": len(side),
+            "kernel_ms": sum(b - a for a, b in kern_u) / 1e3,
+            "copy_share_under_kernels": covered(side_u, kern_u) / copy_us if copy_us else 0.0}
+
+
+def ring_overlap_trace(torch, dev, gen, B, S, Hq, Hkv, D, P=4):
+    """TokenRing forward and backward at the training shape on the kernels:
+    the overlap=True and overlap=False wall times, then one overlap=True run
+    under torch.profiler: the side stream's copies against the compute
+    stream's kernels.  One card's copy engines are no NVLink ring: this
+    shows overlap, not link bandwidth."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    pos = ring_positions(torch, dev, B, S, P)
+    q, k, v, w, wl = ring_inputs(torch, dev, gen, B, S, torch.bfloat16)
+
+    def step(overlap):
+        return ring_run(torch, "tokenring", "float32", P, "cuda", overlap, q, k, v, pos, w, wl)
+
+    walls = {}
+    for overlap in (True, False, True, False):
+        step(overlap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(overlap)
+        torch.cuda.synchronize()
+        walls.setdefault(overlap, []).append((time.perf_counter() - t0) / 3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(True)
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        res = stream_shares(path)
+    finally:
+        os.unlink(path)
+    res.update(shape=f"B={B} S={S} P={P} Hq={Hq} Hkv={Hkv} D={D} bf16 causal zigzag, tokenring",
+               wall_s_overlap=walls[True], wall_s_sequential=walls[False])
+    log(f"  trace ({res['shape']}, forward and backward, overlap=True): {res['copy_events']} "
+        f"copies on stream(s) {res['side_streams']} for {res['copy_ms']:.3f} ms, compute stream "
+        f"{res['compute_stream']} kernels {res['kernel_ms']:.3f} ms; "
+        f"{100 * res['copy_share_under_kernels']:.1f}% of the copy time under a running kernel; "
+        f"the device busy {100 * res['device_busy_share']:.1f}% of the "
+        f"{res['gpu_span_ms']:.3f} ms from its first to its last kernel")
+    log(f"  wall per forward and backward: overlap=True {[round(x, 5) for x in walls[True]]} s, "
+        f"overlap=False {[round(x, 5) for x in walls[False]]} s")
+    if res["copy_events"] == 0:
+        raise AssertionError("ring trace: no copy ran on a side stream")
+    return res
+
+
+def phase_train_ring(torch, dev, with_profile=False, cfg=None, B=2, S=4096, steps=3, P=4,
+                     strategy="tokenring"):
+    """The ring training path: qwen3-1.7b at full width and depth through the
+    Trainer with TokenRing over P virtual ranks on the card, one warmup step
+    and ``steps`` timed steps whose launch counts must equal the schedule's
+    Computes per layer (A twice under remat "full"); with ``with_profile``,
+    one more step under torch.profiler."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = cfg or ARCHS["qwen3-1.7b"]
+    pctx = ParallelContext(device="cuda", sp_degree=P, strategy=strategy)
+    bundle = build_model(cfg, pctx)
+    trainer = Trainer(bundle, TrainerConfig(lr=3e-4, warmup_steps=1, total_steps=1 + steps))
+    data = SyntheticDataset(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                            global_batch=B, seed=0, layout=cfg.layout,
+                                            sp_degree=P))
+    state = trainer.init_state(0)
+    step_log = lambda m: log("  " + m)  # noqa: E731
+    state, hist = trainer.run(state, data, steps=1, log_every=1, log=step_log)  # warmup
+    ring = pctx.ring
+    reset_launch_counts()
+    ring.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state, timed = trainer.run(state, data, steps=1 + steps, log_every=1, log=step_log)
+    peak = torch.cuda.max_memory_allocated()
+    got = launch_counts()
+    computes = ring_computes(strategy, P)
+    want = {k: v * steps for k, v in train_launches_per_step(cfg, computes).items()}
+    if got != want:
+        raise AssertionError(f"ring training path: launches {got} over {steps} steps, "
+                             f"expected {want}")
+    losses = hist + timed
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"ring training path: losses {losses}")
+    step_s = trainer.step_seconds[1:]
+    med = statistics.median(step_s)
+    per_step = {k: v // steps for k, v in got.items()}
+    sent = {"link_bytes_per_step": {k: v / steps for k, v in ring.link_bytes.items()},
+            "position_bytes_per_step": {k: v / steps for k, v in ring.position_bytes.items()}}
+    # the same steps with every send after its step's computes, from the
+    # state reached (same launches; recorded beside the overlapped steps)
+    seq = Trainer(build_model(cfg, dataclasses.replace(pctx, overlap=False)),
+                  TrainerConfig(lr=3e-4, warmup_steps=1, total_steps=2 + 2 * steps))
+    seq.run(state, data, steps=2 + 2 * steps, log=lambda m: None)
+    seq_s = seq.step_seconds[1:]
+    res = {"arch": cfg.name, "strategy": strategy, "sp_degree": P, "ring": "virtual, one card",
+           "batch": B, "seq": S, "steps_timed": steps, "step_s": step_s, "median_step_s": med,
+           "tokens_per_s": B * S / med, "first_step_s": trainer.step_seconds[0],
+           "losses": losses, "peak_bytes_timed_steps": peak, "launches": got,
+           "launches_per_step": per_step, **sent, "step_s_overlap_false": seq_s}
+    log(f"  {strategy} over {P} virtual ranks: timed steps {[round(x, 4) for x in step_s]} s: "
+        f"median {med:.4f} s = {B * S / med:.1f} tok/s; losses {[round(x, 4) for x in losses]}; "
+        f"peak memory {peak / 2**30:.2f} GiB; launches per step {per_step}; link bytes per step "
+        f"and rank {res['link_bytes_per_step']}, position bytes {res['position_bytes_per_step']}")
+    log(f"  the same steps with overlap=False: {[round(x, 4) for x in seq_s]} s")
+    if with_profile:
+        res["profile"] = profile_step(torch, lambda: trainer.run(
+            state, data, steps=2 + steps, log=lambda m: None), med)
+    log("RESULT training_ring " + json.dumps(res))
+    return got
+
+
 def free_device_memory(torch):
     gc.collect()
     torch.cuda.empty_cache()
@@ -1322,13 +1752,24 @@ def main() -> int:
     free_device_memory(torch)
     phase_train_checked_bf16(torch, dev)
     free_device_memory(torch)
-    log("== phase 9: qwen3-1.7b full width and depth, training (main path)")
+    log("== phase 9: qwen3-1.7b full width and depth, training")
     launches["train"] = phase_train_full(torch, dev, profile)
+    free_device_memory(torch)
+    log("== phase 10: the ring strategies on the kernels vs the plain path, virtual ring of P "
+        "ranks on one card")
+    ring_trace = phase_ring(torch, dev)
+    free_device_memory(torch)
+    phase_train_checked(torch, dev, S=1024, label="phase 10 ring step (tokenring, P=4)",
+                        sp_degree=4, strategy="tokenring")
+    free_device_memory(torch)
+    log("== phase 11: qwen3-1.7b full width and depth, training through TokenRing over 4 "
+        "virtual ranks (main path)")
+    launches["train_ring"] = phase_train_ring(torch, dev, profile)
 
-    # `launches` is the count of each kernel's own slice path (training for
-    # A, B1 and B2; paged serving for C); `launches_by_path` gives every
-    # driven path's count, each read from counters set to 0 just before that
-    # run.
+    # `launches` is the count of the main path that runs the kernel (A, B1
+    # and B2: training through TokenRing, phase 11; C: paged serving);
+    # `launches_by_path` gives every driven path's count, each read from
+    # counters set to 0 just before that run.
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in launches.items()}
 
@@ -1337,22 +1778,23 @@ def main() -> int:
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_fwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:244",
-         "launches": launches["train"]["flash_attention_fwd"],
+         "launches": launches["train_ring"]["flash_attention_fwd"],
          "launches_by_path": by_path("flash_attention_fwd"),
          "device_kernels": {"wgmma": ["rt::wg::flash_fwd_wgmma_kernel<D>"],
                             "decode": ["rt::dec::decode_kernel<T, D, WR, RW, false>"],
                             "cuda_core": ["rt::flash_fwd_kernel<T, D>"]},
          **bwd_rows["fwd"],
-         "serving_prefill_shape": flash_rows[256], "decode_shape": flash_rows[1]},
+         "serving_prefill_shape": flash_rows[256], "decode_shape": flash_rows[1],
+         "ring_overlap_trace": ring_trace},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_bwd.cu",
          "replaces": bwd, "pallas_body": "src/repro/kernels/flash_attention.py:367",
-         "launches": launches["train"]["flash_attention_bwd_dq"],
+         "launches": launches["train_ring"]["flash_attention_bwd_dq"],
          "launches_by_path": by_path("flash_attention_bwd_dq"), **bwd_rows["dq"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_bwd.cu",
          "replaces": bwd, "pallas_body": "src/repro/kernels/flash_attention.py:415",
-         "launches": launches["train"]["flash_attention_bwd_dkv"],
+         "launches": launches["train_ring"]["flash_attention_bwd_dkv"],
          "launches_by_path": by_path("flash_attention_bwd_dkv"), **bwd_rows["dkv"]},
         {"name": "paged_decode_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",

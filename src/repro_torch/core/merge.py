@@ -3,7 +3,9 @@
 
 A partial is ``(out (..., S, H, D), lse (..., S, H) float32)``; the empty
 partial ``(0, -inf)`` is the merge identity.  The merge is written in the
--inf-safe form: every transcendental sees a finite input on empty lanes.
+-inf-safe and gradient-safe form of the reference: on an empty lane the
+input of ``exp`` is replaced by ``-inf`` and that of ``log`` by a constant
+before the transcendental is applied, so values and gradients stay finite.
 """
 
 from __future__ import annotations
@@ -29,8 +31,11 @@ def merge_partials(out_a, lse_a, out_b, lse_b):
     neg_b = torch.isneginf(lse_b)
     both_empty = neg_a & neg_b
     m_safe = torch.where(both_empty, 0.0, torch.maximum(lse_a, lse_b))
-    ea = torch.where(neg_a, 0.0, torch.exp(torch.where(neg_a, 0.0, lse_a) - m_safe))
-    eb = torch.where(neg_b, 0.0, torch.exp(torch.where(neg_b, 0.0, lse_b) - m_safe))
+    # The double where of the reference: an empty lane goes through
+    # exp(-inf) = 0, never through exp(0 - m_safe), which overflows for
+    # m_safe below about -88.7 and turns the backward's 0 * inf into NaN.
+    ea = torch.exp(torch.where(neg_a, -torch.inf, torch.where(neg_a, 0.0, lse_a) - m_safe))
+    eb = torch.exp(torch.where(neg_b, -torch.inf, torch.where(neg_b, 0.0, lse_b) - m_safe))
     denom_safe = torch.where(both_empty, 1.0, ea + eb)
     lse = torch.where(both_empty, -torch.inf, m_safe + torch.log(denom_safe))
     w_a = (ea / denom_safe)[..., None]

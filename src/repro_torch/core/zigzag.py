@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.analysis.preconditions import check_zigzag_divisible, require
+
 __all__ = [
     "check_zigzag_divisible",
     "zigzag_chunk_ids",
@@ -40,22 +42,8 @@ BLOCK_DIAG = 1  # same chunk: lower-triangular mask
 BLOCK_FULL = 2  # q chunk strictly after k chunk: no mask
 
 
-def check_zigzag_divisible(S: int, P: int) -> str | None:
-    """The balanced causal layout needs 2 chunks per rank (the message of
-    ``repro.analysis.preconditions.check_zigzag_divisible``)."""
-    if S % (2 * P) == 0:
-        return None
-    return (
-        f"zigzag layout needs the sequence length divisible by 2P "
-        f"(2 chunks per rank); got S={S}, P={P} — pad the sequence to a "
-        f"multiple of {2 * P} or use layout='contig'"
-    )
-
-
 def _require_divisible(S: int, P: int):
-    msg = check_zigzag_divisible(S, P)
-    if msg is not None:
-        raise ValueError(msg)
+    require(check_zigzag_divisible(S, P))
 
 
 def zigzag_chunk_ids(P: int):

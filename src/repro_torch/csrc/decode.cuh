@@ -493,8 +493,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 }
 
 // The block's rows pick the warp layout: up to 2 or 4 rows on one row group
-// (all four warps along the keys), 8 on two, 16 on four; dense calls with
-// more rows (group x Sq up to 64 a chunk) hold 8 or 16 rows a warp.
+// (all four warps along the keys), 8 on two, 16 on four; more rows (group x
+// Sq up to 64 a chunk, dense or paged) hold 8 or 16 rows a warp.
 template <typename T, int D, bool kPaged>
 cudaError_t pick_rows(const Args& a, cudaStream_t stream) {
   const int all_rows = a.Hq / a.Hkv * a.Sq;
@@ -503,12 +503,8 @@ cudaError_t pick_rows(const Args& a, cudaStream_t stream) {
   if (rows <= 4) return launch<T, D, 1, 4, kPaged>(a, stream);
   if (rows <= 8) return launch<T, D, 2, 4, kPaged>(a, stream);
   if (rows <= 16) return launch<T, D, 4, 4, kPaged>(a, stream);
-  if constexpr (kPaged) {
-    return cudaErrorInvalidValue;
-  } else {
-    if (rows <= 32) return launch<T, D, 4, 8, false>(a, stream);
-    return launch<T, D, 4, 16, false>(a, stream);
-  }
+  if (rows <= 32) return launch<T, D, 4, 8, kPaged>(a, stream);
+  return launch<T, D, 4, 16, kPaged>(a, stream);
 }
 
 // Checks the split the caller chose (`tiles_per_split`, from

@@ -16,8 +16,9 @@
 // pages_used * ps * Hkv * D * 2 (K and V) * elem bytes, over the memory
 // rate.  The kernel is the paged instance of the split-KV decode core in
 // decode.cuh (shared with kernel A's decode instance): one block per (KV
-// head, batch row, split of the request's logical key range) holds the
-// whole GQA group; the split's block-table entries and key positions are
+// head, batch row, chunk of up to 64 rows of the GQA group, split of the
+// request's logical key range), so any group size runs; the split's
+// block-table entries and key positions are
 // read once at block start, 32-key tiles (several pages, or part of one)
 // stream through a 3-stage cp.async ring, scores and P V run in registers,
 // and the last block of each (KV head, batch row) merges the splits in
@@ -34,12 +35,6 @@
 #include "common.cuh"
 #include "decode.cuh"
 
-namespace rt {
-
-constexpr int kMaxGroup = 16;  // query heads per KV head one block holds
-
-}  // namespace rt
-
 // C entry: returns the cudaError_t of the launch (0 on success).  The
 // logical key range W * ps is cut into splits of `tiles_per_split` 32-key
 // tiles; with more than one split the caller allocates the float32 scratch
@@ -51,7 +46,7 @@ extern "C" int paged_decode(const void* q, const void* k_pool, const void* v_poo
                             void* counters, int B, int n_pages, int ps, int Hq, int Hkv, int W,
                             int D, int bf16, int has_window, int window, float scale,
                             int tiles_per_split, void* stream) {
-  if (Hkv < 1 || Hq % Hkv != 0 || Hq / Hkv > rt::kMaxGroup || ps < 1 || W < 1)
+  if (Hkv < 1 || Hq % Hkv != 0 || ps < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   rt::dec::Args a{};
   a.q = q;

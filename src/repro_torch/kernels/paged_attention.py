@@ -41,7 +41,6 @@ from repro_torch.kernels.ref import PAD_POS
 
 __all__ = ["paged_decode_fwd_cuda", "paged_decode_fwd_torch", "page_skip", "page_mask"]
 
-MAX_GROUP = 16  # query heads per KV head the kernel holds (csrc kMaxGroup)
 _ARGTYPES = {"paged_decode": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
 
@@ -102,8 +101,8 @@ def paged_decode_fwd_cuda(q, k_pool, v_pool, pos_pool, block_tables, q_pos, *,
                       ints=(pos_pool, block_tables, q_pos), floats=(q, k_pool, v_pool))
     if Sq != 1 or k_pool.shape[3] != D or v_pool.shape != k_pool.shape:
         raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} pool{tuple(k_pool.shape)}")
-    if Hq % Hkv or Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"{name}: group {Hq}/{Hkv} unsupported (<= {MAX_GROUP})")
+    if Hq % Hkv:
+        raise ValueError(f"{name}: {Hq} query heads do not split over {Hkv} KV heads")
     if pos_pool.shape != (n_pages, ps) or block_tables.shape[0] != B or q_pos.shape != (B, 1):
         raise ValueError(f"{name}: bad pos_pool/block_tables/q_pos shapes")
     for t in (k_pool, v_pool):

@@ -188,8 +188,13 @@ def emulate_paged(q, k_pool, v_pool, pos_pool, block_tables, q_pos, *, window, s
                           window=window, scale=scale, sm_count=sm_count)
 
 
+# The JAX package's cases, and an MQA group of 32 (kernel C takes any group:
+# the decode core holds the group in chunks of 64 rows).
+PORT_PAGED_CASES = PAGED_CASES + [("ps16_group32_mqa", 16, (32, 1), (300, 40), None)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", PAGED_CASES, ids=[c[0] for c in PAGED_CASES])
+@pytest.mark.parametrize("case", PORT_PAGED_CASES, ids=[c[0] for c in PORT_PAGED_CASES])
 def test_paged_split_merge_matches_pallas_interpret(case, dtype):
     case_id, ps, heads, lengths, window = case
     data = _paged_case_data(case_id, ps, heads, lengths)

@@ -263,6 +263,45 @@ def test_merge_and_finalize_match_jax():
     _close(m_lse, lb, atol=1e-6, rtol=1e-6)
 
 
+MERGE_GRAD_CASES = ([("a_empty", -np.inf, x) for x in (-10.0, -100.0, -1000.0)]
+                    + [("b_empty", x, -np.inf) for x in (-10.0, -100.0, -1000.0)]
+                    + [("both_empty", -np.inf, -np.inf), ("both_finite", -3.0, 2.5)])
+
+
+@pytest.mark.parametrize("case", MERGE_GRAD_CASES,
+                         ids=[f"{c[0]}_{c[1] if c[0] != 'a_empty' else c[2]}"
+                              for c in MERGE_GRAD_CASES])
+def test_merge_gradients_match_jax(case):
+    """Gradients of both outs and both lses through the merge, against
+    ``jax.grad`` of the reference: finite beside an empty partial whatever
+    the other side's lse (the empty lane must never reach exp(0 - m))."""
+    import jax
+
+    _, lse_a, lse_b = case
+    rng = _rng("merge_grad", case[0])
+    shape = (2, 3, 2, 4)
+    oa, ob, w = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    wl = rng.standard_normal(shape[:-1]).astype(np.float32)
+    la = np.full(shape[:-1], lse_a, np.float32) + (0 if np.isinf(lse_a) else
+                                                   rng.standard_normal(shape[:-1]).astype(np.float32))
+    lb = np.full(shape[:-1], lse_b, np.float32) + (0 if np.isinf(lse_b) else
+                                                   rng.standard_normal(shape[:-1]).astype(np.float32))
+
+    def jloss(oa, la, ob, lb):
+        o, l = jmerge.merge_partials(oa, la, ob, lb)
+        return jnp.sum(o * w) + jnp.sum(jnp.where(jnp.isneginf(l), 0.0, l) * wl)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(*(jnp.asarray(x) for x in (oa, la, ob, lb)))
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (oa, la, ob, lb)]
+    o, l = tmerge.merge_partials(*ts)
+    loss = (o * torch.from_numpy(w)).sum() + (torch.where(torch.isneginf(l), 0.0, l)
+                                              * torch.from_numpy(wl)).sum()
+    got = torch.autograd.grad(loss, ts)
+    for name, g, x in zip(("d out_a", "d lse_a", "d out_b", "d lse_b"), got, want):
+        assert torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.numpy(), np.asarray(x), atol=1e-6, rtol=1e-5, err_msg=name)
+
+
 # ---------------------------------------------------------------------------
 # page-table arithmetic and the allocator: exact equality
 # ---------------------------------------------------------------------------

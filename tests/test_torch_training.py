@@ -232,17 +232,26 @@ def test_chunked_cross_entropy_matches_jax():
 
 REDUCED = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2, d_head=32, d_ff=128,
                vocab_size=97, logits_chunk=16)
+# Reduced qwen3-1.7b variants, then the other dense configs ("arch") at the
+# same widths: granite-3-8b, llama2-7b, olmo-1b (non-parametric LayerNorm)
+# and qwen2-72b (QKV bias).
 VARIANTS = {
     "mha_tied": REDUCED,
     "gqa_tied": dict(REDUCED, n_heads=4, n_kv_heads=2),
     "mha_untied": dict(REDUCED, tie_embeddings=False),
     "gqa_untied": dict(REDUCED, n_heads=4, n_kv_heads=1, tie_embeddings=False),
+    "granite_3_8b": dict(REDUCED, arch="granite-3-8b", n_heads=4, n_kv_heads=2),
+    "llama2_7b": dict(REDUCED, arch="llama2-7b"),
+    "olmo_1b_nonparam_ln": dict(REDUCED, arch="olmo-1b"),
+    "qwen2_72b_qkv_bias": dict(REDUCED, arch="qwen2-72b", n_heads=4, n_kv_heads=2),
 }
 
 
 def _models(over, **pctx):
-    jcfg = JARCHS["qwen3-1.7b"].reduced(**over)
-    tcfg = TARCHS["qwen3-1.7b"].reduced(**over)
+    over = dict(over)
+    arch = over.pop("arch", "qwen3-1.7b")
+    jcfg = JARCHS[arch].reduced(**over)
+    tcfg = TARCHS[arch].reduced(**over)
     assert tcfg == type(tcfg)(**{f: getattr(jcfg, f) for f in tcfg.__dataclass_fields__})
     jb = jbuild(jcfg, JPctx(mesh=None, impl="xla"))
     tb = tbuild(tcfg, TPctx(impl="torch", device="cpu", **pctx))
@@ -297,6 +306,39 @@ def test_lm_loss_and_gradients_match_jax(variant):
         jax.tree.leaves(jgrads["layers"]))
     for name, g, jg in pairs:
         np.testing.assert_allclose(_np(g), jg, err_msg=name, **MODEL_TOL)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_lm_over_the_ring_matches_jax_at_sp1(remat):
+    """The reduced qwen3-1.7b trained through TokenRing on 4 virtual ranks
+    (zigzag batch for P = 4) against the JAX model at SP 1 on the same
+    batch: loss, every gradient leaf and one AdamW step.  A ring computes
+    exactly what full attention computes, so the limits are MODEL_TOL."""
+    from repro.launch.train_step import make_train_step as jmake
+    from repro_torch.launch.train_step import make_train_step as tmake
+    from repro_torch.launch.train_step import value_and_grad
+
+    over = dict(VARIANTS["gqa_tied"], remat=remat)
+    jb, tb = _models(over, sp_degree=4, strategy="tokenring")
+    assert tb.pctx.ring.size == 4
+    jparams = jb.init(jax.random.PRNGKey(4))
+    batch = _batch(97, 2, 64, seed=5, layout="zigzag", sp_degree=4)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jloss, _), jgrads = jax.value_and_grad(jb.loss, has_aux=True)(jparams, jbatch)
+    tparams = from_jax_params(tb.cfg, jax.tree.map(np.asarray, jparams), device="cpu",
+                              training=True)
+    tbatch = ttrainer.batch_to_device(batch, "cpu")
+    tb.pctx.ring.reset_counts()
+    (loss, _), grads = value_and_grad(tb.loss, tparams, tbatch)
+    assert tb.pctx.ring.link_bytes["fwd"] > 0
+    np.testing.assert_allclose(float(loss), float(jloss), **MODEL_TOL)
+    for name, g, jg in _grad_pairs(grads, jgrads, tb.cfg.n_layers):
+        np.testing.assert_allclose(_np(g), jg, err_msg=name, **MODEL_TOL)
+    jp, _, jm = jmake(jb, lr=1e-3)(jparams, jadamw.adamw_init(jparams), jbatch)
+    tp, _, tm = tmake(tb, lr=1e-3)(tparams, tadamw.adamw_init(tparams), tbatch)
+    np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), **MODEL_TOL)
+    for name, a, b in _grad_pairs(tp, jp, tb.cfg.n_layers):
+        np.testing.assert_allclose(_np(a), b, err_msg=name, **MODEL_TOL)
 
 
 def test_remat_full_and_none_give_the_same_gradients():
@@ -450,10 +492,18 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     _, tb = _models(TINY)
     with pytest.raises(NotImplementedError, match="checkpoint/manager.py"):
         ttrainer.Trainer(tb, ttrainer.TrainerConfig(checkpoint_dir=str(tmp_path)))
-    _, tb_sp = _models(TINY, sp_degree=2)
+    # an SP strategy that is not ported yet names its item
+    _, tb_sp = _models(TINY, sp_degree=2, strategy="ulysses")
     params = tb_sp.init(0, training=True)
-    with pytest.raises(NotImplementedError, match="ring slice"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         tb_sp.loss(params, ttrainer.batch_to_device(_batch(97, 2, 32), "cpu"))
+    # and so does multi-card serving
+    from repro_torch.core.api import sp_decode
+
+    q = torch.zeros((1, 1, 2, 32))
+    kv = torch.zeros((1, 8, 2, 32))
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        sp_decode(q, kv, kv, None, None, pctx=tb_sp.pctx)
 
 
 # ---------------------------------------------------------------------------
@@ -513,6 +563,16 @@ def test_train_cli_runs_on_the_cpu(capsys):
     hist = main(["--reduced", "--device", "cpu", "--steps", "3", "--batch", "2", "--seq", "64"])
     assert len(hist) == 3 and all(np.isfinite(hist))
     assert "final step 3" in capsys.readouterr().out
+
+
+def test_train_cli_runs_over_the_ring_on_the_cpu(capsys):
+    from repro_torch.launch.train import main
+
+    hist = main(["--reduced", "--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "64",
+                 "--sp-degree", "4", "--strategy", "tokenring"])
+    assert len(hist) == 2 and all(np.isfinite(hist))
+    out = capsys.readouterr().out
+    assert "tokenring over 4 virtual ranks" in out and "final step 2" in out
 
 
 def test_train_cli_and_trainer_without_a_card_raise(monkeypatch):
