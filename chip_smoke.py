@@ -13,14 +13,16 @@ Phases, each fatal on failure:
      call's log names the instance that served it (decode: Sq <= 4; wgmma:
      bf16, D 64/128, Sq > 4; else the CUDA-core one);
   4. kernel C (fused paged decode) against its plain version on the card,
-     each case run twice and required bitwise equal;
+     each case run twice and required bitwise equal, and two calls on two
+     streams at once each bitwise equal to its single-stream result;
   5. the paged engine and the dense-slab engine at qwen3-1.7b widths (2
      layers, float32) on the kernels, every emitted token teacher-forced
      against the plain path;
   6. the serving path: qwen3-1.7b at full width and depth (28 layers, bf16,
      seeded random weights) served by the paged engine and the dense-slab
      engine, each with its own kernel launch counts, held against its
-     prefill ticks and decode steps; with ``--profile``, the paged and the
+     prefill ticks and decode steps, every step's logits finite; with
+     ``--profile``, the paged and the
      dense-slab runs once more under torch.profiler (device busy share and
      the kernels that take the most device time; adds minutes);
   7. kernels B1 and B2 (flash backward: dq; dk/dv) against their plain
@@ -56,7 +58,32 @@ Phases, each fatal on failure:
      ranks, as phase 9 otherwise, launch counts 448 of A, 224 of B1 and 224
      of B2 per step, then the same steps with overlap=False; with
      ``--profile``, one more step under torch.profiler;
- 12. a ``{"kernels": [...]}`` summary line, the card line, and last the
+ 12. sequence-parallel serving on the virtual ring: ``sp_decode``,
+     ``sp_decode_paged`` and ``sp_prefill`` at qwen3-1.7b attention widths
+     (16/8 heads, D 128), f32 and bf16, P = 2, 4 and 8, window None and 48,
+     on the kernels against the same ranks on the plain versions at phase
+     3's and 4's limits (ranks with no live key, a table whose pages all sit
+     on one stripe, one spanning every stripe, a row with no key exactly
+     (0, -inf) before finalize and 0 after), each kernel case run twice and
+     bitwise equal, all-reduce bytes equal to the cost models; the same
+     functions in bf16 at P = 4 at phase 13's own shapes (dense slab of 4
+     slots x 2048 keys, prefill chunks of 256 against it and against the
+     paged view of 8 slots, paged decode of 8 slots with 128-entry tables
+     into 1024 pages), bitwise repeated, with each kernel call they make
+     held against its plain version and timed beside it, SDPA and its
+     bound; then phase 5's engines at ``sp_degree=4``, teacher-forced
+     against the plain SP-1 path, with launches equal to the products of
+     ticks and steps;
+ 13. the SP serving path (this slice's main path): phase 6's two runs with
+     ``sp_degree=4`` (virtual ring) and nothing else changed, with launch
+     counts per prefill tick and decode step, the all-reduce bytes per step,
+     rank and direction against ``decode_comm_cost``, the pages each stripe
+     holds at the peak and the share of tokens equal to phase 6's; with
+     ``--profile``, both runs once more under torch.profiler; then every
+     SP-4 chain fed back through phase 6's SP-1 bundle (and through the SP-4
+     and the plain bundles as yardsticks), each SP-4 token within
+     ``WITNESS_GAP`` of the row spread below SP 1's max logit;
+ 14. a ``{"kernels": [...]}`` summary line, the card line, and last the
      ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -524,6 +551,7 @@ def phase_paged(torch, dev):
                   *run(data, lens, None), **tolerances(torch.bfloat16))
     q, kp, vp, pos, bt, qp = data
     scale = 1.0 / 128 ** 0.5
+    two_streams(torch, dev, pa, data, splits(data))
     kern = lambda: pa.paged_decode_fwd_cuda(q, kp, vp, pos, bt, qp, window=None,  # noqa: E731
                                             scale=scale)
     plain = lambda: pa.paged_decode_fwd_torch(q, kp, vp, pos, bt, qp, lengths=lens,  # noqa: E731
@@ -544,6 +572,36 @@ def phase_paged(torch, dev):
                 max_abs_err=err, shape=f"B=8 ps=16 Hq=16 Hkv=8 D=128 pages={pages_used} bf16")
 
 
+def two_streams(torch, dev, pa, data, n_splits, rounds=20):
+    """Two kernel C calls on two streams at once (different queries, the
+    same pool), ``rounds`` times: each result bitwise equal to its
+    single-stream result.  The decode core's merge counters are per
+    (device, stream), so launches on two streams never share them."""
+    q, kp, vp, pos, bt, qp = data
+    scale = 1.0 / q.shape[-1] ** 0.5
+    qs = (q, (-q).contiguous())
+    solo = [pa.paged_decode_fwd_cuda(x, kp, vp, pos, bt, qp, window=None, scale=scale)
+            for x in qs]
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    main = torch.cuda.current_stream(dev)
+    got = [[], []]
+    for st in streams:
+        st.wait_stream(main)
+    for _ in range(rounds):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[i].append(pa.paged_decode_fwd_cuda(qs[i], kp, vp, pos, bt, qp, window=None,
+                                                       scale=scale))
+    torch.cuda.synchronize(dev)
+    for i in range(2):
+        for out, lse in got[i]:
+            if not (torch.equal(out, solo[i][0]) and torch.equal(lse, solo[i][1])):
+                raise AssertionError(f"C on two streams: stream {i}'s result differs from its "
+                                     "single-stream result")
+    log(f"  ok C two streams at once ({n_splits} splits): {rounds} rounds x 2 calls bitwise "
+        "equal to their single-stream results")
+
+
 # ---------------------------------------------------------------------------
 # phases 5 and 6: the engine
 # ---------------------------------------------------------------------------
@@ -557,11 +615,13 @@ def make_prompts(n, lo, hi, vocab, seed=0):
     return [rng.integers(0, vocab, int(L)).astype(np.int32) for L in lengths]
 
 
-def phase_e2e_checked(torch, dev):
+def phase_e2e_checked(torch, dev, sp_degree=1, label="phase 5"):
     """qwen3-1.7b widths, 2 layers, float32: the paged engine (kernels A and
     C) and the dense-slab engine (kernel A, its decode instance for every
     decode step), each emitted token teacher-forced against the plain path
-    on the card."""
+    at SP 1 on the card.  With ``sp_degree > 1`` the engines serve over that
+    many virtual ranks (phase 12).  Launches of A and C must equal the
+    products of the prefill ticks and decode steps."""
     from repro_torch.configs import ARCHS
     from repro_torch.core.api import ParallelContext
     from repro_torch.kernels.flash_attention import flash_attention_fwd_cuda
@@ -570,7 +630,7 @@ def phase_e2e_checked(torch, dev):
     from repro_torch.serving.engine import ServingEngine
 
     cfg = ARCHS["qwen3-1.7b"].with_(n_layers=2, dtype="float32")
-    bundle = build_model(cfg, ParallelContext(device="cuda"))
+    bundle = build_model(cfg, ParallelContext(device="cuda", sp_degree=sp_degree))
     params = bundle.init(0)
     plain = build_model(cfg, ParallelContext(impl="torch", device="cuda"))
     max_len = 512
@@ -583,8 +643,10 @@ def phase_e2e_checked(torch, dev):
         eng.run()
         ran_a = flash_attention_fwd_cuda.launches - a0
         ran_c = paged_decode_fwd_cuda.launches - c0
-        if ran_a == 0 or (ran_c == 0) == (path == "paged"):
-            raise AssertionError(f"phase 5 {path}: launches A {ran_a}, C {ran_c}")
+        want = serving_launches(cfg.n_layers, eng.counters["prefill_steps"],
+                                eng.counters["decode_steps"], paged=path == "paged")
+        if (ran_a, ran_c) != (want["flash_attention_fwd"], want["paged_decode_fwd"]):
+            raise AssertionError(f"{label} {path}: launches A {ran_a}, C {ran_c}, expected {want}")
         worst = 0.0
         for r in reqs:
             if len(r.output) != 16:
@@ -604,16 +666,41 @@ def phase_e2e_checked(torch, dev):
                     raise AssertionError(f"{path} req {r.uid} step {t}: token {tok_out} is "
                                          f"{gap:.2e} below the plain path's max logit")
         del eng
-        log(f"  ok phase 5 {path}: {len(reqs)} requests x 16 tokens within 1e-3 of the plain "
-            f"path (worst gap {worst:.2e}); launches A {ran_a}, C {ran_c}")
+        log(f"  ok {label} {path} (SP {sp_degree}): {len(reqs)} requests x 16 tokens within "
+            f"1e-3 of the plain SP-1 path (worst gap {worst:.2e}); launches A {ran_a}, C {ran_c}")
 
 
-def serve_run(torch, dev, bundle, params, *, n_requests, paged, seed=0):
+def serving_launches(L, ticks, steps, *, paged):
+    """Launches of a serving run: every prefill tick runs A twice per layer
+    (resident + chunk-local partial, the latter once over every rank on the
+    virtual ring); a decode step runs C (paged) or A (dense) once per layer,
+    over every rank's rows in one launch; serving runs no backward."""
+    if paged:
+        want = {"flash_attention_fwd": 2 * L * ticks, "paged_decode_fwd": L * steps}
+    else:
+        want = {"flash_attention_fwd": 2 * L * ticks + L * steps, "paged_decode_fwd": 0}
+    return {**want, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+
+
+def serve_run(torch, dev, bundle, params, *, n_requests, paged, seed=0, outputs=None):
+    """Phase 6's request mix through a fresh engine; ``outputs`` (a list)
+    receives every request's tokens."""
     from repro_torch.serving.engine import ServingEngine
 
     kw = dict(page_size=16) if paged else {}
     eng = ServingEngine(bundle, params, max_batch=8 if paged else 4, max_len=2048,
                         prefill_chunk=256, token_budget=512, device=dev, **kw)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def checked(step):
+        # every step's logits must be finite: one device flag, read once
+        def run(*args):
+            logits, state = step(*args)
+            finite.logical_and_(torch.isfinite(logits).all())
+            return logits, state
+        return run
+
+    eng._step, eng._chunk_step = checked(eng._step), checked(eng._chunk_step)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new_tokens=32)
@@ -621,15 +708,20 @@ def serve_run(torch, dev, bundle, params, *, n_requests, paged, seed=0):
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if not bool(finite):
+        raise AssertionError("a serving step gave non-finite logits")
     for r in reqs:
         if r.status != "done" or len(r.output) != 32:
             raise AssertionError(f"request {r.uid}: {r.status}, {len(r.output)} tokens")
         if not all(0 <= t < bundle.cfg.vocab_size for t in r.output):
             raise AssertionError(f"request {r.uid}: token out of vocabulary")
+    if outputs is not None:
+        outputs.extend(r.output for r in reqs)
     s = eng.stats()
     s["wall_s"] = wall
     s["tok_s"] = s["tokens"] / wall
     s["prompt_tokens"] = int(sum(len(r.prompt) for r in reqs))
+    s["max_batch"] = eng.max_batch
     del eng
     return s
 
@@ -685,37 +777,74 @@ def profile_run(torch, dev, bundle, params, unprofiled_wall_s, paged=True):
             "port_kernels": port_kernel_rows(rows, busy_s)}
 
 
-def phase_full(torch, dev, with_profile):
+def phase_full(torch, dev, with_profile, sp_degree=1, reference=None):
+    """qwen3-1.7b at full width and depth (seeded weights) through the paged
+    and the dense-slab engine, with ``sp_degree`` virtual ranks (phase 13)
+    or one (phase 6).  Returns each run's launches and the tokens it
+    emitted; at SP > 1 the all-reduce bytes of each run must equal the cost
+    models' per step and rank, and the share of tokens equal to
+    ``reference`` (phase 6's) is logged."""
     from repro_torch.configs import ARCHS
     from repro_torch.core.api import ParallelContext
+    from repro_torch.core.decode import decode_comm_cost, prefill_comm_cost
     from repro_torch.kernels.paged_attention import paged_decode_fwd_cuda
     from repro_torch.models.registry import build_model
 
     cfg = ARCHS["qwen3-1.7b"]
-    bundle = build_model(cfg, ParallelContext(device="cuda"))
+    pctx = ParallelContext(device="cuda", sp_degree=sp_degree)
+    bundle = build_model(cfg, pctx)
     t0 = time.perf_counter()
     params = bundle.init(0)
     torch.cuda.synchronize()
-    log(f"  weights: {cfg.n_layers} layers, {cfg.dtype}, seeded init {time.perf_counter() - t0:.1f} s")
+    log(f"  weights: {cfg.n_layers} layers, {cfg.dtype}, seeded init "
+        f"{time.perf_counter() - t0:.1f} s; SP degree {sp_degree}"
+        + (" (virtual ring)" if sp_degree > 1 else ""))
     serve_run(torch, dev, bundle, params, n_requests=2, paged=True, seed=99)  # warmup
     torch.cuda.reset_peak_memory_stats()
-    runs, launches = {}, {}
+    suffix = f"_sp{sp_degree}" if sp_degree > 1 else ""
+    runs, launches, outputs = {}, {}, {}
     for path, n_requests, paged in (("paged", 16, True), ("dense", 4, False)):
+        name = path + suffix
+        outputs[path] = []
+        if sp_degree > 1:
+            pctx.ring.reset_counts()
         reset_launch_counts()
-        s = serve_run(torch, dev, bundle, params, n_requests=n_requests, paged=paged)
+        s = serve_run(torch, dev, bundle, params, n_requests=n_requests, paged=paged,
+                      outputs=outputs[path])
         got = {**launch_counts(), "paged_decode_fwd": paged_decode_fwd_cuda.launches}
-        # every prefill tick runs A twice per layer (resident + chunk-local
-        # partial); a decode step runs C (paged) or A (dense) once per layer;
-        # serving runs no backward
         L, ticks, steps = cfg.n_layers, s["prefill_steps"], s["decode_steps"]
-        want = ({"flash_attention_fwd": 2 * L * ticks, "paged_decode_fwd": L * steps} if paged
-                else {"flash_attention_fwd": 2 * L * ticks + L * steps, "paged_decode_fwd": 0})
-        want.update(flash_attention_bwd_dq=0, flash_attention_bwd_dkv=0)
+        want = serving_launches(L, ticks, steps, paged=paged)
         if got != want:
-            raise AssertionError(f"{path} path: launches {got}, expected {want} from "
+            raise AssertionError(f"{name} path: launches {got}, expected {want} from "
                                  f"{ticks} prefill ticks and {steps} decode steps")
-        runs[path], launches[path] = s, got
-    if min(launches["paged"]["flash_attention_fwd"], launches["paged"]["paged_decode_fwd"]) == 0:
+        s["launches_per_prefill_tick"] = 2 * L
+        s["launches_per_decode_step"] = L
+        if sp_degree > 1:
+            # every layer of a decode step all-reduces B rows, of a prefill
+            # tick B x chunk rows (the resident partial); tables priced apart
+            Bm, heads = s["max_batch"], (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+            dec = decode_comm_cost(Bm, 1, *heads, sp_degree).fwd_bytes * L
+            pre = prefill_comm_cost(Bm, 256, *heads, sp_degree).fwd_bytes * L
+            counted = dict(pctx.ring.link_bytes)
+            want_bytes = dec * steps + pre * ticks
+            if counted != {"fwd": want_bytes, "bwd": want_bytes}:
+                raise AssertionError(f"{name}: all-reduce bytes {counted}, cost models "
+                                     f"{want_bytes} a direction ({steps} steps x {dec} + "
+                                     f"{ticks} ticks x {pre})")
+            s["allreduce_bytes_per_decode_step"] = dec
+            s["allreduce_bytes_per_prefill_tick"] = pre
+            s["allreduce_bytes_run"] = counted
+        if reference is not None:
+            pairs = [(a, b) for x, y in zip(outputs[path], reference[path]) for a, b in zip(x, y)]
+            s["tokens_equal_to_sp1_share"] = sum(a == b for a, b in pairs) / len(pairs)
+            # a greedy chain that flips one near-tie differs from there on
+            first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
+                     for x, y in zip(outputs[path], reference[path])]
+            s["requests_equal_to_sp1"] = sum(f == 32 for f in first)
+            s["mean_first_difference"] = sum(first) / len(first)
+        runs[name], launches[name] = s, got
+    if min(launches["paged" + suffix]["flash_attention_fwd"],
+           launches["paged" + suffix]["paged_decode_fwd"]) == 0:
         raise AssertionError(f"a kernel was not launched on the paged path: {launches}")
     peak = torch.cuda.max_memory_allocated()
     for name, s in runs.items():
@@ -725,17 +854,460 @@ def phase_full(torch, dev, with_profile):
             f"{s['mean_latency_s'] * 1e3:.1f} ms, {s['prefill_steps']} prefill ticks, "
             f"{s['decode_steps']} decode steps, {s['preemptions']} preemptions, "
             f"launches {launches[name]}")
+        if sp_degree > 1:
+            log(f"    {name}: all-reduce {s['allreduce_bytes_per_decode_step']:.0f} B a decode "
+                f"step and {s['allreduce_bytes_per_prefill_tick']:.0f} B a prefill tick, per rank "
+                f"and direction (= decode_comm_cost / prefill_comm_cost x {cfg.n_layers} "
+                f"layers); run total {s['allreduce_bytes_run']['fwd']:.0f} B a direction")
+        if "pages" in s:
+            log(f"    {name}: pages at the high water {s['pages']['high_water']} of "
+                f"{s['pages']['pages_total']}"
+                + (f", by stripe {s['pages']['stripes_at_high_water']}"
+                   if "stripes_at_high_water" in s["pages"] else ""))
+        if "tokens_equal_to_sp1_share" in s:
+            log(f"    {name}: {100 * s['tokens_equal_to_sp1_share']:.1f}% of the tokens equal "
+                f"phase 6's, {s['requests_equal_to_sp1']} of {s['requests']} requests whole, "
+                f"first difference at token {s['mean_first_difference']:.1f} on average (not "
+                "gated: the merge's bf16 rounding in another order can flip a near-tie)")
     log(f"  peak memory {peak / 2**30:.2f} GiB")
-    prof = {path: profile_run(torch, dev, bundle, params, runs[path]["wall_s"],
+    prof = {path: profile_run(torch, dev, bundle, params, runs[path + suffix]["wall_s"],
                               paged=path == "paged")
             for path in ("paged", "dense")} if with_profile else {}
-    log("RESULT serving " + json.dumps({**{k: {kk: vv for kk, vv in v.items()
-                                                 if not isinstance(vv, dict)}
-                                             for k, v in runs.items()},
-                                         "peak_bytes": peak, "launches": launches,
-                                         "profile_paged": prof.get("paged"),
-                                         "profile_dense": prof.get("dense")}))
-    return launches
+    tag = "serving_sp" if sp_degree > 1 else "serving"
+    log(f"RESULT {tag} " + json.dumps({**{k: {kk: vv for kk, vv in v.items()
+                                             if not isinstance(vv, dict)}
+                                         for k, v in runs.items()},
+                                      "peak_bytes": peak, "launches": launches,
+                                      "profile_paged": prof.get("paged"),
+                                      "profile_dense": prof.get("dense")}))
+    return launches, outputs
+
+
+# The SP-4 chains of phase 13 differ from phase 6's after a near-tie flips.
+# To tell that from a fault of the SP path, every chain is fed back one
+# token a step through phase 6's bundle (SP 1, the kernels): each SP-4 token
+# must lie within WITNESS_GAP of that bundle's row spread (max minus mean
+# logit) below its max logit.  Over a vocabulary of 151936 the max stands
+# about 4.5 standard deviations above the mean and the two largest logits
+# about 0.2 deviations apart, so a token drawn off a wrong attention lies a
+# few deviations down, while rounding moves each logit by a small share of
+# one.
+WITNESS_GAP = 0.1
+
+
+def teacher_forced_witness(torch, dev, outputs, max_len=2048, chunk=256):
+    """Feed each SP-4 chain (``outputs``: phase 13's tokens by path, its
+    prompts regenerated from serve_run's seed) through three bundles on the
+    same seeded weights, the prompt in ``chunk``-token chunks, then one
+    token a step: SP 1 on the
+    kernels (the reference), SP 4 on the kernels (virtual ring) and SP 1 on
+    the plain versions.  Gates each SP-4 token's gap below the reference's
+    max logit at ``WITNESS_GAP`` of the row's spread; logs how far the SP-4
+    and the plain logits lie from the reference's, as the yardstick of
+    rounding."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.models.registry import build_model
+
+    cfg = ARCHS["qwen3-1.7b"]
+    bundles = {name: build_model(cfg, ParallelContext(device="cuda", **kw)) for name, kw in (
+        ("sp1", {}), ("sp4", dict(sp_degree=4)), ("plain", dict(impl="torch")))}
+    params = bundles["sp1"].init(0)
+    res = {}
+    for path, n_requests in (("paged", 16), ("dense", 4)):
+        prompts = make_prompts(n_requests, 128, 1024, cfg.vocab_size)
+        gaps, ratios, spreads, margins, d_sp4, d_plain, flips = ([] for _ in range(7))
+        for prompt, chain in zip(prompts, outputs[path]):
+            head = prompt[:-1]
+            feed = [int(prompt[-1])] + chain[:-1]
+            rows = {}
+            for name, b in bundles.items():
+                state = b.init_serve_state(1, max_len, dev)
+                for i in range(0, len(head), chunk):  # the engine's chunks, the last padded
+                    part = torch.zeros((1, chunk), dtype=torch.int32, device=dev)
+                    n = min(chunk, len(head) - i)
+                    part[0, :n] = torch.from_numpy(head[i:i + n].copy()).to(dev)
+                    b.prefill_chunk(params, part, state,
+                                    torch.tensor([n], device=dev, dtype=torch.int32))
+                out = []
+                for tok in feed:
+                    logits, state = b.decode_step(params, torch.tensor([tok], device=dev), state)
+                    out.append(logits[0].float())
+                rows[name] = torch.stack(out)
+            ref = rows["sp1"]
+            top2 = ref.topk(2, dim=-1).values
+            tok = torch.tensor(chain, device=dev)[:, None]
+            gap = top2[:, 0] - ref.gather(1, tok)[:, 0]
+            spread = top2[:, 0] - ref.mean(dim=-1)
+            gaps.append(gap)
+            ratios.append(gap / spread)
+            spreads.append(spread)
+            margins.append(top2[:, 0] - top2[:, 1])
+            d_sp4.append((rows["sp4"] - ref).abs().amax(dim=-1))
+            d_plain.append((rows["plain"] - ref).abs().amax(dim=-1))
+            flips.append(gap > 0)
+        gap, ratio, spread, margin, dsp4, dplain, flip = (torch.cat(x) for x in (
+            gaps, ratios, spreads, margins, d_sp4, d_plain, flips))
+        r = dict(tokens=int(gap.numel()), flips=int(flip.sum()), max_gap=float(gap.max()),
+                 max_gap_over_spread=float(ratio.max()),
+                 gaps_at_flips=[round(float(x), 5) for x in gap[flip].tolist()],
+                 median_top2_margin=float(margin.median()),
+                 median_spread=float(spread.median()),
+                 sp4_vs_sp1_max_logit_diff=float(dsp4.max()),
+                 sp4_vs_sp1_median_logit_diff=float(dsp4.median()),
+                 plain_vs_sp1_max_logit_diff=float(dplain.max()),
+                 plain_vs_sp1_median_logit_diff=float(dplain.median()))
+        res[path] = r
+        log(f"  witness {path}_sp4: {r['tokens']} tokens fed back through SP 1: {r['flips']} "
+            f"are not SP 1's argmax, gaps below its max {r['gaps_at_flips']} (largest "
+            f"{r['max_gap_over_spread']:.4f} of the row spread, median spread "
+            f"{r['median_spread']:.3f}, median top-2 margin {r['median_top2_margin']:.4f}); "
+            f"|SP-4 - SP-1 logits| max {r['sp4_vs_sp1_max_logit_diff']:.4f} median "
+            f"{r['sp4_vs_sp1_median_logit_diff']:.4f}, |plain - SP-1| max "
+            f"{r['plain_vs_sp1_max_logit_diff']:.4f} median "
+            f"{r['plain_vs_sp1_median_logit_diff']:.4f}")
+        if r["max_gap_over_spread"] > WITNESS_GAP:
+            raise AssertionError(f"witness {path}: an SP-4 token lies "
+                                 f"{r['max_gap_over_spread']:.4f} of the row spread below SP 1's "
+                                 f"max logit (limit {WITNESS_GAP})")
+    del bundles, params
+    log("RESULT serving_sp_witness " + json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 12: sequence-parallel serving on the kernels
+# ---------------------------------------------------------------------------
+
+SP_HEADS = (16, 8, 128)  # qwen3-1.7b attention: Hq, Hkv, D
+
+
+def sp_dense_data(torch, dev, P, dtype, Smax=1024, C=64):
+    """Dense cache of 4 rows at lengths 1000 (every rank holds keys), 300
+    (ranks past the first hold none), 37 (rank 0 alone) and 0 (no key
+    at all: its decode query at position 0 sees nothing); a C-token chunk
+    after each row's length."""
+    import numpy as np
+
+    Hq, Hkv, D = SP_HEADS
+    rng = np.random.default_rng(zlib.crc32(repr(("sp_dense", P)).encode()))
+    lengths = np.asarray([1000, 300, 37, 0])
+    B = len(lengths)
+    k_pos = np.full((B, Smax), PAD_POS, np.int32)
+    for b, L in enumerate(lengths):
+        k_pos[b, :L] = np.arange(L)
+    c_pos = (lengths[:, None] + np.arange(C)).astype(np.int32)
+    arrays = dict(
+        q=rng.standard_normal((B, 1, Hq, D)), k=rng.standard_normal((B, Smax, Hkv, D)),
+        v=rng.standard_normal((B, Smax, Hkv, D)), k_pos=k_pos,
+        q_pos=np.maximum(lengths - 1, 0)[:, None].astype(np.int32),
+        cq=rng.standard_normal((B, C, Hq, D)), ck=rng.standard_normal((B, C, Hkv, D)),
+        cv=rng.standard_normal((B, C, Hkv, D)), c_pos=c_pos)
+    return {n: torch.from_numpy(np.ascontiguousarray(x)).to(dev).to(
+        dtype if x.dtype.kind == "f" else torch.int32) for n, x in arrays.items()}
+
+
+def sp_paged_data(torch, dev, P, dtype, ps=16, n_pages=128, W=64):
+    """Page pool of ``n_pages`` pages striped over P ranks: row 0's table
+    spans every stripe (one page from each in turn, reversed), row 1's
+    pages all sit on the last stripe, row 2 holds two pages of rank 0, row 3
+    none (all sentinel)."""
+    import numpy as np
+
+    Hq, Hkv, D = SP_HEADS
+    rng = np.random.default_rng(zlib.crc32(repr(("sp_paged", P)).encode()))
+    n_local = n_pages // P
+    rows = [[(i % P) * n_local + i // P for i in range(W)][::-1],
+            [n_pages - n_local + i for i in range(min(20, n_local))],
+            [0, 1], []]
+    lengths = np.asarray([W * ps - 5, len(rows[1]) * ps - 3, 20, 0])
+    pos = np.full((n_pages, ps), PAD_POS, np.int32)
+    bt = np.full((len(rows), W), n_pages, np.int32)
+    for b, pages in enumerate(rows):
+        bt[b, :len(pages)] = pages
+        for i, pg in enumerate(pages):
+            for off in range(ps):
+                if i * ps + off < lengths[b]:
+                    pos[pg, off] = i * ps + off
+    arrays = dict(q=rng.standard_normal((len(rows), 1, Hq, D)),
+                  k_pool=rng.standard_normal((n_pages, ps, Hkv, D)),
+                  v_pool=rng.standard_normal((n_pages, ps, Hkv, D)), pos_pool=pos,
+                  block_tables=bt, q_pos=np.maximum(lengths - 1, 0)[:, None].astype(np.int32),
+                  lengths=lengths.astype(np.int32))
+    return {n: torch.from_numpy(np.ascontiguousarray(x)).to(dev).to(
+        dtype if x.dtype.kind == "f" else torch.int32) for n, x in arrays.items()}
+
+
+def phase_sp_attention(torch, dev, ps=(2, 4, 8)):
+    """``sp_decode``, ``sp_decode_paged`` and ``sp_prefill`` over P virtual
+    ranks at qwen3-1.7b attention widths, f32 and bf16: on the kernels
+    against the same ranks on the plain versions under phase 3's and 4's
+    limits (each merged ``(out, lse)``; the row with no key exactly ``(0,
+    -inf)`` before finalize, exactly 0 after), every kernel case run twice
+    and bitwise equal, one launch of A (decode), C (paged) or two of A
+    (prefill) a call, and the all-reduce bytes per rank and direction equal
+    to ``decode_comm_cost`` / ``prefill_comm_cost``."""
+    from repro_torch.core import decode as dec
+    from repro_torch.core.api import ParallelContext, sp_decode, sp_decode_paged, sp_prefill
+    from repro_torch.core.collectives import fold_ranks
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    Hq, Hkv, D = SP_HEADS
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = tolerances(dtype)
+        tag = str(dtype)[6:]
+        for P in ps:
+            d = sp_dense_data(torch, dev, P, dtype)
+            p = sp_paged_data(torch, dev, P, dtype)
+            folded = {n: fold_ranks(d[n], P) for n in ("k", "v", "k_pos")}
+            ring = ParallelContext(device="cuda", sp_degree=P).ring
+            B = d["q"].shape[0]
+
+            def calls(impl, window):
+                kw = dict(ring=ring, window=window, impl=impl, return_lse=True)
+                return {
+                    "decode": lambda: dec.sp_decode_attention(
+                        d["q"], folded["k"], folded["v"], folded["k_pos"], q_pos=d["q_pos"],
+                        **kw),
+                    "prefill": lambda: dec.sp_prefill_chunk_attention(
+                        d["cq"], d["ck"], d["cv"], d["c_pos"], folded["k"], folded["v"],
+                        folded["k_pos"], q_pos=d["c_pos"], **kw),
+                    "paged": lambda: dec.sp_paged_decode_attention(
+                        p["q"], p["k_pool"], p["v_pool"], p["pos_pool"], p["block_tables"],
+                        p["q_pos"], lengths=p["lengths"], **kw),
+                }
+
+            per_call = {"decode": (1, 0), "prefill": (2, 0), "paged": (0, 1)}
+            for window in (None, 48):
+                kern, plain = calls("cuda", window), calls("torch", window)
+                for name in kern:
+                    a0, c0 = fa.flash_attention_fwd_cuda.launches, pa.paged_decode_fwd_cuda.launches
+                    got, again = kern[name](), kern[name]()
+                    ran = (fa.flash_attention_fwd_cuda.launches - a0,
+                           pa.paged_decode_fwd_cuda.launches - c0)
+                    if ran != tuple(2 * n for n in per_call[name]):
+                        raise AssertionError(f"phase 12 {name} P={P}: launches {ran} for two "
+                                             f"calls, expected {per_call[name]} a call")
+                    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                        raise AssertionError(f"phase 12 {name} P={P}: two runs differ")
+                    label = f"SP {name} {tag} P={P} window={window} bitwise repeatable"
+                    compare(label, got, plain[name](), quiet=True, **tol)
+                    # row 3 holds no key: decode sees nothing; a prefill
+                    # chunk there is a fresh slot's first (every rank's
+                    # resident partial empty, the chunk's own keys live)
+                    empty = 3
+                    if name != "prefill" and not (torch.isneginf(got[1][empty]).all()
+                            and torch.equal(got[0][empty], torch.zeros_like(got[0][empty]))):
+                        raise AssertionError(f"{label}: the keyless row is not (0, -inf)")
+                    n_cases += 1
+            # the public entry points: bytes, and the keyless row exactly 0
+            pctx = ParallelContext(device="cuda", sp_degree=P)
+            ring2 = pctx.ring
+            cost_dec = dec.decode_comm_cost(B, 1, Hq, Hkv, D, P)
+            cost_pre = dec.prefill_comm_cost(B, d["cq"].shape[1], Hq, Hkv, D, P)
+            for name, fn, cost in (
+                    ("decode", lambda: sp_decode(d["q"], folded["k"], folded["v"],
+                                                 folded["k_pos"], d["q_pos"], pctx=pctx),
+                     cost_dec),
+                    ("paged", lambda: sp_decode_paged(
+                        p["q"], p["k_pool"], p["v_pool"], p["pos_pool"], p["block_tables"],
+                        p["q_pos"], p["lengths"], pctx=pctx), cost_dec),
+                    ("prefill", lambda: sp_prefill(d["cq"], d["ck"], d["cv"], d["c_pos"],
+                                                   folded["k"], folded["v"], folded["k_pos"],
+                                                   d["c_pos"], pctx=pctx), cost_pre)):
+                ring2.reset_counts()
+                out = fn()
+                if ring2.link_bytes != {"fwd": cost.fwd_bytes, "bwd": cost.bwd_bytes}:
+                    raise AssertionError(f"phase 12 {name} {tag} P={P}: bytes "
+                                         f"{ring2.link_bytes}, cost model {cost}")
+                if name != "prefill" and not torch.equal(out[3], torch.zeros_like(out[3])):
+                    raise AssertionError(f"phase 12 {name} {tag} P={P}: keyless row not 0")
+            log(f"  ok SP {tag} P={P}: decode, prefill and paged decode (window None and 48) on "
+                f"the kernels within phase 3/4 limits of the plain ranks, bitwise repeatable, "
+                f"keyless row (0, -inf); all-reduce bytes a rank and direction "
+                f"{cost_dec.fwd_bytes:.0f} (decode, paged) and {cost_pre.fwd_bytes:.0f} "
+                f"(prefill) = the cost models")
+    log(f"  phase 12: {n_cases} kernel cases passed")
+
+
+def sp_main_data(torch, dev, P=4, Smax=2048, ps=16, n_pages=1024, C=256):
+    """Phase 13's attention inputs at P = 4 in bf16, laid out as its engines
+    lay them out.  Decode lengths are drawn from ``Smax/16 + 1`` to
+    ``Smax/2 + 32`` (129-1056: prompts of 128-1024 tokens plus up to 32 new
+    ones); a prefill chunk's resident
+    length is the multiple of the chunk size C below, row 0's 0 (a fresh
+    slot: no resident key on any rank).  Dense slab: 4 slots of ``Smax``
+    keys, rank-major (16 rows of 512 keys).  Paged: 8 slots with block
+    tables of ``Smax / ps`` entries into a pool of ``n_pages`` pages; row
+    1 holds the lowest page ids (all on stripe 0, as the allocator hands
+    them out first), the other rows pages drawn from every stripe; the
+    chunk's resident view is gathered rank-major (32 rows of ``Smax``
+    keys, each rank's own pages live) as ``lm_prefill_chunk_paged`` does."""
+    import numpy as np
+
+    from repro_torch.core.collectives import fold_ranks
+    from repro_torch.serving.kv_cache import (
+        gather_pages,
+        gather_positions,
+        stripe_view,
+        view_indices,
+    )
+
+    Hq, Hkv, D = SP_HEADS
+    W = Smax // ps
+    rng = np.random.default_rng(zlib.crc32(b"sp_main"))
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def ints(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+
+    def lengths(B):
+        dec = rng.integers(Smax // 16 + 1, Smax // 2 + 33, B)
+        pre = (dec - 1) // C * C
+        pre[0] = 0
+        return dec, pre
+
+    dec, pre = lengths(4)
+    ar = np.arange(Smax)[None]
+    dense = dict(q=rnd(4, 1, Hq, D), q_pos=ints(dec[:, None] - 1),
+                 k=fold_ranks(rnd(4, Smax, Hkv, D), P), v=fold_ranks(rnd(4, Smax, Hkv, D), P),
+                 k_pos=fold_ranks(ints(np.where(ar < dec[:, None], ar, PAD_POS)), P),
+                 pre_pos=fold_ranks(ints(np.where(ar < pre[:, None], ar, PAD_POS)), P),
+                 cq=rnd(4, C, Hq, D), ck=rnd(4, C, Hkv, D), cv=rnd(4, C, Hkv, D),
+                 c_pos=ints(pre[:, None] + np.arange(C)))
+    dec, pre = lengths(8)
+    used = -(-dec // ps)
+    free = iter(rng.permutation(np.arange(used[1], n_pages)).tolist())
+    bt = np.full((8, W), n_pages, np.int32)
+    pos = np.full((n_pages, ps), PAD_POS, np.int32)
+    for b in range(8):
+        pages = list(range(used[1])) if b == 1 else [next(free) for _ in range(used[b])]
+        bt[b, :used[b]] = pages
+        for i, pg in enumerate(pages):
+            pos[pg] = np.where(i * ps + np.arange(ps) < dec[b], i * ps + np.arange(ps), PAD_POS)
+    k_pool, v_pool, pos_pool, tables = (rnd(n_pages, ps, Hkv, D), rnd(n_pages, ps, Hkv, D),
+                                        ints(pos), ints(bt))
+    view = stripe_view(view_indices(tables, ps, lengths=ints(pre)), n_pages, ps, P, None)
+    paged = dict(q=rnd(8, 1, Hq, D), q_pos=ints(dec[:, None] - 1), k_pool=k_pool,
+                 v_pool=v_pool, pos_pool=pos_pool, block_tables=tables, lengths=ints(dec),
+                 k_view=gather_pages(k_pool, view), v_view=gather_pages(v_pool, view),
+                 view_pos=gather_positions(pos_pool, view), cq=rnd(8, C, Hq, D),
+                 ck=rnd(8, C, Hkv, D), cv=rnd(8, C, Hkv, D),
+                 c_pos=ints(pre[:, None] + np.arange(C)))
+    return dense, paged
+
+
+def phase_sp_main_shapes(torch, dev, P=4, **sizes):
+    """The SP serving functions at the shapes phase 13 gives kernels A and C
+    (:func:`sp_main_data`), bf16, on the kernels against the same ranks on
+    the plain versions under phase 3's and 4's limits, every call run twice
+    and bitwise equal, with its launches checked.  Then each kernel call
+    these functions make, on the inputs they give it: the wrapper against
+    its plain version (the same limits) and timed beside the plain version,
+    the PyTorch library call (A: ``scaled_dot_product_attention`` with the
+    same mask, GQA heads repeated; C: none) and the bound of this data's
+    work (``sizes`` shrink :func:`sp_main_data` for a rehearsal off the
+    card).  Returns the timing rows by call."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import decode as dec
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ops import pick_block
+    from repro_torch.kernels.ref import visibility_mask
+
+    d, p = sp_main_data(torch, dev, P, **sizes)
+    ring = ParallelContext(device="cuda", sp_degree=P).ring
+    tol = tolerances(torch.bfloat16)
+    calls = {
+        "dense decode": ((1, 0), lambda impl: dec.sp_decode_attention(
+            d["q"], d["k"], d["v"], d["k_pos"], q_pos=d["q_pos"], ring=ring, impl=impl,
+            return_lse=True)),
+        "dense prefill": ((2, 0), lambda impl: dec.sp_prefill_chunk_attention(
+            d["cq"], d["ck"], d["cv"], d["c_pos"], d["k"], d["v"], d["pre_pos"],
+            q_pos=d["c_pos"], ring=ring, impl=impl, return_lse=True)),
+        "paged prefill": ((2, 0), lambda impl: dec.sp_prefill_chunk_attention(
+            p["cq"], p["ck"], p["cv"], p["c_pos"], p["k_view"], p["v_view"], p["view_pos"],
+            q_pos=p["c_pos"], ring=ring, impl=impl, return_lse=True)),
+        "paged decode": ((0, 1), lambda impl: dec.sp_paged_decode_attention(
+            p["q"], p["k_pool"], p["v_pool"], p["pos_pool"], p["block_tables"], p["q_pos"],
+            ring=ring, lengths=p["lengths"], impl=impl, return_lse=True)),
+    }
+    for name, (per_call, fn) in calls.items():
+        a0, c0 = fa.flash_attention_fwd_cuda.launches, pa.paged_decode_fwd_cuda.launches
+        got, again = fn("cuda"), fn("cuda")
+        ran = (fa.flash_attention_fwd_cuda.launches - a0, pa.paged_decode_fwd_cuda.launches - c0)
+        if ran != tuple(2 * n for n in per_call):
+            raise AssertionError(f"phase 12 {name} at phase 13's shapes: launches {ran} for two "
+                                 f"calls, expected {per_call} a call")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"phase 12 {name} at phase 13's shapes: two runs differ")
+        compare(f"SP bf16 P={P} {name} at phase 13's shapes, bitwise repeatable", got,
+                fn("torch"), **tol)
+
+    scale = 1.0 / SP_HEADS[2] ** 0.5
+    rep = ring.replicate
+    a_calls = {  # the kernel-A calls of phase 13, each on its own inputs
+        "paged_prefill_resident": (rep(p["cq"]), p["k_view"], p["v_view"], rep(p["c_pos"]),
+                                   p["view_pos"]),
+        "paged_prefill_chunk_local": (p["cq"], p["ck"], p["cv"], p["c_pos"], p["c_pos"]),
+        "dense_prefill_resident": (rep(d["cq"]), d["k"], d["v"], rep(d["c_pos"]),
+                                   d["pre_pos"]),
+        "dense_decode": (rep(d["q"]), d["k"], d["v"], rep(d["q_pos"]), d["k_pos"]),
+    }
+    rows = {}
+    for name, (q, k, v, qp, kp) in a_calls.items():
+        Hq, Hkv = q.shape[2], k.shape[2]
+        kern = lambda: fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True,  # noqa: E731
+                                                   window=None, scale=scale)
+        plain = lambda: fa.flash_attention_fwd_torch(  # noqa: E731
+            q, k, v, qp, kp, causal=True, window=None, scale=scale,
+            block_k=pick_block(k.shape[1], 512))
+        inst = fa.flash_fwd_instance(q.dtype, q.shape[1], q.shape[-1])
+        err = compare(f"A bf16 [{inst}] phase 13's {name} call", kern(), plain(), **tol)
+        mask = visibility_mask(qp, kp, causal=True, window=None)[:, None]
+        qt = q.transpose(1, 2)
+        kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2) for x in (k, v))
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
+        ms, plain_ms, lib_ms = device_ms(kern), device_ms(plain, iters=3), device_ms(lib)
+        bms, by = bound(*flash_bytes_flops(q, k, qp, kp, True, None), "bfloat16")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                          bound_by=by, max_abs_err=err, instance=inst,
+                          timing="device time (torch.profiler)",
+                          shape=f"B={q.shape[0]} Sq={q.shape[1]} Sk={k.shape[1]} Hq={Hq} "
+                                f"Hkv={Hkv} D={q.shape[3]} bf16 (P={P} folded)")
+        del mask, qt, kt, vt
+    # kernel C: every rank's rows of the table keep only its stripe
+    bt = dec.folded_stripe_tables(p["block_tables"], P, p["k_pool"].shape[0])
+    q, qp, lens = rep(p["q"]), rep(p["q_pos"]), rep(p["lengths"])
+    kern = lambda: pa.paged_decode_fwd_cuda(q, p["k_pool"], p["v_pool"],  # noqa: E731
+                                            p["pos_pool"], bt, qp, window=None, scale=scale)
+    plain = lambda: pa.paged_decode_fwd_torch(  # noqa: E731
+        q, p["k_pool"], p["v_pool"], p["pos_pool"], bt, qp, lengths=lens, window=None,
+        scale=scale, block_k=512)
+    err = compare(f"C bf16 phase 13's paged decode call (P={P} folded)", kern(), plain(), **tol)
+    ms, plain_ms = device_ms(kern), device_ms(plain, iters=5)
+    n_pages, ps, Hkv, D = p["k_pool"].shape
+    live = int((bt < n_pages).sum())
+    nbytes = (live * ps * Hkv * D * 2 * 2 + live * ps * 4 + bt.numel() * 4 + 2 * q.numel() * 2
+              + q.shape[0] * q.shape[2] * 4)
+    bms, by = bound(nbytes, 4.0 * D * q.shape[2] * int(p["lengths"].sum()), "bfloat16")
+    rows["paged_decode"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by, max_abs_err=err,
+        timing="device time (torch.profiler)",
+        shape=f"B={q.shape[0]} ps={ps} Hq={q.shape[2]} Hkv={Hkv} D={D} W={bt.shape[1]} "
+              f"pool={n_pages} live entries={live} bf16 (P={P} folded)")
+    for name, r in rows.items():
+        log(f"  phase 13's {name} call: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            + (f"sdpa {r['library_ms']:.4f} ms, " if r["library_ms"] is not None else "")
+            + f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) at {r['shape']}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1742,7 +2314,7 @@ def main() -> int:
         "path")
     phase_e2e_checked(torch, dev)
     log("== phase 6: qwen3-1.7b full width and depth, serving")
-    launches = phase_full(torch, dev, profile)
+    launches, sp1_outputs = phase_full(torch, dev, profile)
     free_device_memory(torch)
     log("== phase 7: kernels B1 and B2 (flash backward) vs plain")
     bwd_rows = phase_bwd(torch, dev)
@@ -1765,11 +2337,30 @@ def main() -> int:
     log("== phase 11: qwen3-1.7b full width and depth, training through TokenRing over 4 "
         "virtual ranks (main path)")
     launches["train_ring"] = phase_train_ring(torch, dev, profile)
+    free_device_memory(torch)
+    log("== phase 12: sequence-parallel serving on the kernels vs the plain path, virtual ring "
+        "of P ranks on one card")
+    phase_sp_attention(torch, dev)
+    free_device_memory(torch)
+    sp_rows = phase_sp_main_shapes(torch, dev)
+    free_device_memory(torch)
+    phase_e2e_checked(torch, dev, sp_degree=4, label="phase 12")
+    free_device_memory(torch)
+    log("== phase 13: qwen3-1.7b full width and depth, served over 4 virtual ranks (main path)")
+    sp_launches, sp_outputs = phase_full(torch, dev, profile, sp_degree=4,
+                                         reference=sp1_outputs)
+    launches.update(sp_launches)
+    free_device_memory(torch)
+    teacher_forced_witness(torch, dev, sp_outputs)
 
-    # `launches` is the count of the main path that runs the kernel (A, B1
-    # and B2: training through TokenRing, phase 11; C: paged serving);
-    # `launches_by_path` gives every driven path's count, each read from
-    # counters set to 0 just before that run.
+    log("== phase 14: summary")
+    # `launches` is the count of the main path that runs the kernel (A and
+    # C: paged serving over 4 virtual ranks, phase 13; B1 and B2: training
+    # through TokenRing, phase 11); `launches_by_path` gives every driven
+    # path's count, each read from counters set to 0 just before that run.
+    # A's and C's times, errors and bounds are those of phase 13's calls
+    # (phase 12): A's resident call of a paged prefill chunk, its other
+    # calls under `sp4_calls`.
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in launches.items()}
 
@@ -1778,12 +2369,15 @@ def main() -> int:
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_fwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:244",
-         "launches": launches["train_ring"]["flash_attention_fwd"],
+         "launches": launches["paged_sp4"]["flash_attention_fwd"],
          "launches_by_path": by_path("flash_attention_fwd"),
          "device_kernels": {"wgmma": ["rt::wg::flash_fwd_wgmma_kernel<D>"],
                             "decode": ["rt::dec::decode_kernel<T, D, WR, RW, false>"],
                             "cuda_core": ["rt::flash_fwd_kernel<T, D>"]},
-         **bwd_rows["fwd"],
+         **sp_rows["paged_prefill_resident"],
+         "sp4_calls": {k: v for k, v in sp_rows.items()
+                       if k not in ("paged_prefill_resident", "paged_decode")},
+         "training_shape": bwd_rows["fwd"],
          "serving_prefill_shape": flash_rows[256], "decode_shape": flash_rows[1],
          "ring_overlap_trace": ring_trace},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
@@ -1799,10 +2393,10 @@ def main() -> int:
         {"name": "paged_decode_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/paged_attention.py:192",
-         "launches": launches["paged"]["paged_decode_fwd"],
+         "launches": launches["paged_sp4"]["paged_decode_fwd"],
          "launches_by_path": by_path("paged_decode_fwd"),
          "device_kernels": ["rt::dec::decode_kernel<T, D, WR, RW, true>"],
-         **paged_row},
+         **sp_rows["paged_decode"], "sp1_serving_shape": paged_row},
     ]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -21,9 +21,22 @@ runs the strategy's step schedule on the context's ring transport
 Built-in (ported) strategies: ``"tokenring"`` (the paper's method,
 split-Q bidirectional), ``"tokenring_faithful"`` (Algorithm 1),
 ``"ring"`` / ``"ring_bidir"`` (baselines) and ``"auto"``.  The reference's
-other strategies, its topology-aware and multi-pod (hybrid, hierarchical)
-plans, and the multi-card serving paths raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+other strategies and its topology-aware and multi-pod (hybrid,
+hierarchical) plans raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.
+
+Serving (:func:`sp_decode`, :func:`sp_decode_paged`, :func:`sp_prefill`)
+keeps the KV cache sequence-sharded and replicates the small query side:
+:meth:`ParallelContext.plan_decode` / :meth:`~ParallelContext.plan_prefill`
+bind the registered ``"decode"`` / ``"prefill"`` schedules of
+``core/decode.py``, whose partials merge in an lse-weighted all-reduce.
+The cache comes in the ring's layout: rank-major ``(P*B, Skv/P, ...)`` on
+the virtual ring (rank ``r``'s contiguous shard in rows ``[r*B, (r+1)*B)``,
+as the serve state keeps it and ``core.collectives.fold_ranks`` makes it
+from a global tensor), this rank's shard on a process group; the paged pool
+is whole on the virtual ring and the rank's stripe of pages on a process
+group.  The query side and the result are replicated.  The plans are built
+once per shape and window and kept on the context.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 from repro_torch.core.strategies import (
+    UNPORTED,
     CommCost,
     SPStrategy,
     attention_compute_flops,
@@ -46,9 +60,10 @@ from repro_torch.kernels.ref import normalize_positions
 __all__ = ["ParallelContext", "ExecutionPlan", "AttnShapes", "sp_attention", "sp_decode",
            "sp_decode_paged", "sp_prefill"]
 
-_SERVING_SLICE = ("multi-card serving (sp_decode, sp_decode_paged and sp_prefill with "
-                  "sp_degree > 1) is not ported yet: it comes with the SP branches of "
-                  "core/decode.py (ROADMAP queue 1 item 5)")
+PREFILL_CANDIDATES = ("prefill", "passkv_ring", "passq_ring")
+_PREFILL_RINGS = ("the prefill rings (passkv_ring, passq_ring) and plan_prefill's 'auto' "
+                  "arbitration over them are not ported yet: they come with "
+                  "core/prefill_rings.py (ROADMAP queue 1 item 8)")
 _MULTI_AXIS = ("topology-aware, hierarchical and multi-pod hybrid plans are not ported yet: "
                "they come with core/topology.py, core/hier2d.py and core/hybrid.py "
                "(ROADMAP queue 1 item 8)")
@@ -73,12 +88,15 @@ class AttnShapes:
 
 @dataclass(frozen=True)
 class ExecutionPlan:
-    """A validated, resolved SP attention: what ``sp_attention`` runs.
+    """A validated, resolved SP attention (``kind="attention"``, what
+    ``sp_attention`` runs) or serving step (``"decode"``, ``"prefill"``).
 
     ``local_fn`` is the per-rank callable (strategy schedule and ring
     bound); ``cost`` the strategy's modeled per-device link bytes for one
-    forward pass of the layer, ``compute_flops`` its per-device attention
-    dot FLOPs (the two halves of the ``max(compute, link)`` step model).
+    forward pass of the layer (one step of a serving plan),
+    ``compute_flops`` its per-device attention dot FLOPs (the two halves of
+    the ``max(compute, link)`` step model).  ``kernel`` records a serving
+    plan's kernel path.
     """
 
     strategy: str
@@ -90,6 +108,8 @@ class ExecutionPlan:
     # Whether the schedule's transfers overlap compute (the
     # SPStrategy.pipelines capability).
     pipelines: bool = True
+    kind: str = "attention"
+    kernel: dict | None = None
 
     def modeled_times(self, *, link_bw: float, peak_flops: float,
                       bidir_links: bool = True) -> dict | None:
@@ -111,16 +131,18 @@ class ExecutionPlan:
             "overlap_fraction": (seq - pipe) / seq if seq > 0 else 0.0,
         }
 
-    def __call__(self, q, k, v, q_pos, k_pos):
-        """Global tensors on a virtual ring, this rank's shard on a process
-        group; the result in the same form."""
-        if not self.ring.folded:
-            return self.local_fn(q, k, v, q_pos, k_pos)
+    def __call__(self, *args):
+        """An attention plan takes global tensors on a virtual ring and this
+        rank's shard on a process group, and returns the result in the same
+        form.  A serving plan takes its cache in the ring's layout
+        (rank-major on the virtual ring) and a replicated query side, and
+        returns the replicated result."""
         from repro_torch.core.collectives import fold_ranks, unfold_ranks
 
+        if self.kind != "attention" or not self.ring.folded:
+            return self.local_fn(*args)
         P = self.sp_degree
-        out = self.local_fn(*(fold_ranks(x, P) for x in (q, k, v, q_pos, k_pos)))
-        return unfold_ranks(out, P)
+        return unfold_ranks(self.local_fn(*(fold_ranks(x, P) for x in args)), P)
 
 
 @dataclass(frozen=True)
@@ -169,6 +191,9 @@ class ParallelContext:
         if ring is not None and ring.size != self.sp_degree:
             raise ValueError(f"the ring has {ring.size} ranks, sp_degree is {self.sp_degree}")
         object.__setattr__(self, "ring", ring)
+        # serving plans by (kind, window, scale, shapes, table_pages): the
+        # serving steps ask for the same few plans in every layer of every step
+        object.__setattr__(self, "_serving_plans", {})
 
     @property
     def active(self) -> bool:
@@ -244,10 +269,136 @@ class ParallelContext:
         return ExecutionPlan(strategy=name, local_fn=local_fn, ring=ring, sp_degree=P_sp,
                              cost=cost, compute_flops=compute_flops, pipelines=desc.pipelines)
 
+    # -- serving plans -----------------------------------------------------
 
-def _single_device(pctx: ParallelContext):
-    if pctx.active:
-        raise NotImplementedError(_SERVING_SLICE)
+    def _serving_cost(self, name: str, shapes: AttnShapes | None,
+                      table_pages: int | None = None) -> CommCost | None:
+        """Price a registered serving schedule for these shapes (the
+        ``comm_cost`` machinery training plans go through); ``table_pages``
+        (block-table width) adds the paged cache's table term."""
+        if shapes is None:
+            return None
+        return strategy_cost(
+            get_strategy(name), shapes.B, shapes.Sq, shapes.Hq, shapes.Hkv, shapes.D,
+            self.sp_degree, bytes_per_elem=shapes.dtype_bytes, bidir_links=self.bidir_links,
+            S_kv=shapes.seq_kv, table_pages=table_pages,
+        )
+
+    def _serving_ring(self):
+        if not self.active:
+            raise ValueError("serving plans require sp_degree > 1")
+        return self.ring
+
+    def plan_decode(self, *, window: int | None = None, scale: float | None = None,
+                    shapes: AttnShapes | None = None,
+                    table_pages: int | None = None) -> ExecutionPlan:
+        """Decode plan: a small replicated Q against the sequence-sharded
+        cache, the registered ``"decode"`` schedule.  With ``shapes`` (``Sq``
+        query tokens a step, ``Sk`` the cache capacity) the plan carries its
+        modeled link bytes a step, ``B*Sq*Hq*(D+2)`` float32 scalars through
+        a ring all-reduce, independent of the cache length; ``table_pages``
+        adds the paged cache's block-table term.  The plan takes ``(q,
+        k_cache, v_cache, k_pos, q_pos)``, the cache in the ring's layout."""
+        key = ("decode", window, scale, shapes, table_pages)
+        if key in self._serving_plans:
+            return self._serving_plans[key]
+        ring, fn = self._serving_ring(), get_strategy("decode").fn
+        block_k = self.decode_block_k
+
+        def local_fn(q, kc, vc, kp, qp):
+            return fn(q, kc, vc, kp, q_pos=qp, ring=ring, causal=True, window=window,
+                      scale=scale, impl=self.impl, block_k=block_k)
+
+        plan = self._serving_plans[key] = ExecutionPlan(
+            strategy="decode", local_fn=local_fn, ring=ring, sp_degree=self.sp_degree,
+            cost=self._serving_cost("decode", shapes, table_pages), kind="decode",
+            kernel={"path": "dense", "impl": self.impl, "block_k_decode": block_k},
+        )
+        return plan
+
+    def plan_decode_paged(self, *, window: int | None = None, scale: float | None = None,
+                          shapes: AttnShapes | None = None,
+                          table_pages: int | None = None) -> ExecutionPlan:
+        """Fused paged-decode plan: Q replicated, the page pool stays
+        page-striped and no gathered dense view exists.  Each rank runs
+        kernel C over its stripe (``core/decode.py``) and the partials merge
+        in the same all-reduce as dense decode (the same wire bytes, so the
+        ``"decode"`` cost row prices this plan too).  The plan takes ``(q,
+        k_pool, v_pool, pos_pool, block_tables, q_pos, lengths)``: the whole
+        pool on the virtual ring, the rank's stripe on a process group."""
+        from repro_torch.core.decode import sp_paged_decode_attention
+
+        key = ("decode_paged", window, scale, shapes, table_pages)
+        if key in self._serving_plans:
+            return self._serving_plans[key]
+        ring, impl, block_k = self._serving_ring(), self.impl, self.decode_block_k
+
+        def local_fn(q, k_pool, v_pool, pos_pool, bt, qp, lengths):
+            return sp_paged_decode_attention(
+                q, k_pool, v_pool, pos_pool, bt, qp, ring=ring, lengths=lengths,
+                window=window, scale=scale, impl=impl, block_k=block_k,
+            )
+
+        plan = self._serving_plans[key] = ExecutionPlan(
+            strategy="decode", local_fn=local_fn, ring=ring, sp_degree=self.sp_degree,
+            cost=self._serving_cost("decode", shapes, table_pages), kind="decode",
+            kernel={"path": "paged_fused", "impl": impl, "block_k_decode": block_k},
+        )
+        return plan
+
+    def plan_prefill(self, *, window: int | None = None, scale: float | None = None,
+                     shapes: AttnShapes | None = None, table_pages: int | None = None,
+                     strategy: str | None = None) -> ExecutionPlan:
+        """Chunked-prefill plan: a replicated prompt chunk against the
+        resident sharded cache plus its own local block (cross-chunk
+        causality through the Update() merge, ``core/decode.py``).
+
+        ``strategy`` ``None`` or ``"prefill"`` binds the registered
+        ``"prefill"`` schedule; with ``shapes`` (``Sq`` the chunk length,
+        ``Sk`` the cache capacity) the plan carries the modeled link bytes a
+        chunk (plus the block-table term with ``table_pages``).  The
+        reference's prefill rings and its ``"auto"`` arbitration over them
+        raise ``NotImplementedError`` naming their item.  The plan takes
+        ``(q, k_new, v_new, new_pos, k_cache, v_cache, k_pos, q_pos)``, the
+        cache in the ring's layout."""
+        if strategy == "auto":
+            raise NotImplementedError(_PREFILL_RINGS)
+        if strategy in UNPORTED:
+            raise NotImplementedError(not_ported(strategy))
+        if strategy is not None and strategy not in PREFILL_CANDIDATES:
+            raise ValueError(
+                f"plan_prefill strategy {strategy!r} not one of {PREFILL_CANDIDATES}"
+            )
+        key = ("prefill", window, scale, shapes, table_pages)
+        if key in self._serving_plans:
+            return self._serving_plans[key]
+        ring, fn = self._serving_ring(), get_strategy("prefill").fn
+
+        def local_fn(q, kn, vn, np_, kc, vc, kp, qp):
+            return fn(q, kn, vn, np_, kc, vc, kp, q_pos=qp, ring=ring, window=window,
+                      scale=scale, impl=self.impl, block_q=self.block_q, block_k=self.block_k)
+
+        plan = self._serving_plans[key] = ExecutionPlan(
+            strategy="prefill", local_fn=local_fn, ring=ring, sp_degree=self.sp_degree,
+            cost=self._serving_cost("prefill", shapes, table_pages), kind="prefill",
+        )
+        return plan
+
+
+def _check_ring_device(pctx: ParallelContext, x):
+    ring = pctx.ring
+    if ring.folded and x.device.type != ring.device.type:
+        raise ValueError(f"the virtual ring runs on {ring.device.type}, got tensors on "
+                         f"{x.device}; pass ParallelContext(device='cpu') to run it on the CPU")
+
+
+def _sharded_positions(pctx: ParallelContext, k_pos, k_cache):
+    """``k_pos`` of a sequence-sharded cache as ``(rows, S_loc)`` int32;
+    refused when absent, since a shard's slots hold no default positions."""
+    if k_pos is None:
+        raise ValueError("k_pos is required with sp_degree > 1: the positions of a "
+                         "sequence-sharded cache are global, not its local slot indices")
+    return normalize_positions(k_pos, k_cache.shape[0], k_cache.shape[1], k_cache.device)
 
 
 def sp_attention(q, k, v, q_pos, k_pos, *, pctx: ParallelContext, causal: bool = True,
@@ -272,9 +423,7 @@ def sp_attention(q, k, v, q_pos, k_pos, *, pctx: ParallelContext, causal: bool =
         )
         return out
     ring = pctx.ring
-    if ring.folded and q.device.type != ring.device.type:
-        raise ValueError(f"the virtual ring runs on {ring.device.type}, got tensors on "
-                         f"{q.device}; pass ParallelContext(device='cpu') to run it on the CPU")
+    _check_ring_device(pctx, q)
     shards = 1 if ring.folded else pctx.sp_degree  # a process group passes its shard
     shapes = AttnShapes(B=B, Sq=Sq * shards, Hq=Hq, Hkv=Hkv, D=D, Sk=Sk * shards,
                         dtype_bytes=q.element_size())
@@ -283,50 +432,84 @@ def sp_attention(q, k, v, q_pos, k_pos, *, pctx: ParallelContext, causal: bool =
 
 
 def sp_decode(q, k_cache, v_cache, k_pos, q_pos, *, pctx: ParallelContext,
-              window: int | None = None, scale: float | None = None):
-    """Decode attention: ``q (B,Sq,Hq,D)`` with small Sq against the cache
-    ``(B,Skv,Hkv,D)``; ``k_pos (B,Skv)`` (``PAD_POS`` for unwritten slots),
-    ``q_pos (B,Sq)``."""
+              window: int | None = None, scale: float | None = None,
+              table_pages: int | None = None):
+    """Decode attention: ``q (B,Sq,Hq,D)`` with small Sq, replicated, against
+    the cache ``(B,Skv,Hkv,D)``; ``k_pos (B,Skv)`` (``PAD_POS`` for unwritten
+    slots), ``q_pos (B,Sq)``.  With ``sp_degree > 1`` the cache is
+    sequence-sharded and ``k_pos`` required: rank-major ``(P*B, Skv/P, ...)``
+    on the virtual ring, this rank's shard ``(B, Skv/P, ...)`` on a process
+    group.  ``table_pages``: block-table width when the cache is a gathered
+    page view (priced into the plan's cost)."""
     from repro_torch.kernels.ops import flash_attention
 
-    _single_device(pctx)
     B = q.shape[0]
     q_pos = normalize_positions(q_pos, B, q.shape[1], q.device)
-    k_pos = normalize_positions(k_pos, B, k_cache.shape[1], q.device)
-    out, _ = flash_attention(
-        q, k_cache, v_cache, q_pos=q_pos, k_pos=k_pos, causal=True, window=window,
-        scale=scale, impl=pctx.impl, block_k=pctx.block_k,
-    )
-    return out
+    if not pctx.active:
+        k_pos = normalize_positions(k_pos, B, k_cache.shape[1], q.device)
+        out, _ = flash_attention(
+            q, k_cache, v_cache, q_pos=q_pos, k_pos=k_pos, causal=True, window=window,
+            scale=scale, impl=pctx.impl, block_k=pctx.block_k,
+        )
+        return out
+    _check_ring_device(pctx, q)
+    k_pos = _sharded_positions(pctx, k_pos, k_cache)
+    shapes = AttnShapes(B=B, Sq=q.shape[1], Hq=q.shape[2], Hkv=k_cache.shape[2], D=q.shape[3],
+                        Sk=k_cache.shape[1] * pctx.sp_degree, dtype_bytes=q.element_size())
+    plan = pctx.plan_decode(window=window, scale=scale, shapes=shapes, table_pages=table_pages)
+    return plan(q, k_cache, v_cache, k_pos, q_pos)
 
 
 def sp_decode_paged(q, k_pool, v_pool, pos_pool, block_tables, q_pos, lengths, *,
                     pctx: ParallelContext, window: int | None = None,
-                    scale: float | None = None):
-    """Fused paged decode: no materialized KV gather on the kernel path."""
+                    scale: float | None = None, table_pages: int | None = None):
+    """Fused paged decode: no materialized KV gather on the kernel path.
+
+    ``q (B,1,Hq,D)``, ``q_pos (B,1)``, ``block_tables (B,W)`` (global page
+    ids, ``n_pages`` for unmapped entries) and ``lengths (B,)`` replicated;
+    the pools ``(n_pages,ps,Hkv,D)`` / ``pos_pool (n_pages,ps)`` whole on
+    one device or the virtual ring, this rank's stripe of ``n_pages / P``
+    pages on a process group."""
     from repro_torch.core.decode import sp_paged_decode_attention
 
-    _single_device(pctx)
-    return sp_paged_decode_attention(
-        q, k_pool, v_pool, pos_pool, block_tables, q_pos, lengths=lengths, window=window,
-        scale=scale, impl=pctx.impl, block_k=pctx.decode_block_k,
-    )
+    if not pctx.active:
+        return sp_paged_decode_attention(
+            q, k_pool, v_pool, pos_pool, block_tables, q_pos, lengths=lengths, window=window,
+            scale=scale, impl=pctx.impl, block_k=pctx.decode_block_k,
+        )
+    _check_ring_device(pctx, q)
+    pool_pages = k_pool.shape[0] * (1 if pctx.ring.folded else pctx.sp_degree)
+    shapes = AttnShapes(B=q.shape[0], Sq=q.shape[1], Hq=q.shape[2], Hkv=k_pool.shape[2],
+                        D=q.shape[3], Sk=pool_pages * k_pool.shape[1],
+                        dtype_bytes=q.element_size())
+    plan = pctx.plan_decode_paged(window=window, scale=scale, shapes=shapes,
+                                  table_pages=table_pages)
+    return plan(q, k_pool, v_pool, pos_pool, block_tables, q_pos, lengths)
 
 
 def sp_prefill(q, k_new, v_new, new_pos, k_cache, v_cache, k_pos, q_pos, *,
                pctx: ParallelContext, window: int | None = None,
-               scale: float | None = None):
-    """Chunked-prefill attention: the chunk ``(B,C,H,D)`` against the
-    resident cache holding every *previous* chunk, merged with the chunk's
-    own causal block.  The caller writes the chunk's K/V afterwards."""
+               scale: float | None = None, table_pages: int | None = None):
+    """Chunked-prefill attention: the chunk ``q``/``k_new``/``v_new
+    (B,C,H,D)`` with ``new_pos``/``q_pos (B,C)`` (replicated) against the
+    resident cache ``(B,Skv,Hkv,D)`` / ``k_pos (B,Skv)`` holding every
+    *previous* chunk (sharded as in :func:`sp_decode`), merged with the
+    chunk's own causal block.  The caller writes the chunk's K/V
+    afterwards."""
     from repro_torch.core.decode import sp_prefill_chunk_attention
 
-    _single_device(pctx)
     B, C = q.shape[0], q.shape[1]
     q_pos = normalize_positions(q_pos, B, C, q.device)
     new_pos = normalize_positions(new_pos, B, C, q.device)
-    k_pos = normalize_positions(k_pos, B, k_cache.shape[1], q.device)
-    return sp_prefill_chunk_attention(
-        q, k_new, v_new, new_pos, k_cache, v_cache, k_pos, q_pos=q_pos, window=window,
-        scale=scale, impl=pctx.impl, block_q=pctx.block_q, block_k=pctx.block_k,
-    )
+    if not pctx.active:
+        k_pos = normalize_positions(k_pos, B, k_cache.shape[1], q.device)
+        return sp_prefill_chunk_attention(
+            q, k_new, v_new, new_pos, k_cache, v_cache, k_pos, q_pos=q_pos, window=window,
+            scale=scale, impl=pctx.impl, block_q=pctx.block_q, block_k=pctx.block_k,
+        )
+    _check_ring_device(pctx, q)
+    k_pos = _sharded_positions(pctx, k_pos, k_cache)
+    shapes = AttnShapes(B=B, Sq=C, Hq=q.shape[2], Hkv=k_cache.shape[2], D=q.shape[3],
+                        Sk=k_cache.shape[1] * pctx.sp_degree, dtype_bytes=q.element_size())
+    plan = pctx.plan_prefill(window=window, scale=scale, shapes=shapes, table_pages=table_pages)
+    return plan(q, k_new, v_new, new_pos, k_cache, v_cache, k_pos, q_pos)

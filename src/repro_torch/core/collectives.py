@@ -27,13 +27,20 @@ the reference).  On the virtual ring the backward of a shift posted on the
 side stream runs on the side stream (the autograd engine runs a node's
 backward on its forward's stream and synchronises the streams around it).
 
+Both also reduce (:meth:`VirtualRing.all_reduce`,
+:meth:`ProcessGroupRing.all_reduce`): the serving paths' lse-weighted merge
+(``core/decode.py``) is one ``max`` and one ``sum`` across the ranks.  The
+all-reduce is forward only: serving never differentiates through it.
+
 Both count what they are handed, per rank and per ring direction (``"fwd"``
 for ``s > 0``, ``"bwd"`` for ``s < 0``), in the cost models' units: a
 distance-``s`` send is charged ``|s|`` neighbour hops (the torus convention
 of the schedule specs, which only TokenRing's faithful schedule uses), and
 int32 position rows are counted apart, because the cost models leave them
-out.  Two-axis rings (the reference's two-axis ``flat_ring_shift``) wait for
-``core/hier2d.py``.
+out.  An all-reduce of a payload of ``n`` bytes a rank is charged what a
+bidirectional ring all-reduce carries, ``(P-1)/P * n`` per rank in each
+direction (the arithmetic of ``decode_comm_cost``).  Two-axis rings (the
+reference's two-axis ``flat_ring_shift``) wait for ``core/hier2d.py``.
 """
 
 from __future__ import annotations
@@ -97,6 +104,20 @@ class _Counters:
             nbytes = t.numel() * t.element_size() / ranks * abs(shift)
             kind = self.position_bytes if not t.is_floating_point() else self.link_bytes
             kind[way] += nbytes
+
+    def _count_all_reduce(self, nbytes_per_rank: int):
+        per_dir = (self.size - 1) / self.size * nbytes_per_rank
+        self.link_bytes["fwd"] += per_dir
+        self.link_bytes["bwd"] += per_dir
+
+
+def _forward_only(x):
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("the ring's all_reduce is forward only (serving does not "
+                           "differentiate through it)")
+
+
+_REDUCE_OPS = ("max", "sum")
 
 
 def _flatten(payload):
@@ -193,6 +214,32 @@ class VirtualRing(_Counters):
         done.record(side)
         return Pending(rebuild(received), (lambda: compute.wait_event(done),))
 
+    def rank_view(self, x):
+        """``x (P*B, ...)`` as ``(P, B, ...)``: rank ``r``'s rows at ``[r]``."""
+        return x.reshape(self.size, x.shape[0] // self.size, *x.shape[1:])
+
+    def replicate(self, x):
+        """A replicated tensor ``(B, ...)`` as every rank's copy, ``(P*B, ...)``."""
+        return x.repeat(self.size, *([1] * (x.ndim - 1)))
+
+    def all_reduce(self, x, op: str):
+        """Reduce ``x (P*B, ...)`` over the ranks' row blocks with ``op``
+        (``"max"`` or ``"sum"``), ranks 0..P-1 in order, on the current
+        stream -> ``(B, ...)``, the value every rank holds afterwards.
+        Forward only."""
+        if op not in _REDUCE_OPS:
+            raise ValueError(f"unknown reduction {op!r}; expected one of {_REDUCE_OPS}")
+        _forward_only(x)
+        parts = self.rank_view(x)
+        self._count_all_reduce(parts[0].numel() * x.element_size())
+        acc = parts[0].clone()
+        for r in range(1, self.size):
+            if op == "max":
+                torch.maximum(acc, parts[r], out=acc)
+            else:
+                acc.add_(parts[r])
+        return acc
+
 
 class _PGShift(torch.autograd.Function):
     @staticmethod
@@ -277,3 +324,26 @@ class ProcessGroupRing(_Counters):
         if not overlap:
             pending.wait()
         return pending
+
+    def rank_view(self, x):
+        """``x (B, ...)``, this rank's rows, as ``(1, B, ...)``."""
+        return x[None]
+
+    def replicate(self, x):
+        """A replicated tensor is this rank's copy as it is."""
+        return x
+
+    def all_reduce(self, x, op: str):
+        """``torch.distributed.all_reduce`` of this rank's ``x`` with ``op``
+        (``"max"`` or ``"sum"``) into a new tensor: every rank gets the same
+        result.  Forward only."""
+        import torch.distributed as dist
+
+        if op not in _REDUCE_OPS:
+            raise ValueError(f"unknown reduction {op!r}; expected one of {_REDUCE_OPS}")
+        _forward_only(x)
+        self._count_all_reduce(x.numel() * x.element_size())
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=self.group)
+        return y

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["empty_partial", "merge_partials", "finalize"]
+__all__ = ["empty_partial", "merge_partials", "merge_partials_paper_form", "merge_many",
+           "finalize"]
 
 
 def empty_partial(shape_out, dtype=torch.float32, device=None):
@@ -42,6 +43,31 @@ def merge_partials(out_a, lse_a, out_b, lse_b):
     w_b = (eb / denom_safe)[..., None]
     out32 = w_a * out_a.float() + w_b * out_b.float()
     return out32.to(out_a.dtype), lse
+
+
+def merge_partials_paper_form(out, lse, block_out, block_lse):
+    """The paper's update equations (§3.1), for fidelity testing:
+
+        out = out - sigmoid(block_lse - lse) * (out - block_out)
+        lse = lse - log(sigmoid(lse - block_lse))
+
+    Not -inf-safe (the paper assumes non-degenerate partials); the oracle of
+    :func:`merge_partials` on finite inputs."""
+    lse = lse.float()
+    block_lse = block_lse.float()
+    sig = torch.sigmoid(block_lse - lse)[..., None]
+    new_out = out - sig * (out - block_out)
+    new_lse = lse - torch.nn.functional.logsigmoid(lse - block_lse)
+    return new_out.to(out.dtype), new_lse
+
+
+def merge_many(partials):
+    """Fold an iterable of ``(out, lse)`` partials left to right."""
+    partials = list(partials)
+    out, lse = partials[0]
+    for o, l in partials[1:]:
+        out, lse = merge_partials(out, lse, o, l)
+    return out, lse
 
 
 def finalize(out, lse):

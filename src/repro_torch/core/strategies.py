@@ -14,7 +14,9 @@ function of shapes and links:
     whenever it is within :data:`KV_RESIDENT_MARGIN` of the cheapest.
 
 The port registers the four ring strategies of ``core/token_ring.py`` and
-``core/ring_attention.py``; asking for a strategy of the reference that is
+``core/ring_attention.py`` and the two serving schedules of
+``core/decode.py`` (planned through ``plan_decode`` / ``plan_prefill``, never
+picked by ``"auto"``); asking for a strategy of the reference that is
 not ported yet raises ``NotImplementedError`` naming its item (:data:`UNPORTED`).
 
 Cost-model convention: ``comm_cost(B, S, Hq, Hkv, D, P, *, bytes_per_elem=2,
@@ -255,8 +257,6 @@ UNPORTED = {
     "tokenring2d": "core/hier2d.py (ROADMAP queue 1 item 8)",
     "passkv_ring": "core/prefill_rings.py (ROADMAP queue 1 item 8)",
     "passq_ring": "core/prefill_rings.py (ROADMAP queue 1 item 8)",
-    "decode": "the SP branches of core/decode.py (ROADMAP queue 1 item 5)",
-    "prefill": "the SP branches of core/decode.py (ROADMAP queue 1 item 5)",
 }
 
 
@@ -274,6 +274,7 @@ def _ensure_builtins() -> None:
     if _BUILTINS_LOADED:
         return
     _BUILTINS_LOADED = True
+    import repro_torch.core.decode  # noqa: F401
     import repro_torch.core.ring_attention  # noqa: F401
     import repro_torch.core.token_ring  # noqa: F401
 

@@ -271,15 +271,17 @@ def decode_units(B: int, Hq: int, Hkv: int, Sq: int) -> int:
 
 
 _SM_COUNT: dict[int, int] = {}
-_COUNTERS: dict[int, torch.Tensor] = {}
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def decode_scratch(device, B: int, Sq: int, Hq: int, Hkv: int, D: int, n_keys: int):
     """What a decode launch needs besides its inputs: ``tiles_per_split``
     and the float32 partials ``(part_out, part_lse)`` plus the int32 merge
     counters, or three ``None`` when one split covers the range.  The
-    counters are zero at rest and every launch leaves them zero, so one
-    buffer per device serves every call on the device's stream."""
+    counters are zero at rest and every launch leaves them zero; launches on
+    one stream run one after another, so one buffer per (device, current
+    stream) serves every call, and launches on two streams at once never
+    share one."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx not in _SM_COUNT:
         _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
@@ -288,9 +290,10 @@ def decode_scratch(device, B: int, Sq: int, Hq: int, Hkv: int, D: int, n_keys: i
     if splits == 1:
         return per, None, None, None
     rows = B * Sq * Hq
-    counters = _COUNTERS.get(idx)
+    key = (idx, torch.cuda.current_stream(idx).stream_id)
+    counters = _COUNTERS.get(key)
     if counters is None or counters.numel() < units:
-        counters = _COUNTERS[idx] = torch.zeros(units, dtype=torch.int32, device=device)
+        counters = _COUNTERS[key] = torch.zeros(units, dtype=torch.int32, device=device)
     part_out = torch.empty((splits, rows, D), dtype=torch.float32, device=device)
     part_lse = torch.empty((splits, rows), dtype=torch.float32, device=device)
     return per, part_out, part_lse, counters

@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_reference", "normalize_positions", "NEG_INF", "PAD_POS"]
+__all__ = ["attention_reference", "blockwise_reference", "normalize_positions", "NEG_INF",
+           "PAD_POS"]
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 PAD_POS = 2**30  # sentinel position of padded / unwritten KV rows
@@ -69,3 +70,25 @@ def attention_reference(q, k, v, *, causal: bool = False, q_pos=None, k_pos=None
     lse = safe_max[..., 0] + torch.log(torch.where(any_valid, denom, 1.0)[..., 0])
     lse = torch.where(any_valid[..., 0], lse, -torch.inf)
     return out.to(q.dtype), lse.transpose(1, 2)
+
+
+def blockwise_reference(q, k, v, *, block_k: int, causal: bool = False, q_pos=None, k_pos=None,
+                        scale: float | None = None):
+    """Attention over KV blocks of ``block_k`` keys, merged with
+    ``core.merge``: the one-device analogue of what the ring strategies do
+    across ranks, to check the merge apart from any schedule."""
+    from repro_torch.core.merge import empty_partial, finalize, merge_partials
+
+    B, Sq, Hq, D = q.shape
+    Sk = k.shape[1]
+    if Sk % block_k:
+        raise ValueError(f"block_k {block_k} does not divide Sk {Sk}")
+    k_pos = normalize_positions(k_pos, B, Sk, q.device)
+    out, lse = empty_partial((B, Sq, Hq, D), device=q.device)
+    for start in range(0, Sk, block_k):
+        blk = slice(start, start + block_k)
+        o, l = attention_reference(q, k[:, blk], v[:, blk], causal=causal, q_pos=q_pos,
+                                   k_pos=k_pos[:, blk], scale=scale)
+        out, lse = merge_partials(out, lse, o, l)
+    out, lse = finalize(out, lse)
+    return out.to(q.dtype), lse

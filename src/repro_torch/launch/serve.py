@@ -5,8 +5,12 @@ Prompts prefill in chunks of ``--prefill-chunk`` tokens, interleaved with
 decode under ``--token-budget``; ``--page-size`` switches to the paged KV
 pool with ``--max-pages`` pages and (``--preempt``) recompute preemption.
 Runs on the card by default; ``--device cpu`` runs the plain versions on
-the CPU.  The planner's cost print, the prefix cache and the resilience
-flags of the JAX launcher come with later slices.
+the CPU.  Like the reference's CLI it serves at SP degree 1 and prints the
+planner's modeled link bytes of the serving schedules at SP 4
+(:func:`print_serving_plan`); sequence-parallel serving is reached through
+the library (``build_model(cfg, ParallelContext(sp_degree=P, ...))`` and
+``ServingEngine``).  The prefix cache and the resilience flags of the JAX
+launcher come with later slices.
 
 Example (reduced model, paged, on the card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \\
@@ -24,8 +28,35 @@ import torch
 
 from repro_torch.configs import ARCHS
 from repro_torch.core.api import ParallelContext
+from repro_torch.core.strategies import get_strategy, strategy_cost
 from repro_torch.models.registry import build_model
 from repro_torch.serving.engine import ServingEngine
+
+
+def print_serving_plan(cfg, *, max_batch: int, chunk: int, max_len: int, sp_degree: int = 4,
+                       page_size: int | None = None):
+    """Planner view of the serving schedules for this config: modeled link
+    bytes a step at an SP degree of ``sp_degree`` (the ``comm_cost`` models
+    that ``plan_decode`` / ``plan_prefill`` attach to their plans).  With
+    ``page_size`` the paged block-table term rides along (``table_pages =
+    ceil(max_len / page_size)``).  The reference's ``prefix_hit_rate``
+    line comes with the prefix cache and the prefill rings."""
+    from repro_torch.serving.kv_cache import pages_for
+
+    bpe = 2 if cfg.dtype == "bfloat16" else 4
+    table_pages = pages_for(max_len, page_size) if page_size else None
+    common = dict(bytes_per_elem=bpe, S_kv=max_len, table_pages=table_pages)
+    dec = strategy_cost(get_strategy("decode"), max_batch, 1, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim, sp_degree, **common)
+    pre = strategy_cost(get_strategy("prefill"), 1, chunk, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim, sp_degree, **common)
+    paged = f" (paged: +{table_pages}-entry block table/slot)" if page_size else ""
+    print(
+        f"serving plan @ SP={sp_degree}: decode {dec.max_direction:.0f} B/step "
+        f"(batch {max_batch}), prefill {pre.max_direction:.0f} B/chunk "
+        f"(chunk {chunk}) \u2014 cache-resident, independent of context length"
+        f"{paged}"
+    )
 
 
 def main(argv=None):
@@ -67,6 +98,8 @@ def main(argv=None):
                            device=args.device)
     bundle = build_model(cfg, pctx)
     params = bundle.init(args.seed)
+    print_serving_plan(cfg, max_batch=args.max_batch, chunk=args.prefill_chunk,
+                       max_len=args.max_len, page_size=args.page_size)
     eng = ServingEngine(
         bundle, params, max_batch=args.max_batch, max_len=args.max_len,
         temperature=args.temperature, seed=args.seed, prefill_chunk=args.prefill_chunk,

@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.configs import ARCHS
 from repro_torch.core.api import ParallelContext
-from repro_torch.core.strategies import available_strategies
+from repro_torch.core.strategies import available_strategies, get_strategy
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import AdamWConfig
@@ -53,7 +53,8 @@ def main(argv=None):
     ap.add_argument("--sp-degree", type=int, default=1,
                     help="ranks of the virtual sequence-parallel ring")
     ap.add_argument("--strategy", default="tokenring",
-                    choices=("auto", *available_strategies()),
+                    choices=("auto", *(n for n in available_strategies()
+                                       if not get_strategy(n).serving_side)),
                     help="SP strategy (auto = the cost models' choice)")
     ap.add_argument("--travel-dtype", default="float32", choices=("float32", "bfloat16"),
                     help="wire format of TokenRing's travelling accumulator")

@@ -7,6 +7,12 @@ updated in place (``index_put_`` through a drop plan, see
 ``serving.kv_cache.drop_plan``) and the functions return only ``y``.
 Each write happens after the layer's attention has read the pre-write
 cache, exactly where the JAX code writes.
+
+The caches (and gathered page views) come in the layout of the context's
+ring (``serving.kv_cache``), which the serving entry points take as is:
+rank-major on the virtual ring; this rank's shard on a process group, where
+the drop plans keep only the writes the rank holds.
+``table_pages`` (block-table width) rides into the plans' cost term.
 """
 
 from __future__ import annotations
@@ -114,7 +120,7 @@ def attention_decode(p, x, positions, k_cache, v_cache, pos_cache, write_plan, *
 
 def attention_decode_paged(p, x, positions, k_pool, v_pool, pos_pool, block_tables, lengths,
                            write_plan, *, cfg, pctx: ParallelContext,
-                           window: int | None = None):
+                           window: int | None = None, table_pages: int | None = None):
     """Paged decode step ``x (B,1,d)`` against one layer's pools
     ``(n_pages,ps,Hkv,D)``.  The new K/V scatter into the pool first; the
     attention reads the pool through the block table (kernel C on CUDA,
@@ -123,21 +129,22 @@ def attention_decode_paged(p, x, positions, k_pool, v_pool, pos_pool, block_tabl
     apply_drop(k_pool, write_plan, k[:, 0])
     apply_drop(v_pool, write_plan, v[:, 0])
     out = sp_decode_paged(q, k_pool, v_pool, pos_pool, block_tables, positions, lengths,
-                          pctx=pctx, window=window)
+                          pctx=pctx, window=window, table_pages=table_pages)
     return _out_proj(p, out, cfg)
 
 
 def attention_prefill_chunk_paged(p, x, positions, k_pool, v_pool, old_pos_view, flat_view,
                                   write_plan, *, cfg, pctx: ParallelContext,
-                                  window: int | None = None):
+                                  window: int | None = None, table_pages: int | None = None):
     """Paged chunked-prefill step: the chunk against the gathered view of
-    its resident pages (positions from the *pre-chunk* pool), then its K/V
-    scatter into the owned pages."""
+    its resident pages (positions from the *pre-chunk* pool; each rank's
+    own pages with ``sp_degree > 1``), then its K/V scatter into the owned
+    pages."""
     q, k, v = _project_qkv(p, x, positions, cfg)
     k_view = gather_pages(k_pool, flat_view)
     v_view = gather_pages(v_pool, flat_view)
     out = sp_prefill(q, k, v, positions, k_view, v_view, old_pos_view, positions,
-                     pctx=pctx, window=window)
+                     pctx=pctx, window=window, table_pages=table_pages)
     apply_drop(k_pool, write_plan, k)
     apply_drop(v_pool, write_plan, v)
     return _out_proj(p, out, cfg)

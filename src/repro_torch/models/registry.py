@@ -1,5 +1,7 @@
 """Model registry: one bundle of training and serving callables per family
-(port of ``repro.models.registry``; dense family only).
+(port of ``repro.models.registry``; dense family only).  The serve-state
+initialisers lay the cache out for the bundle's ``pctx`` (sequence-sharded
+over its ring when ``sp_degree > 1``).
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def build_model(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
         decode_step=lambda params, tok, state, active=None: T.lm_decode_step(
             params, tok, state, active, cfg=cfg, pctx=pctx),
         init_serve_state=lambda B, max_len, device: T.init_decode_cache(
-            cfg, B, max_len, device=device),
+            cfg, B, max_len, device=device, pctx=pctx),
         prefill_chunk=lambda params, tok, state, n_valid: T.lm_prefill_chunk(
             params, tok, state, n_valid, cfg=cfg, pctx=pctx),
         decode_step_paged=lambda params, tok, state, active=None: T.lm_decode_step_paged(
@@ -58,5 +60,5 @@ def build_model(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
         init_paged_state=lambda n_pages, page_size, max_batch, slot_pages, device: (
             T.init_paged_decode_cache(cfg, n_pages=n_pages, page_size=page_size,
                                       max_batch=max_batch, slot_pages=slot_pages,
-                                      device=device)),
+                                      device=device, pctx=pctx)),
     )

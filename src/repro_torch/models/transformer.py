@@ -15,6 +15,12 @@ state **in place** (the counterpart of the engine's donated buffers) and
 returns ``(logits, state)`` with the same dict.  Every ``mode="drop"``
 scatter of the JAX code goes through one drop plan per step, shared by all
 layers (``serving.kv_cache.drop_plan``).
+
+With ``sp_degree > 1`` the serve state is sequence-sharded over the ring
+in the layout ``serving.kv_cache`` describes (dense slab rank-major on the
+virtual ring, page stripes on a process group); each step maps its global
+writes and views into that layout, and the attention merges the ranks'
+partials (``core/decode.py``).
 """
 
 from __future__ import annotations
@@ -43,9 +49,13 @@ from repro_torch.models.layers import (
 )
 from repro_torch.serving.kv_cache import (
     apply_drop,
+    dense_write_index,
     drop_plan,
     gather_positions,
     init_paged_cache,
+    local_pages,
+    sp_ranks,
+    stripe_view,
     view_indices,
     write_coords,
 )
@@ -165,25 +175,33 @@ def _last_valid(x, n_valid):
     return x[torch.arange(B, device=x.device), idx]
 
 
-def init_decode_cache(cfg, batch: int, max_len: int, dtype=None, device="cuda"):
-    """Dense serve state: K/V stacked over layers, positions at ``PAD_POS``."""
+def init_decode_cache(cfg, batch: int, max_len: int, dtype=None, device="cuda", pctx=None):
+    """Dense serve state: K/V stacked over layers, positions at ``PAD_POS``.
+    With an active ``pctx`` the slots shard over the ring (``max_len`` a
+    multiple of the SP degree): ``(L, P*B, max_len/P, ...)`` rank-major on the
+    virtual ring, this rank's ``(L, B, max_len/P, ...)`` on a process group."""
+    P, rank = sp_ranks(pctx)
+    if max_len % P:
+        raise ValueError(f"dense cache: max_len={max_len} must be a multiple of the SP "
+                         f"degree {P} so slots shard evenly across the ring")
+    rows = batch * P if rank is None else batch
     dt = torch_dtype(dtype or cfg.dtype)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, rows, max_len // P, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
-        "pos": torch.full((batch, max_len), PAD_POS, dtype=torch.int32, device=device),
+        "pos": torch.full((rows, max_len // P), PAD_POS, dtype=torch.int32, device=device),
         "len": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
 
 
 def init_paged_decode_cache(cfg, *, n_pages: int, page_size: int, max_batch: int,
-                            slot_pages: int, dtype=None, device="cuda"):
+                            slot_pages: int, dtype=None, device="cuda", pctx=None):
     """Page-pool serve state (see ``serving.kv_cache.init_paged_cache``)."""
     return init_paged_cache(
         cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, n_pages=n_pages, page_size=page_size,
         max_batch=max_batch, slot_pages=slot_pages, dtype=torch_dtype(dtype or cfg.dtype),
-        device=device,
+        device=device, pctx=pctx,
     )
 
 
@@ -192,6 +210,33 @@ def _chunk_positions(length, n_valid, C):
     positions = length[:, None] + offs
     valid = offs < n_valid[:, None]
     return positions, valid
+
+
+def _dense_plan(cache, rows, slots, pctx):
+    """Drop plan of writes at global ``(row, slot)`` into the dense slab as
+    this process holds it."""
+    P, rank = sp_ranks(pctx)
+    s_loc = cache["pos"].shape[1]
+    index, bounds = dense_write_index(rows, slots, batch=cache["len"].shape[0], s_loc=s_loc,
+                                      P=P, rank=rank)
+    return drop_plan(index, bounds)
+
+
+def _pool_pages(cache, pctx):
+    """``(global pages, page size)`` of a page pool; a process group holds
+    only its stripe of them."""
+    P, rank = sp_ranks(pctx)
+    held, page_size = cache["pos"].shape
+    return (held if rank is None else held * P), page_size
+
+
+def _paged_plan(cache, page, off, pctx):
+    """Drop plan of writes at global ``(page, offset)`` into the pool this
+    process holds."""
+    P, rank = sp_ranks(pctx)
+    n_pages, page_size = _pool_pages(cache, pctx)
+    return drop_plan((local_pages(page, n_pages, P, rank), off),
+                     tuple(cache["pos"].shape))
 
 
 @torch.inference_mode()
@@ -205,12 +250,12 @@ def lm_prefill_chunk(params, token_ids, cache, n_valid, *, cfg, pctx):
     position.
     """
     B, C = token_ids.shape
-    Smax = cache["pos"].shape[1]
+    Smax = cache["pos"].shape[1] * sp_ranks(pctx)[0]
     n_valid = n_valid.to(torch.int32)
     positions, valid = _chunk_positions(cache["len"], n_valid, C)
     write_index = torch.where(valid, positions, Smax)
     rows = torch.arange(B, device=token_ids.device)[:, None]
-    plan = drop_plan((rows, write_index), (B, Smax))
+    plan = _dense_plan(cache, rows, write_index, pctx)
     old_pos = cache["pos"]  # pre-chunk table: rewritten only after every layer
 
     def attend(l, p, h):
@@ -231,7 +276,7 @@ def lm_decode_step(params, token_ids, cache, active=None, *, cfg, pctx):
     New K/V are written at slot ``len[b]``; ``active (B,)`` (bool) skips rows
     entirely (no write, no length advance)."""
     B = token_ids.shape[0]
-    Smax = cache["pos"].shape[1]
+    Smax = cache["pos"].shape[1] * sp_ranks(pctx)[0]
     length = cache["len"]
     if active is None:
         write_index = length.clone()
@@ -240,7 +285,7 @@ def lm_decode_step(params, token_ids, cache, active=None, *, cfg, pctx):
         write_index = torch.where(active, length, Smax)
         new_len = torch.where(active, length + 1, length)
     positions = length[:, None].clone()  # global position == length
-    plan = drop_plan((torch.arange(B, device=token_ids.device), write_index), (B, Smax))
+    plan = _dense_plan(cache, torch.arange(B, device=token_ids.device), write_index, pctx)
     apply_drop(cache["pos"], plan, positions[:, 0])  # includes the new token
 
     def attend(l, p, h):
@@ -260,22 +305,25 @@ def lm_prefill_chunk_paged(params, token_ids, cache, n_valid, *, cfg, pctx):
     Row ``b``'s valid tokens land in the pages its block table maps for
     logical slots ``[len_b, len_b + n_valid_b)``; unmapped entries drop the
     write.  The resident view is clamped to the pages the pre-chunk length
-    uses, with positions from the pre-chunk pool.
+    uses, with positions from the pre-chunk pool; with ``sp_degree > 1``
+    each rank's view holds its own pages only (``kv_cache.stripe_view``).
     """
     B, C = token_ids.shape
-    n_pages, page_size = cache["pos"].shape
+    P, rank = sp_ranks(pctx)
+    n_pages, page_size = _pool_pages(cache, pctx)
     bt = cache["block_tables"]
     n_valid = n_valid.to(torch.int32)
     positions, valid = _chunk_positions(cache["len"], n_valid, C)
     write_page, write_off = write_coords(bt, positions, valid, n_pages, page_size)
-    plan = drop_plan((write_page, write_off), (n_pages, page_size))
-    flat_view = view_indices(bt, page_size, lengths=cache["len"])
+    plan = _paged_plan(cache, write_page, write_off, pctx)
+    flat_view = stripe_view(view_indices(bt, page_size, lengths=cache["len"]), n_pages,
+                            page_size, P, rank)
     old_pos_view = gather_positions(cache["pos"], flat_view)
 
     def attend(l, p, h):
         return attention_prefill_chunk_paged(
             p, h, positions, cache["k"][l], cache["v"][l], old_pos_view, flat_view, plan,
-            cfg=cfg, pctx=pctx, window=cfg.window,
+            cfg=cfg, pctx=pctx, window=cfg.window, table_pages=bt.shape[1],
         )
 
     x = _layers(params, _embed(params, token_ids, cfg), cfg, attend)
@@ -293,7 +341,7 @@ def lm_decode_step_paged(params, token_ids, cache, active=None, *, cfg, pctx):
     for slot ``len[b]``; attention reads the pool through the block table
     (no dense view on the kernel path)."""
     B = token_ids.shape[0]
-    n_pages, page_size = cache["pos"].shape
+    n_pages, page_size = _pool_pages(cache, pctx)
     bt = cache["block_tables"]
     length = cache["len"]
     if active is None:
@@ -304,13 +352,13 @@ def lm_decode_step_paged(params, token_ids, cache, active=None, *, cfg, pctx):
         new_len = torch.where(active, length + 1, length)
     write_page, write_off = write_coords(bt, length, valid, n_pages, page_size)
     positions = length[:, None].clone()
-    plan = drop_plan((write_page, write_off), (n_pages, page_size))
+    plan = _paged_plan(cache, write_page, write_off, pctx)
     apply_drop(cache["pos"], plan, positions[:, 0])  # includes the new token
 
     def attend(l, p, h):
         return attention_decode_paged(
             p, h, positions, cache["k"][l], cache["v"][l], cache["pos"], bt, new_len, plan,
-            cfg=cfg, pctx=pctx, window=cfg.window,
+            cfg=cfg, pctx=pctx, window=cfg.window, table_pages=bt.shape[1],
         )
 
     x = _layers(params, _embed(params, token_ids[:, None], cfg), cfg, attend)

@@ -21,6 +21,13 @@ The JAX engine updates its device state through jitted, donated functions;
 here the model steps and the slot resets update the state tensors in place.
 The engine never drops to the CPU: asking for ``device="cuda"`` on a
 machine without a card raises.
+
+Sequence-parallel serving (a bundle whose ``pctx`` has ``sp_degree > 1``):
+on the virtual ring one engine holds every rank's shard of the state; on a
+process group every rank runs the same engine on the same requests, takes
+the same host decisions (admission, block tables, allocator, sampling from
+the same replicated logits with the same seed) and holds only its shard of
+the cache (its slots of the dense slab, its stripe of pages).
 """
 
 from __future__ import annotations
@@ -33,7 +40,13 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ref import PAD_POS
-from repro_torch.serving.kv_cache import PageAllocator, pages_for
+from repro_torch.serving.kv_cache import (
+    PageAllocator,
+    dense_slot_rows,
+    local_pages,
+    pages_for,
+    sp_ranks,
+)
 
 __all__ = ["Request", "ServingEngine"]
 
@@ -86,6 +99,7 @@ class ServingEngine:
         self.token_budget = token_budget
         self.preempt = preempt
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._sp = sp_ranks(bundle.pctx)  # (P, rank) of the state's layout
 
         self._paged = page_size is not None
         if self._paged:
@@ -98,7 +112,7 @@ class ServingEngine:
             if self.max_pages < 1:
                 raise ValueError(f"max_pages must be >= 1, got {self.max_pages}")
             self.NULL = self.max_pages  # unmapped block-table sentinel
-            self.alloc = PageAllocator(self.max_pages)
+            self.alloc = PageAllocator(self.max_pages, stripes=self._sp[0])
             self._bt = np.full((max_batch, self.slot_pages), self.NULL, np.int32)
             self._bt_dirty = False
             self.state = bundle.init_paged_state(
@@ -224,7 +238,7 @@ class ServingEngine:
         the slot's position row."""
         self.state["len"][i] = 0
         if not self._paged:
-            self.state["pos"][i] = PAD_POS
+            self.state["pos"][dense_slot_rows(i, self.max_batch, *self._sp)] = PAD_POS
 
     def _alloc_pages(self, n):
         if n <= 0:
@@ -252,8 +266,10 @@ class ServingEngine:
         pages = [int(p) for p in self._bt[i] if p != self.NULL]
         if pages:
             self.alloc.free(pages)
-            idx = torch.tensor(pages, dtype=torch.long, device=self.device)
-            self.state["pos"][idx] = PAD_POS
+            idx = local_pages(torch.tensor(pages, dtype=torch.long, device=self.device),
+                              self.max_pages, *self._sp)
+            held = idx[idx < self.state["pos"].shape[0]]  # this rank's stripe
+            self.state["pos"][held] = PAD_POS
         self._bt[i, :] = self.NULL
         self._bt_dirty = True
 

@@ -9,7 +9,9 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port, its smoke run, and the worker scripts the tests spawn as ranks
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tests").glob("_*_worker.py")))
 BANNED = ("jax", "jaxlib", "repro")
 
 

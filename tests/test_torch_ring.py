@@ -32,6 +32,7 @@ from repro_torch.core import token_ring as ttr
 from repro_torch.core.collectives import VirtualRing, fold_ranks, ring_perm, unfold_ranks
 
 PORTED = ("tokenring", "tokenring_faithful", "ring", "ring_bidir")
+SERVING = ("decode", "prefill")  # serving-side schedules (core/decode.py)
 BUILDERS = ["token_ring_bidir_schedule", "token_ring_faithful_schedule", "ring_schedule",
             "ring_bidir_schedule"]
 SPECS = ["token_ring_bidir_spec", "token_ring_faithful_spec", "ring_spec", "ring_bidir_spec"]
@@ -273,8 +274,8 @@ GRID = _grid()
 
 
 def test_registry_holds_the_ported_strategies():
-    assert tstrat.available_strategies() == tuple(sorted(PORTED))
-    for name in PORTED:
+    assert tstrat.available_strategies() == tuple(sorted(PORTED + SERVING))
+    for name in PORTED + SERVING:
         t, j = tstrat.get_strategy(name), jstrat.get_strategy(name)
         for f in dataclasses.fields(tstrat.SPStrategy):
             if f.name not in ("fn", "comm_cost", "schedule_spec"):
@@ -296,7 +297,7 @@ def test_registry_holds_the_ported_strategies():
 
 @pytest.mark.parametrize("name", sorted(tstrat.UNPORTED))
 def test_unported_strategy_names_its_item(name):
-    item = "queue 1 item 5" if name in ("decode", "prefill") else "queue 1 item 8"
+    item = "queue 1 item 8"
     with pytest.raises(NotImplementedError, match=item):
         tstrat.get_strategy(name)
     pctx = tapi.ParallelContext(device="cpu", impl="torch", sp_degree=2, strategy=name)

@@ -90,9 +90,10 @@ def _check_state(tstate, jstate):
             np.testing.assert_array_equal(got, want, err_msg=key)
 
 
-def _drive(jb, jparams, tb, tparams, jstate, tstate, paged):
+def _drive(jb, jparams, tb, tparams, jstate, tstate, paged, view=lambda s: s):
     """Two prefill chunks (ragged, one row skipped) then three decode steps
-    (one row inactive), comparing logits and state after every step."""
+    (one row inactive), comparing logits and state (seen through ``view``,
+    which maps the port's layout to the reference's) after every step."""
     pre = "prefill_chunk_paged" if paged else "prefill_chunk"
     dec = "decode_step_paged" if paged else "decode_step"
     chunks = [
@@ -106,7 +107,7 @@ def _drive(jb, jparams, tb, tparams, jstate, tstate, paged):
                                       torch.tensor(n_valid, dtype=torch.int32))
         live = np.asarray(n_valid) > 0
         np.testing.assert_allclose(_np(tl)[live], np.asarray(jl)[live], atol=1e-4, rtol=1e-4)
-        _check_state(tstate, jstate)
+        _check_state(view(tstate), jstate)
     for step, active in enumerate(([1, 1, 1], [1, 0, 1], [1, 1, 1])):
         toks = np.asarray([3 + step, 40, 77], np.int32)
         act = np.asarray(active, bool)
@@ -115,7 +116,7 @@ def _drive(jb, jparams, tb, tparams, jstate, tstate, paged):
         tl, tstate = getattr(tb, dec)(tparams, torch.from_numpy(toks), tstate,
                                       torch.from_numpy(act))
         np.testing.assert_allclose(_np(tl)[act], np.asarray(jl)[act], atol=1e-4, rtol=1e-4)
-        _check_state(tstate, jstate)
+        _check_state(view(tstate), jstate)
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))

@@ -497,13 +497,9 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     params = tb_sp.init(0, training=True)
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         tb_sp.loss(params, ttrainer.batch_to_device(_batch(97, 2, 32), "cpu"))
-    # and so does multi-card serving
-    from repro_torch.core.api import sp_decode
-
-    q = torch.zeros((1, 1, 2, 32))
-    kv = torch.zeros((1, 8, 2, 32))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        sp_decode(q, kv, kv, None, None, pctx=tb_sp.pctx)
+    # and so do the prefill rings of multi-card serving
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        tb_sp.pctx.plan_prefill(strategy="passkv_ring")
 
 
 # ---------------------------------------------------------------------------
