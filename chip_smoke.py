@@ -13,8 +13,15 @@ Phases, each fatal on failure:
      call's log names the instance that served it (decode: Sq <= 4; wgmma:
      bf16, D 64/128, Sq > 4; else the CUDA-core one);
   4. kernel C (fused paged decode) against its plain version on the card,
-     each case run twice and required bitwise equal, and two calls on two
-     streams at once each bitwise equal to its single-stream result;
+     each case run twice and required bitwise equal, the prefix cache's
+     tables at the serving shape among them (four rows mapping the same 32
+     leading pages, one a copy-on-write page with PAD_POS past its 8 kept
+     rows), kernel A's resident and chunk-local calls of a bf16 prefill
+     chunk at phase 14's shape resuming after a hit over such tables (at
+     page-aligned offsets off the 256-token chunk grid, and after a COW
+     page's kept rows), each run twice and required bitwise equal, and two
+     calls of C on two streams at once each bitwise equal to its
+     single-stream result;
   5. the paged engine and the dense-slab engine at qwen3-1.7b widths (2
      layers, float32) on the kernels, every emitted token teacher-forced
      against the plain path;
@@ -73,8 +80,10 @@ Phases, each fatal on failure:
      held against its plain version and timed beside it, SDPA and its
      bound; then phase 5's engines at ``sp_degree=4``, teacher-forced
      against the plain SP-1 path, with launches equal to the products of
-     ticks and steps;
- 13. the SP serving path (this slice's main path): phase 6's two runs with
+     ticks and steps, and the paged one once more with the prefix cache on
+     prompts that share a 184-token head (a hit off the chunk grid and a
+     copy-on-write);
+ 13. the SP serving path: phase 6's two runs with
      ``sp_degree=4`` (virtual ring) and nothing else changed, with launch
      counts per prefill tick and decode step, the all-reduce bytes per step,
      rank and direction against ``decode_comm_cost``, the pages each stripe
@@ -83,7 +92,30 @@ Phases, each fatal on failure:
      SP-4 chain fed back through phase 6's SP-1 bundle (and through the SP-4
      and the plain bundles as yardsticks), each SP-4 token within
      ``WITNESS_GAP`` of the row spread below SP 1's max logit;
- 14. a ``{"kernels": [...]}`` summary line, the card line, and last the
+ 14. the prefix cache, the resilience layer and a snapshot restart (this
+     slice's serving path): qwen3-1.7b at full width and depth through the
+     paged engine of phase 6 on 16 requests that share a 512-token system
+     prompt: a cold run, a prefix-cache run (hits, launches per tick and
+     step, the auditor every 8 ticks), two warm repeats of request 0's
+     prompt (prefill growth under one chunk, the second bitwise the first),
+     a copy-on-write request (one copy, every index page's K/V bitwise
+     unchanged), a run on a pool cut to 200 pages with one fault at each of
+     the 7 tick points (every request
+     done, ``fired`` the plan, the counters, a clean audit after each
+     recovery) and a run snapshotted halfway, dropped and restarted from
+     its snapshot (bitwise the prefix run's tokens); every token of the
+     prefix, warm, COW and fault runs within ``WITNESS_GAP`` of the cold
+     bundle's max logit, teacher-forced;
+ 15. checkpoint/restart training (this slice's training path): qwen3-1.7b
+     at full width and depth through the ``Trainer`` (batch 2 x seq 4096,
+     remat "full") for 5 steps with a checkpoint every 2 (async saves), and
+     through the ``FaultTolerantRunner`` with a failure before step 3
+     (blocking saves, a restore from step 2): losses and parameters bitwise
+     equal, launches 56/28/28 per step run, checkpoint bytes and save and
+     restore seconds; then remat "dots" beside "full" from the same
+     parameters and batch (the loss bitwise equal, gradients within phase
+     8's bf16 limit, 3 timed steps and the peak memory of each);
+ 16. a ``{"kernels": [...]}`` summary line, the card line, and last the
      ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -488,6 +520,129 @@ def paged_case_data(case_id, ps, heads, lengths, D=32):
     return [q, k_pool, v_pool, pos_pool, bt, q_pos]
 
 
+def prefix_shared_data(seed=2, B=8, ps=16, n_pages=1024, W=128, heads=(16, 8), D=128,
+                       shared=32, keep=8):
+    """Kernel C's inputs as the prefix cache lays them out, at the serving
+    shape (8 rows, page 16, 1024 pages, 128-entry tables): rows 0-3 map the
+    same ``shared`` leading pages (a 512-token system prompt), then pages of
+    their own; row 4 maps ``shared - 1`` of them and then a copy-on-write
+    page whose rows past ``keep`` hold ``PAD_POS`` (the copy before its
+    prefill); rows 5-7 are private.  Pages come from a seeded permutation
+    of the pool (not contiguous), tables end in the ``n_pages`` sentinel."""
+    import numpy as np
+
+    Hq, Hkv = heads
+    rng = np.random.default_rng(seed)
+    k_pool = rng.standard_normal((n_pages, ps, Hkv, D)).astype(np.float32)
+    v_pool = rng.standard_normal((n_pages, ps, Hkv, D)).astype(np.float32)
+    pos_pool = np.full((n_pages, ps), PAD_POS, np.int32)
+    bt = np.full((B, W), n_pages, np.int32)
+    free = list(rng.permutation(n_pages))
+    common = [int(free.pop()) for _ in range(shared)]
+    lengths = []
+    for b in range(B):
+        if b < 4:
+            L = shared * ps + int(rng.integers(1, W * ps - shared * ps + 1))
+            pages = common + [int(free.pop()) for _ in range(-(-L // ps) - shared)]
+        elif b == 4:
+            L = (shared - 1) * ps + keep
+            pages = common[:shared - 1] + [int(free.pop())]
+        else:
+            L = int(rng.integers(128, W * ps + 1))
+            pages = [int(free.pop()) for _ in range(-(-L // ps))]
+        lengths.append(L)
+        bt[b, :len(pages)] = pages
+        for ip, pg in enumerate(pages):
+            for off in range(ps):
+                if ip * ps + off < L:
+                    pos_pool[pg, off] = ip * ps + off
+    q = rng.standard_normal((B, 1, Hq, D)).astype(np.float32)
+    q_pos = (np.asarray(lengths, np.int32) - 1)[:, None]
+    return [q, k_pool, v_pool, pos_pool, bt, q_pos], lengths, common
+
+
+PREFIX_PREFILL_STARTS = (528, 784, 1072, 1552, 504, 176, 1296, 1776)
+
+
+def prefix_prefill_data(torch, dev, starts=PREFIX_PREFILL_STARTS, seed=3, ps=16, n_pages=1024,
+                        W=128, heads=(16, 8), D=128, shared=32, keep=8, C=256):
+    """Kernel A's two calls of a paged prefill chunk as the prefix cache
+    feeds them, at phase 14's shape (8 rows, chunk ``C`` = 256, page 16,
+    1024 pages, 128-entry tables, bf16): rows 0-3 map the same ``shared``
+    leading pages (a 512-token system prompt) and resume at ``starts``,
+    page-aligned offsets that are no multiple of the chunk, as after a
+    hit; row 4 maps ``shared - 1`` of them and then a copy-on-write page
+    whose rows past ``keep`` hold ``PAD_POS``, and resumes after the kept
+    rows; rows 5-7 are private.  Pages come from a seeded permutation of the
+    pool.  The resident view and its pre-chunk positions are gathered
+    through the tables with the engine's own helpers.  Returns the
+    resident call's and the chunk-local call's ``(q, k, v, q_pos, k_pos)``."""
+    import numpy as np
+
+    from repro_torch.serving.kv_cache import gather_pages, gather_positions, view_indices
+
+    Hq, Hkv = heads
+    B = len(starts)
+    rng = np.random.default_rng(seed)
+    pos_pool = np.full((n_pages, ps), PAD_POS, np.int32)
+    bt = np.full((B, W), n_pages, np.int32)
+    free = list(rng.permutation(n_pages))
+    common = [int(free.pop()) for _ in range(shared)]
+    for b, start in enumerate(starts):
+        n = -(-(start + C) // ps)
+        head = common if b < 4 else common[:shared - 1] if b == 4 else []
+        pages = head + [int(free.pop()) for _ in range(n - len(head))]
+        bt[b, :n] = pages
+        for ip, pg in enumerate(pages):
+            for off in range(ps):
+                if ip * ps + off < start:
+                    pos_pool[pg, off] = ip * ps + off
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    k_pool, v_pool = rnd(n_pages, ps, Hkv, D), rnd(n_pages, ps, Hkv, D)
+    lens = torch.tensor(starts, device=dev, dtype=torch.int32)
+    flat = view_indices(torch.from_numpy(bt).to(dev), ps, lengths=lens)
+    kp = gather_positions(torch.from_numpy(pos_pool).to(dev), flat).to(torch.int32).contiguous()
+    k, v = gather_pages(k_pool, flat).contiguous(), gather_pages(v_pool, flat).contiguous()
+    cow = (shared - 1) * ps
+    if not (len({tuple(bt[b, :shared]) for b in range(4)}) == 1
+            and bool((kp[4, cow:cow + keep] == torch.arange(cow, cow + keep, device=dev)).all())
+            and bool((kp[4, cow + keep:cow + ps] == PAD_POS).all())):
+        raise AssertionError("A prefix-shared prefill case: the tables are not laid out as "
+                             "the prefix cache lays them out")
+    qp = (lens[:, None] + torch.arange(C, device=dev)[None]).to(torch.int32).contiguous()
+    q, kc, vc = rnd(B, C, Hq, D), rnd(B, C, Hkv, D), rnd(B, C, Hkv, D)
+    return (q, k, v, qp, kp), (q, kc, vc, qp, qp)
+
+
+def phase_prefix_prefill(torch, dev):
+    """Kernel A's resident and chunk-local calls of a prefill chunk resuming
+    after a prefix hit (``prefix_prefill_data``) against the plain version
+    at bf16's limits, each call run twice and required bitwise equal."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ops import pick_block
+
+    resident, local = prefix_prefill_data(torch, dev)
+    for label, (q, k, v, qp, kp) in (("resident", resident), ("chunk-local", local)):
+        scale = 1.0 / q.shape[-1] ** 0.5
+        got = fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True, window=None, scale=scale)
+        again = fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True, window=None,
+                                            scale=scale)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"A prefix-shared prefill {label}: two runs on the same inputs "
+                                 "differ")
+        want = fa.flash_attention_fwd_torch(q, k, v, qp, kp, causal=True, window=None,
+                                            scale=scale, block_k=pick_block(k.shape[1], 512))
+        inst = fa.flash_fwd_instance(q.dtype, q.shape[1], q.shape[-1])
+        compare(f"A bf16 prefix-shared prefill {label} B={q.shape[0]} Sq={q.shape[1]} "
+                f"Sk={k.shape[1]} (rows 0-3 share 32 pages and resume at page-aligned offsets "
+                f"off the chunk grid, row 4 after a COW page's 8 kept rows) [{inst}] bitwise "
+                "repeatable", got, want, **tolerances(torch.bfloat16))
+
+
 def phase_paged(torch, dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -549,6 +704,20 @@ def phase_paged(torch, dev):
     data = to_dev(raw, torch.bfloat16)
     err = compare(f"C bf16 serving ps=16 ({splits(data)} splits) bitwise repeatable",
                   *run(data, lens, None), **tolerances(torch.bfloat16))
+    # prefix-shared tables: four rows map the same 32 leading pages, one a
+    # copy-on-write page with PAD_POS past its 8 kept rows
+    shared_raw, shared_lengths, common = prefix_shared_data()
+    shared_lens = torch.tensor(shared_lengths, device=dev, dtype=torch.int32)
+    if len({tuple(shared_raw[4][b, :32]) for b in range(4)}) != 1:
+        raise AssertionError("C prefix-shared case: rows 0-3 do not map the same pages")
+    for dtype in (torch.float32, torch.bfloat16):
+        sdata = to_dev(shared_raw, dtype)
+        compare(f"C {str(dtype)[6:]} prefix-shared ps=16 (rows 0-3 share 32 pages, row 4 a "
+                f"COW page keeping 8 rows; {splits(sdata)} splits) bitwise repeatable",
+                *run(sdata, shared_lens, None), **tolerances(dtype))
+
+    phase_prefix_prefill(torch, dev)
+
     q, kp, vp, pos, bt, qp = data
     scale = 1.0 / 128 ** 0.5
     two_streams(torch, dev, pa, data, splits(data))
@@ -615,13 +784,17 @@ def make_prompts(n, lo, hi, vocab, seed=0):
     return [rng.integers(0, vocab, int(L)).astype(np.int32) for L in lengths]
 
 
-def phase_e2e_checked(torch, dev, sp_degree=1, label="phase 5"):
+def phase_e2e_checked(torch, dev, sp_degree=1, label="phase 5", prefix_cache=False):
     """qwen3-1.7b widths, 2 layers, float32: the paged engine (kernels A and
     C) and the dense-slab engine (kernel A, its decode instance for every
     decode step), each emitted token teacher-forced against the plain path
     at SP 1 on the card.  With ``sp_degree > 1`` the engines serve over that
-    many virtual ranks (phase 12).  Launches of A and C must equal the
-    products of the prefill ticks and decode steps."""
+    many virtual ranks (phase 12).  With ``prefix_cache`` only the paged
+    engine runs, with the prefix cache on and prompts that share a 184-token
+    head (later requests map the first's 11 full pages and copy the 12th on
+    write, keeping its 8 shared rows, so their prefill resumes at 184, off
+    the 128-token chunk grid).  Launches of A and C must equal the products
+    of the prefill ticks and decode steps."""
     from repro_torch.configs import ARCHS
     from repro_torch.core.api import ParallelContext
     from repro_torch.kernels.flash_attention import flash_attention_fwd_cuda
@@ -634,17 +807,24 @@ def phase_e2e_checked(torch, dev, sp_degree=1, label="phase 5"):
     params = bundle.init(0)
     plain = build_model(cfg, ParallelContext(impl="torch", device="cuda"))
     max_len = 512
-    for path, kw in (("paged", dict(page_size=16)), ("dense-slab", {})):
+    paths = (("paged", dict(page_size=16)), ("dense-slab", {}))
+    prompts = make_prompts(6, 40, 300, cfg.vocab_size)
+    if prefix_cache:
+        import numpy as np
+
+        paths = (("paged prefix-cache", dict(page_size=16, prefix_cache=True)),)
+        head = make_prompts(1, 184, 184, cfg.vocab_size, seed=3)[0]
+        prompts = [np.concatenate([head, p]) for p in prompts]
+    for path, kw in paths:
         eng = ServingEngine(bundle, params, max_batch=4, max_len=max_len, prefill_chunk=128,
                             token_budget=256, device=dev, **kw)
         a0, c0 = flash_attention_fwd_cuda.launches, paged_decode_fwd_cuda.launches
-        reqs = [eng.submit(p, max_new_tokens=16)
-                for p in make_prompts(6, 40, 300, cfg.vocab_size)]
+        reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
         eng.run()
         ran_a = flash_attention_fwd_cuda.launches - a0
         ran_c = paged_decode_fwd_cuda.launches - c0
         want = serving_launches(cfg.n_layers, eng.counters["prefill_steps"],
-                                eng.counters["decode_steps"], paged=path == "paged")
+                                eng.counters["decode_steps"], paged=path != "dense-slab")
         if (ran_a, ran_c) != (want["flash_attention_fwd"], want["paged_decode_fwd"]):
             raise AssertionError(f"{label} {path}: launches A {ran_a}, C {ran_c}, expected {want}")
         worst = 0.0
@@ -665,9 +845,19 @@ def phase_e2e_checked(torch, dev, sp_degree=1, label="phase 5"):
                 if gap > 1e-3:
                     raise AssertionError(f"{path} req {r.uid} step {t}: token {tok_out} is "
                                          f"{gap:.2e} below the plain path's max logit")
+        hits = ""
+        if prefix_cache:
+            ps = eng.stats()["prefix"]
+            if ps["hit_tokens"] == 0 or ps["cow_copies"] == 0 or eng.auditor.violations():
+                raise AssertionError(f"{label} {path}: no prefix hit or no copy-on-write "
+                                     f"({ps}) or the auditor found {eng.auditor.violations()}")
+            hits = (f"; prefix hits {ps['hit_tokens']} of {ps['lookup_tokens']} tokens, "
+                    f"{ps['cow_copies']} COW copies, {ps['indexed_pages']} pages indexed, "
+                    "auditor clean")
         del eng
         log(f"  ok {label} {path} (SP {sp_degree}): {len(reqs)} requests x 16 tokens within "
-            f"1e-3 of the plain SP-1 path (worst gap {worst:.2e}); launches A {ran_a}, C {ran_c}")
+            f"1e-3 of the plain SP-1 path (worst gap {worst:.2e}); launches A {ran_a}, C {ran_c}"
+            + hits)
 
 
 def serving_launches(L, ticks, steps, *, paged):
@@ -895,6 +1085,49 @@ def phase_full(torch, dev, with_profile, sp_degree=1, reference=None):
 WITNESS_GAP = 0.1
 
 
+def forced_logits(torch, dev, bundle, params, prompt, chain, max_len=2048, chunk=256):
+    """Logits ``(len(chain), vocab)`` of ``chain`` fed one token a step
+    after ``prompt[:-1]`` prefilled in ``chunk``-token chunks (the engine's
+    chunks, the last padded) into a dense slot of ``max_len``."""
+    head = prompt[:-1]
+    feed = [int(prompt[-1])] + list(chain[:-1])
+    state = bundle.init_serve_state(1, max_len, dev)
+    for i in range(0, len(head), chunk):
+        part = torch.zeros((1, chunk), dtype=torch.int32, device=dev)
+        n = min(chunk, len(head) - i)
+        part[0, :n] = torch.from_numpy(head[i:i + n].copy()).to(dev)
+        bundle.prefill_chunk(params, part, state, torch.tensor([n], device=dev, dtype=torch.int32))
+    out = []
+    for tok in feed:
+        logits, state = bundle.decode_step(params, torch.tensor([tok], device=dev), state)
+        out.append(logits[0].float())
+    return torch.stack(out)
+
+
+def witness_gate(torch, dev, bundle, params, prompts, chains, label):
+    """Feed every chain back through ``bundle`` (the reference path): each
+    token must lie within ``WITNESS_GAP`` of the row spread (max minus mean
+    logit) below the reference's max logit.  Returns the summary."""
+    ratios, gaps, flips = [], [], 0
+    for prompt, chain in zip(prompts, chains):
+        ref = forced_logits(torch, dev, bundle, params, prompt, chain)
+        top = ref.max(dim=-1).values
+        gap = top - ref.gather(1, torch.tensor(chain, device=dev)[:, None])[:, 0]
+        ratios.append(gap / (top - ref.mean(dim=-1)))
+        gaps.append(gap)
+        flips += int((gap > 0).sum())
+    ratio, gap = torch.cat(ratios), torch.cat(gaps)
+    r = dict(tokens=int(gap.numel()), flips=flips, max_gap=float(gap.max()),
+             max_gap_over_spread=float(ratio.max()))
+    log(f"  witness {label}: {r['tokens']} tokens fed back through the reference bundle, "
+        f"{flips} not its argmax, largest gap {r['max_gap']:.5f} "
+        f"({r['max_gap_over_spread']:.4f} of the row spread; limit {WITNESS_GAP})")
+    if r["max_gap_over_spread"] > WITNESS_GAP:
+        raise AssertionError(f"witness {label}: a token lies {r['max_gap_over_spread']:.4f} of "
+                             f"the row spread below the reference's max logit")
+    return r
+
+
 def teacher_forced_witness(torch, dev, outputs, max_len=2048, chunk=256):
     """Feed each SP-4 chain (``outputs``: phase 13's tokens by path, its
     prompts regenerated from serve_run's seed) through three bundles on the
@@ -918,22 +1151,8 @@ def teacher_forced_witness(torch, dev, outputs, max_len=2048, chunk=256):
         prompts = make_prompts(n_requests, 128, 1024, cfg.vocab_size)
         gaps, ratios, spreads, margins, d_sp4, d_plain, flips = ([] for _ in range(7))
         for prompt, chain in zip(prompts, outputs[path]):
-            head = prompt[:-1]
-            feed = [int(prompt[-1])] + chain[:-1]
-            rows = {}
-            for name, b in bundles.items():
-                state = b.init_serve_state(1, max_len, dev)
-                for i in range(0, len(head), chunk):  # the engine's chunks, the last padded
-                    part = torch.zeros((1, chunk), dtype=torch.int32, device=dev)
-                    n = min(chunk, len(head) - i)
-                    part[0, :n] = torch.from_numpy(head[i:i + n].copy()).to(dev)
-                    b.prefill_chunk(params, part, state,
-                                    torch.tensor([n], device=dev, dtype=torch.int32))
-                out = []
-                for tok in feed:
-                    logits, state = b.decode_step(params, torch.tensor([tok], device=dev), state)
-                    out.append(logits[0].float())
-                rows[name] = torch.stack(out)
+            rows = {name: forced_logits(torch, dev, b, params, prompt, chain, max_len, chunk)
+                    for name, b in bundles.items()}
             ref = rows["sp1"]
             top2 = ref.topk(2, dim=-1).values
             tok = torch.tensor(chain, device=dev)[:, None]
@@ -1638,11 +1857,11 @@ def reset_launch_counts():
 
 
 def train_launches_per_step(cfg, computes: int = 1):
-    """remat "full" runs A in the forward and again in each block's
-    recompute; B1 and B2 once per layer.  ``computes``: flash calls of one
+    """remat "full" and "dots" run A in the forward and again in each
+    block's recompute; B1 and B2 once per layer.  ``computes``: flash calls of one
     attention layer (the ring schedule's Compute count; 1 at SP 1)."""
     L = cfg.n_layers * computes
-    return {"flash_attention_fwd": (2 if cfg.remat == "full" else 1) * L,
+    return {"flash_attention_fwd": (2 if cfg.remat in ("full", "dots") else 1) * L,
             "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L}
 
 
@@ -2241,6 +2460,470 @@ def phase_train_ring(torch, dev, with_profile=False, cfg=None, B=2, S=4096, step
     return got
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the prefix cache, the resilience layer and a snapshot restart at
+# full width and depth (this slice's serving path)
+# ---------------------------------------------------------------------------
+
+PREFIX_ENGINE = dict(max_batch=8, max_len=2048, prefill_chunk=256, token_budget=512,
+                     page_size=16, max_pages=1024)
+SYSTEM_PROMPT = 512  # tokens of the shared system prompt (32 full pages)
+COW_CUT = 520  # the COW request keeps request 0's first 520 tokens: 32 pages + 8 rows
+# Run 5: run 2's requests and one that forks inside the system prompt (so
+# that the cow point is reached while the index churns), on a pool cut to
+# 200 pages, so that decode growth preempts, with one fault at each tick
+# point.  The schedule does not depend on the logits (no request stops at
+# EOS), so a run at any width reaches the same points: alloc at uid 2's first
+# admission, prefill_tick at the 20th tick, sample at uid 1's 21st token,
+# decode_once at the 45th decode call, evict at the first preemption (uid
+# 6), admit at uid 13's first attempt, cow at uid 17's first; no three within
+# the ladder's 16-tick window.
+FAULT_MAX_PAGES = 200
+FAULT_COW_CUT = 500  # 31 system-prompt pages + 4 rows
+FAULT_PLAN = [("alloc", 0, 1, 2), ("prefill_tick", 19, 1, None), ("sample", 20, 1, 1),
+              ("decode_once", 44, 1, None), ("evict", 0, 1, 6), ("admit", 0, 1, 13),
+              ("cow", 0, 1, 17)]
+
+
+def prefix_prompts(vocab, n=16, seed=5):
+    """``n`` prompts: one seeded 512-token system prompt, then a seeded
+    128-1024-token suffix each."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, SYSTEM_PROMPT)
+    return [np.concatenate([system, rng.integers(0, vocab, int(rng.integers(128, 1025)))])
+            .astype(np.int32) for _ in range(n)]
+
+
+def cow_prompt(prompt0, vocab, cut=COW_CUT, seed=6):
+    """``prompt0`` cut at ``cut`` with a new seeded 128-token tail: it
+    diverges ``cut % 16`` rows into page ``cut // 16``."""
+    import numpy as np
+
+    tail = np.random.default_rng(seed).integers(0, vocab, 128)
+    if tail[0] == prompt0[cut]:
+        tail[0] = (tail[0] + 1) % vocab
+    return np.concatenate([prompt0[:cut], tail]).astype(np.int32)
+
+
+def counted_run(torch, eng, prompts, label, L):
+    """Submit ``prompts`` to ``eng``, run it to the end and hold the kernel
+    launches (counters set to 0 here) to 56 a prefill tick and 28 a decode
+    step of this run; every step's logits must be finite.  Returns the
+    requests, the stats (with ``wall_s``, ``tok_s``) and the launches."""
+    from repro_torch.kernels.paged_attention import paged_decode_fwd_cuda
+
+    finite = torch.ones((), dtype=torch.bool, device=eng.device)
+
+    def checked(step):
+        def run(*args):
+            logits, state = step(*args)
+            finite.logical_and_(torch.isfinite(logits).all())
+            return logits, state
+        return run
+
+    if not hasattr(eng, "_checked"):
+        eng._step, eng._chunk_step, eng._checked = checked(eng._step), checked(eng._chunk_step), 1
+    ticks0, steps0 = eng.counters["prefill_steps"], eng.counters["decode_steps"]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {**launch_counts(), "paged_decode_fwd": paged_decode_fwd_cuda.launches}
+    ticks = eng.counters["prefill_steps"] - ticks0
+    steps = eng.counters["decode_steps"] - steps0
+    want = serving_launches(L, ticks, steps, paged=True)
+    if got != want:
+        raise AssertionError(f"phase 14 {label}: launches {got}, expected {want} from {ticks} "
+                             f"prefill ticks and {steps} decode steps")
+    if not bool(finite):
+        raise AssertionError(f"phase 14 {label}: a serving step gave non-finite logits")
+    s = eng.stats()
+    toks = sum(len(r.output) for r in reqs)
+    ttft = [r.t_first - r.t_submit for r in reqs if r.t_first]
+    s.update(wall_s=wall, tok_s=toks / wall, run_tokens=toks, run_ticks=ticks,
+             run_steps=steps, run_mean_ttft_s=sum(ttft) / max(len(ttft), 1))
+    return reqs, s, got
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def phase_prefix_serving(torch, dev, launches):
+    """qwen3-1.7b at full width and depth (bf16, seeded weights) through the
+    paged engine with the prefix cache: the cold run, the prefix run, a warm
+    repeat and a copy-on-write request on its engine, a run with a fault at
+    every tick point on a cut pool, and a snapshot restart; launches counted
+    per run into ``launches``."""
+    import shutil
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.kernels.paged_attention import paged_decode_fwd_cuda
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.resilience import FaultPlan, FaultSpec
+
+    cfg = ARCHS["qwen3-1.7b"]
+    L = cfg.n_layers
+    bundle = build_model(cfg, ParallelContext(device="cuda"))
+    params = bundle.init(0)
+    prompts = prefix_prompts(cfg.vocab_size)
+    res = {}
+
+    def engine(**kw):
+        return ServingEngine(bundle, params, device=dev, **{**PREFIX_ENGINE, **kw})
+
+    def line(name, s):
+        p = s.get("prefix") or {}
+        log(f"  run {name}: {s['run_tokens']} tokens in {s['wall_s']:.3f} s = "
+            f"{s['tok_s']:.2f} tok/s, mean TTFT {s['run_mean_ttft_s'] * 1e3:.1f} ms, "
+            f"{s['run_ticks']} prefill ticks, {s['run_steps']} decode steps, prefill tokens "
+            f"{s['prefill_tokens']}, {s['preemptions']} preemptions"
+            + (f"; prefix hits {p['hit_tokens']} of {p['lookup_tokens']} tokens "
+               f"({100 * p['hit_rate']:.1f}%), {p['indexed_pages']} pages indexed, "
+               f"{p['cow_copies']} COW copies, {p['evictions']} evictions" if p else ""))
+
+    # 1. cold
+    cold, s1, launches["prefix_cold"] = counted_run(torch, engine(), prompts, "cold", L)
+    line("cold", s1)
+    res["cold"] = s1
+    # 2. prefix
+    eng2 = engine(prefix_cache=True, audit_every=8)
+    reqs2, s2, launches["prefix"] = counted_run(torch, eng2, prompts, "prefix", L)
+    line("prefix", s2)
+    hit = s2["prefix"]["hit_tokens"]
+    if hit < SYSTEM_PROMPT or eng2.auditor.violations():
+        raise AssertionError(f"phase 14 prefix: {hit} hit tokens, auditor "
+                             f"{eng2.auditor.violations()}")
+    if s1["preemptions"] == s2["preemptions"] == 0 and \
+            s2["prefill_tokens"] != s1["prefill_tokens"] - hit:
+        raise AssertionError(f"phase 14 prefix: prefill tokens {s2['prefill_tokens']}, the cold "
+                             f"run's {s1['prefill_tokens']} less {hit} hit tokens")
+    pairs = [(a, b) for x, y in zip(reqs2, cold) for a, b in zip(x.output, y.output)]
+    s2["tokens_equal_to_cold_share"] = sum(a == b for a, b in pairs) / len(pairs)
+    log(f"    prefix: {100 * s2['tokens_equal_to_cold_share']:.1f}% of the tokens equal the "
+        f"cold run's (the rest is gated by the witness below)")
+    res["prefix"] = s2
+    # 3. warm repeats of request 0's exact prompt on run 2's engine.  Its
+    # full pages are resident; the partial last page's rows are prefilled
+    # again, in a chunk that now starts at the hit, so kernel A's resident
+    # and chunk-local calls split those rows' keys elsewhere than run 2's
+    # chunk (which started at a multiple of 256) did: bitwise equality with
+    # run 2 is logged, not gated (PERF.md §7).  Gated: the prefill
+    # growth, a second repeat (same hit, split, slot and shapes) bitwise
+    # the first, and the witness below.
+    ps = PREFIX_ENGINE["page_size"]
+    tail = (len(prompts[0]) - 1) % ps
+    before = eng2.counters["prefill_tokens"]
+    (warm,), s3, launches["prefix_warm"] = counted_run(torch, eng2, prompts[:1], "warm", L)
+    grew = eng2.counters["prefill_tokens"] - before
+    (warm2,), _, launches["prefix_warm_again"] = counted_run(torch, eng2, prompts[:1],
+                                                             "warm again", L)
+    first = next((i for i, (a, b) in enumerate(zip(warm.output, reqs2[0].output)) if a != b),
+                 None)
+    log(f"  run warm repeat: prefill grew by {grew} tokens (the prompt's partial last page: "
+        f"{tail} rows); {s3['run_ticks']} prefill ticks, {s3['run_steps']} decode steps; tokens "
+        + ("bitwise equal to request 0's in run 2" if first is None else
+           f"equal to request 0's in run 2 up to token {first}, then not")
+        + "; a second repeat "
+        + ("bitwise equal to" if warm2.output == warm.output else "DIFFERENT from") + " the first")
+    if grew > PREFIX_ENGINE["prefill_chunk"]:
+        raise AssertionError(f"phase 14 warm repeat: prefill grew by {grew} tokens")
+    if warm2.output != warm.output:
+        raise AssertionError("phase 14 warm repeat: a second repeat with the same pages and the "
+                             "same chunk split gave other tokens")
+    res["warm"] = dict(prefill_growth=grew, tail_rows=tail, ticks=s3["run_ticks"],
+                       steps=s3["run_steps"], first_difference_from_run2=first,
+                       repeat_bitwise=True)
+    # 4. copy-on-write on run 2's engine
+    cow_p = cow_prompt(prompts[0], cfg.vocab_size)
+    pages = sorted(eng2.prefix.pages)
+    k_before, v_before = eng2.state["k"][:, pages].clone(), eng2.state["v"][:, pages].clone()
+    copies = eng2.prefix.cow_copies
+    (cow,), s4, launches["prefix_cow"] = counted_run(torch, eng2, [cow_p], "cow", L)
+    if eng2.prefix.cow_copies != copies + 1:
+        raise AssertionError(f"phase 14 COW: {eng2.prefix.cow_copies - copies} copies, not 1")
+    if not (torch.equal(eng2.state["k"][:, pages], k_before)
+            and torch.equal(eng2.state["v"][:, pages], v_before)):
+        raise AssertionError("phase 14 COW: an index page's K/V changed")
+    if eng2.auditor.violations():
+        raise AssertionError(f"phase 14 COW: auditor {eng2.auditor.violations()}")
+    log(f"  run COW: 1 copy-on-write (keep {COW_CUT % PREFIX_ENGINE['page_size']} rows); the "
+        f"K/V of all {len(pages)} index pages bitwise unchanged; {s4['run_ticks']} prefill "
+        f"ticks, {s4['run_steps']} decode steps")
+    res["cow"] = dict(index_pages=len(pages), ticks=s4["run_ticks"], steps=s4["run_steps"])
+    del eng2, k_before, v_before
+    free_device_memory(torch)
+    # 5. faults on a cut pool
+    plan = FaultPlan([FaultSpec(*f) for f in FAULT_PLAN])
+    eng5 = engine(prefix_cache=True, audit_every=8, max_pages=FAULT_MAX_PAGES, fault_plan=plan)
+    fault_prompts = prompts + [cow_prompt(prompts[0], cfg.vocab_size, cut=FAULT_COW_CUT)]
+    reqs5, s5, launches["prefix_faults"] = counted_run(torch, eng5, fault_prompts, "faults", L)
+    line("faults", s5)
+    fired = sorted(((p, uid) for p, _, uid in plan.fired), key=lambda f: f[0])
+    want = sorted(((p, uid) for p, _, _, uid in FAULT_PLAN), key=lambda f: f[0])
+    log(f"    faults: fired {plan.fired}; counters faults {s5['faults']}, quarantines "
+        f"{s5['quarantines']}, recoveries {s5['recoveries']}, failures {s5['failures']}, "
+        f"integrity errors {s5['integrity_errors']}; ladder {s5['degrade']}; "
+        f"{s5['audits']['post_recovery']} post-recovery audits, "
+        f"{s5['audits']['post_recovery_violations']} with a violation")
+    n_attr = sum(1 for p, _, _, _ in FAULT_PLAN if p not in ("prefill_tick", "decode_once"))
+    checks = {
+        "every request done": all(r.status == "done" for r in reqs5),
+        "fired is the plan": [p for p, _ in fired] == [p for p, _ in want] and all(
+            w is None or f == w for (_, f), (_, w) in zip(fired, want)),
+        "preemptions happened": s5["preemptions"] >= 1,
+        "copy-on-write happened": s5["prefix"]["cow_copies"] >= 1,
+        "ladder never escalated": s5["degrade"]["escalations"] == 0,
+        "counters": (s5["faults"], s5["quarantines"], s5["recoveries"], s5["failures"],
+                     s5["integrity_errors"]) == (len(want), n_attr, len(want) - n_attr, 0, 0),
+        "auditor clean after each recovery": s5["audits"]["post_recovery"] >= 1
+        and s5["audits"]["post_recovery_violations"] == 0,
+        "auditor clean at the end": eng5.auditor.violations() == [],
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"phase 14 faults: {bad}")
+    res["faults"] = {**{k: v for k, v in s5.items() if not isinstance(v, dict)},
+                     "fired": plan.fired, "degrade": s5["degrade"], "audits": s5["audits"]}
+    faults_chains = [r.output for r in reqs5]
+    del eng5
+    free_device_memory(torch)
+    # 6. snapshot restart
+    snap = ROOT / "build" / "phase14_snapshot"
+    shutil.rmtree(snap, ignore_errors=True)
+    eng6 = engine(prefix_cache=True, audit_every=8, snapshot_dir=str(snap))
+    reset_launch_counts()
+    for p in prompts:
+        eng6.submit(p, max_new_tokens=32)
+    while eng6.counters["decode_steps"] < s2["run_steps"] // 2:
+        eng6.run(max_steps=1)
+    at_step = eng6.counters["decode_steps"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = eng6.snapshot()
+    save_s = time.perf_counter() - t0
+    nbytes = dir_bytes(snap)
+    del eng6
+    free_device_memory(torch)
+    t0 = time.perf_counter()
+    eng7 = ServingEngine.from_snapshot(bundle, params, str(snap), device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    eng7.auditor.check()
+    eng7.run()
+    got = {**launch_counts(), "paged_decode_fwd": paged_decode_fwd_cuda.launches}
+    wanted = serving_launches(L, eng7.counters["prefill_steps"], eng7.counters["decode_steps"],
+                              paged=True)
+    if got != wanted:
+        raise AssertionError(f"phase 14 snapshot: launches {got}, expected {wanted}")
+    launches["prefix_snapshot"] = got
+    outs = {r.uid: r.output for r in eng7.done}
+    if eng7.auditor.violations() or [outs.get(r.uid) for r in reqs2] != [r.output
+                                                                        for r in reqs2]:
+        raise AssertionError("phase 14 snapshot: the restarted engine's tokens differ from run "
+                             f"2's or its auditor found {eng7.auditor.violations()}")
+    log(f"  run snapshot: snapshot at tick {step} (decode step {at_step} of "
+        f"{s2['run_steps']}): {nbytes} B on disk, save {save_s:.3f} s, restart "
+        f"(from_snapshot) {restore_s:.3f} s; the restarted engine's tokens bitwise equal run "
+        f"2's, auditor clean")
+    res["snapshot"] = dict(bytes=nbytes, save_s=save_s, restore_s=restore_s, tick=step,
+                           decode_step=at_step)
+    del eng7
+    shutil.rmtree(snap, ignore_errors=True)
+    free_device_memory(torch)
+    # witness: every token of runs 2, 4 and 5 against the cold run's bundle
+    res["witness"] = {
+        "prefix": witness_gate(torch, dev, bundle, params, prompts,
+                               [r.output for r in reqs2], "prefix run"),
+        "warm": witness_gate(torch, dev, bundle, params, prompts[:1], [warm.output],
+                             "warm repeat"),
+        "cow": witness_gate(torch, dev, bundle, params, [cow_p], [cow.output], "COW request"),
+        "faults": witness_gate(torch, dev, bundle, params, fault_prompts, faults_chains,
+                               "fault run"),
+    }
+    del bundle, params
+    log("RESULT serving_prefix " + json.dumps(res))
+
+
+# ---------------------------------------------------------------------------
+# phase 15: checkpoint/restart training at full width and depth
+# ---------------------------------------------------------------------------
+
+CKPT_LAYERS = 28  # depth of phase 15 (qwen3-1.7b's full 28): its state fits the disk twice
+
+
+def timed_methods(obj, names, into):
+    """Wrap ``obj``'s methods ``names`` to append their wall seconds (after a
+    device sync) to ``into[name]``."""
+    import torch
+
+    for name in names:
+        fn = getattr(obj, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            into.setdefault(_name, []).append(time.perf_counter() - t0)
+            return out
+        setattr(obj, name, wrapped)
+
+
+def phase_train_ckpt(torch, dev, cfg=None, B=2, S=4096, steps=5, fail_at=3):
+    """qwen3-1.7b at full width through the Trainer with checkpoints every 2
+    steps: an uninterrupted run (async saves) and a fault-tolerant run that
+    fails at step ``fail_at`` and resumes from the step-2 checkpoint
+    (blocking saves), bitwise equal; then one remat "dots" step beside a
+    "full" one.  Returns each run's launches."""
+    import shutil
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.launch.train_step import value_and_grad
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.fault_tolerance import FailureInjector, FaultTolerantRunner
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig, batch_to_device, n_params
+
+    cfg = cfg or ARCHS["qwen3-1.7b"].with_(n_layers=CKPT_LAYERS)
+    root = ROOT / "build" / "phase15_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    bundle = build_model(cfg, ParallelContext(device="cuda"))
+
+    def data():
+        return SyntheticDataset(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                                global_batch=B, seed=0, layout=cfg.layout))
+
+    def trainer(sub, hook=None, **kw):
+        tcfg = TrainerConfig(lr=3e-4, warmup_steps=1, total_steps=steps, checkpoint_every=2,
+                             checkpoint_dir=str(root / sub), keep_checkpoints=1, **kw)
+        t = Trainer(bundle, tcfg, step_hook=hook)
+        t.losses = []
+        step_fn = t._step
+
+        def recorded(state, batch):
+            new, metrics = step_fn(state, batch)
+            t.losses.append((int(state["step"]), metrics["loss"]))
+            return new, metrics
+        t._step = recorded
+        return t
+
+    quiet = dict(log_every=10**6, log=lambda m: None)
+    launches, times = {}, {}
+    # uninterrupted, async saves
+    t_ref = trainer("ref")
+    timed_methods(t_ref.ckpt, ("save", "wait"), times.setdefault("async", {}))
+    state = t_ref.init_state(0)
+    state_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(state))
+    free = shutil.disk_usage(root).free
+    log(f"  {cfg.name}: {cfg.n_layers} layers, {n_params(state['params']) / 1e9:.3f}B "
+        f"parameters; training state {state_bytes} B (parameters, AdamW moments, step); "
+        f"{free} B free under {root.relative_to(ROOT)}; batch {B} x seq {S}, remat {cfg.remat}")
+    if free < 2.2 * state_bytes:
+        raise AssertionError(f"phase 15: {free} B free, two checkpoints need {2 * state_bytes}")
+    reset_launch_counts()
+    state, _ = t_ref.run(state, data(), steps=steps, **quiet)
+    torch.cuda.synchronize()
+    launches["train_ckpt"] = launch_counts()
+    ref_losses = [(i, float(x)) for i, x in t_ref.losses]
+    ref_params = state["params"]
+    ckpt_bytes = dir_bytes(root / "ref")
+    del state, t_ref
+    shutil.rmtree(root / "ref", ignore_errors=True)
+    free_device_memory(torch)
+    # fault-tolerant, blocking saves, a failure before step `fail_at`
+    inj = FailureInjector([fail_at])
+    t_ft = trainer("ft", hook=inj, async_checkpoint=False)
+    timed_methods(t_ft.ckpt, ("save", "restore"), times.setdefault("blocking", {}))
+    runner = FaultTolerantRunner(t_ft, max_restarts=1, log=lambda m: log("  " + m))
+    reset_launch_counts()
+    ft_state, _ = runner.run(0, data(), steps=steps)
+    torch.cuda.synchronize()
+    launches["train_ft"] = launch_counts()
+    ft_losses = [(i, float(x)) for i, x in t_ft.losses]
+    ran = len(ft_losses)
+    per_step = train_launches_per_step(cfg)
+    want = {k: v * ran for k, v in per_step.items()}
+    if launches["train_ft"] != want or launches["train_ckpt"] != {k: v * steps for k, v in
+                                                                 per_step.items()}:
+        raise AssertionError(f"phase 15: launches {launches}, expected {per_step} per step "
+                             f"({steps} and {ran} steps)")
+    ref_by_step = dict(ref_losses)
+    same_losses = all(ref_by_step[i] == x for i, x in ft_losses)
+    diff = [name for (name, a), (_, b) in zip(named_leaves(ref_params),
+                                              named_leaves(ft_state["params"]))
+            if not torch.equal(a, b)]
+    log(f"  uninterrupted losses {[round(x, 6) for _, x in ref_losses]}; fault-tolerant run "
+        f"steps {[i for i, _ in ft_losses]} (restarts {runner.restarts}) losses "
+        f"{[round(x, 6) for _, x in ft_losses]}; {len(diff)} parameter leaves differ")
+    if runner.restarts != 1 or not same_losses or diff or int(ft_state["step"]) != steps:
+        raise AssertionError(f"phase 15: the fault-tolerant run is not bitwise the "
+                             f"uninterrupted one (restarts {runner.restarts}, losses equal "
+                             f"{same_losses}, leaves differing {diff[:5]})")
+    a_save = times["async"]["save"]
+    a_wait = times["async"]["wait"]
+    b_save = times["blocking"]["save"]
+    b_rest = times["blocking"]["restore"]
+    log(f"  checkpoint {ckpt_bytes} B on disk; async save: {[round(x, 3) for x in a_save]} s "
+        f"in the step loop (the host copy), final wait {[round(x, 3) for x in a_wait]} s; "
+        f"blocking save {[round(x, 3) for x in b_save]} s; restore "
+        f"{[round(x, 3) for x in b_rest]} s")
+    del ft_state, runner, t_ft
+    shutil.rmtree(root, ignore_errors=True)
+    free_device_memory(torch)
+    # remat "dots" beside "full": one step's loss and gradients from the same
+    # parameters and batch, then 3 timed training steps each
+    batch = batch_to_device(next(data()), dev)
+    grads = {}
+    for remat in ("full", "dots"):
+        b = build_model(cfg.with_(remat=remat), ParallelContext(device="cuda"))
+        reset_launch_counts()
+        (loss, _), g = value_and_grad(b.loss, ref_params, batch)
+        torch.cuda.synchronize()
+        grads[remat] = (loss, g, launch_counts())
+    if not torch.equal(grads["full"][0], grads["dots"][0]):
+        raise AssertionError(f"phase 15 dots: loss {float(grads['dots'][0])} vs full "
+                             f"{float(grads['full'][0])}")
+    worst = worst_leaf(torch, grads["dots"][1], grads["full"][1], 5e-2)
+    if grads["dots"][2] != train_launches_per_step(cfg.with_(remat="dots")):
+        raise AssertionError(f"phase 15 dots: launches {grads['dots'][2]}")
+    launches["train_dots"] = grads["dots"][2]
+    del grads
+    free_device_memory(torch)
+    timing = {}
+    for remat in ("full", "dots"):
+        b = build_model(cfg.with_(remat=remat), ParallelContext(device="cuda"))
+        t = Trainer(b, TrainerConfig(lr=3e-4, warmup_steps=1, total_steps=4))
+        st = t.state_from_params(ref_params)
+        torch.cuda.reset_peak_memory_stats()
+        t.run(st, data(), steps=4, **quiet)
+        timing[remat] = dict(median_step_s=statistics.median(t.step_seconds[1:]),
+                             peak_bytes=torch.cuda.max_memory_allocated())
+        del st, t
+        free_device_memory(torch)
+    log(f"  remat dots: loss bitwise equal to full's, worst gradient leaf {worst:.2e} of its "
+        f"max (limit 5e-2); launches {launches['train_dots']}; median of 3 steps "
+        f"{timing['dots']['median_step_s']:.4f} s (full {timing['full']['median_step_s']:.4f} s), "
+        f"peak memory {timing['dots']['peak_bytes'] / 2**30:.2f} GiB (full "
+        f"{timing['full']['peak_bytes'] / 2**30:.2f} GiB)")
+    log("RESULT training_ckpt " + json.dumps({
+        "arch": cfg.name, "layers": cfg.n_layers, "state_bytes": state_bytes,
+        "checkpoint_bytes": ckpt_bytes, "disk_free_bytes": free, "ref_losses": ref_losses,
+        "ft_losses": ft_losses, "async_save_s": a_save, "async_wait_s": a_wait,
+        "blocking_save_s": b_save, "restore_s": b_rest, "dots_worst_leaf": worst,
+        "timing": timing, "launches": launches}))
+    return launches
+
+
 def free_device_memory(torch):
     gc.collect()
     torch.cuda.empty_cache()
@@ -2346,21 +3029,34 @@ def main() -> int:
     free_device_memory(torch)
     phase_e2e_checked(torch, dev, sp_degree=4, label="phase 12")
     free_device_memory(torch)
-    log("== phase 13: qwen3-1.7b full width and depth, served over 4 virtual ranks (main path)")
+    phase_e2e_checked(torch, dev, sp_degree=4, label="phase 12", prefix_cache=True)
+    free_device_memory(torch)
+    log("== phase 13: qwen3-1.7b full width and depth, served over 4 virtual ranks")
     sp_launches, sp_outputs = phase_full(torch, dev, profile, sp_degree=4,
                                          reference=sp1_outputs)
     launches.update(sp_launches)
     free_device_memory(torch)
     teacher_forced_witness(torch, dev, sp_outputs)
+    free_device_memory(torch)
+    log("== phase 14: qwen3-1.7b full width and depth, served with the prefix cache, faults "
+        "and a snapshot restart (main path)")
+    phase_prefix_serving(torch, dev, launches)
+    free_device_memory(torch)
+    log("== phase 15: qwen3-1.7b full width and depth, checkpoint/restart training and remat "
+        "dots")
+    launches.update(phase_train_ckpt(torch, dev))
+    free_device_memory(torch)
 
-    log("== phase 14: summary")
+    log("== phase 16: summary")
     # `launches` is the count of the main path that runs the kernel (A and
-    # C: paged serving over 4 virtual ranks, phase 13; B1 and B2: training
-    # through TokenRing, phase 11); `launches_by_path` gives every driven
-    # path's count, each read from counters set to 0 just before that run.
-    # A's and C's times, errors and bounds are those of phase 13's calls
-    # (phase 12): A's resident call of a paged prefill chunk, its other
-    # calls under `sp4_calls`.
+    # C: paged serving with the prefix cache at SP 1, phase 14's prefix run;
+    # B1 and B2: checkpoint/restart training, phase 15's fault-tolerant
+    # run); `launches_by_path` gives every driven path's count, each read
+    # from counters set to 0 just before that run.  The times, errors and
+    # bounds are those of the main path's calls at its shapes: A's resident
+    # call of a paged prefill chunk (phase 3: B=8, Sq=256, Sk=2048) and C's
+    # serving-shape call (phase 4); phase 13's SP-4 calls (phase 12) sit
+    # under `sp4_calls`.
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in launches.items()}
 
@@ -2369,34 +3065,32 @@ def main() -> int:
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_fwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:244",
-         "launches": launches["paged_sp4"]["flash_attention_fwd"],
+         "launches": launches["prefix"]["flash_attention_fwd"],
          "launches_by_path": by_path("flash_attention_fwd"),
          "device_kernels": {"wgmma": ["rt::wg::flash_fwd_wgmma_kernel<D>"],
                             "decode": ["rt::dec::decode_kernel<T, D, WR, RW, false>"],
                             "cuda_core": ["rt::flash_fwd_kernel<T, D>"]},
-         **sp_rows["paged_prefill_resident"],
-         "sp4_calls": {k: v for k, v in sp_rows.items()
-                       if k not in ("paged_prefill_resident", "paged_decode")},
-         "training_shape": bwd_rows["fwd"],
-         "serving_prefill_shape": flash_rows[256], "decode_shape": flash_rows[1],
+         **flash_rows[256],
+         "sp4_calls": {k: v for k, v in sp_rows.items() if k != "paged_decode"},
+         "training_shape": bwd_rows["fwd"], "decode_shape": flash_rows[1],
          "ring_overlap_trace": ring_trace},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_bwd.cu",
          "replaces": bwd, "pallas_body": "src/repro/kernels/flash_attention.py:367",
-         "launches": launches["train_ring"]["flash_attention_bwd_dq"],
+         "launches": launches["train_ft"]["flash_attention_bwd_dq"],
          "launches_by_path": by_path("flash_attention_bwd_dq"), **bwd_rows["dq"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_bwd.cu",
          "replaces": bwd, "pallas_body": "src/repro/kernels/flash_attention.py:415",
-         "launches": launches["train_ring"]["flash_attention_bwd_dkv"],
+         "launches": launches["train_ft"]["flash_attention_bwd_dkv"],
          "launches_by_path": by_path("flash_attention_bwd_dkv"), **bwd_rows["dkv"]},
         {"name": "paged_decode_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/paged_attention.py:192",
-         "launches": launches["paged_sp4"]["paged_decode_fwd"],
+         "launches": launches["prefix"]["paged_decode_fwd"],
          "launches_by_path": by_path("paged_decode_fwd"),
          "device_kernels": ["rt::dec::decode_kernel<T, D, WR, RW, true>"],
-         **sp_rows["paged_decode"], "sp1_serving_shape": paged_row},
+         **paged_row, "sp4_calls": {"paged_decode": sp_rows["paged_decode"]}},
     ]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -9,8 +9,17 @@ the CPU.  Like the reference's CLI it serves at SP degree 1 and prints the
 planner's modeled link bytes of the serving schedules at SP 4
 (:func:`print_serving_plan`); sequence-parallel serving is reached through
 the library (``build_model(cfg, ParallelContext(sp_degree=P, ...))`` and
-``ServingEngine``).  The prefix cache and the resilience flags of the JAX
-launcher come with later slices.
+``ServingEngine``).
+
+``--prefix-cache`` turns on content-addressed prefix reuse (paged only;
+``--shared-prefix N`` prepends N shared system-prompt tokens to every
+request) and prints the measured hit line.  ``--fault-rate`` fires every
+engine tick point with that probability (``--fault-seed``), survived
+through quarantine and retry (``--max-retries``, ``--retry-backoff``), the
+degrade ladder and the cache auditor (``--audit-every``);
+``--snapshot-dir``/``--snapshot-every`` take serving-state snapshots that
+``ServingEngine.from_snapshot`` restarts from.  The reference's adaptive
+prefill line (``print_adaptive_prefill``) waits for the prefill rings.
 
 Example (reduced model, paged, on the card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \\
@@ -40,7 +49,7 @@ def print_serving_plan(cfg, *, max_batch: int, chunk: int, max_len: int, sp_degr
     that ``plan_decode`` / ``plan_prefill`` attach to their plans).  With
     ``page_size`` the paged block-table term rides along (``table_pages =
     ceil(max_len / page_size)``).  The reference's ``prefix_hit_rate``
-    line comes with the prefix cache and the prefill rings."""
+    line (the adaptive prefill arbitration) comes with the prefill rings."""
     from repro_torch.serving.kv_cache import pages_for
 
     bpe = 2 if cfg.dtype == "bfloat16" else 4
@@ -78,6 +87,10 @@ def main(argv=None):
                     help="page-pool size (default: max_batch * ceil(max_len/page_size))")
     ap.add_argument("--preempt", action=argparse.BooleanOptionalAction, default=True,
                     help="evict the newest request when the page pool runs dry")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction, default=False,
+                    help="content-addressed prefix reuse across requests (paged cache only)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend this many shared system-prompt tokens to every request")
     ap.add_argument("--impl", default="auto", choices=("auto", "cuda", "torch"),
                     help="attention impl: cuda runs the hand-written kernels, torch the "
                     "plain versions, auto picks by the tensors' device")
@@ -87,6 +100,20 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="chaos mode: every engine tick point fails with this probability")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of --fault-rate's injector (reproducible)")
+    ap.add_argument("--audit-every", type=int, default=0,
+                    help="run the cache auditor every N ticks (0 = after recoveries only)")
+    ap.add_argument("--max-retries", type=int, default=2,
+                    help="quarantine rounds a request survives before it fails")
+    ap.add_argument("--retry-backoff", type=int, default=1,
+                    help="base of the exponential re-admission backoff, in ticks")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="serving-state snapshot directory (ServingEngine.from_snapshot)")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="snapshot every N ticks while requests are in flight")
     args = ap.parse_args(argv)
 
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
@@ -100,16 +127,26 @@ def main(argv=None):
     params = bundle.init(args.seed)
     print_serving_plan(cfg, max_batch=args.max_batch, chunk=args.prefill_chunk,
                        max_len=args.max_len, page_size=args.page_size)
+    plan = None
+    if args.fault_rate:
+        from repro_torch.serving.resilience import FaultPlan
+
+        plan = FaultPlan.bernoulli(args.fault_rate, seed=args.fault_seed)
     eng = ServingEngine(
         bundle, params, max_batch=args.max_batch, max_len=args.max_len,
         temperature=args.temperature, seed=args.seed, prefill_chunk=args.prefill_chunk,
         token_budget=args.token_budget, page_size=args.page_size, max_pages=args.max_pages,
-        preempt=args.preempt, device=args.device,
+        preempt=args.preempt, prefix_cache=args.prefix_cache, fault_plan=plan,
+        audit_every=args.audit_every, max_retries=args.max_retries,
+        retry_backoff=args.retry_backoff, snapshot_dir=args.snapshot_dir,
+        snapshot_every=args.snapshot_every, device=args.device,
     )
     rng = np.random.default_rng(args.seed)
+    shared = rng.integers(0, cfg.vocab_size, args.shared_prefix)
     t0 = time.perf_counter()
     for _ in range(args.requests):
-        prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(3, 9))).astype(np.int32)
+        plen = int(rng.integers(3, 9))
+        prompt = np.concatenate([shared, rng.integers(0, cfg.vocab_size, plen)]).astype(np.int32)
         eng.submit(prompt, max_new_tokens=args.max_new)
     done = eng.run()
     dt = time.perf_counter() - t0
@@ -125,6 +162,18 @@ def main(argv=None):
         u = s["pages"]
         print(f"pages: {u['high_water']}/{u['pages_total']} high-water "
               f"(x{args.page_size} tokens), {s['preemptions']} preemptions")
+    if "prefix" in s:
+        p = s["prefix"]
+        print(f"prefix cache: {p['hit_tokens']}/{p['lookup_tokens']} tokens hit "
+              f"({p['hit_rate']*100:.0f}%), {p['indexed_pages']} pages indexed, "
+              f"{p['cow_copies']} COW copies, {p['evictions']} evictions")
+    if s["faults"] or s["snapshots"] or args.audit_every:
+        d, st = s["degrade"], s["step_time"]
+        print(f"resilience: {s['faults']} faults, {s['recoveries']} recoveries, "
+              f"{s['quarantines']} quarantines, {s['failed_requests']} failed, "
+              f"{s['load_shed']} shed; ladder {d['mode']} ({d['escalations']} escalations); "
+              f"{s['snapshots']} snapshots; step median {st['median_s']*1e3:.1f} ms "
+              f"({st['straggler_events']} straggler events)")
     for r in done[:3]:
         print(f"  req {r.uid}: prompt {r.prompt.tolist()} -> {r.output}")
     return s

@@ -4,13 +4,17 @@
 Runs on the card by default; ``--device cpu`` runs the plain versions on the
 CPU.  ``--sp-degree P`` trains through the chosen ring strategy on the
 virtual ring of P ranks (one process, one device; the batch is laid out in
-zigzag order for P).  The JAX launcher's ``--ckpt``/``--ckpt-every``
-(checkpoint manager) and ``--fail-at`` (fault-tolerant runner) wait for
-their modules.
+zigzag order for P).  ``--ckpt DIR`` checkpoints every ``--ckpt-every``
+steps and runs through the fault-tolerant runner, which restores the
+latest checkpoint after a failure (``--fail-at`` injects one).
 
 Example (reduced model on the CPU, TokenRing over 4 virtual ranks):
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
       --steps 20 --batch 4 --seq 128 --sp-degree 4 --strategy tokenring
+
+Example (checkpoints every 5 steps, a failure injected at step 7):
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
+      --steps 12 --batch 4 --seq 128 --ckpt build/ckpt --ckpt-every 5 --fail-at 7
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from repro_torch.core.strategies import available_strategies, get_strategy
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.runtime.fault_tolerance import FailureInjector, FaultTolerantRunner
 from repro_torch.runtime.trainer import Trainer, TrainerConfig, n_params
 
 
@@ -39,6 +44,10 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default=None, help="checkpoint directory (fault-tolerant run)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--fail-at", type=int, default=None,
+                    help="inject a failure at this step (fault-tolerance demo)")
     ap.add_argument("--impl", default="auto", choices=("auto", "cuda", "torch"),
                     help="attention impl, forward and backward: cuda runs the hand-written "
                     "kernels, torch the plain versions, auto picks by the tensors' device")
@@ -75,17 +84,30 @@ def main(argv=None):
     bundle = build_model(cfg, pctx)
     tcfg = TrainerConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1),
                          total_steps=args.steps, microbatches=args.microbatches,
+                         checkpoint_every=args.ckpt_every, checkpoint_dir=args.ckpt,
                          opt=AdamWConfig())
-    trainer = Trainer(bundle, tcfg)
+    inj = FailureInjector([args.fail_at]) if args.fail_at is not None else None
+    trainer = Trainer(bundle, tcfg, step_hook=inj)
     data = SyntheticDataset(SyntheticConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch, seed=args.seed,
         layout=cfg.layout, sp_degree=pctx.sp_degree))
-    state = trainer.init_state(args.seed)
     sp = (f", {args.strategy} over {args.sp_degree} virtual ranks" if args.sp_degree > 1
           else "")
-    print(f"{cfg.name}: {n_params(state['params']) / 1e6:.1f}M parameters, batch "
-          f"{args.batch} x seq {args.seq}, remat {cfg.remat}, on {args.device}{sp}")
-    state, hist = trainer.run(state, data, steps=args.steps)
+
+    def banner(state):
+        print(f"{cfg.name}: {n_params(state['params']) / 1e6:.1f}M parameters, batch "
+              f"{args.batch} x seq {args.seq}, remat {cfg.remat}, on {args.device}{sp}")
+
+    if args.ckpt:
+        runner = FaultTolerantRunner(trainer, max_restarts=3)
+        state, hist = runner.run(args.seed, data, steps=args.steps)
+        banner(state)
+        print(f"checkpoints under {args.ckpt}: latest step {trainer.ckpt.latest_step()}, "
+              f"{runner.restarts} restart(s)")
+    else:
+        state = trainer.init_state(args.seed)
+        banner(state)
+        state, hist = trainer.run(state, data, steps=args.steps)
     tail = trainer.step_seconds[1:] or trainer.step_seconds
     step_s = float(np.median(tail))
     print(f"final step {int(state['step'])}  loss {hist[-1]:.4f} (start {hist[0]:.4f}); "

@@ -7,7 +7,10 @@ a leading L dim; ``convert.from_jax_params`` unstacks).  The layer loop is a
 Python loop.  The training forward (:func:`lm_apply`) applies ``cfg.remat``
 per block: ``"full"`` recomputes each block in the backward
 (``torch.utils.checkpoint``, so kernel A runs twice per layer and step),
-``"none"`` keeps its activations; ``"dots"`` is not ported.
+``"none"`` keeps its activations, and ``"dots"`` (the counterpart of
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``) keeps the
+outputs of the weight products and recomputes everything else, the flash
+attention included (:func:`dots_policy`).
 
 Serve state is a dict of tensors laid out like the JAX pytree (K/V stacked
 over layers).  The JAX steps return a new state; here each step updates the
@@ -25,8 +28,14 @@ partials (``core/decode.py``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.kernels.ref import PAD_POS
 from repro_torch.models.attention import (
@@ -70,7 +79,23 @@ __all__ = [
     "lm_decode_step",
     "lm_prefill_chunk_paged",
     "lm_decode_step_paged",
+    "dots_policy",
 ]
+
+# The weight products of a block: ``x @ w`` of a (B, S, d) activation by a
+# (d, d_out) weight reaches the dispatcher as one 2-D ``mm`` (``addmm`` with
+# a bias); attention's products are batched (``bmm``) or inside the flash
+# function, and are recomputed, as JAX's policy recomputes dots with batch
+# dims.
+_WEIGHT_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat ``"dots"``: save the outputs of
+    the weight products, recompute every other op."""
+    if op in _WEIGHT_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _layer_init(gen, cfg, device, training):
@@ -139,9 +164,7 @@ def _layers(params, x, cfg, attend):
 def lm_apply(params, tokens, positions, *, cfg, pctx):
     """Full forward, returns ``(hidden (B,S,d), aux)``; ``aux`` is the MoE
     router loss, 0 for the dense family."""
-    if cfg.remat not in ("none", "full"):
-        if cfg.remat == "dots":
-            raise NotImplementedError("remat='dots' is not ported (no config uses it)")
+    if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
     def block(p_l, x):
@@ -149,9 +172,11 @@ def lm_apply(params, tokens, positions, *, cfg, pctx):
                                                           window=cfg.window))
 
     x = _embed(params, tokens, cfg)
-    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts, dots_policy)
+          } if cfg.remat == "dots" else {}
     for p_l in params["layers"]:
-        x = checkpoint(block, p_l, x, use_reentrant=False) if remat else block(p_l, x)
+        x = checkpoint(block, p_l, x, use_reentrant=False, **kw) if remat else block(p_l, x)
     x = apply_norm(params["final_norm"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

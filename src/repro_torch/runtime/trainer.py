@@ -1,12 +1,14 @@
-"""Training driver: step, microbatch accumulation, metrics (port of
-``repro.runtime.trainer``).
+"""Training driver: step, microbatch accumulation, metrics, checkpoints
+(port of ``repro.runtime.trainer``).
 
 The step is eager PyTorch: the loss and its gradients through the bundle
 (kernel A forward, B1/B2 backward on the card), then AdamW in place.  The
 loop synchronises the device once per step, as ``block_until_ready`` does
-in the JAX loop, so the step time it logs is the device's.  Checkpointing
-(``checkpoint_dir``) waits for the port of ``checkpoint/manager.py``, and
-the fault-injection step hook for the fault-tolerant runner.
+in the JAX loop, so the step time it logs is the device's.  With
+``checkpoint_dir`` the loop saves the state (and the data iterator's
+position) every ``checkpoint_every`` steps through
+:class:`~repro_torch.checkpoint.manager.CheckpointManager`, by default
+asynchronously: the host copy is taken before the next in-place step.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.launch.train_step import value_and_grad
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, tree_leaves, tree_map
 from repro_torch.runtime.straggler import StragglerDetector
@@ -31,7 +34,10 @@ class TrainerConfig:
     warmup_steps: int = 20
     total_steps: int = 100
     microbatches: int = 1  # gradient accumulation factor
-    checkpoint_dir: str | None = None  # not ported yet: set, the Trainer raises
+    checkpoint_every: int = 50
+    checkpoint_dir: str | None = None
+    keep_checkpoints: int = 3
+    async_checkpoint: bool = True
     opt: AdamWConfig = field(default_factory=AdamWConfig)
 
 
@@ -50,11 +56,7 @@ def batch_to_device(batch, device):
 
 
 class Trainer:
-    def __init__(self, bundle, tcfg: TrainerConfig):
-        if tcfg.checkpoint_dir:
-            raise NotImplementedError(
-                "checkpointing (checkpoint_dir) is not ported yet: it waits for "
-                "checkpoint/manager.py")
+    def __init__(self, bundle, tcfg: TrainerConfig, *, step_hook=None):
         self.bundle = bundle
         self.cfg = tcfg
         self.device = torch.device(bundle.pctx.device)
@@ -62,7 +64,10 @@ class Trainer:
             raise RuntimeError(
                 "Trainer on device 'cuda' needs a CUDA device and none is available; build "
                 "the bundle with ParallelContext(device='cpu') to train on the CPU")
+        self.ckpt = (CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints)
+                     if tcfg.checkpoint_dir else None)
         self.straggler = StragglerDetector()
+        self.step_hook = step_hook  # called as (step,) before each step
         self.step_seconds: list[float] = []  # wall time of each step run() took
 
     # ------------------------------------------------------------ state
@@ -109,6 +114,8 @@ class Trainer:
         history = []
         start_step = int(state["step"])
         for i in range(start_step, steps):
+            if self.step_hook is not None:
+                self.step_hook(i)
             batch = batch_to_device(next(data_iter), self.device)
             t0 = time.perf_counter()
             state, metrics = self._step(state, batch)
@@ -123,7 +130,29 @@ class Trainer:
                 log(f"step {i:5d} loss {float(metrics['loss']):.4f} "
                     f"lr {float(metrics['lr']):.2e} {dt*1e3:.0f} ms")
             history.append(float(metrics["loss"]))
+            if self.ckpt and (i + 1) % self.cfg.checkpoint_every == 0:
+                self.ckpt.save(i + 1, state,
+                               extra={"data": getattr(data_iter, "state_dict", dict)()},
+                               blocking=not self.cfg.async_checkpoint)
+        if self.ckpt:
+            self.ckpt.wait()
         return state, history
+
+    # ------------------------------------------------------- restore
+
+    def restore_latest(self, template_state, data_iter=None):
+        """The latest committed checkpoint restored into ``template_state``
+        (in place), and the data iterator rewound to its position; ``None``
+        without a checkpoint."""
+        if self.ckpt is None:
+            return None
+        step = self.ckpt.latest_step()
+        if step is None:
+            return None
+        state = self.ckpt.restore(step, template_state)
+        if data_iter is not None and hasattr(data_iter, "load_state_dict"):
+            data_iter.load_state_dict(self.ckpt.manifest(step)["extra"]["data"])
+        return state
 
 
 def n_params(params) -> int:

@@ -1,5 +1,5 @@
-"""Paged KV cache: page allocator, pool state and page-table arithmetic
-(port of ``repro.serving.kv_cache``; the prefix index waits for a later slice).
+"""Paged KV cache: page allocator, content-addressed prefix index, pool
+state and page-table arithmetic (port of ``repro.serving.kv_cache``).
 
 KV lives in fixed-size pages drawn from one shared pool; each slot holds a
 block table mapping its logical token positions to pages.  An unmapped
@@ -28,6 +28,10 @@ before ``index_put_`` (:func:`drop_plan` / :func:`apply_drop`).
 
 from __future__ import annotations
 
+import hashlib
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from repro_torch.kernels.ref import PAD_POS
@@ -35,6 +39,8 @@ from repro_torch.kernels.ref import PAD_POS
 __all__ = [
     "PageAllocator",
     "PageAllocatorError",
+    "PrefixHit",
+    "PrefixIndex",
     "pages_for",
     "init_paged_cache",
     "view_indices",
@@ -90,6 +96,11 @@ class PageAllocator:
     def pages_in_use(self) -> int:
         return self.n_pages - len(self._free)
 
+    @property
+    def free_set(self) -> frozenset:
+        """The free pages as a set (read-only view for invariant audits)."""
+        return frozenset(self._free_set)
+
     def alloc(self, n: int) -> list[int]:
         """Allocate ``n`` pages or raise ``MemoryError`` (nothing allocated)."""
         if n > len(self._free):
@@ -131,6 +142,269 @@ class PageAllocator:
         if len(self._in_stripe) > 1:
             out["stripes_at_high_water"] = list(self.stripes_at_high_water)
         return out
+
+
+# ---------------------------------------------------------------------------
+# content-addressed prefix index (host-side, like the allocator)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PrefixHit:
+    """Result of :meth:`PrefixIndex.lookup` for one request's token ids.
+
+    ``pages``: resident pages whose *full* pages match the request's prefix,
+    in chain order.  ``cow_page``/``cow_keep``: when the first divergence
+    falls inside a resident page, the page to copy and how many of its
+    leading rows are still valid (copy-on-write).  ``tokens`` is
+    ``len(pages) * page_size + cow_keep``.
+    """
+
+    pages: list[int]
+    tokens: int
+    cow_page: int | None = None
+    cow_keep: int = 0
+
+
+class PrefixIndex:
+    """Content-addressed index over resident KV pages (host-side).
+
+    Every full page of a prefilled prompt is keyed by a hash chain over its
+    token ids, ``key_i = sha256(key_{i-1} || int64 tokens of page i)``, so a
+    key names the page's tokens and its whole left context: two requests
+    share page ``i`` iff their first ``(i+1)*ps`` tokens agree.  The chain
+    is the JAX index's byte for byte, so both packages give equal keys.
+
+    Pages referenced here are owned by the index, refcounted by the slots
+    mapping them; the engine releases them through :meth:`release`, and a
+    page returns to the allocator only when :meth:`evict` pops it
+    (refcount 0, least recently touched, leaves before interior nodes).  A
+    divergence inside a page is never resolved by writing the shared page:
+    :meth:`lookup` reports it as a copy-on-write candidate.
+    """
+
+    ROOT = b""
+
+    def __init__(self, page_size: int):
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        self.page_size = page_size
+        self._page_of: dict[bytes, int] = {}  # key -> physical page
+        self._key_of: dict[int, bytes] = {}  # physical page -> key
+        self._refs: dict[int, int] = {}  # physical page -> mapping slots
+        self._tokens: dict[bytes, tuple[int, ...]] = {}  # key -> page tokens
+        self._children: dict[bytes, set[bytes]] = {}  # parent key -> keys
+        self._parent: dict[bytes, bytes] = {}  # key -> parent key
+        self._touch: dict[bytes, int] = {}  # key -> LRU tick
+        self._tick = 0
+        self.hit_tokens = 0
+        self.lookup_tokens = 0
+        self.cow_copies = 0
+        self.evictions = 0
+
+    @property
+    def pages(self) -> set[int]:
+        """Physical pages the index currently owns."""
+        return set(self._key_of)
+
+    def refcount(self, page: int) -> int:
+        """Live mappings of ``page`` (0 = resident but evictable)."""
+        return self._refs.get(int(page), 0)
+
+    def total_refs(self) -> int:
+        return sum(self._refs.values())
+
+    def _chain_keys(self, tokens) -> list[bytes]:
+        """Hash-chain keys of every full page of ``tokens``."""
+        ids = [int(t) for t in tokens]
+        keys = []
+        key = self.ROOT
+        ps = self.page_size
+        for i in range(len(ids) // ps):
+            h = hashlib.sha256(key)
+            h.update(np.asarray(ids[i * ps:(i + 1) * ps], np.int64).tobytes())
+            key = h.digest()
+            keys.append(key)
+        return keys
+
+    def _note(self, key: bytes) -> None:
+        self._tick += 1
+        self._touch[key] = self._tick
+
+    def lookup(self, tokens) -> PrefixHit:
+        """Longest reusable prefix of ``tokens`` among resident pages: the
+        chain walk while keys resolve, then the longest shared run inside
+        the divergence page among the matched tail's children (the COW
+        candidate; only a strictly partial match; the first in key order
+        among equally long runs, where the JAX index takes the first in its
+        set's order)."""
+        ids = [int(t) for t in tokens]
+        ps = self.page_size
+        pages: list[int] = []
+        parent = self.ROOT
+        for key in self._chain_keys(ids):
+            page = self._page_of.get(key)
+            if page is None:
+                break
+            pages.append(page)
+            parent = key
+            self._note(key)
+        hit = len(pages) * ps
+        cow_page, cow_keep = None, 0
+        rest = ids[hit:]
+        if rest:
+            # children in key order, not set order: ranks of a process
+            # group hash bytes with their own seeds, yet must pick the same
+            # candidate among equally long runs
+            for child in sorted(self._children.get(parent, ())):
+                common = 0
+                for a, b in zip(rest, self._tokens[child]):
+                    if a != b:
+                        break
+                    common += 1
+                if cow_keep < common < ps:
+                    cow_page, cow_keep = self._page_of[child], common
+        self.lookup_tokens += len(ids)
+        self.hit_tokens += hit + cow_keep
+        return PrefixHit(pages=pages, tokens=hit + cow_keep, cow_page=cow_page,
+                         cow_keep=cow_keep)
+
+    def acquire(self, pages) -> None:
+        """Map index-owned ``pages`` into one more slot (refcount += 1)."""
+        for p in pages:
+            p = int(p)
+            if p not in self._key_of:
+                raise ValueError(f"page {p} is not index-owned")
+            self._refs[p] += 1
+            self._note(self._key_of[p])
+
+    def register(self, tokens, pages) -> int:
+        """Index a prefilled prompt's full pages (``pages``: the request's
+        block-table pages in logical order), claiming this request's mapping
+        as one reference each.  A key already resident is skipped (the
+        duplicate page stays private).  Returns the pages newly indexed."""
+        ids = [int(t) for t in tokens]
+        ps = self.page_size
+        new = 0
+        parent = self.ROOT
+        for i, (key, page) in enumerate(zip(self._chain_keys(ids), pages)):
+            page = int(page)
+            if key not in self._page_of:
+                if page in self._key_of:
+                    raise ValueError(f"page {page} already indexed under another key")
+                self._page_of[key] = page
+                self._key_of[page] = key
+                self._refs[page] = 1
+                self._tokens[key] = tuple(ids[i * ps:(i + 1) * ps])
+                self._parent[key] = parent
+                self._children.setdefault(parent, set()).add(key)
+                self._note(key)
+                new += 1
+            parent = key
+        return new
+
+    def release(self, page) -> bool:
+        """Drop one slot's mapping of ``page``: True when the page is
+        index-owned (the caller must not free it), False for a private page
+        the caller frees."""
+        page = int(page)
+        key = self._key_of.get(page)
+        if key is None:
+            return False
+        if self._refs[page] <= 0:
+            raise ValueError(f"release of page {page} with refcount 0")
+        self._refs[page] -= 1
+        self._note(key)
+        return True
+
+    def evict(self, n: int, keep=()) -> list[int]:
+        """Un-index up to ``n`` refcount-0 pages, least recently touched
+        first with leaves before interior nodes, never a page of ``keep``
+        (an admission's hit, not acquired yet); the caller resets their
+        position rows and frees them to the allocator."""
+        keep = set(keep)
+        out: list[int] = []
+        while len(out) < n:
+            candidates = [key for key, page in self._page_of.items()
+                          if self._refs[page] == 0 and page not in keep]
+            if not candidates:
+                break
+            candidates.sort(key=lambda k: (bool(self._children.get(k)), self._touch[k]))
+            out.append(self._drop(candidates[0]))
+        self.evictions += len(out)
+        return out
+
+    def _drop(self, key: bytes) -> int:
+        page = self._page_of.pop(key)
+        del self._key_of[page]
+        del self._refs[page]
+        del self._tokens[key]
+        parent = self._parent.pop(key)
+        kids = self._children.get(parent)
+        if kids:
+            kids.discard(key)
+            if not kids:
+                del self._children[parent]
+        self._children.pop(key, None)
+        self._touch.pop(key, None)
+        return page
+
+    def stats(self) -> dict:
+        rate = self.hit_tokens / self.lookup_tokens if self.lookup_tokens else 0.0
+        return {
+            "indexed_pages": len(self._key_of),
+            "shared_refs": self.total_refs(),
+            "hit_tokens": self.hit_tokens,
+            "lookup_tokens": self.lookup_tokens,
+            "hit_rate": rate,
+            "cow_copies": self.cow_copies,
+            "evictions": self.evictions,
+        }
+
+    def export_state(self) -> dict:
+        """JSON-safe snapshot of the whole index (the JAX index's format):
+        chain keys (hex), pages, refcounts, tokens, parent links, LRU ticks."""
+        return {
+            "page_size": self.page_size,
+            "pages": [
+                {
+                    "key": key.hex(),
+                    "page": page,
+                    "tokens": list(self._tokens[key]),
+                    "parent": self._parent[key].hex(),
+                    "refs": self._refs[page],
+                    "touch": self._touch.get(key, 0),
+                }
+                for key, page in self._page_of.items()
+            ],
+            "tick": self._tick,
+            "counters": {
+                "hit_tokens": self.hit_tokens,
+                "lookup_tokens": self.lookup_tokens,
+                "cow_copies": self.cow_copies,
+                "evictions": self.evictions,
+            },
+        }
+
+    @classmethod
+    def from_state(cls, blob: dict) -> "PrefixIndex":
+        """Rebuild an index from :meth:`export_state` output."""
+        idx = cls(int(blob["page_size"]))
+        for rec in blob["pages"]:
+            key = bytes.fromhex(rec["key"])
+            parent = bytes.fromhex(rec["parent"])
+            page = int(rec["page"])
+            idx._page_of[key] = page
+            idx._key_of[page] = key
+            idx._refs[page] = int(rec["refs"])
+            idx._tokens[key] = tuple(int(t) for t in rec["tokens"])
+            idx._parent[key] = parent
+            idx._children.setdefault(parent, set()).add(key)
+            idx._touch[key] = int(rec["touch"])
+        idx._tick = int(blob["tick"])
+        for name, value in blob["counters"].items():
+            setattr(idx, name, int(value))
+        return idx
 
 
 def sp_ranks(pctx) -> tuple[int, int | None]:

@@ -2,8 +2,12 @@
 gloo on the CPU, ``sp_decode``, ``sp_decode_paged`` and ``sp_prefill`` on
 this rank's cache shard with their all-reduce bytes and, with ``engine``,
 the reduced paged and dense engines (greedy and sampled) holding only this
-rank's shard.  Imports torch and the port only, so that spawning it is
-quick."""
+rank's shard, the prefix-cache engine with a copy-on-write from one
+rank's stripe to the other's, and a snapshot written as one shard file
+per rank and restored token-exact.  Imports torch and the port only, so
+that spawning it is quick."""
+
+import os
 
 import numpy as np
 import torch
@@ -32,6 +36,42 @@ def engine_outputs(bundle, params, page_size, temperature):
     reqs = [eng.submit(rng.integers(1, 90, n), max_new_tokens=m) for n, m in ENGINE_PROMPTS]
     eng.run()
     return [r.output for r in reqs], eng
+
+
+# The prefix run at P = 2: one slot, 8 pages of 8 (stripes [0, 4) and
+# [4, 8)).  The base's 32 prefilled tokens fill pages 0-3 and are indexed;
+# the fork shares 28 tokens, so it maps pages 0-2, and page 3 (rank 0's) is
+# copied on write into the lowest free page, 4 (rank 1's).
+_PREFIX_RNG = np.random.default_rng(11)
+PREFIX_BASE = _PREFIX_RNG.integers(1, 90, 33).tolist()
+PREFIX_PROMPTS = [PREFIX_BASE, PREFIX_BASE[:28] + [(x + 1) % 90 + 1 for x in PREFIX_BASE[28:]],
+                  PREFIX_BASE]
+PREFIX_KW = dict(max_batch=1, max_len=64, prefill_chunk=8, page_size=8, max_pages=8,
+                 prefix_cache=True)
+
+
+def prefix_outputs(bundle, params, snapshot_dir=None):
+    """Tokens of the prefix run, its engine, and the COW's (source,
+    destination) pages; with ``snapshot_dir`` the engine is snapshotted
+    mid-flight (the fork half decoded), dropped and restarted from its
+    snapshot."""
+    from repro_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(bundle, params, device="cpu", snapshot_dir=snapshot_dir, **PREFIX_KW)
+    copies = []
+    cow = eng._cow_copy
+    eng._cow_copy = lambda src, dst, keep: (copies.append((src, dst)), cow(src, dst, keep))
+    for p in PREFIX_PROMPTS:
+        eng.submit(p, max_new_tokens=6)
+    if snapshot_dir is None:
+        eng.run()
+        return [r.output for r in sorted(eng.done, key=lambda r: r.uid)], eng, copies
+    eng.run(max_steps=12)
+    eng.snapshot()
+    del eng
+    eng = ServingEngine.from_snapshot(bundle, params, snapshot_dir, device="cpu")
+    eng.run()
+    return [r.output for r in sorted(eng.done, key=lambda r: r.uid)], eng, copies
 
 
 def run(rank: int, P: int, init_file: str, inputs: str, out: str, engine: bool):
@@ -71,6 +111,14 @@ def run(rank: int, P: int, init_file: str, inputs: str, out: str, engine: bool):
                 outs, eng = engine_outputs(bundle, params, page_size, temperature)
                 res[f"engine/{name}"] = np.array([t for o in outs for t in o])
                 res[f"engine/{name}/held"] = np.array(eng.state["k"].shape[1:3])
+            outs, eng, copies = prefix_outputs(bundle, params)
+            res["prefix"] = np.array([t for o in outs for t in o])
+            res["prefix/copies"] = np.array(copies)
+            res["prefix/audit"] = np.array(len(eng.auditor.violations()))
+            snap = os.path.join(os.path.dirname(out), "snapshot")
+            outs, eng, _ = prefix_outputs(bundle, params, snapshot_dir=snap)
+            res["snapshot"] = np.array([t for o in outs for t in o])
+            res["snapshot/audit"] = np.array(len(eng.auditor.violations()))
         np.savez(out, **res)
     finally:
         dist.destroy_process_group()

@@ -18,6 +18,7 @@ equal to the port's SP-1 engine's.  Byte counts and cost models are exact.
 
 import dataclasses
 import multiprocessing as mp
+import os
 import zlib
 
 import jax
@@ -30,6 +31,7 @@ from _sp_serving_pg_worker import (
     ENGINE_REDUCED,
     ENGINE_RUNS,
     engine_outputs,
+    prefix_outputs,
     run,
 )
 from test_serving import _legacy_step, assert_greedy_chain_matches
@@ -650,7 +652,9 @@ def test_sp_serving_on_a_process_group(P, tmp_path):
     ``sp_prefill`` on its own shard against the JAX vmap oracle's rank,
     with the bytes of the cost models; at P = 2 the reduced paged and dense
     engines, where every rank emits the SP-1 engine's tokens (greedy and at
-    temperature 1) and holds only its shard."""
+    temperature 1) and holds only its shard; the prefix-cache engine, whose
+    one copy-on-write goes from rank 0's stripe to rank 1's; and its
+    snapshot restart, one shard file per rank, token-exact."""
     d, p = dense_case(P, seed=5), paged_case(P, seed=5)
     engine = P == 2
     np.savez(tmp_path / "inputs.npz", window=np.int32(48), **d,
@@ -675,6 +679,9 @@ def test_sp_serving_on_a_process_group(P, tmp_path):
             for name, (page_size, temperature) in ENGINE_RUNS.items():
                 outs, _ = engine_outputs(bundle, params, page_size, temperature)
                 want_engine[name] = [t for o in outs for t in o]
+            outs, _, copies = prefix_outputs(bundle, params)
+            want_engine["prefix"] = [t for o in outs for t in o]
+            assert copies == [(3, 4)]  # the stripes of P = 2 are [0, 4) and [4, 8)
         for proc in procs:
             proc.join(SPAWN_TIMEOUT_S)
         assert all(proc.exitcode == 0 for proc in procs), [proc.exitcode for proc in procs]
@@ -698,6 +705,17 @@ def test_sp_serving_on_a_process_group(P, tmp_path):
             n_pages = ENGINE_KW["max_batch"] * -(-ENGINE_KW["max_len"] // 4)
             assert held == ((n_pages // P, 4) if page_size else
                             (ENGINE_KW["max_batch"], ENGINE_KW["max_len"] // P)), (r, name)
+        if engine:
+            assert got["prefix"].tolist() == want_engine["prefix"], r
+            assert got["prefix/copies"].tolist() == [[3, 4]], r
+            assert got["snapshot"].tolist() == want_engine["prefix"], r
+            assert int(got["prefix/audit"]) == int(got["snapshot/audit"]) == 0, r
+    if engine:
+        step = sorted(os.listdir(tmp_path / "snapshot"))[0]
+        assert sorted(os.listdir(tmp_path / "snapshot" / step)) == [
+            "manifest.json", "proc_00000.npz", "proc_00001.npz"]
+        with np.load(tmp_path / "snapshot" / step / "proc_00001.npz") as z:
+            assert z["k"].shape[1] == 8 // P  # each rank's file holds its stripe
 
 
 # ---------------------------------------------------------------------------

@@ -352,15 +352,71 @@ def test_remat_full_and_none_give_the_same_gradients():
     for remat in ("full", "none"):
         _, tb_r = _models(dict(over, remat=remat))
         results[remat] = value_and_grad(tb_r.loss, params, batch)
-    (lf, _), gf = results["full"]
-    (ln, _), gn = results["none"]
-    # the recompute repeats the same float32 ops on the same inputs
-    assert torch.equal(lf, ln)
-    for a, b in zip(tadamw.tree_leaves(gf), tadamw.tree_leaves(gn)):
-        torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
     _, tb_dots = _models(dict(over, remat="dots"))
-    with pytest.raises(NotImplementedError, match="dots"):
-        tb_dots.loss(params, batch)
+    results["dots"] = value_and_grad(tb_dots.loss, params, batch)
+    (ln, _), gn = results["none"]
+    for remat in ("full", "dots"):
+        (lr, _), gr = results[remat]
+        # the recompute repeats the same float32 ops on the same inputs
+        assert torch.equal(lr, ln), remat
+        for a, b in zip(tadamw.tree_leaves(gr), tadamw.tree_leaves(gn)):
+            torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
+
+
+def test_remat_dots_saves_the_weight_products():
+    """Under ``"dots"`` the backward recomputes attention (its batched
+    products, as ``"full"`` does) but no weight product (its 2-D products
+    number those of ``"none"``): the products' outputs are what the policy
+    saved, and every op it saved is a weight product."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import transformer as T
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func] = self.ops.get(func, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    saved = []
+    policy = T.dots_policy
+
+    def recording_policy(ctx, op, *args, **kwargs):
+        out = policy(ctx, op, *args, **kwargs)
+        if not ctx.is_recompute and out == torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE:
+            saved.append((op, tuple(args[1].shape)))
+        return out
+
+    over = VARIANTS["gqa_tied"]
+    batch = ttrainer.batch_to_device(_batch(97, 2, 64, seed=1), "cpu")
+    params = _models(over)[1].init(3, training=True)
+    leaves = tadamw.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    bwd = {}
+    for remat in ("none", "full", "dots"):
+        _, tb = _models(dict(over, remat=remat))
+        T.dots_policy = recording_policy
+        try:
+            loss, _ = tb.loss(params, batch)
+            with Count() as c:
+                torch.autograd.grad(loss, leaves)
+        finally:
+            T.dots_policy = policy
+        bwd[remat] = c.ops
+    mm, bmm = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+    assert bwd["dots"][mm] == bwd["none"][mm] < bwd["full"][mm]
+    assert bwd["dots"][bmm] == bwd["full"][bmm] > bwd["none"][bmm]
+    cfg = TARCHS["qwen3-1.7b"].reduced(**over)
+    weights = {(cfg.d_model, cfg.n_heads * cfg.head_dim), (cfg.d_model, cfg.n_kv_heads * cfg.head_dim),
+               (cfg.n_heads * cfg.head_dim, cfg.d_model), (cfg.d_model, cfg.d_ff),
+               (cfg.d_ff, cfg.d_model)}
+    # per layer: q, k, v, o and the three SwiGLU products, nothing else
+    assert len(saved) == 7 * cfg.n_layers
+    assert {op for op, _ in saved} == {mm} and {shape for _, shape in saved} <= weights
 
 
 def test_training_storage_keeps_param_dtype():
@@ -490,8 +546,8 @@ def test_trainer_loss_decreases():
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     _, tb = _models(TINY)
-    with pytest.raises(NotImplementedError, match="checkpoint/manager.py"):
-        ttrainer.Trainer(tb, ttrainer.TrainerConfig(checkpoint_dir=str(tmp_path)))
+    # checkpointing is ported: the Trainer takes a checkpoint directory
+    assert ttrainer.Trainer(tb, ttrainer.TrainerConfig(checkpoint_dir=str(tmp_path))).ckpt
     # an SP strategy that is not ported yet names its item
     _, tb_sp = _models(TINY, sp_degree=2, strategy="ulysses")
     params = tb_sp.init(0, training=True)
