@@ -18,18 +18,30 @@ runs the strategy's step schedule on the context's ring transport
   * on a **process group** (``ring=`` a ``torch.distributed`` group) each
     rank passes its own shard and gets its own shard back.
 
-Built-in (ported) strategies: ``"tokenring"`` (the paper's method,
-split-Q bidirectional), ``"tokenring_faithful"`` (Algorithm 1),
-``"ring"`` / ``"ring_bidir"`` (baselines) and ``"auto"``.  The reference's
-other strategies and its topology-aware and multi-pod (hybrid,
-hierarchical) plans raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+Built-in strategies: ``"tokenring"`` (the paper's method, split-Q
+bidirectional), ``"tokenring_faithful"`` (Algorithm 1), ``"ring"`` /
+``"ring_bidir"`` (baselines), ``"ulysses"`` (all-to-all head parallelism,
+head-count bound), ``"window"`` (halo-exchange sliding-window attention,
+what a windowed layer resolves to) and ``"auto"``, the cost models'
+argmin over all of them.
+
+With ``pods > 1`` the context factors its ring row-major as ``(pod,
+inner)``, the reference's two SP mesh axes, and ``plan`` builds the paper's
+Case-Study-III hybrid: the inter-pod KV ring outside, the chosen (or
+``inner_strategy``) intra-pod strategy inside (``core/hybrid.py``).
+``plan(topology=...)`` arbitrates the flat ring against the hierarchical
+``"tokenring2d"`` schedule (``core/hier2d.py``) on a physical link graph
+(``core/topology.py``).
 
 Serving (:func:`sp_decode`, :func:`sp_decode_paged`, :func:`sp_prefill`)
 keeps the KV cache sequence-sharded and replicates the small query side:
 :meth:`ParallelContext.plan_decode` / :meth:`~ParallelContext.plan_prefill`
 bind the registered ``"decode"`` / ``"prefill"`` schedules of
 ``core/decode.py``, whose partials merge in an lse-weighted all-reduce.
+``plan_prefill(strategy="auto")`` arbitrates that resident chunk path
+against the two prefill rings (``core/prefill_rings.py``) from the KV:Q
+byte ratio and the prefix cache's hit rate; a ring winner is an
+attention-style plan over sequence-sharded q/k/v.
 The cache comes in the ring's layout: rank-major ``(P*B, Skv/P, ...)`` on
 the virtual ring (rank ``r``'s contiguous shard in rows ``[r*B, (r+1)*B)``,
 as the serve state keeps it and ``core.collectives.fold_ranks`` makes it
@@ -41,32 +53,34 @@ once per shape and window and kept on the context.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable
 
 from repro_torch.core.strategies import (
-    UNPORTED,
+    KV_RESIDENT_MARGIN,
     CommCost,
     SPStrategy,
+    _decision_travel_dtype,
     attention_compute_flops,
+    available_strategies,
+    ceil_div,
     get_strategy,
     ineligible_reason,
-    not_ported,
     resolve_strategy,
     strategy_cost,
 )
 from repro_torch.kernels.ref import normalize_positions
 
-__all__ = ["ParallelContext", "ExecutionPlan", "AttnShapes", "sp_attention", "sp_decode",
-           "sp_decode_paged", "sp_prefill"]
+__all__ = ["ParallelContext", "ExecutionPlan", "AttnShapes", "PREFILL_CANDIDATES",
+           "sp_attention", "sp_decode", "sp_decode_paged", "sp_prefill"]
 
+# The prefill arbitration pool (``ParallelContext.choose_prefill_strategy``):
+# the resident all-reduce chunk path plus the two prefill rings of
+# ``core/prefill_rings.py`` — opposite bets on what moves over the wire,
+# decided per request by the KV:Q byte ratio after prefix-cache hits are
+# subtracted from the query side.
 PREFILL_CANDIDATES = ("prefill", "passkv_ring", "passq_ring")
-_PREFILL_RINGS = ("the prefill rings (passkv_ring, passq_ring) and plan_prefill's 'auto' "
-                  "arbitration over them are not ported yet: they come with "
-                  "core/prefill_rings.py (ROADMAP queue 1 item 8)")
-_MULTI_AXIS = ("topology-aware, hierarchical and multi-pod hybrid plans are not ported yet: "
-               "they come with core/topology.py, core/hier2d.py and core/hybrid.py "
-               "(ROADMAP queue 1 item 8)")
+_PREFILL_RINGS = ("passkv_ring", "passq_ring")
 
 
 @dataclass(frozen=True)
@@ -95,8 +109,10 @@ class ExecutionPlan:
     bound); ``cost`` the strategy's modeled per-device link bytes for one
     forward pass of the layer (one step of a serving plan),
     ``compute_flops`` its per-device attention dot FLOPs (the two halves of
-    the ``max(compute, link)`` step model).  ``kernel`` records a serving
-    plan's kernel path.
+    the ``max(compute, link)`` step model).  ``inner`` names the intra-pod
+    strategy when the hybrid wraps it; ``topology_decision`` records the
+    scored candidates and the winner of ``plan(topology=...)``; ``kernel``
+    records a serving plan's kernel path.
     """
 
     strategy: str
@@ -109,6 +125,8 @@ class ExecutionPlan:
     # SPStrategy.pipelines capability).
     pipelines: bool = True
     kind: str = "attention"
+    inner: str | None = None
+    topology_decision: dict | None = None
     kernel: dict | None = None
 
     def modeled_times(self, *, link_bw: float, peak_flops: float,
@@ -132,14 +150,15 @@ class ExecutionPlan:
         }
 
     def __call__(self, *args):
-        """An attention plan takes global tensors on a virtual ring and this
-        rank's shard on a process group, and returns the result in the same
-        form.  A serving plan takes its cache in the ring's layout
-        (rank-major on the virtual ring) and a replicated query side, and
-        returns the replicated result."""
+        """An attention plan (and a prefill ring's) takes global tensors on
+        a virtual ring and this rank's shard on a process group, and returns
+        the result in the same form.  A resident serving plan takes its
+        cache in the ring's layout (rank-major on the virtual ring) and a
+        replicated query side, and returns the replicated result."""
         from repro_torch.core.collectives import fold_ranks, unfold_ranks
 
-        if self.kind != "attention" or not self.ring.folded:
+        sharded = self.kind == "attention" or self.strategy in _PREFILL_RINGS
+        if not sharded or not self.ring.folded:
             return self.local_fn(*args)
         P = self.sp_degree
         return unfold_ranks(self.local_fn(*(fold_ranks(x, P) for x in args)), P)
@@ -161,7 +180,12 @@ class ParallelContext:
     block_k_decode: int | None = None
     device: str = "cuda"
     sp_degree: int = 1  # sequence-parallel degree: ranks of the ring
+    # Pods of the ring (the reference's pod mesh axis): the ranks factor
+    # row-major as (pods, sp_degree // pods), and with pods > 1 attention
+    # plans are the multi-pod hybrid (inter-pod KV ring x intra-pod inner).
+    pods: int = 1
     strategy: str = "tokenring"  # a registered SP strategy or "auto"
+    inner_strategy: str | None = None  # the hybrid's inner; defaults to `strategy`
     layout: str = "zigzag"  # zigzag | contig (layout of the seq dim in data)
     # Wire format of TokenRing's travelling (out, lse) accumulator:
     # "bfloat16" halves its link bytes at about 1e-3 merge rounding (lse
@@ -171,8 +195,8 @@ class ParallelContext:
     # False makes the planner score total bytes, not max-direction.
     bidir_links: bool = True
     # Post every send of a step before its computes (core/schedule.py).
-    # False runs each send after the step's computes; values are bitwise
-    # equal either way.
+    # False runs each send to its end before the step's computes (nothing
+    # overlaps); values and gradients are bitwise equal either way.
     overlap: bool = True
     # The ring transport: None is the virtual ring of sp_degree ranks on
     # `device`; a torch.distributed process group (or a transport of
@@ -190,7 +214,12 @@ class ParallelContext:
             ring = ProcessGroupRing(ring)
         if ring is not None and ring.size != self.sp_degree:
             raise ValueError(f"the ring has {ring.size} ranks, sp_degree is {self.sp_degree}")
+        if self.pods < 1 or self.sp_degree % self.pods:
+            raise ValueError(f"pods={self.pods} does not divide sp_degree={self.sp_degree}")
         object.__setattr__(self, "ring", ring)
+        # (pod ring, inner ring): the views of the two axes (a process group
+        # makes their subgroups here, on every rank alike)
+        object.__setattr__(self, "axis_rings", ring.split(self.pods) if self.pods > 1 else None)
         # serving plans by (kind, window, scale, shapes, table_pages): the
         # serving steps ask for the same few plans in every layer of every step
         object.__setattr__(self, "_serving_plans", {})
@@ -209,13 +238,28 @@ class ParallelContext:
         """Extras declared by the descriptor, sourced from this context."""
         return {name: getattr(self, name) for name in desc.extra_kwargs if hasattr(self, name)}
 
+    def _kernel_kw(self, causal: bool, window: int | None, scale: float | None) -> dict:
+        return dict(causal=causal, window=window, scale=scale, impl=self.impl,
+                    block_q=self.block_q, block_k=self.block_k, block_q_bwd=self.block_q_bwd,
+                    block_k_bwd=self.block_k_bwd, overlap=self.overlap)
+
     def plan(self, shapes: AttnShapes, *, causal: bool = True, window: int | None = None,
              scale: float | None = None, topology=None) -> ExecutionPlan:
         """Validate the ring and layout and resolve the strategy for these
-        shapes into an :class:`ExecutionPlan` (``"auto"`` by the cost models'
-        argmin over the ported strategies)."""
-        if topology is not None:
-            raise NotImplementedError(_MULTI_AXIS)
+        shapes into an :class:`ExecutionPlan`.
+
+        ``"auto"`` resolves by per-strategy ``comm_cost`` argmin; with
+        ``pods > 1`` the plan is the Case-Study-III hybrid decomposition
+        (inter-pod KV ring outside, the resolved strategy inside).
+
+        ``topology`` (a :class:`repro_torch.core.topology.Topology`)
+        arbitrates against the physical graph instead of a single abstract
+        link: the flat resolved ring is priced at the slowest wire its
+        Hamiltonian placement traverses, the hierarchical ``"tokenring2d"``
+        schedule at its per-class ``CommCost.links`` split over the graph's
+        per-class bandwidths, and the faster plan wins (``ExecutionPlan
+        .topology_decision`` records the scores).
+        """
         if not self.active:
             raise ValueError("planning requires sp_degree > 1")
         P_sp = self.sp_degree
@@ -224,27 +268,86 @@ class ParallelContext:
                 f"sequence length {shapes.Sq}/{shapes.seq_kv} not divisible "
                 f"by SP degree {P_sp}"
             )
-        kw = dict(
-            causal=causal, window=window, scale=scale, impl=self.impl,
-            block_q=self.block_q, block_k=self.block_k,
-            block_q_bwd=self.block_q_bwd, block_k_bwd=self.block_k_bwd,
-            overlap=self.overlap,
-        )
-        name = self.strategy
-        # Windowed layers: only window-capable strategies are meaningful, and
-        # the one the reference has (core/window.py) is not ported yet.
-        if window is not None and (name == "auto" or not get_strategy(name).supports_window):
-            raise NotImplementedError(not_ported("window"))
-        name = resolve_strategy(
-            name, B=shapes.B, S=shapes.Sq, Hq=shapes.Hq, Hkv=shapes.Hkv, D=shapes.D, P=P_sp,
+        kw = self._kernel_kw(causal, window, scale)
+        if topology is not None:
+            return self._plan_topology(topology, shapes, causal=causal, window=window, kw=kw)
+
+        hybrid = self.pods > 1
+        # Eligibility (and cost) for a hybrid plan is judged at the *inner*
+        # ring size: the outer pod ring only circulates KV shards, so e.g.
+        # Ulysses' head-divisibility limit applies to the intra-pod degree.
+        P_elig = P_sp // self.pods if hybrid else P_sp
+        resolve_kw = dict(
+            B=shapes.B, S=shapes.Sq, Hq=shapes.Hq, Hkv=shapes.Hkv, D=shapes.D,
             bytes_per_elem=shapes.dtype_bytes, S_kv=shapes.seq_kv,
             bidir_links=self.bidir_links, layout=self.layout, window=window,
         )
-        return self._flat_plan(name, shapes, causal=causal, window=window, kw=kw)
+        # Windowed layers: only window-capable strategies are meaningful —
+        # circulating the whole sequence for a local window wastes the ring.
+        name = self.strategy
+        if window is not None and (name == "auto" or not get_strategy(name).supports_window):
+            name = resolve_strategy("auto", P=P_sp, **resolve_kw)
+        # A hybrid "auto" arbitrates the *inner* schedule: restrict the pool
+        # to hybrid-capable strategies up front so the cost argmin is never
+        # silently discarded by a post-hoc hybrid_inner_ok fallback.
+        candidates = None
+        if hybrid and name == "auto":
+            candidates = tuple(n for n in available_strategies()
+                               if get_strategy(n).hybrid_inner_ok)
+        name = resolve_strategy(name, P=P_elig, candidates=candidates, **resolve_kw)
+        desc = get_strategy(name)
+        if desc.supports_window:
+            hybrid = False  # window strategies flatten the two axes themselves
+        if not hybrid:
+            return self._flat_plan(name, shapes, causal=causal, window=window, kw=kw)
+
+        # Case Study III: inter-pod KV ring outside, `inner` inside.
+        from repro_torch.core.hybrid import hybrid_sp
+
+        n_pods, P_inner = self.pods, P_sp // self.pods
+        inner = self.inner_strategy or name
+        inner_desc = get_strategy(inner)
+        if not inner_desc.hybrid_inner_ok:
+            # Same validation depth whether the intent was expressed via
+            # strategy= or inner_strategy= — never silently run a
+            # different schedule than the one configured.
+            raise ValueError(
+                f"strategy {inner!r} cannot run inside the multi-pod "
+                f"hybrid; pick a hybrid-capable inner (or strategy="
+                f"'auto') for multi-axis meshes"
+            )
+        why = ineligible_reason(inner_desc, Hq=shapes.Hq, Hkv=shapes.Hkv, P=P_inner,
+                                layout=self.layout, window=window)
+        if why is not None:
+            raise ValueError(
+                f"hybrid inner strategy {inner!r} cannot run this config "
+                f"(intra-pod degree {P_inner}): {why}"
+            )
+        inner_extras = self._strategy_kwargs(inner_desc)
+        pod_ring, inner_ring = self.axis_rings
+
+        def local_fn(q, k, v, qp, kp):
+            return hybrid_sp(q, k, v, qp, kp, pod_ring=pod_ring, ring=inner_ring, inner=inner,
+                             **kw, **inner_extras)
+
+        cost = _hybrid_cost(inner_desc, shapes, n_pods=n_pods, P_inner=P_inner,
+                            bidir_links=self.bidir_links, extras=inner_extras)
+        compute_flops = attention_compute_flops(
+            shapes.B, shapes.Sq, shapes.Hq, shapes.D, P_sp, S_kv=shapes.seq_kv, causal=causal,
+        )
+        return ExecutionPlan(
+            strategy=name, inner=inner, local_fn=local_fn, ring=self.ring, sp_degree=P_sp,
+            cost=cost, compute_flops=compute_flops,
+            # The outer pod ring always prefetches, but the inner pass
+            # dominates the byte count — claim overlap only when the inner
+            # schedule can deliver it (a ulysses inner cannot).
+            pipelines=inner_desc.pipelines,
+        )
 
     def _flat_plan(self, name: str, shapes: AttnShapes, *, causal: bool,
-                   window: int | None, kw: dict) -> ExecutionPlan:
-        """Bind ``name`` as one flat ring over the context's transport."""
+                   window: int | None, kw: dict,
+                   topo_decision: dict | None = None) -> ExecutionPlan:
+        """Bind ``name`` as one flat ring over all the context's ranks."""
         desc = get_strategy(name)
         P_sp = self.sp_degree
         why = ineligible_reason(desc, Hq=shapes.Hq, Hkv=shapes.Hkv, P=P_sp, layout=self.layout,
@@ -267,7 +370,108 @@ class ParallelContext:
             causal=causal, window=window if desc.supports_window else None,
         )
         return ExecutionPlan(strategy=name, local_fn=local_fn, ring=ring, sp_degree=P_sp,
-                             cost=cost, compute_flops=compute_flops, pipelines=desc.pipelines)
+                             cost=cost, compute_flops=compute_flops, pipelines=desc.pipelines,
+                             topology_decision=topo_decision)
+
+    def _plan_topology(self, topo, shapes: AttnShapes, *, causal: bool, window: int | None,
+                       kw: dict) -> ExecutionPlan:
+        """Arbitrate flat-vs-hierarchical against a physical topology graph.
+
+        The flat candidate is priced at the slowest wire its Hamiltonian
+        ``"ring"`` placement traverses (every hop is one physical wire, so
+        the bottleneck link bounds every step); the ``"tokenring2d"``
+        candidate at its declared per-class split (``CommCost.links``) over
+        the graph's per-class bandwidths.
+        """
+        P_sp = self.sp_degree
+        if topo.n_devices != P_sp:
+            raise ValueError(
+                f"topology {topo.name!r} has {topo.n_devices} devices but "
+                f"the mesh's SP degree is {P_sp}"
+            )
+        resolve_kw = dict(
+            B=shapes.B, S=shapes.Sq, Hq=shapes.Hq, Hkv=shapes.Hkv, D=shapes.D,
+            bytes_per_elem=shapes.dtype_bytes, S_kv=shapes.seq_kv,
+            bidir_links=self.bidir_links, layout=self.layout, window=window,
+        )
+        half_cls = topo.half_duplex_classes()
+        # An explicit non-auto pin bypasses arbitration (never silently run
+        # a different schedule than the one configured); "auto" resolves the
+        # flat candidate by the usual registry argmin first.
+        if self.strategy not in ("auto", "tokenring2d"):
+            flat = self.strategy
+        else:
+            flat = resolve_strategy("auto", P=P_sp, **resolve_kw)
+        flat_desc = get_strategy(flat)
+        flat_cost = strategy_cost(
+            flat_desc, shapes.B, shapes.Sq, shapes.Hq, shapes.Hkv, shapes.D, P_sp,
+            bytes_per_elem=shapes.dtype_bytes, bidir_links=self.bidir_links,
+            S_kv=shapes.seq_kv, window=window, **self._strategy_kwargs(flat_desc),
+        )
+        t_flat = flat_cost.time_s(
+            {"link": topo.bottleneck_bw()}, bidir_links=self.bidir_links,
+            half_duplex=frozenset({"link"}) if half_cls else frozenset(),
+        )
+        decision = {
+            "topology": topo.name,
+            "bottleneck_bw": topo.bottleneck_bw(),
+            "class_bandwidths": dict(topo.class_bandwidths()),
+            "candidates": {flat: t_flat},
+        }
+        hier_desc = get_strategy("tokenring2d")
+        S_loc = shapes.Sq // P_sp
+        eligible_2d = (
+            topo.n_pods > 1
+            and P_sp % topo.n_pods == 0
+            and self.pods == topo.n_pods
+            and S_loc % 2 == 0
+            and window is None
+        )
+        if self.strategy == "tokenring2d" and not eligible_2d:
+            raise ValueError(
+                f"strategy 'tokenring2d' cannot run on {topo.name!r} with "
+                f"pods={self.pods}: needs a podded graph whose pod count equals "
+                f"the context's pods, an even per-rank query split, and no window"
+            )
+        if eligible_2d:
+            hier_cost = strategy_cost(
+                hier_desc, shapes.B, shapes.Sq, shapes.Hq, shapes.Hkv, shapes.D, P_sp,
+                bytes_per_elem=shapes.dtype_bytes, bidir_links=self.bidir_links,
+                S_kv=shapes.seq_kv, window=window, n_pods=topo.n_pods,
+                **self._strategy_kwargs(hier_desc),
+            )
+            t_hier = hier_cost.time_s(dict(topo.class_bandwidths()),
+                                      bidir_links=self.bidir_links, half_duplex=half_cls)
+            decision["candidates"]["tokenring2d"] = t_hier
+            # an explicit flat pin is never overridden — only "auto" (or an
+            # explicit 2D pin) binds the hierarchical schedule
+            if self.strategy == "tokenring2d" or (self.strategy == "auto" and t_hier < t_flat):
+                decision["chosen"] = "tokenring2d"
+                return self._hier2d_plan(shapes, causal=causal, kw=kw, cost=hier_cost,
+                                         decision=decision)
+        decision["chosen"] = flat
+        return self._flat_plan(flat, shapes, causal=causal, window=window, kw=kw,
+                               topo_decision=decision)
+
+    def _hier2d_plan(self, shapes: AttnShapes, *, causal: bool, kw: dict, cost: CommCost,
+                     decision: dict) -> ExecutionPlan:
+        """Bind the hierarchical 2D TokenRing over the (pod, inner) views."""
+        desc = get_strategy("tokenring2d")
+        extras = self._strategy_kwargs(desc)
+        rings, fn = self.axis_rings, desc.fn
+
+        def local_fn(q, k, v, qp, kp):
+            return fn(q, k, v, qp, kp, ring=rings, **kw, **extras)
+
+        compute_flops = attention_compute_flops(
+            shapes.B, shapes.Sq, shapes.Hq, shapes.D, self.sp_degree, S_kv=shapes.seq_kv,
+            causal=causal,
+        )
+        return ExecutionPlan(
+            strategy="tokenring2d", local_fn=local_fn, ring=self.ring,
+            sp_degree=self.sp_degree, cost=cost, compute_flops=compute_flops,
+            pipelines=desc.pipelines, topology_decision=decision,
+        )
 
     # -- serving plans -----------------------------------------------------
 
@@ -346,9 +550,57 @@ class ParallelContext:
         )
         return plan
 
+    def effective_prefill_shapes(self, shapes: AttnShapes, *,
+                                 prefix_hit_rate: float = 0.0) -> AttnShapes:
+        """Shapes the prefill arbitration actually prices: the query side
+        shrinks to the prefix-cache *miss suffix* (hit pages are already
+        resident — only the suffix needs query work), rounded up to an
+        SP-degree multiple so a ring schedule could run it; the KV side stays
+        the full context (resident prefix KV still participates in
+        attention)."""
+        if not 0.0 <= prefix_hit_rate <= 1.0:
+            raise ValueError(f"prefix_hit_rate {prefix_hit_rate} not in [0, 1]")
+        P_sp = self.sp_degree
+        miss = shapes.Sq - int(shapes.Sq * prefix_hit_rate)
+        Sq_eff = max(P_sp, ceil_div(miss, P_sp) * P_sp)
+        return replace(shapes, Sq=Sq_eff, Sk=shapes.seq_kv)
+
+    def choose_prefill_strategy(self, shapes: AttnShapes, *, prefix_hit_rate: float = 0.0,
+                                table_pages: int | None = None) -> str:
+        """Arbitrate the prefill schedule over :data:`PREFILL_CANDIDATES`
+        from the KV:Q byte ratio and the measured prefix-cache hit rate.
+
+        ``shapes.Sq`` is the request's query (prompt) length, ``shapes.Sk``
+        the full KV context it attends to.  The candidates' ``comm_cost``
+        models are evaluated at the miss-suffix query length
+        (:meth:`effective_prefill_shapes`): pass-KV scales with the *KV*
+        side, pass-Q and the resident all-reduce with the *query* side.
+        Argmin over max-direction bytes (total without bidirectional links)
+        with the same KV-residency margin the training planner applies.
+        """
+        eff = self.effective_prefill_shapes(shapes, prefix_hit_rate=prefix_hit_rate)
+        extras = {"travel_dtype": _decision_travel_dtype(eff.dtype_bytes),
+                  "table_pages": table_pages}
+        scored = []
+        for name in PREFILL_CANDIDATES:
+            desc = get_strategy(name)
+            cost = strategy_cost(
+                desc, eff.B, eff.Sq, eff.Hq, eff.Hkv, eff.D, self.sp_degree,
+                bytes_per_elem=eff.dtype_bytes, bidir_links=self.bidir_links,
+                S_kv=eff.seq_kv, **extras,
+            )
+            scored.append((cost.max_direction if self.bidir_links else cost.total, desc))
+        scored.sort(key=lambda t: (t[0], t[1].name))
+        best_score = scored[0][0]
+        for score, desc in scored:
+            if desc.kv_resident and score <= KV_RESIDENT_MARGIN * best_score:
+                return desc.name
+        return scored[0][1].name
+
     def plan_prefill(self, *, window: int | None = None, scale: float | None = None,
                      shapes: AttnShapes | None = None, table_pages: int | None = None,
-                     strategy: str | None = None) -> ExecutionPlan:
+                     strategy: str | None = None,
+                     prefix_hit_rate: float = 0.0) -> ExecutionPlan:
         """Chunked-prefill plan: a replicated prompt chunk against the
         resident sharded cache plus its own local block (cross-chunk
         causality through the Update() merge, ``core/decode.py``).
@@ -356,19 +608,35 @@ class ParallelContext:
         ``strategy`` ``None`` or ``"prefill"`` binds the registered
         ``"prefill"`` schedule; with ``shapes`` (``Sq`` the chunk length,
         ``Sk`` the cache capacity) the plan carries the modeled link bytes a
-        chunk (plus the block-table term with ``table_pages``).  The
-        reference's prefill rings and its ``"auto"`` arbitration over them
-        raise ``NotImplementedError`` naming their item.  The plan takes
-        ``(q, k_new, v_new, new_pos, k_cache, v_cache, k_pos, q_pos)``, the
-        cache in the ring's layout."""
-        if strategy == "auto":
-            raise NotImplementedError(_PREFILL_RINGS)
-        if strategy in UNPORTED:
-            raise NotImplementedError(not_ported(strategy))
-        if strategy is not None and strategy not in PREFILL_CANDIDATES:
-            raise ValueError(
-                f"plan_prefill strategy {strategy!r} not one of {PREFILL_CANDIDATES}"
-            )
+        chunk (plus the block-table term with ``table_pages``).  The plan
+        takes ``(q, k_new, v_new, new_pos, k_cache, v_cache, k_pos, q_pos)``,
+        the cache in the ring's layout.
+
+        ``strategy="auto"`` arbitrates per request over
+        :data:`PREFILL_CANDIDATES` via :meth:`choose_prefill_strategy`
+        (requires ``shapes``; ``prefix_hit_rate`` is the engine's measured
+        prefix-cache hit rate).  A ring winner returns an *attention-style*
+        plan — q/k/v sequence-sharded (global tensors on the virtual ring,
+        this rank's shard on a process group), causal — over the miss-suffix
+        shapes; the resident winner returns the chunk plan.  An explicit ring
+        name binds that ring unconditionally.
+        """
+        if strategy is not None:
+            if strategy == "auto":
+                if shapes is None:
+                    raise ValueError(
+                        "plan_prefill(strategy='auto') needs shapes= to "
+                        "arbitrate the KV:Q byte ratio"
+                    )
+                strategy = self.choose_prefill_strategy(
+                    shapes, prefix_hit_rate=prefix_hit_rate, table_pages=table_pages)
+            elif strategy not in PREFILL_CANDIDATES:
+                raise ValueError(
+                    f"plan_prefill strategy {strategy!r} not one of {PREFILL_CANDIDATES}"
+                )
+            if strategy != "prefill":
+                return self._plan_prefill_ring(strategy, shapes, window=window, scale=scale,
+                                               prefix_hit_rate=prefix_hit_rate)
         key = ("prefill", window, scale, shapes, table_pages)
         if key in self._serving_plans:
             return self._serving_plans[key]
@@ -383,6 +651,56 @@ class ParallelContext:
             cost=self._serving_cost("prefill", shapes, table_pages), kind="prefill",
         )
         return plan
+
+    def _plan_prefill_ring(self, name: str, shapes: AttnShapes | None, *,
+                           window: int | None, scale: float | None,
+                           prefix_hit_rate: float = 0.0) -> ExecutionPlan:
+        """Bind a prefill *ring* (``passkv_ring`` / ``passq_ring``) as an
+        attention-style plan over the miss-suffix shapes: q/k/v enter
+        sequence-sharded (unlike the resident-chunk path's replicated
+        chunk), the ring circulates its chosen side, causal."""
+        ring = self._serving_ring()
+        desc = get_strategy(name)
+        P_sp = self.sp_degree
+        extras = self._strategy_kwargs(desc)
+        kw = self._kernel_kw(True, window, scale)
+        fn = desc.fn
+
+        def local_fn(q, k, v, qp, kp):
+            return fn(q, k, v, qp, kp, ring=ring, **kw, **extras)
+
+        cost = compute_flops = None
+        if shapes is not None:
+            eff = self.effective_prefill_shapes(shapes, prefix_hit_rate=prefix_hit_rate)
+            cost = strategy_cost(
+                desc, eff.B, eff.Sq, eff.Hq, eff.Hkv, eff.D, P_sp,
+                bytes_per_elem=eff.dtype_bytes, bidir_links=self.bidir_links,
+                S_kv=eff.seq_kv, window=window, **extras,
+            )
+            compute_flops = attention_compute_flops(eff.B, eff.Sq, eff.Hq, eff.D, P_sp,
+                                                    S_kv=eff.seq_kv, causal=True)
+        return ExecutionPlan(strategy=name, local_fn=local_fn, ring=ring, sp_degree=P_sp,
+                             cost=cost, compute_flops=compute_flops, pipelines=desc.pipelines,
+                             kind="prefill")
+
+
+def _hybrid_cost(inner_desc: SPStrategy, shapes: AttnShapes, *, n_pods: int, P_inner: int,
+                 bidir_links: bool, extras: dict) -> CommCost:
+    """Case-Study-III accounting: every pod step each rank forwards its
+    rank-local KV shard (``S_kv / (n_pods * P_inner)`` rows, see
+    ``core/hybrid.py``) over the pod ring, and runs a full inner pass over
+    the inner ring."""
+    S_kv = shapes.seq_kv
+    kv_shard = (2 * shapes.B * (S_kv // (n_pods * P_inner)) * shapes.Hkv * shapes.D
+                * shapes.dtype_bytes)
+    outer = CommCost((n_pods - 1) * kv_shard, 0.0)
+    inner = strategy_cost(
+        inner_desc, shapes.B, shapes.Sq // n_pods, shapes.Hq, shapes.Hkv, shapes.D, P_inner,
+        bytes_per_elem=shapes.dtype_bytes, bidir_links=bidir_links, S_kv=S_kv // n_pods,
+        **extras,
+    )
+    return CommCost(outer.fwd_bytes + n_pods * inner.fwd_bytes,
+                    outer.bwd_bytes + n_pods * inner.bwd_bytes)
 
 
 def _check_ring_device(pctx: ParallelContext, x):

@@ -21,37 +21,69 @@ shift by ``s`` (the reference's ``flat_ring_shift`` over one axis, one
   ``(rank + s) % P`` and receives from ``(rank - s) % P``; a posted shift
   is waited after the step's computes.
 
-Both are differentiable: the gradient of a shift by ``s`` is the shift of the
-cotangent by ``-s`` (the transpose of ``ppermute`` that JAX's autodiff gives
-the reference).  On the virtual ring the backward of a shift posted on the
-side stream runs on the side stream (the autograd engine runs a node's
-backward on its forward's stream and synchronises the streams around it).
+**Two axes.**  ``ring.split(pods)`` factors the ``P`` ranks row-major as
+``(pod, inner)`` (rank ``r = pod * (P // pods) + inner``, the reference's
+``flat_rank`` order) and returns two views of the same ranks: the pod ring
+(``pods`` ranks, every inner index its own ring) and the inner ring
+(``P // pods`` ranks, one ring per pod).  A shift on a view moves each
+rank's payload along that axis only (``core.schedule.message_dst`` of an
+axis-tagged ``Send``): on the virtual ring one copy of rank blocks in the
+``(pod, inner)`` grid, on a process group a ``batch_isend_irecv`` over a
+subgroup of the ranks that share the other coordinate.  The hierarchical
+schedule (``core/hier2d.py``) posts on both views; the multi-pod hybrid
+(``core/hybrid.py``) runs one executor on the pod ring inside whose computes
+another runs on the inner ring.
+
+**All-to-all and all-gather** (Ulysses, ``core/ulysses.py``): every
+transport and view has :meth:`VirtualRing.all_to_all` (the reference's
+tiled ``lax.all_to_all``: each rank cuts ``split_axis`` into ``P`` chunks,
+chunk ``j`` goes to rank ``j``, which concatenates what it receives along
+``concat_axis`` in rank order) and :meth:`VirtualRing.all_gather` (every
+rank's tensor concatenated along an axis in rank order).  On the virtual
+ring both are device-side reshapes and copies; on a process group
+``dist.all_to_all_single`` and ``dist.all_gather``.  The all-to-all is
+differentiable (its gradient is the inverse all-to-all, the transpose JAX's
+autodiff gives); the all-gather is forward only (it gathers positions).
+
+Both transports are differentiable: the gradient of a shift by ``s`` is the
+shift of the cotangent by ``-s`` (the transpose of ``ppermute`` that JAX's
+autodiff gives the reference).  On the virtual ring the backward of a shift
+posted on the side stream runs on the side stream (the autograd engine runs
+a node's backward on its forward's stream and synchronises the streams
+around it).
 
 Both also reduce (:meth:`VirtualRing.all_reduce`,
 :meth:`ProcessGroupRing.all_reduce`): the serving paths' lse-weighted merge
 (``core/decode.py``) is one ``max`` and one ``sum`` across the ranks.  The
 all-reduce is forward only: serving never differentiates through it.
 
-Both count what they are handed, per rank and per ring direction (``"fwd"``
-for ``s > 0``, ``"bwd"`` for ``s < 0``), in the cost models' units: a
-distance-``s`` send is charged ``|s|`` neighbour hops (the torus convention
-of the schedule specs, which only TokenRing's faithful schedule uses), and
-int32 position rows are counted apart, because the cost models leave them
-out.  An all-reduce of a payload of ``n`` bytes a rank is charged what a
-bidirectional ring all-reduce carries, ``(P-1)/P * n`` per rank in each
-direction (the arithmetic of ``decode_comm_cost``).  Two-axis rings (the
-reference's two-axis ``flat_ring_shift``) wait for ``core/hier2d.py``.
+**What is counted.**  Every transport counts what it is handed, per rank and
+per ring direction (``"fwd"`` for ``s > 0``, ``"bwd"`` for ``s < 0``), in
+the cost models' units, in one ledger that a ring shares with its views:
+
+* a distance-``s`` send is charged ``|s|`` neighbour hops (the torus
+  convention of the schedule specs, which only TokenRing's faithful schedule
+  uses) to ``link_bytes`` and to its link class in ``class_bytes``: a send
+  on the pod ring is ``"inter"``, on the inner ring ``"intra"``, on the
+  flat ring ``"link"`` (the classes of ``CommCost.links`` and
+  ``CommCost.link_costs``);
+* an all-to-all of a tensor of ``n`` bytes a rank is charged ``n / 2`` in
+  each direction, as ``ulysses_comm_cost`` charges q, k, v and out;
+* an all-reduce of ``n`` bytes a rank is charged what a bidirectional ring
+  all-reduce carries, ``(P-1)/P * n`` in each direction (the arithmetic of
+  ``decode_comm_cost``);
+* int32 position rows (shifted or all-gathered, an all-gather of ``n``
+  bytes a rank at ``(P-1) * n / 2`` a direction) go to ``position_bytes``
+  and the all-to-all of Ulysses' lse to ``lse_bytes``, apart, because the
+  cost models leave them out.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ring_perm", "Pending", "VirtualRing", "ProcessGroupRing", "HIER2D_ITEM",
-           "fold_ranks", "unfold_ranks"]
-
-HIER2D_ITEM = ("two-axis rings are not ported yet: they come with core/hier2d.py "
-               "(ROADMAP queue 1 item 8)")
+__all__ = ["ring_perm", "Pending", "VirtualRing", "ProcessGroupRing", "fold_ranks",
+           "unfold_ranks"]
 
 
 def ring_perm(P: int, shift: int):
@@ -86,35 +118,105 @@ class Pending:
         return self._received
 
 
-class _Counters:
-    """Bytes handed to a ring, per rank and direction (module docstring)."""
+def _zero():
+    return {"fwd": 0.0, "bwd": 0.0}
+
+
+class _Ledger:
+    """Bytes handed to a ring and its views, per rank (module docstring)."""
 
     def __init__(self):
-        self.reset_counts()
+        self.reset()
+
+    def reset(self):
+        self.link_bytes, self.position_bytes, self.lse_bytes = _zero(), _zero(), _zero()
+        self.class_bytes: dict[str, dict[str, float]] = {}
+
+    def add(self, cls: str, way: str, nbytes: float):
+        self.link_bytes[way] += nbytes
+        self.class_bytes.setdefault(cls, _zero())[way] += nbytes
+
+
+class _Counters:
+    """The counting side of a transport: ``link_class`` names its sends'
+    class, ``folded_ranks`` how many ranks' rows one tensor holds."""
+
+    link_class = "link"
+    folded_ranks = 1
+
+    @property
+    def link_bytes(self):
+        return self.ledger.link_bytes
+
+    @property
+    def class_bytes(self):
+        return self.ledger.class_bytes
+
+    @property
+    def position_bytes(self):
+        return self.ledger.position_bytes
+
+    @property
+    def lse_bytes(self):
+        return self.ledger.lse_bytes
 
     def reset_counts(self):
-        self.link_bytes = {"fwd": 0.0, "bwd": 0.0}
-        self.position_bytes = {"fwd": 0.0, "bwd": 0.0}
+        self.ledger.reset()
 
-    def _count(self, tensors, shift: int, ranks: int):
+    def _count(self, tensors, shift: int):
         if shift % self.size == 0:
             return
         way = "fwd" if shift > 0 else "bwd"
         for t in tensors:
-            nbytes = t.numel() * t.element_size() / ranks * abs(shift)
-            kind = self.position_bytes if not t.is_floating_point() else self.link_bytes
-            kind[way] += nbytes
+            nbytes = t.numel() * t.element_size() / self.folded_ranks * abs(shift)
+            if t.is_floating_point():
+                self.ledger.add(self.link_class, way, nbytes)
+            else:
+                self.ledger.position_bytes[way] += nbytes
 
     def _count_all_reduce(self, nbytes_per_rank: int):
         per_dir = (self.size - 1) / self.size * nbytes_per_rank
-        self.link_bytes["fwd"] += per_dir
-        self.link_bytes["bwd"] += per_dir
+        self.ledger.add(self.link_class, "fwd", per_dir)
+        self.ledger.add(self.link_class, "bwd", per_dir)
+
+    def _count_all_to_all(self, x, lse: bool):
+        if self.size == 1:
+            return
+        half = x.numel() * x.element_size() / self.folded_ranks / 2
+        for way in ("fwd", "bwd"):
+            if lse:
+                self.ledger.lse_bytes[way] += half
+            else:
+                self.ledger.add(self.link_class, way, half)
+
+    def _count_all_gather(self, x):
+        per_dir = (self.size - 1) * x.numel() * x.element_size() / self.folded_ranks / 2
+        for way in ("fwd", "bwd"):
+            if x.is_floating_point():
+                self.ledger.add(self.link_class, way, per_dir)
+            else:
+                self.ledger.position_bytes[way] += per_dir
+
+    def all_to_all(self, x, split_axis: int, concat_axis: int, *, lse: bool = False):
+        """The reference's tiled ``lax.all_to_all`` of this rank's ``x``
+        (module docstring); differentiable.  ``lse=True`` counts the bytes
+        apart, in ``lse_bytes``."""
+        self._count_all_to_all(x, lse)
+        if x.requires_grad:
+            return _AllToAll.apply(x, self, split_axis, concat_axis, lse)
+        return self._all_to_all(x, split_axis, concat_axis)
+
+    def all_gather(self, x, axis: int):
+        """Every rank's ``x`` concatenated along ``axis`` in rank order, on
+        every rank.  Forward only."""
+        _forward_only(x, "all_gather")
+        self._count_all_gather(x)
+        return self._all_gather(x, axis)
 
 
-def _forward_only(x):
+def _forward_only(x, what="all_reduce"):
     if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError("the ring's all_reduce is forward only (serving does not "
-                           "differentiate through it)")
+        raise RuntimeError(f"the ring's {what} is forward only")
 
 
 _REDUCE_OPS = ("max", "sum")
@@ -149,19 +251,41 @@ def _roll_ranks(x, P: int, shift: int):
     return out
 
 
+def _a2a_ranked(v, n: int, split_axis: int, concat_axis: int):
+    """The all-to-all of ``n`` ranks whose local tensors are ``v[r]`` (rank
+    dimension first): rank ``j`` gets chunk ``j`` of every rank's
+    ``split_axis``, concatenated along ``concat_axis`` in rank order."""
+    w = v.unflatten(split_axis + 1, (n, v.shape[split_axis + 1] // n))
+    w = w.movedim(split_axis + 1, 0)  # (dst, src, local...)
+    return w.movedim(1, concat_axis + 1).flatten(concat_axis + 1, concat_axis + 2)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ring, split_axis, concat_axis, lse):
+        ctx.ring, ctx.axes, ctx.lse = ring, (split_axis, concat_axis), lse
+        return ring._all_to_all(x, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        ctx.ring._count_all_to_all(g, ctx.lse)
+        return ctx.ring._all_to_all(g, concat_axis, split_axis), None, None, None, None
+
+
 class _VirtualShift(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ring, shift, reader):
         ctx.ring, ctx.shift, ctx.reader = ring, shift, reader
-        return _roll_ranks(x, ring.size, shift)
+        return ring._move(x, shift)
 
     @staticmethod
     def backward(ctx, g):
         ring = ctx.ring
-        ring._count((g,), -ctx.shift, ring.size)
+        ring._count((g,), -ctx.shift)
         if ctx.reader is not None:  # ran on the side stream: keep g and the result alive
             g.record_stream(torch.cuda.current_stream(g.device))
-        out = _roll_ranks(g, ring.size, -ctx.shift)
+        out = ring._move(g, -ctx.shift)
         if ctx.reader is not None:
             out.record_stream(ctx.reader)
         return out, None, None, None
@@ -172,14 +296,18 @@ class VirtualRing(_Counters):
     one device (see the module docstring)."""
 
     folded = True  # buffers hold every rank's rows
+    # the (pod, inner) grid this ring moves along: the flat ring is one pod
+    # whose inner axis holds every rank
+    pods, axis = 1, 1
 
     def __init__(self, size: int, device="cuda"):
-        super().__init__()
         if size < 1:
             raise ValueError(f"ring size must be >= 1, got {size}")
-        self.size = size
+        self.size = self.folded_ranks = size
         self.device = torch.device(device)
+        self.ledger = _Ledger()
         self._stream = None
+        self._splits = {}
 
     def _side_stream(self):
         """The communication stream (made at first use on the card)."""
@@ -187,10 +315,13 @@ class VirtualRing(_Counters):
             self._stream = torch.cuda.Stream(device=self.device)
         return self._stream
 
+    def _move(self, x, shift):
+        return _roll_ranks(x, self.size, shift)
+
     def _shift(self, x, shift, reader=None):
         if x.requires_grad:
             return _VirtualShift.apply(x, self, shift, reader)
-        return _roll_ranks(x, self.size, shift)
+        return self._move(x, shift)
 
     def post(self, payload, shift: int, *, overlap: bool = True) -> Pending:
         """Post one shift of every buffer of ``payload`` (a tuple of
@@ -198,7 +329,7 @@ class VirtualRing(_Counters):
         the card runs the copies on the side stream; otherwise they run on
         the current stream, in order."""
         leaves, rebuild = _flatten(payload)
-        self._count(leaves, shift, self.size)
+        self._count(leaves, shift)
         if not (overlap and leaves[0].is_cuda):
             return Pending(rebuild([self._shift(x, shift) for x in leaves]))
         compute = torch.cuda.current_stream(leaves[0].device)
@@ -213,6 +344,38 @@ class VirtualRing(_Counters):
         done = torch.cuda.Event()
         done.record(side)
         return Pending(rebuild(received), (lambda: compute.wait_event(done),))
+
+    def split(self, pods: int):
+        """``(pod ring, inner ring)``: views of these ranks factored
+        row-major as ``(pods, size // pods)`` (module docstring)."""
+        if pods < 1 or self.size % pods:
+            raise ValueError(f"{pods} pods do not divide a ring of {self.size} ranks")
+        if pods not in self._splits:
+            self._splits[pods] = (_VirtualAxisRing(self, pods, 0), _VirtualAxisRing(self, pods, 1))
+        return self._splits[pods]
+
+    def _by_axis(self, x):
+        """``x (R*B, ...)`` (every rank's rows) -> ``(n, G*B, ...)``: this
+        ring's ranks first, the ``G`` rings of the other axis in the batch."""
+        R = self.folded_ranks
+        g = x.reshape(self.pods, R // self.pods, x.shape[0] // R, *x.shape[1:])
+        g = g.movedim(self.axis, 0)
+        return g.reshape(self.size, -1, *x.shape[1:])
+
+    def _from_axis(self, y):
+        """Inverse of :meth:`_by_axis`."""
+        R = self.folded_ranks
+        g = y.reshape(self.size, R // self.size, -1, *y.shape[2:]).movedim(0, self.axis)
+        return g.reshape(-1, *y.shape[2:])
+
+    def _all_to_all(self, x, split_axis, concat_axis):
+        return self._from_axis(_a2a_ranked(self._by_axis(x), self.size, split_axis,
+                                           concat_axis))
+
+    def _all_gather(self, x, axis):
+        v = self._by_axis(x)
+        whole = v.movedim(0, axis).flatten(axis, axis + 1)
+        return self._from_axis(whole.expand(self.size, *whole.shape))
 
     def rank_view(self, x):
         """``x (P*B, ...)`` as ``(P, B, ...)``: rank ``r``'s rows at ``[r]``."""
@@ -241,6 +404,30 @@ class VirtualRing(_Counters):
         return acc
 
 
+class _VirtualAxisRing(VirtualRing):
+    """One axis of a virtual ring's ``(pod, inner)`` grid (``axis`` 0: the
+    pod ring, 1: the inner ring), on the parent's buffers, side stream and
+    ledger."""
+
+    def __init__(self, parent: VirtualRing, pods: int, axis: int):
+        self.parent, self.pods, self.axis = parent, pods, axis
+        self.size = pods if axis == 0 else parent.size // pods
+        self.folded_ranks = parent.size
+        self.device, self.ledger = parent.device, parent.ledger
+        self.link_class = ("inter", "intra")[axis]
+        self._splits = {}
+
+    def _side_stream(self):
+        return self.parent._side_stream()
+
+    def _move(self, x, shift):
+        grid = x.reshape(self.pods, self.folded_ranks // self.pods, -1)
+        return torch.roll(grid, shift, dims=self.axis).reshape(x.shape)
+
+    def split(self, pods):
+        raise ValueError("a ring's axis view does not split again")
+
+
 class _PGShift(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ring, shift, works, *xs):
@@ -255,7 +442,7 @@ class _PGShift(torch.autograd.Function):
     def backward(ctx, *gs):
         ring = ctx.ring
         grads = [gs[i] for i in ctx.float_idx]  # materialized: zeros where unused
-        ring._count(grads, -ctx.shift, 1)
+        ring._count(grads, -ctx.shift)
         received, posted = ring._exchange(grads, -ctx.shift)
         for w in posted:
             w.wait()
@@ -274,22 +461,25 @@ class ProcessGroupRing(_Counters):
 
     folded = False  # buffers hold this rank's rows only
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, *, ledger=None, link_class: str = "link"):
         import torch.distributed as dist
 
-        super().__init__()
         self.group = group if group is not None else dist.group.WORLD
         self.size = dist.get_world_size(self.group)
         self.rank = dist.get_rank(self.group)
+        self.ledger = ledger if ledger is not None else _Ledger()
+        self.link_class = link_class
         self._tag = 0
+        self._splits = {}
 
-    def _peer(self, shift: int) -> tuple[int, int]:
+    def _global(self, r: int) -> int:
         import torch.distributed as dist
 
-        def glob(r):
-            return dist.get_global_rank(self.group, r) if self.group is not dist.group.WORLD else r
+        return dist.get_global_rank(self.group, r) if self.group is not dist.group.WORLD else r
 
-        return glob((self.rank + shift) % self.size), glob((self.rank - shift) % self.size)
+    def _peer(self, shift: int) -> tuple[int, int]:
+        return (self._global((self.rank + shift) % self.size),
+                self._global((self.rank - shift) % self.size))
 
     def _exchange(self, xs, shift: int):
         """Post one batch of isend/irecv for ``xs``; returns ``(received,
@@ -313,7 +503,7 @@ class ProcessGroupRing(_Counters):
         """Post one shift of ``payload`` (as :meth:`VirtualRing.post`);
         ``overlap=False`` waits at once."""
         leaves, rebuild = _flatten(payload)
-        self._count(leaves, shift, 1)
+        self._count(leaves, shift)
         works: list = []
         if any(x.requires_grad for x in leaves):
             received = _PGShift.apply(self, shift, works, *leaves)
@@ -324,6 +514,45 @@ class ProcessGroupRing(_Counters):
         if not overlap:
             pending.wait()
         return pending
+
+    def split(self, pods: int):
+        """``(pod ring, inner ring)`` over subgroups of this group's ranks,
+        factored row-major as ``(pods, size // pods)``.  Collective: every
+        rank of the group calls it, with the same ``pods``, in the same
+        order (it makes every subgroup)."""
+        import torch.distributed as dist
+
+        if pods < 1 or self.size % pods:
+            raise ValueError(f"{pods} pods do not divide a ring of {self.size} ranks")
+        if pods not in self._splits:
+            n_in = self.size // pods
+            ranks = [self._global(r) for r in range(self.size)]
+            by_pod = [dist.new_group([ranks[p * n_in + i] for p in range(pods)])
+                      for i in range(n_in)]
+            by_inner = [dist.new_group(ranks[p * n_in:(p + 1) * n_in]) for p in range(pods)]
+            pod, inner = divmod(self.rank, n_in)
+            self._splits[pods] = (
+                ProcessGroupRing(by_pod[inner], ledger=self.ledger, link_class="inter"),
+                ProcessGroupRing(by_inner[pod], ledger=self.ledger, link_class="intra"))
+        return self._splits[pods]
+
+    def _all_to_all(self, x, split_axis, concat_axis):
+        import torch.distributed as dist
+
+        n = self.size
+        wire = x.unflatten(split_axis, (n, x.shape[split_axis] // n)).movedim(split_axis, 0)
+        wire = wire.contiguous()
+        got = torch.empty_like(wire)
+        dist.all_to_all_single(got, wire, group=self.group)
+        return got.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
+
+    def _all_gather(self, x, axis):
+        import torch.distributed as dist
+
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x, group=self.group)
+        return torch.cat(parts, dim=axis)
 
     def rank_view(self, x):
         """``x (B, ...)``, this rank's rows, as ``(1, B, ...)``."""

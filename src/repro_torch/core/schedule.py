@@ -30,10 +30,16 @@ Step semantics (the double buffer):
 its Computes and waits for the receptions after them: on the card the
 virtual ring's copies run on a side stream under the step's kernels, and a
 process group's requests are in flight while the kernels run.
-``overlap=False`` runs the Computes first and only then each Send, waited at
-once on the compute stream.  Eager order is explicit, so both modes run the
-same operations on the same values and give bitwise-equal results (the
-reference needs an ``optimization_barrier`` tie for its sequential mode).
+``overlap=False`` runs each Send to its end, on the compute stream, before
+the step's Computes start: nothing overlaps.  Both modes post the Sends
+before the Computes, so they build the same autograd graph node for node
+and run the same operations on the same values: outputs *and* gradients are
+bitwise equal, also where one buffer feeds many Computes and a Send (the
+hybrid's and TokenRing2D's KV), whose gradient sums would otherwise add up
+in another order (the reference needs an ``optimization_barrier`` tie for
+its sequential mode).  An axis-tagged Send moves on that axis's view of the
+ring (``ring`` a mapping from tags to the views of ``core.collectives``'
+``split``), so a hierarchical schedule runs on the same executor.
 
 A schedule is ``prologue`` steps, an optional uniform ``body`` step repeated
 ``trips`` times (a Python loop here, ``lax.scan`` in the reference), and
@@ -403,15 +409,23 @@ def step_messages(step: Step, P: int, axes=None):
 
 def _run_step(step: Step, bufs: dict, *, ring, compute_fn: Callable, overlap: bool,
               shift_fn: Callable):
-    from repro_torch.core.collectives import HIER2D_ITEM, Pending
+    from repro_torch.core.collectives import Pending
     from repro_torch.core.merge import merge_partials
 
     snapshot = bufs  # generation g — never mutated below
 
+    def transport(op: Send):
+        if isinstance(ring, Mapping):
+            try:
+                return ring[op.axis]
+            except KeyError:
+                raise ScheduleError(
+                    f"Send axis {op.axis!r} has no ring in {tuple(ring)}"
+                ) from None
+        return ring
+
     def post(op: Send):
-        if op.axis is not None:
-            raise NotImplementedError(HIER2D_ITEM)
-        return shift_fn(tuple(snapshot[b] for b in op.buffers), ring, op.shift)
+        return shift_fn(tuple(snapshot[b] for b in op.buffers), transport(op), op.shift)
 
     def received(posted):
         return posted.wait() if isinstance(posted, Pending) else posted
@@ -426,21 +440,15 @@ def _run_step(step: Step, bufs: dict, *, ring, compute_fn: Callable, overlap: bo
         kp = kps[0] if len(kps) == 1 else torch.cat(kps, dim=1)
         return compute_fn(q, q_pos, k, v, kp)
 
+    # Every send posted first, payloads straight off the snapshot (with
+    # overlap=False each is done before post returns); the receptions are
+    # read only after the computes.
+    posted = [(op, post(op)) for op in step.sends]
     writes: dict[str, Any] = {}
-    if overlap:
-        # Pipelined: every send posted first, payloads straight off the
-        # snapshot; the receptions are waited only after the computes.
-        posted = [(op, post(op)) for op in step.sends]
-        for op in step.computes:
-            writes[op.out] = run_compute(op)
-        for op, p in posted:
-            writes.update(zip(op.targets, received(p)))
-    else:
-        # Sequential: compute first, then each send, done before the next.
-        for op in step.computes:
-            writes[op.out] = run_compute(op)
-        for op in step.sends:
-            writes.update(zip(op.targets, received(post(op))))
+    for op in step.computes:
+        writes[op.out] = run_compute(op)
+    for op, p in posted:
+        writes.update(zip(op.targets, received(p)))
 
     out = dict(bufs)
     out.update(writes)  # commit — generation g+1
@@ -454,14 +462,18 @@ def _run_step(step: Step, bufs: dict, *, ring, compute_fn: Callable, overlap: bo
 def execute_schedule(schedule: Schedule, buffers: dict, *, ring, compute_fn: Callable,
                      overlap: bool = True, shift_fn: Callable | None = None) -> dict:
     """Run ``schedule`` over ``buffers`` (name -> tuple of tensors) on the
-    ring transport ``ring``, returning the final buffer dict.
+    ring transport ``ring``, returning the final buffer dict.  ``ring`` is
+    one transport of ``core.collectives`` for flat schedules, or a mapping
+    ``{send_axis_tag: transport}`` (the pod and inner views of
+    ``ring.split``) for hierarchical schedules whose Sends carry axis tags
+    (``core.hier2d``).
 
     ``compute_fn(q, q_pos, k, v, k_pos) -> (out, lse)`` is the block compute
     (a flash-attention closure).  ``shift_fn(payload, ring, shift)`` defaults
     to ``ring.post(payload, shift, overlap=overlap)`` and is injectable for
     device-free IR tests (it may return the received tuple itself).
-    ``overlap=False`` runs each step's sends after its computes (see the
-    module docstring) without changing any value.
+    ``overlap=False`` runs each step's sends to their end before its
+    computes (see the module docstring) without changing any value.
     """
     schedule.validate(set(buffers))
     if shift_fn is None:

@@ -13,11 +13,15 @@ function of shapes and links:
     max-direction bytes, except that a ``kv_resident`` schedule wins
     whenever it is within :data:`KV_RESIDENT_MARGIN` of the cheapest.
 
-The port registers the four ring strategies of ``core/token_ring.py`` and
-``core/ring_attention.py`` and the two serving schedules of
-``core/decode.py`` (planned through ``plan_decode`` / ``plan_prefill``, never
-picked by ``"auto"``); asking for a strategy of the reference that is
-not ported yet raises ``NotImplementedError`` naming its item (:data:`UNPORTED`).
+The port registers every strategy of the reference: the ring strategies of
+``core/token_ring.py`` and ``core/ring_attention.py``, Ulysses
+(``core/ulysses.py``), the window halo (``core/window.py``), the prefill
+rings (``core/prefill_rings.py``, planned through ``plan_prefill``), the
+hierarchical TokenRing2D (``core/hier2d.py``, planned through
+``plan(topology=...)``) and the two serving schedules of ``core/decode.py``
+(planned through ``plan_decode`` / ``plan_prefill``, never picked by
+``"auto"``).  The multi-pod hybrid (``core/hybrid.py``) is no registered
+strategy: ``plan`` wraps a registered inner strategy in it.
 
 Cost-model convention: ``comm_cost(B, S, Hq, Hkv, D, P, *, bytes_per_elem=2,
 bidir_links=True, S_kv=None, **extra) -> CommCost`` with per-device bytes for
@@ -36,7 +40,6 @@ __all__ = [
     "CommCost",
     "LinkCost",
     "SPStrategy",
-    "UNPORTED",
     "register_strategy",
     "unregister_strategy",
     "get_strategy",
@@ -164,9 +167,11 @@ class SPStrategy:
     ``fn(q, k, v, q_pos, k_pos, *, ring, causal, window, scale, impl,
     block_q, block_k, block_q_bwd, block_k_bwd, overlap=True,
     return_lse=False, **extra)`` where ``ring`` is a transport of
-    ``core.collectives`` and ``extra`` is limited to the names declared in
+    ``core.collectives`` (for a two-axis schedule, ``ring_axes=2``, the
+    ``(pod ring, inner ring)`` pair of its ``split``) and ``extra`` is
+    limited to the names declared in
     ``extra_kwargs``; ``overlap=False`` runs the step schedule with each
-    send after the step's computes (``core/schedule.py``).
+    send done before the step's computes (``core/schedule.py``).
     """
 
     name: str
@@ -247,25 +252,8 @@ def unregister_strategy(name: str) -> None:
     _REGISTRY.pop(name, None)
 
 
-# Strategies of the reference that the port has not copied yet, and where
-# each comes (ROADMAP.md, queue 1).  Asking for one raises
-# NotImplementedError naming its item, not the unknown-strategy ValueError.
-UNPORTED = {
-    "ulysses": "core/ulysses.py (ROADMAP queue 1 item 8)",
-    "window": "core/window.py (ROADMAP queue 1 item 8)",
-    "hybrid": "core/hybrid.py (ROADMAP queue 1 item 8)",
-    "tokenring2d": "core/hier2d.py (ROADMAP queue 1 item 8)",
-    "passkv_ring": "core/prefill_rings.py (ROADMAP queue 1 item 8)",
-    "passq_ring": "core/prefill_rings.py (ROADMAP queue 1 item 8)",
-}
-
-
-def not_ported(name: str) -> str:
-    return f"SP strategy {name!r} is not ported yet: it comes with {UNPORTED[name]}"
-
-
 def _ensure_builtins() -> None:
-    """Import the ported strategy modules so they self-register.
+    """Import the built-in strategy modules so they self-register.
 
     Lazy so that registry order never depends on which ``repro_torch.core``
     submodule a consumer happened to import first.
@@ -274,9 +262,13 @@ def _ensure_builtins() -> None:
     if _BUILTINS_LOADED:
         return
     _BUILTINS_LOADED = True
-    import repro_torch.core.decode  # noqa: F401
+    import repro_torch.core.decode  # noqa: F401  (serving: "decode" + "prefill")
+    import repro_torch.core.hier2d  # noqa: F401  ("tokenring2d")
+    import repro_torch.core.prefill_rings  # noqa: F401  ("passkv_ring" + "passq_ring")
     import repro_torch.core.ring_attention  # noqa: F401
     import repro_torch.core.token_ring  # noqa: F401
+    import repro_torch.core.ulysses  # noqa: F401
+    import repro_torch.core.window  # noqa: F401
 
 
 def get_strategy(name: str) -> SPStrategy:
@@ -284,8 +276,6 @@ def get_strategy(name: str) -> SPStrategy:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in UNPORTED:
-            raise NotImplementedError(not_ported(name)) from None
         raise ValueError(
             f"unknown SP strategy {name!r}; registered: {available_strategies()}"
         ) from None

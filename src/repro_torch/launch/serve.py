@@ -18,8 +18,11 @@ engine tick point with that probability (``--fault-seed``), survived
 through quarantine and retry (``--max-retries``, ``--retry-backoff``), the
 degrade ladder and the cache auditor (``--audit-every``);
 ``--snapshot-dir``/``--snapshot-every`` take serving-state snapshots that
-``ServingEngine.from_snapshot`` restarts from.  The reference's adaptive
-prefill line (``print_adaptive_prefill``) waits for the prefill rings.
+``ServingEngine.from_snapshot`` restarts from.  With the prefix cache the
+measured hit rate goes back into the planner: :func:`print_adaptive_prefill`
+prints which prefill schedule (the resident chunk path or one of the two
+prefill rings) ``plan_prefill(strategy="auto")`` would bind at SP 4 for a
+full-length prompt, cold and at that hit rate.
 
 Example (reduced model, paged, on the card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \\
@@ -43,13 +46,14 @@ from repro_torch.serving.engine import ServingEngine
 
 
 def print_serving_plan(cfg, *, max_batch: int, chunk: int, max_len: int, sp_degree: int = 4,
-                       page_size: int | None = None):
+                       page_size: int | None = None, prefix_hit_rate: float | None = None):
     """Planner view of the serving schedules for this config: modeled link
     bytes a step at an SP degree of ``sp_degree`` (the ``comm_cost`` models
     that ``plan_decode`` / ``plan_prefill`` attach to their plans).  With
     ``page_size`` the paged block-table term rides along (``table_pages =
-    ceil(max_len / page_size)``).  The reference's ``prefix_hit_rate``
-    line (the adaptive prefill arbitration) comes with the prefill rings."""
+    ceil(max_len / page_size)``).  With a ``prefix_hit_rate`` (measured by
+    the engine's prefix index) the adaptive prefill arbitration is printed
+    too (:func:`print_adaptive_prefill`)."""
     from repro_torch.serving.kv_cache import pages_for
 
     bpe = 2 if cfg.dtype == "bfloat16" else 4
@@ -66,6 +70,27 @@ def print_serving_plan(cfg, *, max_batch: int, chunk: int, max_len: int, sp_degr
         f"(chunk {chunk}) \u2014 cache-resident, independent of context length"
         f"{paged}"
     )
+    if prefix_hit_rate is not None:
+        print_adaptive_prefill(cfg, max_len=max_len, sp_degree=sp_degree,
+                               table_pages=table_pages, prefix_hit_rate=prefix_hit_rate)
+
+
+def print_adaptive_prefill(cfg, *, max_len: int, sp_degree: int = 4,
+                           table_pages: int | None = None, prefix_hit_rate: float = 0.0):
+    """The prefill-ring arbitration for a full-length prompt at the
+    engine's *measured* prefix-cache hit rate: which of ``prefill`` (the
+    resident all-reduce chunk path), ``passkv_ring``, ``passq_ring`` the
+    planner would bind next (``ParallelContext.choose_prefill_strategy``)."""
+    from repro_torch.core.api import AttnShapes
+
+    pctx = ParallelContext(device="cpu", sp_degree=sp_degree)  # planning only: nothing runs
+    shp = AttnShapes(B=1, Sq=max_len, Hq=cfg.n_heads, Hkv=cfg.n_kv_heads, D=cfg.head_dim,
+                     dtype_bytes=2 if cfg.dtype == "bfloat16" else 4)
+    cold = pctx.choose_prefill_strategy(shp, table_pages=table_pages)
+    warm = pctx.choose_prefill_strategy(shp, prefix_hit_rate=prefix_hit_rate,
+                                        table_pages=table_pages)
+    print(f"adaptive prefill @ SP={sp_degree}: cold -> {cold}, "
+          f"measured hit rate {prefix_hit_rate:.2f} -> {warm}")
 
 
 def main(argv=None):
@@ -167,6 +192,13 @@ def main(argv=None):
         print(f"prefix cache: {p['hit_tokens']}/{p['lookup_tokens']} tokens hit "
               f"({p['hit_rate']*100:.0f}%), {p['indexed_pages']} pages indexed, "
               f"{p['cow_copies']} COW copies, {p['evictions']} evictions")
+        # the measured hit rate back into the planner: the prefill schedule
+        # the arbitration would bind for the next such request
+        from repro_torch.serving.kv_cache import pages_for
+
+        print_adaptive_prefill(cfg, max_len=args.max_len,
+                               table_pages=pages_for(args.max_len, args.page_size),
+                               prefix_hit_rate=p["hit_rate"])
     if s["faults"] or s["snapshots"] or args.audit_every:
         d, st = s["degrade"], s["step_time"]
         print(f"resilience: {s['faults']} faults, {s['recoveries']} recoveries, "

@@ -4,13 +4,19 @@
 Runs on the card by default; ``--device cpu`` runs the plain versions on the
 CPU.  ``--sp-degree P`` trains through the chosen ring strategy on the
 virtual ring of P ranks (one process, one device; the batch is laid out in
-zigzag order for P).  ``--ckpt DIR`` checkpoints every ``--ckpt-every``
+zigzag order for P); ``--pods N`` factors those ranks as N pods and trains
+through the paper's multi-pod hybrid (an inter-pod KV ring outside,
+``--strategy`` inside each pod).  ``--ckpt DIR`` checkpoints every ``--ckpt-every``
 steps and runs through the fault-tolerant runner, which restores the
 latest checkpoint after a failure (``--fail-at`` injects one).
 
 Example (reduced model on the CPU, TokenRing over 4 virtual ranks):
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
       --steps 20 --batch 4 --seq 128 --sp-degree 4 --strategy tokenring
+
+Example (the hybrid: 2 pods of 2 ranks, TokenRing inside each pod):
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
+      --steps 20 --batch 4 --seq 128 --sp-degree 4 --pods 2 --strategy tokenring
 
 Example (checkpoints every 5 steps, a failure injected at step 7):
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
@@ -61,14 +67,25 @@ def main(argv=None):
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--sp-degree", type=int, default=1,
                     help="ranks of the virtual sequence-parallel ring")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pods of the ring: with N > 1 the multi-pod hybrid (inter-pod KV "
+                    "ring x --strategy inside each pod of sp-degree/N ranks)")
+    # window-only strategies need a window= the full-attention layers of a
+    # training run never pass, serving-side schedules (decode / prefill) only
+    # run against a resident cache, and two-axis rings are planned via
+    # plan(topology=...); none of them is offered
     ap.add_argument("--strategy", default="tokenring",
                     choices=("auto", *(n for n in available_strategies()
-                                       if not get_strategy(n).serving_side)),
-                    help="SP strategy (auto = the cost models' choice)")
+                                       if not get_strategy(n).requires_window
+                                       and not get_strategy(n).serving_side
+                                       and get_strategy(n).ring_axes == 1)),
+                    help="SP strategy (auto = the cost models' choice); the inner one with "
+                    "--pods")
     ap.add_argument("--travel-dtype", default="float32", choices=("float32", "bfloat16"),
                     help="wire format of TokenRing's travelling accumulator")
     ap.add_argument("--no-overlap", action="store_true",
-                    help="run each ring send after the step's computes (same values)")
+                    help="run each ring send to its end before the step's computes "
+                    "(nothing overlaps; the same values)")
     args = ap.parse_args(argv)
 
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
@@ -78,7 +95,7 @@ def main(argv=None):
         cfg = cfg.reduced()
     pctx = ParallelContext(impl=args.impl, block_q=args.block_q, block_k=args.block_k,
                            block_q_bwd=args.block_q_bwd, block_k_bwd=args.block_k_bwd,
-                           device=args.device, sp_degree=args.sp_degree,
+                           device=args.device, sp_degree=args.sp_degree, pods=args.pods,
                            strategy=args.strategy, layout=cfg.layout,
                            travel_dtype=args.travel_dtype, overlap=not args.no_overlap)
     bundle = build_model(cfg, pctx)
@@ -93,6 +110,8 @@ def main(argv=None):
         layout=cfg.layout, sp_degree=pctx.sp_degree))
     sp = (f", {args.strategy} over {args.sp_degree} virtual ranks" if args.sp_degree > 1
           else "")
+    if args.pods > 1:
+        sp += f" ({args.pods} pods, an inter-pod KV ring outside)"
 
     def banner(state):
         print(f"{cfg.name}: {n_params(state['params']) / 1e6:.1f}M parameters, batch "

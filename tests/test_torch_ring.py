@@ -6,13 +6,16 @@ cost models, and the bytes the virtual ring is handed.
 The executor's values and gradients on the ring are held against the JAX
 executor in ``test_torch_ring_exec.py``; the process-group ring in
 ``test_torch_ring_pg.py``; the LM trained over the ring in
-``test_torch_training.py``.
+``test_torch_training.py``; the other strategies (Ulysses, the window
+halo, the prefill rings, TokenRing2D, the hybrid) in
+``test_torch_sp_strategies*.py``.
 """
 
 import dataclasses
 import types
 import zlib
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -31,7 +34,7 @@ from repro_torch.core import strategies as tstrat
 from repro_torch.core import token_ring as ttr
 from repro_torch.core.collectives import VirtualRing, fold_ranks, ring_perm, unfold_ranks
 
-PORTED = ("tokenring", "tokenring_faithful", "ring", "ring_bidir")
+RINGS = ("tokenring", "tokenring_faithful", "ring", "ring_bidir")  # this file's schedules
 SERVING = ("decode", "prefill")  # serving-side schedules (core/decode.py)
 BUILDERS = ["token_ring_bidir_schedule", "token_ring_faithful_schedule", "ring_schedule",
             "ring_bidir_schedule"]
@@ -232,9 +235,26 @@ class TestGenerations:
                 assert torch.equal(a, b)
 
     def test_two_axis_send_names_its_item(self):
-        sched = tsched.Schedule(prologue=(tsched.Step(tsched.Send(("acc",), 1, axis="pod")),))
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            tsched.execute_schedule(sched, {"acc": _pair(0.0, 0.0)}, ring=VirtualRing(2, "cpu"),
+        """An axis-tagged Send moves on its axis's view of the ring: every
+        rank's rows land where ``message_dst`` says; a tag the mapping lacks
+        raises."""
+        P, pods, B = 6, 2, 2
+        axes = (("pod", pods), ("inner", P // pods))
+        ring = VirtualRing(P, "cpu")
+        views = dict(zip(("pod", "inner"), ring.split(pods)))
+        x = torch.arange(P * B * 3, dtype=torch.float32).reshape(P * B, 3)
+        for tag in ("pod", "inner"):
+            for shift in (-1, 1, 2):
+                op = tsched.Send(("acc",), shift, axis=tag)
+                sched = tsched.Schedule(prologue=(tsched.Step(op),))
+                got = tsched.execute_schedule(sched, {"acc": (x,)}, ring=views,
+                                              compute_fn=self._flash(0.0))["acc"][0]
+                for r in range(P):
+                    d = tsched.message_dst(r, op, P, axes)
+                    assert torch.equal(got[d * B:(d + 1) * B], x[r * B:(r + 1) * B])
+        sched = tsched.Schedule(prologue=(tsched.Step(tsched.Send(("acc",), 1, axis="x")),))
+        with pytest.raises(tsched.ScheduleError, match="has no ring"):
+            tsched.execute_schedule(sched, {"acc": (x,)}, ring=views,
                                     compute_fn=self._flash(0.0))
 
 
@@ -274,8 +294,9 @@ GRID = _grid()
 
 
 def test_registry_holds_the_ported_strategies():
-    assert tstrat.available_strategies() == tuple(sorted(PORTED + SERVING))
-    for name in PORTED + SERVING:
+    assert tstrat.available_strategies() == jstrat.available_strategies()
+    assert set(RINGS + SERVING) < set(tstrat.available_strategies())
+    for name in RINGS + SERVING:
         t, j = tstrat.get_strategy(name), jstrat.get_strategy(name)
         for f in dataclasses.fields(tstrat.SPStrategy):
             if f.name not in ("fn", "comm_cost", "schedule_spec"):
@@ -295,21 +316,55 @@ def test_registry_holds_the_ported_strategies():
         tstrat.get_strategy("nope")
 
 
-@pytest.mark.parametrize("name", sorted(tstrat.UNPORTED))
+# The six strategies of the reference that came last (one case each, under
+# the name these cases had while they waited): each runs through its public
+# path on the CPU and computes what full attention computes.
+LATE = ("hybrid", "passkv_ring", "passq_ring", "tokenring2d", "ulysses", "window")
+
+
+@pytest.mark.parametrize("name", LATE)
 def test_unported_strategy_names_its_item(name):
-    item = "queue 1 item 8"
-    with pytest.raises(NotImplementedError, match=item):
-        tstrat.get_strategy(name)
-    pctx = tapi.ParallelContext(device="cpu", impl="torch", sp_degree=2, strategy=name)
-    q = torch.zeros((1, 8, 2, 16))
-    with pytest.raises(NotImplementedError, match=item):
-        tapi.sp_attention(q, q, q, None, None, pctx=pctx)
+    from repro.kernels.ref import attention_reference
+    from repro_torch.core.topology import two_pods
+
+    P, B, Hq, Hkv, D = 4, 1, 4, 4, 16
+    S, window = 8 * P, (12 if name == "window" else None)
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, D)).astype(np.float32))
+               for h in (Hq, Hkv, Hkv))
+    pos = torch.arange(S, dtype=torch.int32).expand(B, S).contiguous()
+    ctx = dict(device="cpu", impl="torch", sp_degree=P, layout="contig")
+    shapes = tapi.AttnShapes(B=B, Sq=S, Hq=Hq, Hkv=Hkv, D=D, dtype_bytes=4)
+    if name == "hybrid":
+        out = tapi.sp_attention(q, k, v, pos, pos, pctx=tapi.ParallelContext(
+            pods=2, strategy="tokenring", **ctx))
+    elif name == "tokenring2d":
+        plan = tapi.ParallelContext(pods=2, strategy=name, **ctx).plan(
+            shapes, topology=two_pods(2))
+        assert plan.topology_decision["chosen"] == name
+        out = plan(q, k, v, pos, pos)
+    elif name.startswith("pass"):
+        plan = tapi.ParallelContext(**ctx).plan_prefill(strategy=name, shapes=shapes)
+        assert (plan.strategy, plan.kind) == (name, "prefill")
+        out = plan(q, k, v, pos, pos)
+    else:
+        out = tapi.sp_attention(q, k, v, pos, pos, window=window,
+                                pctx=tapi.ParallelContext(strategy=name, **ctx))
+    want, _ = attention_reference(*(jnp.asarray(x.numpy()) for x in (q, k, v)), causal=True,
+                                  window=window, q_pos=jnp.asarray(pos.numpy()),
+                                  k_pos=jnp.asarray(pos.numpy()), return_lse=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    if name != "hybrid":  # the hybrid wraps a registered inner strategy
+        assert tstrat.get_strategy(name).name == name
+    else:
+        with pytest.raises(ValueError, match="unknown SP strategy 'hybrid'"):
+            tstrat.get_strategy(name)
 
 
 @pytest.mark.parametrize("shape", GRID, ids=[str(s) for s in GRID])
 def test_planner_matches_jax(shape):
     B, S, Hq, Hkv, D, P = shape
-    for name in PORTED:
+    for name in RINGS:
         t, j = tstrat.get_strategy(name), jstrat.get_strategy(name)
         for layout in ("zigzag", "contig"):
             assert tstrat.ineligible_reason(t, Hq=Hq, Hkv=Hkv, P=P, layout=layout) == \
@@ -325,26 +380,21 @@ def test_planner_matches_jax(shape):
     for bpe in (1, 2, 4):
         for bidir in (True, False):
             kw = dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, P=P, bytes_per_elem=bpe, bidir_links=bidir)
-            assert tstrat.resolve_strategy("auto", **kw) == jstrat.resolve_strategy(
-                "auto", candidates=PORTED, **kw)
+            assert tstrat.resolve_strategy("auto", **kw) == jstrat.resolve_strategy("auto", **kw)
     for causal in (True, False):
         assert tstrat.attention_compute_flops(B, S, Hq, D, P, causal=causal) == \
             jstrat.attention_compute_flops(B, S, Hq, D, P, causal=causal)
 
-    # plan(): the reference's flat plan on a stand-in mesh of one SP axis
+    # plan(): the reference's flat plan on a stand-in mesh of one SP axis,
+    # "auto" over the reference's whole pool
     mesh = types.SimpleNamespace(shape={"model": P}, axis_names=("model",))
-    for name in (*PORTED, "auto"):
+    for name in (*RINGS, "auto"):
         for travel in ("float32", "bfloat16"):
             kw = dict(strategy=name, travel_dtype=travel, bidir_links=True, overlap=True)
             shapes = dict(B=B, Sq=S, Hq=Hq, Hkv=Hkv, D=D, dtype_bytes=2)
             tp = tapi.ParallelContext(device="cpu", sp_degree=P, **kw).plan(
                 tapi.AttnShapes(**shapes))
             jctx = japi.ParallelContext(mesh=mesh, data_axis=None, sp_axes=("model",), **kw)
-            if name == "auto":  # the reference's pool holds unported strategies
-                want_name = jstrat.resolve_strategy(
-                    "auto", B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, P=P, layout="zigzag",
-                    candidates=PORTED)
-                jctx = dataclasses.replace(jctx, strategy=want_name)
             jp = jctx.plan(japi.AttnShapes(**shapes))
             assert tp.strategy == jp.strategy
             assert dataclasses.astuple(tp.cost) == dataclasses.astuple(jp.cost)
@@ -354,17 +404,44 @@ def test_planner_matches_jax(shape):
 
 
 def test_plan_refuses_what_the_reference_refuses_or_is_not_ported():
+    """What the reference refuses, the port refuses with the same words; a
+    windowed layer resolves over the window-capable strategies."""
+    from repro.core.topology import nvlink_pod as jnvlink
+    from repro_torch.core.topology import nvlink_pod
+
     pctx = tapi.ParallelContext(device="cpu", sp_degree=4)
     with pytest.raises(ValueError, match="not divisible by SP degree 4"):
         pctx.plan(tapi.AttnShapes(B=1, Sq=30, Hq=4, Hkv=2, D=16))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        pctx.plan(tapi.AttnShapes(B=1, Sq=32, Hq=4, Hkv=2, D=16), window=8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        pctx.plan(tapi.AttnShapes(B=1, Sq=32, Hq=4, Hkv=2, D=16), topology=object())
+    mesh = types.SimpleNamespace(shape={"model": 4}, axis_names=("model",))
+    for layout in ("zigzag", "contig"):
+        jctx = japi.ParallelContext(mesh=mesh, data_axis=None, sp_axes=("model",),
+                                    layout=layout)
+        tctx = tapi.ParallelContext(device="cpu", sp_degree=4, layout=layout)
+        shapes = dict(B=1, Sq=32, Hq=4, Hkv=2, D=16)
+        if layout == "contig":  # the halo
+            assert tctx.plan(tapi.AttnShapes(**shapes), window=8).strategy == \
+                jctx.plan(japi.AttnShapes(**shapes), window=8).strategy == "window"
+        else:  # no window-capable strategy takes zigzag
+            msgs = []
+            for ctx, mod in ((tctx, tapi), (jctx, japi)):
+                with pytest.raises(ValueError, match="no eligible SP strategy") as err:
+                    ctx.plan(mod.AttnShapes(**shapes), window=8)
+                msgs.append(str(err.value))
+            assert msgs[0] == msgs[1]
+    msgs = []
+    for ctx, mod, topo in ((pctx, tapi, nvlink_pod(8)),
+                           (japi.ParallelContext(mesh=mesh, data_axis=None, sp_axes=("model",)),
+                            japi, jnvlink(8))):
+        with pytest.raises(ValueError, match="has 8 devices") as err:
+            ctx.plan(mod.AttnShapes(B=1, Sq=32, Hq=4, Hkv=2, D=16), topology=topo)
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
     with pytest.raises(ValueError, match="ring has 4 ranks"):
         tapi.ParallelContext(device="cpu", sp_degree=2, ring=VirtualRing(4, "cpu"))
     with pytest.raises(ValueError, match="planning requires"):
         tapi.ParallelContext(device="cpu").plan(tapi.AttnShapes(B=1, Sq=32, Hq=4, Hkv=2, D=16))
+    with pytest.raises(ValueError, match="pods=3 does not divide"):
+        tapi.ParallelContext(device="cpu", sp_degree=4, pods=3)
 
 
 @pytest.mark.parametrize("strategy,who", [("tokenring", ("Q block", "token_ring variant='bidir'",

@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from _ring_pg_worker import VARIANTS, run
+from _ring_pg_worker import TWO_AXIS, VARIANTS, run, run_two_axis
 from test_torch_ring_exec import B, BF16_TOL, HKV, HQ, S_LOC, TOL, D, _inputs, _jax_run
 
 from repro_torch.core.strategies import get_strategy, strategy_cost
@@ -66,3 +66,69 @@ def test_process_group_ring_matches_the_jax_executor(P, tmp_path):
             cost = strategy_cost(get_strategy(strategy), B, S_LOC * P, HQ, HKV, D, P,
                                  bytes_per_elem=4, travel_dtype=travel)
             assert list(got[f"{name}/bytes"]) == [cost.fwd_bytes, cost.bwd_bytes], (r, name)
+
+
+def _spawn(target, P, tmp_path):
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, P, str(tmp_path / "init"),
+                                              str(tmp_path / "inputs.npz"),
+                                              str(tmp_path / f"rank{r}.npz")))
+             for r in range(P)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def _join(procs):
+    try:
+        for p in procs:
+            p.join(SPAWN_TIMEOUT_S)
+        assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def test_process_group_two_axis_strategies_match_jax(tmp_path):
+    from test_torch_sp_strategies_exec import Case, _cost, _inputs as case_inputs, _jax_oracle
+
+    P = 4
+    cases = {"ulysses": Case("ulysses", P, heads=(8, 4)),
+             "tokenring2d": Case("hier2d", P, pods=2),
+             "hybrid_tokenring": Case("hybrid", P, pods=2, inner="tokenring"),
+             "hybrid_ulysses": Case("hybrid", P, pods=2, inner="ulysses", heads=(8, 4),
+                                    layout="contig")}
+    assert set(cases) == set(TWO_AXIS)
+    data = {}
+    for name, case in cases.items():
+        x = case_inputs(case)
+        x["wl"] = np.zeros_like(x["wl"])  # the public path returns no lse
+        cases[name] = (case, x)
+        data.update({f"{name}/{n}": a for n, a in x.items()})
+    np.savez(tmp_path / "inputs.npz", **data)
+    procs = _spawn(run_two_axis, P, tmp_path)
+    want = {}
+    try:  # the JAX oracle, computed while the ranks run
+        for name, (case, x) in cases.items():
+            jout, _, jgrads = _jax_oracle(case, x)
+            want[name] = [jout, *jgrads]
+    finally:
+        _join(procs)
+    for r in range(P):
+        got = np.load(tmp_path / f"rank{r}.npz")
+        rows = slice(r * S_LOC, (r + 1) * S_LOC)
+        for name, (case, x) in cases.items():
+            for i, key in enumerate(("out", "dq", "dk", "dv")):
+                a, b = got[f"{name}/True/{key}"], got[f"{name}/False/{key}"]
+                np.testing.assert_array_equal(a, b, err_msg=f"rank {r} {name} {key} overlap")
+                np.testing.assert_allclose(a, want[name][i][:, rows],
+                                           err_msg=f"rank {r} {name} {key}", **TOL)
+            cost = _cost(case, x)
+            assert list(got[f"{name}/bytes"]) == [cost.fwd_bytes, cost.bwd_bytes], (r, name)
+            classes = {k.split("/")[-1] for k in got.files if k.startswith(f"{name}/class/")}
+            if case.pods > 1:
+                assert classes == {"inter", "intra"}, (r, name)
+            for lc in cost.links or ():
+                assert list(got[f"{name}/class/{lc.cls}"]) == [lc.fwd_bytes, lc.bwd_bytes]

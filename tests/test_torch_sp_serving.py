@@ -426,12 +426,20 @@ def test_serving_plans_match_reference(P):
                 assert strip(t.kernel) == strip(j.kernel), name
     assert tctx.plan_decode().cost is None
     assert tctx.plan_prefill(strategy="prefill").strategy == "prefill"
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tctx.plan_prefill(strategy="auto", shapes=tapi.AttnShapes(B=1, Sq=64, Hq=4, Hkv=2,
-                                                                  D=32))
+    # the prefill rings and "auto" over them, as the reference plans them
+    shapes = dict(B=1, Sq=64 * P, Hq=4, Hkv=2, D=32, Sk=256 * P)
+    for rate in (0.0, 0.5, 0.9):
+        t = tctx.plan_prefill(strategy="auto", shapes=tapi.AttnShapes(**shapes),
+                              prefix_hit_rate=rate)
+        j = jctx.plan_prefill(strategy="auto", shapes=japi.AttnShapes(**shapes),
+                              prefix_hit_rate=rate)
+        assert (t.strategy, t.kind) == (j.strategy, j.kind), rate
+        assert dataclasses.astuple(t.cost) == dataclasses.astuple(j.cost), rate
     for ring_name in ("passkv_ring", "passq_ring"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            tctx.plan_prefill(strategy=ring_name)
+        t, j = tctx.plan_prefill(strategy=ring_name), jctx.plan_prefill(strategy=ring_name)
+        assert (t.strategy, t.kind, t.cost, t.pipelines) == (j.strategy, j.kind, j.cost,
+                                                              j.pipelines) == (
+            ring_name, "prefill", None, True)
     with pytest.raises(ValueError, match="not one of"):
         tctx.plan_prefill(strategy="tokenring")
     with pytest.raises(ValueError, match="sp_degree > 1"):
@@ -465,7 +473,7 @@ def test_serving_registry_descriptors_match_reference():
         # "auto" never picks a serving-side schedule
         assert tstrat.resolve_strategy("auto", S=4096, Hq=16, Hkv=8, D=128, P=4) not in (
             "decode", "prefill")
-    assert "decode" not in tstrat.UNPORTED and "prefill" not in tstrat.UNPORTED
+    assert {"decode", "prefill"} < set(tstrat.available_strategies())
 
 
 # ---------------------------------------------------------------------------

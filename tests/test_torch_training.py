@@ -545,17 +545,19 @@ def test_trainer_loss_decreases():
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    _, tb = _models(TINY)
-    # checkpointing is ported: the Trainer takes a checkpoint directory
+    """What this test once found missing now runs: checkpointing, a strategy
+    of the last slice (Ulysses at SP 2, the loss equal to SP 1's) and the
+    prefill rings of multi-card serving."""
+    jb, tb = _models(TINY)
     assert ttrainer.Trainer(tb, ttrainer.TrainerConfig(checkpoint_dir=str(tmp_path))).ckpt
-    # an SP strategy that is not ported yet names its item
     _, tb_sp = _models(TINY, sp_degree=2, strategy="ulysses")
-    params = tb_sp.init(0, training=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tb_sp.loss(params, ttrainer.batch_to_device(_batch(97, 2, 32), "cpu"))
-    # and so do the prefill rings of multi-card serving
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tb_sp.pctx.plan_prefill(strategy="passkv_ring")
+    params = tb.init(0, training=True)
+    batch = ttrainer.batch_to_device(_batch(97, 2, 32, layout="zigzag", sp_degree=2), "cpu")
+    with torch.no_grad():
+        loss_sp, _ = tb_sp.loss(params, batch)
+        loss_1, _ = tb.loss(params, batch)
+    np.testing.assert_allclose(float(loss_sp), float(loss_1), **MODEL_TOL)
+    assert tb_sp.pctx.plan_prefill(strategy="passkv_ring").strategy == "passkv_ring"
 
 
 # ---------------------------------------------------------------------------
