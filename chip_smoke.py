@@ -138,7 +138,31 @@ Phases, each fatal on failure:
      cache (``--shared-prefix 512 --page-size 16``): its adaptive-prefill
      line names what ``choose_prefill_strategy`` picks at the measured hit
      rate;
- 17. a ``{"kernels": [...]}`` summary line, the card line, and last the
+ 17. the MoE and VLM families (this slice's main path): (a) at qwen3-moe
+     widths, 2 layers, float32, a capacity factor at which nothing drops:
+     one training step on the kernels against the plain path (phase 8's
+     gates) and the paged and dense-slab engines teacher-forced against the
+     plain SP-1 path (phase 5's), both again over 4 virtual ranks with
+     expert parallelism, and the expert-parallel exchange's bytes against
+     their closed form; (b) qwen3-moe-30b-a3b at full width and depth (48
+     layers, bf16) served by phase 6's paged engine on phase 6's requests
+     (96 A a prefill tick, 48 C a decode step, every step's logits finite;
+     tok/s, TTFT, the median decode step beside the weight-read bound, peak
+     memory; ``RESULT serving_moe``); (c) qwen3-moe at full width,
+     ``MOE_TRAIN_LAYERS`` (4) of 48 layers, through the ``Trainer`` (batch 2
+     x seq 4096, remat "full", one warmup and 2 timed steps) at SP 1
+     (launches 8/4/4 a step, ``RESULT training_moe``) and through TokenRing
+     over 4 virtual ranks with expert parallelism (64/32/32, ``RESULT
+     training_moe_ring``; its first loss's distance from SP 1's reported,
+     not gated: the capacities of the two dispatches differ, so do their
+     drops); (d) llama4-scout at full width, ``LLAMA4_LAYERS`` (4) of 48
+     layers (top-1 routing, the shared expert), through the dense-slab
+     engine (``RESULT serving_llama4``); (e) pixtral-12b at full width and
+     depth: ``lm_prefill`` of 2 requests of 1024 patch embeddings and 256
+     tokens (40 A wgmma launches), 32 greedy decode steps (40 decode-instance
+     launches each), every token within ``WITNESS_GAP`` of the plain path
+     (``RESULT serving_vlm``);
+ 18. a ``{"kernels": [...]}`` summary line, the card line, and last the
      ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -364,15 +388,15 @@ def phase_flash(torch, dev):
     def short(dtype):
         return {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
 
-    def check(label, q, k, v, qp, kp, causal, window):
+    def check(label, q, k, v, qp, kp, causal, window, repeat=False):
         """Kernel vs plain at the tolerances of q's type; the log names the
         instance of kernel A that served the call.  A decode-instance call
-        runs twice and must be bitwise equal (its splits merge in a fixed
-        order)."""
+        (and any with ``repeat``) runs twice and must be bitwise equal (its
+        splits merge in a fixed order)."""
         inst = fa.flash_fwd_instance(q.dtype, q.shape[1], q.shape[-1])
         name = f"A {short(q.dtype)} {label} [{inst}]"
         got, want = run(q, k, v, qp, kp, causal, window)
-        if inst == "decode":
+        if inst == "decode" or repeat:
             again, _ = run(q, k, v, qp, kp, causal, window)
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 raise AssertionError(f"{name}: two runs on the same inputs differ")
@@ -440,57 +464,71 @@ def phase_flash(torch, dev):
         log(f"  ok A {short(dtype)} no keys Sq=165 Sk=0 [{inst}]: every row exactly (0, -inf)")
 
     phase_flash_decode(torch, dev, check)
+    phase_flash_layouts(torch, dev, check)
 
-    # serving shapes of qwen3-1.7b: B=8, Hq=16, Hkv=8, D=128, Sk=2048 (the
-    # resident call of a prefill chunk and the dense decode call), each held
-    # in float32 and in bfloat16; timed in bfloat16, the model's type.
+    # serving shapes: B=8, D=128, Sk=2048 (the resident call of a prefill
+    # chunk and the dense decode call), each held in float32 and in
+    # bfloat16; timed in bfloat16, the model's type.  qwen3-1.7b's 16/8
+    # heads at Sq 1 and 256, then qwen3-moe-30b-a3b's 32/4 (the main path's
+    # resident call; its decode runs on kernel C) at the same lengths, from
+    # a generator of its own so that the first model's data stay as they were.
     rng_lengths = torch.randint(128, 2049 - 256, (8,), generator=gen, device=dev)
-    B, Hq, Hkv, D, Sk = 8, 16, 8, 128, 2048
-    k32, v32 = rnd((B, Sk, Hkv, D), torch.float32), rnd((B, Sk, Hkv, D), torch.float32)
-    k, v = k32.to(torch.bfloat16), v32.to(torch.bfloat16)
+    B, D, Sk = 8, 128, 2048
     ar = torch.arange(Sk, device=dev, dtype=torch.int32)[None]
     kp = torch.where(ar < rng_lengths[:, None], ar, PAD_POS).to(torch.int32).contiguous()
     # the chunk-local call of a 256-token prefill chunk: Sq = Sk = 256
     cp = (rng_lengths[:, None] + torch.arange(256, device=dev)[None]).to(torch.int32).contiguous()
-    qc, kc, vc = (rnd(shape, torch.float32) for shape in ((B, 256, Hq, D), (B, 256, Hkv, D),
-                                                          (B, 256, Hkv, D)))
-    for dtype in (torch.float32, torch.bfloat16):
-        check("chunk-local Sq=Sk=256", qc.to(dtype), kc.to(dtype), vc.to(dtype), cp, cp, True,
-              None)
-    rows = {}
-    for Sq in (1, 256):
-        q32 = rnd((B, Sq, Hq, D), torch.float32)
-        q = q32.to(torch.bfloat16)
-        qp = (rng_lengths[:, None] - (1 if Sq == 1 else 0)
-              + torch.arange(Sq, device=dev)[None]).to(torch.int32).contiguous()
-        check(f"serving Sq={Sq} Sk={Sk}", q32, k32, v32, qp, kp, True, None)
-        err = check(f"serving Sq={Sq} Sk={Sk}", q, k, v, qp, kp, True, None)
-        scale = 1.0 / D ** 0.5
-        mask = (kp[:, None, None, :] < PAD_POS // 2) & (qp[:, None, :, None] >= kp[:, None, None, :])
-        # yardstick only: SDPA gives out without lse; KV repeated for GQA
-        qt = q.transpose(1, 2)
-        kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2) for x in (k, v))
-        fns = (lambda: fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True, window=None,
-                                                   scale=scale),
-               lambda: fa.flash_attention_fwd_torch(q, k, v, qp, kp, causal=True, window=None,
-                                                    scale=scale, block_k=512),
-               lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
-        # CUDA events around the calls (host gaps between launches included)
-        ev_ms, ev_plain, ev_lib = (time_ms(f, iters=it) for f, it in zip(fns, (10, 3, 10)))
-        # the kernels' own device time (torch.profiler; events where it sees none)
-        (ms, plain_ms, lib_ms), how = device_times(*zip(fns, (30, 3, 30)))
-        nbytes, flops = flash_bytes_flops(q, k, qp, kp, True, None)
-        bms, by = bound(nbytes, flops, "bfloat16")
-        inst = fa.flash_fwd_instance(q.dtype, Sq, D)
-        rows[Sq] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                        event_ms=ev_ms, event_plain_ms=ev_plain, event_library_ms=ev_lib,
-                        max_abs_err=err, instance=inst, timing=how,
-                        shape=f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} bf16")
-        log(f"  A serving Sq={Sq} [{inst}]: device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms; events kernel {ev_ms:.4f} ms, plain {ev_plain:.4f} ms, "
-            f"sdpa {ev_lib:.4f} ms; bound {bms:.4f} ms ({by}), "
-            f"{flops / ms / 1e9:.1f} TFLOP/s at {how}")
-    return rows
+
+    def serving_rows(rnd_, Hq, Hkv, sqs, repeat):
+        k32, v32 = rnd_((B, Sk, Hkv, D), torch.float32), rnd_((B, Sk, Hkv, D), torch.float32)
+        k, v = k32.to(torch.bfloat16), v32.to(torch.bfloat16)
+        qc, kc, vc = (rnd_(shape, torch.float32) for shape in (
+            (B, 256, Hq, D), (B, 256, Hkv, D), (B, 256, Hkv, D)))
+        for dtype in (torch.float32, torch.bfloat16):
+            check(f"chunk-local Sq=Sk=256 Hq={Hq} Hkv={Hkv}", qc.to(dtype), kc.to(dtype),
+                  vc.to(dtype), cp, cp, True, None, repeat=repeat)
+        rows = {}
+        for Sq in sqs:
+            q32 = rnd_((B, Sq, Hq, D), torch.float32)
+            q = q32.to(torch.bfloat16)
+            qp = (rng_lengths[:, None] - (1 if Sq == 1 else 0)
+                  + torch.arange(Sq, device=dev)[None]).to(torch.int32).contiguous()
+            label = f"serving Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv}"
+            check(label, q32, k32, v32, qp, kp, True, None, repeat=repeat)
+            err = check(label, q, k, v, qp, kp, True, None, repeat=repeat)
+            scale = 1.0 / D ** 0.5
+            mask = ((kp[:, None, None, :] < PAD_POS // 2)
+                    & (qp[:, None, :, None] >= kp[:, None, None, :]))
+            # yardstick only: SDPA gives out without lse; KV repeated for GQA
+            qt = q.transpose(1, 2)
+            kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2) for x in (k, v))
+            fns = (lambda: fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True,
+                                                       window=None, scale=scale),
+                   lambda: fa.flash_attention_fwd_torch(q, k, v, qp, kp, causal=True,
+                                                        window=None, scale=scale, block_k=512),
+                   lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+            # CUDA events around the calls (host gaps between launches included)
+            ev_ms, ev_plain, ev_lib = (time_ms(f, iters=it) for f, it in zip(fns, (10, 3, 10)))
+            # the kernels' own device time (torch.profiler; events where it sees none)
+            (ms, plain_ms, lib_ms), how = device_times(*zip(fns, (30, 3, 30)))
+            nbytes, flops = flash_bytes_flops(q, k, qp, kp, True, None)
+            bms, by = bound(nbytes, flops, "bfloat16")
+            inst = fa.flash_fwd_instance(q.dtype, Sq, D)
+            rows[Sq] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                            bound_by=by, event_ms=ev_ms, event_plain_ms=ev_plain,
+                            event_library_ms=ev_lib, max_abs_err=err, instance=inst, timing=how,
+                            shape=f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} bf16")
+            log(f"  A {label} [{inst}]: device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"sdpa {lib_ms:.4f} ms; events kernel {ev_ms:.4f} ms, plain {ev_plain:.4f} ms, "
+                f"sdpa {ev_lib:.4f} ms; bound {bms:.4f} ms ({by}), "
+                f"{flops / ms / 1e9:.1f} TFLOP/s at {how}")
+        return rows
+
+    gen_moe = torch.Generator(device=dev).manual_seed(5)
+    return {"qwen3-1.7b": serving_rows(rnd, 16, 8, (1, 256), repeat=False),
+            "qwen3-moe-30b-a3b": serving_rows(
+                lambda shape, dtype: torch.randn(shape, generator=gen_moe, device=dev).to(dtype),
+                32, 4, (256,), repeat=True)}
 
 
 # Decode-instance cases of kernel A (Sq <= 4): id, (B, Sq, Sk, Hq, Hkv, D),
@@ -511,6 +549,36 @@ DECODE_CASES = [
     ("D=32", (3, 1, 1000, 8, 2, 32), True, None, "lengths"),
     ("noncausal", (2, 3, 300, 8, 4, 128), False, None, "lengths"),
 ]
+
+
+# Kernel A at the head layouts of the MoE and VLM families, D 128, bf16:
+# llama4-scout 40/8 (GQA group 5: 20 decode rows a KV head at Sq 4),
+# qwen3-moe 32/4 (group 8: 32 rows at Sq 4) at the serving shapes of phase
+# 17 (the resident call of a 256-token chunk against 2048 keys, decode
+# against them), and pixtral's one-shot prefill, 32/8 with Sq = Sk = 1280.
+LAYOUT_CASES = [
+    ("llama4 40/8 decode Sq=4", (2, 4, 1536, 40, 8, 128)),
+    ("llama4 40/8 decode Sq=1", (4, 1, 2048, 40, 8, 128)),
+    ("llama4 40/8 chunk", (2, 256, 2048, 40, 8, 128)),
+    ("qwen3-moe 32/4 decode Sq=4", (2, 4, 1536, 32, 4, 128)),
+    ("qwen3-moe 32/4 decode Sq=1", (8, 1, 2048, 32, 4, 128)),
+    ("qwen3-moe 32/4 chunk", (8, 256, 2048, 32, 4, 128)),
+    ("pixtral 32/8 prefill Sq=Sk=1280", (2, 1280, 1280, 32, 8, 128)),
+]
+
+
+def phase_flash_layouts(torch, dev, check):
+    """LAYOUT_CASES in bf16, each run twice and required bitwise equal, at
+    phase 3's limits."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for label, (B, Sq, Sk, Hq, Hkv, D) in LAYOUT_CASES:
+        if Sq == Sk:  # one-shot prefill: queries and keys at the same positions
+            qp = kp = torch.arange(Sk, device=dev, dtype=torch.int32).expand(B, Sk).contiguous()
+        else:
+            qp, kp = decode_positions(torch, dev, B, Sq, Sk, "lengths", gen)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                   for shape in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+        check(f"{label} {(B, Sq, Sk, Hq, Hkv, D)}", q, k, v, qp, kp, True, None, repeat=True)
 
 
 def decode_positions(torch, dev, B, Sq, Sk, layout, gen):
@@ -575,6 +643,12 @@ PAGED_CASES = [
     ("ps16_group16", 16, (16, 1), (600, 5), None),
     # MQA with a group of 32: 8 rows a warp (no cap at 16 since the row chunks)
     ("ps16_group32_mqa", 16, (32, 1), (300, 40), None),
+]
+# The head layouts of the MoE family at D 128: llama4-scout 40/8 (GQA group
+# 5) and qwen3-moe 32/4 (group 8), rows longer than one split
+PAGED_LAYOUT_CASES = [
+    ("ps16_llama4_40x8_group5", 16, (40, 8), (700, 33, 257), None),
+    ("ps16_qwen3moe_32x4_group8", 16, (32, 4), (1100, 64, 513, 9), None),
 ]
 
 
@@ -755,11 +829,12 @@ def phase_paged(torch, dev):
         return fa.decode_split_rule(bt.shape[1] * ps, fa.decode_units(B, Hq, Hkv, 1), sms)[1]
 
     for dtype in (torch.float32, torch.bfloat16):
-        for case_id, ps, heads, lengths, window in PAGED_CASES:
-            data = to_dev(paged_case_data(case_id, ps, heads, lengths), dtype)
-            lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
-            compare(f"C {str(dtype)[6:]} {case_id} ({splits(data)} splits) bitwise repeatable",
-                    *run(data, lens, window), **tolerances(dtype))
+        for D, cases in ((32, PAGED_CASES), (128, PAGED_LAYOUT_CASES)):
+            for case_id, ps, heads, lengths, window in cases:
+                data = to_dev(paged_case_data(case_id, ps, heads, lengths, D=D), dtype)
+                lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
+                compare(f"C {str(dtype)[6:]} {case_id} D={D} ({splits(data)} splits) bitwise "
+                        "repeatable", *run(data, lens, window), **tolerances(dtype))
     # alias poisoning: the page a clamped sentinel would alias holds huge,
     # live-looking K/V at visible positions; an unmapped row stays (0, -inf)
     raw = paged_case_data("dead", 4, (4, 2), (9, 5))
@@ -774,20 +849,51 @@ def phase_paged(torch, dev):
     if not (torch.equal(got[0][1], torch.zeros_like(got[0][1])) and torch.isneginf(got[1][1]).all()):
         raise AssertionError("C: unmapped row is not the merge identity")
 
-    # serving shape: ps=16, B=8, Hq=16, Hkv=8, D=128, lengths up to 2048,
-    # reversed pages, sentinel tails, bf16
+    # serving shapes: ps=16, B=8, D=128, reversed pages, sentinel tails:
+    # qwen3-1.7b's 16/8 heads at lengths up to 2048, each held in float32
+    # and bf16 and timed in bf16 (the prefix-shared tables and two streams
+    # follow); then qwen3-moe-30b-a3b's 32/4 heads, the main path's call, at
+    # phase 6's lengths (its first 8 prompts, 16 tokens into their 32
+    # decode steps)
     import numpy as np
 
+    def serving_row(heads, lengths):
+        Hq, Hkv = heads
+        raw = paged_case_data("serving", 16, heads, tuple(lengths), D=128)
+        lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
+        label = f"serving ps=16 Hq={Hq} Hkv={Hkv}"
+        data = to_dev(raw, torch.float32)
+        compare(f"C f32 {label} ({splits(data)} splits) bitwise repeatable",
+                *run(data, lens, None), **tolerances(torch.float32))
+        data = to_dev(raw, torch.bfloat16)
+        err = compare(f"C bf16 {label} ({splits(data)} splits) bitwise repeatable",
+                      *run(data, lens, None), **tolerances(torch.bfloat16))
+        q, kp, vp, pos, bt, qp = data
+        scale = 1.0 / 128 ** 0.5
+        kern = lambda: pa.paged_decode_fwd_cuda(q, kp, vp, pos, bt, qp,  # noqa: E731
+                                                window=None, scale=scale)
+        plain = lambda: pa.paged_decode_fwd_torch(q, kp, vp, pos, bt, qp,  # noqa: E731
+                                                  lengths=lens, window=None, scale=scale,
+                                                  block_k=512)
+        ev_ms, ev_plain = time_ms(kern, iters=20), time_ms(plain, iters=5)
+        (ms, plain_ms), how = device_times((kern, 30), (plain, 5))
+        pages_used = int((bt < kp.shape[0]).sum())
+        ps, D = 16, 128
+        nbytes = (pages_used * ps * Hkv * D * 2 * 2 + pages_used * ps * 4 + bt.numel() * 4
+                  + 2 * q.numel() * 2 + q.shape[0] * q.shape[2] * 4)
+        flops = 4.0 * D * Hq * sum(lengths)
+        bms, by = bound(nbytes, flops, "bfloat16")
+        log(f"  C {label}: device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; events kernel "
+            f"{ev_ms:.4f} ms, plain {ev_plain:.4f} ms; bound {bms:.4f} ms ({by}), "
+            f"{nbytes / ms / 1e6:.1f} GB/s over {pages_used} pages at {how}")
+        return data, dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
+                          event_ms=ev_ms, event_plain_ms=ev_plain, timing=how,
+                          max_abs_err=err, lengths=list(lengths),
+                          shape=f"B=8 ps=16 Hq={Hq} Hkv={Hkv} D=128 pages={pages_used} bf16")
+
     rng = np.random.default_rng(1)
-    lengths = rng.integers(128, 2049, 8).tolist()
-    raw = paged_case_data("serving", 16, (16, 8), tuple(lengths), D=128)
-    lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
-    data = to_dev(raw, torch.float32)
-    compare(f"C f32 serving ps=16 ({splits(data)} splits) bitwise repeatable",
-            *run(data, lens, None), **tolerances(torch.float32))
-    data = to_dev(raw, torch.bfloat16)
-    err = compare(f"C bf16 serving ps=16 ({splits(data)} splits) bitwise repeatable",
-                  *run(data, lens, None), **tolerances(torch.bfloat16))
+    data, row = serving_row((16, 8), rng.integers(128, 2049, 8).tolist())
+    rows = {"qwen3-1.7b": row}
     # prefix-shared tables: four rows map the same 32 leading pages, one a
     # copy-on-write page with PAD_POS past its 8 kept rows
     shared_raw, shared_lengths, common = prefix_shared_data()
@@ -801,28 +907,10 @@ def phase_paged(torch, dev):
                 *run(sdata, shared_lens, None), **tolerances(dtype))
 
     phase_prefix_prefill(torch, dev)
-
-    q, kp, vp, pos, bt, qp = data
-    scale = 1.0 / 128 ** 0.5
     two_streams(torch, dev, pa, data, splits(data))
-    kern = lambda: pa.paged_decode_fwd_cuda(q, kp, vp, pos, bt, qp, window=None,  # noqa: E731
-                                            scale=scale)
-    plain = lambda: pa.paged_decode_fwd_torch(q, kp, vp, pos, bt, qp, lengths=lens,  # noqa: E731
-                                              window=None, scale=scale, block_k=512)
-    ev_ms, ev_plain = time_ms(kern, iters=20), time_ms(plain, iters=5)
-    (ms, plain_ms), how = device_times((kern, 30), (plain, 5))
-    pages_used = int((bt < kp.shape[0]).sum())
-    ps, Hkv, D = 16, 8, 128
-    nbytes = (pages_used * ps * Hkv * D * 2 * 2 + pages_used * ps * 4 + bt.numel() * 4
-              + 2 * q.numel() * 2 + q.shape[0] * q.shape[2] * 4)
-    flops = 4.0 * D * 16 * sum(lengths)
-    bms, by = bound(nbytes, flops, "bfloat16")
-    log(f"  C serving: device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; events kernel "
-        f"{ev_ms:.4f} ms, plain {ev_plain:.4f} ms; bound {bms:.4f} ms ({by}), "
-        f"{nbytes / ms / 1e6:.1f} GB/s over {pages_used} pages at {how}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
-                event_ms=ev_ms, event_plain_ms=ev_plain, timing=how,
-                max_abs_err=err, shape=f"B=8 ps=16 Hq=16 Hkv=8 D=128 pages={pages_used} bf16")
+    phase6 = [len(p) + 16 for p in make_prompts(16, 128, 1024, 2)[:8]]
+    rows["qwen3-moe-30b-a3b"] = serving_row((32, 4), phase6)[1]
+    return rows
 
 
 def two_streams(torch, dev, pa, data, n_splits, rounds=20):
@@ -868,8 +956,8 @@ def make_prompts(n, lo, hi, vocab, seed=0):
     return [rng.integers(0, vocab, int(L)).astype(np.int32) for L in lengths]
 
 
-def phase_e2e_checked(torch, dev, sp_degree=1, label="phase 5", prefix_cache=False):
-    """qwen3-1.7b widths, 2 layers, float32: the paged engine (kernels A and
+def phase_e2e_checked(torch, dev, sp_degree=1, label="phase 5", prefix_cache=False, cfg=None):
+    """qwen3-1.7b widths (or ``cfg``'s), 2 layers, float32: the paged engine (kernels A and
     C) and the dense-slab engine (kernel A, its decode instance for every
     decode step), each emitted token teacher-forced against the plain path
     at SP 1 on the card.  With ``sp_degree > 1`` the engines serve over that
@@ -886,7 +974,7 @@ def phase_e2e_checked(torch, dev, sp_degree=1, label="phase 5", prefix_cache=Fal
     from repro_torch.models.registry import build_model
     from repro_torch.serving.engine import ServingEngine
 
-    cfg = ARCHS["qwen3-1.7b"].with_(n_layers=2, dtype="float32")
+    cfg = cfg or ARCHS["qwen3-1.7b"].with_(n_layers=2, dtype="float32")
     bundle = build_model(cfg, ParallelContext(device="cuda", sp_degree=sp_degree))
     params = bundle.init(0)
     plain = build_model(cfg, ParallelContext(impl="torch", device="cuda"))
@@ -958,23 +1046,31 @@ def serving_launches(L, ticks, steps, *, paged):
 
 def serve_run(torch, dev, bundle, params, *, n_requests, paged, seed=0, outputs=None):
     """Phase 6's request mix through a fresh engine; ``outputs`` (a list)
-    receives every request's tokens."""
+    receives every request's tokens.  The stats carry the median device
+    time of a decode step and of a prefill tick (CUDA events around each
+    step, read after the run)."""
     from repro_torch.serving.engine import ServingEngine
 
     kw = dict(page_size=16) if paged else {}
     eng = ServingEngine(bundle, params, max_batch=8 if paged else 4, max_len=2048,
                         prefill_chunk=256, token_budget=512, device=dev, **kw)
     finite = torch.ones((), dtype=torch.bool, device=dev)
+    events = {"decode": [], "prefill": []}
 
-    def checked(step):
+    def checked(step, kind):
         # every step's logits must be finite: one device flag, read once
         def run(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
             logits, state = step(*args)
+            end.record()
+            events[kind].append((start, end))
             finite.logical_and_(torch.isfinite(logits).all())
             return logits, state
         return run
 
-    eng._step, eng._chunk_step = checked(eng._step), checked(eng._chunk_step)
+    eng._step = checked(eng._step, "decode")
+    eng._chunk_step = checked(eng._chunk_step, "prefill")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new_tokens=32)
@@ -992,6 +1088,8 @@ def serve_run(torch, dev, bundle, params, *, n_requests, paged, seed=0, outputs=
     if outputs is not None:
         outputs.extend(r.output for r in reqs)
     s = eng.stats()
+    for kind, pairs in events.items():
+        s[f"median_{kind}_ms"] = statistics.median(a.elapsed_time(b) for a, b in pairs)
     s["wall_s"] = wall
     s["tok_s"] = s["tokens"] / wall
     s["prompt_tokens"] = int(sum(len(r.prompt) for r in reqs))
@@ -1051,33 +1149,42 @@ def profile_run(torch, dev, bundle, params, unprofiled_wall_s, paged=True):
             "port_kernels": port_kernel_rows(rows, busy_s)}
 
 
-def phase_full(torch, dev, with_profile, sp_degree=1, reference=None):
-    """qwen3-1.7b at full width and depth (seeded weights) through the paged
-    and the dense-slab engine, with ``sp_degree`` virtual ranks (phase 13)
-    or one (phase 6).  Returns each run's launches and the tokens it
-    emitted; at SP > 1 the all-reduce bytes of each run must equal the cost
-    models' per step and rank, and the share of tokens equal to
-    ``reference`` (phase 6's) is logged."""
+def phase_full(torch, dev, with_profile, sp_degree=1, reference=None, cfg=None,
+               paths=("paged", "dense"), tag=None):
+    """qwen3-1.7b (or ``cfg``) at full width (seeded weights) through the
+    paged and the dense-slab engine (``paths``), with ``sp_degree`` virtual
+    ranks (phase 13) or one (phase 6).  Returns each run's launches and the
+    tokens it emitted; at SP > 1 the all-reduce bytes of each run must equal
+    the cost models' per step and rank, and the share of tokens equal to
+    ``reference`` (phase 6's) is logged.  Each run's median decode step
+    stands beside the least time the card needs to read the weights a
+    decode step reads (every layer's, the final norm and the LM head)."""
     from repro_torch.configs import ARCHS
     from repro_torch.core.api import ParallelContext
     from repro_torch.core.decode import decode_comm_cost, prefill_comm_cost
     from repro_torch.kernels.paged_attention import paged_decode_fwd_cuda
     from repro_torch.models.registry import build_model
 
-    cfg = ARCHS["qwen3-1.7b"]
+    cfg = cfg or ARCHS["qwen3-1.7b"]
     pctx = ParallelContext(device="cuda", sp_degree=sp_degree)
     bundle = build_model(cfg, pctx)
     t0 = time.perf_counter()
     params = bundle.init(0)
     torch.cuda.synchronize()
+    step_bytes = sum(t.numel() * t.element_size() for name, t in named_leaves(params)
+                     if cfg.tie_embeddings or not name.startswith(".embed"))
+    decode_bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
     log(f"  weights: {cfg.n_layers} layers, {cfg.dtype}, seeded init "
         f"{time.perf_counter() - t0:.1f} s; SP degree {sp_degree}"
         + (" (virtual ring)" if sp_degree > 1 else ""))
-    serve_run(torch, dev, bundle, params, n_requests=2, paged=True, seed=99)  # warmup
+    serve_run(torch, dev, bundle, params, n_requests=2, paged="paged" in paths,
+              seed=99)  # warmup
     torch.cuda.reset_peak_memory_stats()
     suffix = f"_sp{sp_degree}" if sp_degree > 1 else ""
     runs, launches, outputs = {}, {}, {}
     for path, n_requests, paged in (("paged", 16, True), ("dense", 4, False)):
+        if path not in paths:
+            continue
         name = path + suffix
         outputs[path] = []
         if sp_degree > 1:
@@ -1093,6 +1200,7 @@ def phase_full(torch, dev, with_profile, sp_degree=1, reference=None):
                                  f"{ticks} prefill ticks and {steps} decode steps")
         s["launches_per_prefill_tick"] = 2 * L
         s["launches_per_decode_step"] = L
+        s["decode_weight_bytes"], s["decode_bound_ms"] = step_bytes, decode_bound_ms
         if sp_degree > 1:
             # every layer of a decode step all-reduces B rows, of a prefill
             # tick B x chunk rows (the resident partial); tables priced apart
@@ -1117,8 +1225,8 @@ def phase_full(torch, dev, with_profile, sp_degree=1, reference=None):
             s["requests_equal_to_sp1"] = sum(f == 32 for f in first)
             s["mean_first_difference"] = sum(first) / len(first)
         runs[name], launches[name] = s, got
-    if min(launches["paged" + suffix]["flash_attention_fwd"],
-           launches["paged" + suffix]["paged_decode_fwd"]) == 0:
+    if "paged" in paths and min(launches["paged" + suffix]["flash_attention_fwd"],
+                                launches["paged" + suffix]["paged_decode_fwd"]) == 0:
         raise AssertionError(f"a kernel was not launched on the paged path: {launches}")
     peak = torch.cuda.max_memory_allocated()
     for name, s in runs.items():
@@ -1128,6 +1236,10 @@ def phase_full(torch, dev, with_profile, sp_degree=1, reference=None):
             f"{s['mean_latency_s'] * 1e3:.1f} ms, {s['prefill_steps']} prefill ticks, "
             f"{s['decode_steps']} decode steps, {s['preemptions']} preemptions, "
             f"launches {launches[name]}")
+        log(f"    {name}: median decode step {s['median_decode_ms']:.3f} ms against the "
+            f"weight-read bound {s['decode_bound_ms']:.3f} ms ({s['decode_weight_bytes'] / 1e9:.2f} "
+            f"GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); median prefill tick "
+            f"{s['median_prefill_ms']:.3f} ms")
         if sp_degree > 1:
             log(f"    {name}: all-reduce {s['allreduce_bytes_per_decode_step']:.0f} B a decode "
                 f"step and {s['allreduce_bytes_per_prefill_tick']:.0f} B a prefill tick, per rank "
@@ -1146,9 +1258,10 @@ def phase_full(torch, dev, with_profile, sp_degree=1, reference=None):
     log(f"  peak memory {peak / 2**30:.2f} GiB")
     prof = {path: profile_run(torch, dev, bundle, params, runs[path + suffix]["wall_s"],
                               paged=path == "paged")
-            for path in ("paged", "dense")} if with_profile else {}
-    tag = "serving_sp" if sp_degree > 1 else "serving"
-    log(f"RESULT {tag} " + json.dumps({**{k: {kk: vv for kk, vv in v.items()
+            for path in paths} if with_profile else {}
+    tag = tag or ("serving_sp" if sp_degree > 1 else "serving")
+    log(f"RESULT {tag} " + json.dumps({"arch": cfg.name, "layers": cfg.n_layers,
+                                      **{k: {kk: vv for kk, vv in v.items()
                                              if not isinstance(vv, dict)}
                                          for k, v in runs.items()},
                                       "peak_bytes": peak, "launches": launches,
@@ -1643,8 +1756,9 @@ BWD_BF16_CASES = [
     ("window", (1, 256, 256, 2, 2, D), True, "contig", 64),
     ("ragged", (2, 37, 45, 4, 2, D), True, "offset", None),
     ("ragged", (2, 165, 173, 4, 2, D), True, "offset", None),
-)]
+)] + [("qwen3-moe 32/4", (2, 1024, 1024, 32, 4, 128), True, "contig", None)]
 TRAIN_SHAPE = dict(B=2, S=4096, Hq=16, Hkv=8, D=128)  # qwen3-1.7b, batch 2 x seq 4096
+MOE_TRAIN_SHAPE = dict(B=2, S=4096, Hq=32, Hkv=4, D=128)  # qwen3-moe-30b-a3b, the same batch
 # The wgmma instances round P and dS to bf16 (2^-9 relative per term) as
 # the operands of the dq, dk and dv products, where the plain backward
 # multiplies float32 values.  Each gradient element is a sum of such terms
@@ -1782,37 +1896,16 @@ def dead_masks(torch, lse, qp, kp, causal, window):
     return torch.isneginf(lse), ~seen
 
 
-def phase_bwd(torch, dev, train_shape=TRAIN_SHAPE):
+def training_shape_rows(torch, dev, rnd, train_shape):
+    """Kernels A (wgmma), B1 and B2 at one model's training shape (bf16,
+    causal): A's out/lse and the gradients against the plain versions at
+    phase 3's and phase 7's bf16 limits, each kernel run twice and required
+    bitwise equal; then each timed beside the plain versions and SDPA, with
+    its bound.  Returns the rows "fwd", "dq" and "dkv"."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ops import pick_block
-
-    # each line names the instance the built library picks; the host's copy
-    # of that rule (used where no library is built) must agree with it
-    for dtype in (torch.float32, torch.bfloat16):
-        for D in (32, 64, 128):
-            built, host = fa.flash_bwd_instance_built(dtype, D), fa.flash_bwd_instance(dtype, D)
-            if built != host:
-                raise AssertionError(f"B1/B2 {dtype} D={D}: the library takes the {built} "
-                                     f"instance, flash_bwd_instance says {host}")
-    gen = torch.Generator(device=dev).manual_seed(2)
-
-    def rnd(shape, dtype=torch.float32):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
-
-    # float32: both sides sum float32 products of the same inputs, only in
-    # another order, so 1e-4 absolute plus 1e-4 relative holds.
-    for case_id, (B, Sq, Sk, Hq, Hkv, D), causal, layout, window in BWD_CASES:
-        qp, kp = bwd_positions(torch, dev, B, Sq, Sk, layout)
-        q, dout = rnd((B, Sq, Hq, D)), rnd((B, Sq, Hq, D))
-        k, v = rnd((B, Sk, Hkv, D)), rnd((B, Sk, Hkv, D))
-        dlse = rnd((B, Sq, Hq))  # the TokenRing partial's lse cotangent
-        got, want, args, _ = run_bwd(torch, q, k, v, qp, kp, dout, dlse, causal, window)
-        inst = fa.flash_bwd_instance_built(q.dtype, D)
-        compare_grads(torch, f"B1/B2 f32 {case_id} {(B, Sq, Sk, Hq, Hkv, D)} [{inst}]", got,
-                      want, atol=1e-4, rtol=1e-4,
-                      dead=dead_masks(torch, args[6], qp, kp, causal, window))
 
     B, S, Hq, Hkv, D = (train_shape[x] for x in ("B", "S", "Hq", "Hkv", "D"))
     bf = torch.bfloat16
@@ -1827,8 +1920,12 @@ def phase_bwd(torch, dev, train_shape=TRAIN_SHAPE):
                                            scale=scale)
 
     out, lse = fwd()
+    if not all(torch.equal(x, y) for x, y in zip((out, lse), fwd())):
+        raise AssertionError(f"A bf16 training shape B={B} S={S} Hq={Hq} Hkv={Hkv}: two runs "
+                             "on the same inputs differ")
     blk = pick_block(S, 512)  # the plain versions' tile
-    a_err = compare(f"A bf16 training shape [{fa.flash_fwd_instance(bf, S, D)}]", (out, lse),
+    a_err = compare(f"A bf16 training shape B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+                    f"[{fa.flash_fwd_instance(bf, S, D)}] bitwise repeatable", (out, lse),
                     fa.flash_attention_fwd_torch(q, k, v, qp, qp, causal=True, window=None,
                                                  scale=scale, block_k=blk),
                     **tolerances(bf))
@@ -1872,9 +1969,48 @@ def phase_bwd(torch, dev, train_shape=TRAIN_SHAPE):
     inst = fa.flash_fwd_instance(q.dtype, S, D)
     rows["fwd"] = dict(ms=ms_a, plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms, bound_ms=bms,
                        bound_by=by, max_abs_err=a_err, instance=inst, shape=shape)
-    log(f"  training shape: A [{inst}] {ms_a:.3f} ms (plain {plain_fwd_ms:.3f}, sdpa {lib_fwd_ms:.3f}, "
+    log(f"  training shape {shape}: A [{inst}] {ms_a:.3f} ms (plain {plain_fwd_ms:.3f}, sdpa {lib_fwd_ms:.3f}, "
         f"bound {bms:.4f} {by}, {flops / ms_a / 1e9:.2f} TFLOP/s); backward plain "
         f"{plain_bwd_ms:.3f} ms, sdpa backward {lib_bwd_ms:.3f} ms")
+    return rows
+
+
+def phase_bwd(torch, dev, train_shape=TRAIN_SHAPE):
+    from repro_torch.kernels import flash_attention as fa
+
+    # each line names the instance the built library picks; the host's copy
+    # of that rule (used where no library is built) must agree with it
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (32, 64, 128):
+            built, host = fa.flash_bwd_instance_built(dtype, D), fa.flash_bwd_instance(dtype, D)
+            if built != host:
+                raise AssertionError(f"B1/B2 {dtype} D={D}: the library takes the {built} "
+                                     f"instance, flash_bwd_instance says {host}")
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # float32: both sides sum float32 products of the same inputs, only in
+    # another order, so 1e-4 absolute plus 1e-4 relative holds.
+    for case_id, (B, Sq, Sk, Hq, Hkv, D), causal, layout, window in BWD_CASES:
+        qp, kp = bwd_positions(torch, dev, B, Sq, Sk, layout)
+        q, dout = rnd((B, Sq, Hq, D)), rnd((B, Sq, Hq, D))
+        k, v = rnd((B, Sk, Hkv, D)), rnd((B, Sk, Hkv, D))
+        dlse = rnd((B, Sq, Hq))  # the TokenRing partial's lse cotangent
+        got, want, args, _ = run_bwd(torch, q, k, v, qp, kp, dout, dlse, causal, window)
+        inst = fa.flash_bwd_instance_built(q.dtype, D)
+        compare_grads(torch, f"B1/B2 f32 {case_id} {(B, Sq, Sk, Hq, Hkv, D)} [{inst}]", got,
+                      want, atol=1e-4, rtol=1e-4,
+                      dead=dead_masks(torch, args[6], qp, kp, causal, window))
+
+    rows = {"qwen3-1.7b": training_shape_rows(torch, dev, rnd, train_shape)}
+    # qwen3-moe-30b-a3b's attention (32/4 heads), the main path's training
+    # shape; a generator of its own keeps the data above as it was
+    gen_moe = torch.Generator(device=dev).manual_seed(4)
+    rows["qwen3-moe-30b-a3b"] = training_shape_rows(
+        torch, dev, lambda shape, dtype=torch.float32: torch.randn(
+            shape, generator=gen_moe, device=dev).to(dtype), MOE_TRAIN_SHAPE)
     phase_bwd_bf16(torch, dev)
     return rows
 
@@ -2092,8 +2228,9 @@ def profile_step(torch, fn, wall_s):
             "port_kernels": port_kernel_rows(rows, busy_s)}
 
 
-def phase_train_full(torch, dev, with_profile, cfg=None, B=2, S=4096, steps=3):
-    """The training path: qwen3-1.7b at full width and depth through the
+def phase_train_full(torch, dev, with_profile, cfg=None, B=2, S=4096, steps=3,
+                     result="training"):
+    """The training path: qwen3-1.7b (or ``cfg``) at full width through the
     Trainer, one warmup step and ``steps`` timed steps."""
     from repro_torch.configs import ARCHS
     from repro_torch.core.api import ParallelContext
@@ -2141,7 +2278,7 @@ def phase_train_full(torch, dev, with_profile, cfg=None, B=2, S=4096, steps=3):
     if with_profile:
         res["profile"] = profile_step(torch, lambda: trainer.run(
             state, data, steps=2 + steps, log=lambda m: None), med)
-    log("RESULT training " + json.dumps(res))
+    log(f"RESULT {result} " + json.dumps(res))
     return got
 
 
@@ -2723,7 +2860,8 @@ SP1_LOSS_LIMIT = 1e-3
 
 
 def phase_train_ring(torch, dev, with_profile=False, cfg=None, B=2, S=4096, steps=3, P=4,
-                     strategy="tokenring", pods=1, sequential=True, result="training_ring"):
+                     strategy="tokenring", pods=1, sequential=True, result="training_ring",
+                     sp1_limit=SP1_LOSS_LIMIT):
     """The ring training path: qwen3-1.7b at full width and depth through the
     Trainer with ``strategy`` over P virtual ranks on the card (with ``pods``
     > 1, the multi-pod hybrid with ``strategy`` inside each pod), one warmup
@@ -2731,7 +2869,8 @@ def phase_train_ring(torch, dev, with_profile=False, cfg=None, B=2, S=4096, step
     weights and batch, and ``steps`` timed steps whose launch counts must
     equal the schedule's Computes per layer (A twice under remat "full");
     with ``sequential``, the same steps with ``overlap=False``; with
-    ``with_profile``, one more step under torch.profiler."""
+    ``with_profile``, one more step under torch.profiler.  ``sp1_limit=None``
+    reports the first loss's distance from SP 1's without a gate."""
     import dataclasses
 
     from repro_torch.configs import ARCHS
@@ -2753,9 +2892,9 @@ def phase_train_ring(torch, dev, with_profile=False, cfg=None, B=2, S=4096, step
     step_log = lambda m: log("  " + m)  # noqa: E731
     state, hist = trainer.run(state, data, steps=1, log_every=1, log=step_log)  # warmup
     rel = abs(hist[0] - loss1) / abs(loss1)
-    if not rel <= SP1_LOSS_LIMIT:
+    if sp1_limit is not None and not rel <= sp1_limit:
         raise AssertionError(f"{result}: first-step loss {hist[0]} against SP 1's {loss1} "
-                             f"({rel:.2e} relative, limit {SP1_LOSS_LIMIT})")
+                             f"({rel:.2e} relative, limit {sp1_limit})")
     ring = pctx.ring
     reset_launch_counts()
     ring.reset_counts()
@@ -3313,6 +3452,180 @@ def phase_train_ckpt(torch, dev, cfg=None, B=2, S=4096, steps=5, fail_at=3):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the MoE and VLM families (qwen3-moe-30b-a3b, llama4-scout,
+# pixtral-12b)
+# ---------------------------------------------------------------------------
+
+# Depth of qwen3-moe's training run: 4 of its 48 layers at full width are
+# 3.12 B parameters, 16 B each with the float32 gradients and AdamW's two
+# moments (about 50 GB on the 80 GB card).
+MOE_TRAIN_LAYERS = 4
+# Depth of llama4-scout: 4 of its 48 layers (10.9 B parameters, 21.8 GB in
+# bf16); all 48 (about 106 B parameters) do not fit one card.
+LLAMA4_LAYERS = 4
+# pixtral-12b's one-shot prefill: 2 requests of 1024 patch embeddings and
+# 256 text tokens, then 32 greedy decode steps
+VLM_BATCH, VLM_TEXT, VLM_STEPS = 2, 256, 32
+
+
+def no_drop(cfg):
+    """``cfg`` with a capacity factor of E / K: an expert can take every
+    token of a row (the dense dispatch's C = S), a rank's destination
+    bucket every entry it holds and an expert every token of the batch
+    (the expert-parallel C_sd and C_e at 4 ranks), so nothing drops and
+    chunked and one-shot prefill, SP 4 and SP 1 compute the same function.
+    (At 4, random routing already drops: the hidden states of a seeded
+    model are alike across positions, so tokens crowd the same experts.)"""
+    return cfg.with_(capacity_factor=cfg.n_experts / cfg.n_experts_per_token)
+
+
+def moe_exchange_bytes(torch, dev, P=4, B=2, S=1024):
+    """One forward of qwen3-moe's expert-parallel MoE at full width over P
+    virtual ranks: the bytes each rank hands the ring against their closed
+    form (token buffer out and results back, ``P*C_sd*d*b`` a direction;
+    the router statistics' two all-reduces of E float32 at ``(P-1)/P``; the
+    int32 expert-id table, ``P*C_sd*4/2``, apart in position_bytes)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.models.moe import _round8, moe_ffn, moe_init
+
+    cfg = ARCHS["qwen3-moe-30b-a3b"]
+    pctx = ParallelContext(device="cuda", sp_degree=P)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = moe_init(gen, cfg, device=dev)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    d, E, K = cfg.d_model, cfg.n_experts, cfg.n_experts_per_token
+    C_sd = _round8(int(B * (S // P) * K / P * cfg.capacity_factor))
+    pctx.ring.reset_counts()
+    with torch.no_grad():
+        y, _ = moe_ffn(params, x, cfg, pctx)
+    if not bool(torch.isfinite(y).all()):
+        raise AssertionError("phase 17 EP exchange: non-finite output")
+    floats = P * C_sd * d * 2 + 2 * (P - 1) / P * E * 4
+    ints = P * C_sd * 4 / 2
+    got = (dict(pctx.ring.link_bytes), dict(pctx.ring.position_bytes))
+    if got != ({"fwd": floats, "bwd": floats}, {"fwd": ints, "bwd": ints}):
+        raise AssertionError(f"phase 17 EP exchange: bytes {got}, closed form {floats} float "
+                             f"and {ints} int a direction")
+    log(f"  ok phase 17 EP exchange (qwen3-moe, P={P}, B={B} x S={S}, C_sd={C_sd}): "
+        f"{floats:.0f} float and {ints:.0f} int32 bytes a rank and direction, = closed form")
+    return {"P": P, "C_sd": C_sd, "float_bytes": floats, "int_bytes": ints}
+
+
+def phase_moe_checked(torch, dev):
+    """Phase 17 (a): qwen3-moe widths, 2 layers, float32, no-drop capacity:
+    one training step on the kernels against the plain path and the two
+    engines teacher-forced against the plain SP-1 path (phase 8's and 5's
+    gates), both again over 4 virtual ranks with expert parallelism, then
+    the exchange's bytes."""
+    from repro_torch.configs import ARCHS
+
+    cfg = no_drop(ARCHS["qwen3-moe-30b-a3b"].with_(n_layers=2, dtype="float32"))
+    phase_train_checked(torch, dev, cfg=cfg, label="phase 17 qwen3-moe step")
+    free_device_memory(torch)
+    phase_e2e_checked(torch, dev, label="phase 17 qwen3-moe", cfg=cfg)
+    free_device_memory(torch)
+    # S 128: the expert-parallel buffers at this capacity grow with S^2
+    # (4.3 GB a layer in float32 at S 128)
+    phase_train_checked(torch, dev, cfg=cfg, S=128,
+                        label="phase 17 qwen3-moe step (tokenring, P=4, EP)", sp_degree=4,
+                        strategy="tokenring")
+    free_device_memory(torch)
+    phase_e2e_checked(torch, dev, sp_degree=4, label="phase 17 qwen3-moe EP", cfg=cfg)
+    free_device_memory(torch)
+    return moe_exchange_bytes(torch, dev)
+
+
+def phase_vlm(torch, dev):
+    """Phase 17 (e): pixtral-12b at full width and depth: ``lm_prefill`` of
+    VLM_BATCH requests (1024 seeded patch embeddings and VLM_TEXT text
+    tokens each) into the dense slab, one kernel-A launch a layer (the
+    wgmma instance, Sq = 1280); then VLM_STEPS greedy decode steps, one
+    decode-instance launch a layer each.  Every token is fed back through
+    the plain path and must lie within WITNESS_GAP of its row spread below
+    the plain path's max logit."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.registry import build_model
+
+    cfg = ARCHS["pixtral-12b"]
+    bundle = build_model(cfg, ParallelContext(device="cuda"))
+    plain = build_model(cfg, ParallelContext(impl="torch", device="cuda"))
+    t0 = time.perf_counter()
+    params = bundle.init(0)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, n_img = VLM_BATCH, cfg.frontend_tokens
+    patches = (0.02 * torch.randn((B, n_img, cfg.d_model), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (B, VLM_TEXT), generator=gen, device=dev,
+                           dtype=torch.int32)
+    S = n_img + VLM_TEXT
+    positions = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
+    max_len = 2048
+    torch.cuda.synchronize()
+    log(f"  pixtral-12b: {cfg.n_layers} layers, bf16, seeded init "
+        f"{time.perf_counter() - t0:.1f} s; prefill {B} x ({n_img} patches + {VLM_TEXT} tokens)")
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(b, feed=None):
+        """Prefill then VLM_STEPS decode steps on bundle ``b``: greedy, or
+        fed ``feed``'s tokens.  Returns (tokens, logits a step, launches)."""
+        state = b.init_serve_state(B, max_len, dev)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = b.prefill(params, tokens, positions, state, patches)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        launches = [launch_counts()["flash_attention_fwd"]]
+        rows, chain = [logits.float()], []
+        t0 = time.perf_counter()
+        for step in range(VLM_STEPS):
+            tok = rows[-1].argmax(-1) if feed is None else feed[:, step]
+            chain.append(tok)
+            reset_launch_counts()
+            logits, state = b.decode_step(params, tok.to(torch.int32), state)
+            launches.append(launch_counts()["flash_attention_fwd"])
+            rows.append(logits.float())
+        torch.cuda.synchronize()
+        return torch.stack(chain, 1), torch.stack(rows[:-1], 1), launches, (
+            t_prefill, (time.perf_counter() - t0) / VLM_STEPS)
+
+    chain, logits, launches, (t_prefill, t_step) = run(bundle)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != [cfg.n_layers] * (1 + VLM_STEPS):
+        raise AssertionError(f"phase 17 pixtral: launches {launches}, expected {cfg.n_layers} "
+                             "for the prefill and each decode step")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("phase 17 pixtral: non-finite logits")
+    _, ref, plain_launches, _ = run(plain, feed=chain)
+    if any(plain_launches):
+        raise AssertionError("phase 17 pixtral: the plain path launched a kernel")
+    top = ref.max(-1).values
+    gap = top - ref.gather(-1, chain[..., None].long())[..., 0]
+    ratio = float((gap / (top - ref.mean(-1))).max())
+    flips = int((gap > 0).sum())
+    log(f"  pixtral-12b [{fa.flash_fwd_instance(torch.bfloat16, S, cfg.head_dim)} prefill, "
+        f"{fa.flash_fwd_instance(torch.bfloat16, 1, cfg.head_dim)} decode]: prefill "
+        f"{t_prefill * 1e3:.1f} ms ({B * S / t_prefill:.0f} tok/s), decode step "
+        f"{t_step * 1e3:.2f} ms; launches {launches[0]} a prefill and {launches[1]} a decode "
+        f"step; {chain.numel()} tokens fed back through the plain path, {flips} not its "
+        f"argmax, largest gap {ratio:.4f} of the row spread (limit {WITNESS_GAP}); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    if ratio > WITNESS_GAP:
+        raise AssertionError(f"phase 17 pixtral: a token lies {ratio:.4f} of the row spread "
+                             "below the plain path's max logit")
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": B, "prefill_tokens": S,
+           "prefill_s": t_prefill, "decode_step_s": t_step, "launches_prefill": launches[0],
+           "launches_per_decode_step": launches[1], "tokens": chain.numel(), "flips": flips,
+           "max_gap_over_spread": ratio, "peak_bytes": peak}
+    log("RESULT serving_vlm " + json.dumps(res))
+    return {"flash_attention_fwd": sum(launches), "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "paged_decode_fwd": 0}
+
+
 def free_device_memory(torch):
     gc.collect()
     torch.cuda.empty_cache()
@@ -3381,7 +3694,7 @@ def main() -> int:
     log("== phase 3: kernel A (flash forward) vs plain")
     flash_rows = phase_flash(torch, dev)
     log("== phase 4: kernel C (paged decode) vs plain")
-    paged_row = phase_paged(torch, dev)
+    paged_rows = phase_paged(torch, dev)
     log("== phase 5: paged and dense-slab engines on the kernels, teacher-forced vs the plain "
         "path")
     phase_e2e_checked(torch, dev)
@@ -3451,50 +3764,86 @@ def main() -> int:
     serve_cli_adaptive_prefill(torch, dev)
     free_device_memory(torch)
 
-    log("== phase 17: summary")
+    log("== phase 17: the MoE and VLM families: qwen3-moe-30b-a3b checked at 2 layers (SP 1 "
+        "and 4 virtual ranks with expert parallelism), served at full width and depth (main "
+        f"path), trained at full width ({MOE_TRAIN_LAYERS} layers, SP 1 and 4); "
+        f"llama4-scout ({LLAMA4_LAYERS} layers); pixtral-12b")
+    from repro_torch.configs import ARCHS
+
+    phase_moe_checked(torch, dev)
+    moe_cfg = ARCHS["qwen3-moe-30b-a3b"]
+    served, _ = phase_full(torch, dev, profile, cfg=moe_cfg, paths=("paged",), tag="serving_moe")
+    launches["moe_paged"] = served["paged"]
+    free_device_memory(torch)
+    train_cfg = moe_cfg.with_(n_layers=MOE_TRAIN_LAYERS)
+    launches["train_moe"] = phase_train_full(torch, dev, profile, cfg=train_cfg, steps=2,
+                                             result="training_moe")
+    free_device_memory(torch)
+    launches["train_moe_ring"] = phase_train_ring(torch, dev, profile, cfg=train_cfg, steps=2,
+                                                  sequential=False, result="training_moe_ring",
+                                                  sp1_limit=None)
+    free_device_memory(torch)
+    served, _ = phase_full(torch, dev, False,
+                           cfg=ARCHS["llama4-scout-17b-a16e"].with_(n_layers=LLAMA4_LAYERS),
+                           paths=("dense",), tag="serving_llama4")
+    launches["llama4_dense"] = served["dense"]
+    free_device_memory(torch)
+    launches["pixtral"] = phase_vlm(torch, dev)
+    free_device_memory(torch)
+
+    log("== phase 18: summary")
     # `launches` is the count of the main path that runs the kernel (A and
-    # C: paged serving with the prefix cache at SP 1, phase 14's prefix run;
-    # B1 and B2: the training path through Ulysses, phase 16's first run);
-    # `launches_by_path` gives every driven path's count, each read
+    # C: qwen3-moe-30b-a3b served by the paged engine, phase 17's serving
+    # run; B1 and B2: qwen3-moe trained at SP 1, phase 17's first training
+    # run); `launches_by_path` gives every driven path's count, each read
     # from counters set to 0 just before that run.  The times, errors and
-    # bounds are those of the main path's calls at its shapes: A's resident
-    # call of a paged prefill chunk (phase 3: B=8, Sq=256, Sk=2048) and C's
-    # serving-shape call (phase 4); phase 13's SP-4 calls (phase 12) sit
-    # under `sp4_calls`.
+    # bounds are those of the main path's calls at qwen3-moe's shapes (32/4
+    # heads, D 128, bf16): A's resident call of a paged prefill chunk
+    # (phase 3: B=8, Sq=256, Sk=2048), C at phase 6's lengths (phase 4), and
+    # A, B1 and B2 at the training shape B=2, S=4096 (phase 7).
+    # `times_by_path` keeps qwen3-1.7b's rows at its 16/8 heads (phases 3,
+    # 4 and 7), and `sp4_calls` phase 13's SP-4 calls (phase 12).
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in launches.items()}
 
     bwd = "src/repro/kernels/flash_attention.py:476"
+    moe, dense = "qwen3-moe-30b-a3b", "qwen3-1.7b"
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_fwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:244",
-         "launches": launches["prefix"]["flash_attention_fwd"],
+         "launches": launches["moe_paged"]["flash_attention_fwd"],
          "launches_by_path": by_path("flash_attention_fwd"),
          "device_kernels": {"wgmma": ["rt::wg::flash_fwd_wgmma_kernel<D>"],
                             "decode": ["rt::dec::decode_kernel<T, D, WR, RW, false>"],
                             "cuda_core": ["rt::flash_fwd_kernel<T, D>"]},
-         **flash_rows[256],
+         **flash_rows[moe][256],
+         "training_shape": bwd_rows[moe]["fwd"],
+         "times_by_path": {dense: {"prefill_resident": flash_rows[dense][256],
+                                   "decode": flash_rows[dense][1],
+                                   "training_shape": bwd_rows[dense]["fwd"]}},
          "sp4_calls": {k: v for k, v in sp_rows.items() if k != "paged_decode"},
-         "training_shape": bwd_rows["fwd"], "decode_shape": flash_rows[1],
          "ring_overlap_trace": ring_trace},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_bwd.cu",
          "replaces": bwd, "pallas_body": "src/repro/kernels/flash_attention.py:367",
-         "launches": launches["train_ulysses"]["flash_attention_bwd_dq"],
-         "launches_by_path": by_path("flash_attention_bwd_dq"), **bwd_rows["dq"]},
+         "launches": launches["train_moe"]["flash_attention_bwd_dq"],
+         "launches_by_path": by_path("flash_attention_bwd_dq"), **bwd_rows[moe]["dq"],
+         "times_by_path": {dense: bwd_rows[dense]["dq"]}},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_bwd.cu",
          "replaces": bwd, "pallas_body": "src/repro/kernels/flash_attention.py:415",
-         "launches": launches["train_ulysses"]["flash_attention_bwd_dkv"],
-         "launches_by_path": by_path("flash_attention_bwd_dkv"), **bwd_rows["dkv"]},
+         "launches": launches["train_moe"]["flash_attention_bwd_dkv"],
+         "launches_by_path": by_path("flash_attention_bwd_dkv"), **bwd_rows[moe]["dkv"],
+         "times_by_path": {dense: bwd_rows[dense]["dkv"]}},
         {"name": "paged_decode_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/paged_attention.py:192",
-         "launches": launches["prefix"]["paged_decode_fwd"],
+         "launches": launches["moe_paged"]["paged_decode_fwd"],
          "launches_by_path": by_path("paged_decode_fwd"),
          "device_kernels": ["rt::dec::decode_kernel<T, D, WR, RW, true>"],
-         **paged_row, "sp4_calls": {"paged_decode": sp_rows["paged_decode"]}},
+         **paged_rows[moe], "times_by_path": {dense: paged_rows[dense]},
+         "sp4_calls": {"paged_decode": sp_rows["paged_decode"]}},
     ]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

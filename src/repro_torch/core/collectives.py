@@ -54,8 +54,15 @@ around it).
 
 Both also reduce (:meth:`VirtualRing.all_reduce`,
 :meth:`ProcessGroupRing.all_reduce`): the serving paths' lse-weighted merge
-(``core/decode.py``) is one ``max`` and one ``sum`` across the ranks.  The
-all-reduce is forward only: serving never differentiates through it.
+(``core/decode.py``) is one ``max`` and one ``sum`` across the ranks, and
+the MoE router loss (``models/moe.py``) averages its statistics over every
+rank with a ``sum``.  The ``sum`` is differentiable: its backward is the
+same sum all-reduce of the cotangent (the transpose JAX's autodiff gives
+``psum``).  On the virtual ring the one result stands for every rank's
+copy, so its cotangent already sums theirs and goes to every rank as it
+is; on a process group each rank's copy has its own cotangent and the
+backward sums them.  The ``max`` is forward only.  An axis view reduces
+over its own axis: the result holds one block a ring of the other axis.
 
 **What is counted.**  Every transport counts what it is handed, per rank and
 per ring direction (``"fwd"`` for ``s > 0``, ``"bwd"`` for ``s < 0``), in
@@ -72,10 +79,11 @@ the cost models' units, in one ledger that a ring shares with its views:
 * an all-reduce of ``n`` bytes a rank is charged what a bidirectional ring
   all-reduce carries, ``(P-1)/P * n`` in each direction (the arithmetic of
   ``decode_comm_cost``);
-* int32 position rows (shifted or all-gathered, an all-gather of ``n``
-  bytes a rank at ``(P-1) * n / 2`` a direction) go to ``position_bytes``
-  and the all-to-all of Ulysses' lse to ``lse_bytes``, apart, because the
-  cost models leave them out.
+* integer tensors (position rows shifted or all-gathered, an all-gather
+  of ``n`` bytes a rank at ``(P-1) * n / 2`` a direction; the expert-id
+  and source-slot tables of the MoE exchange, all-to-all'd) go to
+  ``position_bytes`` and the all-to-all of Ulysses' lse to ``lse_bytes``,
+  apart, because the cost models leave them out.
 """
 
 from __future__ import annotations
@@ -186,8 +194,10 @@ class _Counters:
         for way in ("fwd", "bwd"):
             if lse:
                 self.ledger.lse_bytes[way] += half
-            else:
+            elif x.is_floating_point():
                 self.ledger.add(self.link_class, way, half)
+            else:
+                self.ledger.position_bytes[way] += half
 
     def _count_all_gather(self, x):
         per_dir = (self.size - 1) * x.numel() * x.element_size() / self.folded_ranks / 2
@@ -213,6 +223,19 @@ class _Counters:
         self._count_all_gather(x)
         return self._all_gather(x, axis)
 
+    def all_reduce(self, x, op: str):
+        """Reduce ``x`` over the ranks with ``op`` (``"max"`` or ``"sum"``);
+        the ``sum`` is differentiable (module docstring).  On the virtual
+        ring ``x (P*B, ...)`` gives ``(B, ...)``, the value every rank holds
+        afterwards (an axis view: ``(G*B, ...)``, one block a ring of the
+        other axis); on a process group every rank gets the same result."""
+        if op not in _REDUCE_OPS:
+            raise ValueError(f"unknown reduction {op!r}; expected one of {_REDUCE_OPS}")
+        if op == "sum" and torch.is_grad_enabled() and x.requires_grad:
+            return _AllReduceSum.apply(x, self)
+        _forward_only(x)
+        return self._reduce(x, op)
+
 
 def _forward_only(x, what="all_reduce"):
     if torch.is_grad_enabled() and x.requires_grad:
@@ -220,6 +243,17 @@ def _forward_only(x, what="all_reduce"):
 
 
 _REDUCE_OPS = ("max", "sum")
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ring):
+        ctx.ring = ring
+        return ring._reduce(x, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ring._reduce_transpose(g), None
 
 
 def _flatten(payload):
@@ -385,16 +419,11 @@ class VirtualRing(_Counters):
         """A replicated tensor ``(B, ...)`` as every rank's copy, ``(P*B, ...)``."""
         return x.repeat(self.size, *([1] * (x.ndim - 1)))
 
-    def all_reduce(self, x, op: str):
-        """Reduce ``x (P*B, ...)`` over the ranks' row blocks with ``op``
-        (``"max"`` or ``"sum"``), ranks 0..P-1 in order, on the current
-        stream -> ``(B, ...)``, the value every rank holds afterwards.
-        Forward only."""
-        if op not in _REDUCE_OPS:
-            raise ValueError(f"unknown reduction {op!r}; expected one of {_REDUCE_OPS}")
-        _forward_only(x)
-        parts = self.rank_view(x)
-        self._count_all_reduce(parts[0].numel() * x.element_size())
+    def _reduce(self, x, op):
+        """The ranks' row blocks of ``x`` reduced with ``op`` in rank order,
+        on the current stream."""
+        parts = self._by_axis(x)
+        self._count_all_reduce(x.numel() // self.folded_ranks * x.element_size())
         acc = parts[0].clone()
         for r in range(1, self.size):
             if op == "max":
@@ -402,6 +431,11 @@ class VirtualRing(_Counters):
             else:
                 acc.add_(parts[r])
         return acc
+
+    def _reduce_transpose(self, g):
+        """The cotangent of the one shared result to every rank's rows."""
+        self._count_all_reduce(g.numel() * self.size // self.folded_ranks * g.element_size())
+        return self._from_axis(g.expand(self.size, *g.shape))
 
 
 class _VirtualAxisRing(VirtualRing):
@@ -562,17 +596,17 @@ class ProcessGroupRing(_Counters):
         """A replicated tensor is this rank's copy as it is."""
         return x
 
-    def all_reduce(self, x, op: str):
+    def _reduce(self, x, op):
         """``torch.distributed.all_reduce`` of this rank's ``x`` with ``op``
-        (``"max"`` or ``"sum"``) into a new tensor: every rank gets the same
-        result.  Forward only."""
+        into a new tensor."""
         import torch.distributed as dist
 
-        if op not in _REDUCE_OPS:
-            raise ValueError(f"unknown reduction {op!r}; expected one of {_REDUCE_OPS}")
-        _forward_only(x)
         self._count_all_reduce(x.numel() * x.element_size())
         y = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
                         group=self.group)
         return y
+
+    def _reduce_transpose(self, g):
+        """The ranks' cotangents summed: the same sum all-reduce."""
+        return self._reduce(g, "sum")

@@ -83,12 +83,18 @@ def _out_proj(p, out, cfg):
 
 
 def attention(p, x, positions, *, cfg, pctx: ParallelContext, window: int | None = None,
-              causal: bool | None = None):
+              causal: bool | None = None, cache=None):
     """Self-attention over ``x (B,S,d)`` with global ``positions (B,S)``:
-    the training path, no cache."""
+    the training path.  With ``cache`` (one layer's dense ``k``/``v``
+    ``(B,Smax,Hkv,D)`` and ``plan``, the drop plan of the writes at slots
+    ``[0, S)``) it is the one-shot prefill: the computed K/V land in those
+    slots after the attention (the caller writes the positions)."""
     causal = cfg.causal if causal is None else causal
     q, k, v = _project_qkv(p, x, positions, cfg)
     out = sp_attention(q, k, v, positions, positions, pctx=pctx, causal=causal, window=window)
+    if cache is not None:
+        apply_drop(cache["k"], cache["plan"], k)
+        apply_drop(cache["v"], cache["plan"], v)
     return _out_proj(p, out, cfg)
 
 

@@ -1,6 +1,7 @@
 """Architecture configuration (copy of ``repro.models.config``).
 
-One dataclass covers every family; this slice serves the dense family.
+One dataclass covers every family; the port builds the dense, MoE and VLM
+families.
 
 Every field that matters for an arch is explicit; registry code dispatches on
 ``family``.  Reduced ("smoke") variants are produced by :meth:`ArchConfig.reduced`

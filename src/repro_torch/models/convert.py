@@ -2,6 +2,9 @@
 
 The JAX tree stacks the layers on a leading L dim and stores dense weights
 as ``(d_in, d_out)``, as the port does; tied embeddings need no ``lm_head``.
+A MoE layer's ``"moe"`` subtree (``router.w``, the ``(E, d, f)`` stacks
+``wg``/``wu`` and ``(E, f, d)`` ``wd``, the ``shared`` expert) comes across
+with the layer's index taken from each stack.
 The input is the tree with numpy leaves (``jax.tree.map(np.asarray,
 params)``), so this module needs no JAX.
 """
@@ -16,25 +19,27 @@ from repro_torch.models.layers import torch_dtype
 __all__ = ["from_jax_params"]
 
 # Leaves the serving layout stores in the compute dtype (cast once at load,
-# see models.layers); every other leaf (norm scale/bias), and every leaf of
-# the training layout, keeps cfg.param_dtype.
-_COMPUTE_LEAVES = ("w", "b", "table")
+# see models.layers), the MoE expert stacks included; every other leaf (norm
+# scale/bias, and the MoE router, which routes in float32 as the JAX code
+# does), and every leaf of the training layout, keeps cfg.param_dtype.
+_COMPUTE_LEAVES = ("w", "b", "table", "wg", "wu", "wd")
 
 
-def _leaf(name, a, cfg, device, training):
-    serve_cast = name in _COMPUTE_LEAVES and not training
+def _leaf(name, a, cfg, device, training, parents):
+    serve_cast = name in _COMPUTE_LEAVES and not training and "router" not in parents
     dt = torch_dtype(cfg.dtype if serve_cast else cfg.param_dtype)
     return torch.from_numpy(np.asarray(a, np.float32).copy()).to(device=device, dtype=dt)
 
 
-def _convert(tree, cfg, device, training, index=None):
+def _convert(tree, cfg, device, training, index=None, parents=()):
     out = {}
     for name, sub in tree.items():
         if isinstance(sub, dict):
-            out[name] = _convert(sub, cfg, device, training, index)
+            out[name] = _convert(sub, cfg, device, training, index, parents + (name,))
         else:
             a = np.asarray(sub)
-            out[name] = _leaf(name, a if index is None else a[index], cfg, device, training)
+            out[name] = _leaf(name, a if index is None else a[index], cfg, device, training,
+                              parents)
     return out
 
 

@@ -1,13 +1,16 @@
 """Model registry: one bundle of training and serving callables per family
-(port of ``repro.models.registry``; dense family only).  The serve-state
-initialisers lay the cache out for the bundle's ``pctx`` (sequence-sharded
-over its ring when ``sp_degree > 1``).
+(port of ``repro.models.registry``).  The dense, MoE and VLM families share
+the transformer bundle, as in the JAX package; the recurrent families
+(``"ssm"``, ``"hybrid"``) and ``"encdec"`` are not ported yet (ROADMAP
+queue 1 items 9a and 9b).  The serve-state initialisers lay the cache out
+for the bundle's ``pctx`` (sequence-sharded over its ring when
+``sp_degree > 1``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, ClassVar
 
 import torch
 
@@ -29,14 +32,23 @@ class ModelBundle:
     decode_step_paged: Callable[..., Any]
     prefill_chunk_paged: Callable[..., Any]
     init_paged_state: Callable[..., Any]  # (n_pages, page_size, max_batch, slot_pages, device)
+    # one-shot prefill into the dense slab: (params, tokens, positions, state,
+    # prefix_embeds=None) -> (logits, state); a VLM's image prefix needs it
+    prefill: Callable[..., Any] | None = None
+    # the serve state is cache-style (per-slot len/pos, position masked), so a
+    # step fed a dummy token can be rolled back by its length: true of every
+    # family the port builds, all on the transformer bundle
+    decode_rollback_safe: ClassVar[bool] = True
 
 
 def build_model(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (the port covers the dense family)"
-        )
     from repro_torch.models import transformer as T
+
+    if cfg.family not in T.FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 items 9a and 9b: "
+            "the recurrent families and encdec); the port builds "
+            + ", ".join(T.FAMILIES))
 
     def init(seed: int, training: bool = False):
         gen = torch.Generator(device=pctx.device).manual_seed(seed)
@@ -61,4 +73,6 @@ def build_model(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
             T.init_paged_decode_cache(cfg, n_pages=n_pages, page_size=page_size,
                                       max_batch=max_batch, slot_pages=slot_pages,
                                       device=device, pctx=pctx)),
+        prefill=lambda params, tokens, positions, state, prefix_embeds=None: T.lm_prefill(
+            params, tokens, positions, state, prefix_embeds, cfg=cfg, pctx=pctx),
     )

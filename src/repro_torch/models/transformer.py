@@ -1,5 +1,8 @@
-"""Dense decoder-only transformer: init, the training forward and loss, and
-the serving steps (port of the dense family of ``repro.models.transformer``).
+"""Decoder-only transformer: init, the training forward and loss, and the
+serving steps (port of ``repro.models.transformer``) for the dense family,
+the MoE family (``models.moe`` in place of the MLP, its router loss summed
+over the layers into the training loss) and the VLM family (patch
+embeddings prepended to the token stream, no loss over them).
 
 Parameters are a plain dict: ``embed``/``final_norm``/``lm_head`` as in the
 JAX tree, ``layers`` a list of per-layer dicts (the JAX tree stacks them on
@@ -10,7 +13,8 @@ per block: ``"full"`` recomputes each block in the backward
 ``"none"`` keeps its activations, and ``"dots"`` (the counterpart of
 ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``) keeps the
 outputs of the weight products and recomputes everything else, the flash
-attention included (:func:`dots_policy`).
+attention and the MoE experts' batched products included
+(:func:`dots_policy`).
 
 Serve state is a dict of tensors laid out like the JAX pytree (K/V stacked
 over layers).  The JAX steps return a new state; here each step updates the
@@ -56,6 +60,7 @@ from repro_torch.models.layers import (
     norm_init,
     torch_dtype,
 )
+from repro_torch.models.moe import moe_ffn, moe_init
 from repro_torch.serving.kv_cache import (
     apply_drop,
     dense_write_index,
@@ -69,10 +74,14 @@ from repro_torch.serving.kv_cache import (
     write_coords,
 )
 
+# The families this module builds (``models.registry``).
+FAMILIES = ("dense", "moe", "vlm")
+
 __all__ = [
     "init_lm",
     "lm_apply",
     "lm_loss",
+    "lm_prefill",
     "init_decode_cache",
     "init_paged_decode_cache",
     "lm_prefill_chunk",
@@ -84,9 +93,11 @@ __all__ = [
 
 # The weight products of a block: ``x @ w`` of a (B, S, d) activation by a
 # (d, d_out) weight reaches the dispatcher as one 2-D ``mm`` (``addmm`` with
-# a bias); attention's products are batched (``bmm``) or inside the flash
-# function, and are recomputed, as JAX's policy recomputes dots with batch
-# dims.
+# a bias), the MoE router's product and its shared expert's included;
+# attention's products are batched (``bmm``) or inside the flash function,
+# and so are the MoE experts' (``"becd,edf->becf"`` batches over the
+# experts) and its gate-weighted combine: all are recomputed, as JAX's
+# ``dots_with_no_batch_dims_saveable`` recomputes dots with batch dims.
 _WEIGHT_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
@@ -99,15 +110,19 @@ def dots_policy(ctx, op, *args, **kwargs):
 
 
 def _layer_init(gen, cfg, device, training):
-    return {
+    p = {
         "attn": attention_init(gen, cfg, device, training),
         "ln1": norm_init(cfg.d_model, norm_type=cfg.norm_type, dtype=cfg.param_dtype,
                          device=device),
         "ln2": norm_init(cfg.d_model, norm_type=cfg.norm_type, dtype=cfg.param_dtype,
                          device=device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, mlp_type=cfg.mlp_type,
-                        dtype=cfg.param_dtype if training else cfg.dtype, device=device),
     }
+    if cfg.n_experts:
+        p["moe"] = moe_init(gen, cfg, device, training)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, mlp_type=cfg.mlp_type,
+                            dtype=cfg.param_dtype if training else cfg.dtype, device=device)
+    return p
 
 
 def init_lm(cfg, gen: torch.Generator, device="cuda", training: bool = False):
@@ -115,9 +130,10 @@ def init_lm(cfg, gen: torch.Generator, device="cuda", training: bool = False):
     JAX init's distributions.  ``training`` stores every leaf in
     ``cfg.param_dtype``, as the JAX tree; by default (serving) dense weights
     and the embedding table are stored in ``cfg.dtype`` and norms in
-    ``cfg.param_dtype`` (see ``models.layers``)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    ``cfg.param_dtype`` (see ``models.layers``; the MoE router always in
+    ``cfg.param_dtype``, see ``models.moe``)."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not a transformer family")
     wdt = cfg.param_dtype if training else cfg.dtype
     params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype=wdt, device=device),
@@ -142,53 +158,80 @@ def _logits(params, x, cfg):
     return x.to(dt) @ _lm_head_w(params, cfg).to(dt)
 
 
-def _embed(params, token_ids, cfg):
-    return params["embed"]["table"][token_ids.long()].to(torch_dtype(cfg.dtype))
+def _embed(params, token_ids, cfg, prefix_embeds=None):
+    """Token embeddings in ``cfg.dtype``; a VLM's patch embeddings
+    ``prefix_embeds (B, n_img, d)`` occupy the first slots."""
+    x = params["embed"]["table"][token_ids.long()].to(torch_dtype(cfg.dtype))
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
-def _block(p_l, x, cfg, attend):
-    """One pre-norm block; ``attend(p_attn, h)`` is its attention."""
+def _block(p_l, x, cfg, attend, pctx, sharded=False):
+    """One pre-norm block; ``attend(p_attn, h)`` is its attention.  Returns
+    ``(x, aux)``: the MoE router loss of the layer, ``None`` for an MLP
+    (``sharded``: ``x`` is this rank's sequence shard, ``models.moe``)."""
     h = apply_norm(p_l["ln1"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
     x = x + attend(p_l["attn"], h)
     h = apply_norm(p_l["ln2"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
-    return x + mlp(p_l["mlp"], h, mlp_type=cfg.mlp_type, compute_dtype=torch_dtype(cfg.dtype))
+    if cfg.n_experts:
+        y, aux = moe_ffn(p_l["moe"], h, cfg, pctx, sharded=sharded)
+        return x + y, aux
+    return x + mlp(p_l["mlp"], h, mlp_type=cfg.mlp_type,
+                   compute_dtype=torch_dtype(cfg.dtype)), None
 
 
-def _layers(params, x, cfg, attend):
-    """Run every block; ``attend(l, p_attn, h)`` is the layer's attention."""
+def _layers(params, x, cfg, attend, pctx):
+    """Run every block of a serving step; ``attend(l, p_attn, h)`` is the
+    layer's attention."""
     for l, p_l in enumerate(params["layers"]):
-        x = _block(p_l, x, cfg, lambda p, h, l=l: attend(l, p, h))
+        x, _ = _block(p_l, x, cfg, lambda p, h, l=l: attend(l, p, h), pctx)
     return apply_norm(params["final_norm"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
 
 
-def lm_apply(params, tokens, positions, *, cfg, pctx):
+def lm_apply(params, tokens, positions, *, cfg, pctx, prefix_embeds=None):
     """Full forward, returns ``(hidden (B,S,d), aux)``; ``aux`` is the MoE
-    router loss, 0 for the dense family."""
+    router loss summed over the layers, 0 for the other families."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    sharded = pctx.active and not pctx.ring.folded
 
     def block(p_l, x):
         return _block(p_l, x, cfg, lambda p, h: attention(p, h, positions, cfg=cfg, pctx=pctx,
-                                                          window=cfg.window))
+                                                          window=cfg.window),
+                      pctx, sharded)
 
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, prefix_embeds)
     remat = cfg.remat != "none" and torch.is_grad_enabled()
     kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts, dots_policy)
           } if cfg.remat == "dots" else {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p_l in params["layers"]:
-        x = checkpoint(block, p_l, x, use_reentrant=False, **kw) if remat else block(p_l, x)
+        x, a = checkpoint(block, p_l, x, use_reentrant=False, **kw) if remat else block(p_l, x)
+        if a is not None:
+            aux = aux + a
     x = apply_norm(params["final_norm"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def lm_loss(params, batch, *, cfg, pctx):
-    """Causal LM loss; ``batch``: tokens/labels/positions (+mask) tensors.
-    Returns ``(total, metrics)``."""
-    x, aux = lm_apply(params, batch["tokens"], batch["positions"], cfg=cfg, pctx=pctx)
+    """Causal LM loss; ``batch``: tokens/labels/positions (+mask,
+    +patch_embeds) tensors; ``positions`` cover the image prefix too, which
+    carries no loss.  Returns ``(total, metrics)``: the CE plus
+    ``router_aux_coef * aux / n_layers``."""
+    patches = batch.get("patch_embeds")
+    x, aux = lm_apply(params, batch["tokens"], batch["positions"], cfg=cfg, pctx=pctx,
+                      prefix_embeds=patches)
+    labels, mask = batch["labels"], batch.get("mask")
+    if patches is not None:
+        B, n_img = labels.shape[0], patches.shape[1]
+        labels = torch.cat([labels.new_zeros((B, n_img)), labels], dim=1)
+        text = torch.ones(batch["labels"].shape, dtype=torch.float32, device=labels.device)
+        mask = torch.cat([torch.zeros((B, n_img), dtype=torch.float32, device=labels.device),
+                          text if mask is None else mask], dim=1)
     dt = torch_dtype(cfg.dtype)
-    loss, denom = lm_cross_entropy(x, _lm_head_w(params, cfg).to(dt), batch["labels"],
-                                   mask=batch.get("mask"), chunk=cfg.logits_chunk,
-                                   compute_dtype=dt)
+    loss, denom = lm_cross_entropy(x, _lm_head_w(params, cfg).to(dt), labels, mask=mask,
+                                   chunk=cfg.logits_chunk, compute_dtype=dt)
     total = loss + cfg.router_aux_coef * aux / max(cfg.n_layers, 1)
     return total, {"ce_loss": loss, "aux_loss": aux, "tokens": denom}
 
@@ -198,6 +241,34 @@ def _last_valid(x, n_valid):
     B, C = x.shape[:2]
     idx = (n_valid.long() - 1).clamp(0, C - 1)
     return x[torch.arange(B, device=x.device), idx]
+
+
+@torch.inference_mode()
+def lm_prefill(params, tokens, positions, cache, prefix_embeds=None, *, cfg, pctx):
+    """One-shot prefill into the dense slab: the whole sequence (a VLM's
+    ``prefix_embeds (B, n_img, d)`` first, then ``tokens (B, S_text)``) at
+    ``positions (B, S)`` fills slots ``[0, S)`` of every row, and every
+    row's length becomes ``S``.  Returns ``(logits (B, V), cache)``, the
+    logits at the last position.  At SP 1 only."""
+    if pctx.active:
+        raise NotImplementedError(
+            "lm_prefill at sp_degree > 1 is not ported yet (ROADMAP queue 1 item 9c); "
+            "prefill through the chunked path")
+    x = _embed(params, tokens, cfg, prefix_embeds)
+    B, S = x.shape[:2]
+    positions = positions.to(torch.int32)
+    slots = torch.arange(S, device=x.device)[None, :]
+    plan = _dense_plan(cache, torch.arange(B, device=x.device)[:, None], slots, pctx)
+
+    def attend(l, p, h):
+        return attention(p, h, positions, cfg=cfg, pctx=pctx, window=cfg.window,
+                         cache={"k": cache["k"][l], "v": cache["v"][l], "plan": plan})
+
+    x = _layers(params, x, cfg, attend, pctx)
+    logits = _logits(params, x[:, -1], cfg)
+    apply_drop(cache["pos"], plan, positions)
+    cache["len"].fill_(S)
+    return logits, cache
 
 
 def init_decode_cache(cfg, batch: int, max_len: int, dtype=None, device="cuda", pctx=None):
@@ -287,7 +358,7 @@ def lm_prefill_chunk(params, token_ids, cache, n_valid, *, cfg, pctx):
         return attention_prefill_chunk(p, h, positions, cache["k"][l], cache["v"][l],
                                        old_pos, plan, cfg=cfg, pctx=pctx, window=cfg.window)
 
-    x = _layers(params, _embed(params, token_ids, cfg), cfg, attend)
+    x = _layers(params, _embed(params, token_ids, cfg), cfg, attend, pctx)
     logits = _logits(params, _last_valid(x, n_valid), cfg)
     apply_drop(cache["pos"], plan, positions)
     cache["len"] += n_valid
@@ -317,7 +388,7 @@ def lm_decode_step(params, token_ids, cache, active=None, *, cfg, pctx):
         return attention_decode(p, h, positions, cache["k"][l], cache["v"][l], cache["pos"],
                                 plan, cfg=cfg, pctx=pctx, window=cfg.window)
 
-    x = _layers(params, _embed(params, token_ids[:, None], cfg), cfg, attend)
+    x = _layers(params, _embed(params, token_ids[:, None], cfg), cfg, attend, pctx)
     logits = _logits(params, x, cfg)[:, 0]
     cache["len"].copy_(new_len)
     return logits, cache
@@ -351,7 +422,7 @@ def lm_prefill_chunk_paged(params, token_ids, cache, n_valid, *, cfg, pctx):
             cfg=cfg, pctx=pctx, window=cfg.window, table_pages=bt.shape[1],
         )
 
-    x = _layers(params, _embed(params, token_ids, cfg), cfg, attend)
+    x = _layers(params, _embed(params, token_ids, cfg), cfg, attend, pctx)
     logits = _logits(params, _last_valid(x, n_valid), cfg)
     apply_drop(cache["pos"], plan, positions)
     cache["len"] += n_valid
@@ -386,7 +457,7 @@ def lm_decode_step_paged(params, token_ids, cache, active=None, *, cfg, pctx):
             cfg=cfg, pctx=pctx, window=cfg.window, table_pages=bt.shape[1],
         )
 
-    x = _layers(params, _embed(params, token_ids[:, None], cfg), cfg, attend)
+    x = _layers(params, _embed(params, token_ids[:, None], cfg), cfg, attend, pctx)
     logits = _logits(params, x, cfg)[:, 0]
     cache["len"].copy_(new_len)
     return logits, cache

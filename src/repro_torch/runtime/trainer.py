@@ -127,7 +127,10 @@ class Trainer:
             if flag:
                 log(f"[straggler] step {i}: {dt*1e3:.1f} ms ({flag})")
             if i % log_every == 0 or i == steps - 1:
-                log(f"step {i:5d} loss {float(metrics['loss']):.4f} "
+                router = (f" (ce {float(metrics['ce_loss']):.4f} aux "
+                          f"{float(metrics['aux_loss']):.4f})" if self.bundle.cfg.n_experts
+                          else "")
+                log(f"step {i:5d} loss {float(metrics['loss']):.4f}{router} "
                     f"lr {float(metrics['lr']):.2e} {dt*1e3:.0f} ms")
             history.append(float(metrics["loss"]))
             if self.ckpt and (i + 1) % self.cfg.checkpoint_every == 0:

@@ -20,10 +20,10 @@ import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
+from _jax_engine import JEngine
 from test_serving import _legacy_step, assert_greedy_chain_matches
 from test_torch_serving import _setup
 
-from repro.serving.engine import ServingEngine as JEngine
 from repro.serving.kv_cache import PrefixIndex as JIndex
 from repro_torch.core.api import ParallelContext as TPctx
 from repro_torch.kernels.ref import PAD_POS

@@ -16,12 +16,12 @@ import json
 import jax
 import numpy as np
 import pytest
+from _jax_engine import JEngine
 
 from repro.configs import ARCHS as JARCHS
 from repro.core.api import ParallelContext as JPctx
 from repro.models import build_model as jbuild
 from repro.serving import resilience as jres
-from repro.serving.engine import ServingEngine as JEngine
 from repro_torch.configs import ARCHS as TARCHS
 from repro_torch.core.api import ParallelContext as TPctx
 from repro_torch.models.convert import from_jax_params

@@ -174,7 +174,12 @@ def test_all_reduce_is_forward_only_and_in_rank_order():
     np.testing.assert_array_equal(ring.all_reduce(x, "max").numpy(),
                                   x.reshape(4, 2, 3).amax(0).numpy())
     with pytest.raises(RuntimeError, match="forward only"):
-        ring.all_reduce(x.requires_grad_(True), "sum")
+        ring.all_reduce(x.requires_grad_(True), "max")
+    # the sum is differentiable (the MoE router loss): the one result stands
+    # for every rank's copy, so every rank's rows get its cotangent
+    g = torch.randn(2, 3)
+    (gx,) = torch.autograd.grad((ring.all_reduce(x, "sum") * g).sum(), x)
+    np.testing.assert_array_equal(gx.numpy(), g.repeat(4, 1).numpy())
     with pytest.raises(ValueError, match="unknown reduction"):
         ring.all_reduce(x.detach(), "min")
 
