@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --profile=PHASE[,PHASE...]]
 
 Phases, each fatal on failure:
   1. toolchain: torch, CUDA, nvcc and the card's name and power limit;
   2. build every kernel in ``src/repro_torch/csrc`` with nvcc (sm_90a);
   3. kernel A (flash forward) against its plain version on the card, in
      float32 and bf16, the zigzag, window, dead-row and ragged edge cases
-     included, and the decode cases (Sq 1 and 3, GQA groups 1/2/8, window,
-     dead rows, ragged Sk) each run twice and required bitwise equal; each
+     included, whisper-base's non-causal calls at phase 18's batches (its
+     encoder and a training step's cross-attention at Sq 4096 against Sk
+     1536, batch 16; a decode step's cross read, 8 clips), and the decode
+     cases (Sq 1 and 3, GQA groups 1/2/8,
+     window, dead rows, ragged Sk) each run twice and required bitwise
+     equal; each
      call's log names the instance that served it (decode: Sq <= 4; wgmma:
      bf16, D 64/128, Sq > 4; else the CUDA-core one);
   4. kernel C (fused paged decode) against its plain version on the card,
@@ -35,10 +39,11 @@ Phases, each fatal on failure:
   7. kernels B1 and B2 (flash backward: dq; dk/dv) against their plain
      version on the card, in float32 on the backward test cases (the
      CUDA-core instances), in bf16 at the training shape and on zigzag,
-     window, dead-row and ragged cases at D 64 and 128 (the wgmma
-     instances), each run twice and required bitwise equal, gradients of
-     rows that see no key exactly 0; B1, B2 and A timed at the training
-     shape beside SDPA;
+     window, dead-row and ragged cases at D 64 and 128 and non-causal
+     cases at Sq != Sk (the wgmma instances), each run twice and required
+     bitwise equal, gradients of rows that see no key exactly 0; B1, B2
+     and A held and timed at the training shapes beside SDPA (whisper-base's
+     three at phase 18's batch of 16: cross, encoder, decoder);
   8. one training step at qwen3-1.7b widths (2 layers, float32) on the
      kernels against the plain path: loss, every gradient, and the
      parameters after one AdamW step; then one bf16 step (kernel A's wgmma
@@ -162,7 +167,28 @@ Phases, each fatal on failure:
      tokens (40 A wgmma launches), 32 greedy decode steps (40 decode-instance
      launches each), every token within ``WITNESS_GAP`` of the plain path
      (``RESULT serving_vlm``);
- 18. a ``{"kernels": [...]}`` summary line, the card line, and last the
+ 18. the encoder-decoder family (this slice's main path): (a) whisper-base
+     at full width, 2 encoder and 2 decoder layers, float32, at SP 1 and
+     through TokenRing over 4 virtual ranks: one training step on the
+     kernels against the plain path (phase 8's gates; the decoder's
+     queries against the encoder's 1536 keys, non-causal) and an encode
+     then 16 greedy decode steps, each token teacher-forced through the
+     plain path at SP 1 (phase 5's gate), A's launches counted; (b)
+     whisper-base at full width and depth (6 + 6 layers, bf16 compute,
+     float32 parameters, remat "full") through the ``Trainer`` with seeded
+     frames (1536 x 512 a clip), batch 16 x 4096 decoder tokens, one warmup
+     and 2 timed steps, at SP 1 (launches 36/18/18 a step, ``RESULT
+     training_whisper``) and through TokenRing over 4 virtual ranks
+     (288/144/144, ``RESULT training_whisper_ring``, first loss within
+     ``SP1_LOSS_LIMIT`` of SP 1's); (c) 8 clips encoded and 128 greedy
+     decode steps on a dense slab of 448 slots at SP 1 and over 4 virtual
+     ranks (12 decode-instance launches a step: 6 self, 6 cross), every
+     token within ``WITNESS_GAP`` of the plain path, teacher-forced
+     (``RESULT serving_whisper``, ``serving_whisper_sp4``); with
+     ``--profile``, one training step each and an encode with 16 decode
+     steps under torch.profiler; then the serve CLI ``--arch whisper-base``
+     on 4 requests through the engine's token-by-token prefill;
+ 19. a ``{"kernels": [...]}`` summary line, the card line, and last the
      ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -496,39 +522,80 @@ def phase_flash(torch, dev):
             label = f"serving Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv}"
             check(label, q32, k32, v32, qp, kp, True, None, repeat=repeat)
             err = check(label, q, k, v, qp, kp, True, None, repeat=repeat)
-            scale = 1.0 / D ** 0.5
-            mask = ((kp[:, None, None, :] < PAD_POS // 2)
-                    & (qp[:, None, :, None] >= kp[:, None, None, :]))
-            # yardstick only: SDPA gives out without lse; KV repeated for GQA
-            qt = q.transpose(1, 2)
-            kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2) for x in (k, v))
-            fns = (lambda: fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True,
-                                                       window=None, scale=scale),
-                   lambda: fa.flash_attention_fwd_torch(q, k, v, qp, kp, causal=True,
-                                                        window=None, scale=scale, block_k=512),
-                   lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
-            # CUDA events around the calls (host gaps between launches included)
-            ev_ms, ev_plain, ev_lib = (time_ms(f, iters=it) for f, it in zip(fns, (10, 3, 10)))
-            # the kernels' own device time (torch.profiler; events where it sees none)
-            (ms, plain_ms, lib_ms), how = device_times(*zip(fns, (30, 3, 30)))
-            nbytes, flops = flash_bytes_flops(q, k, qp, kp, True, None)
-            bms, by = bound(nbytes, flops, "bfloat16")
-            inst = fa.flash_fwd_instance(q.dtype, Sq, D)
-            rows[Sq] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                            bound_by=by, event_ms=ev_ms, event_plain_ms=ev_plain,
-                            event_library_ms=ev_lib, max_abs_err=err, instance=inst, timing=how,
-                            shape=f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} bf16")
-            log(f"  A {label} [{inst}]: device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"sdpa {lib_ms:.4f} ms; events kernel {ev_ms:.4f} ms, plain {ev_plain:.4f} ms, "
-                f"sdpa {ev_lib:.4f} ms; bound {bms:.4f} ms ({by}), "
-                f"{flops / ms / 1e9:.1f} TFLOP/s at {how}")
+            rows[Sq] = timed_row(label, q, k, v, qp, kp, True, err)
+        return rows
+
+    def timed_row(label, q, k, v, qp, kp, causal, err):
+        """One bf16 call of A timed beside its plain version and SDPA, with
+        its bound."""
+        B, Sq, Hq, D = q.shape
+        Sk, Hkv = k.shape[1], k.shape[2]
+        scale = 1.0 / D ** 0.5
+        mask = kp[:, None, None, :] < PAD_POS // 2
+        if causal:
+            mask = mask & (qp[:, None, :, None] >= kp[:, None, None, :])
+        # yardstick only: SDPA gives out without lse; KV repeated for GQA
+        qt = q.transpose(1, 2)
+        kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2) for x in (k, v))
+        fns = (lambda: fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=causal,
+                                                   window=None, scale=scale),
+               lambda: fa.flash_attention_fwd_torch(q, k, v, qp, kp, causal=causal,
+                                                    window=None, scale=scale, block_k=512),
+               lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        # CUDA events around the calls (host gaps between launches included)
+        ev_ms, ev_plain, ev_lib = (time_ms(f, iters=it) for f, it in zip(fns, (10, 3, 10)))
+        # the kernels' own device time (torch.profiler; events where it sees none)
+        (ms, plain_ms, lib_ms), how = device_times(*zip(fns, (30, 3, 30)))
+        nbytes, flops = flash_bytes_flops(q, k, qp, kp, causal, None)
+        bms, by = bound(nbytes, flops, "bfloat16")
+        inst = fa.flash_fwd_instance(q.dtype, Sq, D)
+        log(f"  A {label} [{inst}]: device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms; events kernel {ev_ms:.4f} ms, plain {ev_plain:.4f} ms, "
+            f"sdpa {ev_lib:.4f} ms; bound {bms:.4f} ms ({by}), "
+            f"{flops / ms / 1e9:.1f} TFLOP/s at {how}")
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                    event_ms=ev_ms, event_plain_ms=ev_plain, event_library_ms=ev_lib,
+                    max_abs_err=err, instance=inst, timing=how,
+                    shape=(f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} bf16 "
+                           + ("causal" if causal else "non-causal")))
+
+    def whisper_rows():
+        """whisper-base's calls (8/8 heads, D 64), all non-causal, at the
+        main path's batches: the encoder's self-attention (a training
+        step's WHISPER_TRAIN_BATCH clips of 1536 frames), the
+        cross-attention of a training step (4096 decoder tokens against
+        1536 frames: 32 query tiles against 12 key tiles on the wgmma
+        instance) and of a decode step (WHISPER_CLIPS clips, one token
+        against 1536 frames, the decode instance at GQA group 1).  Each
+        held in float32 and in bf16, the bf16 call bitwise repeated and
+        timed."""
+        g = torch.Generator(device=dev).manual_seed(7)
+        rows = {}
+        Bt = WHISPER_TRAIN_BATCH
+        for name, (B, Sq, Sk) in (("encoder", (Bt, 1536, 1536)),
+                                  ("cross_prefill", (Bt, 4096, 1536)),
+                                  ("cross_decode", (WHISPER_CLIPS, 1, 1536))):
+            q32, k32, v32 = (torch.randn(shape, generator=g, device=dev)
+                             for shape in ((B, Sq, 8, 64), (B, Sk, 8, 64), (B, Sk, 8, 64)))
+            qp = torch.arange(Sq, device=dev, dtype=torch.int32)
+            if name == "cross_decode":  # decoder positions well past the first frames
+                qp = qp + torch.randint(0, 448, (B, 1), generator=g, device=dev,
+                                        dtype=torch.int32)
+            qp = qp.expand(B, Sq).contiguous()
+            kp = torch.arange(Sk, device=dev, dtype=torch.int32).expand(B, Sk).contiguous()
+            label = f"whisper {name} B={B} Sq={Sq} Sk={Sk} Hq=8 Hkv=8 non-causal"
+            check(label, q32, k32, v32, qp, kp, False, None)
+            q, k, v = (x.to(torch.bfloat16) for x in (q32, k32, v32))
+            err = check(label, q, k, v, qp, kp, False, None, repeat=True)
+            rows[name] = timed_row(label, q, k, v, qp, kp, False, err)
         return rows
 
     gen_moe = torch.Generator(device=dev).manual_seed(5)
     return {"qwen3-1.7b": serving_rows(rnd, 16, 8, (1, 256), repeat=False),
             "qwen3-moe-30b-a3b": serving_rows(
                 lambda shape, dtype: torch.randn(shape, generator=gen_moe, device=dev).to(dtype),
-                32, 4, (256,), repeat=True)}
+                32, 4, (256,), repeat=True),
+            "whisper-base": whisper_rows()}
 
 
 # Decode-instance cases of kernel A (Sq <= 4): id, (B, Sq, Sk, Hq, Hkv, D),
@@ -1756,9 +1823,25 @@ BWD_BF16_CASES = [
     ("window", (1, 256, 256, 2, 2, D), True, "contig", 64),
     ("ragged", (2, 37, 45, 4, 2, D), True, "offset", None),
     ("ragged", (2, 165, 173, 4, 2, D), True, "offset", None),
-)] + [("qwen3-moe 32/4", (2, 1024, 1024, 32, 4, 128), True, "contig", None)]
+)] + [("qwen3-moe 32/4", (2, 1024, 1024, 32, 4, 128), True, "contig", None)] + [
+    # whisper-base's non-causal calls (8/8 heads, D 64): self-attention, the
+    # cross-attention of a 448-token decoder context against 1536 frames,
+    # and a ragged Sq != Sk edge
+    ("non-causal", (2, 256, 256, 8, 8, 64), False, "contig", None),
+    ("whisper cross", (2, 448, 1536, 8, 8, 64), False, "contig", None),
+    ("ragged non-causal", (2, 37, 173, 4, 4, 64), False, "offset", None),
+]
 TRAIN_SHAPE = dict(B=2, S=4096, Hq=16, Hkv=8, D=128)  # qwen3-1.7b, batch 2 x seq 4096
 MOE_TRAIN_SHAPE = dict(B=2, S=4096, Hq=32, Hkv=4, D=128)  # qwen3-moe-30b-a3b, the same batch
+WHISPER_TRAIN_BATCH = 16  # train_4k's global batch of 256, cut for one card
+# whisper-base's three attention calls of a training step (8/8 heads, D 64)
+# at the main path's batch (phase 18 (b)), the decoder at train_4k's 4096
+# tokens, the encoder at 1536 frames
+WHISPER_TRAIN_SHAPES = {
+    "cross": dict(B=WHISPER_TRAIN_BATCH, S=4096, Sk=1536, Hq=8, Hkv=8, D=64, causal=False),
+    "encoder": dict(B=WHISPER_TRAIN_BATCH, S=1536, Hq=8, Hkv=8, D=64, causal=False),
+    "decoder": dict(B=WHISPER_TRAIN_BATCH, S=4096, Hq=8, Hkv=8, D=64),
+}
 # The wgmma instances round P and dS to bf16 (2^-9 relative per term) as
 # the operands of the dq, dk and dv products, where the plain backward
 # multiplies float32 values.  Each gradient element is a sum of such terms
@@ -1897,8 +1980,9 @@ def dead_masks(torch, lse, qp, kp, causal, window):
 
 
 def training_shape_rows(torch, dev, rnd, train_shape):
-    """Kernels A (wgmma), B1 and B2 at one model's training shape (bf16,
-    causal): A's out/lse and the gradients against the plain versions at
+    """Kernels A (wgmma), B1 and B2 at one model's training shape (bf16;
+    causal unless ``train_shape["causal"]`` is False, ``Sk`` keys, default
+    ``S``): A's out/lse and the gradients against the plain versions at
     phase 3's and phase 7's bf16 limits, each kernel run twice and required
     bitwise equal; then each timed beside the plain versions and SDPA, with
     its bound.  Returns the rows "fwd", "dq" and "dkv"."""
@@ -1908,48 +1992,54 @@ def training_shape_rows(torch, dev, rnd, train_shape):
     from repro_torch.kernels.ops import pick_block
 
     B, S, Hq, Hkv, D = (train_shape[x] for x in ("B", "S", "Hq", "Hkv", "D"))
+    Sk, causal = train_shape.get("Sk", S), train_shape.get("causal", True)
     bf = torch.bfloat16
     q, dout = rnd((B, S, Hq, D), bf), rnd((B, S, Hq, D), bf)
-    k, v = rnd((B, S, Hkv, D), bf), rnd((B, S, Hkv, D), bf)
+    k, v = rnd((B, Sk, Hkv, D), bf), rnd((B, Sk, Hkv, D), bf)
     dlse = rnd((B, S, Hq))
     qp = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
+    kp = torch.arange(Sk, device=dev, dtype=torch.int32).expand(B, Sk).contiguous()
     scale = 1.0 / D ** 0.5
+    keys = "" if Sk == S else f" Sk={Sk}"
 
     def fwd():
-        return fa.flash_attention_fwd_cuda(q, k, v, qp, qp, causal=True, window=None,
+        return fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=causal, window=None,
                                            scale=scale)
 
     out, lse = fwd()
     if not all(torch.equal(x, y) for x, y in zip((out, lse), fwd())):
-        raise AssertionError(f"A bf16 training shape B={B} S={S} Hq={Hq} Hkv={Hkv}: two runs "
-                             "on the same inputs differ")
-    blk = pick_block(S, 512)  # the plain versions' tile
-    a_err = compare(f"A bf16 training shape B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
-                    f"[{fa.flash_fwd_instance(bf, S, D)}] bitwise repeatable", (out, lse),
-                    fa.flash_attention_fwd_torch(q, k, v, qp, qp, causal=True, window=None,
-                                                 scale=scale, block_k=blk),
+        raise AssertionError(f"A bf16 training shape B={B} S={S}{keys} Hq={Hq} Hkv={Hkv}: two "
+                             "runs on the same inputs differ")
+    blk, blk_k = pick_block(S, 512), pick_block(Sk, 512)  # the plain versions' tiles
+    a_err = compare(f"A bf16 training shape B={B} S={S}{keys} Hq={Hq} Hkv={Hkv} D={D} "
+                    f"causal={causal} [{fa.flash_fwd_instance(bf, S, D)}] bitwise repeatable",
+                    (out, lse),
+                    fa.flash_attention_fwd_torch(q, k, v, qp, kp, causal=causal, window=None,
+                                                 scale=scale, block_k=blk_k),
                     **tolerances(bf))
-    # bf16 inputs at the training shape, causal; out/lse from kernel A, as
-    # on the training path; held to the bf16 limit (BWD_BF16_LIMIT).
-    got, want, args, kw = run_bwd(torch, q, k, v, qp, qp, dout, dlse, True, None, out, lse)
-    shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
+    # bf16 inputs at the training shape; out/lse from kernel A, as on the
+    # training path; held to the bf16 limit (BWD_BF16_LIMIT).
+    got, want, args, kw = run_bwd(torch, q, k, v, qp, kp, dout, dlse, causal, None, out, lse)
+    shape = (f"B={B} S={S}{keys} Hq={Hq} Hkv={Hkv} D={D} bf16 "
+             + ("causal" if causal else "non-causal"))
     inst = fa.flash_bwd_instance_built(bf, D)
     err, _ = compare_grads(torch, f"B1/B2 bf16 training shape {shape} [{inst}]", got, want,
-                           dead=dead_masks(torch, lse, qp, qp, True, None), **BWD_BF16_LIMIT)
+                           dead=dead_masks(torch, lse, qp, kp, causal, None), **BWD_BF16_LIMIT)
 
     ms_dq = time_ms(lambda: fa.flash_attention_bwd_dq_cuda(*args, **kw), iters=3, reps=3)
     ms_dkv = time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(*args, **kw), iters=3, reps=3)
     plain_bwd_ms = time_ms(lambda: fa.flash_attention_bwd_torch(
-        q, k, v, qp, qp, out, lse, dout, dlse, causal=True, window=None, scale=scale,
-        block_q=blk, block_k=blk), iters=1, reps=3)
+        q, k, v, qp, kp, out, lse, dout, dlse, causal=causal, window=None, scale=scale,
+        block_q=blk, block_k=blk_k), iters=1, reps=3)
     ms_a = time_ms(fwd, iters=3, reps=3)
     plain_fwd_ms = time_ms(lambda: fa.flash_attention_fwd_torch(
-        q, k, v, qp, qp, causal=True, window=None, scale=scale, block_k=blk), iters=1, reps=3)
+        q, k, v, qp, kp, causal=causal, window=None, scale=scale, block_k=blk_k),
+        iters=1, reps=3)
     # yardsticks only: SDPA gives no lse, so its backward has no dlse term
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
     lib_fwd_ms = time_ms(sdpa, iters=5)
     o_t, do_t = sdpa(), dout.transpose(1, 2)
@@ -1957,14 +2047,14 @@ def training_shape_rows(torch, dev, rnd, train_shape):
                                                      retain_graph=True), iters=5)
     rows = {}
     for name, ms, per_pair, outs in (("dq", ms_dq, 6, got[:1]), ("dkv", ms_dkv, 8, got[1:])):
-        nbytes, flops = bwd_bytes_flops(q, k, qp, qp, True, None, per_pair, outs)
+        nbytes, flops = bwd_bytes_flops(q, k, qp, kp, causal, None, per_pair, outs)
         bms, by = bound(nbytes, flops, "bfloat16")
         rows[name] = dict(ms=ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms, bound_ms=bms,
                           bound_by=by, max_abs_err=err, instance=inst, shape=shape,
                           plain_and_library_compute="dq, dk and dv in one call")
         log(f"  B {name} [{inst}]: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}), "
             f"{flops / ms / 1e9:.2f} TFLOP/s")
-    nbytes, flops = flash_bytes_flops(q, k, qp, qp, True, None)
+    nbytes, flops = flash_bytes_flops(q, k, qp, kp, causal, None)
     bms, by = bound(nbytes, flops, "bfloat16")
     inst = fa.flash_fwd_instance(q.dtype, S, D)
     rows["fwd"] = dict(ms=ms_a, plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms, bound_ms=bms,
@@ -2011,6 +2101,11 @@ def phase_bwd(torch, dev, train_shape=TRAIN_SHAPE):
     rows["qwen3-moe-30b-a3b"] = training_shape_rows(
         torch, dev, lambda shape, dtype=torch.float32: torch.randn(
             shape, generator=gen_moe, device=dev).to(dtype), MOE_TRAIN_SHAPE)
+    gen_w = torch.Generator(device=dev).manual_seed(6)
+    rows["whisper-base"] = {
+        name: training_shape_rows(torch, dev, lambda shape, dtype=torch.float32: torch.randn(
+            shape, generator=gen_w, device=dev).to(dtype), shape)
+        for name, shape in WHISPER_TRAIN_SHAPES.items()}
     phase_bwd_bf16(torch, dev)
     return rows
 
@@ -2075,13 +2170,54 @@ def reset_launch_counts():
     pa.paged_decode_fwd_cuda.launches = 0
 
 
+def attention_calls(cfg) -> int:
+    """Attention calls of one forward: one a layer; an encoder-decoder's
+    encoder layers one each, its decoder layers two (self and cross)."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
 def train_launches_per_step(cfg, computes: int = 1):
     """remat "full" and "dots" run A in the forward and again in each
-    block's recompute; B1 and B2 once per layer.  ``computes``: flash calls of one
-    attention layer (the ring schedule's Compute count; 1 at SP 1)."""
-    L = cfg.n_layers * computes
+    block's recompute; B1 and B2 once per attention call.  ``computes``:
+    flash calls of one attention call (the ring schedule's Compute count; 1
+    at SP 1)."""
+    L = attention_calls(cfg) * computes
     return {"flash_attention_fwd": (2 if cfg.remat in ("full", "dots") else 1) * L,
             "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L}
+
+
+class FramesData:
+    """The synthetic token stream (``data.synthetic``) with seeded frame
+    embeddings ``(B, enc_seq, d_model)`` added to each batch: an
+    encoder-decoder's training data (the train CLI has no frames source)."""
+
+    def __init__(self, cfg, data_cfg):
+        from repro_torch.data.synthetic import SyntheticDataset
+
+        self.shape = (cfg.enc_seq, cfg.d_model)
+        self.tokens = SyntheticDataset(data_cfg)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        import numpy as np
+
+        rng = np.random.default_rng((self.tokens.cfg.seed, self.tokens.step, 17))
+        batch = next(self.tokens)
+        batch["frames"] = rng.standard_normal((batch["tokens"].shape[0], *self.shape),
+                                              dtype=np.float32)
+        return batch
+
+
+def train_data(cfg, data_cfg):
+    """The training stream of ``cfg``: tokens, plus frames for an
+    encoder-decoder."""
+    from repro_torch.data.synthetic import SyntheticDataset
+
+    return FramesData(cfg, data_cfg) if cfg.family == "encdec" else SyntheticDataset(data_cfg)
 
 
 def kernels_vs_plain_step(torch, dev, cfg, B, S, **pctx_kw):
@@ -2090,7 +2226,7 @@ def kernels_vs_plain_step(torch, dev, cfg, B, S, **pctx_kw):
     degree and strategy of both).  Returns both losses, gradients and
     parameters, and the kernel launches of the first."""
     from repro_torch.core.api import ParallelContext
-    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.data.synthetic import SyntheticConfig
     from repro_torch.launch.train_step import value_and_grad
     from repro_torch.models.registry import build_model
     from repro_torch.optim.adamw import tree_map
@@ -2102,7 +2238,7 @@ def kernels_vs_plain_step(torch, dev, cfg, B, S, **pctx_kw):
     computes = ring_computes(kern.pctx.strategy, P) if P > 1 else 1
     p_kern = kern.init(0, training=True)
     p_plain = tree_map(lambda t: t.detach().clone(), p_kern)
-    batch = batch_to_device(next(SyntheticDataset(SyntheticConfig(
+    batch = batch_to_device(next(train_data(cfg, SyntheticConfig(
         vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=1, layout=cfg.layout,
         sp_degree=P))), dev)
     before = launch_counts()
@@ -2234,16 +2370,16 @@ def phase_train_full(torch, dev, with_profile, cfg=None, B=2, S=4096, steps=3,
     Trainer, one warmup step and ``steps`` timed steps."""
     from repro_torch.configs import ARCHS
     from repro_torch.core.api import ParallelContext
-    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.data.synthetic import SyntheticConfig
     from repro_torch.models.registry import build_model
     from repro_torch.runtime.trainer import Trainer, TrainerConfig, n_params
 
     cfg = cfg or ARCHS["qwen3-1.7b"]
     bundle = build_model(cfg, ParallelContext(device="cuda"))
     trainer = Trainer(bundle, TrainerConfig(lr=3e-4, warmup_steps=1, total_steps=1 + steps))
-    data = SyntheticDataset(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=S,
-                                            global_batch=B, seed=0, layout=cfg.layout,
-                                            sp_degree=bundle.pctx.sp_degree))
+    data = train_data(cfg, SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                           global_batch=B, seed=0, layout=cfg.layout,
+                                           sp_degree=bundle.pctx.sp_degree))
     t0 = time.perf_counter()
     state = trainer.init_state(0)
     torch.cuda.synchronize()
@@ -2840,12 +2976,11 @@ def sp1_loss(torch, dev, cfg, params, data_cfg):
     """The loss of ``params`` on the first batch of ``data_cfg`` at SP 1
     (kernels, no gradient): the yardstick of an SP run's first step."""
     from repro_torch.core.api import ParallelContext
-    from repro_torch.data.synthetic import SyntheticDataset
     from repro_torch.models.registry import build_model
     from repro_torch.runtime.trainer import batch_to_device
 
     bundle = build_model(cfg, ParallelContext(device="cuda"))
-    batch = batch_to_device(next(SyntheticDataset(data_cfg)), dev)
+    batch = batch_to_device(next(train_data(cfg, data_cfg)), dev)
     with torch.no_grad():
         loss, _ = bundle.loss(params, batch)
     return float(loss)
@@ -2875,7 +3010,7 @@ def phase_train_ring(torch, dev, with_profile=False, cfg=None, B=2, S=4096, step
 
     from repro_torch.configs import ARCHS
     from repro_torch.core.api import ParallelContext
-    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.data.synthetic import SyntheticConfig
     from repro_torch.models.registry import build_model
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
@@ -2885,7 +3020,7 @@ def phase_train_ring(torch, dev, with_profile=False, cfg=None, B=2, S=4096, step
     trainer = Trainer(bundle, TrainerConfig(lr=3e-4, warmup_steps=1, total_steps=1 + steps))
     data_cfg = SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=0,
                                layout=cfg.layout, sp_degree=P)
-    data = SyntheticDataset(data_cfg)
+    data = train_data(cfg, data_cfg)
     state = trainer.init_state(0)
     loss1 = sp1_loss(torch, dev, cfg, state["params"], data_cfg)
     free_device_memory(torch)
@@ -3626,6 +3761,221 @@ def phase_vlm(torch, dev):
             "flash_attention_bwd_dkv": 0, "paged_decode_fwd": 0}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the encoder-decoder family (whisper-base)
+# ---------------------------------------------------------------------------
+
+WHISPER_CHECK_LAYERS = 2  # encoder and decoder layers of the checked float32 runs
+WHISPER_CLIPS = 8  # clips encoded and decoded at once
+WHISPER_STEPS = 128  # greedy decode steps a serving run
+WHISPER_MAX_LEN = 448  # whisper's decoder context: the dense slab's slots
+WHISPER_SOT = 50258  # <|startoftranscript|>, the first decoder token
+
+
+def whisper_frames(torch, dev, cfg, B, seed):
+    """Seeded frame embeddings ``(B, enc_seq, d_model)`` in float32 (the
+    frontend stub's output; the encoder casts them to ``cfg.dtype``)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((B, cfg.enc_seq, cfg.d_model), generator=gen, device=dev)
+
+
+def whisper_launches(cfg, P, steps):
+    """Kernel A's launches of an encode and of each of ``steps`` decode
+    steps: the encoder's self-attention once a layer (TokenRing's Computes
+    on the virtual ring), then a decode-instance call a decoder layer for
+    the self cache and one for the cross read, every rank's rows in one
+    launch."""
+    return [cfg.n_enc_layers * (ring_computes("tokenring", P) if P > 1 else 1)] + [
+        2 * cfg.n_layers] * steps
+
+
+def whisper_serve(torch, dev, bundle, params, frames, steps, feed=None):
+    """``encode(frames)`` into a dense slab of WHISPER_MAX_LEN slots, then
+    ``steps`` decode steps from WHISPER_SOT: greedy, or fed ``feed``'s
+    tokens.  Returns the chain ``(B, steps)``, the logits of each step
+    ``(B, steps, V)`` in float32, A's launches of the encode and of each
+    step, the encode's seconds and each step's."""
+    B = frames.shape[0]
+    state = bundle.init_serve_state(B, WHISPER_MAX_LEN, dev)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle.encode(params, frames, state)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    launches = [launch_counts()["flash_attention_fwd"]]
+    tok = torch.full((B,), WHISPER_SOT, dtype=torch.int32, device=dev)
+    chain, rows, step_s = [], [], []
+    for step in range(steps):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, state = bundle.decode_step(params, tok, state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        launches.append(launch_counts()["flash_attention_fwd"])
+        rows.append(logits.float())
+        tok = (logits.argmax(-1) if feed is None else feed[:, step]).to(torch.int32)
+        chain.append(tok)
+    return torch.stack(chain, 1), torch.stack(rows, 1), launches, t_enc, step_s
+
+
+def forced_gaps(torch, ref, chain):
+    """Each token's gap below the reference logits' row max, and that gap
+    over the row spread (max minus mean)."""
+    top = ref.max(-1).values
+    gap = top - ref.gather(-1, chain[..., None].long())[..., 0]
+    return gap, gap / (top - ref.mean(-1))
+
+
+def phase_whisper_checked(torch, dev, B=2, S=512, steps=16):
+    """Phase 18 (a): whisper-base at full width, WHISPER_CHECK_LAYERS
+    encoder and decoder layers, float32, at SP 1 and through TokenRing over
+    4 virtual ranks: one training step on the kernels against the plain
+    path (phase 8's gates: the decoder's S queries against the encoder's
+    1536 keys in every cross-attention), then an encode and ``steps``
+    greedy decode steps on the kernels, each token fed back through the
+    plain path at SP 1 and held to phase 5's gate (within 1e-3 of its max
+    logit), with A's launches counted."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.models.registry import build_model
+
+    cfg = ARCHS["whisper-base"].with_(n_layers=WHISPER_CHECK_LAYERS,
+                                      n_enc_layers=WHISPER_CHECK_LAYERS, dtype="float32")
+    plain = build_model(cfg, ParallelContext(impl="torch", device="cuda"))
+    for P in (1, 4):
+        kw = dict(sp_degree=P, strategy="tokenring") if P > 1 else {}
+        phase_train_checked(torch, dev, cfg=cfg, B=B, S=S,
+                            label=f"phase 18 whisper step (SP {P})", **kw)
+        free_device_memory(torch)
+        bundle = build_model(cfg, ParallelContext(device="cuda", **kw))
+        params = bundle.init(0)
+        frames = whisper_frames(torch, dev, cfg, B, seed=13)
+        chain, _, launches, _, _ = whisper_serve(torch, dev, bundle, params, frames, steps)
+        if launches != whisper_launches(cfg, P, steps):
+            raise AssertionError(f"phase 18 whisper decode (SP {P}): launches {launches}, "
+                                 f"expected {whisper_launches(cfg, P, steps)}")
+        _, ref, plain_launches, _, _ = whisper_serve(torch, dev, plain, params, frames, steps,
+                                                     feed=chain)
+        if any(plain_launches):
+            raise AssertionError("phase 18 whisper decode: the plain path launched a kernel")
+        gap, _ = forced_gaps(torch, ref, chain)
+        worst = float(gap.max())
+        if not worst <= 1e-3:
+            raise AssertionError(f"phase 18 whisper decode (SP {P}): a token is {worst:.2e} "
+                                 "below the plain path's max logit")
+        log(f"  ok phase 18 whisper decode (SP {P}): encode + {steps} steps x {B} clips within "
+            f"1e-3 of the plain SP-1 path (worst gap {worst:.2e}); launches A {launches[0]} "
+            f"the encode, {launches[1]} a step")
+        del bundle, params
+        free_device_memory(torch)
+
+
+def phase_whisper_serving(torch, dev, with_profile, sp_degree=1, result="serving_whisper"):
+    """Phase 18 (c): whisper-base at full width and depth, bf16: WHISPER_CLIPS
+    clips encoded, then WHISPER_STEPS greedy decode steps on the dense slab
+    (12 decode-instance launches a step: 6 self, 6 cross), over
+    ``sp_degree`` virtual ranks; every token fed back through the plain
+    path at SP 1 and held within WITNESS_GAP of its row spread below the
+    plain path's max logit.  With ``with_profile``, an encode and 16 steps
+    once more under torch.profiler."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.registry import build_model
+
+    cfg = ARCHS["whisper-base"]
+    bundle = build_model(cfg, ParallelContext(device="cuda", sp_degree=sp_degree))
+    plain = build_model(cfg, ParallelContext(impl="torch", device="cuda"))
+    params = bundle.init(0)
+    B, steps = WHISPER_CLIPS, WHISPER_STEPS
+    frames = whisper_frames(torch, dev, cfg, B, seed=12)
+    torch.cuda.reset_peak_memory_stats()
+    whisper_serve(torch, dev, bundle, params, frames, 2)  # warmup
+    chain, logits, launches, t_enc, step_s = whisper_serve(torch, dev, bundle, params, frames,
+                                                           steps)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != whisper_launches(cfg, sp_degree, steps):
+        raise AssertionError(f"{result}: launches {launches[:3]}..., expected "
+                             f"{whisper_launches(cfg, sp_degree, steps)[:3]}...")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{result}: non-finite logits")
+    _, ref, plain_launches, _, _ = whisper_serve(torch, dev, plain, params, frames, steps,
+                                                 feed=chain)
+    if any(plain_launches):
+        raise AssertionError(f"{result}: the plain path launched a kernel")
+    gap, ratio = forced_gaps(torch, ref, chain)
+    worst, flips = float(ratio.max()), int((gap > 0).sum())
+    med = statistics.median(step_s)
+    tok_s = B * steps / sum(step_s)
+    log(f"  whisper-base SP {sp_degree} [{fa.flash_fwd_instance(torch.bfloat16, cfg.enc_seq, 64)}"
+        f" encode, {fa.flash_fwd_instance(torch.bfloat16, 1, 64)} decode]: encode {B} x "
+        f"{cfg.enc_seq} frames {t_enc * 1e3:.1f} ms; {steps} steps: median {med * 1e3:.2f} ms, "
+        f"{tok_s:.0f} tok/s; launches {launches[0]} the encode, {launches[1]} a step; "
+        f"{chain.numel()} tokens fed back through the plain path, {flips} not its argmax, "
+        f"largest gap {worst:.4f} of the row spread (limit {WITNESS_GAP}); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    if worst > WITNESS_GAP:
+        raise AssertionError(f"{result}: a token lies {worst:.4f} of the row spread below the "
+                             "plain path's max logit")
+    res = {"arch": cfg.name, "sp_degree": sp_degree, "ring": "virtual, one card",
+           "clips": B, "enc_seq": cfg.enc_seq, "max_len": WHISPER_MAX_LEN,
+           "steps": steps, "encode_s": t_enc, "median_step_s": med, "tokens_per_s": tok_s,
+           "launches_encode": launches[0], "launches_per_step": launches[1],
+           "tokens": chain.numel(), "flips": flips, "max_gap_over_spread": worst,
+           "peak_bytes": peak}
+    if with_profile:
+        res["profile"] = profile_step(
+            torch, lambda: whisper_serve(torch, dev, bundle, params, frames, 16),
+            t_enc + sum(step_s[:16]))
+    log(f"RESULT {result} " + json.dumps(res))
+    return {"flash_attention_fwd": sum(launches), "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "paged_decode_fwd": 0}
+
+
+def serve_cli_whisper(torch, dev):
+    """The serve CLI at full size on whisper-base: 4 requests through the
+    engine's token-by-token prefill (no prefill chunk)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.serve import main as serve_main
+
+    argv = ["--arch", "whisper-base", "--requests", "4", "--max-new", "8", "--max-batch", "4",
+            "--max-len", str(WHISPER_MAX_LEN), "--device", dev.type]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        stats = serve_main(argv)
+    wall = time.perf_counter() - t0
+    if (stats["requests"], stats["tokens"], stats["prefill_steps"]) != (4, 32, 0):
+        raise AssertionError(f"serve CLI whisper: {stats['requests']} requests, "
+                             f"{stats['tokens']} tokens, {stats['prefill_steps']} prefill steps")
+    for text in buf.getvalue().splitlines():
+        if text.startswith(("served", "steps")):
+            log(f"  serve CLI: {text}")
+    log(f"  serve CLI ({' '.join(argv)}): {wall:.1f} s")
+
+
+# the phases with a profiled pass (``--profile`` runs them all, and adds
+# tens of minutes; ``--profile=18`` only phase 18's)
+PROFILED_PHASES = (6, 9, 11, 13, 16, 17, 18)
+
+
+def profiled_phases(argv):
+    """The phases whose runs ``argv`` asks to profile."""
+    for arg in argv:
+        if arg == "--profile":
+            return set(PROFILED_PHASES)
+        if arg.startswith("--profile="):
+            phases = {int(x) for x in arg.split("=", 1)[1].split(",")}
+            if not phases <= set(PROFILED_PHASES):
+                raise SystemExit(f"--profile: phases {sorted(phases)} not among "
+                                 f"{PROFILED_PHASES}")
+            return phases
+    return set()
+
+
 def free_device_memory(torch):
     gc.collect()
     torch.cuda.empty_cache()
@@ -3643,7 +3993,7 @@ def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print(f"no src/repro_torch beside {__file__}: run from a checkout", file=sys.stderr)
         return 2
-    profile = "--profile" in sys.argv[1:]
+    prof = profiled_phases(sys.argv[1:])
     sys.path.insert(0, str(SRC))
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3699,7 +4049,7 @@ def main() -> int:
         "path")
     phase_e2e_checked(torch, dev)
     log("== phase 6: qwen3-1.7b full width and depth, serving")
-    launches, sp1_outputs = phase_full(torch, dev, profile)
+    launches, sp1_outputs = phase_full(torch, dev, 6 in prof)
     free_device_memory(torch)
     log("== phase 7: kernels B1 and B2 (flash backward) vs plain")
     bwd_rows = phase_bwd(torch, dev)
@@ -3710,7 +4060,7 @@ def main() -> int:
     phase_train_checked_bf16(torch, dev)
     free_device_memory(torch)
     log("== phase 9: qwen3-1.7b full width and depth, training")
-    launches["train"] = phase_train_full(torch, dev, profile)
+    launches["train"] = phase_train_full(torch, dev, 9 in prof)
     free_device_memory(torch)
     log("== phase 10: the ring strategies on the kernels vs the plain path, virtual ring of P "
         "ranks on one card")
@@ -3723,7 +4073,7 @@ def main() -> int:
     free_device_memory(torch)
     log("== phase 11: qwen3-1.7b full width and depth, training through TokenRing over 4 "
         "virtual ranks")
-    launches["train_ring"] = phase_train_ring(torch, dev, profile)
+    launches["train_ring"] = phase_train_ring(torch, dev, 11 in prof)
     free_device_memory(torch)
     log("== phase 12: sequence-parallel serving on the kernels vs the plain path, virtual ring "
         "of P ranks on one card")
@@ -3736,7 +4086,7 @@ def main() -> int:
     phase_e2e_checked(torch, dev, sp_degree=4, label="phase 12", prefix_cache=True)
     free_device_memory(torch)
     log("== phase 13: qwen3-1.7b full width and depth, served over 4 virtual ranks")
-    sp_launches, sp_outputs = phase_full(torch, dev, profile, sp_degree=4,
+    sp_launches, sp_outputs = phase_full(torch, dev, 13 in prof, sp_degree=4,
                                          reference=sp1_outputs)
     launches.update(sp_launches)
     free_device_memory(torch)
@@ -3754,11 +4104,11 @@ def main() -> int:
     log("== phase 16: qwen3-1.7b full width and depth, training through Ulysses and through "
         "the 2 x 2 multi-pod hybrid over 4 virtual ranks (main path); the serve CLI's "
         "adaptive-prefill line")
-    launches["train_ulysses"] = phase_train_ring(torch, dev, profile, steps=2,
+    launches["train_ulysses"] = phase_train_ring(torch, dev, 16 in prof, steps=2,
                                                  strategy="ulysses", sequential=False,
                                                  result="training_ulysses")
     free_device_memory(torch)
-    launches["train_hybrid"] = phase_train_ring(torch, dev, profile, steps=2, pods=2,
+    launches["train_hybrid"] = phase_train_ring(torch, dev, 16 in prof, steps=2, pods=2,
                                                 sequential=False, result="training_hybrid")
     free_device_memory(torch)
     serve_cli_adaptive_prefill(torch, dev)
@@ -3772,14 +4122,14 @@ def main() -> int:
 
     phase_moe_checked(torch, dev)
     moe_cfg = ARCHS["qwen3-moe-30b-a3b"]
-    served, _ = phase_full(torch, dev, profile, cfg=moe_cfg, paths=("paged",), tag="serving_moe")
+    served, _ = phase_full(torch, dev, 17 in prof, cfg=moe_cfg, paths=("paged",), tag="serving_moe")
     launches["moe_paged"] = served["paged"]
     free_device_memory(torch)
     train_cfg = moe_cfg.with_(n_layers=MOE_TRAIN_LAYERS)
-    launches["train_moe"] = phase_train_full(torch, dev, profile, cfg=train_cfg, steps=2,
+    launches["train_moe"] = phase_train_full(torch, dev, 17 in prof, cfg=train_cfg, steps=2,
                                              result="training_moe")
     free_device_memory(torch)
-    launches["train_moe_ring"] = phase_train_ring(torch, dev, profile, cfg=train_cfg, steps=2,
+    launches["train_moe_ring"] = phase_train_ring(torch, dev, 17 in prof, cfg=train_cfg, steps=2,
                                                   sequential=False, result="training_moe_ring",
                                                   sp1_limit=None)
     free_device_memory(torch)
@@ -3791,35 +4141,67 @@ def main() -> int:
     launches["pixtral"] = phase_vlm(torch, dev)
     free_device_memory(torch)
 
-    log("== phase 18: summary")
-    # `launches` is the count of the main path that runs the kernel (A and
-    # C: qwen3-moe-30b-a3b served by the paged engine, phase 17's serving
-    # run; B1 and B2: qwen3-moe trained at SP 1, phase 17's first training
+    log("== phase 18: the encoder-decoder family: whisper-base checked at 2+2 layers (SP 1 "
+        "and TokenRing over 4 virtual ranks), trained at full width and depth (SP 1 and 4, "
+        "main path), served by encode-then-decode (SP 1 and 4) and through the serve CLI")
+    whisper = ARCHS["whisper-base"]
+    phase_whisper_checked(torch, dev)
+    free_device_memory(torch)
+    launches["train_whisper"] = phase_train_full(
+        torch, dev, 18 in prof, cfg=whisper, B=WHISPER_TRAIN_BATCH, steps=2,
+        result="training_whisper")
+    free_device_memory(torch)
+    launches["train_whisper_ring"] = phase_train_ring(
+        torch, dev, 18 in prof, cfg=whisper, B=WHISPER_TRAIN_BATCH, steps=2, sequential=False,
+        result="training_whisper_ring")
+    free_device_memory(torch)
+    launches["serve_whisper"] = phase_whisper_serving(torch, dev, 18 in prof)
+    free_device_memory(torch)
+    launches["serve_whisper_sp4"] = phase_whisper_serving(torch, dev, 18 in prof, sp_degree=4,
+                                                          result="serving_whisper_sp4")
+    free_device_memory(torch)
+    serve_cli_whisper(torch, dev)
+    free_device_memory(torch)
+
+    log("== phase 19: summary")
+    # `launches` is the count of the main path that runs the kernel (A, B1
+    # and B2: whisper-base trained at full width and depth at SP 1, phase
+    # 18's first training run; C, which no encoder-decoder path runs:
+    # qwen3-moe-30b-a3b served by the paged engine, phase 17's serving
     # run); `launches_by_path` gives every driven path's count, each read
     # from counters set to 0 just before that run.  The times, errors and
-    # bounds are those of the main path's calls at qwen3-moe's shapes (32/4
-    # heads, D 128, bf16): A's resident call of a paged prefill chunk
-    # (phase 3: B=8, Sq=256, Sk=2048), C at phase 6's lengths (phase 4), and
-    # A, B1 and B2 at the training shape B=2, S=4096 (phase 7).
-    # `times_by_path` keeps qwen3-1.7b's rows at its 16/8 heads (phases 3,
-    # 4 and 7), and `sp4_calls` phase 13's SP-4 calls (phase 12).
+    # bounds are those of the main path's calls at whisper's shapes (8/8
+    # heads, D 64, bf16, non-causal): A's cross-attention of a training
+    # step (phase 3: B=2, Sq=4096, Sk=1536), and B1 and B2 at the same
+    # call (phase 7); C's at qwen3-moe's 32/4 heads and phase 6's lengths
+    # (phase 4).  `whisper_calls` holds whisper's other calls (phase 3's
+    # encoder and decode rows, phase 7's encoder and decoder rows);
+    # `times_by_path` keeps qwen3-moe-30b-a3b's rows (32/4 heads, D 128:
+    # phase 3's resident prefill call, phase 7's training shape) and
+    # qwen3-1.7b's (16/8), and `sp4_calls` phase 13's SP-4 calls (phase 12).
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in launches.items()}
 
     bwd = "src/repro/kernels/flash_attention.py:476"
-    moe, dense = "qwen3-moe-30b-a3b", "qwen3-1.7b"
+    moe, dense, wb = "qwen3-moe-30b-a3b", "qwen3-1.7b", "whisper-base"
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_fwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:244",
-         "launches": launches["moe_paged"]["flash_attention_fwd"],
+         "launches": launches["train_whisper"]["flash_attention_fwd"],
          "launches_by_path": by_path("flash_attention_fwd"),
          "device_kernels": {"wgmma": ["rt::wg::flash_fwd_wgmma_kernel<D>"],
                             "decode": ["rt::dec::decode_kernel<T, D, WR, RW, false>"],
                             "cuda_core": ["rt::flash_fwd_kernel<T, D>"]},
-         **flash_rows[moe][256],
-         "training_shape": bwd_rows[moe]["fwd"],
-         "times_by_path": {dense: {"prefill_resident": flash_rows[dense][256],
+         **flash_rows[wb]["cross_prefill"],
+         "training_shape": bwd_rows[wb]["cross"]["fwd"],
+         "whisper_calls": {"encoder": flash_rows[wb]["encoder"],
+                           "cross_decode": flash_rows[wb]["cross_decode"],
+                           "encoder_training_shape": bwd_rows[wb]["encoder"]["fwd"],
+                           "decoder_training_shape": bwd_rows[wb]["decoder"]["fwd"]},
+         "times_by_path": {moe: {"prefill_resident": flash_rows[moe][256],
+                                 "training_shape": bwd_rows[moe]["fwd"]},
+                           dense: {"prefill_resident": flash_rows[dense][256],
                                    "decode": flash_rows[dense][1],
                                    "training_shape": bwd_rows[dense]["fwd"]}},
          "sp4_calls": {k: v for k, v in sp_rows.items() if k != "paged_decode"},
@@ -3827,15 +4209,17 @@ def main() -> int:
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_bwd.cu",
          "replaces": bwd, "pallas_body": "src/repro/kernels/flash_attention.py:367",
-         "launches": launches["train_moe"]["flash_attention_bwd_dq"],
-         "launches_by_path": by_path("flash_attention_bwd_dq"), **bwd_rows[moe]["dq"],
-         "times_by_path": {dense: bwd_rows[dense]["dq"]}},
+         "launches": launches["train_whisper"]["flash_attention_bwd_dq"],
+         "launches_by_path": by_path("flash_attention_bwd_dq"), **bwd_rows[wb]["cross"]["dq"],
+         "whisper_calls": {k: bwd_rows[wb][k]["dq"] for k in ("encoder", "decoder")},
+         "times_by_path": {moe: bwd_rows[moe]["dq"], dense: bwd_rows[dense]["dq"]}},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_bwd.cu",
          "replaces": bwd, "pallas_body": "src/repro/kernels/flash_attention.py:415",
-         "launches": launches["train_moe"]["flash_attention_bwd_dkv"],
-         "launches_by_path": by_path("flash_attention_bwd_dkv"), **bwd_rows[moe]["dkv"],
-         "times_by_path": {dense: bwd_rows[dense]["dkv"]}},
+         "launches": launches["train_whisper"]["flash_attention_bwd_dkv"],
+         "launches_by_path": by_path("flash_attention_bwd_dkv"), **bwd_rows[wb]["cross"]["dkv"],
+         "whisper_calls": {k: bwd_rows[wb][k]["dkv"] for k in ("encoder", "decoder")},
+         "times_by_path": {moe: bwd_rows[moe]["dkv"], dense: bwd_rows[dense]["dkv"]}},
         {"name": "paged_decode_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/paged_attention.py:192",

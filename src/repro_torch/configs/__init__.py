@@ -1,7 +1,7 @@
-"""Architecture registry of the port: the dense, MoE and VLM configs.
+"""Architecture registry of the port: the dense, MoE, VLM and
+encoder-decoder configs.
 
-Copies of ``repro.configs``; the recurrent and encoder-decoder families
-come with their slices.
+Copies of ``repro.configs``; the recurrent families come with their slice.
 """
 
 from repro_torch.configs.granite_3_8b import CONFIG as granite_3_8b
@@ -12,9 +12,10 @@ from repro_torch.configs.pixtral_12b import CONFIG as pixtral_12b
 from repro_torch.configs.qwen2_72b import CONFIG as qwen2_72b
 from repro_torch.configs.qwen3_1_7b import CONFIG as qwen3_1_7b
 from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as qwen3_moe_30b_a3b
+from repro_torch.configs.whisper_base import CONFIG as whisper_base
 
 ARCHS = {c.name: c for c in [qwen3_moe_30b_a3b, llama4_scout_17b_a16e, granite_3_8b, qwen3_1_7b,
-                             olmo_1b, qwen2_72b, pixtral_12b, llama2_7b]}
+                             olmo_1b, qwen2_72b, pixtral_12b, llama2_7b, whisper_base]}
 
 
 def get_config(name: str):

@@ -493,24 +493,25 @@ class ParallelContext:
             raise ValueError("serving plans require sp_degree > 1")
         return self.ring
 
-    def plan_decode(self, *, window: int | None = None, scale: float | None = None,
-                    shapes: AttnShapes | None = None,
+    def plan_decode(self, *, causal: bool = True, window: int | None = None,
+                    scale: float | None = None, shapes: AttnShapes | None = None,
                     table_pages: int | None = None) -> ExecutionPlan:
         """Decode plan: a small replicated Q against the sequence-sharded
         cache, the registered ``"decode"`` schedule.  With ``shapes`` (``Sq``
         query tokens a step, ``Sk`` the cache capacity) the plan carries its
         modeled link bytes a step, ``B*Sq*Hq*(D+2)`` float32 scalars through
         a ring all-reduce, independent of the cache length; ``table_pages``
-        adds the paged cache's block-table term.  The plan takes ``(q,
+        adds the paged cache's block-table term.  ``causal=False`` is the
+        cross-attention read of a resident encoder.  The plan takes ``(q,
         k_cache, v_cache, k_pos, q_pos)``, the cache in the ring's layout."""
-        key = ("decode", window, scale, shapes, table_pages)
+        key = ("decode", window, scale, shapes, table_pages, causal)
         if key in self._serving_plans:
             return self._serving_plans[key]
         ring, fn = self._serving_ring(), get_strategy("decode").fn
         block_k = self.decode_block_k
 
         def local_fn(q, kc, vc, kp, qp):
-            return fn(q, kc, vc, kp, q_pos=qp, ring=ring, causal=True, window=window,
+            return fn(q, kc, vc, kp, q_pos=qp, ring=ring, causal=causal, window=window,
                       scale=scale, impl=self.impl, block_k=block_k)
 
         plan = self._serving_plans[key] = ExecutionPlan(
@@ -750,15 +751,17 @@ def sp_attention(q, k, v, q_pos, k_pos, *, pctx: ParallelContext, causal: bool =
 
 
 def sp_decode(q, k_cache, v_cache, k_pos, q_pos, *, pctx: ParallelContext,
-              window: int | None = None, scale: float | None = None,
+              causal: bool = True, window: int | None = None, scale: float | None = None,
               table_pages: int | None = None):
     """Decode attention: ``q (B,Sq,Hq,D)`` with small Sq, replicated, against
     the cache ``(B,Skv,Hkv,D)``; ``k_pos (B,Skv)`` (``PAD_POS`` for unwritten
     slots), ``q_pos (B,Sq)``.  With ``sp_degree > 1`` the cache is
     sequence-sharded and ``k_pos`` required: rank-major ``(P*B, Skv/P, ...)``
     on the virtual ring, this rank's shard ``(B, Skv/P, ...)`` on a process
-    group.  ``table_pages``: block-table width when the cache is a gathered
-    page view (priced into the plan's cost)."""
+    group.  ``causal=False`` reads every live slot whatever its position
+    (cross-attention against a resident encoder).  ``table_pages``:
+    block-table width when the cache is a gathered page view (priced into
+    the plan's cost)."""
     from repro_torch.kernels.ops import flash_attention
 
     B = q.shape[0]
@@ -766,7 +769,7 @@ def sp_decode(q, k_cache, v_cache, k_pos, q_pos, *, pctx: ParallelContext,
     if not pctx.active:
         k_pos = normalize_positions(k_pos, B, k_cache.shape[1], q.device)
         out, _ = flash_attention(
-            q, k_cache, v_cache, q_pos=q_pos, k_pos=k_pos, causal=True, window=window,
+            q, k_cache, v_cache, q_pos=q_pos, k_pos=k_pos, causal=causal, window=window,
             scale=scale, impl=pctx.impl, block_k=pctx.block_k,
         )
         return out
@@ -774,7 +777,8 @@ def sp_decode(q, k_cache, v_cache, k_pos, q_pos, *, pctx: ParallelContext,
     k_pos = _sharded_positions(pctx, k_pos, k_cache)
     shapes = AttnShapes(B=B, Sq=q.shape[1], Hq=q.shape[2], Hkv=k_cache.shape[2], D=q.shape[3],
                         Sk=k_cache.shape[1] * pctx.sp_degree, dtype_bytes=q.element_size())
-    plan = pctx.plan_decode(window=window, scale=scale, shapes=shapes, table_pages=table_pages)
+    plan = pctx.plan_decode(causal=causal, window=window, scale=scale, shapes=shapes,
+                            table_pages=table_pages)
     return plan(q, k_cache, v_cache, k_pos, q_pos)
 
 

@@ -2,6 +2,10 @@
 ``repro.models.attention``): :func:`attention` is the training path, the
 others are the serving entry points.
 
+:func:`cross_attention` reads a resident encoder's K/V (:func:`encode_kv`,
+no RoPE), non-causally: TokenRing's natural fit, since the queries
+circulate and the encoder's K/V never move.
+
 The JAX serving functions return new cache arrays; here the cache tensors are
 updated in place (``index_put_`` through a drop plan, see
 ``serving.kv_cache.drop_plan``) and the functions return only ``y``.
@@ -41,6 +45,8 @@ __all__ = [
     "attention_prefill_chunk_paged",
     "attention_decode",
     "attention_decode_paged",
+    "cross_attention",
+    "encode_kv",
 ]
 
 
@@ -62,7 +68,7 @@ def attention_init(gen, cfg, device="cuda", training: bool = False):
     return p
 
 
-def _project_qkv(p, x, positions, cfg):
+def _project_qkv(p, x, positions, cfg, rope: bool = True):
     B, S, _ = x.shape
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = torch_dtype(cfg.dtype)
@@ -72,8 +78,9 @@ def _project_qkv(p, x, positions, cfg):
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], q, norm_type="rmsnorm", eps=cfg.norm_eps)
         k = apply_norm(p["k_norm"], k, norm_type="rmsnorm", eps=cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -83,14 +90,14 @@ def _out_proj(p, out, cfg):
 
 
 def attention(p, x, positions, *, cfg, pctx: ParallelContext, window: int | None = None,
-              causal: bool | None = None, cache=None):
+              causal: bool | None = None, rope: bool = True, cache=None):
     """Self-attention over ``x (B,S,d)`` with global ``positions (B,S)``:
     the training path.  With ``cache`` (one layer's dense ``k``/``v``
     ``(B,Smax,Hkv,D)`` and ``plan``, the drop plan of the writes at slots
     ``[0, S)``) it is the one-shot prefill: the computed K/V land in those
     slots after the attention (the caller writes the positions)."""
     causal = cfg.causal if causal is None else causal
-    q, k, v = _project_qkv(p, x, positions, cfg)
+    q, k, v = _project_qkv(p, x, positions, cfg, rope)
     out = sp_attention(q, k, v, positions, positions, pctx=pctx, causal=causal, window=window)
     if cache is not None:
         apply_drop(cache["k"], cache["plan"], k)
@@ -114,10 +121,10 @@ def attention_prefill_chunk(p, x, positions, k_cache, v_cache, pos_cache, write_
 
 
 def attention_decode(p, x, positions, k_cache, v_cache, pos_cache, write_plan, *, cfg,
-                     pctx: ParallelContext, window: int | None = None):
+                     pctx: ParallelContext, window: int | None = None, rope: bool = True):
     """Decode step ``x (B,1,d)``: write the new K/V, then attend over the
     cache; ``pos_cache`` already holds this step's positions."""
-    q, k, v = _project_qkv(p, x, positions, cfg)
+    q, k, v = _project_qkv(p, x, positions, cfg, rope)
     apply_drop(k_cache, write_plan, k[:, 0])
     apply_drop(v_cache, write_plan, v[:, 0])
     out = sp_decode(q, k_cache, v_cache, pos_cache, positions, pctx=pctx, window=window)
@@ -154,3 +161,32 @@ def attention_prefill_chunk_paged(p, x, positions, k_pool, v_pool, old_pos_view,
     apply_drop(k_pool, write_plan, k)
     apply_drop(v_pool, write_plan, v)
     return _out_proj(p, out, cfg)
+
+
+def cross_attention(p, x, enc_k, enc_v, enc_pos, positions, *, cfg, pctx: ParallelContext):
+    """Cross-attention: queries from the decoder stream ``x (B,S,d)`` at
+    ``positions`` against the precomputed encoder K/V ``(B,S_enc,Hkv,D)``
+    at ``enc_pos``, non-causally.  One token a row (decode) reads the
+    resident, sequence-sharded encoder through ``sp_decode`` (in the serve
+    state's layout with ``sp_degree > 1``); a sequence runs ``sp_attention``
+    (global tensors on the virtual ring, this rank's shards on a process
+    group), where TokenRing circulates the queries and the encoder's K/V
+    stay on their ranks."""
+    B, S, _ = x.shape
+    dt = torch_dtype(cfg.dtype)
+    q = dense(p["wq"], x, dt).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    if S == 1:
+        out = sp_decode(q, enc_k, enc_v, enc_pos, positions, pctx=pctx, causal=False)
+    else:
+        out = sp_attention(q, enc_k, enc_v, positions, enc_pos, pctx=pctx, causal=False)
+    return _out_proj(p, out, cfg)
+
+
+def encode_kv(p, enc_x, cfg):
+    """Cross-attention K/V ``(B,S_enc,Hkv,D)`` of the encoder's output
+    (no RoPE)."""
+    B, S, _ = enc_x.shape
+    dt = torch_dtype(cfg.dtype)
+    k = dense(p["wk"], enc_x, dt).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = dense(p["wv"], enc_x, dt).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    return k, v

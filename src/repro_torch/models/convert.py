@@ -1,10 +1,14 @@
-"""Carry parameters of the JAX ``init_lm`` pytree across to the port.
+"""Carry parameters of the JAX ``init_lm`` and ``init_encdec`` pytrees
+across to the port.
 
 The JAX tree stacks the layers on a leading L dim and stores dense weights
 as ``(d_in, d_out)``, as the port does; tied embeddings need no ``lm_head``.
 A MoE layer's ``"moe"`` subtree (``router.w``, the ``(E, d, f)`` stacks
 ``wg``/``wu`` and ``(E, f, d)`` ``wd``, the ``shared`` expert) comes across
-with the layer's index taken from each stack.
+with the layer's index taken from each stack.  An encoder-decoder tree
+(``embed``, ``dec_pos``, the stacked ``enc_layers`` and ``dec_layers`` with
+their ``self``/``cross``/``ln_x``, ``enc_norm``, ``dec_norm``) unstacks
+both layer stacks.
 The input is the tree with numpy leaves (``jax.tree.map(np.asarray,
 params)``), so this module needs no JAX.
 """
@@ -22,7 +26,7 @@ __all__ = ["from_jax_params"]
 # see models.layers), the MoE expert stacks included; every other leaf (norm
 # scale/bias, and the MoE router, which routes in float32 as the JAX code
 # does), and every leaf of the training layout, keeps cfg.param_dtype.
-_COMPUTE_LEAVES = ("w", "b", "table", "wg", "wu", "wd")
+_COMPUTE_LEAVES = ("w", "b", "table", "wg", "wu", "wd", "dec_pos")
 
 
 def _leaf(name, a, cfg, device, training, parents):
@@ -49,16 +53,32 @@ def _n_stacked(tree) -> int:
     raise ValueError("empty layer tree")
 
 
+def _unstack(tree, n_want, cfg, device, training, what="layers"):
+    n = _n_stacked(tree)
+    if n != n_want:
+        raise ValueError(f"tree has {n} stacked {what}, config {n_want}")
+    return [_convert(tree, cfg, device, training, l) for l in range(n)]
+
+
 def from_jax_params(cfg, tree, device="cuda", training: bool = False):
-    """Port's parameter dict from the JAX ``init_lm`` tree (numpy leaves), in
-    the training layout (every leaf in ``cfg.param_dtype``) or, by default,
-    the serving one."""
-    n = _n_stacked(tree["layers"])
-    if n != cfg.n_layers:
-        raise ValueError(f"tree has {n} stacked layers, config {cfg.n_layers}")
+    """Port's parameter dict from the JAX ``init_lm`` or ``init_encdec`` tree
+    (numpy leaves), in the training layout (every leaf in
+    ``cfg.param_dtype``) or, by default, the serving one."""
+    if "enc_layers" in tree:
+        return {
+            "embed": _convert(tree["embed"], cfg, device, training),
+            "dec_pos": _leaf("dec_pos", tree["dec_pos"], cfg, device, training, ()),
+            "enc_layers": _unstack(tree["enc_layers"], cfg.n_enc_layers, cfg, device, training,
+                                   "encoder layers"),
+            "dec_layers": _unstack(tree["dec_layers"], cfg.n_layers, cfg, device, training,
+                                   "decoder layers"),
+            "enc_norm": _convert(tree["enc_norm"], cfg, device, training),
+            "dec_norm": _convert(tree["dec_norm"], cfg, device, training),
+        }
+    layers = _unstack(tree["layers"], cfg.n_layers, cfg, device, training)
     params = {
         "embed": _convert(tree["embed"], cfg, device, training),
-        "layers": [_convert(tree["layers"], cfg, device, training, l) for l in range(n)],
+        "layers": layers,
         "final_norm": _convert(tree["final_norm"], cfg, device, training),
     }
     if "lm_head" in tree:

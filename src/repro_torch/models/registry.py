@@ -1,16 +1,17 @@
 """Model registry: one bundle of training and serving callables per family
 (port of ``repro.models.registry``).  The dense, MoE and VLM families share
-the transformer bundle, as in the JAX package; the recurrent families
-(``"ssm"``, ``"hybrid"``) and ``"encdec"`` are not ported yet (ROADMAP
-queue 1 items 9a and 9b).  The serve-state initialisers lay the cache out
-for the bundle's ``pctx`` (sequence-sharded over its ring when
-``sp_degree > 1``).
+the transformer bundle, as in the JAX package; ``"encdec"`` (whisper) has
+its own, with ``encode`` and no chunked or paged serving steps (the engine
+prefills it token by token); the recurrent families (``"ssm"``,
+``"hybrid"``) are not ported yet (ROADMAP queue 1 item 9a).  The
+serve-state initialisers lay the cache out for the bundle's ``pctx``
+(sequence-sharded over its ring when ``sp_degree > 1``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, ClassVar
+from typing import Any, Callable
 
 import torch
 
@@ -26,29 +27,39 @@ class ModelBundle:
     pctx: ParallelContext
     init: Callable[..., Any]  # (seed, training=False) -> params on pctx.device
     loss: Callable[..., Any]  # (params, batch) -> (loss, metrics)
-    decode_step: Callable[..., Any]  # (params, tokens (B,), state, active=None)
+    decode_step: Callable[..., Any]  # (params, tokens (B,), state[, active]) -> (logits, state)
     init_serve_state: Callable[..., Any]  # (batch, max_len, device)
-    prefill_chunk: Callable[..., Any]  # (params, tokens (B,C), state, n_valid (B,))
-    decode_step_paged: Callable[..., Any]
-    prefill_chunk_paged: Callable[..., Any]
-    init_paged_state: Callable[..., Any]  # (n_pages, page_size, max_batch, slot_pages, device)
+    # Chunked serving prefill: (params, tokens (B,C), state, n_valid (B,)).
+    # Families without it are prefilled token by token by the engine, which
+    # is only sound when ``decode_rollback_safe`` is set.
+    prefill_chunk: Callable[..., Any] | None = None
+    # Paged serving: the page-pool counterparts of decode_step/prefill_chunk
+    # and init_paged_state(n_pages, page_size, max_batch, slot_pages,
+    # device); families without them serve from the dense slab only.
+    decode_step_paged: Callable[..., Any] | None = None
+    prefill_chunk_paged: Callable[..., Any] | None = None
+    init_paged_state: Callable[..., Any] | None = None
     # one-shot prefill into the dense slab: (params, tokens, positions, state,
     # prefix_embeds=None) -> (logits, state); a VLM's image prefix needs it
     prefill: Callable[..., Any] | None = None
     # the serve state is cache-style (per-slot len/pos, position masked), so a
-    # step fed a dummy token can be rolled back by its length: true of every
-    # family the port builds, all on the transformer bundle
-    decode_rollback_safe: ClassVar[bool] = True
+    # step fed a dummy token can be rolled back by its length; a recurrent
+    # state cannot be
+    decode_rollback_safe: bool = False
+    # encoder-decoder: (params, frames (B, S_enc, d), state) -> state with
+    # the cross K/V filled
+    encode: Callable[..., Any] | None = None
 
 
 def build_model(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
     from repro_torch.models import transformer as T
 
+    if cfg.family == "encdec":
+        return _encdec_bundle(cfg, pctx)
     if cfg.family not in T.FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 items 9a and 9b: "
-            "the recurrent families and encdec); the port builds "
-            + ", ".join(T.FAMILIES))
+            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item 9a: the "
+            "recurrent families); the port builds " + ", ".join((*T.FAMILIES, "encdec")))
 
     def init(seed: int, training: bool = False):
         gen = torch.Generator(device=pctx.device).manual_seed(seed)
@@ -75,4 +86,27 @@ def build_model(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
                                       device=device, pctx=pctx)),
         prefill=lambda params, tokens, positions, state, prefix_embeds=None: T.lm_prefill(
             params, tokens, positions, state, prefix_embeds, cfg=cfg, pctx=pctx),
+        decode_rollback_safe=True,
+    )
+
+
+def _encdec_bundle(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
+    from repro_torch.models import encdec as E
+
+    def init(seed: int, training: bool = False):
+        gen = torch.Generator(device=pctx.device).manual_seed(seed)
+        return E.init_encdec(cfg, gen, device=pctx.device, training=training)
+
+    return ModelBundle(
+        cfg=cfg,
+        pctx=pctx,
+        init=init,
+        loss=lambda params, batch: E.encdec_loss(params, batch, cfg=cfg, pctx=pctx),
+        decode_step=lambda params, tok, state: E.encdec_decode_step(
+            params, tok, state, cfg=cfg, pctx=pctx),
+        init_serve_state=lambda B, max_len, device: E.init_encdec_state(
+            cfg, B, max_len, cfg.enc_seq, device=device, pctx=pctx),
+        decode_rollback_safe=True,  # cache-style state (len/pos)
+        encode=lambda params, frames, state: E.encdec_encode(
+            params, frames, state, cfg=cfg, pctx=pctx),
     )

@@ -4,6 +4,9 @@ prefix reuse and the resilience layer (port of ``repro.serving.engine``).
   * fixed ``max_batch`` decode slots; requests join as slots free up;
   * chunked prefill: a joining prompt is fed through ``prefill_chunk`` in
     chunks of ``prefill_chunk`` tokens while other slots keep decoding;
+    a family without it (the encoder-decoder) is fed token by token
+    through decode steps at admission, the other slots' lengths rolled
+    back (only for a ``decode_rollback_safe`` serve state);
   * a token-budget scheduler: decoding slots each emit one token per
     iteration, prefilling slots share ``token_budget - n_decoding`` tokens
     FCFS (``None`` = unmetered);
@@ -146,6 +149,11 @@ class ServingEngine:
         if self._paged:
             if page_size < 1:
                 raise ValueError(f"page_size must be >= 1, got {page_size}")
+            if (bundle.prefill_chunk_paged is None or bundle.decode_step_paged is None
+                    or bundle.init_paged_state is None):
+                raise NotImplementedError(
+                    f"family {bundle.cfg.family!r} has no paged serving steps; drop "
+                    "page_size= to serve from the dense slab")
             self.page_size = page_size
             self.slot_pages = pages_for(max_len, page_size)
             self.cap = self.slot_pages * page_size  # logical per-slot tokens
@@ -169,6 +177,17 @@ class ServingEngine:
             self.state = bundle.init_serve_state(max_batch, max_len, self.device)
             self._step = bundle.decode_step
             self._chunk_step = bundle.prefill_chunk
+            if self._chunk_step is None and not bundle.decode_rollback_safe:
+                # a recurrent state advances every row at each step and cannot
+                # be rolled back per slot: the token-by-token prefill below
+                # would corrupt the concurrent requests
+                raise NotImplementedError(
+                    f"family {bundle.cfg.family!r} has no chunked prefill and its "
+                    "recurrent serve state cannot be rolled back per slot; batched "
+                    "serving needs masked decode steps for this family")
+        # families without a chunked prefill feed the prompt through decode
+        # steps at admission (_prefill_slot_fallback)
+        self._chunked = self._chunk_step is not None
 
         self.slots: list[Request | None] = [None] * max_batch
         self.queue: list[Request] = []
@@ -267,7 +286,8 @@ class ServingEngine:
                 self._admit()
                 if all(s is None for s in self.slots) and not self.queue:
                     break
-                self._prefill_tick()
+                if self._chunked:
+                    self._prefill_tick()
                 self._decode_once()
             except ServingFault as e:
                 self._recover(e)
@@ -463,7 +483,9 @@ class ServingEngine:
         self._reset_slot(i, hit_tokens)
         req._filled = hit_tokens  # prompt tokens already in the cache
         req._cached = hit_tokens  # total cache slots written
-        if not self._prefilling(req):
+        if not self._chunked:
+            self._prefill_slot_fallback(i, req)
+        elif not self._prefilling(req):
             # prompt fully resident (one token, or a full prefix hit)
             req._next_token = int(req._tokens[-1])
         return True
@@ -708,6 +730,26 @@ class ServingEngine:
                     # the first decode waits one iteration.
                     self._hold_decode.add(i)
 
+    # ---- token-by-token fallback (families without prefill_chunk) -------
+
+    def _prefill_slot_fallback(self, i, req):
+        """Feed the prompt through decode steps for slot ``i`` alone: every
+        other row gets a dummy token and the lengths of the occupied ones
+        are rolled back after each step.  Exact, but O(prompt) steps that
+        stall the batch; the chunked path replaces it wherever the family
+        has ``prefill_chunk``."""
+        others = [j for j, s in enumerate(self.slots) if s is not None and j != i]
+        lens_before = self.state["len"].clone()
+        for tok in req._tokens[:-1]:
+            toks = np.zeros((self.max_batch,), np.int32)
+            toks[i] = tok
+            self._step(self.params, torch.from_numpy(toks).to(self.device), self.state)
+            if others:
+                self.state["len"][others] = lens_before[others]
+        req._filled = len(req._tokens) - 1  # prefill complete: decode phase
+        req._cached = req._filled
+        req._next_token = int(req._tokens[-1])
+
     # ---- decode ---------------------------------------------------------
 
     @torch.inference_mode()
@@ -732,10 +774,14 @@ class ServingEngine:
         if not active:
             return
         self._sync_bt()
-        mask = np.zeros((self.max_batch,), bool)
-        mask[active] = True
-        logits, _ = self._step(self.params, torch.from_numpy(toks).to(self.device), self.state,
-                               torch.from_numpy(mask).to(self.device))
+        toks = torch.from_numpy(toks).to(self.device)
+        if self._chunked:
+            mask = np.zeros((self.max_batch,), bool)
+            mask[active] = True
+            logits, _ = self._step(self.params, toks, self.state,
+                                   torch.from_numpy(mask).to(self.device))
+        else:  # as the JAX engine: every row steps, idle rows on a dummy token
+            logits, _ = self._step(self.params, toks, self.state)
         self.counters["decode_steps"] += 1
         nxt = self._sample(logits).cpu().numpy()
         now = time.perf_counter()
