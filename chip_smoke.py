@@ -188,7 +188,28 @@ Phases, each fatal on failure:
      ``--profile``, one training step each and an encode with 16 decode
      steps under torch.profiler; then the serve CLI ``--arch whisper-base``
      on 4 requests through the engine's token-by-token prefill;
- 19. a ``{"kernels": [...]}`` summary line, the card line, and last the
+ 19. the SSM family and the one-shot prefill at SP > 1 (this slice's main
+     path): (a) ``sp_scan`` on the virtual ring against a loop over time
+     at P = 2, 4, 8 and 2 x 2 pods (the reference's cases and one at
+     falcon-mamba's state width), and falcon-mamba at full width, 2 layers,
+     float32: the loss and every gradient leaf at SP 1 and through the scan
+     over 4 virtual ranks against the plain path (its scan a loop over
+     time), each bitwise repeated, the ring's bytes against their closed
+     form; (b) falcon-mamba at full width, ``MAMBA_TRAIN_LAYERS`` (8) of
+     64 layers, through the ``Trainer`` (bf16 compute, remat "full", batch
+     2 x 4096, one warmup and 3 timed steps) at SP 1 (``RESULT
+     training_mamba``) and through the scan over 4 virtual ranks (``RESULT
+     training_mamba_ring``, first loss within ``SP1_LOSS_LIMIT`` of SP
+     1's), no kernel launch; (c) falcon-mamba at full width and depth
+     (bf16): 8 prompts of 256 tokens fed one token a step through
+     ``decode_step``, 64 greedy tokens, every position within
+     ``WITNESS_GAP`` of the forward pass (``RESULT decoding_mamba``), the
+     engine's refusal; (d) ``lm_prefill`` of 2 x 1024 tokens at SP 4 on
+     qwen3-1.7b at full size through TokenRing (A: 28 x the schedule's
+     Computes), 16 greedy decode steps, every token within ``WITNESS_GAP``
+     of SP 1's (``RESULT prefill_sp``); with ``--profile``, one profiled
+     training step each;
+ 20. a ``{"kernels": [...]}`` summary line, the card line, and last the
      ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -2172,7 +2193,10 @@ def reset_launch_counts():
 
 def attention_calls(cfg) -> int:
     """Attention calls of one forward: one a layer; an encoder-decoder's
-    encoder layers one each, its decoder layers two (self and cross)."""
+    encoder layers one each, its decoder layers two (self and cross); none
+    in an attention-free SSM."""
+    if cfg.family == "ssm":
+        return 0
     if cfg.family == "encdec":
         return cfg.n_enc_layers + 2 * cfg.n_layers
     return cfg.n_layers
@@ -3052,7 +3076,10 @@ def phase_train_ring(torch, dev, with_profile=False, cfg=None, B=2, S=4096, step
             "class_bytes_per_step": {c: per(d) for c, d in ring.class_bytes.items()},
             "position_bytes_per_step": per(ring.position_bytes),
             "lse_bytes_per_step": per(ring.lse_bytes)}
-    label = strategy if pods == 1 else f"the hybrid ({pods} pods, {strategy} inside)"
+    if cfg.family == "ssm":  # no attention: the layers' scans run over the ring
+        strategy, label = "sp_scan", "the chunked scan"
+    else:
+        label = strategy if pods == 1 else f"the hybrid ({pods} pods, {strategy} inside)"
     res = {"arch": cfg.name, "strategy": strategy, "pods": pods, "sp_degree": P,
            "ring": "virtual, one card", "batch": B, "seq": S, "steps_timed": steps,
            "step_s": step_s, "median_step_s": med, "tokens_per_s": B * S / med,
@@ -3957,9 +3984,429 @@ def serve_cli_whisper(torch, dev):
     log(f"  serve CLI ({' '.join(argv)}): {wall:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the SSM family (falcon-mamba-7b: the two-pass chunked selective
+# scan, sequence-parallel over the ring's shifts) and the one-shot prefill
+# at SP > 1
+# ---------------------------------------------------------------------------
+
+MAMBA = "falcon-mamba-7b"
+MAMBA_CHECK_LAYERS = 2  # layers of the checked float32 runs
+# of 64: 64 layers of float32 parameters, gradients and AdamW moments take
+# about 116 GB
+MAMBA_TRAIN_LAYERS = 8
+MAMBA_PROMPTS, MAMBA_PROMPT_LEN, MAMBA_STEPS = 8, 256, 64
+PREFILL_SP_BATCH, PREFILL_SP_LEN, PREFILL_SP_STEPS = 2, 1024, 16
+
+
+def sequential_scan(torch, a, b):
+    """``h_t = a_t h_{t-1} + b_t`` by a loop over time: the plain version of
+    the scan."""
+    h = torch.zeros_like(b[:, 0])
+    out = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out.append(h)
+    return torch.stack(out, 1)
+
+
+def phase_mamba_scan(torch, dev):
+    """Phase 19 (a): ``sp_scan`` on the virtual ring against the sequential
+    loop at P = 2, 4, 8 and 2 x 2 pods: ``check_scan``'s and
+    ``check_scan_hybrid``'s cases (seeds 17, 19) and one at falcon-mamba's
+    state width (B 2, 256 steps, d_inner x N = 131072), float32, each run
+    twice and bitwise equal.  The doubling rounds in another order than the
+    loop: atol/rtol 1e-5, the reference's limits."""
+    from repro_torch.core.api import ParallelContext, sp_scan
+
+    cases = [(17, 2, 64, 8), (19, 2, 32, 4), (21, 2, 256, 8192 * 16)]
+    for seed, B, S, D in cases:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        a = 0.5 + 0.49 * torch.rand((B, S, D), generator=gen, device=dev)
+        b = torch.randn((B, S, D), generator=gen, device=dev)
+        want = sequential_scan(torch, a, b)
+        for P, pods in ((2, 1), (4, 1), (8, 1), (4, 2)):
+            pctx = ParallelContext(device="cuda", sp_degree=P, pods=pods, layout="contig")
+            h = sp_scan(a, b, pctx=pctx)
+            again = sp_scan(a, b, pctx=pctx)
+            if not torch.equal(h, again):
+                raise AssertionError(f"phase 19 sp_scan P={P} pods={pods}: not bitwise repeated")
+            err = float((h - want).abs().max())
+            if not bool(torch.isclose(h, want, atol=1e-5, rtol=1e-5).all()):
+                raise AssertionError(f"phase 19 sp_scan (B {B}, S {S}, state {D}) P={P} "
+                                     f"pods={pods}: off the sequential scan by {err:.3e}")
+            log(f"  ok sp_scan B {B} S {S} state {D}, P={P} pods={pods}: max |err| {err:.2e} "
+                "against the sequential loop, bitwise repeated")
+
+
+def mamba_plain_scan(x_c, dt_in, Bs, Cs, dt_w, dt_b, A, D, *, pctx, chunk):
+    """The plain path's selective scan (in place of
+    ``models.mamba.selective_scan_sp``): the global sequence by a loop over
+    time, float32, no chunks and no ring."""
+    import torch
+    import torch.nn.functional as F
+
+    dt = F.softplus(dt_in.float() @ dt_w.float() + dt_b.float())
+    Aneg = -torch.exp(A)
+    h = torch.zeros((x_c.shape[0], x_c.shape[2], Bs.shape[-1]), dtype=torch.float32,
+                    device=x_c.device)
+    ys = []
+    for t in range(x_c.shape[1]):
+        xt = x_c[:, t].float()
+        h = torch.exp(dt[:, t, :, None] * Aneg) * h + (dt[:, t] * xt)[..., None] * Bs[:, t, None, :]
+        ys.append((h * Cs[:, t, None, :]).sum(-1) + D * xt)
+    return torch.stack(ys, 1)
+
+
+def phase_mamba_checked(torch, dev, cfg=None, B=2, S=512):
+    """Phase 19 (a): falcon-mamba at full width, ``MAMBA_CHECK_LAYERS``
+    layers, float32, remat "full": the loss and every gradient leaf at SP 1
+    and through the scan over 4 virtual ranks against the plain path (the
+    same model with its scan a loop over time), each run twice and bitwise
+    equal (deterministic algorithms on); no kernel launch; at P = 4 the
+    ring's bytes against ``scan_comm_bytes``'s closed form: a layer's scan
+    in the forward and again in its remat recompute, the transposes in the
+    backward."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.core.recurrence import scan_comm_bytes
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.launch.train_step import value_and_grad
+    from repro_torch.models import mamba as M
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.trainer import batch_to_device
+
+    cfg = cfg or ARCHS[MAMBA].with_(n_layers=MAMBA_CHECK_LAYERS, dtype="float32")
+    plain = build_model(cfg, ParallelContext(device="cuda"))
+    params = plain.init(0, training=True)
+    batch = batch_to_device(next(SyntheticDataset(SyntheticConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=1, layout="contig"))), dev)
+    real_scan = M.selective_scan_sp
+    M.selective_scan_sp = mamba_plain_scan
+    try:
+        (l_plain, _), g_plain = value_and_grad(plain.loss, params, batch)
+    finally:
+        M.selective_scan_sp = real_scan
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for P in (1, 4):
+            bundle = build_model(cfg, ParallelContext(device="cuda", sp_degree=P))
+            ring = bundle.pctx.ring
+            sent = {"fwd": 0, "bwd": 0}
+            if ring is not None:  # each shift once, whatever its distance
+                real_move = ring._move
+
+                def counting_move(x, shift, real_move=real_move):
+                    sent["fwd" if shift > 0 else "bwd"] += x.numel() * x.element_size() // P
+                    return real_move(x, shift)
+
+                ring._move = counting_move
+            runs = []
+            for _ in range(2):
+                if ring is not None:
+                    ring.reset_counts()
+                    sent.update(fwd=0, bwd=0)
+                reset_launch_counts()
+                (loss, _), grads = value_and_grad(bundle.loss, params, batch)
+                torch.cuda.synchronize()
+                ledger = dict(ring.link_bytes) if ring is not None else {}
+                runs.append((loss, grads, ledger, dict(sent)))
+            if any(launch_counts().values()):
+                raise AssertionError(f"phase 19 mamba P={P}: launches {launch_counts()}")
+            (loss, grads, ledger, msgs), (loss2, grads2, _, _) = runs
+            same = torch.equal(loss, loss2) and all(
+                torch.equal(a, b) for (_, a), (_, b) in zip(named_leaves(grads),
+                                                            named_leaves(grads2)))
+            if not same:
+                raise AssertionError(f"phase 19 mamba P={P}: loss or gradients not bitwise "
+                                     "repeated")
+            l_err = abs(float(loss) - float(l_plain))
+            # the same float32 ops but the scan's, whose doubling and
+            # cross-rank composition round in another order than the loop:
+            # phase 8's float32 limits (loss 1e-5 relative, each leaf 1e-4
+            # of its largest |value|)
+            if not (math.isfinite(float(loss)) and l_err <= 1e-5 * abs(float(l_plain))):
+                raise AssertionError(f"phase 19 mamba P={P}: loss {float(loss)} vs the plain "
+                                     f"path's {float(l_plain)}")
+            worst = worst_leaf(torch, grads, g_plain, 1e-4)
+            line = (f"  ok phase 19 falcon-mamba {cfg.n_layers} layers f32 P={P}: loss "
+                    f"{float(loss):.6f} vs plain {float(l_plain):.6f} (|err| {l_err:.2e}); worst "
+                    f"gradient leaf off by {worst:.2e} of its max; bitwise repeated; 0 launches")
+            if P > 1:
+                per = scan_comm_bytes(P, B * cfg.d_inner * cfg.ssm_state * 4)
+                L, remat = cfg.n_layers, (2 if cfg.remat != "none" else 1)
+                want_link = {"fwd": remat * L * per["link_bytes"]["fwd"],
+                             "bwd": L * per["link_bytes"]["bwd"]}
+                want_msgs = {"fwd": remat * L * per["messages"]["fwd"],
+                             "bwd": L * per["messages"]["bwd"]}
+                if ledger != want_link or msgs != want_msgs:
+                    raise AssertionError(f"phase 19 mamba P={P}: ring bytes {ledger} (messages "
+                                         f"{msgs}), closed form {want_link} ({want_msgs})")
+                line += (f"; ring bytes a rank: messages {msgs} = {per['rounds']} rounds x 2 "
+                         f"tensors x {B * cfg.d_inner * cfg.ssm_state * 4} B a scan, ledger "
+                         f"(hop-weighted) {ledger}, both the closed form")
+            log(line)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # the decode step at full width in float32, one token a step, against
+    # the forward pass (the chunked scan) plus the head at every position:
+    # the same float32 ops but the scan's order and the products' shapes
+    # (limits 1e-3 absolute and relative)
+    T = 64
+    state = plain.init_serve_state(B, 0, dev)
+    rows = [plain.decode_step(params, batch["tokens"][:, t], state)[0] for t in range(T)]
+    with torch.no_grad():
+        x = M.mamba_apply(params, batch["tokens"][:, :T], cfg=cfg, pctx=plain.pctx)
+        fwd = x @ params["lm_head"]["w"]
+    dec = torch.stack(rows, 1)
+    err = float((dec - fwd).abs().max())
+    if not bool(torch.isclose(dec, fwd, atol=1e-3, rtol=1e-3).all()):
+        raise AssertionError(f"phase 19 mamba f32 decode: logits off the forward pass by {err}")
+    log(f"  ok phase 19 falcon-mamba {cfg.n_layers} layers f32 decode: {B} x {T} steps, logits "
+        f"within {err:.2e} of the forward pass at every position")
+
+
+# A layer's output on the forward pass, fed the decode's own inputs to that
+# layer (teacher-forced), against the decode step's output: the two differ
+# only where cuBLAS sums a product of 8 rows in another order than one of
+# 8 x 320 (a bf16 rounding flipped now and then) and in the float32 scan's
+# order; a wrong state or window would put the layer's update off by its own
+# size.  Limit: 1e-2 of the update's L2 norm, relative L2 over the layer.
+MAMBA_LAYER_LIMIT = 1e-2
+MAMBA_DEPTHS = (1, 2, 4, 8, 16, 32, 64)  # depths whose free-running divergence is logged
+
+
+def phase_mamba_decode(torch, dev, prompts=MAMBA_PROMPTS, prompt_len=MAMBA_PROMPT_LEN,
+                       steps=MAMBA_STEPS):
+    """Phase 19 (c): falcon-mamba-7b at full width and depth (64 layers,
+    bf16): ``prompts`` prompts of ``prompt_len`` tokens fed through
+    ``bundle.decode_step`` one token a step (the reference's only serving
+    path), then ``steps`` greedy tokens; no kernel launch; the engine
+    refuses the bundle.
+
+    The scan's parity at full width and depth: every layer's inputs are
+    recorded during the run, and each layer's forward pass
+    (``mamba_layer``, the chunked scan) over the same inputs must give the
+    decode steps' outputs within ``MAMBA_LAYER_LIMIT``.  The end-to-end
+    comparison with ``mamba_apply`` plus the head is logged, not gated: with
+    seeded random weights, 64 bf16 layers amplify such rounding until the
+    two forwards no longer agree (the divergence is logged by depth), which
+    says nothing of the scan."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.models import mamba as M
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = ARCHS[MAMBA]
+    bundle = build_model(cfg, ParallelContext(device="cuda"))
+    t0 = time.perf_counter()
+    params = bundle.init(0)
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"  {cfg.name}: {cfg.n_layers} layers, {weight_bytes / 1e9:.2f} GB of weights, seeded "
+        f"init {time.perf_counter() - t0:.1f} s; {prompts} prompts of {prompt_len} tokens, then "
+        f"{steps} greedy tokens, one token a step")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    tokens = torch.randint(0, cfg.vocab_size, (prompts, prompt_len), generator=gen, device=dev,
+                           dtype=torch.int32)
+    state = bundle.init_serve_state(prompts, 0, dev)
+    state_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    # every layer's input of every step (and the last layer's output), kept
+    # by reference: the forward pass is fed them afterwards
+    seen = [[] for _ in range(cfg.n_layers + 1)]
+    calls = [0]
+    real_layer = M.mamba_layer_decode
+
+    def recording_layer(p, x, ssm_state, conv_state, *, cfg):
+        out = real_layer(p, x, ssm_state, conv_state, cfg=cfg)
+        layer = calls[0] % cfg.n_layers
+        calls[0] += 1
+        seen[layer].append(x)
+        if layer == cfg.n_layers - 1:
+            seen[-1].append(out[0])
+        return out
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rows, fed, marks = [], [], []
+
+    def step(tok):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, _ = bundle.decode_step(params, tok, state)
+        end.record()
+        marks.append((start, end))
+        rows.append(logits.float())
+
+    M.mamba_layer_decode = recording_layer
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(prompt_len):
+            step(tokens[:, t])
+        torch.cuda.synchronize()
+        t_prompt = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = rows[-1].argmax(-1).to(torch.int32)
+            fed.append(tok)
+            step(tok)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+    finally:
+        M.mamba_layer_decode = real_layer
+    peak = torch.cuda.max_memory_allocated()
+    if any(launch_counts().values()):
+        raise AssertionError(f"phase 19 mamba decode: launches {launch_counts()}")
+    step_ms = [s.elapsed_time(e) for s, e in marks]
+    med = statistics.median(step_ms)
+    dec = torch.stack(rows, 1)
+    if not bool(torch.isfinite(dec).all()):
+        raise AssertionError("phase 19 mamba decode: non-finite logits")
+    seq = torch.cat([tokens, torch.stack(fed, 1)], dim=1)
+    layer_err, drift = [], {}
+    with torch.no_grad():
+        x = params["embed"]["table"][seq.long()]
+        for l, p_l in enumerate(params["layers"]):
+            xin, xout = torch.cat(seen[l], 1), torch.cat(seen[l + 1], 1)
+            forced = M.mamba_layer(p_l, xin, cfg=cfg, pctx=bundle.pctx).float()
+            update = (xout.float() - xin.float()).norm()
+            layer_err.append(float((forced - xout.float()).norm() / update))
+            x = M.mamba_layer(p_l, x, cfg=cfg, pctx=bundle.pctx)
+            if l + 1 in MAMBA_DEPTHS:
+                drift[l + 1] = float((x.float() - xout.float()).norm() / xout.float().norm())
+            seen[l] = None
+        x = apply_norm(params["final_norm"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
+        fwd = (x @ params["lm_head"]["w"]).float()
+    top = fwd.max(-1).values
+    gap = top - fwd.gather(-1, dec.argmax(-1, keepdim=True))[..., 0]
+    ratio = float((gap / (top - fwd.mean(-1))).max())
+    flips = int((gap > 0).sum())
+    del fwd, x, seen
+    worst = max(layer_err)
+    log(f"  decode: prompt fed at {prompts * prompt_len / t_prompt:.1f} tok/s, greedy "
+        f"{prompts * steps / t_gen:.1f} tok/s; median step {med:.3f} ms (CUDA events; weight-read "
+        f"bound {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); state {state_bytes / 2**20:.1f} "
+        f"MiB; peak {peak / 2**30:.2f} GiB")
+    log(f"  each layer's forward pass fed the decode's inputs ({dec.shape[0] * dec.shape[1]} "
+        f"positions): worst {worst:.2e} of the layer's update (layer {layer_err.index(worst)}; "
+        f"limit {MAMBA_LAYER_LIMIT}), median {statistics.median(layer_err):.2e}")
+    log(f"  free-running forward against the decode, relative L2 by depth: "
+        + ", ".join(f"{d}: {v:.2e}" for d, v in drift.items())
+        + f"; at the head {flips} of {dec.shape[0] * dec.shape[1]} positions not the forward's "
+        f"argmax, largest gap {ratio:.4f} of the row spread (logged, not gated)")
+    if not worst <= MAMBA_LAYER_LIMIT:
+        raise AssertionError(f"phase 19 mamba decode: layer {layer_err.index(worst)}'s forward "
+                             f"pass is {worst:.3e} of its update off the decode steps")
+    try:
+        ServingEngine(bundle, params, max_batch=prompts, max_len=512, device=dev)
+    except NotImplementedError as e:
+        if "rolled back" not in str(e):
+            raise
+        log(f"  the engine refuses the bundle: {e}")
+    else:
+        raise AssertionError("phase 19: the engine served a recurrent family")
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": prompts, "prompt_len": prompt_len,
+           "steps": steps, "prompt_tokens_per_s": prompts * prompt_len / t_prompt,
+           "tokens_per_s": prompts * steps / t_gen, "median_step_ms": med,
+           "weight_bytes": weight_bytes,
+           "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+           "state_bytes": state_bytes, "peak_bytes": peak,
+           "positions": dec.shape[0] * dec.shape[1], "layer_rel_err_max": worst,
+           "layer_rel_err_median": statistics.median(layer_err), "drift_by_depth": drift,
+           "head_flips": flips, "head_max_gap_over_spread": ratio}
+    log("RESULT decoding_mamba " + json.dumps(res))
+    return {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "paged_decode_fwd": 0}
+
+
+def phase_prefill_sp(torch, dev, P=4, cfg=None, B=PREFILL_SP_BATCH, S=PREFILL_SP_LEN,
+                     steps=PREFILL_SP_STEPS):
+    """Phase 19 (d): ``lm_prefill`` at SP > 1 (ROADMAP item 9c) on
+    qwen3-1.7b at full width and depth: ``B`` x ``S`` tokens prefilled
+    through TokenRing over P virtual ranks (kernel A: the schedule's
+    Computes a layer, counted from zero), then ``steps`` greedy decode
+    steps at SP P; every token fed back through SP 1's ``lm_prefill`` and
+    decode steps must lie within ``WITNESS_GAP`` of the row spread below
+    SP 1's max logit."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.models.registry import build_model
+
+    cfg = cfg or ARCHS["qwen3-1.7b"]
+    sp = build_model(cfg, ParallelContext(device="cuda", sp_degree=P, strategy="tokenring"))
+    sp1 = build_model(cfg, ParallelContext(device="cuda"))
+    params = sp1.init(0)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev,
+                           dtype=torch.int32)
+    positions = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
+    max_len = 2 * S
+
+    def run(bundle, feed=None):
+        state = bundle.init_serve_state(B, max_len, dev)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = bundle.prefill(params, tokens, positions, state)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        launches = [launch_counts()["flash_attention_fwd"]]
+        rows, chain = [logits.float()], []
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            tok = rows[-1].argmax(-1).to(torch.int32) if feed is None else feed[:, i]
+            chain.append(tok)
+            logits, state = bundle.decode_step(params, tok, state)
+            rows.append(logits.float())
+        torch.cuda.synchronize()
+        launches.append(launch_counts()["flash_attention_fwd"])
+        return (torch.stack(chain, 1), torch.stack(rows[:-1], 1), launches,
+                (t_prefill, (time.perf_counter() - t0) / steps))
+
+    chain, logits, launches, (t_prefill, t_step) = run(sp)
+    computes = ring_computes("tokenring", P)
+    want = [cfg.n_layers * computes, cfg.n_layers * steps]
+    if launches != want:
+        raise AssertionError(f"phase 19 prefill SP {P}: A launches {launches} (prefill, "
+                             f"decode), expected {want}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"phase 19 prefill SP {P}: non-finite logits")
+    chain1, _, launches1, (t_prefill1, t_step1) = run(sp1)
+    _, ref, _, _ = run(sp1, feed=chain)
+    top = ref.max(-1).values
+    gap = top - ref.gather(-1, chain[..., None].long())[..., 0]
+    ratio = float((gap / (top - ref.mean(-1))).max())
+    flips = int((gap > 0).sum())
+    same = int((chain == chain1).sum())
+    log(f"  lm_prefill SP {P} (tokenring, {computes} Computes a layer): {B} x {S} tokens in "
+        f"{t_prefill * 1e3:.1f} ms (SP 1: {t_prefill1 * 1e3:.1f} ms), decode step "
+        f"{t_step * 1e3:.2f} ms (SP 1: {t_step1 * 1e3:.2f} ms); A launches {launches[0]} a prefill "
+        f"= {cfg.n_layers} x {computes}, {launches[1]} in {steps} decode steps (SP 1: "
+        f"{launches1}); {chain.numel()} tokens fed back through SP 1, {flips} not its argmax, "
+        f"largest gap {ratio:.4f} of the row spread (limit {WITNESS_GAP}); {same} of "
+        f"{chain.numel()} equal to SP 1's greedy tokens")
+    if ratio > WITNESS_GAP:
+        raise AssertionError(f"phase 19 prefill SP {P}: a token lies {ratio:.4f} of the row "
+                             "spread below SP 1's max logit")
+    res = {"arch": cfg.name, "sp_degree": P, "strategy": "tokenring", "batch": B, "prefill": S,
+           "steps": steps, "prefill_s": t_prefill, "prefill_s_sp1": t_prefill1,
+           "decode_step_s": t_step, "decode_step_s_sp1": t_step1,
+           "launches_prefill": launches[0], "computes_per_layer": computes,
+           "launches_decode": launches[1], "tokens": chain.numel(), "flips": flips,
+           "max_gap_over_spread": ratio, "equal_to_sp1_greedy": same}
+    log("RESULT prefill_sp " + json.dumps(res))
+    return {"flash_attention_fwd": launches[0], "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "paged_decode_fwd": 0}
+
+
 # the phases with a profiled pass (``--profile`` runs them all, and adds
 # tens of minutes; ``--profile=18`` only phase 18's)
-PROFILED_PHASES = (6, 9, 11, 13, 16, 17, 18)
+PROFILED_PHASES = (6, 9, 11, 13, 16, 17, 18, 19)
 
 
 def profiled_phases(argv):
@@ -4163,7 +4610,28 @@ def main() -> int:
     serve_cli_whisper(torch, dev)
     free_device_memory(torch)
 
-    log("== phase 19: summary")
+    log("== phase 19: the SSM family: falcon-mamba-7b checked at 2 layers in float32 (sp_scan "
+        "at P = 2/4/8 and 2 x 2 pods, the loss and gradients at SP 1 and through the scan over "
+        f"4 virtual ranks), trained at full width ({MAMBA_TRAIN_LAYERS} layers, SP 1 and 4, "
+        "main path), decoded at full width and depth; lm_prefill at SP 4 on qwen3-1.7b")
+    phase_mamba_scan(torch, dev)
+    free_device_memory(torch)
+    phase_mamba_checked(torch, dev)
+    free_device_memory(torch)
+    mamba_train = ARCHS[MAMBA].with_(n_layers=MAMBA_TRAIN_LAYERS)
+    launches["train_mamba"] = phase_train_full(torch, dev, 19 in prof, cfg=mamba_train,
+                                               result="training_mamba")
+    free_device_memory(torch)
+    launches["train_mamba_ring"] = phase_train_ring(torch, dev, 19 in prof, cfg=mamba_train,
+                                                    sequential=False,
+                                                    result="training_mamba_ring")
+    free_device_memory(torch)
+    launches["decode_mamba"] = phase_mamba_decode(torch, dev)
+    free_device_memory(torch)
+    launches["prefill_sp4"] = phase_prefill_sp(torch, dev)
+    free_device_memory(torch)
+
+    log("== phase 20: summary")
     # `launches` is the count of the main path that runs the kernel (A, B1
     # and B2: whisper-base trained at full width and depth at SP 1, phase
     # 18's first training run; C, which no encoder-decoder path runs:
@@ -4179,6 +4647,8 @@ def main() -> int:
     # `times_by_path` keeps qwen3-moe-30b-a3b's rows (32/4 heads, D 128:
     # phase 3's resident prefill call, phase 7's training shape) and
     # qwen3-1.7b's (16/8), and `sp4_calls` phase 13's SP-4 calls (phase 12).
+    # Phase 19's paths are in `launches_by_path`: falcon-mamba's training
+    # and decoding launch no kernel; `prefill_sp4` is lm_prefill at SP 4.
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in launches.items()}
 

@@ -1,9 +1,11 @@
-"""Architecture registry of the port: the dense, MoE, VLM and
-encoder-decoder configs.
+"""Architecture registry of the port: the dense, MoE, VLM,
+encoder-decoder and SSM configs.
 
-Copies of ``repro.configs``; the recurrent families come with their slice.
+Copies of ``repro.configs``; recurrentgemma (the ``"hybrid"`` family) comes
+with its slice.
 """
 
+from repro_torch.configs.falcon_mamba_7b import CONFIG as falcon_mamba_7b
 from repro_torch.configs.granite_3_8b import CONFIG as granite_3_8b
 from repro_torch.configs.llama2_7b import CONFIG as llama2_7b
 from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as llama4_scout_17b_a16e
@@ -15,7 +17,8 @@ from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as qwen3_moe_30b_a3b
 from repro_torch.configs.whisper_base import CONFIG as whisper_base
 
 ARCHS = {c.name: c for c in [qwen3_moe_30b_a3b, llama4_scout_17b_a16e, granite_3_8b, qwen3_1_7b,
-                             olmo_1b, qwen2_72b, pixtral_12b, llama2_7b, whisper_base]}
+                             olmo_1b, qwen2_72b, pixtral_12b, llama2_7b, whisper_base,
+                             falcon_mamba_7b]}
 
 
 def get_config(name: str):

@@ -49,6 +49,12 @@ from a global tensor), this rank's shard on a process group; the paged pool
 is whole on the virtual ring and the rank's stripe of pages on a process
 group.  The query side and the result are replicated.  The plans are built
 once per shape and window and kept on the context.
+
+The attention-free families run :func:`sp_scan`, a diagonal linear
+recurrence whose sequence :meth:`ParallelContext.plan_scan` shards
+contiguously over the flat ring whatever the layout
+(``core/recurrence.py``), with the same global-in/global-out convention
+as :func:`sp_attention`.
 """
 
 from __future__ import annotations
@@ -72,7 +78,7 @@ from repro_torch.core.strategies import (
 from repro_torch.kernels.ref import normalize_positions
 
 __all__ = ["ParallelContext", "ExecutionPlan", "AttnShapes", "PREFILL_CANDIDATES",
-           "sp_attention", "sp_decode", "sp_decode_paged", "sp_prefill"]
+           "sp_attention", "sp_decode", "sp_decode_paged", "sp_prefill", "sp_scan"]
 
 # The prefill arbitration pool (``ParallelContext.choose_prefill_strategy``):
 # the resident all-reduce chunk path plus the two prefill rings of
@@ -103,7 +109,9 @@ class AttnShapes:
 @dataclass(frozen=True)
 class ExecutionPlan:
     """A validated, resolved SP attention (``kind="attention"``, what
-    ``sp_attention`` runs) or serving step (``"decode"``, ``"prefill"``).
+    ``sp_attention`` runs), serving step (``"decode"``, ``"prefill"``) or
+    linear recurrence (``"scan"``, what ``sp_scan`` runs; its sequence on
+    ``seq_axis``).
 
     ``local_fn`` is the per-rank callable (strategy schedule and ring
     bound); ``cost`` the strategy's modeled per-device link bytes for one
@@ -128,6 +136,7 @@ class ExecutionPlan:
     inner: str | None = None
     topology_decision: dict | None = None
     kernel: dict | None = None
+    seq_axis: int = 1
 
     def modeled_times(self, *, link_bw: float, peak_flops: float,
                       bidir_links: bool = True) -> dict | None:
@@ -150,18 +159,20 @@ class ExecutionPlan:
         }
 
     def __call__(self, *args):
-        """An attention plan (and a prefill ring's) takes global tensors on
-        a virtual ring and this rank's shard on a process group, and returns
-        the result in the same form.  A resident serving plan takes its
-        cache in the ring's layout (rank-major on the virtual ring) and a
-        replicated query side, and returns the replicated result."""
+        """An attention plan (and a prefill ring's, and a scan) takes global
+        tensors on a virtual ring and this rank's shard on a process group,
+        and returns the result in the same form.  A resident serving plan
+        takes its cache in the ring's layout (rank-major on the virtual
+        ring) and a replicated query side, and returns the replicated
+        result."""
         from repro_torch.core.collectives import fold_ranks, unfold_ranks
 
-        sharded = self.kind == "attention" or self.strategy in _PREFILL_RINGS
+        sharded = self.kind in ("attention", "scan") or self.strategy in _PREFILL_RINGS
         if not sharded or not self.ring.folded:
             return self.local_fn(*args)
-        P = self.sp_degree
-        return unfold_ranks(self.local_fn(*(fold_ranks(x, P) for x in args)), P)
+        P, ax = self.sp_degree, self.seq_axis
+        out = self.local_fn(*(fold_ranks(x.movedim(ax, 1), P).movedim(1, ax) for x in args))
+        return unfold_ranks(out.movedim(ax, 1), P).movedim(1, ax)
 
 
 @dataclass(frozen=True)
@@ -220,8 +231,10 @@ class ParallelContext:
         # (pod ring, inner ring): the views of the two axes (a process group
         # makes their subgroups here, on every rank alike)
         object.__setattr__(self, "axis_rings", ring.split(self.pods) if self.pods > 1 else None)
-        # serving plans by (kind, window, scale, shapes, table_pages): the
-        # serving steps ask for the same few plans in every layer of every step
+        # serving and scan plans by (kind, window, scale, shapes,
+        # table_pages) and (kind, ndim, axis): the serving steps and the
+        # recurrent layers ask for the same few plans in every layer of
+        # every step
         object.__setattr__(self, "_serving_plans", {})
 
     @property
@@ -684,6 +697,34 @@ class ParallelContext:
                              cost=cost, compute_flops=compute_flops, pipelines=desc.pipelines,
                              kind="prefill")
 
+    # -- recurrences ---------------------------------------------------------
+
+    def plan_scan(self, *, ndim: int, axis: int = 1) -> ExecutionPlan:
+        """Sequence-parallel linear-recurrence plan: the sequence on
+        ``axis`` (batch on dim 0) sharded **contiguously** over the flat
+        ring whatever ``layout`` says, since a recurrence runs in time
+        order (``core/recurrence.py``).  The plan takes ``(a, b)`` and
+        returns ``h``: global tensors on the virtual ring, this rank's
+        shard on a process group."""
+        from repro_torch.core.recurrence import chunked_linear_recurrence
+
+        if not self.active:
+            raise ValueError("planning requires sp_degree > 1")
+        if not 1 <= axis < ndim:
+            raise ValueError(f"scan axis {axis} must be a non-batch dim of a {ndim}-d input")
+        key = ("scan", ndim, axis)
+        if key in self._serving_plans:
+            return self._serving_plans[key]
+        ring = self.ring
+
+        def local_fn(a, b):
+            return chunked_linear_recurrence(a, b, ring=ring, axis=axis)
+
+        plan = self._serving_plans[key] = ExecutionPlan(
+            strategy="scan", local_fn=local_fn, ring=ring, sp_degree=self.sp_degree,
+            kind="scan", seq_axis=axis)
+        return plan
+
 
 def _hybrid_cost(inner_desc: SPStrategy, shapes: AttnShapes, *, n_pods: int, P_inner: int,
                  bidir_links: bool, extras: dict) -> CommCost:
@@ -835,3 +876,19 @@ def sp_prefill(q, k_new, v_new, new_pos, k_cache, v_cache, k_pos, q_pos, *,
                         Sk=k_cache.shape[1] * pctx.sp_degree, dtype_bytes=q.element_size())
     plan = pctx.plan_prefill(window=window, scale=scale, shapes=shapes, table_pages=table_pages)
     return plan(q, k_new, v_new, new_pos, k_cache, v_cache, k_pos, q_pos)
+
+
+def sp_scan(a, b, *, pctx: ParallelContext, axis: int = 1):
+    """Sequence-parallel diagonal linear recurrence ``h_t = a_t h_{t-1} +
+    b_t`` along ``axis``: ``a``/``b (B, ..., S, ...)``, float.  With
+    ``sp_degree > 1`` the sequence is sharded contiguously over the ring
+    (the context's layout does not apply: a recurrence runs in time
+    order); the tensors are global on the virtual ring and this rank's
+    contiguous shard on a process group.  Differentiable."""
+    if not pctx.active:
+        from repro_torch.core.recurrence import local_linear_recurrence
+
+        h, _ = local_linear_recurrence(a, b, axis=axis)
+        return h
+    _check_ring_device(pctx, a)
+    return pctx.plan_scan(ndim=a.ndim, axis=axis)(a, b)

@@ -4,7 +4,9 @@
 Runs on the card by default; ``--device cpu`` runs the plain versions on the
 CPU.  ``--sp-degree P`` trains through the chosen ring strategy on the
 virtual ring of P ranks (one process, one device; the batch is laid out in
-zigzag order for P); ``--pods N`` factors those ranks as N pods and trains
+the config's layout: zigzag for attention, contiguous for falcon-mamba,
+whose layers run the sequence-parallel scan, ``core.api.sp_scan``, in
+place of a ring strategy); ``--pods N`` factors those ranks as N pods and trains
 through the paper's multi-pod hybrid (an inter-pod KV ring outside,
 ``--strategy`` inside each pod).  ``--ckpt DIR`` checkpoints every ``--ckpt-every``
 steps and runs through the fault-tolerant runner, which restores the
@@ -17,6 +19,11 @@ Example (reduced model on the CPU, TokenRing over 4 virtual ranks):
 Example (the hybrid: 2 pods of 2 ranks, TokenRing inside each pod):
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
       --steps 20 --batch 4 --seq 128 --sp-degree 4 --pods 2 --strategy tokenring
+
+Example (falcon-mamba reduced: the chunked selective scan over 4 virtual
+ranks, the sequence sharded contiguously; ``--strategy`` does not apply):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
+      --reduced --device cpu --steps 20 --batch 4 --seq 128 --sp-degree 4
 
 Example (checkpoints every 5 steps, a failure injected at step 7):
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
@@ -108,7 +115,8 @@ def main(argv=None):
     data = SyntheticDataset(SyntheticConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch, seed=args.seed,
         layout=cfg.layout, sp_degree=pctx.sp_degree))
-    sp = (f", {args.strategy} over {args.sp_degree} virtual ranks" if args.sp_degree > 1
+    sp_path = "the chunked scan" if cfg.family == "ssm" else args.strategy
+    sp = (f", {sp_path} over {args.sp_degree} virtual ranks" if args.sp_degree > 1
           else "")
     if args.pods > 1:
         sp += f" ({args.pods} pods, an inter-pod KV ring outside)"

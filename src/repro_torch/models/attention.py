@@ -92,14 +92,19 @@ def _out_proj(p, out, cfg):
 def attention(p, x, positions, *, cfg, pctx: ParallelContext, window: int | None = None,
               causal: bool | None = None, rope: bool = True, cache=None):
     """Self-attention over ``x (B,S,d)`` with global ``positions (B,S)``:
-    the training path.  With ``cache`` (one layer's dense ``k``/``v``
-    ``(B,Smax,Hkv,D)`` and ``plan``, the drop plan of the writes at slots
+    the training path.  With ``cache`` (one layer's dense ``k``/``v`` in the
+    slab's layout and ``plan``, the drop plan of the writes at global slots
     ``[0, S)``) it is the one-shot prefill: the computed K/V land in those
-    slots after the attention (the caller writes the positions)."""
+    slots after the attention (the caller writes the positions).  On a
+    process group ``x`` is this rank's shard, and every rank's K/V are
+    all-gathered first, since the slots a rank holds need not be the rows
+    it computed."""
     causal = cfg.causal if causal is None else causal
     q, k, v = _project_qkv(p, x, positions, cfg, rope)
     out = sp_attention(q, k, v, positions, positions, pctx=pctx, causal=causal, window=window)
     if cache is not None:
+        if pctx.active and not pctx.ring.folded:
+            k, v = (pctx.ring.all_gather(t, 1) for t in (k, v))
         apply_drop(cache["k"], cache["plan"], k)
         apply_drop(cache["v"], cache["plan"], v)
     return _out_proj(p, out, cfg)

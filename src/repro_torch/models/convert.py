@@ -1,5 +1,5 @@
-"""Carry parameters of the JAX ``init_lm`` and ``init_encdec`` pytrees
-across to the port.
+"""Carry parameters of the JAX ``init_lm``, ``init_encdec`` and
+``init_mamba_lm`` pytrees across to the port.
 
 The JAX tree stacks the layers on a leading L dim and stores dense weights
 as ``(d_in, d_out)``, as the port does; tied embeddings need no ``lm_head``.
@@ -8,7 +8,10 @@ A MoE layer's ``"moe"`` subtree (``router.w``, the ``(E, d, f)`` stacks
 with the layer's index taken from each stack.  An encoder-decoder tree
 (``embed``, ``dec_pos``, the stacked ``enc_layers`` and ``dec_layers`` with
 their ``self``/``cross``/``ln_x``, ``enc_norm``, ``dec_norm``) unstacks
-both layer stacks.
+both layer stacks.  A mamba tree's stacked ``layers`` (``norm``,
+``in_proj``, ``conv_w (K, di)``, ``conv_b``, ``x_proj``, ``dt_proj`` with
+its bias, ``A_log (di, N)``, ``D``, ``out_proj``) unstack like a
+transformer's, and its untied ``lm_head`` comes across.
 The input is the tree with numpy leaves (``jax.tree.map(np.asarray,
 params)``), so this module needs no JAX.
 """
@@ -24,13 +27,16 @@ __all__ = ["from_jax_params"]
 
 # Leaves the serving layout stores in the compute dtype (cast once at load,
 # see models.layers), the MoE expert stacks included; every other leaf (norm
-# scale/bias, and the MoE router, which routes in float32 as the JAX code
-# does), and every leaf of the training layout, keeps cfg.param_dtype.
+# scale/bias, mamba's conv, A_log and D, and the subtrees that compute in
+# float32 as the JAX code does: the MoE router and mamba's dt_proj), and
+# every leaf of the training layout, keeps cfg.param_dtype.
 _COMPUTE_LEAVES = ("w", "b", "table", "wg", "wu", "wd", "dec_pos")
+_FLOAT32_SUBTREES = ("router", "dt_proj")
 
 
 def _leaf(name, a, cfg, device, training, parents):
-    serve_cast = name in _COMPUTE_LEAVES and not training and "router" not in parents
+    serve_cast = (name in _COMPUTE_LEAVES and not training
+                  and not set(parents) & set(_FLOAT32_SUBTREES))
     dt = torch_dtype(cfg.dtype if serve_cast else cfg.param_dtype)
     return torch.from_numpy(np.asarray(a, np.float32).copy()).to(device=device, dtype=dt)
 
@@ -61,7 +67,8 @@ def _unstack(tree, n_want, cfg, device, training, what="layers"):
 
 
 def from_jax_params(cfg, tree, device="cuda", training: bool = False):
-    """Port's parameter dict from the JAX ``init_lm`` or ``init_encdec`` tree
+    """Port's parameter dict from the JAX ``init_lm``, ``init_encdec`` or
+    ``init_mamba_lm`` tree
     (numpy leaves), in the training layout (every leaf in
     ``cfg.param_dtype``) or, by default, the serving one."""
     if "enc_layers" in tree:

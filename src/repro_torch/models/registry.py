@@ -2,10 +2,14 @@
 (port of ``repro.models.registry``).  The dense, MoE and VLM families share
 the transformer bundle, as in the JAX package; ``"encdec"`` (whisper) has
 its own, with ``encode`` and no chunked or paged serving steps (the engine
-prefills it token by token); the recurrent families (``"ssm"``,
-``"hybrid"``) are not ported yet (ROADMAP queue 1 item 9a).  The
-serve-state initialisers lay the cache out for the bundle's ``pctx``
-(sequence-sharded over its ring when ``sp_degree > 1``).
+prefills it token by token); ``"ssm"`` (falcon-mamba) has a training loss
+through the sequence-parallel scan and an O(1) decode step, and no prefill
+of any kind: its recurrent state cannot be rolled back per slot, so the
+engine refuses it, as the JAX engine does, and it serves through
+``decode_step`` alone.  ``"hybrid"`` (recurrentgemma) is not ported yet
+(ROADMAP queue 1 item 9a step 2).  The serve-state initialisers lay the
+cache out for the bundle's ``pctx`` (sequence-sharded over its ring when
+``sp_degree > 1``).
 """
 
 from __future__ import annotations
@@ -56,10 +60,14 @@ def build_model(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
 
     if cfg.family == "encdec":
         return _encdec_bundle(cfg, pctx)
+    if cfg.family == "ssm":
+        return _ssm_bundle(cfg, pctx)
     if cfg.family not in T.FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item 9a: the "
-            "recurrent families); the port builds " + ", ".join((*T.FAMILIES, "encdec")))
+            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item 9a step 2: "
+            "recurrentgemma's RG-LRU, with queue 2 item 1: its local attention's head dim "
+            "256, which kernels A, B1, B2 and the decode core do not instantiate); the port "
+            "builds " + ", ".join((*T.FAMILIES, "encdec", "ssm")))
 
     def init(seed: int, training: bool = False):
         gen = torch.Generator(device=pctx.device).manual_seed(seed)
@@ -109,4 +117,23 @@ def _encdec_bundle(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
         decode_rollback_safe=True,  # cache-style state (len/pos)
         encode=lambda params, frames, state: E.encdec_encode(
             params, frames, state, cfg=cfg, pctx=pctx),
+    )
+
+
+def _ssm_bundle(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
+    from repro_torch.models import mamba as M
+
+    def init(seed: int, training: bool = False):
+        gen = torch.Generator(device=pctx.device).manual_seed(seed)
+        return M.init_mamba_lm(cfg, gen, device=pctx.device, training=training)
+
+    return ModelBundle(
+        cfg=cfg,
+        pctx=pctx,
+        init=init,
+        loss=lambda params, batch: M.mamba_loss(params, batch, cfg=cfg, pctx=pctx),
+        decode_step=lambda params, tok, state: M.mamba_decode_step(
+            params, tok, state, cfg=cfg, pctx=pctx),
+        init_serve_state=lambda B, max_len, device: M.init_mamba_state(cfg, B, device=device),
+        decode_rollback_safe=False,  # a recurrent state: no per-slot rollback
     )

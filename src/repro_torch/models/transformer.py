@@ -181,11 +181,11 @@ def _block(p_l, x, cfg, attend, pctx, sharded=False):
                    compute_dtype=torch_dtype(cfg.dtype)), None
 
 
-def _layers(params, x, cfg, attend, pctx):
+def _layers(params, x, cfg, attend, pctx, sharded=False):
     """Run every block of a serving step; ``attend(l, p_attn, h)`` is the
-    layer's attention."""
+    layer's attention (``sharded``: ``x`` is this rank's sequence shard)."""
     for l, p_l in enumerate(params["layers"]):
-        x, _ = _block(p_l, x, cfg, lambda p, h, l=l: attend(l, p, h), pctx)
+        x, _ = _block(p_l, x, cfg, lambda p, h, l=l: attend(l, p, h), pctx, sharded)
     return apply_norm(params["final_norm"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
 
 
@@ -247,25 +247,39 @@ def _last_valid(x, n_valid):
 def lm_prefill(params, tokens, positions, cache, prefix_embeds=None, *, cfg, pctx):
     """One-shot prefill into the dense slab: the whole sequence (a VLM's
     ``prefix_embeds (B, n_img, d)`` first, then ``tokens (B, S_text)``) at
-    ``positions (B, S)`` fills slots ``[0, S)`` of every row, and every
-    row's length becomes ``S``.  Returns ``(logits (B, V), cache)``, the
-    logits at the last position.  At SP 1 only."""
-    if pctx.active:
-        raise NotImplementedError(
-            "lm_prefill at sp_degree > 1 is not ported yet (ROADMAP queue 1 item 9c); "
-            "prefill through the chunked path")
+    ``positions (B, S)`` fills global slots ``[0, S)`` of every row, and
+    every row's length becomes ``S``.  Returns ``(logits (B, V), cache)``,
+    the logits at the last position.
+
+    The inputs are replicated, as every serving step's query side is.  With
+    ``sp_degree > 1`` attention runs ``sp_attention`` under the context's
+    strategy and the K/V land in the slab's SP layout (``_dense_plan``), so
+    ``sp_decode`` reads them as they are: on the virtual ring the sequence
+    stays global; on a process group each rank runs its contiguous shard of
+    it (``S`` a multiple of the SP degree), all-gathers every layer's K/V to
+    write the slots it holds, and takes the last position's hidden state
+    from the last rank."""
     x = _embed(params, tokens, cfg, prefix_embeds)
     B, S = x.shape[:2]
     positions = positions.to(torch.int32)
     slots = torch.arange(S, device=x.device)[None, :]
     plan = _dense_plan(cache, torch.arange(B, device=x.device)[:, None], slots, pctx)
+    P, rank = sp_ranks(pctx)
+    sharded = rank is not None
+    pos_seq = positions
+    if sharded:
+        if S % P:
+            raise ValueError(f"prefill of {S} positions does not shard over {P} ranks")
+        own = slice(rank * (S // P), (rank + 1) * (S // P))
+        x, pos_seq = x[:, own], positions[:, own]
 
     def attend(l, p, h):
-        return attention(p, h, positions, cfg=cfg, pctx=pctx, window=cfg.window,
+        return attention(p, h, pos_seq, cfg=cfg, pctx=pctx, window=cfg.window,
                          cache={"k": cache["k"][l], "v": cache["v"][l], "plan": plan})
 
-    x = _layers(params, x, cfg, attend, pctx)
-    logits = _logits(params, x[:, -1], cfg)
+    x = _layers(params, x, cfg, attend, pctx, sharded=sharded)
+    last = pctx.ring.all_gather(x[:, -1:], 1)[:, -1] if sharded else x[:, -1]
+    logits = _logits(params, last, cfg)
     apply_drop(cache["pos"], plan, positions)
     cache["len"].fill_(S)
     return logits, cache

@@ -234,14 +234,6 @@ def test_lm_prefill_matches_jax(model):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=1e-4)
 
 
-def test_lm_prefill_refuses_sp_degree_above_one():
-    _, _, tb, tparams = _models("pixtral", sp_degree=2)
-    state = tb.init_serve_state(1, 32, "cpu")
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        tb.prefill(tparams, torch.zeros((1, 4), dtype=torch.int32),
-                   torch.arange(4, dtype=torch.int32)[None], state)
-
-
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 @pytest.mark.parametrize("model", sorted(MODELS))
 def test_serving_steps_match_jax(model, paged):
@@ -349,7 +341,7 @@ def test_clis_run_the_moe_family_on_the_cpu(capsys):
     assert s["tokens"] == 6
 
 
-@pytest.mark.parametrize("family", ["ssm", "hybrid"])
+@pytest.mark.parametrize("family", ["hybrid"])
 def test_build_model_refuses_the_families_still_to_port(family):
     cfg = TARCHS["qwen3-1.7b"].reduced(family=family)
     with pytest.raises(NotImplementedError, match="item 9a"):
