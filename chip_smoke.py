@@ -209,7 +209,31 @@ Phases, each fatal on failure:
      Computes), 16 greedy decode steps, every token within ``WITNESS_GAP``
      of SP 1's (``RESULT prefill_sp``); with ``--profile``, one profiled
      training step each;
- 20. a ``{"kernels": [...]}`` summary line, the card line, and last the
+ 20. the hybrid family and the head-dim-256 kernels (this slice's main
+     path): (a) kernel A's CUDA-core instance and B1/B2 at 10/1 heads and
+     D 256 in float32 and bf16 (the training call, B 2 x S 4096, causal,
+     window 2048; a ragged 37 x 45 edge; dead rows) and A's decode instance
+     at group 10 x Sq 1 over a 2048-slot ring buffer (wrapped rows, a
+     half-filled one, a row that sees no key) against their plain versions,
+     each case bitwise repeated, then each timed at the main path's shapes
+     beside the plain version, SDPA on the same masked call and its bound;
+     (b) recurrentgemma-2b at full width, ``RG_CHECK_LAYERS`` (5) layers,
+     float32: the loss and every gradient leaf on the kernels at SP 1 and
+     through 4 virtual ranks (the window halo, the RG-LRU's scan) against
+     the plain path, bitwise repeated (phase 8's limits); (c) at full width
+     and depth (26 layers, bf16 compute, float32 AdamW, remat "full")
+     through the ``Trainer`` (batch 2 x 4096, one warmup and 3 timed steps)
+     at SP 1 (A 16, B1 8, B2 8 a step, ``RESULT training_rg``) and through
+     the window halo and the scan over 4 virtual ranks (``RESULT
+     training_rg_ring``, first loss within ``SP1_LOSS_LIMIT`` of SP 1's);
+     (d) at full depth in bf16: 8 prompts of 256 tokens fed one token a
+     step, 64 greedy tokens, 8 decode-instance launches a step, every
+     layer's forward pass fed the decode's inputs within
+     ``RG_LAYER_LIMIT`` (``RESULT decoding_rg``), the engine's refusal;
+     (e) one superblock at full width in float32, one row fed 2112 tokens
+     by ``decode_step``: every step's logits against the windowed forward
+     pass, past the ring buffer's 2048 slots;
+ 21. a ``{"kernels": [...]}`` summary line, the card line, and last the
      ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -2194,9 +2218,11 @@ def reset_launch_counts():
 def attention_calls(cfg) -> int:
     """Attention calls of one forward: one a layer; an encoder-decoder's
     encoder layers one each, its decoder layers two (self and cross); none
-    in an attention-free SSM."""
+    in an attention-free SSM; one a superblock in the hybrid."""
     if cfg.family == "ssm":
         return 0
+    if cfg.family == "hybrid":  # one local-attention layer a (rec, rec, attn) period
+        return cfg.n_layers // (len(cfg.block_pattern) or 3)
     if cfg.family == "encdec":
         return cfg.n_enc_layers + 2 * cfg.n_layers
     return cfg.n_layers
@@ -2259,7 +2285,7 @@ def kernels_vs_plain_step(torch, dev, cfg, B, S, **pctx_kw):
     kern = build_model(cfg, ParallelContext(device="cuda", **pctx_kw))
     plain = build_model(cfg, ParallelContext(impl="torch", device="cuda", **pctx_kw))
     P = kern.pctx.sp_degree
-    computes = ring_computes(kern.pctx.strategy, P) if P > 1 else 1
+    computes = sp_computes(cfg, kern.pctx.strategy, P)
     p_kern = kern.init(0, training=True)
     p_plain = tree_map(lambda t: t.detach().clone(), p_kern)
     batch = batch_to_device(next(train_data(cfg, SyntheticConfig(
@@ -2471,6 +2497,15 @@ def ring_computes(strategy, P, pods=1):
         return 1
     sched = get_strategy(strategy).schedule_spec(P).schedule
     return sum(len(st.computes) for st in sched.all_steps())
+
+
+def sp_computes(cfg, strategy, P, pods=1):
+    """Flash calls of one attention call of ``cfg`` at SP ``P``: 1 at SP 1;
+    a windowed config's layers resolve to the window halo (one call, on
+    one or two axes); the rest run ``strategy``'s schedule."""
+    if P == 1 or cfg.window:
+        return 1
+    return ring_computes(strategy, P, pods)
 
 
 def ring_positions(torch, dev, B, S, P):
@@ -3039,7 +3074,11 @@ def phase_train_ring(torch, dev, with_profile=False, cfg=None, B=2, S=4096, step
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
     cfg = cfg or ARCHS["qwen3-1.7b"]
-    pctx = ParallelContext(device="cuda", sp_degree=P, pods=pods, strategy=strategy)
+    # a windowed config's layers take the window halo, which needs its
+    # contiguous layout
+    layout = cfg.layout if cfg.window else ParallelContext.layout
+    pctx = ParallelContext(device="cuda", sp_degree=P, pods=pods, strategy=strategy,
+                           layout=layout)
     bundle = build_model(cfg, pctx)
     trainer = Trainer(bundle, TrainerConfig(lr=3e-4, warmup_steps=1, total_steps=1 + steps))
     data_cfg = SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=0,
@@ -3061,7 +3100,7 @@ def phase_train_ring(torch, dev, with_profile=False, cfg=None, B=2, S=4096, step
     state, timed = trainer.run(state, data, steps=1 + steps, log_every=1, log=step_log)
     peak = torch.cuda.max_memory_allocated()
     got = launch_counts()
-    computes = ring_computes(strategy, P, pods)
+    computes = sp_computes(cfg, strategy, P, pods)
     want = {k: v * steps for k, v in train_launches_per_step(cfg, computes).items()}
     if got != want:
         raise AssertionError(f"{result}: launches {got} over {steps} steps, expected {want}")
@@ -3078,6 +3117,8 @@ def phase_train_ring(torch, dev, with_profile=False, cfg=None, B=2, S=4096, step
             "lse_bytes_per_step": per(ring.lse_bytes)}
     if cfg.family == "ssm":  # no attention: the layers' scans run over the ring
         strategy, label = "sp_scan", "the chunked scan"
+    elif cfg.family == "hybrid":  # windowed attention and recurrences
+        strategy, label = "window+sp_scan", "the window halo and the scan"
     else:
         label = strategy if pods == 1 else f"the hybrid ({pods} pods, {strategy} inside)"
     res = {"arch": cfg.name, "strategy": strategy, "pods": pods, "sp_degree": P,
@@ -4406,7 +4447,522 @@ def phase_prefill_sp(torch, dev, P=4, cfg=None, B=PREFILL_SP_BATCH, S=PREFILL_SP
 
 # the phases with a profiled pass (``--profile`` runs them all, and adds
 # tens of minutes; ``--profile=18`` only phase 18's)
-PROFILED_PHASES = (6, 9, 11, 13, 16, 17, 18, 19)
+# ---------------------------------------------------------------------------
+# phase 20: the hybrid family (recurrentgemma-2b) and the head-dim-256
+# instances of kernels A, B1, B2 and the decode core
+# ---------------------------------------------------------------------------
+
+RG = "recurrentgemma-2b"
+RG_HEADS = (10, 1, 256)  # recurrentgemma's local attention: Hq, Hkv, D (MQA, group 10)
+RG_WINDOW = 2048
+RG_TRAIN_SHAPE = dict(B=2, S=4096)  # the training path's batch x seq
+RG_CHECK_LAYERS = 5  # one superblock and the 2-layer tail: every block kind
+RG_PROMPTS, RG_PROMPT_LEN, RG_STEPS = 8, 256, 64
+RG_WRAP_TOKENS = 2112  # one row fed past the 2048-slot ring buffer by 64 tokens
+
+
+def rg_ring_positions(torch, dev, lengths, slots=RG_WINDOW):
+    """``(q_pos (B,1), k_pos (B, slots))`` of a ring buffer after each row's
+    ``length`` tokens: slot ``p % slots`` holds the last position written to
+    it, unwritten slots ``PAD_POS``; the query is the last token (a row of
+    length 0 has only padding and a query at 0: it sees no key)."""
+    rows = []
+    for n in lengths:
+        kp = torch.full((slots,), PAD_POS, dtype=torch.int32)
+        p = torch.arange(max(0, n - slots), n, dtype=torch.int32)
+        kp[p.long() % slots] = p
+        rows.append(kp)
+    qp = torch.tensor([[max(n - 1, 0)] for n in lengths], dtype=torch.int32)
+    return qp.to(dev).contiguous(), torch.stack(rows).to(dev).contiguous()
+
+
+def rg_kernel_cases(torch, dev):
+    """Phase 20 (a)'s cases for A's CUDA-core instance and B1/B2, each in
+    float32 and bf16 at 10/1 heads and D 256 (label, B, Sq, Sk, q_pos,
+    k_pos, window): the main path's training call (causal, window 2048),
+    a ragged 37 x 45 edge (queries offset by 8, window 24) and dead rows
+    (queries before every key; a batch row of padding keys)."""
+    B, S = RG_TRAIN_SHAPE["B"], RG_TRAIN_SHAPE["S"]
+    ar = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
+    qr = (torch.arange(37, device=dev, dtype=torch.int32) + 8).expand(2, 37).contiguous()
+    kr = torch.arange(45, device=dev, dtype=torch.int32).expand(2, 45).contiguous()
+    qd, kd = bwd_positions(torch, dev, 2, 256, 256, "dead")
+    return [(f"training B={B} S={S} window={RG_WINDOW}", B, S, S, ar, ar, RG_WINDOW),
+            ("ragged 37x45 window=24", 2, 37, 45, qr, kr, 24),
+            ("dead rows 256x256", 2, 256, 256, qd, kd, None)]
+
+
+def rg_timed(fns, iters):
+    """CUDA-event medians of the kernel, its plain version and the library
+    call (``fns``, each run ``iters[i]`` times a repetition)."""
+    return [time_ms(f, iters=it, reps=3) for f, it in zip(fns, iters)]
+
+
+def pick_block_for(S):
+    """The plain versions' tile along a sequence of ``S``."""
+    from repro_torch.kernels.ops import pick_block
+
+    return pick_block(S, 512)
+
+
+def sdpa_masked(torch, q, k, v, qp, kp, window):
+    """The library yardstick: SDPA on the same call, its boolean mask built
+    from the positions (causal, window, padding), KV repeated for the group."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ref import visibility_mask
+
+    mask = visibility_mask(qp, kp, causal=True, window=window)[:, None]
+    group = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(group, dim=2).transpose(1, 2) for x in (k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+
+def phase_rg_kernels(torch, dev):
+    """Phase 20 (a): the D-256 instances against their plain versions.  A's
+    CUDA-core instance and B1/B2 on ``rg_kernel_cases`` in float32 (1e-4)
+    and bf16 (phase 3's forward limits, phase 7's ``BWD_BF16_LIMIT``), the
+    decode core at group 10 x Sq 1 over a 2048-slot ring buffer (wrapped
+    rows, a half-filled row with slots at PAD_POS, a row that sees no key),
+    every case run twice and bitwise equal, each line naming its instance;
+    then each timed at the main path's shapes in bf16 beside its plain
+    version, SDPA on the same masked call and its bound.  Returns the
+    summary's rows: ``cuda_core`` (A), ``decode`` (A), ``dq`` and ``dkv``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import visibility_mask
+
+    Hq, Hkv, D = RG_HEADS
+    scale = 1.0 / D ** 0.5
+    gen = torch.Generator(device=dev).manual_seed(23)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rnd(shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    for dtype in (f32, bf):
+        built, host = fa.flash_bwd_instance_built(dtype, D), fa.flash_bwd_instance(dtype, D)
+        if built != host:
+            raise AssertionError(f"B1/B2 {dtype} D={D}: the library takes the {built} "
+                                 f"instance, flash_bwd_instance says {host}")
+
+    def fwd_pair(q, k, v, qp, kp, window):
+        got = fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True, window=window,
+                                          scale=scale)
+        again = fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True, window=window,
+                                            scale=scale)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError("A D=256: two runs on the same inputs differ")
+        want = fa.flash_attention_fwd_torch(q, k, v, qp, kp, causal=True, window=window,
+                                            scale=scale, block_k=pick_block_for(k.shape[1]))
+        return got, want
+
+    rows, main = {}, None
+    for label, B, Sq, Sk, qp, kp, window in rg_kernel_cases(torch, dev):
+        q32, do32 = rnd((B, Sq, Hq, D)), rnd((B, Sq, Hq, D))
+        k32, v32 = rnd((B, Sk, Hkv, D)), rnd((B, Sk, Hkv, D))
+        dlse = rnd((B, Sq, Hq))
+        for dtype in (f32, bf):
+            q, k, v, dout = (x.to(dtype) for x in (q32, k32, v32, do32))
+            name = {f32: "f32", bf: "bf16"}[dtype]
+            inst = fa.flash_fwd_instance(dtype, Sq, D)
+            got, want = fwd_pair(q, k, v, qp, kp, window)
+            a_err = compare(f"A {name} D=256 {label} [{inst}] bitwise repeatable", got, want,
+                            **tolerances(dtype))
+            out, lse = got
+            g, w, args, kw = run_bwd(torch, q, k, v, qp, kp, dout, dlse, True, window, out,
+                                     lse.contiguous())
+            binst = fa.flash_bwd_instance_built(dtype, D)
+            lim = dict(atol=1e-4, rtol=1e-4) if dtype == f32 else BWD_BF16_LIMIT
+            b_err, _ = compare_grads(torch, f"B1/B2 {name} D=256 {label} [{binst}]", g, w,
+                                     dead=dead_masks(torch, lse, qp, kp, True, window), **lim)
+            if label.startswith("training") and dtype == bf:
+                main = (q, k, v, qp, kp, dout, dlse, out, lse, args, kw, a_err, b_err)
+            del g, w, args
+    free_device_memory(torch)
+
+    # the main path's training call in bf16, timed
+    q, k, v, qp, kp, dout, dlse, out, lse, args, kw, a_err, b_err = main
+    blk = pick_block_for(q.shape[1])
+    a_fns = (lambda: fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True,
+                                                 window=RG_WINDOW, scale=scale),
+             lambda: fa.flash_attention_fwd_torch(q, k, v, qp, kp, causal=True,
+                                                  window=RG_WINDOW, scale=scale, block_k=blk),
+             sdpa_masked(torch, q, k, v, qp, kp, RG_WINDOW))
+    ms, plain_ms, lib_ms = rg_timed(a_fns, (3, 1, 3))
+    nbytes, flops = flash_bytes_flops(q, k, qp, kp, True, RG_WINDOW)
+    bms, by = bound(nbytes, flops, "bfloat16")
+    shape = (f"B={q.shape[0]} S={q.shape[1]} Hq={Hq} Hkv={Hkv} D={D} bf16 causal "
+             f"window={RG_WINDOW}")
+    rows["cuda_core"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                             bound_by=by, max_abs_err=a_err, instance="cuda_core", shape=shape,
+                             flops=flops, bytes=nbytes)
+    log(f"  A {shape} [cuda_core]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa "
+        f"{lib_ms:.3f} ms; bound {bms:.4f} ms ({by}), {flops / ms / 1e9:.2f} TFLOP/s")
+    # yardstick only: SDPA on the masked call, KV repeated for the group
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2).detach().requires_grad_(True)
+              for x in (k, v))
+    mask = visibility_mask(qp, kp, causal=True, window=RG_WINDOW)[:, None]
+    o_t = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    do_t = dout.transpose(1, 2)
+    b_fns = (lambda: fa.flash_attention_bwd_dq_cuda(*args, **kw),
+             lambda: fa.flash_attention_bwd_dkv_cuda(*args, **kw),
+             lambda: fa.flash_attention_bwd_torch(q, k, v, qp, kp, out, lse, dout, dlse,
+                                                  causal=True, window=RG_WINDOW, scale=scale,
+                                                  block_q=blk, block_k=blk),
+             lambda: torch.autograd.grad(o_t, (qt, kt, vt), do_t, retain_graph=True))
+    ms_dq, ms_dkv, plain_bwd, lib_bwd = rg_timed(b_fns, (3, 3, 1, 3))
+    for name, ms_, per_pair, outs in (("dq", ms_dq, 6, (q,)), ("dkv", ms_dkv, 8, (k, v))):
+        outs = [torch.empty(t.shape, device=dev) for t in outs]  # float32 gradients
+        nbytes, flops = bwd_bytes_flops(q, k, qp, kp, True, RG_WINDOW, per_pair, outs)
+        bms, by = bound(nbytes, flops, "bfloat16")
+        rows[name] = dict(ms=ms_, plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bms,
+                          bound_by=by, max_abs_err=b_err, instance="cuda_core", shape=shape,
+                          plain_and_library_compute="dq, dk and dv in one call",
+                          flops=flops, bytes=nbytes)
+        log(f"  B {name} {shape} [cuda_core]: kernel {ms_:.3f} ms, bound {bms:.4f} ms "
+            f"({by}), {flops / ms_ / 1e9:.2f} TFLOP/s; plain backward {plain_bwd:.3f} ms, sdpa "
+            f"backward {lib_bwd:.3f} ms")
+    del main, args, o_t, qt, kt, vt, mask, b_fns
+    free_device_memory(torch)
+
+    # the decode core: group 10 x Sq 1 over a 2048-slot ring buffer
+    lengths = [3000, 700, 2100, 0, 2048, 1]
+    qp, kp = rg_ring_positions(torch, dev, lengths)
+    B = len(lengths)
+    q32, k32, v32 = rnd((B, 1, Hq, D)), rnd((B, RG_WINDOW, Hkv, D)), rnd((B, RG_WINDOW, Hkv, D))
+    for dtype in (f32, bf):
+        q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+        got, want = fwd_pair(q, k, v, qp, kp, RG_WINDOW)
+        name = {f32: "f32", bf: "bf16"}[dtype]
+        compare(f"A {name} D=256 decode g10 Sq=1 ring buffer of {RG_WINDOW} slots, lengths "
+                f"{lengths} [{fa.flash_fwd_instance(dtype, 1, D)}] bitwise repeatable", got,
+                want, **tolerances(dtype))
+        if not torch.isneginf(got[1][3]).all():
+            raise AssertionError("A D=256 decode: the row with no key is not dead")
+    # the main path's decode call, timed: its 8 rows against a full, wrapped
+    # buffer of 2048 slots (the steady state of a long decode)
+    Bd = RG_PROMPTS
+    qp, kp = rg_ring_positions(torch, dev, [RG_WINDOW + 37 * i for i in range(Bd)])
+    q, k, v = (rnd(s, bf) for s in ((Bd, 1, Hq, D), (Bd, RG_WINDOW, Hkv, D),
+                                   (Bd, RG_WINDOW, Hkv, D)))
+    (got, want) = fwd_pair(q, k, v, qp, kp, RG_WINDOW)
+    d_err = compare(f"A bf16 D=256 decode main path B={Bd} g10 Sq=1 {RG_WINDOW} slots [decode] "
+                    "bitwise repeatable", got, want, **tolerances(bf))
+    d_fns = (lambda: fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True,
+                                                 window=RG_WINDOW, scale=scale),
+             lambda: fa.flash_attention_fwd_torch(q, k, v, qp, kp, causal=True,
+                                                  window=RG_WINDOW, scale=scale, block_k=512),
+             sdpa_masked(torch, q, k, v, qp, kp, RG_WINDOW))
+    ev = rg_timed(d_fns, (10, 3, 10))
+    (ms, plain_ms, lib_ms), how = device_times(*zip(d_fns, (30, 3, 30)))
+    nbytes, flops = flash_bytes_flops(q, k, qp, kp, True, RG_WINDOW)
+    bms, by = bound(nbytes, flops, "bfloat16")
+    shape = f"B={Bd} Sq=1 Sk={RG_WINDOW} Hq={Hq} Hkv={Hkv} D={D} bf16 ring buffer full"
+    rows["decode"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                          bound_by=by, max_abs_err=d_err, instance="decode", shape=shape,
+                          timing=how, event_ms=ev[0], event_plain_ms=ev[1],
+                          event_library_ms=ev[2], bytes=nbytes)
+    log(f"  A {shape} [decode]: device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{lib_ms:.4f} ms; events kernel {ev[0]:.4f} ms; bound {bms:.4f} ms ({by}) at {how}")
+    free_device_memory(torch)
+    return rows
+
+
+def phase_rg_checked(torch, dev, cfg=None, B=2, S=4096):
+    """Phase 20 (b): recurrentgemma at full width, ``RG_CHECK_LAYERS``
+    layers (one superblock and the 2-layer tail), float32, remat "full":
+    the loss and every gradient leaf on the kernels at SP 1 and through 4
+    virtual ranks (the window halo over two predecessor shards, the
+    RG-LRU's scan) against the plain path at SP 1, each kernel run twice and
+    bitwise equal (deterministic algorithms on), launches as
+    ``train_launches_per_step``; phase 8's float32 limits."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.launch.train_step import value_and_grad
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.trainer import batch_to_device
+
+    cfg = cfg or ARCHS[RG].with_(n_layers=RG_CHECK_LAYERS, dtype="float32")
+    plain = build_model(cfg, ParallelContext(impl="torch", device="cuda"))
+    params = plain.init(0, training=True)
+    batch = batch_to_device(next(SyntheticDataset(SyntheticConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=1, layout=cfg.layout))), dev)
+    (l_plain, _), g_plain = value_and_grad(plain.loss, params, batch)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for P in (1, 4):
+            bundle = build_model(cfg, ParallelContext(device="cuda", sp_degree=P,
+                                                      layout=cfg.layout))
+            want = train_launches_per_step(cfg, sp_computes(cfg, "tokenring", P))
+            runs = []
+            for _ in range(2):
+                reset_launch_counts()
+                (loss, _), grads = value_and_grad(bundle.loss, params, batch)
+                torch.cuda.synchronize()
+                if launch_counts() != want:
+                    raise AssertionError(f"phase 20 (b) P={P}: launches {launch_counts()}, "
+                                         f"expected {want}")
+                runs.append((loss, grads))
+            (loss, grads), (loss2, grads2) = runs
+            if not (torch.equal(loss, loss2) and all(
+                    torch.equal(a, b) for (_, a), (_, b) in zip(named_leaves(grads),
+                                                                named_leaves(grads2)))):
+                raise AssertionError(f"phase 20 (b) P={P}: loss or gradients not bitwise "
+                                     "repeated")
+            l_err = abs(float(loss) - float(l_plain))
+            # the same float32 ops but attention's sums (and at P = 4 the
+            # scan's cross-rank composition) in another order: phase 8's
+            # float32 limits
+            if not (math.isfinite(float(loss)) and l_err <= 1e-5 * abs(float(l_plain))):
+                raise AssertionError(f"phase 20 (b) P={P}: loss {float(loss)} vs the plain "
+                                     f"path's {float(l_plain)}")
+            worst = worst_leaf(torch, grads, g_plain, 1e-4)
+            halo = (f", window halo {math.ceil((cfg.window - 1) / (S // P))} shards and the "
+                    "scan over the ring" if P > 1 else "")
+            log(f"  ok phase 20 recurrentgemma {cfg.n_layers} layers f32 B={B} S={S} P={P}"
+                f"{halo}: loss {float(loss):.6f} vs plain {float(l_plain):.6f} (|err| "
+                f"{l_err:.2e}); worst gradient leaf off by {worst:.2e} of its max; bitwise "
+                f"repeated; launches {want}")
+            del runs, grads, grads2
+            free_device_memory(torch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def rg_blocks(params):
+    """``(kind, temporal block, mlp block)`` of every layer in order."""
+    out = []
+    for p_s in params["supers"]:
+        out += [("rec", p_s["rec1"], p_s["mlp1"]), ("rec", p_s["rec2"], p_s["mlp2"]),
+                ("attn", p_s["attn"], p_s["mlp3"])]
+    out += [("rec", p_t["rec"], p_t["mlp"]) for p_t in params.get("tail", ())]
+    return out
+
+
+# A layer's forward pass fed the decode's own inputs, against the decode:
+# as MAMBA_LAYER_LIMIT (cuBLAS sums a product of 8 rows in another order
+# than one of 8 x 320, the float32 scan's order, and the attention layer's
+# decode core against the CUDA-core instance over the same keys).
+RG_LAYER_LIMIT = MAMBA_LAYER_LIMIT
+
+
+def phase_rg_decode(torch, dev, prompts=RG_PROMPTS, prompt_len=RG_PROMPT_LEN, steps=RG_STEPS,
+                    cfg=None):
+    """Phase 20 (d): recurrentgemma-2b at full width and depth (bf16):
+    ``prompts`` prompts of ``prompt_len`` tokens fed through
+    ``bundle.decode_step`` one token a step, then ``steps`` greedy tokens; 8
+    launches of A's D-256 decode instance a step; every layer's forward
+    pass (its temporal block, then its MLP block) fed the decode's own
+    inputs within ``RG_LAYER_LIMIT`` of the decode's outputs; the
+    end-to-end logits against the forward pass logged, not gated (as phase
+    19's); the engine refuses the bundle."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.models import rglru as R
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = cfg or ARCHS[RG]
+    bundle = build_model(cfg, ParallelContext(device="cuda"))
+    t0 = time.perf_counter()
+    params = bundle.init(0)
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"  {cfg.name}: {cfg.n_layers} layers, {weight_bytes / 1e9:.2f} GB of weights, seeded "
+        f"init {time.perf_counter() - t0:.1f} s; {prompts} prompts of {prompt_len} tokens, then "
+        f"{steps} greedy tokens, one token a step")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    tokens = torch.randint(0, cfg.vocab_size, (prompts, prompt_len), generator=gen, device=dev,
+                           dtype=torch.int32)
+    state = bundle.init_serve_state(prompts, 0, dev)
+    state_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    blocks = rg_blocks(params)
+    L = len(blocks)
+    # every MLP block's input and output of every step, kept by reference:
+    # layer l's temporal block maps its input (layer l-1's MLP output, the
+    # embedding at l = 0) to MLP l's input
+    mlp_in, mlp_out = [[] for _ in range(L)], [[] for _ in range(L)]
+    calls = [0]
+    real_mlp = R._mlp_block
+
+    def recording_mlp(p, x, *, cfg):
+        out = real_mlp(p, x, cfg=cfg)
+        layer = calls[0] % L
+        calls[0] += 1
+        mlp_in[layer].append(x)
+        mlp_out[layer].append(out)
+        return out
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rows, fed, marks = [], [], []
+
+    def step(tok):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, _ = bundle.decode_step(params, tok, state)
+        end.record()
+        marks.append((start, end))
+        rows.append(logits.float())
+
+    R._mlp_block = recording_mlp
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(prompt_len):
+            step(tokens[:, t])
+        torch.cuda.synchronize()
+        t_prompt = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = rows[-1].argmax(-1).to(torch.int32)
+            fed.append(tok)
+            step(tok)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+    finally:
+        R._mlp_block = real_mlp
+    peak = torch.cuda.max_memory_allocated()
+    got = launch_counts()
+    n_attn = attention_calls(cfg)
+    want = {"flash_attention_fwd": n_attn * (prompt_len + steps), "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
+    if got != want:
+        raise AssertionError(f"phase 20 decode: launches {got}, expected {want}")
+    step_ms = [s.elapsed_time(e) for s, e in marks]
+    med = statistics.median(step_ms)
+    dec = torch.stack(rows, 1)
+    if not bool(torch.isfinite(dec).all()):
+        raise AssertionError("phase 20 decode: non-finite logits")
+    seq = torch.cat([tokens, torch.stack(fed, 1)], dim=1)
+    T = seq.shape[1]
+    positions = torch.arange(T, device=dev, dtype=torch.int32).expand(prompts, T).contiguous()
+    dt = torch.bfloat16
+    layer_err, drift = [], {}
+    with torch.no_grad():
+        x = params["embed"]["table"][seq.long()].to(dt)
+        xin = x
+        for l, (kind, p_t, p_m) in enumerate(blocks):
+            mid, xout = torch.cat(mlp_in[l], 1), torch.cat(mlp_out[l], 1)
+            if kind == "rec":
+                forced = R._rec_block(p_t, xin, cfg=cfg, pctx=bundle.pctx)
+            else:
+                forced = R._attn_block(p_t, xin, positions, cfg=cfg, pctx=bundle.pctx)
+            forced = R._mlp_block(p_m, forced, cfg=cfg).float()
+            update = (xout.float() - xin.float()).norm()
+            layer_err.append(float((forced - xout.float()).norm() / update))
+            x = (R._rec_block(p_t, x, cfg=cfg, pctx=bundle.pctx) if kind == "rec" else
+                 R._attn_block(p_t, x, positions, cfg=cfg, pctx=bundle.pctx))
+            x = R._mlp_block(p_m, x, cfg=cfg)
+            drift[l + 1] = float((x.float() - xout.float()).norm() / xout.float().norm())
+            xin = xout
+            mlp_in[l] = mlp_out[l] = None
+        x = apply_norm(params["final_norm"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
+        fwd = (x @ params["embed"]["table"].T.to(dt)).float()
+    top = fwd.max(-1).values
+    gap = top - fwd.gather(-1, dec.argmax(-1, keepdim=True))[..., 0]
+    ratio = float((gap / (top - fwd.mean(-1))).max())
+    flips = int((gap > 0).sum())
+    del fwd, x
+    worst = max(layer_err)
+    kinds = [k for k, _, _ in blocks]
+    log(f"  decode: prompt fed at {prompts * prompt_len / t_prompt:.1f} tok/s, greedy "
+        f"{prompts * steps / t_gen:.1f} tok/s; median step {med:.3f} ms (CUDA events; weight-read "
+        f"bound {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); state {state_bytes / 2**20:.1f} "
+        f"MiB (ring buffers of {cfg.window} slots); peak {peak / 2**30:.2f} GiB; launches {got}")
+    log(f"  each layer's forward pass fed the decode's inputs ({dec.shape[0] * dec.shape[1]} "
+        f"positions): worst {worst:.2e} of the layer's update (layer {layer_err.index(worst)}, "
+        f"{kinds[layer_err.index(worst)]}; limit {RG_LAYER_LIMIT}), median "
+        f"{statistics.median(layer_err):.2e}; attention layers "
+        + ", ".join(f"{e:.1e}" for e, k in zip(layer_err, kinds) if k == "attn"))
+    log("  free-running forward against the decode, relative L2 by depth: "
+        + ", ".join(f"{d}: {v:.2e}" for d, v in drift.items() if d in (1, 2, 3, 6, 12, 24, L))
+        + f"; at the head {flips} of {dec.shape[0] * dec.shape[1]} positions not the forward's "
+        f"argmax, largest gap {ratio:.4f} of the row spread (logged, not gated)")
+    if not worst <= RG_LAYER_LIMIT:
+        raise AssertionError(f"phase 20 decode: layer {layer_err.index(worst)}'s forward pass "
+                             f"is {worst:.3e} of its update off the decode steps")
+    try:
+        ServingEngine(bundle, params, max_batch=prompts, max_len=512, device=dev)
+    except NotImplementedError as e:
+        if "rolled back" not in str(e):
+            raise
+        log(f"  the engine refuses the bundle: {e}")
+    else:
+        raise AssertionError("phase 20: the engine served a recurrent family")
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": prompts, "prompt_len": prompt_len,
+           "steps": steps, "prompt_tokens_per_s": prompts * prompt_len / t_prompt,
+           "tokens_per_s": prompts * steps / t_gen, "median_step_ms": med,
+           "weight_bytes": weight_bytes,
+           "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+           "state_bytes": state_bytes, "peak_bytes": peak, "launches": got,
+           "positions": dec.shape[0] * dec.shape[1], "layer_rel_err_max": worst,
+           "layer_rel_err_median": statistics.median(layer_err), "drift_by_depth": drift,
+           "head_flips": flips, "head_max_gap_over_spread": ratio}
+    log("RESULT decoding_rg " + json.dumps(res))
+    return {**got, "paged_decode_fwd": 0}
+
+
+def phase_rg_wrap(torch, dev, cfg=None, n_tokens=RG_WRAP_TOKENS):
+    """Phase 20 (e): the ring buffer wraps on the card.  recurrentgemma at
+    full width, one superblock, float32: one row fed ``n_tokens`` tokens by
+    ``decode_step`` (past slot 2048 each step overwrites the token 2048
+    positions back), every step's logits against the windowed forward pass
+    over the same tokens at the same position (atol and rtol 1e-3, phase
+    19's float32 decode limit)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.models import rglru as R
+    from repro_torch.models.registry import build_model
+
+    cfg = cfg or ARCHS[RG].with_(n_layers=3, dtype="float32")
+    bundle = build_model(cfg, ParallelContext(device="cuda"))
+    params = bundle.init(0)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n_tokens), generator=gen, device=dev,
+                           dtype=torch.int32)
+    state = bundle.init_serve_state(1, 0, dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = [bundle.decode_step(params, tokens[:, t], state)[0] for t in range(n_tokens)]
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    if launch_counts()["flash_attention_fwd"] != n_tokens * attention_calls(cfg):
+        raise AssertionError(f"phase 20 (e): launches {launch_counts()}")
+    wrapped = int((state["pos"][0] >= cfg.window).sum())
+    if not (int(state["len"][0]) == n_tokens and wrapped == n_tokens - cfg.window
+            and int(state["pos"][0].min()) == n_tokens - cfg.window):
+        raise AssertionError(f"phase 20 (e): ring buffer holds positions "
+                             f"{int(state['pos'][0].min())}..{int(state['pos'][0].max())}")
+    positions = torch.arange(n_tokens, device=dev, dtype=torch.int32)[None].contiguous()
+    worst, worst_at, chunk = 0.0, -1, 256
+    with torch.no_grad():
+        x = R.rg_apply(params, tokens, positions, cfg=cfg, pctx=bundle.pctx)
+        w = params["embed"]["table"].T
+        for c0 in range(0, n_tokens, chunk):
+            fwd = x[0, c0:c0 + chunk] @ w
+            dec = torch.cat(rows[c0:c0 + chunk], 0)
+            err = (dec - fwd).abs() / (1e-3 + 1e-3 * fwd.abs())
+            e, at = err.max(-1).values.max(0)
+            if float(e) > worst:
+                worst, worst_at = float(e), c0 + int(at)
+    if not worst <= 1.0:
+        raise AssertionError(f"phase 20 (e): decode logits off the windowed forward at position "
+                             f"{worst_at} ({worst:.3f} of the limit 1e-3 + 1e-3 |logit|)")
+    log(f"  ok phase 20 ring buffer: {cfg.n_layers} layers f32, one row fed {n_tokens} tokens "
+        f"by decode_step ({t_dec:.1f} s), {wrapped} slots overwritten past {cfg.window}; every "
+        f"step's logits within {worst:.3f} of the limit (1e-3 + 1e-3 |logit|) of the windowed "
+        f"forward pass (worst at position {worst_at}); launches {launch_counts()}")
+
+
+PROFILED_PHASES = (6, 9, 11, 13, 16, 17, 18, 19, 20)
 
 
 def profiled_phases(argv):
@@ -4631,7 +5187,28 @@ def main() -> int:
     launches["prefill_sp4"] = phase_prefill_sp(torch, dev)
     free_device_memory(torch)
 
-    log("== phase 20: summary")
+    log("== phase 20: the hybrid family: kernels A (CUDA-core and decode-core instances), B1 and "
+        "B2 at head dim 256 against their plain versions; recurrentgemma-2b checked at "
+        f"{RG_CHECK_LAYERS} layers in float32 (SP 1 and the window halo and scan over 4 virtual "
+        "ranks), trained at full width and depth (SP 1 and 4, main path), decoded at full width "
+        "and depth, its ring buffer wrapped")
+    rg_rows = phase_rg_kernels(torch, dev)
+    free_device_memory(torch)
+    phase_rg_checked(torch, dev)
+    free_device_memory(torch)
+    rg_cfg = ARCHS[RG]
+    launches["train_rg"] = phase_train_full(torch, dev, 20 in prof, cfg=rg_cfg,
+                                            result="training_rg")
+    free_device_memory(torch)
+    launches["train_rg_ring"] = phase_train_ring(torch, dev, 20 in prof, cfg=rg_cfg,
+                                                 sequential=False, result="training_rg_ring")
+    free_device_memory(torch)
+    launches["decode_rg"] = phase_rg_decode(torch, dev)
+    free_device_memory(torch)
+    phase_rg_wrap(torch, dev)
+    free_device_memory(torch)
+
+    log("== phase 21: summary")
     # `launches` is the count of the main path that runs the kernel (A, B1
     # and B2: whisper-base trained at full width and depth at SP 1, phase
     # 18's first training run; C, which no encoder-decoder path runs:
@@ -4649,6 +5226,14 @@ def main() -> int:
     # qwen3-1.7b's (16/8), and `sp4_calls` phase 13's SP-4 calls (phase 12).
     # Phase 19's paths are in `launches_by_path`: falcon-mamba's training
     # and decoding launch no kernel; `prefill_sp4` is lm_prefill at SP 4.
+    # `d256` holds the head-dim-256 instances (phase 20, recurrentgemma-2b):
+    # each row's time, errors and bound from phase 20 (a) at the main path's
+    # shapes, its `launches` from the main path that runs it (A's CUDA-core
+    # instance, B1 and B2: the SP-1 training run; A's decode instance: the
+    # full-depth decode).
+    def d256(row, path, name):
+        return {**row, "launches": launches[path][name], "path": path}
+
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in launches.items()}
 
@@ -4675,21 +5260,25 @@ def main() -> int:
                                    "decode": flash_rows[dense][1],
                                    "training_shape": bwd_rows[dense]["fwd"]}},
          "sp4_calls": {k: v for k, v in sp_rows.items() if k != "paged_decode"},
-         "ring_overlap_trace": ring_trace},
+         "ring_overlap_trace": ring_trace,
+         "d256": {"cuda_core": d256(rg_rows["cuda_core"], "train_rg", "flash_attention_fwd"),
+                  "decode": d256(rg_rows["decode"], "decode_rg", "flash_attention_fwd")}},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_bwd.cu",
          "replaces": bwd, "pallas_body": "src/repro/kernels/flash_attention.py:367",
          "launches": launches["train_whisper"]["flash_attention_bwd_dq"],
          "launches_by_path": by_path("flash_attention_bwd_dq"), **bwd_rows[wb]["cross"]["dq"],
          "whisper_calls": {k: bwd_rows[wb][k]["dq"] for k in ("encoder", "decoder")},
-         "times_by_path": {moe: bwd_rows[moe]["dq"], dense: bwd_rows[dense]["dq"]}},
+         "times_by_path": {moe: bwd_rows[moe]["dq"], dense: bwd_rows[dense]["dq"]},
+         "d256": d256(rg_rows["dq"], "train_rg", "flash_attention_bwd_dq")},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_bwd.cu",
          "replaces": bwd, "pallas_body": "src/repro/kernels/flash_attention.py:415",
          "launches": launches["train_whisper"]["flash_attention_bwd_dkv"],
          "launches_by_path": by_path("flash_attention_bwd_dkv"), **bwd_rows[wb]["cross"]["dkv"],
          "whisper_calls": {k: bwd_rows[wb][k]["dkv"] for k in ("encoder", "decoder")},
-         "times_by_path": {moe: bwd_rows[moe]["dkv"], dense: bwd_rows[dense]["dkv"]}},
+         "times_by_path": {moe: bwd_rows[moe]["dkv"], dense: bwd_rows[dense]["dkv"]},
+         "d256": d256(rg_rows["dkv"], "train_rg", "flash_attention_bwd_dkv")},
         {"name": "paged_decode_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/paged_attention.py:192",

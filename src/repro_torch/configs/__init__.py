@@ -1,8 +1,5 @@
 """Architecture registry of the port: the dense, MoE, VLM,
-encoder-decoder and SSM configs.
-
-Copies of ``repro.configs``; recurrentgemma (the ``"hybrid"`` family) comes
-with its slice.
+encoder-decoder, SSM and hybrid configs (copies of ``repro.configs``).
 """
 
 from repro_torch.configs.falcon_mamba_7b import CONFIG as falcon_mamba_7b
@@ -14,11 +11,12 @@ from repro_torch.configs.pixtral_12b import CONFIG as pixtral_12b
 from repro_torch.configs.qwen2_72b import CONFIG as qwen2_72b
 from repro_torch.configs.qwen3_1_7b import CONFIG as qwen3_1_7b
 from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as qwen3_moe_30b_a3b
+from repro_torch.configs.recurrentgemma_2b import CONFIG as recurrentgemma_2b
 from repro_torch.configs.whisper_base import CONFIG as whisper_base
 
 ARCHS = {c.name: c for c in [qwen3_moe_30b_a3b, llama4_scout_17b_a16e, granite_3_8b, qwen3_1_7b,
                              olmo_1b, qwen2_72b, pixtral_12b, llama2_7b, whisper_base,
-                             falcon_mamba_7b]}
+                             falcon_mamba_7b, recurrentgemma_2b]}
 
 
 def get_config(name: str):

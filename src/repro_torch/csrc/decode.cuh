@@ -121,9 +121,12 @@ struct Shape {
   static constexpr int TKW = kTK / WK;         // keys of a tile per warp
   // Elements of a lane's slice of a key row: 32 bytes at up to 2 rows a
   // warp, 16 up to 8 rows, 8 for bf16 at 16 rows, so that the slices of q
-  // and acc (2 x RW x VEC floats) stay near 64 registers; and no wider than
-  // lets the warp's TKW keys fill its lanes.
-  static constexpr int VB = RW <= 2 ? 32 : (RW <= 8 || sizeof(T) == 4 ? 16 : 8);
+  // and acc (2 x RW x VEC floats) stay near 64 registers; at least a 32nd
+  // of the row, so that one key's lanes fit a warp (float32 D 256: 32
+  // bytes, 2 x 4 x 8 floats at 4 rows a warp); and no wider than lets the
+  // warp's TKW keys fill its lanes.
+  static constexpr int VB1 = RW <= 2 ? 32 : (RW <= 8 || sizeof(T) == 4 ? 16 : 8);
+  static constexpr int VB = VB1 * 32 >= D * (int)sizeof(T) ? VB1 : D * (int)sizeof(T) / 32;
   static constexpr int VEC0 = VB / sizeof(T);
   static constexpr int VEC = VEC0 < D * TKW / 32 ? VEC0 : D * TKW / 32;
   static constexpr int LPK = D / VEC;          // lanes sharing one key's row
@@ -494,17 +497,24 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 // The block's rows pick the warp layout: up to 2 or 4 rows on one row group
 // (all four warps along the keys), 8 on two, 16 on four; more rows (group x
-// Sq up to 64 a chunk, dense or paged) hold 8 or 16 rows a warp.
+// Sq up to 64 a chunk, dense or paged) hold 8 or 16 rows a warp.  D 256
+// (recurrentgemma's local attention: group 10 x Sq 1) instantiates only the
+// 16-row layout and takes 9 to 16 rows; any other count is refused.
 template <typename T, int D, bool kPaged>
 cudaError_t pick_rows(const Args& a, cudaStream_t stream) {
   const int all_rows = a.Hq / a.Hkv * a.Sq;
   const int rows = all_rows < kMaxRows ? all_rows : kMaxRows;
-  if (rows <= 2) return launch<T, D, 1, 2, kPaged>(a, stream);
-  if (rows <= 4) return launch<T, D, 1, 4, kPaged>(a, stream);
-  if (rows <= 8) return launch<T, D, 2, 4, kPaged>(a, stream);
-  if (rows <= 16) return launch<T, D, 4, 4, kPaged>(a, stream);
-  if (rows <= 32) return launch<T, D, 4, 8, kPaged>(a, stream);
-  return launch<T, D, 4, 16, kPaged>(a, stream);
+  if constexpr (D == 256) {
+    if (rows <= 8 || rows > 16) return cudaErrorInvalidValue;
+    return launch<T, D, 4, 4, kPaged>(a, stream);
+  } else {
+    if (rows <= 2) return launch<T, D, 1, 2, kPaged>(a, stream);
+    if (rows <= 4) return launch<T, D, 1, 4, kPaged>(a, stream);
+    if (rows <= 8) return launch<T, D, 2, 4, kPaged>(a, stream);
+    if (rows <= 16) return launch<T, D, 4, 4, kPaged>(a, stream);
+    if (rows <= 32) return launch<T, D, 4, 8, kPaged>(a, stream);
+    return launch<T, D, 4, 16, kPaged>(a, stream);
+  }
 }
 
 // Checks the split the caller chose (`tiles_per_split`, from
@@ -530,6 +540,13 @@ cudaError_t run(Args a, int D, int bf16, cudaStream_t stream) {
     case 128:
       return bf16 ? pick_rows<__nv_bfloat16, 128, kPaged>(a, stream)
                   : pick_rows<float, 128, kPaged>(a, stream);
+    case 256:  // kernel A's dense decode only: kernel C refuses D 256
+      if constexpr (kPaged) {
+        return cudaErrorInvalidValue;
+      } else {
+        return bf16 ? pick_rows<__nv_bfloat16, 256, kPaged>(a, stream)
+                    : pick_rows<float, 256, kPaged>(a, stream);
+      }
     default:
       return cudaErrorInvalidValue;
   }

@@ -74,7 +74,8 @@
 //   64-key block streams the group's Q and dout again; each B1 block
 //   recomputes S and dP that B2 computes again.
 //
-// * The CUDA-core instances (float32 inputs, and D = 32): the reference.
+// * The CUDA-core instances (float32 inputs, D = 32, and D = 256 in both
+//   types, recurrentgemma's local attention): the reference.
 //   Blocks of 128 threads, tiles of BQ = 32 queries by BK = 32 keys, with
 //   float32 products on the CUDA cores out of shared memory.
 //   - B1 (dq): one block per (q-tile, query head, batch row) holds the q and
@@ -87,7 +88,9 @@
 //   value (B2) in a register across eight rows, and the accumulation loops
 //   read four scores per 16-byte load.  Bound by shared-memory bandwidth
 //   and the CUDA-core rate, far from the tensor-core rate; exact to
-//   float32.
+//   float32.  At D = 256 a thread owns two columns of every row of its tile
+//   (B2: 128 accumulators of dk and dv), and shared memory is 133 KB (B1)
+//   and 137 KB (B2); bf16 is widened to float32 on load.
 #include <type_traits>
 
 #include "common.cuh"
@@ -126,8 +129,11 @@ __global__ void __launch_bounds__(kThreads)
                         int Hq, int Hkv, int causal, int has_window, int window, float scale) {
   static_assert(kThreads % D == 0 || D % kThreads == 0, "D must tile the block");
   static_assert(kBKb == 32 && (kBQ * kBKb) % kThreads == 0, "one key per lane");
-  constexpr int RPT = kBQ * D / kThreads;    // dq rows per thread
-  constexpr int RSTEP = kThreads / D;
+  // A thread owns column tid % D of dq rows tid / D + i * RSTEP when D <=
+  // the block; past it (D = 256) columns tid + c * kThreads of every row.
+  constexpr int CPT = D > kThreads ? D / kThreads : 1;  // columns per thread
+  constexpr int RSTEP = D > kThreads ? 1 : kThreads / D;
+  constexpr int NR = kBQ / RSTEP;  // dq rows per thread
   constexpr int SPT = kBQ * kBKb / kThreads;  // score rows per thread
   constexpr int SSTEP = kThreads / kBKb;
   constexpr int KS = D + 1;  // padded K/V row: lanes on distinct keys hit distinct banks
@@ -183,10 +189,12 @@ __global__ void __launch_bounds__(kThreads)
     qmax = max(qmax, sQp[r]);
   }
 
-  float acc[RPT];
+  float acc[NR][CPT];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
-  const int d = tid % D;
+  for (int i = 0; i < NR; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+  const int d = tid % D, row0 = tid / D;
 
   for (int k0 = 0; k0 < Sk; k0 += kBKb) {
     if (tid < kBKb) {
@@ -248,25 +256,35 @@ __global__ void __launch_bounds__(kThreads)
     // dq[r, d] += sum_j ds[r, j] * k[j, d], four keys per 16-byte load of ds.
 #pragma unroll 2
     for (int j = 0; j < kBKb; j += 4) {
-      const float k0v = sK[j * KS + d], k1v = sK[(j + 1) * KS + d];
-      const float k2v = sK[(j + 2) * KS + d], k3v = sK[(j + 3) * KS + d];
+      float kv[4][CPT];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int r = tid / D + i * RSTEP;
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) kv[u][c] = sK[(j + u) * KS + d + c * kThreads];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const int r = row0 + i * RSTEP;
         const float4 ds = *reinterpret_cast<const float4*>(sDS + r * kBKb + j);
-        acc[i] = fmaf(ds.x, k0v, acc[i]);
-        acc[i] = fmaf(ds.y, k1v, acc[i]);
-        acc[i] = fmaf(ds.z, k2v, acc[i]);
-        acc[i] = fmaf(ds.w, k3v, acc[i]);
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          acc[i][c] = fmaf(ds.x, kv[0][c], acc[i][c]);
+          acc[i][c] = fmaf(ds.y, kv[1][c], acc[i][c]);
+          acc[i][c] = fmaf(ds.z, kv[2][c], acc[i][c]);
+          acc[i][c] = fmaf(ds.w, kv[3][c], acc[i][c]);
+        }
       }
     }
     __syncthreads();
   }
 
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = tid / D + i * RSTEP;
-    if (r < nrows) dq[(((size_t)b * Sq + q0 + r) * Hq + h) * D + d] = acc[i];
+  for (int i = 0; i < NR; ++i) {
+    const int r = row0 + i * RSTEP;
+    if (r < nrows) {
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        dq[(((size_t)b * Sq + q0 + r) * Hq + h) * D + d + c * kThreads] = acc[i][c];
+    }
   }
 }
 
@@ -281,8 +299,11 @@ __global__ void __launch_bounds__(kThreads)
                          int has_window, int window, float scale) {
   static_assert(kThreads % D == 0 || D % kThreads == 0, "D must tile the block");
   static_assert(kBQ == 32 && (kBQ * kBKb) % kThreads == 0, "one query per lane");
-  constexpr int RPT = kBKb * D / kThreads;    // dk/dv rows per thread
-  constexpr int RSTEP = kThreads / D;
+  // As in B1: column tid % D of key rows tid / D + i * RSTEP, or columns
+  // tid + c * kThreads of every key row past the block's width.
+  constexpr int CPT = D > kThreads ? D / kThreads : 1;  // columns per thread
+  constexpr int RSTEP = D > kThreads ? 1 : kThreads / D;
+  constexpr int NR = kBKb / RSTEP;  // dk/dv rows per thread
   constexpr int SPT = kBQ * kBKb / kThreads;  // score keys per thread
   constexpr int SSTEP = kThreads / kBQ;
   constexpr int QS = D + 1;  // padded q/dout row: lanes on distinct queries hit distinct banks
@@ -328,10 +349,12 @@ __global__ void __launch_bounds__(kThreads)
     kmax = max(kmax, sKp[j]);
   }
 
-  float dk_acc[RPT], dv_acc[RPT];
+  float dk_acc[NR][CPT], dv_acc[NR][CPT];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-  const int d = tid % D;
+  for (int i = 0; i < NR; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+  const int d = tid % D, row0 = tid / D;
   const int n_qtiles = (Sq + kBQ - 1) / kBQ;
 
   for (int g = 0; g < group; ++g) {
@@ -408,25 +431,30 @@ __global__ void __launch_bounds__(kThreads)
       // dv[j, d] += sum_r p[r, j] * dout[r, d]; dk[j, d] += sum_r ds[r, j] * q[r, d].
 #pragma unroll 2
       for (int r = 0; r < kBQ; r += 4) {
-        float dov[4], qv[4];
+        float dov[4][CPT], qv[4][CPT];
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          dov[u] = sDO[(r + u) * QS + d];
-          qv[u] = sQ[(r + u) * QS + d];
-        }
+        for (int u = 0; u < 4; ++u)
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const int j = tid / D + i * RSTEP;
+          for (int c = 0; c < CPT; ++c) {
+            dov[u][c] = sDO[(r + u) * QS + d + c * kThreads];
+            qv[u][c] = sQ[(r + u) * QS + d + c * kThreads];
+          }
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          const int j = row0 + i * RSTEP;
           const float4 p = *reinterpret_cast<const float4*>(sPT + j * kBQ + r);
           const float4 ds = *reinterpret_cast<const float4*>(sDST + j * kBQ + r);
-          dv_acc[i] = fmaf(p.x, dov[0], dv_acc[i]);
-          dv_acc[i] = fmaf(p.y, dov[1], dv_acc[i]);
-          dv_acc[i] = fmaf(p.z, dov[2], dv_acc[i]);
-          dv_acc[i] = fmaf(p.w, dov[3], dv_acc[i]);
-          dk_acc[i] = fmaf(ds.x, qv[0], dk_acc[i]);
-          dk_acc[i] = fmaf(ds.y, qv[1], dk_acc[i]);
-          dk_acc[i] = fmaf(ds.z, qv[2], dk_acc[i]);
-          dk_acc[i] = fmaf(ds.w, qv[3], dk_acc[i]);
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) {
+            dv_acc[i][c] = fmaf(p.x, dov[0][c], dv_acc[i][c]);
+            dv_acc[i][c] = fmaf(p.y, dov[1][c], dv_acc[i][c]);
+            dv_acc[i][c] = fmaf(p.z, dov[2][c], dv_acc[i][c]);
+            dv_acc[i][c] = fmaf(p.w, dov[3][c], dv_acc[i][c]);
+            dk_acc[i][c] = fmaf(ds.x, qv[0][c], dk_acc[i][c]);
+            dk_acc[i][c] = fmaf(ds.y, qv[1][c], dk_acc[i][c]);
+            dk_acc[i][c] = fmaf(ds.z, qv[2][c], dk_acc[i][c]);
+            dk_acc[i][c] = fmaf(ds.w, qv[3][c], dk_acc[i][c]);
+          }
         }
       }
       __syncthreads();
@@ -434,12 +462,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int j = tid / D + i * RSTEP;
+  for (int i = 0; i < NR; ++i) {
+    const int j = row0 + i * RSTEP;
     if (j < nkeys) {
       const size_t off = (((size_t)b * Sk + k0 + j) * Hkv + hk) * D + d;
-      dk[off] = dk_acc[i];
-      dv[off] = dv_acc[i];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        dk[off + c * kThreads] = dk_acc[i][c];
+        dv[off + c * kThreads] = dv_acc[i][c];
+      }
     }
   }
 }
@@ -485,7 +516,8 @@ cudaError_t launch_dkv(const BwdArgs& a, float* dk, float* dv) {
 }
 
 // bf16 calls with D 64/128 go to the wgmma instances: only float32
-// instantiates the CUDA-core kernels at those widths.
+// instantiates the CUDA-core kernels at those widths.  D 256 (recurrentgemma)
+// runs on the CUDA cores in both types.
 template <typename T>
 cudaError_t dq_dim(int D, const BwdArgs& a, float* dq) {
   constexpr bool f32 = std::is_same_v<T, float>;
@@ -495,6 +527,7 @@ cudaError_t dq_dim(int D, const BwdArgs& a, float* dq) {
       break;
     case 128: if constexpr (f32) return launch_dq<T, 128>(a, dq);
       break;
+    case 256: return launch_dq<T, 256>(a, dq);
   }
   return cudaErrorInvalidValue;
 }
@@ -508,6 +541,7 @@ cudaError_t dkv_dim(int D, const BwdArgs& a, float* dk, float* dv) {
       break;
     case 128: if constexpr (f32) return launch_dkv<T, 128>(a, dk, dv);
       break;
+    case 256: return launch_dkv<T, 256>(a, dk, dv);
   }
   return cudaErrorInvalidValue;
 }

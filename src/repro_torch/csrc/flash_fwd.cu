@@ -14,7 +14,9 @@
 // in the kernel.  One C entry, `flash_fwd`, picks the instance:
 //
 // * The decode instance (every call with Sq <= 4: the dense decode step;
-//   float32 and bf16, D 32/64/128): the dense instance of the split-KV decode
+//   float32 and bf16, D 32/64/128, and D 256 at 9 to 16 rows a KV head, the
+//   GQA group x Sq of recurrentgemma's local attention, group 10 at Sq 1):
+//   the dense instance of the split-KV decode
 //   core in decode.cuh, shared with kernel C.  One block of 128 threads per
 //   (KV head, batch row, split of the KV range) holds the whole GQA group x
 //   Sq rows, so K and V are read once per group; the split count comes from
@@ -55,12 +57,18 @@
 //   warpgroups are not scheduled against each other (no ping-pong), so
 //   the tensor cores idle while exponentials run.
 //
-// * The CUDA-core instance (float32 inputs and D = 32, Sq > 4): one block
-//   of 128 threads per (q-tile of 32 rows, head, batch row) walks KV tiles
-//   of 32 keys with the softmax state in shared memory and float32 products
-//   on the CUDA cores, one multiply-add per shared-memory read: bound by
-//   shared-memory bandwidth, far from the tensor-core rate.  It is exact to
-//   float32 and stays as the reference instance.
+// * The CUDA-core instance (float32 inputs, D = 32, and D = 256 in both
+//   types, Sq > 4): one block of 128 threads per (q-tile of 32 rows, head,
+//   batch row) walks KV tiles of 32 keys with the softmax state in shared
+//   memory and float32 products on the CUDA cores, one multiply-add per
+//   shared-memory read: bound by shared-memory bandwidth, far from the
+//   tensor-core rate.  It is exact to float32 and stays as the reference
+//   instance.  At D = 256 a thread owns two columns of every row of the
+//   q-tile (64 accumulators) and the block's shared memory is 101 KB (bf16
+//   is widened to float32 on load).  It is recurrentgemma's bf16 training
+//   instance until a wgmma instance is tiled for D = 256, whose O
+//   accumulator would double past the ~128 floats a thread that keep the
+//   D 64/128 instances free of spills.
 #include <type_traits>
 
 #include "common.cuh"
@@ -85,10 +93,13 @@ __global__ void __launch_bounds__(kThreads)
                      const int* __restrict__ k_pos, T* __restrict__ out,
                      float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int causal,
                      int has_window, int window, float scale) {
-  static_assert(kThreads % D == 0, "D must divide the block");
+  static_assert(kThreads % D == 0 || D % kThreads == 0, "D must tile the block");
   static_assert((kBQ * D) % kThreads == 0 && (kBQ * kBK) % kThreads == 0, "tile split");
-  constexpr int RPT = kBQ * D / kThreads;  // accumulator rows per thread
-  constexpr int RSTEP = kThreads / D;
+  // A thread owns column tid % D of rows tid / D + i * RSTEP when D <= the
+  // block; past it (D = 256) columns tid + c * kThreads of every row.
+  constexpr int CPT = D > kThreads ? D / kThreads : 1;  // columns per thread
+  constexpr int RSTEP = D > kThreads ? 1 : kThreads / D;
+  constexpr int NR = kBQ / RSTEP;  // rows per thread
   constexpr int SPT = kBQ * kBK / kThreads;  // scores per thread
   constexpr int SSTEP = kThreads / kBK;
   constexpr int KS = D + 1;  // padded K row: lanes on distinct keys hit distinct banks
@@ -134,10 +145,12 @@ __global__ void __launch_bounds__(kThreads)
     s_qmax = hi;
   }
 
-  float acc[RPT];
+  float acc[NR][CPT];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
-  const int d = tid % D;
+  for (int i = 0; i < NR; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+  const int d = tid % D, row0 = tid / D;
 
   for (int k0 = 0; k0 < Sk; k0 += kBK) {
     if (tid < kBK) {
@@ -195,22 +208,33 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) acc[i] *= sA[tid / D + i * RSTEP];
-    for (int j = 0; j < kBK; ++j) {
-      const float vv = sV[j * D + d];
+    for (int i = 0; i < NR; ++i)
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) acc[i] = fmaf(sP[(tid / D + i * RSTEP) * kBK + j], vv, acc[i]);
+      for (int c = 0; c < CPT; ++c) acc[i][c] *= sA[row0 + i * RSTEP];
+    for (int j = 0; j < kBK; ++j) {
+      float vv[CPT];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) vv[c] = sV[j * D + d + c * kThreads];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const float p = sP[(row0 + i * RSTEP) * kBK + j];
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+      }
     }
     __syncthreads();
   }
 
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = tid / D + i * RSTEP, s = q0 + r;
+  for (int i = 0; i < NR; ++i) {
+    const int r = row0 + i * RSTEP, s = q0 + r;
     if (s < Sq) {
       const float l = sL[r];
-      const float o = l > 0.f ? acc[i] / l : 0.f;
-      out[(((size_t)b * Sq + s) * Hq + h) * D + d] = from_f<T>(o);
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const float o = l > 0.f ? acc[i][c] / l : 0.f;
+        out[(((size_t)b * Sq + s) * Hq + h) * D + d + c * kThreads] = from_f<T>(o);
+      }
     }
   }
   for (int r = tid; r < kBQ; r += kThreads) {
@@ -229,7 +253,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* q
                        const int* kp, void* out, float* lse, int B, int Sq, int Sk, int Hq,
                        int Hkv, int causal, int has_window, int window, float scale,
                        cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16> && D != 32) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && (D == 64 || D == 128)) {
     return cudaErrorInvalidValue;
   } else {
     constexpr size_t smem = fwd_smem_bytes<D>();
@@ -260,6 +284,9 @@ cudaError_t pick_dim(int D, const void* q, const void* k, const void* v, const i
                                has_window, window, scale, stream);
     case 128:
       return launch_fwd<T, 128>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
+                                has_window, window, scale, stream);
+    case 256:
+      return launch_fwd<T, 256>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
                                 has_window, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
@@ -580,7 +607,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qp, c
 // Which instance takes a call (mirrored by `flash_fwd_instance` in
 // kernels/flash_attention.py): every call with Sq <= 4 goes to the decode
 // instance, bf16 calls with D 64/128 and Sq > 4 to the wgmma instance, the
-// rest (float32, D = 32) to the CUDA-core instance.
+// rest (float32, D = 32, D = 256) to the CUDA-core instance.
 inline bool takes_decode(int Sq) { return Sq <= 4; }
 inline bool takes_wgmma(int bf16, int D, int Sq) {
   return bf16 && (D == 64 || D == 128) && Sq > 4;

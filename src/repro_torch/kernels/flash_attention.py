@@ -13,9 +13,11 @@ Counterpart of ``repro.kernels.flash_attention``.
   bound by the bytes of the live keys; bf16 calls with D 64/128 and Sq > 4
   (training, serving prefill) run on the tensor cores, with TMA-fed K/V
   tiles, ``wgmma`` products and the online softmax in registers, and are
-  bound by the tensor-core rate; float32 and D = 32 calls with Sq > 4 run
-  on the CUDA cores, bound by shared-memory traffic.  All skip dead KV
-  tiles whole (see the source notes in the ``.cu`` files).
+  bound by the tensor-core rate; float32, D = 32 and D = 256 calls with
+  Sq > 4 run on the CUDA cores, bound by shared-memory traffic.  Head dims
+  32, 64, 128 and 256 (``FLASH_DIMS``); the decode core's D-256 instance
+  takes 9 to 16 rows a KV head (:func:`check_decode_rows`).  All skip dead
+  KV tiles whole (see the source notes in the ``.cu`` files).
 * :func:`flash_attention_fwd_torch` is the plain version: a loop over KV
   blocks with the same online-softmax update, used for CPU tensors and as
   the kernel's yardstick on the card.
@@ -25,9 +27,10 @@ Counterpart of ``repro.kernels.flash_attention``.
   ``_bwd_dkv_kernel``).  Each has two instances behind its C entry
   (:func:`flash_bwd_instance` says which takes a call): bf16 calls with D
   64/128 run on the tensor cores (TMA-fed tiles, ``wgmma`` products, P and
-  dS rounded to bf16 as operands), float32 calls and D = 32 on the CUDA
-  cores.  Both use kernel A's tile skip; B2 sums the GQA group inside one
-  block, without atomics, so gradients are bitwise reproducible.
+  dS rounded to bf16 as operands), float32 calls, D = 32 and D = 256
+  (recurrentgemma's local attention) on the CUDA cores.  Both use kernel
+  A's tile skip; B2 sums the GQA group inside one block, without atomics,
+  so gradients are bitwise reproducible.
 * :func:`flash_attention_bwd_torch` is their plain version, a port of
   ``ops._xla_flash_bwd``: the same recompute, ``+ dlse`` term and skip
   predicate.
@@ -203,9 +206,24 @@ _BWD_ARGTYPES = {
 }
 
 
-def check_kernel_args(name: str, device, dtype, D: int, ints=(), floats=()):
+# Head dims each kernel is built for: A, B1 and B2 take recurrentgemma's
+# 256 (on the CUDA cores and, for Sq <= 4, the decode core); kernel C has no
+# model at 256 and refuses it.
+FLASH_DIMS = (32, 64, 128, 256)
+PAGED_DIMS = (32, 64, 128)
+# The decode core's D-256 instance holds 9 to 16 rows (GQA group x Sq) a KV
+# head: recurrentgemma's group 10 at Sq 1.
+DECODE_ROWS_D256 = (9, 16)
+
+
+def check_kernel_args(name: str, device, dtype, D: int, ints=(), floats=(),
+                      dims=FLASH_DIMS):
     """The checks every kernel wrapper runs before handing pointers to C:
-    one CUDA device, a supported dtype and head dim, contiguous tensors."""
+    a head dim in ``dims`` (checked first), one CUDA device, a supported
+    dtype, contiguous tensors."""
+    if D not in dims:
+        raise ValueError(f"{name}: head dim {D} not supported "
+                         f"({', '.join(map(str, dims))})")
     for t in (*floats, *ints):
         if not t.is_cuda or t.device != device:
             raise ValueError(f"{name}: every tensor must be on one CUDA device ({device}), "
@@ -220,8 +238,16 @@ def check_kernel_args(name: str, device, dtype, D: int, ints=(), floats=()):
             raise TypeError(f"{name}: index tensors must be int32, got {t.dtype}")
     if dtype not in _KERNEL_DTYPES:
         raise TypeError(f"{name}: dtype {dtype} not supported (float32, bfloat16)")
-    if D not in (32, 64, 128):
-        raise ValueError(f"{name}: head dim {D} not supported (32, 64, 128)")
+
+
+def check_decode_rows(name: str, D: int, group: int, Sq: int):
+    """Raise unless the decode core has an instance for ``group * Sq`` rows
+    a KV head at head dim ``D`` (every count up to 64 a block below D 256;
+    ``DECODE_ROWS_D256`` at 256)."""
+    lo, hi = DECODE_ROWS_D256
+    if D == 256 and not lo <= group * Sq <= hi:
+        raise ValueError(f"{name}: the D-256 decode instance takes {lo} to {hi} rows a KV "
+                         f"head (GQA group x Sq), got {group} x {Sq} = {group * Sq}")
 
 
 def _raise_on(err: int, name: str):
@@ -232,8 +258,9 @@ def _raise_on(err: int, name: str):
 def flash_fwd_instance(dtype, Sq: int, D: int) -> str:
     """Which instance of kernel A takes a call: ``"decode"`` (every call with
     ``Sq <= 4``), ``"wgmma"`` (bf16, ``D`` 64 or 128, ``Sq > 4``) or
-    ``"cuda_core"`` (the rest: float32 and ``D = 32`` with ``Sq > 4``).
-    Mirrors ``takes_decode`` and ``takes_wgmma`` in ``csrc/flash_fwd.cu``."""
+    ``"cuda_core"`` (the rest: float32, ``D = 32`` and ``D = 256`` with
+    ``Sq > 4``).  Mirrors ``takes_decode`` and ``takes_wgmma`` in
+    ``csrc/flash_fwd.cu``."""
     if Sq <= DECODE_MAX_SQ:
         return "decode"
     if dtype == torch.bfloat16 and D in (64, 128):
@@ -313,8 +340,8 @@ def flash_fwd_smem_bytes(D: int, Sk: int) -> int:
 
 def flash_bwd_instance(dtype, D: int) -> str:
     """Which instance of kernels B1 and B2 takes a call: ``"wgmma"`` (bf16,
-    ``D`` 64 or 128) or ``"cuda_core"`` (float32, ``D = 32``).  Mirrors
-    ``takes_wgmma_bwd`` in ``csrc/flash_bwd.cu``."""
+    ``D`` 64 or 128) or ``"cuda_core"`` (float32, ``D = 32``, ``D = 256``).
+    Mirrors ``takes_wgmma_bwd`` in ``csrc/flash_bwd.cu``."""
     if dtype == torch.bfloat16 and D in (64, 128):
         return "wgmma"
     return "cuda_core"
@@ -354,6 +381,7 @@ def flash_attention_fwd_cuda(q, k, v, q_pos, k_pos, *, causal: bool, window: int
         return out, lse
     per, part_out, part_lse, counters = 1, None, None, None
     if flash_fwd_instance(q.dtype, Sq, D) == "decode":
+        check_decode_rows("flash_attention_fwd_cuda", D, Hq // Hkv, Sq)
         for t in (k, v):
             if t.data_ptr() % 16:
                 raise ValueError("flash_attention_fwd_cuda: k/v must be 16-byte aligned")

@@ -33,6 +33,7 @@ from repro_torch.kernels.flash_attention import (
     _KERNEL_DTYPES,
     _ptr,
     _raise_on,
+    PAGED_DIMS,
     check_kernel_args,
     decode_scratch,
     flash_attention_fwd_torch,
@@ -97,8 +98,8 @@ def paged_decode_fwd_cuda(q, k_pool, v_pool, pos_pool, block_tables, q_pos, *,
     n_pages, ps, Hkv, _ = k_pool.shape
     W = block_tables.shape[1]
     name = "paged_decode_fwd_cuda"
-    check_kernel_args(name, q.device, q.dtype, D,
-                      ints=(pos_pool, block_tables, q_pos), floats=(q, k_pool, v_pool))
+    check_kernel_args(name, q.device, q.dtype, D, ints=(pos_pool, block_tables, q_pos),
+                      floats=(q, k_pool, v_pool), dims=PAGED_DIMS)
     if Sq != 1 or k_pool.shape[3] != D or v_pool.shape != k_pool.shape:
         raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} pool{tuple(k_pool.shape)}")
     if Hq % Hkv:

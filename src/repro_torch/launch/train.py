@@ -6,8 +6,9 @@ CPU.  ``--sp-degree P`` trains through the chosen ring strategy on the
 virtual ring of P ranks (one process, one device; the batch is laid out in
 the config's layout: zigzag for attention, contiguous for falcon-mamba,
 whose layers run the sequence-parallel scan, ``core.api.sp_scan``, in
-place of a ring strategy); ``--pods N`` factors those ranks as N pods and trains
-through the paper's multi-pod hybrid (an inter-pod KV ring outside,
+place of a ring strategy, and for recurrentgemma, whose windowed layers
+take the window halo and its recurrent layers the scan); ``--pods N``
+factors those ranks as N pods and trains through the paper's multi-pod hybrid (an inter-pod KV ring outside,
 ``--strategy`` inside each pod).  ``--ckpt DIR`` checkpoints every ``--ckpt-every``
 steps and runs through the fault-tolerant runner, which restores the
 latest checkpoint after a failure (``--fail-at`` injects one).
@@ -23,6 +24,12 @@ Example (the hybrid: 2 pods of 2 ranks, TokenRing inside each pod):
 Example (falcon-mamba reduced: the chunked selective scan over 4 virtual
 ranks, the sequence sharded contiguously; ``--strategy`` does not apply):
   PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
+      --reduced --device cpu --steps 20 --batch 4 --seq 128 --sp-degree 4
+
+Example (recurrentgemma reduced: its local attention through the window
+halo, its RG-LRU through the scan, the conv's halo on a process group;
+``--strategy`` does not apply to windowed layers):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
       --reduced --device cpu --steps 20 --batch 4 --seq 128 --sp-degree 4
 
 Example (checkpoints every 5 steps, a failure injected at step 7):
@@ -115,7 +122,8 @@ def main(argv=None):
     data = SyntheticDataset(SyntheticConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch, seed=args.seed,
         layout=cfg.layout, sp_degree=pctx.sp_degree))
-    sp_path = "the chunked scan" if cfg.family == "ssm" else args.strategy
+    sp_path = {"ssm": "the chunked scan",
+               "hybrid": "the window halo and the scan"}.get(cfg.family, args.strategy)
     sp = (f", {sp_path} over {args.sp_degree} virtual ranks" if args.sp_degree > 1
           else "")
     if args.pods > 1:

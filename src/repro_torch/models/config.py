@@ -1,7 +1,6 @@
 """Architecture configuration (copy of ``repro.models.config``).
 
-One dataclass covers every family; the port builds the dense, MoE and VLM
-families.
+One dataclass covers every family; the port builds all of them.
 
 Every field that matters for an arch is explicit; registry code dispatches on
 ``family``.  Reduced ("smoke") variants are produced by :meth:`ArchConfig.reduced`

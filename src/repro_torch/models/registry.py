@@ -6,10 +6,11 @@ prefills it token by token); ``"ssm"`` (falcon-mamba) has a training loss
 through the sequence-parallel scan and an O(1) decode step, and no prefill
 of any kind: its recurrent state cannot be rolled back per slot, so the
 engine refuses it, as the JAX engine does, and it serves through
-``decode_step`` alone.  ``"hybrid"`` (recurrentgemma) is not ported yet
-(ROADMAP queue 1 item 9a step 2).  The serve-state initialisers lay the
-cache out for the bundle's ``pctx`` (sequence-sharded over its ring when
-``sp_degree > 1``).
+``decode_step`` alone; ``"hybrid"`` (recurrentgemma) likewise, its local
+attention through kernel A's and B1/B2's head-dim-256 instances and its
+decode state a K/V ring buffer of ``window`` slots beside the recurrent
+state.  The serve-state initialisers lay the cache out for the bundle's
+``pctx`` (sequence-sharded over its ring when ``sp_degree > 1``).
 """
 
 from __future__ import annotations
@@ -62,12 +63,11 @@ def build_model(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
         return _encdec_bundle(cfg, pctx)
     if cfg.family == "ssm":
         return _ssm_bundle(cfg, pctx)
+    if cfg.family == "hybrid":
+        return _hybrid_bundle(cfg, pctx)
     if cfg.family not in T.FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item 9a step 2: "
-            "recurrentgemma's RG-LRU, with queue 2 item 1: its local attention's head dim "
-            "256, which kernels A, B1, B2 and the decode core do not instantiate); the port "
-            "builds " + ", ".join((*T.FAMILIES, "encdec", "ssm")))
+        raise ValueError(f"unknown family {cfg.family!r}; the port builds "
+                         + ", ".join((*T.FAMILIES, "encdec", "ssm", "hybrid")))
 
     def init(seed: int, training: bool = False):
         gen = torch.Generator(device=pctx.device).manual_seed(seed)
@@ -135,5 +135,24 @@ def _ssm_bundle(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
         decode_step=lambda params, tok, state: M.mamba_decode_step(
             params, tok, state, cfg=cfg, pctx=pctx),
         init_serve_state=lambda B, max_len, device: M.init_mamba_state(cfg, B, device=device),
+        decode_rollback_safe=False,  # a recurrent state: no per-slot rollback
+    )
+
+
+def _hybrid_bundle(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
+    from repro_torch.models import rglru as R
+
+    def init(seed: int, training: bool = False):
+        gen = torch.Generator(device=pctx.device).manual_seed(seed)
+        return R.init_rg(cfg, gen, device=pctx.device, training=training)
+
+    return ModelBundle(
+        cfg=cfg,
+        pctx=pctx,
+        init=init,
+        loss=lambda params, batch: R.rg_loss(params, batch, cfg=cfg, pctx=pctx),
+        decode_step=lambda params, tok, state: R.rg_decode_step(
+            params, tok, state, cfg=cfg, pctx=pctx),
+        init_serve_state=lambda B, max_len, device: R.init_rg_state(cfg, B, device=device),
         decode_rollback_safe=False,  # a recurrent state: no per-slot rollback
     )

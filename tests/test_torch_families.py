@@ -343,6 +343,11 @@ def test_clis_run_the_moe_family_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("family", ["hybrid"])
 def test_build_model_refuses_the_families_still_to_port(family):
-    cfg = TARCHS["qwen3-1.7b"].reduced(family=family)
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        tbuild(cfg, TPctx(impl="torch", device="cpu"))
+    """No family is left to port: the last one refused, the hybrid, builds
+    its bundle (recurrentgemma-2b's, which cannot be rolled back per slot),
+    and an unknown family is still refused."""
+    assert family in {cfg.family for cfg in TARCHS.values()} and "recurrentgemma-2b" in TARCHS
+    bundle = tbuild(TARCHS["recurrentgemma-2b"].reduced(), TPctx(impl="torch", device="cpu"))
+    assert bundle.cfg.family == family and bundle.decode_rollback_safe is False
+    with pytest.raises(ValueError, match="unknown family"):
+        tbuild(TARCHS["qwen3-1.7b"].reduced(family="rnn"), TPctx(impl="torch", device="cpu"))

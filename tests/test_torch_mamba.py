@@ -19,8 +19,8 @@ with the JAX ``init_mamba_lm`` parameters carried across
   and state) and against the port's own forward at every position;
 * the bundle: the serving layout's dtypes, the engine's refusal (the
   counterpart of ``tests/test_serving.py``'s), ``build_model`` on the
-  ``"hybrid"`` family, the ``Trainer`` against the JAX ``Trainer``, the
-  CLIs.
+  ``"hybrid"`` family (ported beside it), the ``Trainer`` against the JAX
+  ``Trainer``, the CLIs.
 
 Float32 throughout.  Model-level limits are ``MODEL_TOL`` of
 ``test_torch_training.py`` (atol 2e-5, rtol 2e-4); the pieces, whose sums
@@ -405,11 +405,15 @@ def test_engine_refuses_falcon_mamba():
 
 
 def test_build_model_refuses_the_hybrid_family_with_its_pointer():
+    """The hybrid family, once refused with a pointer to its slice, is
+    ported: the JAX config's fields build the port's hybrid bundle, whose
+    recurrent state, like falcon-mamba's, cannot be rolled back per slot."""
     fields = dataclasses.asdict(JARCHS["recurrentgemma-2b"])
     cfg = TArchConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in fields.items()})
-    with pytest.raises(NotImplementedError, match="item 9a step 2.*queue 2 item 1"):
-        tbuild(cfg, TPctx(impl="torch", device="cpu"))
-    assert "recurrentgemma-2b" not in TARCHS
+    assert cfg == TARCHS["recurrentgemma-2b"]
+    bundle = tbuild(cfg.reduced(), TPctx(impl="torch", device="cpu"))
+    assert bundle.cfg.family == "hybrid" and bundle.decode_rollback_safe is False
+    assert bundle.prefill_chunk is bundle.prefill is bundle.decode_step_paged is None
 
 
 def test_trainer_matches_jax_trainer():
