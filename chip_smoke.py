@@ -5,7 +5,9 @@
 
 Phases, each fatal on failure:
   1. toolchain: torch, CUDA, nvcc and the card's name and power limit;
-  2. build every kernel in ``src/repro_torch/csrc`` with nvcc (sm_90a);
+  2. build every kernel in ``src/repro_torch/csrc`` with nvcc (sm_90a),
+     failing if ptxas reports a spill or a serialised ``wgmma`` (C7512) in
+     any wgmma instance of A, B1 or B2;
   3. kernel A (flash forward) against its plain version on the card, in
      float32 and bf16, the zigzag, window, dead-row and ragged edge cases
      included, whisper-base's non-causal calls at phase 18's batches (its
@@ -43,7 +45,9 @@ Phases, each fatal on failure:
      cases at Sq != Sk (the wgmma instances), each run twice and required
      bitwise equal, gradients of rows that see no key exactly 0; B1, B2
      and A held and timed at the training shapes beside SDPA (whisper-base's
-     three at phase 18's batch of 16: cross, encoder, decoder);
+     three at phase 18's batch of 16: cross, encoder, decoder), and B1 and
+     B2's float32 instances at phase 8's step call (16/8 heads, D 128, B 2
+     x S 512) beside their float32 bound, the plain backward and SDPA's;
   8. one training step at qwen3-1.7b widths (2 layers, float32) on the
      kernels against the plain path: loss, every gradient, and the
      parameters after one AdamW step; then one bf16 step (kernel A's wgmma
@@ -211,12 +215,15 @@ Phases, each fatal on failure:
      training step each;
  20. the hybrid family and the head-dim-256 kernels (this slice's main
      path): (a) kernel A's CUDA-core instance and B1/B2 at 10/1 heads and
-     D 256 in float32 and bf16 (the training call, B 2 x S 4096, causal,
-     window 2048; a ragged 37 x 45 edge; dead rows) and A's decode instance
+     D 256 in float32 and bf16 (B1/B2: the CUDA-core instances in float32,
+     the column-split wgmma instances in bf16; the training call, B 2 x S
+     4096, causal, window 2048; a ragged 37 x 45 edge; dead rows) and A's
+     decode instance
      at group 10 x Sq 1 over a 2048-slot ring buffer (wrapped rows, a
      half-filled one, a row that sees no key) against their plain versions,
      each case bitwise repeated, then each timed at the main path's shapes
-     beside the plain version, SDPA on the same masked call and its bound;
+     beside the plain version, SDPA on the same masked call and its bound
+     (B1 + B2 beside SDPA's whole backward);
      (b) recurrentgemma-2b at full width, ``RG_CHECK_LAYERS`` (5) layers,
      float32: the loss and every gradient leaf on the kernels at SP 1 and
      through 4 virtual ranks (the window halo, the RG-LRU's scan) against
@@ -2110,13 +2117,67 @@ def training_shape_rows(torch, dev, rnd, train_shape):
     return rows
 
 
+F32_STEP_SHAPE = dict(B=2, S=512, Hq=16, Hkv=8, D=128)  # phase 8's float32 step's attention
+
+
+def f32_step_rows(torch, dev, shape=F32_STEP_SHAPE):
+    """B1 and B2's CUDA-core instances at phase 8's float32 step's call
+    (qwen3-1.7b's 16/8 heads, causal): held to the plain backward at 1e-4,
+    then each timed beside its float32 bound, the plain backward and SDPA's
+    whole float32 backward.  Returns the rows "dq" and "dkv"."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ops import pick_block
+
+    B, S, Hq, Hkv, D = (shape[x] for x in ("B", "S", "Hq", "Hkv", "D"))
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def rnd(*shape_):
+        return torch.randn(shape_, generator=gen, device=dev)
+
+    q, dout, k, v = rnd(B, S, Hq, D), rnd(B, S, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    dlse = rnd(B, S, Hq)
+    qp = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
+    got, want, args, kw = run_bwd(torch, q, k, v, qp, qp, dout, dlse, True, None)
+    inst = fa.flash_bwd_instance_built(torch.float32, D)
+    label = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} f32 causal"
+    err, _ = compare_grads(torch, f"B1/B2 f32 phase 8's step call {label} [{inst}]", got, want,
+                           atol=1e-4, rtol=1e-4,
+                           dead=dead_masks(torch, args[6], qp, qp, True, None))
+    blk = pick_block(S, 512)
+    out = fa.flash_attention_fwd_torch(q, k, v, qp, qp, causal=True, window=None,
+                                       scale=kw["scale"], block_k=blk)[0]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    o_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    ms_dq, ms_dkv, plain_ms, lib_ms = (time_ms(f, iters=it, reps=3) for f, it in (
+        (lambda: fa.flash_attention_bwd_dq_cuda(*args, **kw), 5),
+        (lambda: fa.flash_attention_bwd_dkv_cuda(*args, **kw), 5),
+        (lambda: fa.flash_attention_bwd_torch(q, k, v, qp, qp, out, args[6], dout, dlse,
+                                              causal=True, window=None, scale=kw["scale"],
+                                              block_q=blk, block_k=blk), 1),
+        (lambda: torch.autograd.grad(o_t, (qt, kt, vt), dout.transpose(1, 2),
+                                     retain_graph=True), 5)))
+    rows = {}
+    for name, ms, per_pair, outs in (("dq", ms_dq, 6, got[:1]), ("dkv", ms_dkv, 8, got[1:])):
+        nbytes, flops = bwd_bytes_flops(q, k, qp, qp, True, None, per_pair, outs)
+        bms, by = bound(nbytes, flops, "float32")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                          max_abs_err=err, instance=inst, shape=label,
+                          plain_and_library_compute="dq, dk and dv in one call")
+        log(f"  B {name} {label} [{inst}]: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, "
+            f"67 TFLOP/s float32; {ms / bms:.2f}x), {flops / ms / 1e9:.2f} TFLOP/s; plain "
+            f"backward {plain_ms:.3f} ms, sdpa f32 backward {lib_ms:.3f} ms")
+    return rows
+
+
 def phase_bwd(torch, dev, train_shape=TRAIN_SHAPE):
     from repro_torch.kernels import flash_attention as fa
 
     # each line names the instance the built library picks; the host's copy
     # of that rule (used where no library is built) must agree with it
     for dtype in (torch.float32, torch.bfloat16):
-        for D in (32, 64, 128):
+        for D in (32, 64, 128, 256):
             built, host = fa.flash_bwd_instance_built(dtype, D), fa.flash_bwd_instance(dtype, D)
             if built != host:
                 raise AssertionError(f"B1/B2 {dtype} D={D}: the library takes the {built} "
@@ -2152,6 +2213,7 @@ def phase_bwd(torch, dev, train_shape=TRAIN_SHAPE):
             shape, generator=gen_w, device=dev).to(dtype), shape)
         for name, shape in WHISPER_TRAIN_SHAPES.items()}
     phase_bwd_bf16(torch, dev)
+    rows["f32_step"] = f32_step_rows(torch, dev)
     return rows
 
 
@@ -4615,17 +4677,21 @@ def phase_rg_kernels(torch, dev):
                                                   block_q=blk, block_k=blk),
              lambda: torch.autograd.grad(o_t, (qt, kt, vt), do_t, retain_graph=True))
     ms_dq, ms_dkv, plain_bwd, lib_bwd = rg_timed(b_fns, (3, 3, 1, 3))
+    binst = fa.flash_bwd_instance_built(bf, D)
     for name, ms_, per_pair, outs in (("dq", ms_dq, 6, (q,)), ("dkv", ms_dkv, 8, (k, v))):
         outs = [torch.empty(t.shape, device=dev) for t in outs]  # float32 gradients
         nbytes, flops = bwd_bytes_flops(q, k, qp, kp, True, RG_WINDOW, per_pair, outs)
         bms, by = bound(nbytes, flops, "bfloat16")
         rows[name] = dict(ms=ms_, plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bms,
-                          bound_by=by, max_abs_err=b_err, instance="cuda_core", shape=shape,
-                          plain_and_library_compute="dq, dk and dv in one call",
+                          bound_by=by, max_abs_err=b_err, instance=binst,
+                          device_kernel=f"rt::wgb::flash_bwd_{name}_wgmma_kernel<{D}>",
+                          shape=shape, plain_and_library_compute="dq, dk and dv in one call",
                           flops=flops, bytes=nbytes)
-        log(f"  B {name} {shape} [cuda_core]: kernel {ms_:.3f} ms, bound {bms:.4f} ms "
-            f"({by}), {flops / ms_ / 1e9:.2f} TFLOP/s; plain backward {plain_bwd:.3f} ms, sdpa "
-            f"backward {lib_bwd:.3f} ms")
+        log(f"  B {name} {shape} [{binst}]: kernel {ms_:.3f} ms, bound {bms:.4f} ms "
+            f"({by}; {ms_ / bms:.2f}x), {flops / ms_ / 1e9:.2f} TFLOP/s; plain backward "
+            f"{plain_bwd:.3f} ms, sdpa backward {lib_bwd:.3f} ms")
+    log(f"  B1 + B2 {shape} [{binst}]: {ms_dq + ms_dkv:.3f} ms against sdpa's whole backward "
+        f"{lib_bwd:.3f} ms on the same masked call ({(ms_dq + ms_dkv) / lib_bwd:.3f}x)")
     del main, args, o_t, qt, kt, vt, mask, b_fns
     free_device_memory(torch)
 
@@ -4962,6 +5028,51 @@ def phase_rg_wrap(torch, dev, cfg=None, n_tokens=RG_WRAP_TOKENS):
         f"forward pass (worst at position {worst_at}); launches {launch_counts()}")
 
 
+def phase_build(torch, dev):
+    """Phase 2: build every kernel, log ptxas's registers and spills, and
+    fail on a spill or a C7512 in any wgmma instance of A, B1 or B2."""
+    from repro_torch.kernels._build import build_all
+
+    info = build_all()
+    log(f"  built {info['built']} in {info['seconds']:.2f} s")
+    for name, text in info["ptxas"].items():
+        for line in text.splitlines():
+            if any(x in line for x in ("registers", "spill", "Compiling entry", "C75")):
+                log(f"  ptxas {name}: {line.strip()}")
+    faults = ptxas_wgmma_faults(info["ptxas"])
+    if faults:
+        raise AssertionError("ptxas: a wgmma instance spills or serialises its wgmma:\n  "
+                             + "\n  ".join(faults))
+    wgmma = {n: f for t in info["ptxas"].values() for n, f in ptxas_functions(t).items()
+             if "wgmma_kernel" in n}
+    bwd_regs = {n.split("_wgmma_kernel")[0].rsplit("flash_bwd_", 1)[-1]: f["registers"]
+                for n, f in wgmma.items() if "bwd" in n and "ILi256E" in n}
+    if "flash_bwd" in info["ptxas"] and len(bwd_regs) != 2:
+        raise AssertionError(f"ptxas: expected B1's and B2's D-256 wgmma instances, found "
+                             f"{sorted(bwd_regs)}")
+    log(f"  ptxas: no spill and no C7512 in the {len(wgmma)} wgmma instances of A, B1 and B2 "
+        "built here")
+    from repro_torch.kernels import flash_attention as fa
+
+    log("  kernel A wgmma instance: 384 threads (producer warpgroup at 40 registers, two "
+        "consumer warpgroups at 232 by setmaxnreg); dynamic shared memory "
+        f"{fa.flash_fwd_smem_bytes(128, 4096)} B at D=128, "
+        f"{fa.flash_fwd_smem_bytes(64, 4096)} B at D=64 (Sk=4096)")
+    log("  kernels B1/B2 wgmma instances: 384 threads (producer warpgroup at 24 registers, two "
+        "consumer warpgroups at 240 by setmaxnreg)")
+    S_rg = RG_TRAIN_SHAPE["S"]
+    log(f"  B1/B2 wgmma at D=256 (column split): 384 threads, ptxas registers {bwd_regs} "
+        "(the launch bound; consumers 240 by setmaxnreg); B1 64-row q-tiles, each consumer "
+        "warpgroup 128 of dQ's columns, dynamic shared memory "
+        f"{fa.flash_bwd_smem_bytes('dq', 256, S_rg)} B at Sk={S_rg}; B2 two blocks a 64-key "
+        "tile, each 128 of dK's and dV's columns, dynamic shared memory "
+        f"{fa.flash_bwd_smem_bytes('dkv', 256, S_rg)} B at Sq={S_rg} (limit 232448)")
+    log("  decode core (A's decode instance, kernel C; csrc/decode.cuh): 128 threads a block, "
+        "32-key tiles through a 3-stage cp.async ring, splits aiming at "
+        f"{fa.DECODE_BLOCKS_PER_SM} blocks per SM "
+        f"({torch.cuda.get_device_properties(dev).multi_processor_count} SMs)")
+
+
 PROFILED_PHASES = (6, 9, 11, 13, 16, 17, 18, 19, 20)
 
 
@@ -4982,6 +5093,51 @@ def profiled_phases(argv):
 def free_device_memory(torch):
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def ptxas_functions(text):
+    """``{mangled name: {"registers": n, "spill_stores": bytes, "spill_loads":
+    bytes, "c7512": bool}}`` from one ``nvcc -Xptxas -v`` log."""
+    import re
+
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), dict(registers=None, spill_stores=0,
+                                                    spill_loads=0, c7512=False))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+        if "C7512" in line:
+            m = re.search(r"function '([\w$]+)'", line)
+            name = m.group(1) if m else cur
+            if name is None:
+                raise AssertionError(f"ptxas: a C7512 warning names no function: {line}")
+            funcs.setdefault(name, dict(registers=None, spill_stores=0, spill_loads=0,
+                                        c7512=False))["c7512"] = True
+    return funcs
+
+
+def ptxas_wgmma_faults(logs):
+    """Every spill or C7512 (``wgmma`` serialised) that ptxas reports for a
+    wgmma instance of A, B1 or B2 (``*_wgmma_kernel``) in ``logs`` ({library:
+    ptxas output}), as lines; empty when there is none."""
+    faults = []
+    for lib, text in logs.items():
+        for name, f in ptxas_functions(text).items():
+            if "wgmma_kernel" not in name:
+                continue
+            if f["spill_stores"] or f["spill_loads"]:
+                faults.append(f"{lib}: {name} spills {f['spill_stores']} B stored, "
+                              f"{f['spill_loads']} B loaded")
+            if f["c7512"]:
+                faults.append(f"{lib}: {name} has its wgmma serialised (C7512)")
+    return faults
 
 
 def main() -> int:
@@ -5023,26 +5179,7 @@ def main() -> int:
     log(f"  card: {card}; device count {torch.cuda.device_count()}")
 
     log("== phase 2: build")
-    from repro_torch.kernels._build import build_all
-
-    info = build_all()
-    log(f"  built {info['built']} in {info['seconds']:.2f} s")
-    for name, text in info["ptxas"].items():
-        for line in text.splitlines():
-            if any(x in line for x in ("registers", "spill", "Compiling entry", "C75")):
-                log(f"  ptxas {name}: {line.strip()}")
-    from repro_torch.kernels import flash_attention as fa
-
-    log("  kernel A wgmma instance: 384 threads (producer warpgroup at 40 registers, two "
-        "consumer warpgroups at 232 by setmaxnreg); dynamic shared memory "
-        f"{fa.flash_fwd_smem_bytes(128, 4096)} B at D=128, "
-        f"{fa.flash_fwd_smem_bytes(64, 4096)} B at D=64 (Sk=4096)")
-    log("  kernels B1/B2 wgmma instances: 384 threads (producer warpgroup at 24 registers, two "
-        "consumer warpgroups at 240 by setmaxnreg)")
-    log("  decode core (A's decode instance, kernel C; csrc/decode.cuh): 128 threads a block, "
-        "32-key tiles through a 3-stage cp.async ring, splits aiming at "
-        f"{fa.DECODE_BLOCKS_PER_SM} blocks per SM "
-        f"({torch.cuda.get_device_properties(dev).multi_processor_count} SMs)")
+    phase_build(torch, dev)
 
     log("== phase 3: kernel A (flash forward) vs plain")
     flash_rows = phase_flash(torch, dev)
@@ -5226,6 +5363,8 @@ def main() -> int:
     # qwen3-1.7b's (16/8), and `sp4_calls` phase 13's SP-4 calls (phase 12).
     # Phase 19's paths are in `launches_by_path`: falcon-mamba's training
     # and decoding launch no kernel; `prefill_sp4` is lm_prefill at SP 4.
+    # `f32_step` holds B1's and B2's CUDA-core instances at phase 8's float32
+    # step's call (phase 7, `f32_step_rows`).
     # `d256` holds the head-dim-256 instances (phase 20, recurrentgemma-2b):
     # each row's time, errors and bound from phase 20 (a) at the main path's
     # shapes, its `launches` from the main path that runs it (A's CUDA-core
@@ -5270,6 +5409,7 @@ def main() -> int:
          "launches_by_path": by_path("flash_attention_bwd_dq"), **bwd_rows[wb]["cross"]["dq"],
          "whisper_calls": {k: bwd_rows[wb][k]["dq"] for k in ("encoder", "decoder")},
          "times_by_path": {moe: bwd_rows[moe]["dq"], dense: bwd_rows[dense]["dq"]},
+         "f32_step": bwd_rows["f32_step"]["dq"],
          "d256": d256(rg_rows["dq"], "train_rg", "flash_attention_bwd_dq")},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_bwd.cu",
@@ -5278,6 +5418,7 @@ def main() -> int:
          "launches_by_path": by_path("flash_attention_bwd_dkv"), **bwd_rows[wb]["cross"]["dkv"],
          "whisper_calls": {k: bwd_rows[wb][k]["dkv"] for k in ("encoder", "decoder")},
          "times_by_path": {moe: bwd_rows[moe]["dkv"], dense: bwd_rows[dense]["dkv"]},
+         "f32_step": bwd_rows["f32_step"]["dkv"],
          "d256": d256(rg_rows["dkv"], "train_rg", "flash_attention_bwd_dkv")},
         {"name": "paged_decode_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",

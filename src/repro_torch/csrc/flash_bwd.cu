@@ -22,7 +22,7 @@
 // whole; ragged Sq and Sk are masked in the kernel.  One C entry per
 // kernel picks the instance (`takes_wgmma_bwd`):
 //
-// * The wgmma instances (bf16, D 64 or 128: the training calls).  384
+// * The wgmma instances (bf16, D 64, 128 or 256: the training calls).  384
 //   threads a block: warpgroup 0 is the producer, whose one thread keeps
 //   TMA loads in flight (4-D tensor maps (D, H, S, B), 128-byte swizzle,
 //   rows past S read as zero); warpgroups 1 and 2 are consumers.  Before
@@ -63,19 +63,41 @@
 //   setmaxnreg 240, spills and has every wgmma serialised (C7512), as B1
 //   with 128-key tiles and B2 with one warpgroup owning dK and dV of its
 //   64 keys did on an H100.
+//   - D 256 (recurrentgemma-2b's local attention: 10/1 heads, causal,
+//     window 2048) splits the work by columns, so that every consumer
+//     keeps the D-128 register budget: dQ, dK or dV of 64 rows x 128
+//     columns (64 floats a thread) beside one 64 x 64 score tile or two.
+//     The D-128 layout cannot take D 256 as it is: B1's 128-row Q and dout
+//     tiles with two K/V stages would need 256 KB of shared memory, and a
+//     consumer holding 64 x 256 of dQ, dK or dV (128 floats) beside S and
+//     dP would spill as above.  B1 (DqSplit) takes 64-row q-tiles; both
+//     consumers hold the same 64 rows, each forms S and dP over the whole
+//     D itself and accumulates its half of dQ's columns: 192 KB of Q,
+//     dout and two K/V stages, no hand-over between the warpgroups, at
+//     10*D flops a pair in place of 6*D.  B2 (DkvSplit) runs two blocks
+//     per 64-key tile, each owning half of dK's and dV's columns and
+//     forming S^T and dP^T over the whole D: the D-128 block's structure
+//     with 224 KB of K, V, two Q/dout stages and two P stages (so Sq up to
+//     126,976, the flags' room), at 12*D flops a pair in place of 8*D, and
+//     256 blocks over the card's 132 SMs at the training shape in place of
+//     128.  Each block still writes its own rows and columns once, in a
+//     fixed order: the gradients stay bitwise repeatable.  The two copies
+//     of a score tile are the same products of the same operands in the
+//     same order, so both halves of a row or key see the same P and dS.
 //   P and dS are rounded to bf16 for the dq, dk and dv products (the
 //   float32 sums of S and dP are exact products of the bf16 inputs).
 //   What bounds them: the tensor-core rate (989 TFLOP/s bf16) at the
 //   training shape, 6*D (B1) and 8*D (B2) flops per visible (query, key,
-//   head) pair.  What keeps them from it: within a warpgroup the
+//   head) pair (at D 256 the kernels do 10*D and 12*D: the recomputed S,
+//   dP, S^T and dP^T).  What keeps them from it: within a warpgroup the
 //   exponentials and dS run between products, with nothing in flight on
 //   the tensor cores but the other warpgroup's work; in B2 the dK
 //   warpgroup waits for the dV warpgroup's P^T on every tile, and every
 //   64-key block streams the group's Q and dout again; each B1 block
 //   recomputes S and dP that B2 computes again.
 //
-// * The CUDA-core instances (float32 inputs, D = 32, and D = 256 in both
-//   types, recurrentgemma's local attention): the reference.
+// * The CUDA-core instances (float32 inputs, with D 256 for
+//   recurrentgemma's float32 checks, and D = 32): the reference.
 //   Blocks of 128 threads, tiles of BQ = 32 queries by BK = 32 keys, with
 //   float32 products on the CUDA cores out of shared memory.
 //   - B1 (dq): one block per (q-tile, query head, batch row) holds the q and
@@ -90,7 +112,8 @@
 //   and the CUDA-core rate, far from the tensor-core rate; exact to
 //   float32.  At D = 256 a thread owns two columns of every row of its tile
 //   (B2: 128 accumulators of dk and dv), and shared memory is 133 KB (B1)
-//   and 137 KB (B2); bf16 is widened to float32 on load.
+//   and 137 KB (B2).  Templated on the input type; only bf16 D = 32 is
+//   instantiated for bf16, widened to float32 on load.
 #include <type_traits>
 
 #include "common.cuh"
@@ -515,9 +538,8 @@ cudaError_t launch_dkv(const BwdArgs& a, float* dk, float* dv) {
   return cudaGetLastError();
 }
 
-// bf16 calls with D 64/128 go to the wgmma instances: only float32
-// instantiates the CUDA-core kernels at those widths.  D 256 (recurrentgemma)
-// runs on the CUDA cores in both types.
+// bf16 calls with D 64/128/256 go to the wgmma instances: only float32
+// instantiates the CUDA-core kernels at those widths.
 template <typename T>
 cudaError_t dq_dim(int D, const BwdArgs& a, float* dq) {
   constexpr bool f32 = std::is_same_v<T, float>;
@@ -527,7 +549,8 @@ cudaError_t dq_dim(int D, const BwdArgs& a, float* dq) {
       break;
     case 128: if constexpr (f32) return launch_dq<T, 128>(a, dq);
       break;
-    case 256: return launch_dq<T, 256>(a, dq);
+    case 256: if constexpr (f32) return launch_dq<T, 256>(a, dq);
+      break;
   }
   return cudaErrorInvalidValue;
 }
@@ -541,13 +564,14 @@ cudaError_t dkv_dim(int D, const BwdArgs& a, float* dk, float* dv) {
       break;
     case 128: if constexpr (f32) return launch_dkv<T, 128>(a, dk, dv);
       break;
-    case 256: return launch_dkv<T, 256>(a, dk, dv);
+    case 256: if constexpr (f32) return launch_dkv<T, 256>(a, dk, dv);
+      break;
   }
   return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
-// The wgmma instances: bf16, D in {64, 128}.
+// The wgmma instances: bf16, D in {64, 128, 256}.
 // ---------------------------------------------------------------------------
 
 namespace wgb {
@@ -558,11 +582,30 @@ constexpr int kRowBytes = 128;     // one swizzled row: 64 bf16 columns
 constexpr int kProducerRegs = 24;  // 128 * 24 + 256 * 240 = 384 * 168, the launch budget
 constexpr int kConsumerRegs = 240;
 constexpr int kMaxSmem = 232448;   // the opt-in maximum of one block
-constexpr int kDqRows = 128;       // B1: q rows per block
 constexpr int kDqKeys = 64;        // B1: keys per KV tile
 constexpr int kDkvKeys = 64;       // B2: keys per block
 constexpr int kDkvRows = 64;       // B2: q rows per tile
 constexpr float kLog2e = 1.4426950408889634f;
+
+// How B1 shares a block's work between its two consumer warpgroups: by
+// rows (64 of a 128-row q-tile each, every column of dQ) up to D 128; at D
+// 256 by columns (both take the same 64-row q-tile, each half of dQ's
+// columns, each forming S and dP itself).
+template <int D>
+struct DqSplit {
+  static constexpr bool kByCols = D > 128;
+  static constexpr int kRows = kByCols ? 64 : 128;  // q rows per block
+  static constexpr int kCols = kByCols ? D / 2 : D;  // dQ columns per consumer
+};
+
+// How many blocks share one 64-key tile of B2, each owning kCols of dK's
+// and dV's columns: one up to D 128, two at D 256 (each forms S^T and dP^T
+// over the whole D itself).
+template <int D>
+struct DkvSplit {
+  static constexpr int kBlocks = D > 128 ? 2 : 1;
+  static constexpr int kCols = D / kBlocks;
+};
 
 // A bf16 tile of ROWS rows by D columns in shared memory: D/64 swizzled
 // regions of ROWS x 128 bytes, as D/64 TMA boxes write it.
@@ -588,7 +631,7 @@ __device__ __forceinline__ uint32_t mnmajor_step(int kk) {
 // KV tile.
 template <int D>
 struct DqSmem {
-  using QT = Tile<D, kDqRows>;
+  using QT = Tile<D, DqSplit<D>::kRows>;
   using KT = Tile<D, kDqKeys>;
   static constexpr int kQ = 0;
   static constexpr int kDO = QT::kBytes;
@@ -596,8 +639,12 @@ struct DqSmem {
   static constexpr int kBars = kKV + 2 * kStages * KT::kBytes;  // full[], empty[], q
   static constexpr int kRange = kBars + 8 * (2 * kStages + 1);
   static constexpr int kFlags = kRange + 8;
+  static constexpr int kMaxTiles = kMaxSmem - 1024 - kFlags;  // KV tiles a block can flag
   static size_t bytes(int n_tiles) { return 1024 + kFlags + static_cast<size_t>(n_tiles); }
 };
+// D 256: 192 KB of Q, dout and two K/V stages; flags for Sk up to 2.2M.
+static_assert(DqSmem<256>::kMaxTiles >= 32768 && DqSmem<128>::kMaxTiles >= 32768,
+              "B1's layout leaves room for the flags of 32768 KV tiles");
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -613,7 +660,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   using L = DqSmem<D>;
   using QT = typename L::QT;
   using KT = typename L::KT;
-  constexpr int BK = kDqKeys;
+  using C = DqSplit<D>;
+  constexpr int BK = kDqKeys, BQ = C::kRows, NC = C::kCols;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   uint8_t* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
@@ -624,12 +672,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint8_t* flags = smem + L::kFlags;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nq = (Sq + kDqRows - 1) / kDqRows, nk = (Sk + BK - 1) / BK;
+  const int nq = (Sq + BQ - 1) / BQ, nk = (Sk + BK - 1) / BK;
   // Blocks in tile-major order; causal grids start with the q-tiles that
   // have the most live KV tiles.
   const int rank = blockIdx.x / (Hq * B), hb = blockIdx.x % (Hq * B);
   const int qt = causal ? nq - 1 - rank : rank;
-  const int q0 = qt * kDqRows, h = hb % Hq, b = hb / Hq, hk = h / (Hq / Hkv);
+  const int q0 = qt * BQ, h = hb % Hq, b = hb / Hq, hk = h / (Hq / Hkv);
   const bool is_causal = causal != 0, windowed = has_window != 0;
 
   if (tid == 0) {
@@ -643,7 +691,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     q_range[1] = INT32_MIN;
   }
   __syncthreads();
-  if (tid < kDqRows) {
+  if (tid < BQ) {
     const int s = q0 + tid;
     int lo = INT32_MAX, hi = INT32_MIN;
     if (s < Sq) lo = hi = q_pos[(size_t)b * Sq + s];
@@ -699,13 +747,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   } else {
-    // ---- two consumer warpgroups, 64 q rows each -------------------------
+    // ---- two consumer warpgroups: 64 q rows each, or (D 256) the same 64
+    // rows and NC of dQ's columns each --------------------------------------
     setmaxnreg_inc<kConsumerRegs>();
     const int wgi = (warp >> 2) - 1;
     const int c4 = lane & 3;
+    const int row_off = C::kByCols ? 0 : 64 * wgi, col_off = C::kByCols ? NC * wgi : 0;
     // wgmma's accumulator layout: this thread holds rows r0 and r0 + 8 of
     // its warpgroup's 64, and columns 8i + 2*c4 + {0, 1} of every n8 chunk i.
-    const int r0 = 64 * wgi + 16 * (warp & 3) + (lane >> 2);
+    const int r0 = row_off + 16 * (warp & 3) + (lane >> 2);
     const float sl2 = scale * kLog2e;
     int qp[2];
     float nl[2], cc[2];  // -lse*log2(e) and dlse - delta of the two rows
@@ -723,11 +773,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         qp[r] = q_pos[(size_t)b * Sq + s];
       }
     }
-    float acc[D / 2];
+    float acc[NC / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    const uint64_t q_desc = sw128_desc(sbase + L::kQ + 64 * kRowBytes * wgi, 16, 1024);
-    const uint64_t do_desc = sw128_desc(sbase + L::kDO + 64 * kRowBytes * wgi, 16, 1024);
+    for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+    const uint64_t q_desc = sw128_desc(sbase + L::kQ + row_off * kRowBytes, 16, 1024);
+    const uint64_t do_desc = sw128_desc(sbase + L::kDO + row_off * kRowBytes, 16, 1024);
     mbar_wait(qbar, 0);
     int stage = 0;
     uint32_t phase = 0;
@@ -795,15 +845,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int e = 0; e < 4; ++e) da[kk][e] = pack_bf16x2(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
       }
 
-      // dQ += dS K: K is the MN-major B operand (rows of D along N).
-      fence_regs<D / 2>(acc);
+      // dQ += dS K over this warpgroup's columns: K is the MN-major B
+      // operand (rows of D along N), from the 64-column region of col_off.
+      fence_regs<NC / 2>(acc);
       wgmma_fence();
-      const uint64_t kn = sw128_desc(k_addr, KT::kRegion, 1024);
+      const uint64_t kn = sw128_desc(k_addr + (col_off / 64) * KT::kRegion, KT::kRegion, 1024);
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D>(acc, da[kk], kn + mnmajor_step(kk));
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<NC>(acc, da[kk], kn + mnmajor_step(kk));
       wgmma_commit();
       wgmma_wait_all();
-      fence_regs<D / 2>(acc);
+      fence_regs<NC / 2>(acc);
       mbar_arrive(empty0 + 8 * stage);
       if (++stage == kStages) {
         stage = 0;
@@ -815,9 +866,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int r = 0; r < 2; ++r) {
       const int s = q0 + r0 + 8 * r;
       if (s >= Sq) continue;
-      float* row = dq + (((size_t)b * Sq + s) * Hq + h) * D + 2 * c4;
+      float* row = dq + (((size_t)b * Sq + s) * Hq + h) * D + col_off + 2 * c4;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+      for (int i = 0; i < NC / 8; ++i)
         *reinterpret_cast<float2*>(row + 8 * i) = make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
     }
   }
@@ -840,8 +891,13 @@ struct DkvSmem {
   static constexpr int kBars = kP + kStages * kPBytes;  // full[], empty[], p_ready[], kv
   static constexpr int kRange = kBars + 8 * (3 * kStages + 1);
   static constexpr int kFlags = kRange + 8;
+  static constexpr int kMaxTiles = kMaxSmem - 1024 - kFlags;  // q-tiles a block can flag
   static size_t bytes(int n_tiles) { return 1024 + kFlags + static_cast<size_t>(n_tiles); }
 };
+// D 256: 224 KB of K, V, two Q/dout stages and two P stages; flags for
+// 1984 q-tiles, so Sq up to 126,976 (longer calls are refused at launch).
+static_assert(DkvSmem<256>::kMaxTiles >= 1024 && DkvSmem<128>::kMaxTiles >= 32768,
+              "B2's layout leaves room for the flags of 1024 q-tiles (Sq 65536) at D 256");
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -857,7 +913,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   using L = DkvSmem<D>;
   using QT = typename L::QT;
   using KT = typename L::KT;
-  constexpr int BQ = kDkvRows;
+  using C = DkvSplit<D>;
+  constexpr int BQ = kDkvRows, NC = C::kCols;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   uint8_t* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
@@ -870,8 +927,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nq = (Sq + BQ - 1) / BQ, group = Hq / Hkv;
   // Blocks in tile-major order: under the causal mask key tile 0 has the
-  // most live q-tiles, so index order starts with the heaviest.
-  const int kt = blockIdx.x / (Hkv * B), hb = blockIdx.x % (Hkv * B);
+  // most live q-tiles, so index order starts with the heaviest; at D 256 the
+  // two column blocks of one key tile are neighbours and stream the same Q
+  // and dout tiles at about the same time.
+  const int per_tile = C::kBlocks * Hkv * B;
+  const int kt = blockIdx.x / per_tile, rest = blockIdx.x % per_tile;
+  const int col_off = NC * (rest % C::kBlocks), hb = rest / C::kBlocks;
   const int k0 = kt * kDkvKeys, hk = hb % Hkv, b = hb / Hkv;
   const bool is_causal = causal != 0, windowed = has_window != 0;
 
@@ -950,7 +1011,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     // ---- two consumer warpgroups over the same 64 keys: warpgroup 1
-    // computes P and dV, warpgroup 2 dP, dS and dK -------------------------
+    // computes P and dV, warpgroup 2 dP, dS and dK, each over the block's
+    // NC columns -----------------------------------------------------------
     setmaxnreg_inc<kConsumerRegs>();
     const int wgi = (warp >> 2) - 1, wtid = tid & 127;
     const int c4 = lane & 3;
@@ -958,9 +1020,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     // are queries: 8i + 2*c4 + {0, 1} of every n8 chunk i.  Both warpgroups
     // hold the same (key, query) elements in the same threads.
     const int r0 = 16 * (warp & 3) + (lane >> 2);
-    float acc[D / 2];
+    float acc[NC / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
     mbar_wait(kvbar, 0);
 
     // The walk of one warpgroup: DK false gives P^T and dV += P^T dout,
@@ -1079,15 +1141,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
             for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16x2(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
 
-          // dV += P^T dout or dK += dS^T Q: dout and Q are MN-major B operands.
-          fence_regs<D / 2>(acc);
+          // dV += P^T dout or dK += dS^T Q over the block's columns: dout
+          // and Q are MN-major B operands, from the region of col_off.
+          fence_regs<NC / 2>(acc);
           wgmma_fence();
-          const uint64_t bn = sw128_desc(DK ? q_addr : do_addr, QT::kRegion, 1024);
+          const uint64_t bn =
+              sw128_desc((DK ? q_addr : do_addr) + (col_off / 64) * QT::kRegion, QT::kRegion, 1024);
 #pragma unroll
-          for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D>(acc, a[kk], bn + mnmajor_step(kk));
+          for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<NC>(acc, a[kk], bn + mnmajor_step(kk));
           wgmma_commit();
           wgmma_wait_all();
-          fence_regs<D / 2>(acc);
+          fence_regs<NC / 2>(acc);
           mbar_arrive(empty0 + 8 * stage);
           if (++stage == kStages) {
             stage = 0;
@@ -1106,9 +1170,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int r = 0; r < 2; ++r) {
       const int j = k0 + r0 + 8 * r;
       if (j >= Sk) continue;
-      float* row = grad + (((size_t)b * Sk + j) * Hkv + hk) * D + 2 * c4;
+      float* row = grad + (((size_t)b * Sk + j) * Hkv + hk) * D + col_off + 2 * c4;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+      for (int i = 0; i < NC / 8; ++i)
         *reinterpret_cast<float2*>(row + 8 * i) = make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
     }
   }
@@ -1141,10 +1205,11 @@ inline cudaError_t make_maps(const BwdArgs& a, int D, int q_rows, int k_rows, CU
 template <int D>
 cudaError_t launch_dq(const BwdArgs& a, float* dq) {
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = make_maps(a, D, kDqRows, kDqKeys, &tq, &tk, &tv, &tdo);
+  constexpr int BQ = DqSplit<D>::kRows;
+  cudaError_t err = make_maps(a, D, BQ, kDqKeys, &tq, &tk, &tv, &tdo);
   if (err != cudaSuccess) return err;
   const size_t smem = DqSmem<D>::bytes((a.Sk + kDqKeys - 1) / kDqKeys);
-  const long long blocks = (long long)((a.Sq + kDqRows - 1) / kDqRows) * a.Hq * a.B;
+  const long long blocks = (long long)((a.Sq + BQ - 1) / BQ) * a.Hq * a.B;
   if (smem > (size_t)kMaxSmem || blocks > INT32_MAX) return cudaErrorInvalidValue;
   auto kern = flash_bwd_dq_wgmma_kernel<D>;
   static const cudaError_t attr =
@@ -1162,7 +1227,8 @@ cudaError_t launch_dkv(const BwdArgs& a, float* dk, float* dv) {
   cudaError_t err = make_maps(a, D, kDkvRows, kDkvKeys, &tq, &tk, &tv, &tdo);
   if (err != cudaSuccess) return err;
   const size_t smem = DkvSmem<D>::bytes((a.Sq + kDkvRows - 1) / kDkvRows);
-  const long long blocks = (long long)((a.Sk + kDkvKeys - 1) / kDkvKeys) * a.Hkv * a.B;
+  const long long blocks =
+      (long long)((a.Sk + kDkvKeys - 1) / kDkvKeys) * DkvSplit<D>::kBlocks * a.Hkv * a.B;
   if (smem > (size_t)kMaxSmem || blocks > INT32_MAX) return cudaErrorInvalidValue;
   auto kern = flash_bwd_dkv_wgmma_kernel<D>;
   static const cudaError_t attr =
@@ -1178,7 +1244,41 @@ cudaError_t launch_dkv(const BwdArgs& a, float* dk, float* dv) {
 
 // Which instance takes a call (mirrored by `flash_bwd_instance` in
 // kernels/flash_attention.py, checked against it by `flash_bwd_takes_wgmma`).
-inline bool takes_wgmma_bwd(int bf16, int D) { return bf16 && (D == 64 || D == 128); }
+inline bool takes_wgmma_bwd(int bf16, int D) { return bf16 && (D == 64 || D == 128 || D == 256); }
+
+namespace wgb {
+
+inline cudaError_t dq_dim(int D, const BwdArgs& a, float* dq) {
+  switch (D) {
+    case 64: return launch_dq<64>(a, dq);
+    case 128: return launch_dq<128>(a, dq);
+    case 256: return launch_dq<256>(a, dq);
+  }
+  return cudaErrorInvalidValue;
+}
+
+inline cudaError_t dkv_dim(int D, const BwdArgs& a, float* dk, float* dv) {
+  switch (D) {
+    case 64: return launch_dkv<64>(a, dk, dv);
+    case 128: return launch_dkv<128>(a, dk, dv);
+    case 256: return launch_dkv<256>(a, dk, dv);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one block at a call of length S (Sk for B1, Sq
+// for B2), or 0 for a width with no wgmma instance.
+inline size_t smem_bytes(int dkv, int D, int S) {
+  const int tiles = (S + 63) / 64;  // B1's KV tiles and B2's q-tiles are both 64 rows
+  switch (D) {
+    case 64: return dkv ? DkvSmem<64>::bytes(tiles) : DqSmem<64>::bytes(tiles);
+    case 128: return dkv ? DkvSmem<128>::bytes(tiles) : DqSmem<128>::bytes(tiles);
+    case 256: return dkv ? DkvSmem<256>::bytes(tiles) : DqSmem<256>::bytes(tiles);
+  }
+  return 0;
+}
+
+}  // namespace wgb
 
 }  // namespace rt
 
@@ -1195,8 +1295,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                       B, Sq, Sk, Hq, Hkv, causal, has_window, window, scale,
                       static_cast<cudaStream_t>(stream)};
   float* out = static_cast<float*>(dq);
-  if (rt::takes_wgmma_bwd(bf16, D))
-    return D == 128 ? (int)rt::wgb::launch_dq<128>(a, out) : (int)rt::wgb::launch_dq<64>(a, out);
+  if (rt::takes_wgmma_bwd(bf16, D)) return (int)rt::wgb::dq_dim(D, a, out);
   return bf16 ? (int)rt::dq_dim<__nv_bfloat16>(D, a, out) : (int)rt::dq_dim<float>(D, a, out);
 }
 
@@ -1212,9 +1311,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                       static_cast<cudaStream_t>(stream)};
   float* k_out = static_cast<float*>(dk);
   float* v_out = static_cast<float*>(dv);
-  if (rt::takes_wgmma_bwd(bf16, D))
-    return D == 128 ? (int)rt::wgb::launch_dkv<128>(a, k_out, v_out)
-                    : (int)rt::wgb::launch_dkv<64>(a, k_out, v_out);
+  if (rt::takes_wgmma_bwd(bf16, D)) return (int)rt::wgb::dkv_dim(D, a, k_out, v_out);
   return bf16 ? (int)rt::dkv_dim<__nv_bfloat16>(D, a, k_out, v_out)
               : (int)rt::dkv_dim<float>(D, a, k_out, v_out);
 }
@@ -1222,3 +1319,11 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
 // 1 if the wgmma instances take a call of this dtype and D, else 0: lets
 // the host check its copy of the rule (`flash_bwd_instance`) on the card.
 extern "C" int flash_bwd_takes_wgmma(int bf16, int D) { return rt::takes_wgmma_bwd(bf16, D); }
+
+// Dynamic shared memory of one wgmma-instance block (bytes): B1 (`dkv` 0)
+// at Sk = `S`, or B2 (`dkv` 1) at Sq = `S`; -1 where no wgmma instance has
+// this D.
+extern "C" int flash_bwd_wgmma_smem(int dkv, int D, int S) {
+  const size_t bytes = rt::wgb::smem_bytes(dkv, D, S);
+  return bytes ? (int)bytes : -1;
+}

@@ -26,9 +26,10 @@ Counterpart of ``repro.kernels.flash_attention``.
   Pallas kernels of ``flash_attention_bwd_pallas`` (``_bwd_dq_kernel`` and
   ``_bwd_dkv_kernel``).  Each has two instances behind its C entry
   (:func:`flash_bwd_instance` says which takes a call): bf16 calls with D
-  64/128 run on the tensor cores (TMA-fed tiles, ``wgmma`` products, P and
-  dS rounded to bf16 as operands), float32 calls, D = 32 and D = 256
-  (recurrentgemma's local attention) on the CUDA cores.  Both use kernel
+  64, 128 or 256 (recurrentgemma's local attention; there the block's work
+  is split by dQ's, dK's and dV's columns) run on the tensor cores (TMA-fed
+  tiles, ``wgmma`` products, P and dS rounded to bf16 as operands), float32
+  calls and D = 32 on the CUDA cores.  Both use kernel
   A's tile skip; B2 sums the GQA group inside one block, without atomics,
   so gradients are bitwise reproducible.
 * :func:`flash_attention_bwd_torch` is their plain version, a port of
@@ -59,6 +60,7 @@ __all__ = [
     "flash_attention_bwd_dkv_cuda",
     "flash_attention_bwd_torch",
     "flash_bwd_instance",
+    "flash_bwd_smem_bytes",
     "tile_skip",
     "tile_skip_grid",
     "tile_mask",
@@ -203,11 +205,13 @@ _BWD_ARGTYPES = {
     "flash_bwd_dkv": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                                      ctypes.c_void_p],
     "flash_bwd_takes_wgmma": [ctypes.c_int] * 2,
+    "flash_bwd_wgmma_smem": [ctypes.c_int] * 3,
 }
 
 
 # Head dims each kernel is built for: A, B1 and B2 take recurrentgemma's
-# 256 (on the CUDA cores and, for Sq <= 4, the decode core); kernel C has no
+# 256 (A on the CUDA cores and, for Sq <= 4, the decode core; B1 and B2 on
+# their wgmma instances in bf16, the CUDA cores in float32); kernel C has no
 # model at 256 and refuses it.
 FLASH_DIMS = (32, 64, 128, 256)
 PAGED_DIMS = (32, 64, 128)
@@ -340,11 +344,21 @@ def flash_fwd_smem_bytes(D: int, Sk: int) -> int:
 
 def flash_bwd_instance(dtype, D: int) -> str:
     """Which instance of kernels B1 and B2 takes a call: ``"wgmma"`` (bf16,
-    ``D`` 64 or 128) or ``"cuda_core"`` (float32, ``D = 32``, ``D = 256``).
+    ``D`` 64, 128 or 256) or ``"cuda_core"`` (float32, and ``D = 32``).
     Mirrors ``takes_wgmma_bwd`` in ``csrc/flash_bwd.cu``."""
-    if dtype == torch.bfloat16 and D in (64, 128):
+    if dtype == torch.bfloat16 and D in (64, 128, 256):
         return "wgmma"
     return "cuda_core"
+
+
+def flash_bwd_smem_bytes(kernel: str, D: int, S: int) -> int:
+    """Dynamic shared memory of one block of B1's (``kernel="dq"``, at
+    ``Sk = S``) or B2's (``"dkv"``, at ``Sq = S``) wgmma instance (builds the
+    library on first use; needs the CUDA toolchain)."""
+    from repro_torch.kernels._build import load_library
+
+    return load_library("flash_bwd", _BWD_ARGTYPES).flash_bwd_wgmma_smem(
+        int(kernel == "dkv"), D, S)
 
 
 def flash_bwd_instance_built(dtype, D: int) -> str:

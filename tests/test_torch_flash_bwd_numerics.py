@@ -1,13 +1,16 @@
 """The rounding of kernels B1 and B2's wgmma instances, emulated in plain
 torch, held against the JAX package's backward on the same inputs.
 
-The wgmma instances (``csrc/flash_bwd.cu``, bf16 with D 64/128) compute the
-scores S = q k^T and dP = dout v^T in float32 from bf16 operands on the
+The wgmma instances (``csrc/flash_bwd.cu``, bf16 with D 64/128/256) compute
+the scores S = q k^T and dP = dout v^T in float32 from bf16 operands on the
 tensor cores (each product exact, the sums rounded in float32), form
 P = exp(S*scale - lse) and dS = P (dP - delta + dlse) scale in float32, and
 round P and dS to bf16 as the A operands of the dq, dk and dv products,
 which accumulate in float32: dq over 64-key tiles (B1), dk and dv over the
-GQA group's heads and 64-row q-tiles in a fixed order (B2).
+GQA group's heads and 64-row q-tiles in a fixed order (B2).  At D 256 each
+of those sums runs over half of the gradient's columns (B1's two consumer
+warpgroups, B2's two blocks a key tile), each half forming the whole-D
+scores itself (:func:`wgmma_bwd_tiling`).
 :func:`emulate_wgmma_bwd` repeats those roundings.  Here it is held against
 ``jax.vjp`` of ``repro.kernels.ops.flash_attention(impl="xla")`` on the
 float32-widened bf16 inputs, with a nonzero ``dlse`` cotangent, at the limit
@@ -33,8 +36,6 @@ from repro_torch.kernels.ref import PAD_POS, visibility_mask
 # per row of D values (|err| <= row * rms(reference row)) and per tensor
 # (||err|| <= l2 * ||reference||)
 BF16_GRAD = dict(row=3e-2, l2=5e-3)
-DQ_KEYS = 64  # B1: keys per KV tile
-DKV_ROWS = 64  # B2: q rows per tile
 
 # tests/test_kernels.py::BWD_CASES: id, (B, S, Hq, Hkv, D), causal, layout,
 # window; D is widened to the wgmma instances' 64 and 128 below
@@ -49,14 +50,30 @@ BWD_CASES = [
 ]
 
 
+def wgmma_bwd_tiling(D: int) -> dict:
+    """The wgmma instances' sums at head dim ``D`` (``DqSplit`` and
+    ``DkvSplit`` in ``csrc/flash_bwd.cu``): B1's keys a KV tile and dQ
+    columns a consumer warpgroup; B2's q rows a tile and dK/dV columns a
+    block.  Up to D 128 B1's two consumers split a 128-row q-tile by rows;
+    at D 256 both take the same 64-row q-tile and each half of dQ's columns,
+    and two B2 blocks share a 64-key tile, each with half of dK's and dV's
+    columns."""
+    cols = D // 2 if D > 128 else D
+    return dict(dq_keys=64, dq_cols=cols, dkv_rows=64, dkv_cols=cols)
+
+
 def emulate_wgmma_bwd(q, k, v, q_pos, k_pos, out, lse, dout, dlse, *, causal: bool,
                       window: int | None, scale: float):
     """Plain-torch emulation of the wgmma instances' arithmetic on bf16
     ``q/dout (B,Sq,Hq,D)``, ``k/v (B,Sk,Hkv,D)`` with float32 ``out``,
-    ``lse`` and ``dlse`` -> ``(dq, dk, dv)`` in float32."""
+    ``lse`` and ``dlse`` -> ``(dq, dk, dv)`` in float32.  Each gradient is
+    summed per column block in the kernels' order; the q-tiles of B1 and the
+    key tiles of B2 change no sum (rows and keys are independent), and a
+    dead tile the kernels skip would add exact zeros."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     group = Hq // Hkv
+    t = wgmma_bwd_tiling(D)
     qf, kf, vf, dof = (x.float() for x in (q, k, v, dout))
     delta = (dof * out.float()).sum(dim=-1)  # outside the kernels, as on the card
     dead = torch.isneginf(lse)
@@ -74,13 +91,17 @@ def emulate_wgmma_bwd(q, k, v, q_pos, k_pos, out, lse, dout, dlse, *, causal: bo
         p = torch.where(mask, torch.exp(s - lse0[:, :, h, None]), 0.0)
         ds = p * (dp - delta[:, :, h, None] + dlse0[:, :, h, None]) * scale
         p16, ds16 = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
-        for k0 in range(0, Sk, DQ_KEYS):  # B1: one KV tile after another
-            ks = slice(k0, k0 + DQ_KEYS)
-            dq[:, :, h] += torch.einsum("bqk,bkd->bqd", ds16[:, :, ks], kf[:, ks, hk])
-        for q0 in range(0, Sq, DKV_ROWS):  # B2: heads of the group, then q-tiles
-            qs = slice(q0, q0 + DKV_ROWS)
-            dk[:, :, hk] += torch.einsum("bqk,bqd->bkd", ds16[:, qs], qf[:, qs, h])
-            dv[:, :, hk] += torch.einsum("bqk,bqd->bkd", p16[:, qs], dof[:, qs, h])
+        for c0 in range(0, D, t["dq_cols"]):  # B1: a consumer's columns,
+            cs = slice(c0, c0 + t["dq_cols"])
+            for k0 in range(0, Sk, t["dq_keys"]):  # one KV tile after another
+                ks = slice(k0, k0 + t["dq_keys"])
+                dq[:, :, h, cs] += torch.einsum("bqk,bkd->bqd", ds16[:, :, ks], kf[:, ks, hk, cs])
+        for c0 in range(0, D, t["dkv_cols"]):  # B2: a block's columns,
+            cs = slice(c0, c0 + t["dkv_cols"])
+            for q0 in range(0, Sq, t["dkv_rows"]):  # heads of the group, then q-tiles
+                qs = slice(q0, q0 + t["dkv_rows"])
+                dk[:, :, hk, cs] += torch.einsum("bqk,bqd->bkd", ds16[:, qs], qf[:, qs, h, cs])
+                dv[:, :, hk, cs] += torch.einsum("bqk,bqd->bkd", p16[:, qs], dof[:, qs, h, cs])
     return dq, dk, dv
 
 
@@ -168,13 +189,49 @@ def test_wgmma_bwd_rounding_ragged(Sq, Sk, D):
                  window=None)
 
 
+# recurrentgemma-2b's local attention (10/1 heads, D 256, causal, window),
+# cut to CPU size: id, B, Sq, Sk, window, layout
+D256_HEADS = (10, 1, 256)
+D256_CASES = [
+    ("window128_s512", 1, 512, 512, 128, "contig"),
+    ("ragged_37x45", 2, 37, 45, 24, "ragged"),
+    ("dead_rows", 2, 256, 256, 128, "dead"),
+]
+
+
+@pytest.mark.parametrize("case", D256_CASES, ids=[c[0] for c in D256_CASES])
+def test_wgmma_bwd_d256_rounding_within_chip_limit(case):
+    """The D-256 instances' tiling (column halves of dq, dk and dv) at 10/1
+    heads, causal with a window and a nonzero dlse: within the chip limit of
+    the JAX backward.  The ragged case offsets its 37 queries by 8 positions
+    against 45 keys; in the dead case row 0's first 16 queries precede every
+    key and batch row 1's keys are all padding, and their gradients are
+    exactly 0."""
+    case_id, B, Sq, Sk, window, layout = case
+    Hq, Hkv, D = D256_HEADS
+    q_pos = np.broadcast_to(np.arange(Sq, dtype=np.int32), (B, Sq)).copy()
+    k_pos = np.broadcast_to(np.arange(Sk, dtype=np.int32), (B, Sk)).copy()
+    if layout == "ragged":
+        q_pos += 8
+    if layout == "dead":
+        q_pos[0, :16] = -1
+        k_pos[1] = PAD_POS
+    dq, dk, dv = _against_jax(("d256", case_id), B, Sq, Sk, Hq, Hkv, D, q_pos, k_pos,
+                              causal=True, window=window)
+    if layout == "dead":
+        for dead in (dq[0, :16], dq[1], dk[1], dv[1]):
+            assert torch.equal(dead, torch.zeros_like(dead))
+
+
 def test_bwd_instance_dispatch():
     """Which instance of B1/B2 takes which call (``takes_wgmma_bwd`` in the
-    CUDA source): bf16 with D 64/128 goes to wgmma, at any length; float32
-    and D = 32 stay on the CUDA-core kernels."""
+    CUDA source): bf16 with D 64/128/256 goes to wgmma, at any length;
+    float32 (D 256 included) and D = 32 stay on the CUDA-core kernels."""
     bf, f32 = torch.bfloat16, torch.float32
     assert flash_bwd_instance(bf, 128) == "wgmma"  # training
     assert flash_bwd_instance(bf, 64) == "wgmma"
+    assert flash_bwd_instance(bf, 256) == "wgmma"  # recurrentgemma's training
     assert flash_bwd_instance(bf, 32) == "cuda_core"
     assert flash_bwd_instance(f32, 128) == "cuda_core"
     assert flash_bwd_instance(f32, 64) == "cuda_core"
+    assert flash_bwd_instance(f32, 256) == "cuda_core"  # recurrentgemma's float32 checks
