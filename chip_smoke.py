@@ -17,7 +17,7 @@ Phases, each fatal on failure:
      window, dead rows, ragged Sk) each run twice and required bitwise
      equal; each
      call's log names the instance that served it (decode: Sq <= 4; wgmma:
-     bf16, D 64/128, Sq > 4; else the CUDA-core one);
+     bf16, D 64/128/256, Sq > 4; else the CUDA-core one);
   4. kernel C (fused paged decode) against its plain version on the card,
      each case run twice and required bitwise equal, the prefix cache's
      tables at the serving shape among them (four rows mapping the same 32
@@ -214,16 +214,18 @@ Phases, each fatal on failure:
      of SP 1's (``RESULT prefill_sp``); with ``--profile``, one profiled
      training step each;
  20. the hybrid family and the head-dim-256 kernels (this slice's main
-     path): (a) kernel A's CUDA-core instance and B1/B2 at 10/1 heads and
-     D 256 in float32 and bf16 (B1/B2: the CUDA-core instances in float32,
-     the column-split wgmma instances in bf16; the training call, B 2 x S
-     4096, causal, window 2048; a ragged 37 x 45 edge; dead rows) and A's
-     decode instance
+     path): (a) kernels A, B1 and B2 at 10/1 heads and D 256 in float32
+     and bf16 (the CUDA-core instances in float32; in bf16 the
+     column-split wgmma instances of A, B1 and B2, each line
+     naming the instance the built library picks, checked against
+     ``flash_fwd_instance``/``flash_bwd_instance``; the training call, B 2
+     x S 4096, causal, window 2048; a ragged 37 x 45 edge; dead rows) and
+     A's decode instance
      at group 10 x Sq 1 over a 2048-slot ring buffer (wrapped rows, a
      half-filled one, a row that sees no key) against their plain versions,
      each case bitwise repeated, then each timed at the main path's shapes
      beside the plain version, SDPA on the same masked call and its bound
-     (B1 + B2 beside SDPA's whole backward);
+     (B1 + B2 beside SDPA's whole backward; A must beat SDPA's forward);
      (b) recurrentgemma-2b at full width, ``RG_CHECK_LAYERS`` (5) layers,
      float32: the loss and every gradient leaf on the kernels at SP 1 and
      through 4 virtual ranks (the window halo, the RG-LRU's scan) against
@@ -4539,11 +4541,12 @@ def rg_ring_positions(torch, dev, lengths, slots=RG_WINDOW):
 
 
 def rg_kernel_cases(torch, dev):
-    """Phase 20 (a)'s cases for A's CUDA-core instance and B1/B2, each in
-    float32 and bf16 at 10/1 heads and D 256 (label, B, Sq, Sk, q_pos,
-    k_pos, window): the main path's training call (causal, window 2048),
-    a ragged 37 x 45 edge (queries offset by 8, window 24) and dead rows
-    (queries before every key; a batch row of padding keys)."""
+    """Phase 20 (a)'s cases for A and B1/B2, each in float32 (the CUDA-core
+    instances) and bf16 (the wgmma instances) at 10/1 heads and D 256
+    (label, B, Sq, Sk, q_pos, k_pos, window): the main path's training call
+    (causal, window 2048), a ragged 37 x 45 edge (queries offset by 8,
+    window 24) and dead rows (queries before every key; a batch row of
+    padding keys)."""
     B, S = RG_TRAIN_SHAPE["B"], RG_TRAIN_SHAPE["S"]
     ar = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
     qr = (torch.arange(37, device=dev, dtype=torch.int32) + 8).expand(2, 37).contiguous()
@@ -4582,15 +4585,18 @@ def sdpa_masked(torch, q, k, v, qp, kp, window):
 
 
 def phase_rg_kernels(torch, dev):
-    """Phase 20 (a): the D-256 instances against their plain versions.  A's
-    CUDA-core instance and B1/B2 on ``rg_kernel_cases`` in float32 (1e-4)
-    and bf16 (phase 3's forward limits, phase 7's ``BWD_BF16_LIMIT``), the
-    decode core at group 10 x Sq 1 over a 2048-slot ring buffer (wrapped
-    rows, a half-filled row with slots at PAD_POS, a row that sees no key),
-    every case run twice and bitwise equal, each line naming its instance;
-    then each timed at the main path's shapes in bf16 beside its plain
-    version, SDPA on the same masked call and its bound.  Returns the
-    summary's rows: ``cuda_core`` (A), ``decode`` (A), ``dq`` and ``dkv``."""
+    """Phase 20 (a): the D-256 instances against their plain versions.  A and
+    B1/B2 on ``rg_kernel_cases`` in float32 (the CUDA-core instances, 1e-4)
+    and bf16 (the wgmma instances; phase 3's forward limits, phase 7's
+    ``BWD_BF16_LIMIT``), the decode core at group 10 x Sq 1 over a 2048-slot
+    ring buffer (wrapped rows, a half-filled row with slots at PAD_POS, a
+    row that sees no key), every case run twice and bitwise equal, dead rows
+    exactly (0, -inf), each line naming the instance the built library
+    picks, which must be the one ``flash_fwd_instance`` and
+    ``flash_bwd_instance`` name; then each timed at the main path's shapes
+    in bf16 beside its plain version, SDPA on the same masked call and its
+    bound.  Returns the summary's rows: ``wgmma`` (A), ``decode`` (A),
+    ``dq`` and ``dkv``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -4609,6 +4615,17 @@ def phase_rg_kernels(torch, dev):
         if built != host:
             raise AssertionError(f"B1/B2 {dtype} D={D}: the library takes the {built} "
                                  f"instance, flash_bwd_instance says {host}")
+        for d in fa.FLASH_DIMS:
+            for sq in (1, 4, 5, 37, RG_TRAIN_SHAPE["S"]):
+                built, host = fa.flash_fwd_instance_built(dtype, sq, d), fa.flash_fwd_instance(
+                    dtype, sq, d)
+                if built != host:
+                    raise AssertionError(f"A {dtype} D={d} Sq={sq}: the library takes the "
+                                         f"{built} instance, flash_fwd_instance says {host}")
+    if fa.flash_fwd_instance_built(bf, RG_TRAIN_SHAPE["S"], D) != "wgmma":
+        raise AssertionError("A bf16 D=256: the training call does not go to the wgmma instance")
+    log(f"  the built library and flash_fwd_instance / flash_bwd_instance agree on every "
+        f"(dtype, D in {fa.FLASH_DIMS}, Sq); A bf16 D=256 Sq>4 [wgmma], f32 [cuda_core]")
 
     def fwd_pair(q, k, v, qp, kp, window):
         got = fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True, window=window,
@@ -4629,7 +4646,7 @@ def phase_rg_kernels(torch, dev):
         for dtype in (f32, bf):
             q, k, v, dout = (x.to(dtype) for x in (q32, k32, v32, do32))
             name = {f32: "f32", bf: "bf16"}[dtype]
-            inst = fa.flash_fwd_instance(dtype, Sq, D)
+            inst = fa.flash_fwd_instance_built(dtype, Sq, D)
             got, want = fwd_pair(q, k, v, qp, kp, window)
             a_err = compare(f"A {name} D=256 {label} [{inst}] bitwise repeatable", got, want,
                             **tolerances(dtype))
@@ -4653,16 +4670,22 @@ def phase_rg_kernels(torch, dev):
              lambda: fa.flash_attention_fwd_torch(q, k, v, qp, kp, causal=True,
                                                   window=RG_WINDOW, scale=scale, block_k=blk),
              sdpa_masked(torch, q, k, v, qp, kp, RG_WINDOW))
-    ms, plain_ms, lib_ms = rg_timed(a_fns, (3, 1, 3))
+    ms, plain_ms, lib_ms = rg_timed(a_fns, (20, 1, 20))
     nbytes, flops = flash_bytes_flops(q, k, qp, kp, True, RG_WINDOW)
     bms, by = bound(nbytes, flops, "bfloat16")
     shape = (f"B={q.shape[0]} S={q.shape[1]} Hq={Hq} Hkv={Hkv} D={D} bf16 causal "
              f"window={RG_WINDOW}")
-    rows["cuda_core"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                             bound_by=by, max_abs_err=a_err, instance="cuda_core", shape=shape,
-                             flops=flops, bytes=nbytes)
-    log(f"  A {shape} [cuda_core]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa "
-        f"{lib_ms:.3f} ms; bound {bms:.4f} ms ({by}), {flops / ms / 1e9:.2f} TFLOP/s")
+    ainst = fa.flash_fwd_instance_built(bf, q.shape[1], D)
+    rows["wgmma"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                         bound_by=by, max_abs_err=a_err, instance=ainst,
+                         device_kernel=f"rt::wg::flash_fwd_wgmma_kernel<{D}>", shape=shape,
+                         flops=flops, bytes=nbytes)
+    log(f"  A {shape} [{ainst}]: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}; {ms / bms:.2f}x), "
+        f"{flops / ms / 1e9:.2f} TFLOP/s; plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms on the "
+        f"same masked call ({ms / lib_ms:.3f}x)")
+    if not ms < lib_ms:
+        raise AssertionError(f"A bf16 D=256 at the training call: {ms:.4f} ms, not faster than "
+                             f"sdpa's {lib_ms:.4f} ms on the same masked call")
     # yardstick only: SDPA on the masked call, KV repeated for the group
     qt = q.transpose(1, 2).detach().requires_grad_(True)
     kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2).detach().requires_grad_(True)
@@ -4813,7 +4836,8 @@ def rg_blocks(params):
 # A layer's forward pass fed the decode's own inputs, against the decode:
 # as MAMBA_LAYER_LIMIT (cuBLAS sums a product of 8 rows in another order
 # than one of 8 x 320, the float32 scan's order, and the attention layer's
-# decode core against the CUDA-core instance over the same keys).
+# decode core, with float32 P, against the wgmma instance, which rounds P
+# to bf16 for its P V product, over the same keys).
 RG_LAYER_LIMIT = MAMBA_LAYER_LIMIT
 
 
@@ -5050,17 +5074,27 @@ def phase_build(torch, dev):
     if "flash_bwd" in info["ptxas"] and len(bwd_regs) != 2:
         raise AssertionError(f"ptxas: expected B1's and B2's D-256 wgmma instances, found "
                              f"{sorted(bwd_regs)}")
+    fwd_regs = [f["registers"] for n, f in wgmma.items() if "flash_fwd" in n and "ILi256E" in n]
+    if "flash_fwd" in info["ptxas"] and len(fwd_regs) != 1:
+        raise AssertionError(f"ptxas: expected one D-256 wgmma instance of A, found "
+                             f"{len(fwd_regs)}")
     log(f"  ptxas: no spill and no C7512 in the {len(wgmma)} wgmma instances of A, B1 and B2 "
         "built here")
     from repro_torch.kernels import flash_attention as fa
 
-    log("  kernel A wgmma instance: 384 threads (producer warpgroup at 40 registers, two "
-        "consumer warpgroups at 232 by setmaxnreg); dynamic shared memory "
-        f"{fa.flash_fwd_smem_bytes(128, 4096)} B at D=128, "
+    log("  kernel A wgmma instance at D=64/128: 384 threads (producer warpgroup at 40 "
+        "registers, two consumer warpgroups at 232 by setmaxnreg), 128-key tiles; dynamic "
+        f"shared memory {fa.flash_fwd_smem_bytes(128, 4096)} B at D=128, "
         f"{fa.flash_fwd_smem_bytes(64, 4096)} B at D=64 (Sk=4096)")
+    S_rg = RG_TRAIN_SHAPE["S"]
+    tiling = fa.wgmma_fwd_tiling(256)
+    log(f"  kernel A wgmma instance at D=256 (column split): 384 threads, ptxas registers "
+        f"{fwd_regs} (the launch bound; producer warpgroup at 24, two consumer warpgroups at "
+        f"240 by setmaxnreg), {tiling['q_rows']}-row q-tiles held by both consumers, each "
+        f"forming S and {tiling['o_cols']} of O's columns, {tiling['keys']}-key tiles; dynamic "
+        f"shared memory {fa.flash_fwd_smem_bytes(256, S_rg)} B at Sk={S_rg} (limit 232448)")
     log("  kernels B1/B2 wgmma instances: 384 threads (producer warpgroup at 24 registers, two "
         "consumer warpgroups at 240 by setmaxnreg)")
-    S_rg = RG_TRAIN_SHAPE["S"]
     log(f"  B1/B2 wgmma at D=256 (column split): 384 threads, ptxas registers {bwd_regs} "
         "(the launch bound; consumers 240 by setmaxnreg); B1 64-row q-tiles, each consumer "
         "warpgroup 128 of dQ's columns, dynamic shared memory "
@@ -5324,8 +5358,8 @@ def main() -> int:
     launches["prefill_sp4"] = phase_prefill_sp(torch, dev)
     free_device_memory(torch)
 
-    log("== phase 20: the hybrid family: kernels A (CUDA-core and decode-core instances), B1 and "
-        "B2 at head dim 256 against their plain versions; recurrentgemma-2b checked at "
+    log("== phase 20: the hybrid family: kernels A (wgmma, CUDA-core and decode-core instances), "
+        "B1 and B2 at head dim 256 against their plain versions; recurrentgemma-2b checked at "
         f"{RG_CHECK_LAYERS} layers in float32 (SP 1 and the window halo and scan over 4 virtual "
         "ranks), trained at full width and depth (SP 1 and 4, main path), decoded at full width "
         "and depth, its ring buffer wrapped")
@@ -5367,7 +5401,7 @@ def main() -> int:
     # step's call (phase 7, `f32_step_rows`).
     # `d256` holds the head-dim-256 instances (phase 20, recurrentgemma-2b):
     # each row's time, errors and bound from phase 20 (a) at the main path's
-    # shapes, its `launches` from the main path that runs it (A's CUDA-core
+    # shapes, its `launches` from the main path that runs it (A's wgmma
     # instance, B1 and B2: the SP-1 training run; A's decode instance: the
     # full-depth decode).
     def d256(row, path, name):
@@ -5384,9 +5418,10 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:244",
          "launches": launches["train_whisper"]["flash_attention_fwd"],
          "launches_by_path": by_path("flash_attention_fwd"),
-         "device_kernels": {"wgmma": ["rt::wg::flash_fwd_wgmma_kernel<D>"],
+         "device_kernels": {"wgmma": ["rt::wg::flash_fwd_wgmma_kernel<D> (bf16; D 64, 128, "
+                                      "256)"],
                             "decode": ["rt::dec::decode_kernel<T, D, WR, RW, false>"],
-                            "cuda_core": ["rt::flash_fwd_kernel<T, D>"]},
+                            "cuda_core": ["rt::flash_fwd_kernel<T, D> (float32; bf16 at D 32)"]},
          **flash_rows[wb]["cross_prefill"],
          "training_shape": bwd_rows[wb]["cross"]["fwd"],
          "whisper_calls": {"encoder": flash_rows[wb]["encoder"],
@@ -5400,7 +5435,7 @@ def main() -> int:
                                    "training_shape": bwd_rows[dense]["fwd"]}},
          "sp4_calls": {k: v for k, v in sp_rows.items() if k != "paged_decode"},
          "ring_overlap_trace": ring_trace,
-         "d256": {"cuda_core": d256(rg_rows["cuda_core"], "train_rg", "flash_attention_fwd"),
+         "d256": {"wgmma": d256(rg_rows["wgmma"], "train_rg", "flash_attention_fwd"),
                   "decode": d256(rg_rows["decode"], "decode_rg", "flash_attention_fwd")}},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_bwd.cu",

@@ -578,7 +578,6 @@ namespace wgb {
 
 constexpr int kThreads = 384;      // producer warpgroup + two consumer warpgroups
 constexpr int kStages = 2;         // depth of the ring
-constexpr int kRowBytes = 128;     // one swizzled row: 64 bf16 columns
 constexpr int kProducerRegs = 24;  // 128 * 24 + 256 * 240 = 384 * 168, the launch budget
 constexpr int kConsumerRegs = 240;
 constexpr int kMaxSmem = 232448;   // the opt-in maximum of one block
@@ -606,25 +605,6 @@ struct DkvSplit {
   static constexpr int kBlocks = D > 128 ? 2 : 1;
   static constexpr int kCols = D / kBlocks;
 };
-
-// A bf16 tile of ROWS rows by D columns in shared memory: D/64 swizzled
-// regions of ROWS x 128 bytes, as D/64 TMA boxes write it.
-template <int D, int ROWS>
-struct Tile {
-  static constexpr int kRegion = ROWS * kRowBytes;
-  static constexpr int kBytes = (D / 64) * kRegion;
-};
-
-// Descriptor offsets, in the 16-byte units of the start-address field (no
-// carry: shared addresses are < 2^18).  A K-major operand moves along the
-// reduction dim (D) by 16 columns: 32 bytes within a 64-column region, then
-// to the next region.  An MN-major operand moves along it by 16 rows.
-__device__ __forceinline__ uint32_t kmajor_step(int kk, int region) {
-  return static_cast<uint32_t>(((kk / 4) * region + (kk % 4) * 32) >> 4);
-}
-__device__ __forceinline__ uint32_t mnmajor_step(int kk) {
-  return static_cast<uint32_t>((kk * 16 * kRowBytes) >> 4);
-}
 
 // B1's shared memory, from a 1024-byte aligned base: Q and dout, then per
 // stage K and V, the mbarriers, the q-position range and one flag byte per

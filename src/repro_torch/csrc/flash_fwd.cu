@@ -30,45 +30,64 @@
 //   the memory rate.  One launch of `rt::dec::decode_kernel<T, D, WR, RW,
 //   false>`.
 //
-// * The wgmma instance (bf16, D 64 or 128, Sq > 4: the training
+// * The wgmma instance (bf16, D 64, 128 or 256, Sq > 4: the training
 //   calls and the serving prefill calls).  One block of 384 threads per
-//   (128-row q-tile, query head, batch row).  Warpgroup 0 is the producer:
-//   one thread loads the Q tile and then 128-key K and V tiles by TMA into
-//   a ring of 2 shared-memory stages, guarded by full/empty mbarriers.
-//   q, k and v are 4-D tensor maps (D, H, S, B) with 128-byte swizzle and
-//   boxes of 64 columns x 128 rows (two per tile at D = 128); rows past Sq
-//   or Sk read as zero, and such keys are masked by index as well.
-//   Warpgroups 1 and 2 are consumers of 64 q rows each: S = Q K^T with
-//   wgmma (m64n128k16, both operands K-major from shared memory), the
-//   online softmax in registers (row max and sum over the 4 threads of a
-//   quad; the Pallas `safe_m` and `alpha` guards), then O += P V with P
-//   converted in place to bf16 as wgmma's register A operand and V read
-//   as an MN-major B operand.  The elementwise mask runs only on tiles not
-//   visible to every row of the q-tile.  Before the roles split, the block
-//   computes each KV tile's flag (dead, wholly visible, masked) once into
-//   shared memory, so producer and consumers walk the same tiles and the
-//   mbarrier phases agree.  setmaxnreg gives the consumers 232 registers
-//   and the producer 40.  Causal grids start with the q-tiles that have
-//   the most live tiles.  Shared memory: 32 KB of Q and 2 x 64 KB of K/V
-//   at D = 128 (half at D = 64).
+//   (q-tile, query head, batch row).  Warpgroup 0 is the producer:
+//   one thread loads the Q tile and then K and V tiles by TMA into a ring
+//   of 2 shared-memory stages, guarded by full/empty mbarriers.  q, k and v
+//   are 4-D tensor maps (D, H, S, B) with 128-byte swizzle and boxes of 64
+//   columns (D/64 per tile) by the tile's rows; rows past Sq or Sk read as
+//   zero, and such keys are masked by index as well.  Warpgroups 1 and 2
+//   are consumers of 64 q rows: S = Q K^T with wgmma (both operands
+//   K-major from shared memory), the online softmax in registers (row max
+//   and sum over the 4 threads of a quad; the Pallas `safe_m` and `alpha`
+//   guards), then O += P V with P converted in place to bf16 as wgmma's
+//   register A operand and V read as an MN-major B operand.  The
+//   elementwise mask runs only on tiles not visible to every row of the
+//   q-tile.  Before the roles split, the block computes each KV tile's flag
+//   (dead, wholly visible, masked) once into shared memory, so producer and
+//   consumers walk the same tiles and the mbarrier phases agree.  Causal
+//   grids start with the q-tiles that have the most live tiles.  The
+//   tiling (`Tiling<D>`):
+//   - D 64/128: 128-row q-tiles, 64 rows and all of O's columns a
+//     consumer, 128-key tiles, S by m64n128k16, O += P V by one product of
+//     N = D a 16-key step; setmaxnreg gives the consumers 232 registers and
+//     the producer 40.  Shared memory: 32 KB of Q and 2 x 64 KB of K/V at
+//     D = 128 (half at D = 64).
+//   - D 256 (recurrentgemma-2b's local attention: 10/1 heads, causal,
+//     window 2048) splits O by columns.  The D-128 tiling cannot take D
+//     256: Q (64 KB) and two stages of 128-key K and V (2 x 128 KB) pass
+//     the 227 KB a block may have, and a consumer would hold 128 floats of
+//     O beside 64 of S.  Even with 64-key tiles, a consumer that holds all
+//     64 x 256 of O (128 floats) beside a 64 x 64 tile of S (32 floats)
+//     spilled 404 B and had every wgmma serialised (C7512) on an H100: the
+//     phase-2 gate refuses that.  So a block takes a 64-row q-tile that
+//     both consumers hold; each forms S over the whole D itself (m64n64k16,
+//     16 steps) and accumulates its half of O's columns (m64n128k16 over
+//     its half of V, 4 steps a 64-key tile): 64 floats of O and 32 of S,
+//     the D-128 budget.  The two copies of S are the same products of the
+//     same operands in the same order, so both halves of a row see the
+//     same P, m and l; the first writes lse.  setmaxnreg gives the
+//     consumers 240 registers and the producer 24.  Shared memory: 32 KB
+//     of Q and 2 x (32 + 32) KB of K/V, 160 KB, with room for the flags of
+//     Sk up to 1,080,576 (longer calls are refused at launch).  6*D flops
+//     a visible pair in place of 4*D: S is formed twice.
 //   What bounds it: the tensor-core rate (989 TFLOP/s bf16) at the training
 //   and prefill shapes.  What keeps it from that bound: a warpgroup's
 //   softmax does not overlap its own products, and the two consumer
 //   warpgroups are not scheduled against each other (no ping-pong), so
-//   the tensor cores idle while exponentials run.
+//   the tensor cores idle while exponentials run; at D 256 a 64-key tile
+//   also gives each wait for the products half the work of a 128-key one.
 //
-// * The CUDA-core instance (float32 inputs, D = 32, and D = 256 in both
-//   types, Sq > 4): one block of 128 threads per (q-tile of 32 rows, head,
-//   batch row) walks KV tiles of 32 keys with the softmax state in shared
-//   memory and float32 products on the CUDA cores, one multiply-add per
-//   shared-memory read: bound by shared-memory bandwidth, far from the
-//   tensor-core rate.  It is exact to float32 and stays as the reference
-//   instance.  At D = 256 a thread owns two columns of every row of the
-//   q-tile (64 accumulators) and the block's shared memory is 101 KB (bf16
-//   is widened to float32 on load).  It is recurrentgemma's bf16 training
-//   instance until a wgmma instance is tiled for D = 256, whose O
-//   accumulator would double past the ~128 floats a thread that keep the
-//   D 64/128 instances free of spills.
+// * The CUDA-core instance (float32 inputs, and D = 32, Sq > 4): one block
+//   of 128 threads per (q-tile of 32 rows, head, batch row) walks KV tiles
+//   of 32 keys with the softmax state in shared memory and float32 products
+//   on the CUDA cores, one multiply-add per shared-memory read: bound by
+//   shared-memory bandwidth, far from the tensor-core rate.  It is exact to
+//   float32 and stays as the reference instance (recurrentgemma's float32
+//   checks run on it).  At D = 256 a thread owns two columns of every row
+//   of the q-tile (64 accumulators) and the block's shared memory is 101
+//   KB.  Only float32 instantiates it at D 64/128/256.
 #include <type_traits>
 
 #include "common.cuh"
@@ -246,83 +265,107 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The CUDA-core instance's launch; bf16 at D 64/128 is the wgmma
-// instance's (Sq > 4) or the decode instance's (Sq <= 4).
+// The CUDA-core instance's launch.
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* qp,
                        const int* kp, void* out, float* lse, int B, int Sq, int Sk, int Hq,
                        int Hkv, int causal, int has_window, int window, float scale,
                        cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16> && (D == 64 || D == 128)) {
-    return cudaErrorInvalidValue;
-  } else {
-    constexpr size_t smem = fwd_smem_bytes<D>();
-    auto kern = flash_fwd_kernel<T, D>;
-    // The shared-memory opt-in is set once per template instance (per process).
-    static const cudaError_t attr =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (attr != cudaSuccess) return attr;
-    dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-    kern<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), qp, kp,
-        static_cast<T*>(out), lse, Sq, Sk, Hq, Hkv, causal, has_window, window, scale);
-    return cudaGetLastError();
-  }
+  constexpr size_t smem = fwd_smem_bytes<D>();
+  auto kern = flash_fwd_kernel<T, D>;
+  // The shared-memory opt-in is set once per template instance (per process).
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), qp, kp,
+      static_cast<T*>(out), lse, Sq, Sk, Hq, Hkv, causal, has_window, window, scale);
+  return cudaGetLastError();
 }
 
+// bf16 calls with D 64/128/256 are the wgmma instance's (Sq > 4) or the
+// decode instance's (Sq <= 4): only float32 instantiates the CUDA-core
+// kernel at those widths.
 template <typename T>
 cudaError_t pick_dim(int D, const void* q, const void* k, const void* v, const int* qp,
                      const int* kp, void* out, float* lse, int B, int Sq, int Sk, int Hq,
                      int Hkv, int causal, int has_window, int window, float scale,
                      cudaStream_t stream) {
+  constexpr bool f32 = std::is_same_v<T, float>;
   switch (D) {
     case 32:
       return launch_fwd<T, 32>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
                                has_window, window, scale, stream);
     case 64:
-      return launch_fwd<T, 64>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
-                               has_window, window, scale, stream);
+      if constexpr (f32)
+        return launch_fwd<T, 64>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
+                                 has_window, window, scale, stream);
+      break;
     case 128:
-      return launch_fwd<T, 128>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
-                                has_window, window, scale, stream);
+      if constexpr (f32)
+        return launch_fwd<T, 128>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
+                                  has_window, window, scale, stream);
+      break;
     case 256:
-      return launch_fwd<T, 256>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
-                                has_window, window, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+      if constexpr (f32)
+        return launch_fwd<T, 256>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
+                                  has_window, window, scale, stream);
+      break;
   }
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
-// The wgmma instance: bf16, D in {64, 128}, Sq > 4.
+// The wgmma instance: bf16, D in {64, 128, 256}, Sq > 4.
 // ---------------------------------------------------------------------------
 
 namespace wg {
 
-constexpr int kBQ = 128;            // q rows per block: two consumer warpgroups of 64
-constexpr int kBK = 128;            // keys per KV tile
-constexpr int kStages = 2;          // depth of the K/V ring
-constexpr int kThreads = 384;       // producer warpgroup + two consumer warpgroups
-constexpr int kRegion = 128 * 128;  // bytes of one 128-row x 64-column bf16 region
-constexpr int kProducerRegs = 40;   // 128 * 40 + 256 * 232 = 384 * 168, the launch budget
-constexpr int kConsumerRegs = 232;
-constexpr int kMaxSmem = 232448;    // the opt-in maximum of one block
+constexpr int kStages = 2;        // depth of the K/V ring
+constexpr int kThreads = 384;     // producer warpgroup + two consumer warpgroups
+constexpr int kMaxSmem = 232448;  // the opt-in maximum of one block
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory, from a 1024-byte aligned base: Q (kHalves regions), then
-// per stage K and V (kHalves regions each), the mbarriers, the q-position
-// range and one flag per KV tile (0 dead, 1 visible to every row, 2 masked).
+// The instance's tiling at head dim D: how a block's two consumer
+// warpgroups share its work, keys a KV tile, and the registers of the two
+// roles (128 * producer + 256 * consumer <= 65536).  Up to D 128 by rows:
+// a 128-row q-tile, 64 rows and every column of O a consumer, 128-key
+// tiles (64 x D of O and 64 x 128 of S: at most 128 floats), 232
+// registers.  At D 256 by columns: a 64-row q-tile that both consumers
+// hold, each forming S over the whole D and accumulating its half of O's
+// columns (64 x 128 of O and 64 x 64 of S: 96 floats), 64-key tiles, 240
+// registers.  A consumer holding all 256 of O's columns (128 floats beside
+// 32 of S) spilled 404 B and serialised its wgmma (C7512) on an H100.
+template <int D>
+struct Tiling {
+  static constexpr bool kByCols = D > 128;
+  static constexpr int kBQ = kByCols ? 64 : 128;  // q rows per block
+  static constexpr int kCols = kByCols ? D / 2 : D;  // O columns a consumer
+  static constexpr int kBK = kByCols ? 64 : 128;
+  static constexpr int kProducerRegs = kByCols ? 24 : 40;
+  static constexpr int kConsumerRegs = kByCols ? 240 : 232;
+};
+
+// Shared memory, from a 1024-byte aligned base: Q, then per stage K and V,
+// the mbarriers, the q-position range and one flag per KV tile (0 dead, 1
+// visible to every row, 2 masked).
 template <int D>
 struct Smem {
-  static constexpr int kHalves = D / 64;
-  static constexpr int kTile = kHalves * kRegion;  // bytes of a Q, K or V tile
+  using QT = Tile<D, Tiling<D>::kBQ>;
+  using KT = Tile<D, Tiling<D>::kBK>;
   static constexpr int kQ = 0;
-  static constexpr int kKV = kTile;  // stage s: K at kKV + 2*s*kTile, V after it
-  static constexpr int kBars = kKV + 2 * kStages * kTile;  // full[], empty[], q
+  static constexpr int kKV = QT::kBytes;  // stage s: K at kKV + 2*s*KT::kBytes, V after it
+  static constexpr int kBars = kKV + 2 * kStages * KT::kBytes;  // full[], empty[], q
   static constexpr int kQRange = kBars + 8 * (2 * kStages + 1);
   static constexpr int kFlags = kQRange + 8;
+  static constexpr int kMaxTiles = (kMaxSmem - 1024 - kFlags) / 4;  // KV tiles a block can flag
   static size_t bytes(int nk) { return 1024 + kFlags + 4 * static_cast<size_t>(nk); }
 };
+// D 256: 160 KB of Q and two K/V stages; flags for Sk up to 1,080,576.
+static_assert(Smem<256>::kMaxTiles * Tiling<256>::kBK >= 500000 &&
+                  Smem<128>::kMaxTiles * Tiling<128>::kBK >= 500000,
+              "the layout leaves room for the flags of 500,000 keys");
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -343,6 +386,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                            int Sk, int Hq, int Hkv, int causal, int has_window, int window,
                            float scale) {
   using L = Smem<D>;
+  using QT = typename L::QT;
+  using KT = typename L::KT;
+  using TL = Tiling<D>;
+  constexpr int BQ = TL::kBQ, BK = TL::kBK, NC = TL::kCols;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   uint8_t* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
@@ -355,8 +402,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // Causal: the q-tiles with the most live KV tiles start first.
   const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * kBQ, h = blockIdx.y, b = blockIdx.z, hk = h / (Hq / Hkv);
-  const int nk = (Sk + kBK - 1) / kBK;
+  const int q0 = qt * BQ, h = blockIdx.y, b = blockIdx.z, hk = h / (Hq / Hkv);
+  const int nk = (Sk + BK - 1) / BK;
   const bool is_causal = causal != 0, windowed = has_window != 0;
 
   if (tid == 0) {
@@ -370,7 +417,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     q_range[1] = INT32_MIN;
   }
   __syncthreads();
-  if (tid < kBQ) {
+  if (tid < BQ) {
     const int s = q0 + tid;
     int lo = INT32_MAX, hi = INT32_MIN;
     if (s < Sq) lo = hi = q_pos[(size_t)b * Sq + s];
@@ -388,7 +435,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int qmin = q_range[0], qmax = q_range[1];
     for (int t = warp; t < nk; t += kThreads / 32) {
       int lo = INT32_MAX, hi = INT32_MIN;
-      for (int j = t * kBK + lane; j < (t + 1) * kBK; j += 32) {
+      for (int j = t * BK + lane; j < (t + 1) * BK; j += 32) {
         const int kp = j < Sk ? k_pos[(size_t)b * Sk + j] : 2 * kPadHalf;
         lo = min(lo, kp);
         hi = max(hi, kp);
@@ -402,22 +449,22 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (warp < 4) {
     // ---- producer warpgroup: one thread keeps the TMA loads in flight ----
-    setmaxnreg_dec<kProducerRegs>();
+    setmaxnreg_dec<TL::kProducerRegs>();
     if (tid == 0) {
-      mbar_arrive_expect_tx(qbar, L::kTile);
-      for (int c = 0; c < L::kHalves; ++c)
-        tma_load_4d(sbase + L::kQ + c * kRegion, &tm_q, qbar, 64 * c, h, q0, b);
+      mbar_arrive_expect_tx(qbar, QT::kBytes);
+      for (int c = 0; c < D / 64; ++c)
+        tma_load_4d(sbase + L::kQ + c * QT::kRegion, &tm_q, qbar, 64 * c, h, q0, b);
       int stage = 0;
       uint32_t phase = 0;
       for (int t = 0; t < nk; ++t) {
         if (flags[t] == 0) continue;
         mbar_wait(empty0 + 8 * stage, phase ^ 1);
         const uint32_t full = full0 + 8 * stage;
-        const uint32_t kdst = sbase + L::kKV + 2 * stage * L::kTile;
-        mbar_arrive_expect_tx(full, 2 * L::kTile);
-        for (int c = 0; c < L::kHalves; ++c) {
-          tma_load_4d(kdst + c * kRegion, &tm_k, full, 64 * c, hk, t * kBK, b);
-          tma_load_4d(kdst + L::kTile + c * kRegion, &tm_v, full, 64 * c, hk, t * kBK, b);
+        const uint32_t kdst = sbase + L::kKV + 2 * stage * KT::kBytes;
+        mbar_arrive_expect_tx(full, 2 * KT::kBytes);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(kdst + c * KT::kRegion, &tm_k, full, 64 * c, hk, t * BK, b);
+          tma_load_4d(kdst + KT::kBytes + c * KT::kRegion, &tm_v, full, 64 * c, hk, t * BK, b);
         }
         if (++stage == kStages) {
           stage = 0;
@@ -426,63 +473,64 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   } else {
-    // ---- two consumer warpgroups, 64 q rows each -------------------------
-    setmaxnreg_inc<kConsumerRegs>();
+    // ---- two consumer warpgroups: 64 q rows each, or (D 256) the same 64
+    // rows and NC of O's columns each ---------------------------------------
+    setmaxnreg_inc<TL::kConsumerRegs>();
     const int wgi = (warp >> 2) - 1;
     const int c4 = lane & 3;
+    const int row_off = TL::kByCols ? 0 : 64 * wgi, col_off = TL::kByCols ? NC * wgi : 0;
     // wgmma's accumulator layout: this thread holds rows r0 and r0 + 8 of
     // its warpgroup's 64, and columns 8i + 2*c4 + {0, 1} of every n8 chunk i.
-    const int r0 = 64 * wgi + 16 * (warp & 3) + (lane >> 2);
+    const int r0 = row_off + 16 * (warp & 3) + (lane >> 2);
     int qp[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int s = q0 + r0 + 8 * r;
       qp[r] = s < Sq ? q_pos[(size_t)b * Sq + s] : 0;
     }
-    float o[D / 2];
+    float o[NC / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < NC / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-    // Descriptors move along the reduction dim by adding the byte offset / 16
-    // to the start-address field (no carry: shared addresses are < 2^18).
-    const uint64_t q_desc = sw128_desc(sbase + L::kQ + 64 * 128 * wgi, 16, 1024);
+    const uint64_t q_desc = sw128_desc(sbase + L::kQ + row_off * kRowBytes, 16, 1024);
     mbar_wait(qbar, 0);
     int stage = 0;
     uint32_t phase = 0;
     for (int t = 0; t < nk; ++t) {
       const int flag = flags[t];
       if (flag == 0) continue;
-      const uint32_t k_addr = sbase + L::kKV + 2 * stage * L::kTile;
-      const uint32_t v_addr = k_addr + L::kTile;
+      const uint32_t k_addr = sbase + L::kKV + 2 * stage * KT::kBytes;
+      const uint32_t v_addr = k_addr + KT::kBytes;
       mbar_wait(full0 + 8 * stage, phase);
 
-      // S = Q K^T: both K-major, 16 columns of D per product.  The opaque
-      // copy of q_desc keeps the compiler from holding all of its offsets
-      // in registers across the loop.
+      // S = Q K^T: both K-major, 16 columns of D per product (at D 256 both
+      // consumers form the same S: the same products in the same order, so
+      // both halves of a row see the same P, m and l).  The opaque copy of
+      // q_desc keeps the compiler from holding all of its offsets in
+      // registers across the loop.
       uint64_t dq = q_desc;
       asm volatile("" : "+l"(dq));
       const uint64_t dk = sw128_desc(k_addr, 16, 1024);
       // Scores of this tile only: nothing of the last tile's P stays live.
-      float sc[kBK / 2];
+      float sc[BK / 2];
 #pragma unroll
-      for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
-      fence_regs<kBK / 2>(sc);
+      for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+      fence_regs<BK / 2>(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = ((kk / 4) * kRegion + (kk % 4) * 32) >> 4;
-        wgmma_ss_n128(sc, dq + off, dk + off, kk > 0);
-      }
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BK>(sc, dq + kmajor_step(kk, QT::kRegion), dk + kmajor_step(kk, KT::kRegion),
+                     kk > 0);
       wgmma_commit();
       wgmma_wait_all();
-      fence_regs<kBK / 2>(sc);
+      fence_regs<BK / 2>(sc);
 
       // Online softmax in registers, written as the Pallas body.
       if (flag == 2) {
         const int* kpt = k_pos + (size_t)b * Sk;
 #pragma unroll
-        for (int i = 0; i < kBK / 8; ++i) {
-          const int j = t * kBK + 8 * i + 2 * c4;
+        for (int i = 0; i < BK / 8; ++i) {
+          const int j = t * BK + 8 * i + 2 * c4;
           const int kp0 = j < Sk ? kpt[j] : 2 * kPadHalf;
           const int kp1 = j + 1 < Sk ? kpt[j + 1] : 2 * kPadHalf;
 #pragma unroll
@@ -495,14 +543,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < kBK / 2; ++i) sc[i] *= scale;
+        for (int i = 0; i < BK / 2; ++i) sc[i] *= scale;
       }
       float alpha[2], neg[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float mx = kNegInf;
 #pragma unroll
-        for (int i = 0; i < kBK / 8; ++i)
+        for (int i = 0; i < BK / 8; ++i)
           mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
         const float mnew = fmaxf(m[r], quad_max(mx));
         const float safe = mnew <= kNegInf / 2 ? 0.f : mnew;
@@ -513,7 +561,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // A masked score is kNegInf, so its exp2 underflows to exactly 0.
       float psum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < kBK / 8; ++i) {
+      for (int i = 0; i < BK / 8; ++i) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float& s = sc[4 * i + e];
@@ -524,7 +572,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + psum[r];  // quad-summed at the end
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < NC / 8; ++i) {
         o[4 * i] *= alpha[0];
         o[4 * i + 1] *= alpha[0];
         o[4 * i + 2] *= alpha[1];
@@ -532,21 +580,22 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       // P as the A operand from registers: the f32 accumulator fragment of
       // S, converted to bf16 pairs in place, is wgmma's A fragment of P.
-      uint32_t pa[kBK / 16][4];
+      uint32_t pa[BK / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk)
+      for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
         for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16x2(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
 
-      // O += P V: V is the MN-major B operand (rows of D along N).
-      fence_regs<D / 2>(o);
+      // O += P V over this warpgroup's columns: V is the MN-major B operand
+      // (rows of D along N), from the 64-column region of col_off.
+      fence_regs<NC / 2>(o);
       wgmma_fence();
-      const uint64_t dv = sw128_desc(v_addr, kRegion, 1024);
+      const uint64_t dv = sw128_desc(v_addr + (col_off / 64) * KT::kRegion, KT::kRegion, 1024);
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<D>(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<NC>(o, pa[kk], dv + mnmajor_step(kk));
       wgmma_commit();
       wgmma_wait_all();
-      fence_regs<D / 2>(o);
+      fence_regs<NC / 2>(o);
       mbar_arrive(empty0 + 8 * stage);
       if (++stage == kStages) {
         stage = 0;
@@ -564,12 +613,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       // One reciprocal (rcp.approx, within 1 ulp of 1/l for l >= 1) per row,
       // with no division subroutine call while the accumulator is live.
       const float inv = valid ? __fdividef(1.f, lr) : 0.f;
-      __nv_bfloat16* orow = out + (((size_t)b * Sq + s) * Hq + h) * D + 2 * c4;
+      __nv_bfloat16* orow = out + (((size_t)b * Sq + s) * Hq + h) * D + col_off + 2 * c4;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+      for (int i = 0; i < NC / 8; ++i)
         *reinterpret_cast<uint32_t*>(orow + 8 * i) =
             pack_bf16x2(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
-      if (c4 == 0) lse[((size_t)b * Sq + s) * Hq + h] = valid ? m[r] + logf(lr) : -INFINITY;
+      if (c4 == 0 && col_off == 0)
+        lse[((size_t)b * Sq + s) * Hq + h] = valid ? m[r] + logf(lr) : -INFINITY;
     }
   }
 }
@@ -583,20 +633,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qp, c
     return cudaErrorMisalignedAddress;
   CUtensorMap tq, tk, tv;
   cudaError_t err;
-  if ((err = make_bf16_map(&tq, q, D, Hq, Sq, B, kBQ)) != cudaSuccess) return err;
+  constexpr int BQ = Tiling<D>::kBQ, BK = Tiling<D>::kBK;
+  if ((err = make_bf16_map(&tq, q, D, Hq, Sq, B, BQ)) != cudaSuccess) return err;
   // With no keys there is no KV tile to load, but a map needs a nonzero
   // extent and an address: it is built over one row of q and never read.
-  if ((err = make_bf16_map(&tk, Sk ? k : q, D, Hkv, Sk ? Sk : 1, B, kBK)) != cudaSuccess)
+  if ((err = make_bf16_map(&tk, Sk ? k : q, D, Hkv, Sk ? Sk : 1, B, BK)) != cudaSuccess)
     return err;
-  if ((err = make_bf16_map(&tv, Sk ? v : q, D, Hkv, Sk ? Sk : 1, B, kBK)) != cudaSuccess)
+  if ((err = make_bf16_map(&tv, Sk ? v : q, D, Hkv, Sk ? Sk : 1, B, BK)) != cudaSuccess)
     return err;
-  const size_t smem = Smem<D>::bytes((Sk + kBK - 1) / kBK);
+  const size_t smem = Smem<D>::bytes((Sk + BK - 1) / BK);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   auto kern = flash_fwd_wgmma_kernel<D>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return attr;
-  dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
+  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv, qp, kp, static_cast<__nv_bfloat16*>(out), lse,
                                          Sq, Sk, Hq, Hkv, causal, has_window, window, scale);
   return cudaGetLastError();
@@ -606,11 +657,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qp, c
 
 // Which instance takes a call (mirrored by `flash_fwd_instance` in
 // kernels/flash_attention.py): every call with Sq <= 4 goes to the decode
-// instance, bf16 calls with D 64/128 and Sq > 4 to the wgmma instance, the
-// rest (float32, D = 32, D = 256) to the CUDA-core instance.
+// instance, bf16 calls with D 64/128/256 and Sq > 4 to the wgmma instance,
+// the rest (float32, and D = 32) to the CUDA-core instance.
 inline bool takes_decode(int Sq) { return Sq <= 4; }
 inline bool takes_wgmma(int bf16, int D, int Sq) {
-  return bf16 && (D == 64 || D == 128) && Sq > 4;
+  return bf16 && (D == 64 || D == 128 || D == 256) && Sq > 4;
 }
 
 }  // namespace rt
@@ -656,6 +707,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
     return (int)rt::dec::run<false>(a, D, bf16, s);
   }
   if (rt::takes_wgmma(bf16, D, Sq)) {
+    if (D == 256)
+      return (int)rt::wg::launch<256>(q, k, v, qp, kp, out, l, B, Sq, Sk, Hq, Hkv, causal,
+                                      has_window, window, scale, s);
     if (D == 128)
       return (int)rt::wg::launch<128>(q, k, v, qp, kp, out, l, B, Sq, Sk, Hq, Hkv, causal,
                                       has_window, window, scale, s);
@@ -669,10 +723,20 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
                                   has_window, window, scale, s);
 }
 
+// 1 if a call of this type, head dim and Sq goes to the wgmma instance.
+extern "C" int flash_fwd_takes_wgmma(int bf16, int D, int Sq) {
+  return rt::takes_wgmma(bf16, D, Sq) ? 1 : 0;
+}
+
 // Dynamic shared memory of one wgmma-instance block (bytes), or -1.
+template <int D>
+static int wgmma_smem(int Sk) {
+  constexpr int BK = rt::wg::Tiling<D>::kBK;
+  return (int)rt::wg::Smem<D>::bytes((Sk + BK - 1) / BK);
+}
 extern "C" int flash_fwd_wgmma_smem(int D, int Sk) {
-  const int nk = (Sk + rt::wg::kBK - 1) / rt::wg::kBK;
-  if (D == 128) return (int)rt::wg::Smem<128>::bytes(nk);
-  if (D == 64) return (int)rt::wg::Smem<64>::bytes(nk);
+  if (D == 256) return wgmma_smem<256>(Sk);
+  if (D == 128) return wgmma_smem<128>(Sk);
+  if (D == 64) return wgmma_smem<64>(Sk);
   return -1;
 }

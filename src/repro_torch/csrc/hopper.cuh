@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tile loads,
-// wgmma shared-memory descriptors and the warpgroup products the kernels
-// use, and the host-side builder of the TMA tensor maps.  No CUTLASS/CuTe:
-// each device helper is the one PTX instruction it names.
+// wgmma shared-memory descriptors, the swizzled tile layout and its
+// descriptor steps, the warpgroup products the kernels use, and the
+// host-side builder of the TMA tensor maps.  No CUTLASS/CuTe: each device
+// helper is the one PTX instruction it names, or plain address arithmetic.
 //
 // Shared-memory tiles are 128-byte-swizzled regions of 128-byte rows
 // (64 bf16 values), 1024-byte aligned, exactly as a TMA load with
@@ -112,6 +113,26 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
   d |= static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32;
   d |= 1ull << 62;  // layout type 1: 128-byte swizzle
   return d;
+}
+
+// A bf16 tile of ROWS rows by D columns in shared memory: D/64 swizzled
+// regions of ROWS x 128 bytes, as D/64 TMA boxes write it.
+constexpr int kRowBytes = 128;  // one swizzled row: 64 bf16 columns
+template <int D, int ROWS>
+struct Tile {
+  static constexpr int kRegion = ROWS * kRowBytes;
+  static constexpr int kBytes = (D / 64) * kRegion;
+};
+
+// Descriptor offsets, in the 16-byte units of the start-address field (no
+// carry: shared addresses are < 2^18).  A K-major operand moves along the
+// reduction dim (D) by 16 columns: 32 bytes within a 64-column region, then
+// to the next region.  An MN-major operand moves along it by 16 rows.
+__device__ __forceinline__ uint32_t kmajor_step(int kk, int region) {
+  return static_cast<uint32_t>(((kk / 4) * region + (kk % 4) * 32) >> 4);
+}
+__device__ __forceinline__ uint32_t mnmajor_step(int kk) {
+  return static_cast<uint32_t>((kk * 16 * kRowBytes) >> 4);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {

@@ -10,11 +10,13 @@ Counterpart of ``repro.kernels.flash_attention``.
   decode core ``csrc/decode.cuh`` shared with kernel C (the KV range split
   over blocks by :func:`decode_split_rule`, cp.async-fed tiles, scores and
   P V in registers, the splits merged in a fixed order by the last block),
-  bound by the bytes of the live keys; bf16 calls with D 64/128 and Sq > 4
-  (training, serving prefill) run on the tensor cores, with TMA-fed K/V
-  tiles, ``wgmma`` products and the online softmax in registers, and are
-  bound by the tensor-core rate; float32, D = 32 and D = 256 calls with
-  Sq > 4 run on the CUDA cores, bound by shared-memory traffic.  Head dims
+  bound by the bytes of the live keys; bf16 calls with D 64, 128 or 256
+  and Sq > 4 (training, serving prefill; at D 256 recurrentgemma's local
+  attention, split by O's columns: :func:`wgmma_fwd_tiling`) run on the tensor
+  cores, with TMA-fed K/V tiles, ``wgmma`` products and the online softmax
+  in registers, and are bound by the tensor-core rate; float32 and D = 32
+  calls with Sq > 4 run on the CUDA cores, bound by shared-memory traffic.
+  Head dims
   32, 64, 128 and 256 (``FLASH_DIMS``); the decode core's D-256 instance
   takes 9 to 16 rows a KV head (:func:`check_decode_rows`).  All skip dead
   KV tiles whole (see the source notes in the ``.cu`` files).
@@ -53,7 +55,9 @@ __all__ = [
     "flash_attention_fwd_cuda",
     "flash_attention_fwd_torch",
     "flash_fwd_instance",
+    "flash_fwd_instance_built",
     "flash_fwd_smem_bytes",
+    "wgmma_fwd_tiling",
     "decode_split_rule",
     "decode_scratch",
     "flash_attention_bwd_dq_cuda",
@@ -198,6 +202,7 @@ def flash_attention_bwd_torch(q, k, v, q_pos, k_pos, out, lse, dout, dlse, *, ca
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = {"flash_fwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+             "flash_fwd_takes_wgmma": [ctypes.c_int] * 3,
              "flash_fwd_wgmma_smem": [ctypes.c_int] * 2}
 _BWD_ARGTYPES = {
     "flash_bwd_dq": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float,
@@ -210,9 +215,9 @@ _BWD_ARGTYPES = {
 
 
 # Head dims each kernel is built for: A, B1 and B2 take recurrentgemma's
-# 256 (A on the CUDA cores and, for Sq <= 4, the decode core; B1 and B2 on
-# their wgmma instances in bf16, the CUDA cores in float32); kernel C has no
-# model at 256 and refuses it.
+# 256 (on their wgmma instances in bf16, the CUDA cores in float32, and A's
+# Sq <= 4 calls on the decode core); kernel C has no model at 256 and
+# refuses it.
 FLASH_DIMS = (32, 64, 128, 256)
 PAGED_DIMS = (32, 64, 128)
 # The decode core's D-256 instance holds 9 to 16 rows (GQA group x Sq) a KV
@@ -261,15 +266,28 @@ def _raise_on(err: int, name: str):
 
 def flash_fwd_instance(dtype, Sq: int, D: int) -> str:
     """Which instance of kernel A takes a call: ``"decode"`` (every call with
-    ``Sq <= 4``), ``"wgmma"`` (bf16, ``D`` 64 or 128, ``Sq > 4``) or
-    ``"cuda_core"`` (the rest: float32, ``D = 32`` and ``D = 256`` with
-    ``Sq > 4``).  Mirrors ``takes_decode`` and ``takes_wgmma`` in
-    ``csrc/flash_fwd.cu``."""
+    ``Sq <= 4``), ``"wgmma"`` (bf16, ``D`` 64, 128 or 256, ``Sq > 4``) or
+    ``"cuda_core"`` (the rest: float32, and ``D = 32``, with ``Sq > 4``).
+    Mirrors ``takes_decode`` and ``takes_wgmma`` in ``csrc/flash_fwd.cu``."""
     if Sq <= DECODE_MAX_SQ:
         return "decode"
-    if dtype == torch.bfloat16 and D in (64, 128):
+    if dtype == torch.bfloat16 and D in (64, 128, 256):
         return "wgmma"
     return "cuda_core"
+
+
+def wgmma_fwd_tiling(D: int) -> dict:
+    """The wgmma instance's tiling at head dim ``D`` (``Tiling<D>`` in
+    ``csrc/flash_fwd.cu``): q rows a block, keys a KV tile and O columns a
+    consumer warpgroup.  Up to D 128 the two consumers split a 128-row
+    q-tile by rows (every column of O each) over 128-key tiles; at D 256
+    both take the same 64-row q-tile, each forming S itself and holding half
+    of O's columns, over 64-key tiles."""
+    if D not in (64, 128, 256):
+        raise ValueError(f"wgmma_fwd_tiling: no wgmma instance at head dim {D}")
+    by_cols = D > 128
+    return dict(q_rows=64 if by_cols else 128, keys=64 if by_cols else 128,
+                o_cols=D // 2 if by_cols else D)
 
 
 # The split-KV decode core (csrc/decode.cuh), shared by kernel A's decode
@@ -335,11 +353,26 @@ def _ptr(t) -> int:
 
 
 def flash_fwd_smem_bytes(D: int, Sk: int) -> int:
-    """Dynamic shared memory of one block of the wgmma instance (builds the
-    library on first use; needs the CUDA toolchain)."""
+    """Dynamic shared memory of one block of the wgmma instance at head dim
+    ``D`` (64, 128 or 256) over ``Sk`` keys: the tiles, the barriers and one
+    flag a KV tile of :func:`wgmma_fwd_tiling` (builds the library on first
+    use; needs the CUDA toolchain)."""
     from repro_torch.kernels._build import load_library
 
     return load_library("flash_fwd", _ARGTYPES).flash_fwd_wgmma_smem(D, Sk)
+
+
+def flash_fwd_instance_built(dtype, Sq: int, D: int) -> str:
+    """:func:`flash_fwd_instance` as the built library decides it: the
+    library's ``takes_wgmma``, then the decode instance for ``Sq <= 4`` and
+    the CUDA cores for the rest (builds the library on first use; needs the
+    CUDA toolchain)."""
+    from repro_torch.kernels._build import load_library
+
+    lib = load_library("flash_fwd", _ARGTYPES)
+    if lib.flash_fwd_takes_wgmma(int(dtype == torch.bfloat16), D, Sq):
+        return "wgmma"
+    return "decode" if Sq <= DECODE_MAX_SQ else "cuda_core"
 
 
 def flash_bwd_instance(dtype, D: int) -> str:

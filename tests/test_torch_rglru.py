@@ -297,13 +297,15 @@ def test_plain_flash_d256_group10_window_matches_jax(impl):
 
 
 def test_d256_instances_and_refusals():
-    """At D 256 kernel A's Sq > 4 calls run on the CUDA-core instance (no
-    wgmma instance of A is tiled for it) and Sq <= 4 on the decode core,
-    whose D-256 instance takes 9 to 16 rows a KV head; B1 and B2 run bf16
-    on their column-split wgmma instances and float32 on the CUDA cores;
-    kernel C refuses D 256 before it looks at the tensors."""
+    """At D 256 kernel A's bf16 Sq > 4 calls run on its wgmma instance
+    (split by O's columns), its float32 ones on the CUDA-core instance, and Sq <= 4
+    on the decode core, whose D-256 instance takes 9 to 16 rows a KV head;
+    B1 and B2 run bf16 on their column-split wgmma instances and float32 on
+    the CUDA cores; kernel C refuses D 256 before it looks at the tensors."""
     bf, f32 = torch.bfloat16, torch.float32
-    assert fa.flash_fwd_instance(bf, 4096, 256) == fa.flash_fwd_instance(f32, 37, 256) == (
+    assert fa.flash_fwd_instance(bf, 4096, 256) == fa.flash_fwd_instance(bf, 37, 256) == (
+        "wgmma")
+    assert fa.flash_fwd_instance(f32, 4096, 256) == fa.flash_fwd_instance(f32, 37, 256) == (
         "cuda_core")
     assert fa.flash_fwd_instance(bf, 1, 256) == fa.flash_fwd_instance(f32, 4, 256) == "decode"
     assert fa.flash_bwd_instance(bf, 256) == "wgmma"
