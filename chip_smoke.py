@@ -7,7 +7,9 @@ Phases, each fatal on failure:
   1. toolchain: torch, CUDA, nvcc and the card's name and power limit;
   2. build every kernel in ``src/repro_torch/csrc`` with nvcc (sm_90a),
      failing if ptxas reports a spill or a serialised ``wgmma`` (C7512) in
-     any wgmma instance of A, B1 or B2;
+     any wgmma instance of A, B1 or B2 or a spill in the decode core's
+     cluster instance (bf16 D 256), whose registers, shared memory and
+     admitted cluster sizes it logs;
   3. kernel A (flash forward) against its plain version on the card, in
      float32 and bf16, the zigzag, window, dead-row and ragged edge cases
      included, whisper-base's non-causal calls at phase 18's batches (its
@@ -27,7 +29,11 @@ Phases, each fatal on failure:
      page-aligned offsets off the 256-token chunk grid, and after a COW
      page's kept rows), each run twice and required bitwise equal, and two
      calls of C on two streams at once each bitwise equal to its
-     single-stream result;
+     single-stream result; then C at head dim 256 (float32 on the split
+     kernel, bf16 on the cluster instance) on the cases with up to 16 rows
+     a KV head, recurrentgemma's 10/1 heads at page 16 and the alias
+     poisoning, bitwise repeated, and its bf16 call at B 8, group 10, page
+     16, 2048 keys timed beside its bound and the plain version;
   5. the paged engine and the dense-slab engine at qwen3-1.7b widths (2
      layers, float32) on the kernels, every emitted token teacher-forced
      against the plain path;
@@ -45,9 +51,9 @@ Phases, each fatal on failure:
      cases at Sq != Sk (the wgmma instances), each run twice and required
      bitwise equal, gradients of rows that see no key exactly 0; B1, B2
      and A held and timed at the training shapes beside SDPA (whisper-base's
-     three at phase 18's batch of 16: cross, encoder, decoder), and B1 and
-     B2's float32 instances at phase 8's step call (16/8 heads, D 128, B 2
-     x S 512) beside their float32 bound, the plain backward and SDPA's;
+     three at phase 18's batch of 16: cross, encoder, decoder), and A's, B1's
+     and B2's float32 instances at phase 8's step call (16/8 heads, D 128,
+     B 2 x S 512) beside their float32 bound, the plain version and SDPA's;
   8. one training step at qwen3-1.7b widths (2 layers, float32) on the
      kernels against the plain path: loss, every gradient, and the
      parameters after one AdamW step; then one bf16 step (kernel A's wgmma
@@ -220,12 +226,17 @@ Phases, each fatal on failure:
      naming the instance the built library picks, checked against
      ``flash_fwd_instance``/``flash_bwd_instance``; the training call, B 2
      x S 4096, causal, window 2048; a ragged 37 x 45 edge; dead rows) and
-     A's decode instance
+     A's decode instance (float32: the split kernel; bf16: the decode
+     core's cluster instance, each line naming the kernel the built library
+     picks, checked against ``decode_core_instance``)
      at group 10 x Sq 1 over a 2048-slot ring buffer (wrapped rows, a
-     half-filled one, a row that sees no key) against their plain versions,
+     half-filled one, a row that sees no key) and at 1 to 16 rows a KV head
+     (ragged Sk, windows, padding rows) against their plain versions,
      each case bitwise repeated, then each timed at the main path's shapes
      beside the plain version, SDPA on the same masked call and its bound
-     (B1 + B2 beside SDPA's whole backward; A must beat SDPA's forward);
+     (B1 + B2 beside SDPA's whole backward; A must beat SDPA's forward,
+     and A's decode over a full buffer SDPA's masked call; the decode also
+     timed at (d)'s lengths, 256-319 live keys of 2048 slots);
      (b) recurrentgemma-2b at full width, ``RG_CHECK_LAYERS`` (5) layers,
      float32: the loss and every gradient leaf on the kernels at SP 1 and
      through 4 virtual ranks (the window halo, the RG-LRU's scan) against
@@ -799,6 +810,19 @@ def paged_case_data(case_id, ps, heads, lengths, D=32):
     return [q, k_pool, v_pool, pos_pool, bt, q_pos]
 
 
+def alias_poisoned_data(D=32):
+    """Alias poisoning: the page a clamped sentinel would alias holds huge,
+    live-looking K/V at visible positions, and row 1's table is all
+    sentinel, so it must stay (0, -inf)."""
+    raw = paged_case_data("dead", 4, (4, 2), (9, 5), D=D)
+    n_pages = raw[1].shape[0]
+    raw[4][1, :] = n_pages
+    raw[1][n_pages - 1] = 1e3
+    raw[2][n_pages - 1] = 1e3
+    raw[3][n_pages - 1] = 0
+    return raw
+
+
 def prefix_shared_data(seed=2, B=8, ps=16, n_pages=1024, W=128, heads=(16, 8), D=128,
                        shared=32, keep=8):
     """Kernel C's inputs as the prefix cache lays them out, at the serving
@@ -956,15 +980,7 @@ def phase_paged(torch, dev):
                 lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
                 compare(f"C {str(dtype)[6:]} {case_id} D={D} ({splits(data)} splits) bitwise "
                         "repeatable", *run(data, lens, window), **tolerances(dtype))
-    # alias poisoning: the page a clamped sentinel would alias holds huge,
-    # live-looking K/V at visible positions; an unmapped row stays (0, -inf)
-    raw = paged_case_data("dead", 4, (4, 2), (9, 5))
-    n_pages = raw[1].shape[0]
-    raw[4][1, :] = n_pages
-    raw[1][n_pages - 1] = 1e3
-    raw[2][n_pages - 1] = 1e3
-    raw[3][n_pages - 1] = 0
-    data = to_dev(raw, torch.float32)
+    data = to_dev(alias_poisoned_data(), torch.float32)
     got, want = run(data, torch.tensor([9, 0], device=dev, dtype=torch.int32), None)
     compare("C f32 alias poisoning", (got[0], got[1]), want, **tolerances(torch.float32))
     if not (torch.equal(got[0][1], torch.zeros_like(got[0][1])) and torch.isneginf(got[1][1]).all()):
@@ -978,39 +994,44 @@ def phase_paged(torch, dev):
     # decode steps)
     import numpy as np
 
-    def serving_row(heads, lengths):
+    def serving_row(heads, lengths, D=128):
         Hq, Hkv = heads
-        raw = paged_case_data("serving", 16, heads, tuple(lengths), D=128)
+        raw = paged_case_data("serving", 16, heads, tuple(lengths), D=D)
         lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
-        label = f"serving ps=16 Hq={Hq} Hkv={Hkv}"
+        label = f"serving ps=16 Hq={Hq} Hkv={Hkv}" + (f" D={D}" if D != 128 else "")
+        n_keys = raw[4].shape[1] * 16
         data = to_dev(raw, torch.float32)
-        compare(f"C f32 {label} ({splits(data)} splits) bitwise repeatable",
+        how = decode_blocks(torch, dev, torch.float32, D, len(lengths), Hq, Hkv, n_keys)
+        compare(f"C f32 {label} ({how}) bitwise repeatable",
                 *run(data, lens, None), **tolerances(torch.float32))
         data = to_dev(raw, torch.bfloat16)
-        err = compare(f"C bf16 {label} ({splits(data)} splits) bitwise repeatable",
+        how = decode_blocks(torch, dev, torch.bfloat16, D, len(lengths), Hq, Hkv, n_keys)
+        err = compare(f"C bf16 {label} ({how}) bitwise repeatable",
                       *run(data, lens, None), **tolerances(torch.bfloat16))
         q, kp, vp, pos, bt, qp = data
-        scale = 1.0 / 128 ** 0.5
+        scale = 1.0 / D ** 0.5
         kern = lambda: pa.paged_decode_fwd_cuda(q, kp, vp, pos, bt, qp,  # noqa: E731
                                                 window=None, scale=scale)
         plain = lambda: pa.paged_decode_fwd_torch(q, kp, vp, pos, bt, qp,  # noqa: E731
                                                   lengths=lens, window=None, scale=scale,
                                                   block_k=512)
         ev_ms, ev_plain = time_ms(kern, iters=20), time_ms(plain, iters=5)
-        (ms, plain_ms), how = device_times((kern, 30), (plain, 5))
+        (ms, plain_ms), timing = device_times((kern, 30), (plain, 5))
         pages_used = int((bt < kp.shape[0]).sum())
-        ps, D = 16, 128
+        ps = 16
         nbytes = (pages_used * ps * Hkv * D * 2 * 2 + pages_used * ps * 4 + bt.numel() * 4
                   + 2 * q.numel() * 2 + q.shape[0] * q.shape[2] * 4)
         flops = 4.0 * D * Hq * sum(lengths)
         bms, by = bound(nbytes, flops, "bfloat16")
-        log(f"  C {label}: device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; events kernel "
-            f"{ev_ms:.4f} ms, plain {ev_plain:.4f} ms; bound {bms:.4f} ms ({by}), "
-            f"{nbytes / ms / 1e6:.1f} GB/s over {pages_used} pages at {how}")
+        log(f"  C {label} [{how}]: device kernel {ms:.4f} ms ({ms / bms:.2f}x its bound), plain "
+            f"{plain_ms:.4f} ms; events kernel {ev_ms:.4f} ms, plain {ev_plain:.4f} ms; bound "
+            f"{bms:.4f} ms ({by}), {nbytes / ms / 1e6:.1f} GB/s over {pages_used} pages at "
+            f"{timing}")
         return data, dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
-                          event_ms=ev_ms, event_plain_ms=ev_plain, timing=how,
-                          max_abs_err=err, lengths=list(lengths),
-                          shape=f"B=8 ps=16 Hq={Hq} Hkv={Hkv} D=128 pages={pages_used} bf16")
+                          event_ms=ev_ms, event_plain_ms=ev_plain, timing=timing,
+                          max_abs_err=err, lengths=list(lengths), blocks=how,
+                          instance=fa.decode_core_instance(torch.bfloat16, D),
+                          shape=f"B=8 ps=16 Hq={Hq} Hkv={Hkv} D={D} pages={pages_used} bf16")
 
     rng = np.random.default_rng(1)
     data, row = serving_row((16, 8), rng.integers(128, 2049, 8).tolist())
@@ -1031,7 +1052,55 @@ def phase_paged(torch, dev):
     two_streams(torch, dev, pa, data, splits(data))
     phase6 = [len(p) + 16 for p in make_prompts(16, 128, 1024, 2)[:8]]
     rows["qwen3-moe-30b-a3b"] = serving_row((32, 4), phase6)[1]
+    paged_d256_cases(torch, dev, to_dev, run)
+    rows["d256"] = serving_row(*PAGED_D256_MAIN, D=256)[1]
     return rows
+
+
+# Kernel C at head dim 256 (float32 on the split kernel's 16-row layout,
+# bf16 on the cluster instance): the cases above with at most 16 rows a KV
+# head, and recurrentgemma's 10/1 heads at page 16 (rows of 2048 keys and
+# shorter, a window).
+PAGED_D256_CASES = [c for c in PAGED_CASES if c[2][0] // c[2][1] <= 16] + [
+    ("ps16_rg_group10", 16, (10, 1), (2048, 700, 33, 1), None),
+    ("ps16_rg_group10_window", 16, (10, 1), (600, 45), 128),
+]
+PAGED_D256_MAIN = ((10, 1), (2048,) * 8)  # the timed call (heads, lengths) at page 16
+
+
+def decode_blocks(torch, dev, dtype, D, B, Hq, Hkv, n_keys):
+    """How the decode core cuts a call, for the logs: its splits, or the
+    cluster instance's blocks a unit and tiles a block."""
+    from repro_torch.kernels import flash_attention as fa
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    units = fa.decode_units(B, Hq, Hkv, 1)
+    if fa.decode_core_instance(dtype, D) == "cluster":
+        per, g = fa.decode_rule_d256(n_keys, units, sms)
+        return f"cluster: {g} blocks a unit, {per} tiles each"
+    return f"split: {fa.decode_split_rule(n_keys, units, sms)[1]} splits"
+
+
+def paged_d256_cases(torch, dev, to_dev, run):
+    """Phase 4 at head dim 256: ``PAGED_D256_CASES`` and the alias poisoning
+    with an unmapped row in float32 and bf16, each run twice and bitwise
+    equal (``run``)."""
+    D = 256
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for case_id, ps, heads, lengths, window in PAGED_D256_CASES:
+            data = to_dev(paged_case_data(case_id, ps, heads, lengths, D=D), dtype)
+            lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
+            how = decode_blocks(torch, dev, dtype, D, len(lengths), *heads,
+                                data[4].shape[1] * ps)
+            compare(f"C {name} {case_id} D={D} ({how}) bitwise repeatable",
+                    *run(data, lens, window), **tolerances(dtype))
+        got, want = run(to_dev(alias_poisoned_data(D), dtype),
+                        torch.tensor([9, 0], device=dev, dtype=torch.int32), None)
+        compare(f"C {name} alias poisoning D={D}", got, want, **tolerances(dtype))
+        if not (torch.equal(got[0][1], torch.zeros_like(got[0][1]))
+                and torch.isneginf(got[1][1]).all()):
+            raise AssertionError(f"C {name} D={D}: unmapped row is not the merge identity")
 
 
 def two_streams(torch, dev, pa, data, n_splits, rounds=20):
@@ -2126,7 +2195,10 @@ def f32_step_rows(torch, dev, shape=F32_STEP_SHAPE):
     """B1 and B2's CUDA-core instances at phase 8's float32 step's call
     (qwen3-1.7b's 16/8 heads, causal): held to the plain backward at 1e-4,
     then each timed beside its float32 bound, the plain backward and SDPA's
-    whole float32 backward.  Returns the rows "dq" and "dkv"."""
+    whole float32 backward; A's CUDA-core instance at the same call, held to
+    the plain forward at 1e-4 and timed beside its float32 bound, the plain
+    forward and SDPA's float32 forward.  Returns the rows "dq", "dkv" and
+    "fwd"."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -2170,6 +2242,29 @@ def f32_step_rows(torch, dev, shape=F32_STEP_SHAPE):
         log(f"  B {name} {label} [{inst}]: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, "
             f"67 TFLOP/s float32; {ms / bms:.2f}x), {flops / ms / 1e9:.2f} TFLOP/s; plain "
             f"backward {plain_ms:.3f} ms, sdpa f32 backward {lib_ms:.3f} ms")
+    del o_t, qt, kt, vt
+    fwd = lambda: fa.flash_attention_fwd_cuda(q, k, v, qp, qp, causal=True,  # noqa: E731
+                                              window=None, scale=kw["scale"])
+    finst = fa.flash_fwd_instance_built(torch.float32, S, D)
+    f_err = compare(f"A f32 phase 8's step call {label} [{finst}]", fwd(),
+                    fa.flash_attention_fwd_torch(q, k, v, qp, qp, causal=True, window=None,
+                                                 scale=kw["scale"], block_k=blk),
+                    **tolerances(torch.float32))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms, plain_ms, lib_ms = (time_ms(f, iters=it, reps=3) for f, it in (
+        (fwd, 5),
+        (lambda: fa.flash_attention_fwd_torch(q, k, v, qp, qp, causal=True, window=None,
+                                              scale=kw["scale"], block_k=blk), 1),
+        (lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+         5)))
+    nbytes, flops = flash_bytes_flops(q, k, qp, qp, True, None)
+    bms, by = bound(nbytes, flops, "float32")
+    rows["fwd"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                       max_abs_err=f_err, instance=finst, shape=label,
+                       device_kernel=f"rt::flash_fwd_kernel<float, {D}>")
+    log(f"  A {label} [{finst}]: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, 67 TFLOP/s "
+        f"float32; {ms / bms:.2f}x), {flops / ms / 1e9:.2f} TFLOP/s; plain forward "
+        f"{plain_ms:.3f} ms, sdpa f32 forward {lib_ms:.4f} ms")
     return rows
 
 
@@ -4622,10 +4717,17 @@ def phase_rg_kernels(torch, dev):
                 if built != host:
                     raise AssertionError(f"A {dtype} D={d} Sq={sq}: the library takes the "
                                          f"{built} instance, flash_fwd_instance says {host}")
+            built, host = fa.decode_core_instance_built(dtype, d), fa.decode_core_instance(dtype, d)
+            if built != host:
+                raise AssertionError(f"decode core {dtype} D={d}: the library takes the {built} "
+                                     f"kernel, decode_core_instance says {host}")
     if fa.flash_fwd_instance_built(bf, RG_TRAIN_SHAPE["S"], D) != "wgmma":
         raise AssertionError("A bf16 D=256: the training call does not go to the wgmma instance")
-    log(f"  the built library and flash_fwd_instance / flash_bwd_instance agree on every "
-        f"(dtype, D in {fa.FLASH_DIMS}, Sq); A bf16 D=256 Sq>4 [wgmma], f32 [cuda_core]")
+    if fa.decode_core_instance_built(bf, D) != "cluster":
+        raise AssertionError("A bf16 D=256: the decode calls do not go to the cluster instance")
+    log(f"  the built library and flash_fwd_instance / flash_bwd_instance / decode_core_instance "
+        f"agree on every (dtype, D in {fa.FLASH_DIMS}, Sq); A bf16 D=256 Sq>4 [wgmma], f32 "
+        "[cuda_core]; decode bf16 D=256 [cluster], f32 [split]")
 
     def fwd_pair(q, k, v, qp, kp, window):
         got = fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True, window=window,
@@ -4718,7 +4820,34 @@ def phase_rg_kernels(torch, dev):
     del main, args, o_t, qt, kt, vt, mask, b_fns
     free_device_memory(torch)
 
-    # the decode core: group 10 x Sq 1 over a 2048-slot ring buffer
+    rows.update(rg_decode_rows(torch, dev, rnd, fwd_pair))
+    free_device_memory(torch)
+    return rows
+
+
+# Kernel A's D-256 decode beyond recurrentgemma's 10/1 heads (B, Sq, Sk,
+# Hq, Hkv, window): 1 to 16 rows a KV head, an Sk that is no multiple of a
+# tile, a window, a batch row of padding keys.
+RG_DECODE_CASES = [(3, 1, 296, 1, 1, None), (3, 4, 296, 4, 1, 128), (2, 1, 296, 16, 1, None),
+                   (3, 3, 328, 8, 2, 64)]
+# Phase 20 (d)'s decode reads 256 to 320 live keys of the 2048 slots
+RG_DECODE_SHORT = [RG_PROMPT_LEN + 9 * i for i in range(RG_PROMPTS)]
+
+
+def rg_decode_rows(torch, dev, rnd, fwd_pair):
+    """Phase 20 (a)'s decode part: A's D-256 decode instances (float32: the
+    split kernel; bf16: the cluster instance) at group 10 x Sq 1 over a
+    2048-slot ring buffer (wrapped rows, a half-filled row, a row that sees
+    no key) and on ``RG_DECODE_CASES``, each run twice and bitwise equal
+    (``fwd_pair``), then the main path's call timed in bf16 over a full
+    buffer and at phase 20 (d)'s lengths, beside the plain version, SDPA's
+    masked call and the bound; fails unless the full-buffer call beats
+    SDPA.  Returns the rows ``decode`` and ``decode_short``."""
+    from repro_torch.kernels import flash_attention as fa
+
+    Hq, Hkv, D = RG_HEADS
+    scale = 1.0 / D ** 0.5
+    bf, f32 = torch.bfloat16, torch.float32
     lengths = [3000, 700, 2100, 0, 2048, 1]
     qp, kp = rg_ring_positions(torch, dev, lengths)
     B = len(lengths)
@@ -4728,38 +4857,66 @@ def phase_rg_kernels(torch, dev):
         got, want = fwd_pair(q, k, v, qp, kp, RG_WINDOW)
         name = {f32: "f32", bf: "bf16"}[dtype]
         compare(f"A {name} D=256 decode g10 Sq=1 ring buffer of {RG_WINDOW} slots, lengths "
-                f"{lengths} [{fa.flash_fwd_instance(dtype, 1, D)}] bitwise repeatable", got,
+                f"{lengths} [{fa.decode_core_instance(dtype, D)}] bitwise repeatable", got,
                 want, **tolerances(dtype))
         if not torch.isneginf(got[1][3]).all():
             raise AssertionError("A D=256 decode: the row with no key is not dead")
     # the main path's decode call, timed: its 8 rows against a full, wrapped
-    # buffer of 2048 slots (the steady state of a long decode)
+    # buffer of 2048 slots (the steady state of a long decode), then at the
+    # lengths of phase 20 (d)'s own steps
     Bd = RG_PROMPTS
-    qp, kp = rg_ring_positions(torch, dev, [RG_WINDOW + 37 * i for i in range(Bd)])
-    q, k, v = (rnd(s, bf) for s in ((Bd, 1, Hq, D), (Bd, RG_WINDOW, Hkv, D),
-                                   (Bd, RG_WINDOW, Hkv, D)))
-    (got, want) = fwd_pair(q, k, v, qp, kp, RG_WINDOW)
-    d_err = compare(f"A bf16 D=256 decode main path B={Bd} g10 Sq=1 {RG_WINDOW} slots [decode] "
-                    "bitwise repeatable", got, want, **tolerances(bf))
-    d_fns = (lambda: fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True,
-                                                 window=RG_WINDOW, scale=scale),
-             lambda: fa.flash_attention_fwd_torch(q, k, v, qp, kp, causal=True,
-                                                  window=RG_WINDOW, scale=scale, block_k=512),
-             sdpa_masked(torch, q, k, v, qp, kp, RG_WINDOW))
-    ev = rg_timed(d_fns, (10, 3, 10))
-    (ms, plain_ms, lib_ms), how = device_times(*zip(d_fns, (30, 3, 30)))
-    nbytes, flops = flash_bytes_flops(q, k, qp, kp, True, RG_WINDOW)
-    bms, by = bound(nbytes, flops, "bfloat16")
-    shape = f"B={Bd} Sq=1 Sk={RG_WINDOW} Hq={Hq} Hkv={Hkv} D={D} bf16 ring buffer full"
-    rows["decode"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                          bound_by=by, max_abs_err=d_err, instance="decode", shape=shape,
-                          timing=how, event_ms=ev[0], event_plain_ms=ev[1],
-                          event_library_ms=ev[2], bytes=nbytes)
-    log(f"  A {shape} [decode]: device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-        f"{lib_ms:.4f} ms; events kernel {ev[0]:.4f} ms; bound {bms:.4f} ms ({by}) at {how}")
+    rows = {}
+    for key, lens in (("decode", [RG_WINDOW + 37 * i for i in range(Bd)]),
+                      ("decode_short", RG_DECODE_SHORT)):
+        qp, kp = rg_ring_positions(torch, dev, lens)
+        q, k, v = (rnd(s, bf) for s in ((Bd, 1, Hq, D), (Bd, RG_WINDOW, Hkv, D),
+                                       (Bd, RG_WINDOW, Hkv, D)))
+        got, want = fwd_pair(q, k, v, qp, kp, RG_WINDOW)
+        fill = "full" if key == "decode" else f"lengths {lens[0]}-{lens[-1]}"
+        shape = f"B={Bd} Sq=1 Sk={RG_WINDOW} Hq={Hq} Hkv={Hkv} D={D} bf16 ring buffer {fill}"
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        per, g = fa.decode_rule_d256(RG_WINDOW, fa.decode_units(Bd, Hq, Hkv, 1), sms)
+        err = compare(f"A bf16 D=256 decode main path {shape} [cluster: {g} blocks a unit, "
+                      f"{per} tiles each] bitwise repeatable", got, want, **tolerances(bf))
+        fns = (lambda: fa.flash_attention_fwd_cuda(q, k, v, qp, kp, causal=True,
+                                                   window=RG_WINDOW, scale=scale),
+               lambda: fa.flash_attention_fwd_torch(q, k, v, qp, kp, causal=True,
+                                                    window=RG_WINDOW, scale=scale, block_k=512),
+               sdpa_masked(torch, q, k, v, qp, kp, RG_WINDOW))
+        ev = rg_timed(fns, (10, 3, 10))
+        (ms, plain_ms, lib_ms), how = device_times(*zip(fns, (30, 3, 30)))
+        nbytes, flops = flash_bytes_flops(q, k, qp, kp, True, RG_WINDOW)
+        bms, by = bound(nbytes, flops, "bfloat16")
+        rows[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                         bound_by=by, max_abs_err=err, instance="decode",
+                         core=fa.decode_core_instance(bf, D), blocks_per_unit=g,
+                         tiles_per_block=per, shape=shape, timing=how, event_ms=ev[0],
+                         event_plain_ms=ev[1], event_library_ms=ev[2], bytes=nbytes)
+        log(f"  A {shape} [decode, cluster]: device kernel {ms:.4f} ms ({ms / bms:.2f}x its "
+            f"bound), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({ms / lib_ms:.3f}x); events "
+            f"kernel {ev[0]:.4f} ms, sdpa {ev[2]:.4f} ms; bound {bms:.4f} ms ({by}) at {how}")
+        del q, k, v, got, want, fns
+    d = rows["decode"]
+    if not d["ms"] < d["library_ms"]:
+        raise AssertionError(f"A bf16 D=256 decode over a full buffer: {d['ms']:.4f} ms, not "
+                             f"faster than sdpa's {d['library_ms']:.4f} ms on the same masked "
+                             "call")
     free_device_memory(torch)
+    # 1 to 16 rows a KV head, ragged Sk, windows, a batch row of padding keys
+    for B, Sq, Sk, hq, hkv, window in RG_DECODE_CASES:
+        q32, k32, v32 = rnd((B, Sq, hq, D)), rnd((B, Sk, hkv, D)), rnd((B, Sk, hkv, D))
+        kp = torch.arange(Sk, device=dev, dtype=torch.int32).expand(B, Sk).contiguous()
+        kp[-1] = PAD_POS
+        qp = (Sk - Sq + torch.arange(Sq, device=dev, dtype=torch.int32)).expand(B, Sq)
+        qp = qp.contiguous()
+        for dtype in (f32, bf):
+            q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+            got, want = fwd_pair(q, k, v, qp, kp, window)
+            compare(f"A {str(dtype)[6:]} D=256 decode B={B} Sq={Sq} Sk={Sk} {hq}/{hkv} heads "
+                    f"({hq // hkv * Sq} rows a KV head) window={window}, a row of padding keys "
+                    f"[{fa.decode_core_instance(dtype, D)}] bitwise repeatable", got, want,
+                    **tolerances(dtype))
     return rows
-
 
 def phase_rg_checked(torch, dev, cfg=None, B=2, S=4096):
     """Phase 20 (b): recurrentgemma at full width, ``RG_CHECK_LAYERS``
@@ -5054,7 +5211,9 @@ def phase_rg_wrap(torch, dev, cfg=None, n_tokens=RG_WRAP_TOKENS):
 
 def phase_build(torch, dev):
     """Phase 2: build every kernel, log ptxas's registers and spills, and
-    fail on a spill or a C7512 in any wgmma instance of A, B1 or B2."""
+    fail on a spill or a C7512 in any wgmma instance of A, B1 or B2, or a
+    spill in the decode core's cluster instance; log the cluster instance's
+    registers, shared memory and the clusters the card admits at once."""
     from repro_torch.kernels._build import build_all
 
     info = build_all()
@@ -5065,7 +5224,7 @@ def phase_build(torch, dev):
                 log(f"  ptxas {name}: {line.strip()}")
     faults = ptxas_wgmma_faults(info["ptxas"])
     if faults:
-        raise AssertionError("ptxas: a wgmma instance spills or serialises its wgmma:\n  "
+        raise AssertionError("ptxas: a gated instance spills or serialises its wgmma:\n  "
                              + "\n  ".join(faults))
     wgmma = {n: f for t in info["ptxas"].values() for n, f in ptxas_functions(t).items()
              if "wgmma_kernel" in n}
@@ -5101,10 +5260,30 @@ def phase_build(torch, dev):
         f"{fa.flash_bwd_smem_bytes('dq', 256, S_rg)} B at Sk={S_rg}; B2 two blocks a 64-key "
         "tile, each 128 of dK's and dV's columns, dynamic shared memory "
         f"{fa.flash_bwd_smem_bytes('dkv', 256, S_rg)} B at Sq={S_rg} (limit 232448)")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     log("  decode core (A's decode instance, kernel C; csrc/decode.cuh): 128 threads a block, "
         "32-key tiles through a 3-stage cp.async ring, splits aiming at "
-        f"{fa.DECODE_BLOCKS_PER_SM} blocks per SM "
-        f"({torch.cuda.get_device_properties(dev).multi_processor_count} SMs)")
+        f"{fa.DECODE_BLOCKS_PER_SM} blocks per SM ({sms} SMs)")
+    cluster = {lib: [f["registers"] for n, f in ptxas_functions(t).items()
+                     if CLUSTER_KERNEL in n] for lib, t in info["ptxas"].items()}
+    for lib in ("flash_fwd", "paged_decode"):
+        if lib in info["ptxas"] and len(cluster[lib]) != 1:
+            raise AssertionError(f"ptxas: expected one cluster instance of the decode core in "
+                                 f"{lib}, found {len(cluster[lib])}")
+    admitted = {}
+    for g in (2 * fa.DECODE_D256_MAX_CLUSTER, fa.DECODE_D256_MAX_CLUSTER):
+        admitted[g], smem = fa.decode_cluster_occupancy(g)
+    per, g = fa.decode_rule_d256(RG_WINDOW, RG_PROMPTS, sms)
+    log(f"  decode core's cluster instance (bf16 D=256; csrc/decode_d256.cuh): 160 threads (a "
+        f"producer warp, four mma.sync consumer warps), ptxas registers {cluster}, no spill; "
+        f"dynamic shared memory {smem} B (a 4-stage TMA ring of 32-key K and V tiles); the card "
+        f"holds {admitted} clusters of {list(admitted)} blocks at once; the main call "
+        f"(B={RG_PROMPTS}, {RG_WINDOW} keys) takes {RG_PROMPTS} clusters of {g} blocks, "
+        f"{per} tiles each")
+    if admitted[g] < RG_PROMPTS:
+        raise AssertionError(f"the card holds {admitted[g]} clusters of {g} blocks of the decode "
+                             f"core's cluster instance at once: the main call's {RG_PROMPTS} do "
+                             "not fit one wave")
 
 
 PROFILED_PHASES = (6, 9, 11, 13, 16, 17, 18, 19, 20)
@@ -5157,14 +5336,18 @@ def ptxas_functions(text):
     return funcs
 
 
+CLUSTER_KERNEL = "decode_d256_kernel"  # the decode core's cluster instance
+
+
 def ptxas_wgmma_faults(logs):
     """Every spill or C7512 (``wgmma`` serialised) that ptxas reports for a
-    wgmma instance of A, B1 or B2 (``*_wgmma_kernel``) in ``logs`` ({library:
-    ptxas output}), as lines; empty when there is none."""
+    wgmma instance of A, B1 or B2 (``*_wgmma_kernel``), and every spill of
+    the decode core's cluster instance, in ``logs`` ({library: ptxas
+    output}), as lines; empty when there is none."""
     faults = []
     for lib, text in logs.items():
         for name, f in ptxas_functions(text).items():
-            if "wgmma_kernel" not in name:
+            if "wgmma_kernel" not in name and CLUSTER_KERNEL not in name:
                 continue
             if f["spill_stores"] or f["spill_loads"]:
                 faults.append(f"{lib}: {name} spills {f['spill_stores']} B stored, "
@@ -5397,13 +5580,16 @@ def main() -> int:
     # qwen3-1.7b's (16/8), and `sp4_calls` phase 13's SP-4 calls (phase 12).
     # Phase 19's paths are in `launches_by_path`: falcon-mamba's training
     # and decoding launch no kernel; `prefill_sp4` is lm_prefill at SP 4.
-    # `f32_step` holds B1's and B2's CUDA-core instances at phase 8's float32
-    # step's call (phase 7, `f32_step_rows`).
+    # `f32_step` holds A's, B1's and B2's CUDA-core instances at phase 8's
+    # float32 step's call (phase 7, `f32_step_rows`).
     # `d256` holds the head-dim-256 instances (phase 20, recurrentgemma-2b):
     # each row's time, errors and bound from phase 20 (a) at the main path's
     # shapes, its `launches` from the main path that runs it (A's wgmma
     # instance, B1 and B2: the SP-1 training run; A's decode instance: the
-    # full-depth decode).
+    # full-depth decode; `decode_short` the decode call at phase 20 (d)'s
+    # lengths).  C's `d256` row is phase 4's bf16 main-path shape at head dim
+    # 256 (recurrentgemma's 10/1 heads): no driven path serves paged at D 256,
+    # so its launches are 0.
     def d256(row, path, name):
         return {**row, "launches": launches[path][name], "path": path}
 
@@ -5420,7 +5606,8 @@ def main() -> int:
          "launches_by_path": by_path("flash_attention_fwd"),
          "device_kernels": {"wgmma": ["rt::wg::flash_fwd_wgmma_kernel<D> (bf16; D 64, 128, "
                                       "256)"],
-                            "decode": ["rt::dec::decode_kernel<T, D, WR, RW, false>"],
+                            "decode": ["rt::dec::decode_kernel<T, D, WR, RW, false>",
+                                       "rt::dcl::decode_d256_kernel<false> (bf16, D 256)"],
                             "cuda_core": ["rt::flash_fwd_kernel<T, D> (float32; bf16 at D 32)"]},
          **flash_rows[wb]["cross_prefill"],
          "training_shape": bwd_rows[wb]["cross"]["fwd"],
@@ -5435,8 +5622,11 @@ def main() -> int:
                                    "training_shape": bwd_rows[dense]["fwd"]}},
          "sp4_calls": {k: v for k, v in sp_rows.items() if k != "paged_decode"},
          "ring_overlap_trace": ring_trace,
+         "f32_step": bwd_rows["f32_step"]["fwd"],
          "d256": {"wgmma": d256(rg_rows["wgmma"], "train_rg", "flash_attention_fwd"),
-                  "decode": d256(rg_rows["decode"], "decode_rg", "flash_attention_fwd")}},
+                  "decode": d256(rg_rows["decode"], "decode_rg", "flash_attention_fwd"),
+                  "decode_short": d256(rg_rows["decode_short"], "decode_rg",
+                                       "flash_attention_fwd")}},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_bwd.cu",
          "replaces": bwd, "pallas_body": "src/repro/kernels/flash_attention.py:367",
@@ -5460,9 +5650,11 @@ def main() -> int:
          "replaces": "src/repro/kernels/paged_attention.py:192",
          "launches": launches["moe_paged"]["paged_decode_fwd"],
          "launches_by_path": by_path("paged_decode_fwd"),
-         "device_kernels": ["rt::dec::decode_kernel<T, D, WR, RW, true>"],
+         "device_kernels": ["rt::dec::decode_kernel<T, D, WR, RW, true>",
+                            "rt::dcl::decode_d256_kernel<true> (bf16, D 256)"],
          **paged_rows[moe], "times_by_path": {dense: paged_rows[dense]},
-         "sp4_calls": {"paged_decode": sp_rows["paged_decode"]}},
+         "sp4_calls": {"paged_decode": sp_rows["paged_decode"]},
+         "d256": {**paged_rows["d256"], "launches": 0, "path": None}},
     ]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

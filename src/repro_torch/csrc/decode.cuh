@@ -39,6 +39,11 @@
 //   in split order with the lse-weighted Update() and resets the counter to
 //   0.  The merge order is fixed, so results are bitwise repeatable; a row
 //   that sees no key gives exactly (0, -inf).
+//
+// bf16 calls at head dim 256 take the cluster instance of decode_d256.cuh
+// instead (`takes_cluster`): one wave of TMA-fed blocks, mma.sync products
+// and a merge in distributed shared memory.  float32 at D 256 stays on the
+// split kernel's 16-row layout.
 #pragma once
 
 #include "common.cuh"
@@ -497,15 +502,16 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 // The block's rows pick the warp layout: up to 2 or 4 rows on one row group
 // (all four warps along the keys), 8 on two, 16 on four; more rows (group x
-// Sq up to 64 a chunk, dense or paged) hold 8 or 16 rows a warp.  D 256
-// (recurrentgemma's local attention: group 10 x Sq 1) instantiates only the
-// 16-row layout and takes 9 to 16 rows; any other count is refused.
+// Sq up to 64 a chunk, dense or paged) hold 8 or 16 rows a warp.  float32
+// at D 256 (recurrentgemma's local attention: group 10 x Sq 1) instantiates
+// only the 16-row layout, whose row predicates are warp-uniform, and takes
+// 1 to 16 rows; more are refused.
 template <typename T, int D, bool kPaged>
 cudaError_t pick_rows(const Args& a, cudaStream_t stream) {
   const int all_rows = a.Hq / a.Hkv * a.Sq;
   const int rows = all_rows < kMaxRows ? all_rows : kMaxRows;
   if constexpr (D == 256) {
-    if (rows <= 8 || rows > 16) return cudaErrorInvalidValue;
+    if (all_rows > 16) return cudaErrorInvalidValue;
     return launch<T, D, 4, 4, kPaged>(a, stream);
   } else {
     if (rows <= 2) return launch<T, D, 1, 2, kPaged>(a, stream);
@@ -517,16 +523,28 @@ cudaError_t pick_rows(const Args& a, cudaStream_t stream) {
   }
 }
 
+// Which decode kernel takes a call (mirrored by `decode_core_instance` in
+// kernels/flash_attention.py): bf16 at head dim 256 the cluster instance of
+// decode_d256.cuh, the rest the split kernel above.
+inline bool takes_cluster(int bf16, int D) { return bf16 && D == 256; }
+
+template <bool kPaged>
+cudaError_t launch_d256(const Args& a, cudaStream_t stream);  // decode_d256.cuh
+
 // Checks the split the caller chose (`tiles_per_split`, from
-// `decode_split_rule` in kernels/flash_attention.py), sets the split count
-// ceil(tiles / tiles_per_split) and the row chunks, and launches.
+// `decode_split_rule` in kernels/flash_attention.py, or `decode_rule_d256`
+// for the cluster instance), sets the split count (the cluster instance:
+// the cluster's blocks) ceil(tiles / tiles_per_split) and the row chunks,
+// and launches.
 template <bool kPaged>
 cudaError_t run(Args a, int D, int bf16, cudaStream_t stream) {
   if (a.Hkv < 1 || a.Hq % a.Hkv != 0 || a.Sq < 1 || a.Sq > 4 || a.Sk < 0)
     return cudaErrorInvalidValue;
-  if (a.tiles_per_split < 1 || a.tiles_per_split > kMaxSplitTiles) return cudaErrorInvalidValue;
+  if (a.tiles_per_split < 1) return cudaErrorInvalidValue;
   const int n_tiles = a.Sk > 0 ? (a.Sk + kTK - 1) / kTK : 1;
   a.splits = (n_tiles + a.tiles_per_split - 1) / a.tiles_per_split;
+  if (takes_cluster(bf16, D)) return launch_d256<kPaged>(a, stream);
+  if (a.tiles_per_split > kMaxSplitTiles) return cudaErrorInvalidValue;
   if (a.splits > 1 && (a.part_out == nullptr || a.part_lse == nullptr || a.counters == nullptr))
     return cudaErrorInvalidValue;
   a.rchunks = (a.Hq / a.Hkv * a.Sq + kMaxRows - 1) / kMaxRows;
@@ -540,13 +558,8 @@ cudaError_t run(Args a, int D, int bf16, cudaStream_t stream) {
     case 128:
       return bf16 ? pick_rows<__nv_bfloat16, 128, kPaged>(a, stream)
                   : pick_rows<float, 128, kPaged>(a, stream);
-    case 256:  // kernel A's dense decode only: kernel C refuses D 256
-      if constexpr (kPaged) {
-        return cudaErrorInvalidValue;
-      } else {
-        return bf16 ? pick_rows<__nv_bfloat16, 256, kPaged>(a, stream)
-                    : pick_rows<float, 256, kPaged>(a, stream);
-      }
+    case 256:  // float32 only: bf16 took the cluster instance
+      return pick_rows<float, 256, kPaged>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -554,3 +567,5 @@ cudaError_t run(Args a, int D, int bf16, cudaStream_t stream) {
 
 }  // namespace dec
 }  // namespace rt
+
+#include "decode_d256.cuh"  // the bf16 D-256 instance: launch_d256

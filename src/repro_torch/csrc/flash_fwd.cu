@@ -14,9 +14,10 @@
 // in the kernel.  One C entry, `flash_fwd`, picks the instance:
 //
 // * The decode instance (every call with Sq <= 4: the dense decode step;
-//   float32 and bf16, D 32/64/128, and D 256 at 9 to 16 rows a KV head, the
-//   GQA group x Sq of recurrentgemma's local attention, group 10 at Sq 1):
-//   the dense instance of the split-KV decode
+//   float32 and bf16, D 32/64/128, and float32 D 256 at 1 to 16 rows a KV
+//   head, the GQA group x Sq of recurrentgemma's local attention, group 10
+//   at Sq 1; bf16 at D 256 runs on the cluster instance of decode_d256.cuh,
+//   see there): the dense instance of the split-KV decode
 //   core in decode.cuh, shared with kernel C.  One block of 128 threads per
 //   (KV head, batch row, split of the KV range) holds the whole GQA group x
 //   Sq rows, so K and V are read once per group; the split count comes from
@@ -671,8 +672,10 @@ inline bool takes_wgmma(int bf16, int D, int Sq) {
 // instance (Sq <= 4) splits the KV range into ceil(ceil(Sk/32) /
 // tiles_per_split) splits; with more than one it needs the float32 scratch
 // `part_out` (splits, B*Sq*Hq, D), `part_lse` (splits, B*Sq*Hq) and the int32
-// `counters` (B*Hkv*ceil(group*Sq/64)), zero at rest and left zero.  The
-// other instances ignore those four arguments.
+// `counters` (B*Hkv*ceil(group*Sq/64)), zero at rest and left zero.  On the
+// cluster instance (bf16, D 256) the splits are the blocks of one cluster,
+// which merge in shared memory: it needs no scratch.  The other instances
+// ignore those four arguments.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* q_pos,
                          const void* k_pos, void* out, void* lse, void* part_out,
                          void* part_lse, void* counters, int B, int Sq, int Sk, int Hq, int Hkv,
@@ -740,3 +743,21 @@ extern "C" int flash_fwd_wgmma_smem(int D, int Sk) {
   if (D == 64) return wgmma_smem<64>(Sk);
   return -1;
 }
+
+// 1 if a decode call of this type and head dim runs on the cluster
+// instance of decode_d256.cuh (mirrored by `decode_core_instance`).
+extern "C" int decode_takes_cluster(int bf16, int D) {
+  return rt::dec::takes_cluster(bf16, D) ? 1 : 0;
+}
+
+// Clusters of `cluster` blocks of the cluster instance that the card holds
+// at once at the block's shared memory (cudaOccupancyMaxActiveClusters), or
+// minus the cudaError_t of the query.
+extern "C" int decode_cluster_max_active(int cluster) {
+  int n = 0;
+  const cudaError_t err = rt::dcl::max_active_clusters<false>(cluster, &n);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Dynamic shared memory of one block of the cluster instance (bytes).
+extern "C" int decode_cluster_smem() { return (int)rt::dcl::Smem::bytes(); }

@@ -25,6 +25,12 @@
 // split order.  One launch, of the device kernel
 // `rt::dec::decode_kernel<T, D, WR, RW, true>`.
 //
+// bf16 calls at head dim 256 run on the paged cluster instance of
+// decode_d256.cuh (`rt::dcl::decode_d256_kernel<true>`): one TMA box a page
+// (or a power-of-two part of it) through the raw table entry, mma.sync
+// products, the splits merged in a thread-block cluster; float32 D 256 on
+// the split kernel's 16-row layout.
+//
 // The safety rule of the TPU kernel stays: an unmapped entry is recognised
 // from the raw table value and no memory behind it is read (its keys are
 // zero-filled and count as padding), so no clamped, aliased page is ever
@@ -39,7 +45,8 @@
 // logical key range W * ps is cut into splits of `tiles_per_split` 32-key
 // tiles; with more than one split the caller allocates the float32 scratch
 // `part_out` (splits, B*Hq, D) and `part_lse` (splits, B*Hq), and the int32
-// `counters` (B*Hkv), zero at rest and left zero.
+// `counters` (B*Hkv), zero at rest and left zero (none on the cluster
+// instance).
 extern "C" int paged_decode(const void* q, const void* k_pool, const void* v_pool,
                             const void* pos_pool, const void* block_tables, const void* q_pos,
                             void* out, void* lse, void* part_out, void* part_lse,

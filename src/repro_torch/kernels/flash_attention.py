@@ -6,19 +6,24 @@ Counterpart of ``repro.kernels.flash_attention``.
   ``csrc/flash_fwd.cu``, which replaces the Pallas TPU kernel
   ``repro.kernels.flash_attention.flash_attention_fwd_pallas``.  It has three
   instances behind one C entry (:func:`flash_fwd_instance` says which takes
-  a call): the dense decode (every call with Sq <= 4) runs on the split-KV
-  decode core ``csrc/decode.cuh`` shared with kernel C (the KV range split
-  over blocks by :func:`decode_split_rule`, cp.async-fed tiles, scores and
-  P V in registers, the splits merged in a fixed order by the last block),
-  bound by the bytes of the live keys; bf16 calls with D 64, 128 or 256
+  a call): the dense decode (every call with Sq <= 4) runs on the decode
+  core shared with kernel C, bound by the bytes of the live keys
+  (:func:`decode_core_instance` says which kernel): the split-KV kernel of
+  ``csrc/decode.cuh`` (the KV range split over blocks by
+  :func:`decode_split_rule`, cp.async-fed tiles, scores and P V in
+  registers, the splits merged in a fixed order by the last block), or at
+  bf16 D 256 the cluster instance of ``csrc/decode_d256.cuh`` (one wave of
+  TMA-fed blocks split by :func:`decode_rule_d256`, ``mma.sync`` products,
+  the blocks of a unit merged through a thread-block cluster's shared
+  memory); bf16 calls with D 64, 128 or 256
   and Sq > 4 (training, serving prefill; at D 256 recurrentgemma's local
   attention, split by O's columns: :func:`wgmma_fwd_tiling`) run on the tensor
   cores, with TMA-fed K/V tiles, ``wgmma`` products and the online softmax
   in registers, and are bound by the tensor-core rate; float32 and D = 32
   calls with Sq > 4 run on the CUDA cores, bound by shared-memory traffic.
   Head dims
-  32, 64, 128 and 256 (``FLASH_DIMS``); the decode core's D-256 instance
-  takes 9 to 16 rows a KV head (:func:`check_decode_rows`).  All skip dead
+  32, 64, 128 and 256 (``FLASH_DIMS``); the decode core's D-256 instances
+  take 1 to 16 rows a KV head (:func:`check_decode_rows`).  All skip dead
   KV tiles whole (see the source notes in the ``.cu`` files).
 * :func:`flash_attention_fwd_torch` is the plain version: a loop over KV
   blocks with the same online-softmax update, used for CPU tensors and as
@@ -59,6 +64,8 @@ __all__ = [
     "flash_fwd_smem_bytes",
     "wgmma_fwd_tiling",
     "decode_split_rule",
+    "decode_rule_d256",
+    "decode_core_instance",
     "decode_scratch",
     "flash_attention_bwd_dq_cuda",
     "flash_attention_bwd_dkv_cuda",
@@ -203,7 +210,10 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = {"flash_fwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
              "flash_fwd_takes_wgmma": [ctypes.c_int] * 3,
-             "flash_fwd_wgmma_smem": [ctypes.c_int] * 2}
+             "flash_fwd_wgmma_smem": [ctypes.c_int] * 2,
+             "decode_takes_cluster": [ctypes.c_int] * 2,
+             "decode_cluster_max_active": [ctypes.c_int],
+             "decode_cluster_smem": []}
 _BWD_ARGTYPES = {
     "flash_bwd_dq": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                                     ctypes.c_void_p],
@@ -216,13 +226,14 @@ _BWD_ARGTYPES = {
 
 # Head dims each kernel is built for: A, B1 and B2 take recurrentgemma's
 # 256 (on their wgmma instances in bf16, the CUDA cores in float32, and A's
-# Sq <= 4 calls on the decode core); kernel C has no model at 256 and
-# refuses it.
+# Sq <= 4 calls on the decode core); kernel C takes 256 on the decode
+# core's D-256 instances too.
 FLASH_DIMS = (32, 64, 128, 256)
-PAGED_DIMS = (32, 64, 128)
-# The decode core's D-256 instance holds 9 to 16 rows (GQA group x Sq) a KV
-# head: recurrentgemma's group 10 at Sq 1.
-DECODE_ROWS_D256 = (9, 16)
+PAGED_DIMS = (32, 64, 128, 256)
+# The decode core's D-256 instances (bf16: the cluster instance, one m16
+# tile of rows; float32: the split kernel's 16-row layout) hold 1 to 16 rows
+# (GQA group x Sq) a KV head: recurrentgemma's group 10 at Sq 1.
+DECODE_ROWS_D256 = (1, 16)
 
 
 def check_kernel_args(name: str, device, dtype, D: int, ints=(), floats=(),
@@ -255,7 +266,7 @@ def check_decode_rows(name: str, D: int, group: int, Sq: int):
     ``DECODE_ROWS_D256`` at 256)."""
     lo, hi = DECODE_ROWS_D256
     if D == 256 and not lo <= group * Sq <= hi:
-        raise ValueError(f"{name}: the D-256 decode instance takes {lo} to {hi} rows a KV "
+        raise ValueError(f"{name}: the D-256 decode instances take {lo} to {hi} rows a KV "
                          f"head (GQA group x Sq), got {group} x {Sq} = {group * Sq}")
 
 
@@ -297,6 +308,17 @@ DECODE_TILE_KEYS = 32  # keys per KV tile (csrc kTK)
 DECODE_MAX_ROWS = 64  # query rows (group x Sq) one block holds (csrc kMaxRows)
 DECODE_MAX_SPLIT_TILES = 64  # tiles of one split at most (csrc kMaxSplitTiles)
 DECODE_BLOCKS_PER_SM = 4  # blocks the split rule aims for on each SM
+# Blocks of one cluster at most (csrc dcl::kMaxCluster): an H100 holds 15
+# clusters of 8 of its blocks at once but only 7 of 16, one short of a
+# single wave at recurrentgemma's batch of 8.
+DECODE_D256_MAX_CLUSTER = 8
+
+
+def decode_core_instance(dtype, D: int) -> str:
+    """Which decode kernel takes a decode call (A's Sq <= 4, and C):
+    ``"cluster"`` (bf16 at D 256, ``csrc/decode_d256.cuh``) or ``"split"``
+    (the rest, ``csrc/decode.cuh``).  Mirrors ``takes_cluster`` there."""
+    return "cluster" if dtype == torch.bfloat16 and D == 256 else "split"
 
 
 def decode_split_rule(n_keys: int, units: int, sm_count: int) -> tuple[int, int]:
@@ -313,6 +335,22 @@ def decode_split_rule(n_keys: int, units: int, sm_count: int) -> tuple[int, int]
     return per, -(-n_tiles // per)
 
 
+def decode_rule_d256(n_keys: int, units: int, sm_count: int) -> tuple[int, int]:
+    """``(tiles_per_block, cluster)`` of a call on the cluster instance over
+    ``n_keys`` keys with ``units`` clusters (batch rows x KV heads) on a card
+    of ``sm_count`` SMs: one wave, about one block an SM.  ``G`` is the
+    largest power of two up to ``DECODE_D256_MAX_CLUSTER`` and the tile
+    count with ``units * G <= sm_count`` (at least 1); each block streams
+    ``ceil(tiles / G)`` tiles, and the cluster is the blocks that have a
+    tile, ``ceil(tiles / tiles_per_block)``, as the kernel derives it."""
+    n_tiles = max(1, -(-n_keys // DECODE_TILE_KEYS))
+    G = 1
+    while 2 * G <= min(DECODE_D256_MAX_CLUSTER, n_tiles) and units * 2 * G <= sm_count:
+        G *= 2
+    per = -(-n_tiles // G)
+    return per, -(-n_tiles // per)
+
+
 def decode_units(B: int, Hq: int, Hkv: int, Sq: int) -> int:
     """Blocks of one split: batch rows x KV heads x chunks of
     ``DECODE_MAX_ROWS`` query rows (the GQA group x Sq)."""
@@ -323,18 +361,21 @@ _SM_COUNT: dict[int, int] = {}
 _COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def decode_scratch(device, B: int, Sq: int, Hq: int, Hkv: int, D: int, n_keys: int):
+def decode_scratch(device, dtype, B: int, Sq: int, Hq: int, Hkv: int, D: int, n_keys: int):
     """What a decode launch needs besides its inputs: ``tiles_per_split``
     and the float32 partials ``(part_out, part_lse)`` plus the int32 merge
-    counters, or three ``None`` when one split covers the range.  The
-    counters are zero at rest and every launch leaves them zero; launches on
-    one stream run one after another, so one buffer per (device, current
-    stream) serves every call, and launches on two streams at once never
-    share one."""
+    counters, or three ``None`` when one split covers the range or the
+    cluster instance takes the call (its blocks merge in shared memory).
+    The counters are zero at rest and every launch leaves them zero;
+    launches on one stream run one after another, so one buffer per
+    (device, current stream) serves every call, and launches on two streams
+    at once never share one."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx not in _SM_COUNT:
         _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     units = decode_units(B, Hq, Hkv, Sq)
+    if decode_core_instance(dtype, D) == "cluster":
+        return decode_rule_d256(n_keys, units, _SM_COUNT[idx])[0], None, None, None
     per, splits = decode_split_rule(n_keys, units, _SM_COUNT[idx])
     if splits == 1:
         return per, None, None, None
@@ -373,6 +414,28 @@ def flash_fwd_instance_built(dtype, Sq: int, D: int) -> str:
     if lib.flash_fwd_takes_wgmma(int(dtype == torch.bfloat16), D, Sq):
         return "wgmma"
     return "decode" if Sq <= DECODE_MAX_SQ else "cuda_core"
+
+
+def decode_core_instance_built(dtype, D: int) -> str:
+    """:func:`decode_core_instance` as the built library decides it (builds
+    the library on first use; needs the CUDA toolchain)."""
+    from repro_torch.kernels._build import load_library
+
+    lib = load_library("flash_fwd", _ARGTYPES)
+    return "cluster" if lib.decode_takes_cluster(int(dtype == torch.bfloat16), D) else "split"
+
+
+def decode_cluster_occupancy(cluster: int) -> tuple[int, int]:
+    """``(clusters, smem_bytes)``: how many clusters of ``cluster`` blocks of
+    the cluster instance the card holds at once at the block's dynamic
+    shared memory (``cudaOccupancyMaxActiveClusters``), and that memory
+    (builds the library on first use; needs the card)."""
+    from repro_torch.kernels._build import load_library
+
+    lib = load_library("flash_fwd", _ARGTYPES)
+    n = lib.decode_cluster_max_active(cluster)
+    _raise_on(-n if n < 0 else 0, "decode_cluster_max_active")
+    return n, lib.decode_cluster_smem()
 
 
 def flash_bwd_instance(dtype, D: int) -> str:
@@ -429,10 +492,11 @@ def flash_attention_fwd_cuda(q, k, v, q_pos, k_pos, *, causal: bool, window: int
     per, part_out, part_lse, counters = 1, None, None, None
     if flash_fwd_instance(q.dtype, Sq, D) == "decode":
         check_decode_rows("flash_attention_fwd_cuda", D, Hq // Hkv, Sq)
-        for t in (k, v):
+        for t in (q, k, v) if decode_core_instance(q.dtype, D) == "cluster" else (k, v):
             if t.data_ptr() % 16:
-                raise ValueError("flash_attention_fwd_cuda: k/v must be 16-byte aligned")
-        per, part_out, part_lse, counters = decode_scratch(q.device, B, Sq, Hq, Hkv, D, Sk)
+                raise ValueError("flash_attention_fwd_cuda: q/k/v must be 16-byte aligned")
+        per, part_out, part_lse, counters = decode_scratch(q.device, q.dtype, B, Sq, Hq, Hkv,
+                                                           D, Sk)
     err = load_library("flash_fwd", _ARGTYPES).flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
         out.data_ptr(), lse.data_ptr(), _ptr(part_out), _ptr(part_lse), _ptr(counters),

@@ -7,14 +7,20 @@ Counterpart of ``repro.kernels.paged_attention``.
   ``repro.kernels.paged_attention.paged_decode_fwd_pallas``.  It reads the
   page pool in place through the block table (no gathered view).  Its bound
   on this card is the bytes of the mapped pages over the memory rate.  It is
-  the paged instance of the split-KV decode core ``csrc/decode.cuh``, shared
-  with kernel A's decode instance: the request's logical key range is split
-  over blocks by :func:`~repro_torch.kernels.flash_attention.decode_split_rule`
-  (from the SM count and the table width), 32-key tiles stream through a
-  cp.async ring, and the last block of each (KV head, batch row) merges the
-  splits in split order; see the source note in ``decode.cuh``.  One wrapper
-  call (one count in ``launches``) is one launch of the device kernel
-  ``rt::dec::decode_kernel<..., true>``.
+  the paged instance of the decode core, shared with kernel A's decode
+  instance (:func:`~repro_torch.kernels.flash_attention.decode_core_instance`
+  says which kernel).  On the split-KV kernel ``csrc/decode.cuh`` the
+  request's logical key range is split over blocks by
+  :func:`~repro_torch.kernels.flash_attention.decode_split_rule` (from the
+  SM count and the table width), 32-key tiles stream through a cp.async
+  ring, and the last block of each (KV head, batch row) merges the splits
+  in split order.  bf16 at D 256 runs on the cluster instance
+  ``csrc/decode_d256.cuh``: TMA boxes of whole pages through the raw table
+  entry, the splits (``decode_rule_d256``) merged in a thread-block
+  cluster.  One wrapper call
+  (one count in ``launches``) is one launch of the device kernel
+  ``rt::dec::decode_kernel<..., true>`` or
+  ``rt::dcl::decode_d256_kernel<true>``.
 * :func:`paged_decode_fwd_torch` is the plain version: gather the
   block-table view (``serving.kv_cache``) and run the plain flash forward
   over it, exactly the JAX ``impl="xla"`` oracle.
@@ -34,7 +40,9 @@ from repro_torch.kernels.flash_attention import (
     _ptr,
     _raise_on,
     PAGED_DIMS,
+    check_decode_rows,
     check_kernel_args,
+    decode_core_instance,
     decode_scratch,
     flash_attention_fwd_torch,
 )
@@ -104,16 +112,20 @@ def paged_decode_fwd_cuda(q, k_pool, v_pool, pos_pool, block_tables, q_pos, *,
         raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} pool{tuple(k_pool.shape)}")
     if Hq % Hkv:
         raise ValueError(f"{name}: {Hq} query heads do not split over {Hkv} KV heads")
+    check_decode_rows(name, D, Hq // Hkv, 1)
     if pos_pool.shape != (n_pages, ps) or block_tables.shape[0] != B or q_pos.shape != (B, 1):
         raise ValueError(f"{name}: bad pos_pool/block_tables/q_pos shapes")
-    for t in (k_pool, v_pool):
+    for t in (q, k_pool, v_pool) if decode_core_instance(q.dtype, D) == "cluster" else (
+            k_pool, v_pool):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: pools must be 16-byte aligned for 16-byte copies")
+            raise ValueError(f"{name}: q and the pools must be 16-byte aligned for 16-byte "
+                             "copies")
     out = torch.empty_like(q)
     lse = torch.empty((B, 1, Hq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    per, part_out, part_lse, counters = decode_scratch(q.device, B, 1, Hq, Hkv, D, W * ps)
+    per, part_out, part_lse, counters = decode_scratch(q.device, q.dtype, B, 1, Hq, Hkv, D,
+                                                       W * ps)
     err = load_library("paged_decode", _ARGTYPES).paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pos_pool.data_ptr(),
         block_tables.data_ptr(), q_pos.data_ptr(), out.data_ptr(), lse.data_ptr(),

@@ -144,11 +144,11 @@ PAGED_CASES = [
 ]
 
 
-def paged_case_data(case_id, ps, heads, lengths):
+def paged_case_data(case_id, ps, heads, lengths, D=32):
     """Pool state shaped like real serving state: pages assigned in reversed
     order, sentinel table tails, random K/V under PAD_POS in unwritten slots."""
     Hq, Hkv = heads
-    B, D = len(lengths), 32
+    B = len(lengths)
     W = max(-(-L // ps) for L in lengths) + 1
     n_pages = sum(-(-L // ps) for L in lengths) + 2
     rng = np.random.default_rng(zlib.crc32(repr((case_id, ps, heads, tuple(lengths))).encode()))
@@ -210,6 +210,34 @@ def test_paged_plain_dead_row_and_alias_poison():
     assert torch.equal(out[1], torch.zeros_like(out[1]))
     assert torch.isneginf(lse[1]).all()
     _close(out, jout, **F32_OUT)
+
+
+def _paged_d256_poisoned():
+    """Kernel C's inputs at head dim 256 as recurrentgemma-2b's 10/1 heads
+    would give them at page 16: rows of 300 and 45 tokens, and a third row
+    whose table is all sentinel (dead); the page a clamped sentinel would
+    alias holds huge, live-looking K/V at position 0."""
+    q, k_pool, v_pool, pos_pool, bt, q_pos = paged_case_data("d256_g10", 16, (10, 1),
+                                                             (300, 45, 9), D=256)
+    n_pages = k_pool.shape[0]
+    bt[2, :] = n_pages
+    k_pool[n_pages - 1] = 1e3
+    v_pool[n_pages - 1] = 1e3
+    pos_pool[n_pages - 1] = 0
+    return (q, k_pool, v_pool, pos_pool, bt, q_pos), (300, 45, 0)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+def test_paged_plain_d256_matches_jax(impl):
+    """The plain paged version at D 256 (group 10, one KV head, page 16)
+    against the JAX XLA path and the Pallas kernel in interpret mode: the
+    dead row exactly (0, -inf), the aliased page never leaking into it."""
+    data, lengths = _paged_d256_poisoned()
+    (out, lse), (jout, jlse) = _run_paged(data, lengths, None, impl=impl)
+    assert torch.equal(out[2], torch.zeros_like(out[2]))
+    assert torch.isneginf(lse[2]).all() and np.isneginf(np.asarray(jlse)[2]).all()
+    _close(out, jout, **F32_OUT)
+    _close(lse[:2], np.asarray(jlse)[:2], **F32_LSE)
 
 
 def test_pick_block_matches_jax():

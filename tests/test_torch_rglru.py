@@ -299,9 +299,10 @@ def test_plain_flash_d256_group10_window_matches_jax(impl):
 def test_d256_instances_and_refusals():
     """At D 256 kernel A's bf16 Sq > 4 calls run on its wgmma instance
     (split by O's columns), its float32 ones on the CUDA-core instance, and Sq <= 4
-    on the decode core, whose D-256 instance takes 9 to 16 rows a KV head;
+    on the decode core, whose D-256 instances take 1 to 16 rows a KV head;
     B1 and B2 run bf16 on their column-split wgmma instances and float32 on
-    the CUDA cores; kernel C refuses D 256 before it looks at the tensors."""
+    the CUDA cores; kernel C takes D 256 and refuses CPU tensors, as at any
+    head dim."""
     bf, f32 = torch.bfloat16, torch.float32
     assert fa.flash_fwd_instance(bf, 4096, 256) == fa.flash_fwd_instance(bf, 37, 256) == (
         "wgmma")
@@ -311,17 +312,19 @@ def test_d256_instances_and_refusals():
     assert fa.flash_bwd_instance(bf, 256) == "wgmma"
     assert fa.flash_bwd_instance(f32, 256) == "cuda_core"
     assert fa.flash_bwd_instance(bf, 128) == "wgmma"
-    fa.check_decode_rows("A", 256, 10, 1)
+    for group, Sq in ((10, 1), (8, 1), (2, 4), (1, 1), (16, 1)):
+        fa.check_decode_rows("A", 256, group, Sq)
     fa.check_decode_rows("A", 128, 32, 2)  # below D 256 every count up to 64 is built
-    for group, Sq in ((8, 1), (2, 4), (17, 1), (10, 2)):
-        with pytest.raises(ValueError, match="9 to 16 rows"):
+    for group, Sq in ((17, 1), (10, 2)):
+        with pytest.raises(ValueError, match="1 to 16 rows"):
             fa.check_decode_rows("A", 256, group, Sq)
     from repro_torch.kernels.paged_attention import paged_decode_fwd_cuda
 
     q = torch.zeros((1, 1, 10, 256))
     pool = torch.zeros((4, 8, 1, 256))
     i32 = torch.int32
-    with pytest.raises(ValueError, match="head dim 256 not supported"):
+    assert 256 in fa.PAGED_DIMS
+    with pytest.raises(ValueError, match="must be on one CUDA device"):
         paged_decode_fwd_cuda(q, pool, pool, torch.zeros((4, 8), dtype=i32),
                               torch.zeros((1, 2), dtype=i32), torch.zeros((1, 1), dtype=i32),
                               window=None, scale=1.0)
