@@ -8,8 +8,13 @@ Phases, each fatal on failure:
   2. build every kernel in ``src/repro_torch/csrc`` with nvcc (sm_90a),
      failing if ptxas reports a spill or a serialised ``wgmma`` (C7512) in
      any wgmma instance of A, B1 or B2 or a spill in the decode core's
-     cluster instance (bf16 D 256), whose registers, shared memory and
-     admitted cluster sizes it logs;
+     cluster instance (bf16 D 256) (the kernel lint's ptxas rules,
+     ``repro_torch.analysis.kernel_lint``), whose registers, shared memory
+     and admitted cluster sizes it logs; then the lint's closed forms of
+     every instance's shared memory held equal, byte for byte, to the built
+     library's own figures at the main paths' lengths, at the longest each
+     instance admits and one tile past it, where A, B1 and B2 at D 256
+     must refuse the launch;
   3. kernel A (flash forward) against its plain version on the card, in
      float32 and bf16, the zigzag, window, dead-row and ragged edge cases
      included, whisper-base's non-causal calls at phase 18's batches (its
@@ -70,7 +75,8 @@ Phases, each fatal on failure:
      forward (out, lse) and q/k/v gradients on the kernels against the same
      ring on the plain versions, overlap=True bitwise equal to
      overlap=False, launches equal to the schedule's Computes, link bytes
-     equal to the cost model; then the other strategies through their
+     equal to the cost model and to ``comm_audit``'s walk of the same
+     schedule; then the other strategies through their
      planners with the same checks (the output in place of (out, lse);
      every kernel call still held to phase 3's and 7's limits): Ulysses at
      P = 2, 4, 8; the window halo at P = 4, 8 (contig, windows 2048 and
@@ -253,7 +259,11 @@ Phases, each fatal on failure:
      (e) one superblock at full width in float32, one row fed 2112 tokens
      by ``decode_step``: every step's logits against the windowed forward
      pass, past the ring buffer's 2048 slots;
- 21. a ``{"kernels": [...]}`` summary line, the card line, and last the
+ 21. the static analysis gate, ``repro_torch.launch.analyze``'s
+     ``run_analysis(device="cuda")`` with every pass (schedule check, comm
+     audit, the kernel lint with the card's limits and the build's ptxas
+     report, the topology check): 0 findings (``RESULT analysis``);
+ 22. a ``{"kernels": [...]}`` summary line, the card line, and last the
      ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -278,6 +288,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+sys.path.insert(0, str(SRC))
+try:  # phase 2's ptxas rules are the kernel lint's
+    from repro_torch.analysis.kernel_lint import (CLUSTER_KERNEL, ptxas_functions,
+                                                  ptxas_wgmma_faults)
+except ImportError:  # no checkout (or no torch) beside this file: main() refuses to run
+    CLUSTER_KERNEL = ptxas_functions = ptxas_wgmma_faults = None
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core / fp32 CUDA core
@@ -2779,7 +2795,8 @@ def phase_ring(torch, dev, ps=(2, 4, 8), s_loc=RING_S_LOC, profile_shape=TRAIN_S
     The phase logs the same per-row reading for one SP-1 flash call with
     bf16 gradients, which shows it too (PERF.md has the readings).
     """
-    from repro_torch.core.strategies import get_strategy, strategy_cost
+    from repro_torch.analysis.comm_audit import AuditDims, audit_schedule
+    from repro_torch.core.strategies import get_strategy, itemsize, strategy_cost
     from repro_torch.kernels.ops import flash_attention
 
     gen = torch.Generator(device=dev).manual_seed(10)
@@ -2833,14 +2850,24 @@ def phase_ring(torch, dev, ps=(2, 4, 8), s_loc=RING_S_LOC, profile_shape=TRAIN_S
                 (link, pos_bytes) = got[3]
                 cost = strategy_cost(get_strategy(strategy), B, S, Hq, Hkv, D, P,
                                      bytes_per_elem=q.element_size(), travel_dtype=travel)
+                model = {"fwd": cost.fwd_bytes, "bwd": cost.bwd_bytes}
+                spec = get_strategy(strategy).schedule_spec(P, S_loc=S // P)
+                audited = audit_schedule(spec, P, AuditDims(
+                    B=B, S_loc=S // P, Hq=Hq, Hkv=Hkv, D=D, bytes_per_elem=q.element_size(),
+                    travel_bytes=itemsize(travel)))
+                audited = {"fwd": audited[0], "bwd": audited[1]}
+                if audited != model:
+                    raise AssertionError(f"{name}: comm_audit {audited}, cost model {model}")
                 if strategy == "tokenring_faithful" and dtype != torch.float32:
-                    bytes_note = ("bytes not compared: the model prices the partial at "
-                                  "float32, it travels in bf16")
-                elif link != {"fwd": cost.fwd_bytes, "bwd": cost.bwd_bytes}:
-                    raise AssertionError(f"{name}: link bytes {link}, cost model "
+                    bytes_note = ("link bytes not compared: the model and comm_audit price the "
+                                  "partial at float32, it travels in bf16; comm_audit = cost "
+                                  "model")
+                elif link != model:
+                    raise AssertionError(f"{name}: link bytes {link}, cost model and comm_audit "
                                          f"{cost.fwd_bytes}/{cost.bwd_bytes}")
                 else:
-                    bytes_note = f"link bytes {link['fwd']:.0f}/{link['bwd']:.0f} = cost model"
+                    bytes_note = (f"link bytes {link['fwd']:.0f}/{link['bwd']:.0f} = cost model "
+                                  "= comm_audit")
                 log(f"  ok {name}: launches {n}/{n}/{n} = Computes; {n}+{n} kernel calls vs "
                     f"plain (worst out {each.out_err:.2e}, grads row {each.row:.2e} / l2 "
                     f"{each.l2:.2e}, {each.dead} dead (row, head) exactly 0); ring vs plain ring:"
@@ -5271,7 +5298,9 @@ def phase_build(torch, dev):
             raise AssertionError(f"ptxas: expected one cluster instance of the decode core in "
                                  f"{lib}, found {len(cluster[lib])}")
     admitted = {}
-    for g in (2 * fa.DECODE_D256_MAX_CLUSTER, fa.DECODE_D256_MAX_CLUSTER):
+    from repro_torch.analysis.kernel_lint import CLUSTER_SIZES
+
+    for g in CLUSTER_SIZES:
         admitted[g], smem = fa.decode_cluster_occupancy(g)
     per, g = fa.decode_rule_d256(RG_WINDOW, RG_PROMPTS, sms)
     log(f"  decode core's cluster instance (bf16 D=256; csrc/decode_d256.cuh): 160 threads (a "
@@ -5284,6 +5313,121 @@ def phase_build(torch, dev):
         raise AssertionError(f"the card holds {admitted[g]} clusters of {g} blocks of the decode "
                              f"core's cluster instance at once: the main call's {RG_PROMPTS} do "
                              "not fit one wave")
+    smem_against_library(torch, dev, sms)
+
+
+def smem_against_library(torch, dev, sms):
+    """Phase 2 (b): the kernel lint's closed form of every instance's shared
+    memory (``kernel_lint.smem_estimate``) equal, byte for byte, to the
+    built library's own figure: the wgmma instances of A, B1 and B2 at the
+    main paths' lengths (``launch.analyze.FLASH_CALLS``), at the longest each
+    admits (``kernel_lint.max_length``) and one tile past it, where the
+    figure passes the opt-in maximum and A, B1 and B2 at D 256 refuse the
+    launch (``cudaErrorInvalidValue``); the cluster instance; the split
+    decode kernel, dense and paged, at every row layout and split it takes."""
+    from repro_torch.analysis import kernel_lint as kl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.analyze import FLASH_CALLS, PAGED_CALLS
+
+    budget = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    lib = {"fwd_wgmma": lambda D, S: fa.flash_fwd_smem_bytes(D, S),
+           "bwd_dq_wgmma": lambda D, S: fa.flash_bwd_smem_bytes("dq", D, S),
+           "bwd_dkv_wgmma": lambda D, S: fa.flash_bwd_smem_bytes("dkv", D, S)}
+    checked, mismatches, longest = 0, [], {}
+
+    def hold(what, closed, built):
+        nonlocal checked
+        checked += 1
+        if closed != built:
+            mismatches.append(f"{what}: closed form {closed} B, library {built} B")
+
+    for inst, figure in lib.items():
+        for D in (64, 128, 256):
+            calls = [c for c in FLASH_CALLS if c[2] == D and fa.flash_fwd_instance(
+                c[1], c[4], D) == "wgmma" and (inst == "fwd_wgmma" or c[8])]
+            lengths = {c[5] if inst != "bwd_dkv_wgmma" else c[4] for c in calls}
+            top = kl.max_length(inst, D, min(budget, kl.KMAX_SMEM))
+            longest[f"{inst}[D={D}]"] = top
+            for S in sorted(lengths) + [1, top, top + 1]:
+                hold(f"{inst} D={D} S={S}", kl.smem_estimate(inst, D, S), figure(D, S))
+            if figure(D, top) > kl.KMAX_SMEM or figure(D, top + 1) <= kl.KMAX_SMEM:
+                mismatches.append(f"{inst} D={D}: {top} is not the longest length the library "
+                                  "admits")
+    hold("decode_cluster", kl.smem_estimate("decode_cluster", 256), fa.decode_cluster_occupancy(
+        fa.DECODE_D256_MAX_CLUSTER)[1])
+    splits = {(c[1], c[2], c[6] // c[7] * c[4], False,
+               fa.decode_split_rule(c[5], fa.decode_units(c[3], c[6], c[7], c[4]), sms)[0])
+              for c in FLASH_CALLS if c[4] <= fa.DECODE_MAX_SQ}
+    splits |= {(c[1], c[2], c[4] // c[5], True,
+                fa.decode_split_rule(c[7] * c[6], fa.decode_units(c[3], c[4], c[5], 1), sms)[0])
+               for c in PAGED_CALLS}
+    for dt in (torch.float32, torch.bfloat16):
+        for D in (32, 64, 128, 256):
+            for rows in (1, 2, 3, 4, 8, 10, 16, 32, 64):
+                for paged in (False, True):
+                    for tps in (1, 7, fa.DECODE_MAX_SPLIT_TILES):
+                        splits.add((dt, D, rows, paged, tps))
+    for dt, D, rows, paged, tps in sorted(splits, key=str):
+        if fa.decode_core_instance(dt, D) == "cluster" or (D == 256 and rows > 16):
+            continue
+        hold(f"decode_split {str(dt)[6:]} D={D} rows={rows} paged={paged} tps={tps}",
+             kl.smem_estimate("decode_split", D, tps * fa.DECODE_TILE_KEYS, dtype=dt, rows=rows,
+                              paged=paged),
+             fa.decode_split_smem_bytes(dt, D, rows, tps, paged=paged))
+    if mismatches:
+        raise AssertionError("phase 2: the kernel lint's shared memory disagrees with the built "
+                             "library:\n  " + "\n  ".join(mismatches))
+    # One tile past the longest length, the library refuses the launch.
+    refused = []
+    bf = torch.bfloat16
+    for inst, (Sq, Sk) in (("fwd_wgmma", (64, longest["fwd_wgmma[D=256]"] + 1)),
+                           ("bwd_dq_wgmma", (64, longest["bwd_dq_wgmma[D=256]"] + 1)),
+                           ("bwd_dkv_wgmma", (longest["bwd_dkv_wgmma[D=256]"] + 1, 64))):
+        q = torch.zeros((1, Sq, 1, 256), dtype=bf, device=dev)
+        k = torch.zeros((1, Sk, 1, 256), dtype=bf, device=dev)
+        qp = torch.zeros((1, Sq), dtype=torch.int32, device=dev)
+        kp = torch.zeros((1, Sk), dtype=torch.int32, device=dev)
+        rows = torch.zeros((1, Sq, 1), dtype=torch.float32, device=dev)
+        try:
+            if inst == "fwd_wgmma":
+                fa.flash_attention_fwd_cuda(q, k, k, qp, kp, causal=False, window=None,
+                                            scale=1.0)
+            elif inst == "bwd_dq_wgmma":
+                fa.flash_attention_bwd_dq_cuda(q, k, k, qp, kp, q, rows, rows, rows,
+                                               causal=False, window=None, scale=1.0)
+            else:
+                fa.flash_attention_bwd_dkv_cuda(q, k, k, qp, kp, q, rows, rows, rows,
+                                                causal=False, window=None, scale=1.0)
+        except RuntimeError as e:
+            if not str(e).endswith("cudaError_t 1"):
+                raise
+            refused.append(f"{inst} at {Sk if inst != 'bwd_dkv_wgmma' else Sq}")
+        else:
+            raise AssertionError(f"phase 2: {inst} at D 256 launched one tile past the longest "
+                                 "length the kernel lint admits")
+        del q, k, qp, kp, rows
+    torch.cuda.synchronize()
+    log(f"  kernel lint: {checked} shared-memory figures of the built library equal to the "
+        f"closed forms (opt-in maximum {budget} B); longest admitted lengths {longest}; one "
+        f"tile past them the D-256 launches refuse ({', '.join(refused)})")
+
+
+def phase_analysis(torch, dev):
+    """Phase 21: the static analysis gate on the card: every pass of
+    ``repro_torch.launch.analyze`` with the card's limits and the build's
+    ptxas report; fails on any finding."""
+    from repro_torch.launch.analyze import run_analysis
+
+    t0 = time.perf_counter()
+    report = run_analysis(device="cuda")
+    seconds = time.perf_counter() - t0
+    log("  " + report.render().replace("\n", "\n  "))
+    if not report.ok:
+        raise AssertionError(f"phase 21: {len(report.findings)} finding(s) of the static "
+                             "analysis gate")
+    log("RESULT analysis " + json.dumps({"checked": dict(report.checked),
+                                         "findings": len(report.findings),
+                                         "seconds": round(seconds, 3)}))
 
 
 PROFILED_PHASES = (6, 9, 11, 13, 16, 17, 18, 19, 20)
@@ -5306,55 +5450,6 @@ def profiled_phases(argv):
 def free_device_memory(torch):
     gc.collect()
     torch.cuda.empty_cache()
-
-
-def ptxas_functions(text):
-    """``{mangled name: {"registers": n, "spill_stores": bytes, "spill_loads":
-    bytes, "c7512": bool}}`` from one ``nvcc -Xptxas -v`` log."""
-    import re
-
-    funcs, cur = {}, None
-    for line in text.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
-        if m:
-            cur = funcs.setdefault(m.group(1), dict(registers=None, spill_stores=0,
-                                                    spill_loads=0, c7512=False))
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and cur is not None:
-            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and cur is not None:
-            cur["registers"] = int(m.group(1))
-        if "C7512" in line:
-            m = re.search(r"function '([\w$]+)'", line)
-            name = m.group(1) if m else cur
-            if name is None:
-                raise AssertionError(f"ptxas: a C7512 warning names no function: {line}")
-            funcs.setdefault(name, dict(registers=None, spill_stores=0, spill_loads=0,
-                                        c7512=False))["c7512"] = True
-    return funcs
-
-
-CLUSTER_KERNEL = "decode_d256_kernel"  # the decode core's cluster instance
-
-
-def ptxas_wgmma_faults(logs):
-    """Every spill or C7512 (``wgmma`` serialised) that ptxas reports for a
-    wgmma instance of A, B1 or B2 (``*_wgmma_kernel``), and every spill of
-    the decode core's cluster instance, in ``logs`` ({library: ptxas
-    output}), as lines; empty when there is none."""
-    faults = []
-    for lib, text in logs.items():
-        for name, f in ptxas_functions(text).items():
-            if "wgmma_kernel" not in name and CLUSTER_KERNEL not in name:
-                continue
-            if f["spill_stores"] or f["spill_loads"]:
-                faults.append(f"{lib}: {name} spills {f['spill_stores']} B stored, "
-                              f"{f['spill_loads']} B loaded")
-            if f["c7512"]:
-                faults.append(f"{lib}: {name} has its wgmma serialised (C7512)")
-    return faults
 
 
 def main() -> int:
@@ -5562,7 +5657,11 @@ def main() -> int:
     phase_rg_wrap(torch, dev)
     free_device_memory(torch)
 
-    log("== phase 21: summary")
+    log("== phase 21: the static analysis gate (schedule check, comm audit, kernel lint with "
+        "the card's limits and the build's ptxas report, topology check)")
+    phase_analysis(torch, dev)
+
+    log("== phase 22: summary")
     # `launches` is the count of the main path that runs the kernel (A, B1
     # and B2: whisper-base trained at full width and depth at SP 1, phase
     # 18's first training run; C, which no encoder-decoder path runs:

@@ -1,22 +1,39 @@
-"""Precondition catalog: one message source for the runtime ``ValueError``s
-of the ring schedules (copy of the runtime part of
-``repro.analysis.preconditions``).
+"""Precondition catalog: one message source for runtime ``ValueError``s and
+static findings (counterpart of ``repro.analysis.preconditions``).
 
 Each precondition is a ``check_*`` function returning its message, or None
-when it holds; :func:`require` turns a message into the ``ValueError``.  The
-messages are the reference's, word for word.  The static findings
-(``finding``) wait for the port of ``analysis/report.py``.
+when it holds; :func:`require` turns a message into the runtime
+``ValueError`` and :func:`finding` into an ``analysis.report.Finding`` for
+the CLI gate: the same words either way.  The messages are the reference's,
+word for word.  ``check_tile_divisible`` (PRE-TILE-DIV) is the one
+``kernels.ops.pick_block`` raises with; it lives there.
 """
 
 from __future__ import annotations
 
-__all__ = ["require", "check_even_split", "check_zigzag_divisible"]
+from repro_torch.analysis.report import Finding
+from repro_torch.kernels.ops import check_tile_divisible
+
+__all__ = [
+    "require",
+    "finding",
+    "check_even_split",
+    "check_zigzag_divisible",
+    "check_tile_divisible",
+]
 
 
 def require(message: str | None) -> None:
     """Raise the catalog message as the runtime ``ValueError`` (no-op on None)."""
     if message is not None:
         raise ValueError(message)
+
+
+def finding(rule: str, subject: str, message: str | None) -> list[Finding]:
+    """Wrap a catalog message as a static finding (empty list on None)."""
+    if message is None:
+        return []
+    return [Finding(rule, subject, message)]
 
 
 def check_even_split(S_loc: int, *, what: str, who: str, alternative: str) -> str | None:

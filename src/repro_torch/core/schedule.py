@@ -230,7 +230,7 @@ class Schedule:
 
 
 # ---------------------------------------------------------------------------
-# Rank-symbolic walk hook (consumed by ``repro.analysis``)
+# Rank-symbolic walk hook (consumed by ``repro_torch.analysis``)
 #
 # A Schedule is rank-agnostic SPMD: every rank runs the same ops, so a single
 # Send op is really P point-to-point messages ``r -> (r + shift) % P``.
@@ -274,7 +274,7 @@ class BufferSpec:
 @dataclass(frozen=True)
 class ScheduleSpec:
     """A concrete :class:`Schedule` plus the buffer metadata the static
-    analyzers (``repro.analysis``) need to symbolically execute it across all
+    analyzers (``repro_torch.analysis``) need to symbolically execute it across all
     P ranks.  Strategy modules register a ``schedule_spec(P, **dims)`` factory
     returning one of these alongside their ``comm_cost`` model.
 

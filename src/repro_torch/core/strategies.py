@@ -209,9 +209,9 @@ class SPStrategy:
     # Optional rank-symbolic walk hook: ``schedule_spec(P, **dims) ->
     # core.schedule.ScheduleSpec`` returning the concrete step schedule plus
     # buffer metadata (roles, row fractions, wire dtypes).  Consumed by the
-    # static analyzers in ``repro.analysis`` — the deadlock/coverage checker
-    # and the byte-conservation audit that pins ``comm_cost`` to what the
-    # schedule actually sends.  ``dims`` may include ``S_loc`` and ``window``
+    # static analyzers in ``repro_torch.analysis`` — the deadlock/coverage
+    # checker, the byte-conservation audit that pins ``comm_cost`` to what
+    # the schedule actually sends, and the per-link topology check.  ``dims`` may include ``S_loc`` and ``window``
     # (halo schedules size themselves from both).  None = no step schedule to
     # analyze (all-to-all and serving-side strategies).
     schedule_spec: Callable[..., Any] | None = None

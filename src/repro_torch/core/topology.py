@@ -8,9 +8,8 @@ per-link ``(bandwidth, duplex)`` attributes, plus named *placements* mapping
 logical ring ranks onto devices.  ``ParallelContext.plan(topology=...)``
 resolves ``"auto"`` against the graph — flat bidirectional TokenRing vs the
 hierarchical 2D schedule is an arithmetic question once per-class
-bandwidths are declared.  (The reference's static link audit,
-``analysis.topo_check``, reads the same graphs; the port has no copy of it
-yet.)
+bandwidths are declared; ``analysis.topo_check`` replays a schedule's
+rank-symbolic message walk onto these graphs' links (the TOPO-* findings).
 
 Links are undirected edges with two independent lanes when ``duplex="full"``
 (NVLink/ICI) or one shared lane when ``duplex="half"``.  Every link carries a

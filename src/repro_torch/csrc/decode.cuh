@@ -506,21 +506,46 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // at D 256 (recurrentgemma's local attention: group 10 x Sq 1) instantiates
 // only the 16-row layout, whose row predicates are warp-uniform, and takes
 // 1 to 16 rows; more are refused.
-template <typename T, int D, bool kPaged>
-cudaError_t pick_rows(const Args& a, cudaStream_t stream) {
-  const int all_rows = a.Hq / a.Hkv * a.Sq;
+template <int WR_, int RW_>
+struct Rows {
+  static constexpr int WR = WR_, RW = RW_;
+};
+
+// Calls `f` with the layout (Rows<WR, RW>) that takes `all_rows` rows a KV
+// head, or returns `refused` where no instance takes them.
+template <int D, typename R, typename F>
+R by_rows(int all_rows, R refused, F&& f) {
   const int rows = all_rows < kMaxRows ? all_rows : kMaxRows;
   if constexpr (D == 256) {
-    if (all_rows > 16) return cudaErrorInvalidValue;
-    return launch<T, D, 4, 4, kPaged>(a, stream);
+    if (all_rows > 16) return refused;
+    return f(Rows<4, 4>{});
   } else {
-    if (rows <= 2) return launch<T, D, 1, 2, kPaged>(a, stream);
-    if (rows <= 4) return launch<T, D, 1, 4, kPaged>(a, stream);
-    if (rows <= 8) return launch<T, D, 2, 4, kPaged>(a, stream);
-    if (rows <= 16) return launch<T, D, 4, 4, kPaged>(a, stream);
-    if (rows <= 32) return launch<T, D, 4, 8, kPaged>(a, stream);
-    return launch<T, D, 4, 16, kPaged>(a, stream);
+    if (rows <= 2) return f(Rows<1, 2>{});
+    if (rows <= 4) return f(Rows<1, 4>{});
+    if (rows <= 8) return f(Rows<2, 4>{});
+    if (rows <= 16) return f(Rows<4, 4>{});
+    if (rows <= 32) return f(Rows<4, 8>{});
+    return f(Rows<4, 16>{});
   }
+}
+
+template <typename T, int D, bool kPaged>
+cudaError_t pick_rows(const Args& a, cudaStream_t stream) {
+  return by_rows<D>(a.Hq / a.Hkv * a.Sq, cudaErrorInvalidValue, [&](auto r) {
+    using L = decltype(r);
+    return launch<T, D, L::WR, L::RW, kPaged>(a, stream);
+  });
+}
+
+// Dynamic shared memory of one block (bytes) at `all_rows` rows a KV head
+// and `tiles_per_split`, as `launch` asks for it; 0 where no instance takes
+// the call.
+template <typename T, int D, bool kPaged>
+size_t split_smem_bytes(int all_rows, int tiles_per_split) {
+  return by_rows<D>(all_rows, size_t{0}, [&](auto r) {
+    using L = decltype(r);
+    return Shape<T, D, L::WR, L::RW, kPaged>::smem_bytes(tiles_per_split);
+  });
 }
 
 // Which decode kernel takes a call (mirrored by `decode_core_instance` in

@@ -761,3 +761,29 @@ extern "C" int decode_cluster_max_active(int cluster) {
 
 // Dynamic shared memory of one block of the cluster instance (bytes).
 extern "C" int decode_cluster_smem() { return (int)rt::dcl::Smem::bytes(); }
+
+// Dynamic shared memory of one block of the split decode kernel (bytes), at
+// `rows` (GQA group x Sq) a KV head and `tiles_per_split`, dense (`paged`
+// 0, kernel A) or paged (1, kernel C); -1 where the split kernel takes no
+// such call (bf16 D 256 runs on the cluster instance).
+template <typename T, bool kPaged>
+static size_t split_smem(int D, int rows, int tps) {
+  switch (D) {
+    case 32: return rt::dec::split_smem_bytes<T, 32, kPaged>(rows, tps);
+    case 64: return rt::dec::split_smem_bytes<T, 64, kPaged>(rows, tps);
+    case 128: return rt::dec::split_smem_bytes<T, 128, kPaged>(rows, tps);
+    case 256:
+      if constexpr (std::is_same_v<T, float>)
+        return rt::dec::split_smem_bytes<T, 256, kPaged>(rows, tps);
+      break;
+  }
+  return 0;
+}
+extern "C" int decode_split_smem(int bf16, int D, int rows, int paged, int tiles_per_split) {
+  const size_t bytes =
+      bf16 ? (paged ? split_smem<__nv_bfloat16, true>(D, rows, tiles_per_split)
+                    : split_smem<__nv_bfloat16, false>(D, rows, tiles_per_split))
+           : (paged ? split_smem<float, true>(D, rows, tiles_per_split)
+                    : split_smem<float, false>(D, rows, tiles_per_split));
+  return bytes ? (int)bytes : -1;
+}

@@ -21,7 +21,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_all", "CSRC", "NVCC_FLAGS"]
+__all__ = ["load_library", "build_all", "ptxas_logs", "CSRC", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -55,8 +55,10 @@ def build_all() -> dict:
     """Compile every ``csrc/*.cu`` not yet built, all ``nvcc``s in parallel.
 
     Returns ``{"seconds": wall time, "built": [names], "ptxas": {name:
-    compiler output}}``.  Raises ``RuntimeError`` with the compiler's
-    output if any source fails to build.
+    compiler output}}`` for the sources built by this call; each output is
+    also kept beside its library (:func:`ptxas_logs`).  Raises
+    ``RuntimeError`` with the compiler's output if any source fails to
+    build.
     """
     out_dir = _build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -78,6 +80,7 @@ def build_all() -> dict:
         if proc.returncode != 0:
             failed.append(name)
             continue
+        lib.with_suffix(".ptxas").write_text(logs[name])
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError(
@@ -85,6 +88,21 @@ def build_all() -> dict:
             + "\n".join(logs[n] for n in failed)
         )
     return {"seconds": time.perf_counter() - t0, "built": sorted(procs), "ptxas": logs}
+
+
+def ptxas_logs() -> dict[str, str]:
+    """``{name: compiler output}`` of every ``csrc/*.cu`` library (ptxas's
+    ``-v`` report: registers, spills, C7512), as the build that made it
+    kept it; builds what is missing."""
+    build_all()
+    out_dir = _build_dir()
+    logs = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        log = out_dir / f"lib{src.stem}.ptxas"
+        if not log.exists():
+            raise RuntimeError(f"{log} is missing: remove {out_dir} and build again")
+        logs[src.stem] = log.read_text()
+    return logs
 
 
 def load_library(stem: str, argtypes: dict[str, list]) -> ctypes.CDLL:

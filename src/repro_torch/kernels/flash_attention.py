@@ -72,6 +72,7 @@ __all__ = [
     "flash_attention_bwd_torch",
     "flash_bwd_instance",
     "flash_bwd_smem_bytes",
+    "wgmma_bwd_tiling",
     "tile_skip",
     "tile_skip_grid",
     "tile_mask",
@@ -213,7 +214,8 @@ _ARGTYPES = {"flash_fwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
              "flash_fwd_wgmma_smem": [ctypes.c_int] * 2,
              "decode_takes_cluster": [ctypes.c_int] * 2,
              "decode_cluster_max_active": [ctypes.c_int],
-             "decode_cluster_smem": []}
+             "decode_cluster_smem": [],
+             "decode_split_smem": [ctypes.c_int] * 5}
 _BWD_ARGTYPES = {
     "flash_bwd_dq": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                                     ctypes.c_void_p],
@@ -425,6 +427,18 @@ def decode_core_instance_built(dtype, D: int) -> str:
     return "cluster" if lib.decode_takes_cluster(int(dtype == torch.bfloat16), D) else "split"
 
 
+def decode_split_smem_bytes(dtype, D: int, rows: int, tiles_per_split: int, *,
+                            paged: bool) -> int:
+    """Dynamic shared memory of one block of the split decode kernel at
+    ``rows`` (GQA group x Sq) a KV head and ``tiles_per_split``, dense
+    (kernel A) or paged (kernel C) (builds the library on first use; needs
+    the CUDA toolchain)."""
+    from repro_torch.kernels._build import load_library
+
+    return load_library("flash_fwd", _ARGTYPES).decode_split_smem(
+        int(dtype == torch.bfloat16), D, rows, int(paged), tiles_per_split)
+
+
 def decode_cluster_occupancy(cluster: int) -> tuple[int, int]:
     """``(clusters, smem_bytes)``: how many clusters of ``cluster`` blocks of
     the cluster instance the card holds at once at the block's dynamic
@@ -445,6 +459,21 @@ def flash_bwd_instance(dtype, D: int) -> str:
     if dtype == torch.bfloat16 and D in (64, 128, 256):
         return "wgmma"
     return "cuda_core"
+
+
+def wgmma_bwd_tiling(D: int) -> dict:
+    """The wgmma instances' tiling at head dim ``D`` (``DqSplit``,
+    ``DkvSplit`` and the key and row constants of ``csrc/flash_bwd.cu``):
+    B1's q rows a block and keys a KV tile; B2's keys a block, q rows a
+    tile and blocks sharing one key tile.  Up to D 128 B1's two consumers
+    split a 128-row q-tile by rows; at D 256 both take the same 64-row
+    q-tile, each half of dQ's columns, and two B2 blocks share a 64-key
+    tile, each half of dK's and dV's columns."""
+    if D not in (64, 128, 256):
+        raise ValueError(f"wgmma_bwd_tiling: no wgmma instance at head dim {D}")
+    by_cols = D > 128
+    return dict(dq_rows=64 if by_cols else 128, dq_keys=64, dkv_keys=64, dkv_rows=64,
+                dkv_blocks=2 if by_cols else 1)
 
 
 def flash_bwd_smem_bytes(kernel: str, D: int, S: int) -> int:

@@ -83,8 +83,9 @@ class FlashConfig:
 
 
 def check_tile_divisible(s: int, target: int) -> str | None:
-    """A sequence that needs tiling must admit a power-of-two tile of at
-    least 8 rows (copy of ``repro.analysis.preconditions``)."""
+    """PRE-TILE-DIV of the precondition catalog (``analysis.preconditions``
+    routes its findings here): a sequence that needs tiling must admit a
+    power-of-two tile of at least 8 rows."""
     b = min(target, s)
     while s % b:
         b //= 2

@@ -25,8 +25,9 @@ Counterpart of ``repro.kernels.paged_attention``.
   block-table view (``serving.kv_cache``) and run the plain flash forward
   over it, exactly the JAX ``impl="xla"`` oracle.
 
-:func:`page_skip` / :func:`page_mask` are the kernel's predicates, kept in
-Python for the tests.
+:func:`page_skip` / :func:`page_mask` are the kernel's predicates and
+:func:`page_read` its address rule, kept in Python for the tests and the
+lint.
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.ref import PAD_POS
 
-__all__ = ["paged_decode_fwd_cuda", "paged_decode_fwd_torch", "page_skip", "page_mask"]
+__all__ = ["paged_decode_fwd_cuda", "paged_decode_fwd_torch", "page_skip", "page_mask",
+           "page_read"]
 
 _ARGTYPES = {"paged_decode": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
@@ -66,6 +68,14 @@ def page_skip(entry: int, k_pos, q_pos: int, *, n_pages: int, window: int | None
     if window is not None:
         skip = skip or int(k_pos.max()) <= q_pos - window
     return skip
+
+
+def page_read(entry: int, n_pages: int) -> int | None:
+    """The pool page the decode core reads for one block-table entry, or
+    None: it reads a page only when ``0 <= entry < n_pages`` and touches
+    nothing behind an unmapped or corrupt entry (``csrc/decode.cuh:207-210``,
+    ``csrc/decode_d256.cuh:167-168``).  The port has no index-map clamp."""
+    return entry if 0 <= entry < n_pages else None
 
 
 def page_mask(k_pos, q_pos: int, *, window: int | None = None):
