@@ -263,7 +263,29 @@ Phases, each fatal on failure:
      ``run_analysis(device="cuda")`` with every pass (schedule check, comm
      audit, the kernel lint with the card's limits and the build's ptxas
      report, the topology check): 0 findings (``RESULT analysis``);
- 22. a ``{"kernels": [...]}`` summary line, the card line, and last the
+ 22. data parallelism with FSDP storage (this slice's main path): (a)
+     qwen3-1.7b at full width, 2 layers, float32, on the virtual (data 2,
+     model 4) mesh through TokenRing, batch 4 x 512: the FSDP step's loss
+     and every gathered gradient leaf on the kernels against the plain path
+     on one rank and the whole batch (phase 8's limits), a second pass
+     bitwise equal, launches equal to the ring's Computes, the data-axis
+     ledger equal to ``fsdp_comm_bytes`` (on the virtual mesh the data
+     axis's collectives hand back their input and charge the ledger, so
+     this gate shows that each leaf was gathered and reduce-scattered
+     once, not the bytes a link carried); (b) qwen3-1.7b at full width and
+     depth (28 layers, bf16 compute, float32 AdamW, remat "full") through
+     the ``Trainer`` with FSDP storage on that mesh, global batch 4 x 4096,
+     one warmup and 2 timed steps (448 A, 224 B1, 224 B2 a step), one more
+     under torch.profiler (the idle share), the state a rank by the rules
+     (``RESULT training_dp``), then the same global batch through the (1,
+     4) mesh, untimed, each step's loss bitwise equal to it (the fold
+     keeps the summation order; ``SP1_LOSS_LIMIT`` checked first); (c) at full
+     width, 2 layers: the state migrated to ``shrink_mesh(4,
+     model_axis=4)``'s (1, 4) mesh bitwise and one step there, a checkpoint
+     saved on (2, 4) restored onto (4, 2) bitwise, and
+     ``compressed_psum_ef`` over a virtual data axis of 8 ranks on the
+     model's gradient tree at the reference's limits; the phase's seconds;
+ 23. a ``{"kernels": [...]}`` summary line, the card line, and last the
      ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -1305,15 +1327,21 @@ def serve_run(torch, dev, bundle, params, *, n_requests, paged, seed=0, outputs=
 
 
 def device_rows(torch, prof):
-    """``(device us, count, name)`` of every kernel in a profile, largest first."""
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+    """``(device us, count, name)`` of every kernel in a profile, largest first.
+
+    Summed straight from the profiler's raw events, as ``key_averages``
+    sums a device event's self time, without building its event tree
+    (tens of seconds for the tens of thousands of events of a training
+    step)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    sums = {}
+    for evt in prof.profiler.kineto_results.events():
+        if (evt.device_type() != cuda or evt.is_async()
+                or getattr(evt, "is_hidden_event", lambda: False)()):
             continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        rows.append((us, evt.count, evt.key))
+        us, count = sums.get(evt.name(), (0.0, 0))
+        sums[evt.name()] = (us + evt.duration_ns() / 1e3, count + 1)
+    rows = [(us, count, name) for name, (us, count) in sums.items()]
     rows.sort(reverse=True)
     return rows
 
@@ -2566,14 +2594,16 @@ def phase_train_checked_bf16(torch, dev, cfg=None, B=2, S=512):
         f"launches {ran}")
 
 
-def profile_step(torch, fn, wall_s):
+def profile_step(torch, fn, wall_s, cpu=True):
     """``fn`` once under torch.profiler: device busy share and the kernels
-    that take the most device time."""
+    that take the most device time (``cpu=False``: the device's activity
+    only, whose events take seconds, not tens, to sum)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     prof_wall = time.perf_counter() - t0
@@ -5430,6 +5460,319 @@ def phase_analysis(torch, dev):
                                          "seconds": round(seconds, 3)}))
 
 
+# ---------------------------------------------------------------------------
+# phase 22: data parallelism with FSDP storage over the virtual (data, model)
+# mesh
+# ---------------------------------------------------------------------------
+
+DP_MESH = dict(data_degree=2, sp_degree=4)  # the virtual (data 2, model 4) mesh
+DP_BATCH = 4  # global batch: 2 rows a data rank
+DP_CHECK_LAYERS = 2
+DP_CHECK_SEQ = 512
+DP_STEPS = 2  # timed steps of (b), after one warmup
+DP_ELASTIC_SEQ = 512
+
+
+def dp_trainer(torch, cfg, **pctx_kw):
+    """A ``Trainer`` of ``cfg`` through TokenRing on the virtual mesh
+    ``pctx_kw`` (``DP_MESH`` by default), on the card."""
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    pctx = ParallelContext(device="cuda", strategy="tokenring", **(pctx_kw or DP_MESH))
+    return Trainer(build_model(cfg, pctx), TrainerConfig(lr=3e-4, warmup_steps=1,
+                                                         total_steps=1 + DP_STEPS))
+
+
+def dp_loss_and_grads(trainer, state, batch):
+    """The FSDP step's loss and its gradients (gather, loss, backward,
+    reduce-scatter), the gradients assembled into the full tree."""
+    from repro_torch.launch.train_step import value_and_grad
+    from repro_torch.sharding import unshard_tree
+
+    (_, m), grads = value_and_grad(trainer._loss, state["params"], batch)
+    return m["loss"], unshard_tree(grads, trainer.params_layout)
+
+
+def phase_dp_checked(torch, dev, cfg=None, B=DP_BATCH, S=DP_CHECK_SEQ):
+    """Phase 22 (a): one FSDP loss-and-gradient pass at qwen3-1.7b widths,
+    2 layers, float32, on the virtual (2, 4) mesh through TokenRing on the
+    kernels, twice (bitwise equal), against the plain path on one rank and
+    the whole batch (phase 8's limits); launches equal to the ring's
+    Computes; the data-axis ledger equal to ``fsdp_comm_bytes``."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.launch.train_step import value_and_grad
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.runtime.trainer import batch_to_device
+    from repro_torch.sharding import fsdp_comm_bytes
+
+    cfg = cfg or ARCHS["qwen3-1.7b"].with_(n_layers=DP_CHECK_LAYERS, dtype="float32")
+    trainer = dp_trainer(torch, cfg)
+    pctx = trainer.bundle.pctx
+    params = trainer.bundle.init(0, training=True)
+    p_plain = tree_map(lambda t: t.detach().clone(), params)
+    state = trainer.state_from_params(params)
+    del params
+    batch = batch_to_device(next(SyntheticDataset(SyntheticConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=1, layout=cfg.layout,
+        sp_degree=pctx.sp_degree))), dev)
+    runs = []
+    for _ in range(2):
+        pctx.storage.ledger.reset()
+        before = launch_counts()
+        loss, grads = dp_loss_and_grads(trainer, state, batch)
+        torch.cuda.synchronize()
+        ran = {k: v - before[k] for k, v in launch_counts().items()}
+        runs.append((loss, grads, ran, dict(pctx.storage.ledger.class_bytes["data"])))
+    (l_kern, g_kern, ran, data_bytes), (l_again, g_again, _, _) = runs
+    if not (torch.equal(l_kern, l_again) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(g_kern), tree_leaves(g_again)))):
+        raise AssertionError("phase 22 (a): the second FSDP pass is not bitwise the first")
+    want = train_launches_per_step(cfg, sp_computes(cfg, "tokenring", pctx.sp_degree))
+    if ran != want:
+        raise AssertionError(f"phase 22 (a): launches {ran}, expected {want}")
+    closed = fsdp_comm_bytes(trainer.params_layout)
+    if any(abs(data_bytes[w] - closed[w]) > 1e-9 * closed[w] for w in ("fwd", "bwd")):
+        raise AssertionError(f"phase 22 (a): data-axis bytes {data_bytes}, closed form {closed}")
+    plain = build_model(cfg, ParallelContext(impl="torch", device="cuda"))
+    before = launch_counts()
+    (l_plain, _), g_plain = value_and_grad(plain.loss, p_plain, batch)
+    if launch_counts() != before:
+        raise AssertionError("phase 22 (a): the plain path launched a kernel")
+    # phase 8's limits: the loss 1e-5 relative, each gradient leaf 1e-4 of
+    # its largest |value| (attention differs only in the order of float32
+    # sums; the gather and the reduce-scatter move values unchanged)
+    l_err = abs(float(l_kern) - float(l_plain))
+    if not (math.isfinite(float(l_kern)) and l_err <= 1e-5 * abs(float(l_plain))):
+        raise AssertionError(f"phase 22 (a): loss {float(l_kern)} vs plain {float(l_plain)}")
+    worst = worst_leaf(torch, g_kern, g_plain, 1e-4)
+    log(f"  ok phase 22 (a): {cfg.n_layers} layers float32 on the virtual (2, 4) mesh, FSDP "
+        f"storage, batch {B} x seq {S}: loss {float(l_kern):.6f} vs plain SP 1 "
+        f"{float(l_plain):.6f} (|err| {l_err:.2e}); worst gathered gradient leaf off by "
+        f"{worst:.2e} of its max; the second pass bitwise equal; launches {ran}; data-axis "
+        f"bytes a rank {data_bytes} = fsdp_comm_bytes")
+
+
+def phase_train_dp(torch, dev, cfg=None, B=DP_BATCH, S=4096, steps=DP_STEPS):
+    """Phase 22 (b): qwen3-1.7b at full width and depth through the
+    ``Trainer`` with FSDP storage on the virtual (2, 4) mesh, one warmup and
+    ``steps`` timed steps, one more under torch.profiler (the idle share);
+    then the same global batch through the (1, 4) mesh, phase 11's path,
+    each step's loss bitwise equal to it.
+
+    The (1, 4) run is a gate, not a timing: its steps run after the FSDP
+    run's, on a card whose clocks moved between them, so the two step times
+    cannot resolve a difference of a few percent.  On the virtual mesh the
+    data axis's gather and reduce-scatter hand back their input and charge
+    the ledger, so the data-axis bytes reported are the ledger's count: the
+    gate against ``fsdp_comm_bytes`` shows that every leaf was gathered and
+    reduce-scattered once a step, not what a link would carry."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.trainer import n_params
+    from repro_torch.sharding import fsdp_comm_bytes, state_bytes
+
+    cfg = cfg or ARCHS["qwen3-1.7b"]
+    trainer = dp_trainer(torch, cfg)
+    pctx = trainer.bundle.pctx
+    data_cfg = SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=0,
+                               layout=cfg.layout, sp_degree=pctx.sp_degree)
+    t0 = time.perf_counter()
+    state = trainer.init_state(0)
+    torch.cuda.synchronize()
+    free_device_memory(torch)
+    per_rank = state_bytes(trainer.layout, 0)
+    whole = sum(x.numel() * x.element_size() for x in tree_leaves(trainer.layout.meta))
+    log(f"  {cfg.name}: {cfg.n_layers} layers, {n_params(trainer.full_params(state)) / 1e9:.3f}B "
+        f"parameters, FSDP storage on {dict(pctx.mesh.shape)}: state {whole / 1e9:.2f} GB, "
+        f"{per_rank / 1e9:.3f} GB a rank by the rules; batch {B} x seq {S}; init and shard "
+        f"{time.perf_counter() - t0:.1f} s")
+    data = SyntheticDataset(data_cfg)
+    step_log = lambda m: log("  " + m)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    state, hist = trainer.run(state, data, steps=1, log_every=1, log=step_log)  # warmup
+    peak_first = torch.cuda.max_memory_allocated()
+    reset_launch_counts()
+    pctx.storage.ledger.reset()
+    torch.cuda.reset_peak_memory_stats()
+    state, timed = trainer.run(state, data, steps=1 + steps, log_every=1, log=step_log)
+    peak = torch.cuda.max_memory_allocated()
+    got = launch_counts()
+    want = {k: v * steps for k, v in train_launches_per_step(
+        cfg, sp_computes(cfg, "tokenring", pctx.sp_degree)).items()}
+    if got != want:
+        raise AssertionError(f"training_dp: launches {got} over {steps} steps, expected {want}")
+    ledger = pctx.storage.ledger.class_bytes
+    data_step = {w: v / steps for w, v in ledger["data"].items()}
+    closed = fsdp_comm_bytes(trainer.params_layout)
+    if any(abs(data_step[w] - closed[w]) > 1e-9 * closed[w] for w in ("fwd", "bwd")):
+        raise AssertionError(f"training_dp: data-axis bytes a step {data_step}, closed form "
+                             f"{closed}")
+    losses = hist + timed
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training_dp: losses {losses}")
+    step_s = trainer.step_seconds[1:]
+    med = statistics.median(step_s)
+    t0 = time.perf_counter()
+    prof = profile_step(torch, lambda: trainer.run(state, data, steps=2 + steps,
+                                                   log=lambda m: None), med, cpu=False)
+    prof["seconds"] = time.perf_counter() - t0
+    res = {"arch": cfg.name, "mesh": dict(pctx.mesh.shape), "strategy": "tokenring",
+           "storage": "fsdp", "batch": B, "seq": S, "steps_timed": steps, "step_s": step_s,
+           "median_step_s": med, "tokens_per_s": B * S / med,
+           "first_step_s": trainer.step_seconds[0], "losses": losses,
+           "peak_bytes_timed_steps": peak, "peak_bytes_first_step": peak_first,
+           "launches": got, "launches_per_step": {k: v // steps for k, v in got.items()},
+           "data_bytes_per_step_counted": data_step, "fsdp_comm_bytes": closed,
+           "ring_bytes_per_step": {w: v / steps for w, v in ledger.get("link", {}).items()},
+           "state_bytes_per_rank": per_rank, "state_bytes": whole,
+           "idle_share": 1 - prof["device_busy_s"] / med, "profile": prof}
+    log(f"  FSDP over (data 2, model 4): timed steps {[round(x, 4) for x in step_s]} s: median "
+        f"{med:.4f} s = {B * S / med:.1f} tok/s; losses {[round(x, 4) for x in losses]}; peak "
+        f"memory {peak / 2**30:.2f} GiB (first step {peak_first / 2**30:.2f} GiB); data-axis "
+        f"bytes a step, rank and direction counted by the ledger {data_step['fwd'] / 1e9:.4f} GB "
+        f"= fsdp_comm_bytes; "
+        f"state {per_rank / 1e9:.3f} GB a rank of a real 8-rank mesh; launches {got}")
+    del state
+    trainer = None
+    free_device_memory(torch)
+    # the same global batch through the (1, 4) mesh: phase 11's path at batch B
+    ring = dp_trainer(torch, cfg, sp_degree=pctx.sp_degree)
+    state = ring.init_state(0)
+    state, ring_hist = ring.run(state, SyntheticDataset(data_cfg), steps=1 + steps,
+                                log=lambda m: None)
+    del state
+    free_device_memory(torch)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ring_hist)]
+    bitwise = [a == b for a, b in zip(losses, ring_hist)]
+    if not all(r <= SP1_LOSS_LIMIT for r in rel):
+        raise AssertionError(f"training_dp: losses {losses} against the (1, 4) mesh's "
+                             f"{ring_hist} ({rel} relative, limit {SP1_LOSS_LIMIT})")
+    # The fold keeps the summation order: the data ranks' rows sit in the
+    # batch of the same ring, the gather moves values unchanged and AdamW is
+    # elementwise on the blocks, so the losses are the (1, 4) mesh's bit for
+    # bit (the global norm of the blocks sums in another order; it moves no
+    # parameter while the clip scale is 1)
+    if not all(bitwise):
+        raise AssertionError(f"training_dp: losses {losses} not bitwise the (1, 4) mesh's "
+                             f"{ring_hist}")
+    res["mesh_1x4"] = {"losses": ring_hist, "loss_rel_err": rel, "bitwise": bitwise}
+    log(f"  the (1, 4) mesh at batch {B}: losses {[round(x, 4) for x in ring_hist]}, every one "
+        f"bitwise equal to the FSDP run's (the fold keeps the summation order); not timed")
+    log("RESULT training_dp " + json.dumps(res))
+    return got
+
+
+def phase_dp_elastic(torch, dev, cfg=None, B=DP_BATCH, S=DP_ELASTIC_SEQ):
+    """Phase 22 (c): qwen3-1.7b at full width, 2 layers: the state migrated
+    from (2, 4) to ``shrink_mesh(4, model_axis=4)``'s (1, 4) (bitwise),
+    one step there; saved on (2, 4) and restored onto (4, 2) (bitwise);
+    ``compressed_psum_ef`` over a virtual data axis of 8 ranks on the
+    model's gradient tree, at the reference's limits."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.collectives import VirtualRing
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train_step import value_and_grad
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.optim.compress import compressed_psum_ef
+    from repro_torch.runtime.elastic import ElasticState, shrink_mesh
+    from repro_torch.runtime.trainer import batch_to_device
+    from repro_torch.sharding import shard_tree, unshard_tree
+
+    cfg = cfg or ARCHS["qwen3-1.7b"].with_(n_layers=2)
+    trainer = dp_trainer(torch, cfg)
+    state = trainer.init_state(0)
+    data_cfg = SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=2,
+                               layout=cfg.layout, sp_degree=4)
+    state, _ = trainer.run(state, SyntheticDataset(data_cfg), steps=1, log=lambda m: None)
+    full = unshard_tree(state, trainer.layout)
+
+    def same(tree, layout):
+        return all(torch.equal(a, b) for a, b in zip(tree_leaves(full),
+                                                       tree_leaves(unshard_tree(tree, layout))))
+
+    # elastic: lose half the ranks, keep the model axis
+    t0 = time.perf_counter()
+    es = ElasticState(trainer.layout)
+    moved, mesh = es.migrate(state, 4, model_axis=4)
+    torch.cuda.synchronize()
+    t_move = time.perf_counter() - t0
+    if mesh.shape != {"data": 1, "model": 4} or not same(moved, es.layout):
+        raise AssertionError(f"phase 22 (c): migrate to {mesh.shape} not bitwise")
+    small = dp_trainer(torch, cfg, mesh=mesh, data_degree=1, sp_degree=4)
+    small.layout = es.layout
+    data = SyntheticDataset(data_cfg)
+    data.load_state_dict({"step": 1})
+    moved, hist = small.run(moved, data, steps=2, log=lambda m: None)
+    if not (int(moved["step"]) == 2 and math.isfinite(hist[0])):
+        raise AssertionError(f"phase 22 (c): the step on {mesh.shape}: {hist}")
+    del moved
+    # checkpoint: saved on (2, 4), restored onto (4, 2)
+    d = tempfile.mkdtemp(prefix="phase22_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(d, keep=1)
+        mgr.save(1, state, layout=trainer.layout)
+        t_save = time.perf_counter() - t0
+        lay_b = trainer.layout.with_mesh(Mesh(("data", "model"), (4, 2)))
+        template = shard_tree(full, lay_b)
+        for x in tree_leaves(template):
+            x.zero_()
+        t0 = time.perf_counter()
+        restored = mgr.restore(1, template, layout=lay_b)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        ckpt_bytes = dir_bytes(Path(d))
+        if not same(restored, lay_b):
+            raise AssertionError("phase 22 (c): the (4, 2) restore is not bitwise the state")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del restored, template, state
+    # compressed psum over 8 virtual data ranks: rank r's gradient is the
+    # model's scaled by (4 + r) / 8
+    batch = batch_to_device(next(SyntheticDataset(data_cfg)), dev)
+    _, grads = value_and_grad(trainer.bundle.loss, full["params"], batch)
+    del full
+    free_device_memory(torch)
+    axis = VirtualRing(8, dev, link_class="data")
+    worst1 = worst30 = 0.0
+    t0 = time.perf_counter()
+    for g in tree_leaves(grads):
+        rows = torch.cat([g.float() * ((4 + r) / 8) for r in range(8)])
+        exact = sum(part.double() for part in rows.chunk(8)) / 8
+        scale = float(rows.abs().max()) / 127.0
+        e = torch.zeros_like(rows)
+        out, e = (x["w"] for x in compressed_psum_ef({"w": rows}, {"w": e}, axis=axis))
+        err1 = float((out[:g.shape[0]].double() - exact).abs().max())
+        acc = torch.zeros_like(exact)
+        for _ in range(30):
+            out, e = (x["w"] for x in compressed_psum_ef({"w": rows}, {"w": e}, axis=axis))
+            acc += out[:g.shape[0]].double()
+        err30 = float((acc / 30 - exact).abs().max())
+        if not (err1 <= scale + 1e-6 and err30 <= scale / 4 + 1e-6):
+            raise AssertionError(f"phase 22 (c): compressed psum off by {err1:.3e} after one "
+                                 f"step, {err30:.3e} over 30 (step {scale:.3e})")
+        worst1, worst30 = max(worst1, err1 / scale), max(worst30, err30 / scale)
+        del rows, exact, e, out, acc
+    t_comp = time.perf_counter() - t0
+    log(f"  ok phase 22 (c): migrate (2, 4) -> {dict(mesh.shape)} bitwise in {t_move:.2f} s, "
+        f"one step there (loss {hist[0]:.4f}); saved on (2, 4) ({ckpt_bytes / 1e9:.2f} GB of "
+        f"full arrays, {t_save:.1f} s), restored onto (4, 2) bitwise ({t_restore:.1f} s); "
+        f"compressed psum over 8 virtual data ranks on {len(tree_leaves(grads))} gradient "
+        f"leaves: worst error {worst1:.3f} of a step after one step (limit 1), {worst30:.3f} "
+        f"after 30 (limit 0.25), {t_comp:.1f} s")
+
+
 PROFILED_PHASES = (6, 9, 11, 13, 16, 17, 18, 19, 20)
 
 
@@ -5661,7 +6004,20 @@ def main() -> int:
         "the card's limits and the build's ptxas report, topology check)")
     phase_analysis(torch, dev)
 
-    log("== phase 22: summary")
+    log("== phase 22: data parallelism with FSDP storage: qwen3-1.7b at full width over the "
+        "virtual (data 2, model 4) mesh through TokenRing, checked at 2 layers in float32, "
+        "trained at full depth (main path) against the (1, 4) mesh, re-meshed, restored "
+        "across meshes, its gradients compressed over 8 data ranks")
+    t22 = time.perf_counter()
+    phase_dp_checked(torch, dev)
+    free_device_memory(torch)
+    launches["train_dp2_sp4"] = phase_train_dp(torch, dev)
+    free_device_memory(torch)
+    phase_dp_elastic(torch, dev)
+    free_device_memory(torch)
+    log(f"  phase 22 took {time.perf_counter() - t22:.1f} s")
+
+    log("== phase 23: summary")
     # `launches` is the count of the main path that runs the kernel (A, B1
     # and B2: whisper-base trained at full width and depth at SP 1, phase
     # 18's first training run; C, which no encoder-decoder path runs:

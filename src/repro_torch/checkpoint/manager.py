@@ -33,11 +33,21 @@ bfloat16.
 :meth:`CheckpointManager.restore` fills the template's tensors **in place**
 and returns the template: at qwen3-1.7b a second copy of the training state
 would cost another 20.6 GB of device memory.
+
+**FSDP state** (``repro_torch.sharding``; ``layout=``, the counterpart of
+the reference's ``restore(..., shardings=)``): a one-process save of the
+virtual mesh writes full arrays, as above; a group's save writes each
+rank's blocks under the same keys, and the manifest records the saving
+``mesh`` and each key's ``specs``.  :meth:`CheckpointManager.restore` with
+the target's layout (its mesh and rank) fills each leaf's blocks from
+whatever saved them: full arrays are cut, a group's blocks are assembled
+from every rank's file and then cut for the target mesh.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -115,19 +125,75 @@ def _dtype_name(leaf) -> str:
     return "bfloat16" if t.dtype == torch.bfloat16 else str(np.dtype(_NP_DTYPES[t.dtype]))
 
 
-def _fill(dst: torch.Tensor, arr: np.ndarray) -> None:
-    """Copy ``arr`` into ``dst``, reinterpreting 2-byte raw data as bf16
-    bits and casting any other dtype mismatch."""
-    if dst.dtype == torch.bfloat16:
+def _as_tensor(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """``arr`` as a CPU tensor of ``dtype``, reinterpreting 2-byte raw data
+    as bf16 bits and casting any other dtype mismatch."""
+    if dtype == torch.bfloat16:
         if arr.dtype.itemsize != 2 or arr.dtype.kind not in "Vui":
             raise ValueError(f"cannot read a {arr.dtype} leaf into bfloat16")
-        src = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
-    else:
-        want = np.dtype(_NP_DTYPES[dst.dtype])
-        src = torch.from_numpy(np.ascontiguousarray(arr if arr.dtype == want
-                                                    else arr.astype(want)))
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    want = np.dtype(_NP_DTYPES[dtype])
+    return torch.from_numpy(np.ascontiguousarray(arr if arr.dtype == want else arr.astype(want)))
+
+
+def _fill(dst: torch.Tensor, arr: np.ndarray) -> None:
+    """Copy ``arr`` into ``dst`` (:func:`_as_tensor`)."""
     with torch.no_grad():
-        dst.copy_(src.reshape(dst.shape))
+        dst.copy_(_as_tensor(arr, dst.dtype).reshape(dst.shape))
+
+
+def _spec_paths(specs, prefix=""):
+    """``(key, spec)`` of every leaf of a spec tree (a spec is a tuple or
+    ``None``), keyed as :func:`_paths` keys the tree it describes."""
+    if isinstance(specs, dict):
+        for k in sorted(specs):
+            yield from _spec_paths(specs[k], f"{prefix}{k}/")
+    elif isinstance(specs, list):
+        for i, sub in enumerate(specs):
+            yield from _spec_paths(sub, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], specs
+
+
+def _flat_specs(flat: dict, specs) -> dict:
+    """The spec of every key of ``_flatten(tree)``: a stacked ``layers`` key
+    takes its layer 0's (the layers share shapes, so the rules give them
+    one spec)."""
+    per = dict(_spec_paths(specs))
+    out = {}
+    for key in flat:
+        if key in per:
+            out[key] = per[key]
+        else:
+            m = re.fullmatch(r"(.*/)?layers(/.*)?", key)
+            out[key] = per[(m.group(1) or "") + "layers/0" + (m.group(2) or "")]
+    return out
+
+
+def _named(spec, mesh):
+    from repro_torch.sharding import spec_axes
+
+    return spec_axes(spec, mesh)
+
+
+def _spec_json(spec):
+    return None if spec is None else [list(e) if isinstance(e, tuple) else e for e in spec]
+
+
+def _spec_from_json(spec):
+    return None if spec is None else tuple(tuple(e) if isinstance(e, list) else e for e in spec)
+
+
+def _full_on_host(tree, layout):
+    """The full arrays of a virtual mesh's blocks, as CPU tensors (each
+    assembled on its own device, one leaf at a time)."""
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.sharding import assemble_blocks, spec_leaves
+
+    out = iter([x.detach().cpu().clone() if spec is None
+                else assemble_blocks(x.detach(), spec, layout.mesh).cpu()
+                for x, spec in zip(tree_leaves(tree), spec_leaves(layout.specs))])
+    return tree_map(lambda _: next(out), tree)
 
 
 class CheckpointManager:
@@ -157,15 +223,20 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- save
 
-    def save(self, step: int, tree, *, extra: dict | None = None, blocking: bool = True):
+    def save(self, step: int, tree, *, extra: dict | None = None, blocking: bool = True,
+             layout=None):
         """Snapshot ``tree`` (nested dicts and lists of tensors) at ``step``.
 
         The host copy is made before this returns, blocking or not; only the
         file I/O runs on the writer thread.  On a process group saves are
-        collective and blocking (the commit waits on every rank's file)."""
+        collective and blocking (the commit waits on every rank's file).
+        ``layout``: the tree's FSDP layout (module docstring)."""
         if self.group is not None and not blocking:
             raise ValueError("saves on a process group are collective: pass blocking=True")
         self.wait()  # one in-flight async save at a time
+        sharded = layout is not None and layout.rank is not None
+        if layout is not None and not sharded:
+            tree = _full_on_host(tree, layout)
         flat = _flatten(tree)
         host = {k: _to_host(v) for k, v in flat.items()}
         manifest = {
@@ -177,6 +248,11 @@ class CheckpointManager:
             "process_count": self.procs,
             "time": time.time(),
         }
+        if sharded:
+            manifest["mesh"] = {"axis_names": list(layout.mesh.axis_names),
+                                "axis_sizes": list(layout.mesh.axis_sizes)}
+            manifest["specs"] = {k: _spec_json(v) for k, v in _flat_specs(flat, layout.specs)
+                                 .items()}
         proc_file = f"proc_{self.rank:05d}.npz"
 
         if self.group is not None:
@@ -251,17 +327,23 @@ class CheckpointManager:
             steps.append(step)
         return max(steps) if steps else None
 
-    def restore(self, step: int, template):
+    def restore(self, step: int, template, *, layout=None):
         """Fill ``template`` (the tree :meth:`save` took, or one of the same
         keys and shapes) in place from the checkpoint at ``step`` and return
         it.  A process of a group reads its own shard when the checkpoint
         was saved by as many ranks; otherwise every file is read.  A stacked
         ``layers`` leaf fills the template's per-layer tensors, so a
-        checkpoint of the JAX tree restores into the port's layout."""
+        checkpoint of the JAX tree restores into the port's layout.
+        ``layout``: the template's FSDP layout on the target mesh (module
+        docstring); a checkpoint a group saved with its mesh restores onto
+        any target."""
         path = self._step_dir(step)
         if not os.path.exists(path + ".COMMITTED"):
             raise FileNotFoundError(f"no committed checkpoint at step {step}")
-        procs = self.manifest(step).get("process_count", 1)
+        manifest = self.manifest(step)
+        if "mesh" in manifest or layout is not None:
+            return self._restore_sharded(path, manifest, template, layout)
+        procs = manifest.get("process_count", 1)
         names = ([f"proc_{self.rank:05d}.npz"] if self.procs > 1 and procs == self.procs
                  else sorted(n for n in os.listdir(path) if n.endswith(".npz")))
         files = [np.load(os.path.join(path, n)) for n in names]
@@ -278,6 +360,67 @@ class CheckpointManager:
                         _fill(t, arr[i])
                 else:
                     _fill(leaf, arr)
+        finally:
+            for z in files:
+                z.close()
+        return template
+
+    def _restore_sharded(self, path, manifest, template, layout):
+        """:meth:`restore` across meshes: each key's full array (as saved, or
+        assembled from every rank's blocks), cut to the target's blocks."""
+        from repro_torch.launch.mesh import Mesh
+        from repro_torch.sharding import assemble_blocks, block_index, cut_blocks
+
+        saved = manifest.get("mesh")
+        if saved is not None:
+            mesh_s = Mesh(tuple(saved["axis_names"]), tuple(saved["axis_sizes"]))
+            specs_s = {k: _spec_from_json(v) for k, v in manifest["specs"].items()}
+        names = sorted(n for n in os.listdir(path) if n.endswith(".npz"))
+        files = [np.load(os.path.join(path, n)) for n in names]
+        try:
+            flat = _flatten(template)
+            missing = sorted(k for k in flat if k not in files[0].files)
+            if missing:
+                raise ValueError(f"checkpoint missing keys: {missing[:5]} ...")
+            specs_t = _flat_specs(flat, layout.specs) if layout is not None else {}
+
+            def full(key, layer):
+                if saved is None:
+                    arr = files[0][key]
+                    return arr if layer is None else arr[layer]
+                spec = specs_s[key]
+                if spec is None:
+                    arr = files[0][key]
+                    return arr if layer is None else arr[layer]
+                G = math.prod(mesh_s.shape[a] for a in _named(spec, mesh_s))
+                owner = {}
+                for r in range(mesh_s.size):
+                    owner.setdefault(block_index(spec, mesh_s, r), r)
+                parts = []
+                for j in range(G):
+                    arr = files[owner[j]][key]
+                    parts.append((arr if layer is None else arr[layer])[0])
+                return assemble_blocks(np.stack(parts), spec, mesh_s)
+
+            def fill(dst, key, arr):
+                """The target's blocks of ``arr``, cut on ``dst``'s device."""
+                spec = specs_t.get(key)
+                if spec is None:
+                    return _fill(dst, arr)
+                src = _as_tensor(arr, dst.dtype).to(dst.device)
+                blocks = cut_blocks(src, spec, layout.mesh)
+                if layout.rank is not None:
+                    i = block_index(spec, layout.mesh, layout.rank)
+                    blocks = blocks[i:i + 1]
+                with torch.no_grad():
+                    dst.copy_(blocks)
+
+            for key, leaf in flat.items():
+                if isinstance(leaf, list):
+                    for i, t in enumerate(leaf):
+                        fill(t, key, full(key, i))
+                else:
+                    fill(leaf, key, full(key, None))
         finally:
             for z in files:
                 z.close()

@@ -50,6 +50,16 @@ is whole on the virtual ring and the rank's stripe of pages on a process
 group.  The query side and the result are replicated.  The plans are built
 once per shape and window and kept on the context.
 
+With ``data_degree > 1`` (or a ``mesh``, ``launch/mesh.py``) the context
+adds the reference's data axis: ``plan`` prices one data rank's batch, the
+trainer stores parameters and moments by the FSDP rules
+(``repro_torch.sharding``) over ``storage``, the mesh's collectives, and
+``data`` is the data axis's view.  On the virtual mesh the model sees the
+global batch and the ring folds its ranks in front of it; on a process
+group of the whole mesh (``ring=`` its group) the context factors it into
+the SP ring (the ranks that share a data index) and the data view (the
+ranks that share a model index), ``core/collectives.py`` "The data axis".
+
 The attention-free families run :func:`sp_scan`, a diagonal linear
 recurrence whose sequence :meth:`ParallelContext.plan_scan` shards
 contiguously over the flat ring whatever the layout
@@ -211,23 +221,83 @@ class ParallelContext:
     overlap: bool = True
     # The ring transport: None is the virtual ring of sp_degree ranks on
     # `device`; a torch.distributed process group (or a transport of
-    # core.collectives) runs one rank per process.
+    # core.collectives) runs one rank per process.  With a mesh, a process
+    # group holds every rank of the mesh and the context factors it.
     ring: Any = None
+    # Data parallelism: the batch divides over `data_degree` data ranks
+    # (the reference's data_axis, as a size; 1 when the mesh's data axis is
+    # dropped because the batch does not divide).  `mesh`
+    # (launch.mesh.Mesh: ("data", "model") or ("pod", "data", "model"))
+    # is made from the degrees when data_degree > 1 and none is given; with
+    # a mesh the trainer stores parameters and moments by the FSDP rules
+    # (repro_torch.sharding).
+    data_degree: int = 1
+    mesh: Any = None
+    # The mesh's FSDP collectives (core.collectives' mesh transports): made
+    # here from the mesh and `ring`; `dataclasses.replace` passes it on.
+    storage: Any = None
 
     def __post_init__(self):
-        from repro_torch.core.collectives import ProcessGroupRing, VirtualRing
+        from repro_torch.core.collectives import (
+            ProcessGroupMeshComm,
+            ProcessGroupRing,
+            VirtualMeshComm,
+            VirtualRing,
+        )
 
-        ring = self.ring
-        if ring is None:
+        if self.pods < 1 or self.sp_degree % self.pods:
+            raise ValueError(f"pods={self.pods} does not divide sp_degree={self.sp_degree}")
+        mesh = self.mesh
+        if mesh is None and self.data_degree > 1:
+            from repro_torch.launch.mesh import data_mesh
+
+            mesh = data_mesh(self.data_degree, self.sp_degree // self.pods, self.pods)
+        if mesh is not None:
+            shape = mesh.shape
+            if shape.get("pod", 1) != self.pods or shape.get("pod", 1) * shape["model"] != \
+                    self.sp_degree:
+                raise ValueError(f"mesh {shape} does not hold sp_degree={self.sp_degree} in "
+                                 f"pods={self.pods}")
+            if self.data_degree not in (1, shape["data"]):
+                raise ValueError(f"data_degree={self.data_degree} on a data axis of "
+                                 f"{shape['data']}")
+        object.__setattr__(self, "mesh", mesh)
+        ring, storage = self.ring, self.storage
+        if mesh is not None and storage is None:
+            if ring is not None and not hasattr(ring, "post"):
+                # one process a rank of the mesh: the SP ring and the data
+                # view are subgroups of it (core/collectives.py, "The data
+                # axis")
+                storage = ProcessGroupMeshComm(mesh, ring)
+                sp_axes = ("pod", "model") if self.pods > 1 else ("model",)
+                ring = storage.view(sp_axes, "link")
+                if ring is not None and self.pods > 1:
+                    ring._splits[self.pods] = (storage.view(("pod",), "inter"),
+                                               storage.view(("model",), "intra"))
+            elif ring is None or ring.folded:
+                if ring is None and self.sp_degree > 1:
+                    ring = VirtualRing(self.sp_degree, self.device, groups=self.data_degree)
+                storage = VirtualMeshComm(mesh, ring.ledger if ring is not None else None)
+            else:
+                raise ValueError("a mesh over processes takes their torch.distributed group "
+                                 "as ring=, not a ring transport")
+        elif ring is None:
             if self.sp_degree > 1:
                 ring = VirtualRing(self.sp_degree, self.device)
         elif not hasattr(ring, "post"):
             ring = ProcessGroupRing(ring)
         if ring is not None and ring.size != self.sp_degree:
             raise ValueError(f"the ring has {ring.size} ranks, sp_degree is {self.sp_degree}")
-        if self.pods < 1 or self.sp_degree % self.pods:
-            raise ValueError(f"pods={self.pods} does not divide sp_degree={self.sp_degree}")
         object.__setattr__(self, "ring", ring)
+        object.__setattr__(self, "storage", storage)
+        # the data axis's view (None without a mesh): a ring of the data
+        # ranks on the storage's ledger, class "data"
+        data = None
+        if storage is not None:
+            data = (VirtualRing(mesh.shape["data"], self.device, link_class="data",
+                                ledger=storage.ledger) if storage.folded
+                    else storage.view(("data",), "data"))
+        object.__setattr__(self, "data", data)
         # (pod ring, inner ring): the views of the two axes (a process group
         # makes their subgroups here, on every rank alike)
         object.__setattr__(self, "axis_rings", ring.split(self.pods) if self.pods > 1 else None)
@@ -240,6 +310,24 @@ class ParallelContext:
     @property
     def active(self) -> bool:
         return self.sp_degree > 1
+
+    @property
+    def data_axis(self) -> str | None:
+        """The batch's mesh axis (the reference's ``data_axis``): ``"data"``
+        when the batch divides over it, else ``None``."""
+        if self.mesh is None or self.data_degree != self.mesh.shape["data"]:
+            return None
+        return "data"
+
+    def seq_spec(self):
+        """The spec entry of the sequence dimension: the SP axes."""
+        if self.mesh is None:
+            return None
+        return ("pod", "model") if "pod" in self.mesh.axis_names else "model"
+
+    def _local(self, shapes: AttnShapes) -> AttnShapes:
+        """Cost models are per rank: the batch dim shards over data."""
+        return replace(shapes, B=max(1, shapes.B // self.data_degree))
 
     @property
     def decode_block_k(self) -> int:
@@ -281,6 +369,7 @@ class ParallelContext:
                 f"sequence length {shapes.Sq}/{shapes.seq_kv} not divisible "
                 f"by SP degree {P_sp}"
             )
+        shapes = self._local(shapes)
         kw = self._kernel_kw(causal, window, scale)
         if topology is not None:
             return self._plan_topology(topology, shapes, causal=causal, window=window, kw=kw)
@@ -495,6 +584,7 @@ class ParallelContext:
         (block-table width) adds the paged cache's table term."""
         if shapes is None:
             return None
+        shapes = self._local(shapes)
         return strategy_cost(
             get_strategy(name), shapes.B, shapes.Sq, shapes.Hq, shapes.Hkv, shapes.D,
             self.sp_degree, bytes_per_elem=shapes.dtype_bytes, bidir_links=self.bidir_links,
@@ -784,8 +874,9 @@ def sp_attention(q, k, v, q_pos, k_pos, *, pctx: ParallelContext, causal: bool =
         return out
     ring = pctx.ring
     _check_ring_device(pctx, q)
-    shards = 1 if ring.folded else pctx.sp_degree  # a process group passes its shard
-    shapes = AttnShapes(B=B, Sq=Sq * shards, Hq=Hq, Hkv=Hkv, D=D, Sk=Sk * shards,
+    # a process group passes its shard: the shapes are global
+    shards, data = (1, 1) if ring.folded else (pctx.sp_degree, pctx.data_degree)
+    shapes = AttnShapes(B=B * data, Sq=Sq * shards, Hq=Hq, Hkv=Hkv, D=D, Sk=Sk * shards,
                         dtype_bytes=q.element_size())
     plan = pctx.plan(shapes, causal=causal, window=window, scale=scale)
     return plan(q, k, v, q_pos, k_pos)

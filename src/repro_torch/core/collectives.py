@@ -64,6 +64,23 @@ is; on a process group each rank's copy has its own cotangent and the
 backward sums them.  The ``max`` is forward only.  An axis view reduces
 over its own axis: the result holds one block a ring of the other axis.
 
+**The data axis.**  A mesh of ``D x P`` ranks (``launch/mesh.py``) adds a
+data axis to the ring.  On the **virtual mesh** the model sees the global
+batch, data-major (data rank ``d``'s rows ``[d*B/D, (d+1)*B/D)``), and the
+ring folds its ``P`` ranks in front of it as above (``groups=D`` tells the
+counters that each folded rank's rows hold ``D`` data ranks' rows), so a
+shift stays within one data index.  On a **process group** of ``D x P``
+ranks, :class:`ProcessGroupMeshComm` factors the transport as ``split``
+does: the SP ring is the subgroup that shares a data index, the data view
+the subgroup that shares a model index, both on one ledger.  The mesh
+transports (:class:`VirtualMeshComm`, :class:`ProcessGroupMeshComm`) run
+the FSDP storage's collectives (``repro_torch.sharding``): ``gather`` (an
+all-gather of blocks), ``reduce_scatter`` (sum) and ``all_reduce`` (sum)
+over any set of mesh axes, each charged to the ledger's ``"data"`` class:
+an all-gather of a block of ``n`` bytes over ``G`` ranks ``(G-1) * n / 2``
+a direction, a reduce-scatter of ``G * n`` bytes ``(G-1)/G * G * n / 2``,
+an all-reduce of ``n`` bytes over ``A`` ranks ``(A-1)/A * n``.
+
 **What is counted.**  Every transport counts what it is handed, per rank and
 per ring direction (``"fwd"`` for ``s > 0``, ``"bwd"`` for ``s < 0``), in
 the cost models' units, in one ledger that a ring shares with its views:
@@ -91,7 +108,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ring_perm", "Pending", "VirtualRing", "ProcessGroupRing", "fold_ranks",
-           "unfold_ranks"]
+           "unfold_ranks", "VirtualMeshComm", "ProcessGroupMeshComm"]
 
 
 def ring_perm(P: int, shift: int):
@@ -147,10 +164,17 @@ class _Ledger:
 
 class _Counters:
     """The counting side of a transport: ``link_class`` names its sends'
-    class, ``folded_ranks`` how many ranks' rows one tensor holds."""
+    class, ``folded_ranks`` how many ranks' rows one tensor holds, and
+    ``data_groups`` how many data ranks' rows each of those holds (the
+    virtual mesh: the ring's ranks see the whole batch)."""
 
     link_class = "link"
     folded_ranks = 1
+    data_groups = 1
+
+    @property
+    def _counted_ranks(self):
+        return self.folded_ranks * self.data_groups
 
     @property
     def link_bytes(self):
@@ -176,7 +200,7 @@ class _Counters:
             return
         way = "fwd" if shift > 0 else "bwd"
         for t in tensors:
-            nbytes = t.numel() * t.element_size() / self.folded_ranks * abs(shift)
+            nbytes = t.numel() * t.element_size() / self._counted_ranks * abs(shift)
             if t.is_floating_point():
                 self.ledger.add(self.link_class, way, nbytes)
             else:
@@ -190,7 +214,7 @@ class _Counters:
     def _count_all_to_all(self, x, lse: bool):
         if self.size == 1:
             return
-        half = x.numel() * x.element_size() / self.folded_ranks / 2
+        half = x.numel() * x.element_size() / self._counted_ranks / 2
         for way in ("fwd", "bwd"):
             if lse:
                 self.ledger.lse_bytes[way] += half
@@ -200,7 +224,7 @@ class _Counters:
                 self.ledger.position_bytes[way] += half
 
     def _count_all_gather(self, x):
-        per_dir = (self.size - 1) * x.numel() * x.element_size() / self.folded_ranks / 2
+        per_dir = (self.size - 1) * x.numel() * x.element_size() / self._counted_ranks / 2
         for way in ("fwd", "bwd"):
             if x.is_floating_point():
                 self.ledger.add(self.link_class, way, per_dir)
@@ -334,12 +358,14 @@ class VirtualRing(_Counters):
     # whose inner axis holds every rank
     pods, axis = 1, 1
 
-    def __init__(self, size: int, device="cuda"):
+    def __init__(self, size: int, device="cuda", *, groups: int = 1, link_class: str = "link",
+                 ledger=None):
         if size < 1:
             raise ValueError(f"ring size must be >= 1, got {size}")
         self.size = self.folded_ranks = size
+        self.data_groups, self.link_class = groups, link_class
         self.device = torch.device(device)
-        self.ledger = _Ledger()
+        self.ledger = ledger if ledger is not None else _Ledger()
         self._stream = None
         self._splits = {}
 
@@ -423,7 +449,7 @@ class VirtualRing(_Counters):
         """The ranks' row blocks of ``x`` reduced with ``op`` in rank order,
         on the current stream."""
         parts = self._by_axis(x)
-        self._count_all_reduce(x.numel() // self.folded_ranks * x.element_size())
+        self._count_all_reduce(x.numel() * x.element_size() / self._counted_ranks)
         acc = parts[0].clone()
         for r in range(1, self.size):
             if op == "max":
@@ -434,7 +460,7 @@ class VirtualRing(_Counters):
 
     def _reduce_transpose(self, g):
         """The cotangent of the one shared result to every rank's rows."""
-        self._count_all_reduce(g.numel() * self.size // self.folded_ranks * g.element_size())
+        self._count_all_reduce(g.numel() * self.size * g.element_size() / self._counted_ranks)
         return self._from_axis(g.expand(self.size, *g.shape))
 
 
@@ -446,7 +472,7 @@ class _VirtualAxisRing(VirtualRing):
     def __init__(self, parent: VirtualRing, pods: int, axis: int):
         self.parent, self.pods, self.axis = parent, pods, axis
         self.size = pods if axis == 0 else parent.size // pods
-        self.folded_ranks = parent.size
+        self.folded_ranks, self.data_groups = parent.size, parent.data_groups
         self.device, self.ledger = parent.device, parent.ledger
         self.link_class = ("inter", "intra")[axis]
         self._splits = {}
@@ -610,3 +636,182 @@ class ProcessGroupRing(_Counters):
     def _reduce_transpose(self, g):
         """The ranks' cotangents summed: the same sum all-reduce."""
         return self._reduce(g, "sum")
+
+
+class _MeshCounts:
+    """The counting side of a mesh transport (module docstring, "The data
+    axis"): every collective of the data-parallel layer is charged to the
+    ledger's ``"data"`` class, per rank."""
+
+    link_class = "data"
+
+    def _axes_size(self, axes) -> int:
+        n = 1
+        for a in axes:
+            n *= self.mesh.shape[a]
+        return n
+
+    def _charge(self, per_dir: float):
+        if per_dir:
+            self.ledger.add(self.link_class, "fwd", per_dir)
+            self.ledger.add(self.link_class, "bwd", per_dir)
+
+    def _count_gather(self, blocks, axes):
+        G = self._axes_size(axes)
+        self._charge((G - 1) * blocks[0].numel() * blocks.element_size() / 2)
+
+    def _count_reduce_scatter(self, full_blocks, axes):
+        G = self._axes_size(axes)
+        self._charge((G - 1) / G * full_blocks.numel() * full_blocks.element_size() / 2)
+
+    def _count_all_reduce(self, blocks, axes):
+        A = self._axes_size(axes)
+        self._charge((A - 1) / A * blocks[0].numel() * blocks.element_size())
+
+
+class VirtualMeshComm(_MeshCounts):
+    """The data-parallel collectives of a virtual mesh: every rank in this
+    process.  A sharded leaf holds every distinct block, and the one full
+    gradient of the step already sums every rank's (the batch holds every
+    data rank's rows), so a gather, reduce-scatter or all-reduce moves
+    nothing: it charges what each rank would send and returns its input."""
+
+    folded = True
+    rank = None
+
+    def __init__(self, mesh, ledger=None):
+        self.mesh = mesh
+        self.ledger = ledger if ledger is not None else _Ledger()
+
+    def gather(self, blocks, axes, count: bool = True):
+        """``(G, *block)`` blocks of the named group -> all of them."""
+        if count:
+            self._count_gather(blocks, axes)
+        return blocks
+
+    def reduce_scatter(self, full_blocks, axes):
+        self._count_reduce_scatter(full_blocks, axes)
+        return full_blocks
+
+    def all_reduce(self, blocks, axes):
+        self._count_all_reduce(blocks, axes)
+        return blocks
+
+    def world_sum(self, x):
+        return x
+
+    def owns(self, axes) -> bool:
+        return True
+
+
+class ProcessGroupMeshComm(_MeshCounts):
+    """The data-parallel collectives of a ``torch.distributed`` group of
+    ``mesh.size`` ranks, rank ``r`` at ``mesh.coords(r)``.  It makes a
+    subgroup for every set of axes (the ranks that share the other
+    coordinates) at construction, on every rank in the same order, so the
+    views it hands out never call ``new_group`` on some ranks only.
+    ``reduce_scatter`` is an all-reduce of which the rank keeps its block,
+    which every backend has (gloo has no reduce-scatter); the ledger
+    charges a reduce-scatter."""
+
+    folded = False
+
+    def __init__(self, mesh, group=None, *, ledger=None):
+        import itertools
+
+        import torch.distributed as dist
+
+        self.mesh = mesh
+        self.group = group if group is not None else dist.group.WORLD
+        if dist.get_world_size(self.group) != mesh.size:
+            raise ValueError(f"a group of {dist.get_world_size(self.group)} ranks cannot run a "
+                             f"mesh of {mesh.size}")
+        self.rank = dist.get_rank(self.group)
+        self.ledger = ledger if ledger is not None else _Ledger()
+        glob = [dist.get_global_rank(self.group, r) if self.group is not dist.group.WORLD else r
+                for r in range(mesh.size)]
+        self._groups = {}
+        names = mesh.axis_names
+        for n in range(1, len(names) + 1):
+            for axes in itertools.combinations(names, n):
+                if n == len(names):
+                    self._groups[axes] = self.group
+                    continue
+                seen = set()
+                for r in range(mesh.size):
+                    members = tuple(mesh.group(axes, r))
+                    if members in seen:
+                        continue
+                    seen.add(members)
+                    g = dist.new_group([glob[m] for m in members])
+                    if self.rank in members:
+                        self._groups[axes] = g
+
+    def _key(self, axes):
+        return tuple(a for a in self.mesh.axis_names if a in axes)
+
+    def _pg(self, axes):
+        return self._groups[self._key(axes)]
+
+    def view(self, axes, link_class: str):
+        """A :class:`ProcessGroupRing` over the ranks that share this rank's
+        other coordinates, on this transport's ledger (``None`` for one
+        rank)."""
+        if self._axes_size(axes) == 1:
+            return None
+        return ProcessGroupRing(self._pg(axes), ledger=self.ledger, link_class=link_class)
+
+    def gather(self, blocks, axes, count: bool = True):
+        """This rank's ``(1, *block)`` -> the group's ``(G, *block)`` in
+        row-major order over ``axes``."""
+        import torch.distributed as dist
+
+        if count:
+            self._count_gather(blocks, axes)
+        G = self._axes_size(axes)
+        if G == 1:
+            return blocks
+        blocks = blocks.contiguous()
+        parts = [torch.empty_like(blocks) for _ in range(G)]
+        dist.all_gather(parts, blocks, group=self._pg(axes))
+        return torch.cat(parts, dim=0)
+
+    def reduce_scatter(self, full_blocks, axes):
+        """``(G, *block)`` summed over the group; this rank's block kept."""
+        import torch.distributed as dist
+
+        self._count_reduce_scatter(full_blocks, axes)
+        G = self._axes_size(axes)
+        if G == 1:
+            return full_blocks
+        pg = self._pg(axes)
+        y = full_blocks.contiguous().clone()
+        dist.all_reduce(y, group=pg)
+        i = dist.get_rank(pg)
+        return y[i:i + 1].clone()
+
+    def all_reduce(self, blocks, axes):
+        import torch.distributed as dist
+
+        self._count_all_reduce(blocks, axes)
+        if self._axes_size(axes) == 1:
+            return blocks
+        y = blocks.contiguous().clone()
+        dist.all_reduce(y, group=self._pg(axes))
+        return y
+
+    def world_sum(self, x):
+        """A sum over every rank of the mesh, not counted (the step's
+        scalars)."""
+        import torch.distributed as dist
+
+        y = x.detach().clone()
+        dist.all_reduce(y, group=self.group)
+        return y
+
+    def owns(self, axes) -> bool:
+        """Whether this rank is the first holder of its block of a leaf
+        sharded over ``axes`` (coordinate 0 on every other axis): the one
+        that counts it once."""
+        c = self.mesh.coords(self.rank)
+        return all(c[a] == 0 for a in self.mesh.axis_names if a not in axes)

@@ -32,6 +32,13 @@ halo, its RG-LRU through the scan, the conv's halo on a process group;
   PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
       --reduced --device cpu --steps 20 --batch 4 --seq 128 --sp-degree 4
 
+Example (data parallelism with FSDP storage: 2 data ranks x TokenRing over
+4 virtual ranks, the virtual (data 2, model 4) mesh; ``--data-degree`` D
+times ``--sp-degree`` ranks, the parameters and AdamW moments stored by the
+ZeRO-3 rules, ``repro_torch.sharding``):
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
+      --steps 20 --batch 4 --seq 128 --data-degree 2 --sp-degree 4
+
 Example (checkpoints every 5 steps, a failure injected at step 7):
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
       --steps 12 --batch 4 --seq 128 --ckpt build/ckpt --ckpt-every 5 --fail-at 7
@@ -81,6 +88,9 @@ def main(argv=None):
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--sp-degree", type=int, default=1,
                     help="ranks of the virtual sequence-parallel ring")
+    ap.add_argument("--data-degree", type=int, default=1,
+                    help="data ranks: D x --sp-degree ranks form the virtual (data, model) "
+                    "mesh; FSDP storage is on whenever D > 1 (the reference's layout)")
     ap.add_argument("--pods", type=int, default=1,
                     help="pods of the ring: with N > 1 the multi-pod hybrid (inter-pod KV "
                     "ring x --strategy inside each pod of sp-degree/N ranks)")
@@ -110,6 +120,7 @@ def main(argv=None):
     pctx = ParallelContext(impl=args.impl, block_q=args.block_q, block_k=args.block_k,
                            block_q_bwd=args.block_q_bwd, block_k_bwd=args.block_k_bwd,
                            device=args.device, sp_degree=args.sp_degree, pods=args.pods,
+                           data_degree=args.data_degree,
                            strategy=args.strategy, layout=cfg.layout,
                            travel_dtype=args.travel_dtype, overlap=not args.no_overlap)
     bundle = build_model(cfg, pctx)
@@ -128,9 +139,13 @@ def main(argv=None):
           else "")
     if args.pods > 1:
         sp += f" ({args.pods} pods, an inter-pod KV ring outside)"
+    if args.data_degree > 1:
+        sp += (f"; {args.data_degree} data ranks, FSDP storage on the "
+               f"{dict(pctx.mesh.shape)} mesh")
 
     def banner(state):
-        print(f"{cfg.name}: {n_params(state['params']) / 1e6:.1f}M parameters, batch "
+        n = n_params(trainer.full_params(state))
+        print(f"{cfg.name}: {n / 1e6:.1f}M parameters, batch "
               f"{args.batch} x seq {args.seq}, remat {cfg.remat}, on {args.device}{sp}")
 
     if args.ckpt:

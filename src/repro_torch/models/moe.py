@@ -239,15 +239,23 @@ def _moe_ffn_a2a(p, x, cfg, pctx, sharded=False):
 
     ``C_sd = ceil(T_loc/P * capacity_factor)``, ``C_e = ceil(P*C_sd/E_loc *
     capacity_factor)``, each rounded up to 8.  Capacity is shared by every
-    row of a rank.  The aux statistics are averaged over every rank before
-    their product (a mean of products is not the product of means)."""
+    row of a rank: with a data axis, of a (data, SP) rank, sized from the
+    data rank's local batch as the reference's ``Bl = x.shape[0]`` is (on
+    the virtual mesh each folded rank's rows split into ``data_groups``
+    routing groups, which the exchange keeps apart row by row).  The aux
+    statistics are averaged over every rank, the ring's and the data
+    axis's, before their product (a mean of products is not the product
+    of means)."""
     E, K, d = cfg.n_experts, cfg.n_experts_per_token, x.shape[-1]
     dt = torch_dtype(cfg.dtype)
     ring, P = pctx.ring, pctx.sp_degree
     ep, Pn = _ep_ring(cfg, pctx)
     E_loc = E // Pn
     xr = _ranked(x, pctx, sharded)
-    R, Bl, Sl = xr.shape[:3]
+    Rf, Bf, Sl = xr.shape[:3]
+    groups = ring.data_groups
+    xr = xr.reshape(Rf * groups, Bf // groups, Sl, d)
+    R, Bl = xr.shape[:2]
     T = Bl * Sl * K
     C_sd = _round8(int(T / Pn * cfg.capacity_factor))
     C_e = _round8(int(Pn * C_sd / E_loc * cfg.capacity_factor))
@@ -284,7 +292,8 @@ def _moe_ffn_a2a(p, x, cfg, pctx, sharded=False):
     pos_e = _positions(re_c, E_loc, valid.to(torch.int32))
     keep_e = valid & (pos_e < C_e)
     buf = _scatter((R, E_loc, C_e, d), (ranks, re_c, torch.where(keep_e, pos_e, C_e)), rx)
-    wg, wu, wd = _local_experts(p, Pn, R, ring, dt)
+    wg, wu, wd = (w.repeat_interleave(groups, 0) if groups > 1 else w
+                  for w in _local_experts(p, Pn, Rf, ring, dt))
     yb = _swiglu_experts(buf, wg, wu, wd, ("rec", "re"))
     y_ent = yb[ranks, re_c, torch.where(keep_e, pos_e, C_e - 1)] * keep_e[..., None].to(dt)
 
@@ -294,10 +303,15 @@ def _moe_ffn_a2a(p, x, cfg, pctx, sharded=False):
     flat_slot = send_s.reshape(R, Rr).long()
     y_tok = _scatter((R, T, d), (ranks, torch.where(flat_slot >= 0, flat_slot, T)), y_recv)
     y = (y_tok.float() * flat_g[..., None]).reshape(R, Bl * Sl, K, d).sum(2)
-    y = _unranked(y.reshape(R, Bl, Sl, d).to(dt), pctx, sharded)
+    y = _unranked(y.reshape(Rf, Bf, Sl, d).to(dt), pctx, sharded)
 
-    def pmean(t):  # over every SP rank: (R, E) -> (1, E)
-        return ring.all_reduce(t, "sum") / P
+    def pmean(t):  # over every rank of the mesh: (R, E) -> (1, E)
+        t = ring.all_reduce(t, "sum") / P  # (groups, E)
+        if groups > 1:
+            t = t.mean(0, keepdim=True)
+        elif pctx.data is not None and not ring.folded and pctx.data_degree > 1:
+            t = pctx.data.all_reduce(t, "sum") / pctx.data_degree
+        return t
 
     aux = _aux_loss(probs, expert_idx, E, K, (1, 2), reduce=pmean)
     return y, aux[0]

@@ -50,9 +50,24 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+def global_norm(tree, *, layout=None, comm=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree``.  With FSDP storage
+    (``repro_torch.sharding``: ``layout`` and the mesh transport ``comm``)
+    the leaves are blocks: on the virtual mesh each distinct block is
+    present once, so the norm is the full tree's; on a process group each
+    rank sums the squares of the blocks it is the first holder of (a block
+    that its spec replicates over an axis counts once, not once per rank
+    on that axis) and the sums are all-reduced over the mesh."""
+    leaves = tree_leaves(tree)
+    grouped = comm is not None and not comm.folded
+    if grouped:
+        from repro_torch.sharding import spec_leaves, spec_axes
+
+        mesh = layout.mesh
+        leaves = [x if comm.owns(spec_axes(s, mesh) if s is not None else ()) else x[:0]
+                  for x, s in zip(leaves, spec_leaves(layout.specs))]
+    total = torch.sum(torch.stack([torch.sum(torch.square(x.float())) for x in leaves]))
+    return torch.sqrt(comm.world_sum(total) if grouped else total)
 
 
 def adamw_init(params):
@@ -66,14 +81,18 @@ def adamw_init(params):
 
 
 @torch.no_grad()
-def adamw_update(grads, state, params, *, lr, cfg: AdamWConfig = AdamWConfig()):
+def adamw_update(grads, state, params, *, lr, cfg: AdamWConfig = AdamWConfig(), layout=None,
+                 comm=None):
     """One AdamW step; ``lr`` is a float or a scalar tensor (a schedule value).
+    ``layout``/``comm``: the parameters' FSDP blocks (:func:`global_norm`);
+    every other operation is elementwise, so blocks update as the full
+    tensors would.
 
     Updates ``params`` and ``state`` in place and returns ``(params, state,
     metrics)``.
     """
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, layout=layout, comm=comm)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     step_f = step.float()

@@ -9,6 +9,21 @@ in the JAX loop, so the step time it logs is the device's.  With
 position) every ``checkpoint_every`` steps through
 :class:`~repro_torch.checkpoint.manager.CheckpointManager`, by default
 asynchronously: the host copy is taken before the next in-place step.
+
+**On a mesh** (``bundle.pctx.mesh``: a data axis, ``--data-degree`` > 1)
+the state holds FSDP blocks (``repro_torch.sharding``) of the parameters
+and of both AdamW moments, laid out by the rules on the mesh.  A step
+gathers the parameters once (one differentiable all-gather; its backward
+reduce-scatters and all-reduces the gradients), computes the loss and its
+gradients, and updates the blocks in place.  The loss is the token-weighted
+mean over the global batch, ``sum(loss_r * tokens_r) / sum(tokens_r)``
+over every rank, what the reference's SPMD loss is: on the virtual mesh the
+model sees the whole batch, so its loss is that mean already; on a process
+group each rank backpropagates ``loss_r * tokens_r / sum(tokens)``, and the
+gradient's reduce-scatter sums the ranks.  :func:`batch_to_device` cuts a
+process's (data, sequence) block of the numpy batch.  Checkpoints of the
+virtual mesh hold full arrays; a process group's hold each rank's blocks
+and the mesh and specs in the manifest, and restore onto any mesh.
 """
 
 from __future__ import annotations
@@ -50,8 +65,15 @@ def cosine_lr(cfg: TrainerConfig, step):
     return cfg.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * t))
 
 
-def batch_to_device(batch, device):
-    """A numpy batch (``data.synthetic``) as tensors on ``device``."""
+def batch_to_device(batch, device, pctx=None):
+    """A numpy batch (``data.synthetic``) as tensors on ``device``: on a
+    process group of a mesh (``pctx``), this rank's (data, sequence) block
+    by ``sharding.batch_shardings``; otherwise the whole batch."""
+    storage = getattr(pctx, "storage", None)
+    if storage is not None and not storage.folded:
+        from repro_torch.sharding import batch_block
+
+        batch = batch_block(batch, pctx, storage.rank)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
 
 
@@ -64,7 +86,12 @@ class Trainer:
             raise RuntimeError(
                 "Trainer on device 'cuda' needs a CUDA device and none is available; build "
                 "the bundle with ParallelContext(device='cpu') to train on the CPU")
-        self.ckpt = (CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints)
+        pctx = bundle.pctx
+        self.comm = pctx.storage  # the mesh's FSDP collectives; None: no mesh
+        self.layout = None  # the state's FSDP layout, set when the state is built
+        group = None if self.comm is None or self.comm.folded else self.comm.group
+        self.ckpt = (CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints,
+                                       group=group)
                      if tcfg.checkpoint_dir else None)
         self.straggler = StragglerDetector()
         self.step_hook = step_hook  # called as (step,) before each step
@@ -74,14 +101,62 @@ class Trainer:
 
     def init_state(self, seed: int):
         """Seeded random parameters in the training layout (every leaf in
-        ``cfg.param_dtype``), zero AdamW moments, step 0."""
+        ``cfg.param_dtype``), zero AdamW moments, step 0; on a mesh, this
+        process's FSDP blocks of them."""
         return self.state_from_params(self.bundle.init(seed, training=True))
 
     def state_from_params(self, params):
+        """The state of full parameters ``params`` (cut to this process's
+        blocks on a mesh)."""
+        if self.comm is not None:
+            from repro_torch.sharding import layout_for, shard_tree
+
+            layout = layout_for(params, self.bundle.pctx.mesh, rank=self.comm.rank)
+            params = shard_tree(params, layout)
+            meta = layout.meta
+            self.layout = layout_for(
+                {"params": meta, "opt": {"m": meta, "step": _META_STEP, "v": meta},
+                 "step": _META_STEP}, layout.mesh, rank=self.comm.rank)
         return {"params": params, "opt": adamw_init(params),
                 "step": torch.zeros((), dtype=torch.int32, device=self.device)}
 
+    @property
+    def params_layout(self):
+        """The parameters' part of :attr:`layout`."""
+        from repro_torch.sharding import Layout
+
+        lay = self.layout
+        return Layout(lay.mesh, lay.specs["params"], lay.meta["params"], lay.rank)
+
+    def full_params(self, state):
+        """The full parameters of ``state`` (gathered on a process group,
+        collective; assembled on the virtual mesh)."""
+        if self.comm is None:
+            return state["params"]
+        from repro_torch.sharding import unshard_tree
+
+        return unshard_tree(state["params"], self.params_layout, self.comm)
+
     # ------------------------------------------------------------- step
+
+    def _loss(self, params, batch):
+        """The loss to differentiate and its metrics: on a mesh the blocks
+        are gathered first, and on a process group each rank's loss is
+        weighted by its share of the global batch's tokens (module
+        docstring); ``metrics["loss"]`` is the global batch's loss."""
+        if self.comm is None:
+            loss, metrics = self.bundle.loss(params, batch)
+            return loss, {**metrics, "loss": loss.detach()}
+        from repro_torch.sharding import gather_params
+
+        full = gather_params(params, self.params_layout, self.comm)
+        loss, metrics = self.bundle.loss(full, batch)
+        if self.comm.folded:
+            return loss, {**metrics, "loss": loss.detach()}
+        tokens = metrics["tokens"].detach().float()
+        total = self.comm.world_sum(tokens)
+        weighted = loss * (tokens / total)
+        return weighted, {**metrics, "loss": self.comm.world_sum(weighted.detach())}
 
     def _step(self, state, batch):
         cfg = self.cfg
@@ -93,17 +168,20 @@ class Trainer:
                             state["params"])
             lsum = torch.zeros((), dtype=torch.float32, device=self.device)
             for mb in mbs:
-                (loss, _), grads = value_and_grad(self.bundle.loss, state["params"], mb)
+                (_, m), grads = value_and_grad(self._loss, state["params"], mb)
                 gsum = tree_map(torch.add, gsum, grads)
-                lsum = lsum + loss
+                lsum = lsum + m["loss"]
             grads = tree_map(lambda g: g / n, gsum)
             loss = lsum / n
             metrics = {}
         else:
-            (loss, metrics), grads = value_and_grad(self.bundle.loss, state["params"], batch)
+            (_, metrics), grads = value_and_grad(self._loss, state["params"], batch)
+            loss = metrics.pop("loss")
 
         lr = cosine_lr(cfg, state["step"])
-        params, opt, om = adamw_update(grads, state["opt"], state["params"], lr=lr, cfg=cfg.opt)
+        layout = self.params_layout if self.comm is not None else None
+        params, opt, om = adamw_update(grads, state["opt"], state["params"], lr=lr, cfg=cfg.opt,
+                                       layout=layout, comm=self.comm)
         new_state = {"params": params, "opt": opt, "step": state["step"] + 1}
         return new_state, {"loss": loss, "lr": lr, **metrics, **om}
 
@@ -113,10 +191,11 @@ class Trainer:
         steps = steps if steps is not None else self.cfg.total_steps
         history = []
         start_step = int(state["step"])
+        group_save = self.comm is not None and not self.comm.folded
         for i in range(start_step, steps):
             if self.step_hook is not None:
                 self.step_hook(i)
-            batch = batch_to_device(next(data_iter), self.device)
+            batch = batch_to_device(next(data_iter), self.device, self.bundle.pctx)
             t0 = time.perf_counter()
             state, metrics = self._step(state, batch)
             if self.device.type == "cuda":
@@ -136,7 +215,8 @@ class Trainer:
             if self.ckpt and (i + 1) % self.cfg.checkpoint_every == 0:
                 self.ckpt.save(i + 1, state,
                                extra={"data": getattr(data_iter, "state_dict", dict)()},
-                               blocking=not self.cfg.async_checkpoint)
+                               blocking=not self.cfg.async_checkpoint or group_save,
+                               layout=self.layout)
         if self.ckpt:
             self.ckpt.wait()
         return state, history
@@ -152,10 +232,13 @@ class Trainer:
         step = self.ckpt.latest_step()
         if step is None:
             return None
-        state = self.ckpt.restore(step, template_state)
+        state = self.ckpt.restore(step, template_state, layout=self.layout)
         if data_iter is not None and hasattr(data_iter, "load_state_dict"):
             data_iter.load_state_dict(self.ckpt.manifest(step)["extra"]["data"])
         return state
+
+
+_META_STEP = torch.empty((), dtype=torch.int32, device="meta")
 
 
 def n_params(params) -> int:
