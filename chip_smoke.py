@@ -5462,7 +5462,7 @@ def phase_analysis(torch, dev):
 
 # ---------------------------------------------------------------------------
 # phase 22: data parallelism with FSDP storage over the virtual (data, model)
-# mesh
+# mesh, each layer gathered just in time inside its remat region
 # ---------------------------------------------------------------------------
 
 DP_MESH = dict(data_degree=2, sp_degree=4)  # the virtual (data 2, model 4) mesh
@@ -5471,23 +5471,37 @@ DP_CHECK_LAYERS = 2
 DP_CHECK_SEQ = 512
 DP_STEPS = 2  # timed steps of (b), after one warmup
 DP_ELASTIC_SEQ = 512
+# (a)'s configs, one a layer loop, at full width: lm_apply's, the encoder's
+# and decoder's, the SSM's, and the hybrid's (one superblock and the 2-layer
+# tail)
+DP_CHECK_CASES = (("qwen3-1.7b", dict(n_layers=DP_CHECK_LAYERS)),
+                  ("whisper-base", dict(n_layers=DP_CHECK_LAYERS,
+                                        n_enc_layers=DP_CHECK_LAYERS)),
+                  (MAMBA, dict(n_layers=DP_CHECK_LAYERS)),
+                  (RG, dict(n_layers=RG_CHECK_LAYERS)))
+DP_LLAMA_LAYERS = 18  # of llama2-7b's 32: the whole-tree gather's step cannot fit
+DP_LLAMA_BATCH = 2  # one row a data rank
 
 
 def dp_trainer(torch, cfg, **pctx_kw):
     """A ``Trainer`` of ``cfg`` through TokenRing on the virtual mesh
-    ``pctx_kw`` (``DP_MESH`` by default), on the card."""
+    ``pctx_kw`` (``DP_MESH`` by default), on the card; a windowed config's
+    layers take the window halo in its contiguous layout."""
     from repro_torch.core.api import ParallelContext
     from repro_torch.models.registry import build_model
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-    pctx = ParallelContext(device="cuda", strategy="tokenring", **(pctx_kw or DP_MESH))
+    layout = cfg.layout if cfg.window else ParallelContext.layout
+    pctx = ParallelContext(device="cuda", strategy="tokenring", layout=layout,
+                           **(pctx_kw or DP_MESH))
     return Trainer(build_model(cfg, pctx), TrainerConfig(lr=3e-4, warmup_steps=1,
                                                          total_steps=1 + DP_STEPS))
 
 
 def dp_loss_and_grads(trainer, state, batch):
-    """The FSDP step's loss and its gradients (gather, loss, backward,
-    reduce-scatter), the gradients assembled into the full tree."""
+    """The FSDP step's loss and its gradients (the leaves outside the layer
+    stacks gathered, each layer gathered in its loop, loss, backward,
+    reduce-scatters), the gradients assembled into the full tree."""
     from repro_torch.launch.train_step import value_and_grad
     from repro_torch.sharding import unshard_tree
 
@@ -5495,87 +5509,115 @@ def dp_loss_and_grads(trainer, state, batch):
     return m["loss"], unshard_tree(grads, trainer.params_layout)
 
 
-def phase_dp_checked(torch, dev, cfg=None, B=DP_BATCH, S=DP_CHECK_SEQ):
-    """Phase 22 (a): one FSDP loss-and-gradient pass at qwen3-1.7b widths,
-    2 layers, float32, on the virtual (2, 4) mesh through TokenRing on the
-    kernels, twice (bitwise equal), against the plain path on one rank and
-    the whole batch (phase 8's limits); launches equal to the ring's
-    Computes; the data-axis ledger equal to ``fsdp_comm_bytes``."""
-    from repro_torch.configs import ARCHS
+def dp_gates(label, pctx, layout, cfg, steps=1):
+    """The mesh ledger against the closed forms: the data-axis bytes a step,
+    rank and direction (``fsdp_comm_bytes`` at ``cfg.remat``) and the
+    high-water of the gathered bytes alive (``fsdp_gathered_bytes``: the
+    leaves outside the layer stacks and one layer).  Returns ``(bytes a
+    step, high-water)``."""
+    from repro_torch.sharding import fsdp_comm_bytes, fsdp_gathered_bytes
+
+    ledger = pctx.storage.ledger
+    step = {w: v / steps for w, v in ledger.class_bytes["data"].items()}
+    closed = fsdp_comm_bytes(layout, cfg.remat)
+    if any(abs(step[w] - closed[w]) > 1e-9 * closed[w] for w in ("fwd", "bwd")):
+        raise AssertionError(f"{label}: data-axis bytes a step {step}, closed form {closed}")
+    if ledger.gathered_high != fsdp_gathered_bytes(layout):
+        raise AssertionError(f"{label}: {ledger.gathered_high} gathered bytes alive at once, "
+                             f"closed form {fsdp_gathered_bytes(layout)}")
+    return step, ledger.gathered_high
+
+
+def phase_dp_checked(torch, dev, cfg, B=DP_BATCH, S=DP_CHECK_SEQ):
+    """Phase 22 (a): one FSDP loss-and-gradient pass of ``cfg`` (full
+    width, a few layers, float32, remat "full") on the virtual (2, 4) mesh
+    through TokenRing (the window halo for a windowed config) on the
+    kernels, twice (bitwise equal, deterministic algorithms on), against
+    the plain path on one rank and the whole batch (phase 8's limits);
+    launches equal to the ring's Computes; the data-axis ledger equal to
+    ``fsdp_comm_bytes`` (each layer gathered again in its recompute) and
+    the gathered high-water to ``fsdp_gathered_bytes``."""
     from repro_torch.core.api import ParallelContext
-    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.data.synthetic import SyntheticConfig
     from repro_torch.launch.train_step import value_and_grad
     from repro_torch.models.registry import build_model
     from repro_torch.optim.adamw import tree_leaves, tree_map
     from repro_torch.runtime.trainer import batch_to_device
-    from repro_torch.sharding import fsdp_comm_bytes
 
-    cfg = cfg or ARCHS["qwen3-1.7b"].with_(n_layers=DP_CHECK_LAYERS, dtype="float32")
     trainer = dp_trainer(torch, cfg)
     pctx = trainer.bundle.pctx
     params = trainer.bundle.init(0, training=True)
     p_plain = tree_map(lambda t: t.detach().clone(), params)
     state = trainer.state_from_params(params)
     del params
-    batch = batch_to_device(next(SyntheticDataset(SyntheticConfig(
+    batch = batch_to_device(next(train_data(cfg, SyntheticConfig(
         vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=1, layout=cfg.layout,
         sp_degree=pctx.sp_degree))), dev)
+    label = f"phase 22 (a) {cfg.name}"
     runs = []
-    for _ in range(2):
-        pctx.storage.ledger.reset()
-        before = launch_counts()
-        loss, grads = dp_loss_and_grads(trainer, state, batch)
-        torch.cuda.synchronize()
-        ran = {k: v - before[k] for k, v in launch_counts().items()}
-        runs.append((loss, grads, ran, dict(pctx.storage.ledger.class_bytes["data"])))
-    (l_kern, g_kern, ran, data_bytes), (l_again, g_again, _, _) = runs
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for _ in range(2):
+            pctx.storage.ledger.reset()
+            before = launch_counts()
+            loss, grads = dp_loss_and_grads(trainer, state, batch)
+            torch.cuda.synchronize()
+            ran = {k: v - before[k] for k, v in launch_counts().items()}
+            runs.append((loss, grads, ran))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (l_kern, g_kern, ran), (l_again, g_again, _) = runs
     if not (torch.equal(l_kern, l_again) and all(
             torch.equal(a, b) for a, b in zip(tree_leaves(g_kern), tree_leaves(g_again)))):
-        raise AssertionError("phase 22 (a): the second FSDP pass is not bitwise the first")
+        raise AssertionError(f"{label}: the second FSDP pass is not bitwise the first")
     want = train_launches_per_step(cfg, sp_computes(cfg, "tokenring", pctx.sp_degree))
     if ran != want:
-        raise AssertionError(f"phase 22 (a): launches {ran}, expected {want}")
-    closed = fsdp_comm_bytes(trainer.params_layout)
-    if any(abs(data_bytes[w] - closed[w]) > 1e-9 * closed[w] for w in ("fwd", "bwd")):
-        raise AssertionError(f"phase 22 (a): data-axis bytes {data_bytes}, closed form {closed}")
+        raise AssertionError(f"{label}: launches {ran}, expected {want}")
+    data_bytes, high = dp_gates(label, pctx, trainer.params_layout, cfg)
+    del runs, g_again, state, trainer
     plain = build_model(cfg, ParallelContext(impl="torch", device="cuda"))
     before = launch_counts()
     (l_plain, _), g_plain = value_and_grad(plain.loss, p_plain, batch)
     if launch_counts() != before:
-        raise AssertionError("phase 22 (a): the plain path launched a kernel")
+        raise AssertionError(f"{label}: the plain path launched a kernel")
     # phase 8's limits: the loss 1e-5 relative, each gradient leaf 1e-4 of
-    # its largest |value| (attention differs only in the order of float32
-    # sums; the gather and the reduce-scatter move values unchanged)
+    # its largest |value| (attention and the scan differ only in the order
+    # of float32 sums; the gathers and reduce-scatters move values
+    # unchanged)
     l_err = abs(float(l_kern) - float(l_plain))
     if not (math.isfinite(float(l_kern)) and l_err <= 1e-5 * abs(float(l_plain))):
-        raise AssertionError(f"phase 22 (a): loss {float(l_kern)} vs plain {float(l_plain)}")
+        raise AssertionError(f"{label}: loss {float(l_kern)} vs plain {float(l_plain)}")
     worst = worst_leaf(torch, g_kern, g_plain, 1e-4)
-    log(f"  ok phase 22 (a): {cfg.n_layers} layers float32 on the virtual (2, 4) mesh, FSDP "
+    log(f"  ok {label}: {cfg.n_layers} layers float32 on the virtual (2, 4) mesh, FSDP "
         f"storage, batch {B} x seq {S}: loss {float(l_kern):.6f} vs plain SP 1 "
         f"{float(l_plain):.6f} (|err| {l_err:.2e}); worst gathered gradient leaf off by "
         f"{worst:.2e} of its max; the second pass bitwise equal; launches {ran}; data-axis "
-        f"bytes a rank {data_bytes} = fsdp_comm_bytes")
+        f"bytes a rank {data_bytes['fwd']:.0f} a direction = fsdp_comm_bytes (remat "
+        f"{cfg.remat}); gathered high-water {high} B = fsdp_gathered_bytes")
 
 
 def phase_train_dp(torch, dev, cfg=None, B=DP_BATCH, S=4096, steps=DP_STEPS):
     """Phase 22 (b): qwen3-1.7b at full width and depth through the
-    ``Trainer`` with FSDP storage on the virtual (2, 4) mesh, one warmup and
-    ``steps`` timed steps, one more under torch.profiler (the idle share);
-    then the same global batch through the (1, 4) mesh, phase 11's path,
-    each step's loss bitwise equal to it.
+    ``Trainer`` with FSDP storage on the virtual (2, 4) mesh, each layer
+    gathered just in time inside its remat region, one warmup and ``steps``
+    timed steps, one more under torch.profiler (the idle share); then the
+    same global batch through the (1, 4) mesh, phase 11's path, each step's
+    loss bitwise equal to it.
 
     The (1, 4) run is a gate, not a timing: its steps run after the FSDP
     run's, on a card whose clocks moved between them, so the two step times
     cannot resolve a difference of a few percent.  On the virtual mesh the
     data axis's gather and reduce-scatter hand back their input and charge
     the ledger, so the data-axis bytes reported are the ledger's count: the
-    gate against ``fsdp_comm_bytes`` shows that every leaf was gathered and
-    reduce-scattered once a step, not what a link would carry."""
+    gate against ``fsdp_comm_bytes`` shows that every leaf outside the layer
+    stacks was gathered once a step and every layer's leaf twice (the
+    forward and the recompute), each reduce-scattered once, not what a link
+    would carry.  The gathered high-water (``fsdp_gathered_bytes``) is what
+    a rank of a real mesh holds at once beyond its blocks."""
     from repro_torch.configs import ARCHS
     from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
-    from repro_torch.optim.adamw import tree_leaves
     from repro_torch.runtime.trainer import n_params
-    from repro_torch.sharding import fsdp_comm_bytes, state_bytes
+    from repro_torch.sharding import state_bytes, tree_bytes
 
     cfg = cfg or ARCHS["qwen3-1.7b"]
     trainer = dp_trainer(torch, cfg)
@@ -5587,8 +5629,9 @@ def phase_train_dp(torch, dev, cfg=None, B=DP_BATCH, S=4096, steps=DP_STEPS):
     torch.cuda.synchronize()
     free_device_memory(torch)
     per_rank = state_bytes(trainer.layout, 0)
-    whole = sum(x.numel() * x.element_size() for x in tree_leaves(trainer.layout.meta))
-    log(f"  {cfg.name}: {cfg.n_layers} layers, {n_params(trainer.full_params(state)) / 1e9:.3f}B "
+    whole = tree_bytes(trainer.layout.meta)
+    p_meta = trainer.params_layout.meta
+    log(f"  {cfg.name}: {cfg.n_layers} layers, {n_params(p_meta) / 1e9:.3f}B "
         f"parameters, FSDP storage on {dict(pctx.mesh.shape)}: state {whole / 1e9:.2f} GB, "
         f"{per_rank / 1e9:.3f} GB a rank by the rules; batch {B} x seq {S}; init and shard "
         f"{time.perf_counter() - t0:.1f} s")
@@ -5608,11 +5651,8 @@ def phase_train_dp(torch, dev, cfg=None, B=DP_BATCH, S=4096, steps=DP_STEPS):
     if got != want:
         raise AssertionError(f"training_dp: launches {got} over {steps} steps, expected {want}")
     ledger = pctx.storage.ledger.class_bytes
-    data_step = {w: v / steps for w, v in ledger["data"].items()}
-    closed = fsdp_comm_bytes(trainer.params_layout)
-    if any(abs(data_step[w] - closed[w]) > 1e-9 * closed[w] for w in ("fwd", "bwd")):
-        raise AssertionError(f"training_dp: data-axis bytes a step {data_step}, closed form "
-                             f"{closed}")
+    data_step, high = dp_gates("training_dp", pctx, trainer.params_layout, cfg, steps)
+    params_b = tree_bytes(p_meta)
     losses = hist + timed
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"training_dp: losses {losses}")
@@ -5628,7 +5668,8 @@ def phase_train_dp(torch, dev, cfg=None, B=DP_BATCH, S=4096, steps=DP_STEPS):
            "first_step_s": trainer.step_seconds[0], "losses": losses,
            "peak_bytes_timed_steps": peak, "peak_bytes_first_step": peak_first,
            "launches": got, "launches_per_step": {k: v // steps for k, v in got.items()},
-           "data_bytes_per_step_counted": data_step, "fsdp_comm_bytes": closed,
+           "data_bytes_per_step_counted": data_step,
+           "gathered_bytes_high_water": high, "params_bytes": params_b,
            "ring_bytes_per_step": {w: v / steps for w, v in ledger.get("link", {}).items()},
            "state_bytes_per_rank": per_rank, "state_bytes": whole,
            "idle_share": 1 - prof["device_busy_s"] / med, "profile": prof}
@@ -5636,7 +5677,8 @@ def phase_train_dp(torch, dev, cfg=None, B=DP_BATCH, S=4096, steps=DP_STEPS):
         f"{med:.4f} s = {B * S / med:.1f} tok/s; losses {[round(x, 4) for x in losses]}; peak "
         f"memory {peak / 2**30:.2f} GiB (first step {peak_first / 2**30:.2f} GiB); data-axis "
         f"bytes a step, rank and direction counted by the ledger {data_step['fwd'] / 1e9:.4f} GB "
-        f"= fsdp_comm_bytes; "
+        f"= fsdp_comm_bytes; gathered at once {high / 1e9:.3f} GB = fsdp_gathered_bytes (the "
+        f"whole tree {params_b / 1e9:.3f} GB); "
         f"state {per_rank / 1e9:.3f} GB a rank of a real 8-rank mesh; launches {got}")
     del state
     trainer = None
@@ -5665,6 +5707,99 @@ def phase_train_dp(torch, dev, cfg=None, B=DP_BATCH, S=4096, steps=DP_STEPS):
     log(f"  the (1, 4) mesh at batch {B}: losses {[round(x, 4) for x in ring_hist]}, every one "
         f"bitwise equal to the FSDP run's (the fold keeps the summation order); not timed")
     log("RESULT training_dp " + json.dumps(res))
+    return got
+
+
+def phase_train_dp_llama(torch, dev, layers=DP_LLAMA_LAYERS, B=DP_LLAMA_BATCH, S=4096,
+                         ring_steps=2):
+    """Phase 22 (d): llama2-7b at full width, ``layers`` of its 32, through
+    the ``Trainer`` with FSDP storage on the virtual (2, 4) mesh (bf16,
+    float32 AdamW, remat "full"), one warmup and one timed step: a model
+    whose step the whole-tree gather cannot fit on the card (state plus the
+    gathered copy, its gradient and the block gradients, the closed form
+    logged, must read above the card's memory) trains with the per-layer
+    gather (the measured peak below it).  Then the same global batch for
+    ``ring_steps`` steps on the (1, 4) mesh without FSDP, each loss bitwise
+    equal to the FSDP run's, as (b) gates."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.runtime.trainer import n_params
+    from repro_torch.sharding import fsdp_gathered_bytes, tree_bytes
+
+    cfg = ARCHS["llama2-7b"].with_(n_layers=layers)
+    card = torch.cuda.get_device_properties(0).total_memory
+    trainer = dp_trainer(torch, cfg)
+    pctx = trainer.bundle.pctx
+    data_cfg = SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=0,
+                               layout=cfg.layout, sp_degree=pctx.sp_degree)
+    t0 = time.perf_counter()
+    state = trainer.init_state(0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    p_meta = trainer.params_layout.meta
+    params_b, state_b = tree_bytes(p_meta), tree_bytes(trainer.layout.meta)
+    # the whole-tree gather's step: the state, the gathered copy, its
+    # gradient and the gradient's blocks, before any activation
+    whole_tree = state_b + 3 * params_b
+    gathered = fsdp_gathered_bytes(trainer.params_layout)
+    if not whole_tree > card:
+        raise AssertionError(f"training_dp_llama: the whole-tree gather's {whole_tree} B fit "
+                             f"the card's {card} B")
+    log(f"  {cfg.name}: {cfg.n_layers} of 32 layers, {n_params(p_meta) / 1e9:.3f}B parameters, "
+        f"FSDP storage on {dict(pctx.mesh.shape)}: card {card / 1e9:.2f} GB; state "
+        f"{state_b / 1e9:.2f} GB; the whole-tree gather's step {whole_tree / 1e9:.2f} GB before "
+        f"activations (above the card); gathered at once {gathered / 1e9:.3f} GB of "
+        f"{params_b / 1e9:.2f}; batch {B} x seq {S}; init and shard {t_init:.1f} s")
+    data = SyntheticDataset(data_cfg)
+    step_log = lambda m: log("  " + m)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    state, hist = trainer.run(state, data, steps=1, log_every=1, log=step_log)  # warmup
+    reset_launch_counts()
+    pctx.storage.ledger.reset()
+    state, timed = trainer.run(state, data, steps=2, log_every=1, log=step_log)
+    peak = torch.cuda.max_memory_allocated()
+    got = launch_counts()
+    want = train_launches_per_step(cfg, sp_computes(cfg, "tokenring", pctx.sp_degree))
+    if got != want:
+        raise AssertionError(f"training_dp_llama: launches {got}, expected {want}")
+    data_step, high = dp_gates("training_dp_llama", pctx, trainer.params_layout, cfg)
+    losses = hist + timed
+    if not (all(math.isfinite(x) for x in losses) and peak < card):
+        raise AssertionError(f"training_dp_llama: losses {losses}, peak {peak} B of {card}")
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": dict(pctx.mesh.shape),
+           "strategy": "tokenring", "storage": "fsdp", "batch": B, "seq": S,
+           "step_s": trainer.step_seconds, "tokens_per_s": B * S / trainer.step_seconds[1],
+           "losses": losses, "card_bytes": card, "state_bytes": state_b,
+           "params_bytes": params_b, "whole_tree_gather_bytes": whole_tree,
+           "fsdp_gathered_bytes": gathered, "gathered_bytes_high_water": high,
+           "peak_bytes": peak, "launches": got, "data_bytes_per_step_counted": data_step}
+    log(f"  FSDP over (data 2, model 4), per-layer gather: steps "
+        f"{[round(x, 4) for x in trainer.step_seconds]} s ({B * S / trainer.step_seconds[1]:.1f} "
+        f"tok/s timed); losses {[round(x, 4) for x in losses]}; peak {peak / 1e9:.2f} GB "
+        f"({peak / 2**30:.2f} GiB) of the card's {card / 1e9:.2f} GB; gathered at once "
+        f"{high / 1e9:.3f} GB = fsdp_gathered_bytes; data-axis bytes a step, rank and direction "
+        f"{data_step['fwd'] / 1e9:.4f} GB = fsdp_comm_bytes; launches {got}")
+    del state
+    trainer = None
+    free_device_memory(torch)
+    # the same global batch through the (1, 4) mesh: every parameter and
+    # its gradient whole on the card
+    ring = dp_trainer(torch, cfg, sp_degree=pctx.sp_degree)
+    state = ring.init_state(0)
+    torch.cuda.reset_peak_memory_stats()
+    state, ring_hist = ring.run(state, SyntheticDataset(data_cfg), steps=ring_steps,
+                                log=lambda m: None)
+    ring_peak = torch.cuda.max_memory_allocated()
+    del state
+    free_device_memory(torch)
+    if ring_hist != losses[:ring_steps]:
+        raise AssertionError(f"training_dp_llama: losses {losses} not bitwise the (1, 4) "
+                             f"mesh's {ring_hist}")
+    res["mesh_1x4"] = {"losses": ring_hist, "peak_bytes": ring_peak, "bitwise": True}
+    log(f"  the (1, 4) mesh without FSDP at batch {B}: losses "
+        f"{[round(x, 4) for x in ring_hist]}, bitwise the FSDP run's; peak "
+        f"{ring_peak / 1e9:.2f} GB; not timed")
+    log("RESULT training_dp_llama " + json.dumps(res))
     return got
 
 
@@ -6004,16 +6139,22 @@ def main() -> int:
         "the card's limits and the build's ptxas report, topology check)")
     phase_analysis(torch, dev)
 
-    log("== phase 22: data parallelism with FSDP storage: qwen3-1.7b at full width over the "
-        "virtual (data 2, model 4) mesh through TokenRing, checked at 2 layers in float32, "
-        "trained at full depth (main path) against the (1, 4) mesh, re-meshed, restored "
-        "across meshes, its gradients compressed over 8 data ranks")
+    log("== phase 22: data parallelism with FSDP storage, each layer gathered just in time "
+        "inside its remat region, over the virtual (data 2, model 4) mesh through TokenRing: "
+        "qwen3-1.7b, whisper-base, falcon-mamba-7b and recurrentgemma-2b checked at full width "
+        "in float32 (a few layers each); qwen3-1.7b trained at full depth (main path) against "
+        "the (1, 4) mesh, re-meshed, restored across meshes, its gradients compressed over 8 "
+        f"data ranks; llama2-7b trained at {DP_LLAMA_LAYERS} layers, which the whole-tree "
+        "gather cannot fit")
     t22 = time.perf_counter()
-    phase_dp_checked(torch, dev)
-    free_device_memory(torch)
+    for name, over in DP_CHECK_CASES:
+        phase_dp_checked(torch, dev, ARCHS[name].with_(dtype="float32", **over))
+        free_device_memory(torch)
     launches["train_dp2_sp4"] = phase_train_dp(torch, dev)
     free_device_memory(torch)
     phase_dp_elastic(torch, dev)
+    free_device_memory(torch)
+    launches["train_dp_llama"] = phase_train_dp_llama(torch, dev)
     free_device_memory(torch)
     log(f"  phase 22 took {time.perf_counter() - t22:.1f} s")
 

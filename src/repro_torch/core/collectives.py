@@ -79,7 +79,11 @@ all-gather of blocks), ``reduce_scatter`` (sum) and ``all_reduce`` (sum)
 over any set of mesh axes, each charged to the ledger's ``"data"`` class:
 an all-gather of a block of ``n`` bytes over ``G`` ranks ``(G-1) * n / 2``
 a direction, a reduce-scatter of ``G * n`` bytes ``(G-1)/G * G * n / 2``,
-an all-reduce of ``n`` bytes over ``A`` ranks ``(A-1)/A * n``.
+an all-reduce of ``n`` bytes over ``A`` ranks ``(A-1)/A * n``.  Every full
+tensor the FSDP gather hands out is held on the ledger until it is freed
+(``weakref.finalize``: when the tensor itself dies, not its Python name),
+and the ledger keeps the high-water of those bytes, ``gathered_high``:
+what one rank of a real mesh holds at once beyond its blocks.
 
 **What is counted.**  Every transport counts what it is handed, per rank and
 per ring direction (``"fwd"`` for ``s > 0``, ``"bwd"`` for ``s < 0``), in
@@ -104,6 +108,9 @@ the cost models' units, in one ledger that a ring shares with its views:
 """
 
 from __future__ import annotations
+
+import threading
+import weakref
 
 import torch
 
@@ -148,18 +155,35 @@ def _zero():
 
 
 class _Ledger:
-    """Bytes handed to a ring and its views, per rank (module docstring)."""
+    """Bytes handed to a ring and its views, per rank, and the FSDP gather's
+    full tensors alive (module docstring).  :meth:`reset` zeroes the counts
+    and restarts the high-water from the bytes alive now."""
 
     def __init__(self):
+        self.gathered_live = 0
+        self._lock = threading.Lock()  # a tensor may die on the autograd engine's thread
         self.reset()
 
     def reset(self):
         self.link_bytes, self.position_bytes, self.lse_bytes = _zero(), _zero(), _zero()
         self.class_bytes: dict[str, dict[str, float]] = {}
+        self.gathered_high = self.gathered_live
 
     def add(self, cls: str, way: str, nbytes: float):
         self.link_bytes[way] += nbytes
         self.class_bytes.setdefault(cls, _zero())[way] += nbytes
+
+    def hold(self, x):
+        """Count ``x`` among the gathered bytes alive until it is freed."""
+        n = x.numel() * x.element_size()
+        with self._lock:
+            self.gathered_live += n
+            self.gathered_high = max(self.gathered_high, self.gathered_live)
+        weakref.finalize(x, self._release, n)
+
+    def _release(self, n):
+        with self._lock:
+            self.gathered_live -= n
 
 
 class _Counters:

@@ -35,7 +35,9 @@ halo, its RG-LRU through the scan, the conv's halo on a process group;
 Example (data parallelism with FSDP storage: 2 data ranks x TokenRing over
 4 virtual ranks, the virtual (data 2, model 4) mesh; ``--data-degree`` D
 times ``--sp-degree`` ranks, the parameters and AdamW moments stored by the
-ZeRO-3 rules, ``repro_torch.sharding``):
+ZeRO-3 rules, ``repro_torch.sharding``; each layer gathered just in time
+inside its remat region, the banner giving the bytes gathered at once
+beside the whole tree's):
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
       --steps 20 --batch 4 --seq 128 --data-degree 2 --sp-degree 4
 
@@ -147,6 +149,13 @@ def main(argv=None):
         n = n_params(trainer.full_params(state))
         print(f"{cfg.name}: {n / 1e6:.1f}M parameters, batch "
               f"{args.batch} x seq {args.seq}, remat {cfg.remat}, on {args.device}{sp}")
+        if trainer.comm is not None:
+            from repro_torch.sharding import fsdp_gathered_bytes, tree_bytes
+
+            layout = trainer.params_layout
+            print(f"FSDP: each layer gathered just in time inside its remat region: "
+                  f"{fsdp_gathered_bytes(layout) / 1e6:.1f} MB gathered at once under remat, "
+                  f"the whole tree {tree_bytes(layout.meta) / 1e6:.1f} MB")
 
     if args.ckpt:
         runner = FaultTolerantRunner(trainer, max_restarts=3)

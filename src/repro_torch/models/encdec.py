@@ -60,6 +60,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.transformer import _dense_plan, init_decode_cache
 from repro_torch.serving.kv_cache import apply_drop, sp_ranks
+from repro_torch.sharding import layer_params
 
 __all__ = [
     "init_encdec",
@@ -149,13 +150,18 @@ def _enc_positions(B: int, S: int, pctx, device):
 
 def _layer_loop(layers, x, body, cfg, *extra):
     """``x = body(p_l, x, *extra)`` over the layers; with remat each layer
-    is recomputed whole in the backward."""
+    is recomputed whole in the backward.  A layer of FSDP blocks
+    (``sharding.LayerBlocks``) is gathered first, inside the remat region."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
     remat = cfg.remat != "none" and torch.is_grad_enabled()
+
+    def layer(p_l, x, *extra):
+        return body(layer_params(p_l), x, *extra)
+
     for p_l in layers:
-        x = (checkpoint(body, p_l, x, *extra, use_reentrant=False) if remat
-             else body(p_l, x, *extra))
+        x = (checkpoint(layer, p_l, x, *extra, use_reentrant=False) if remat
+             else layer(p_l, x, *extra))
     return x
 
 

@@ -60,6 +60,7 @@ from repro_torch.models.layers import (
     norm_init,
     torch_dtype,
 )
+from repro_torch.sharding import layer_params
 
 __all__ = [
     "mamba_layer_init",
@@ -323,13 +324,15 @@ def _head_w(params, cfg):
 
 
 def mamba_apply(params, tokens, *, cfg, pctx):
-    """Hidden states ``(B,S,d)`` after the final norm."""
+    """Hidden states ``(B,S,d)`` after the final norm.  A layer of FSDP
+    blocks (``sharding.LayerBlocks``) is gathered first, inside the remat
+    region."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
     x = params["embed"]["table"][tokens.long()].to(torch_dtype(cfg.dtype))
 
     def body(p_l, x):
-        return mamba_layer(p_l, x, cfg=cfg, pctx=pctx)
+        return mamba_layer(layer_params(p_l), x, cfg=cfg, pctx=pctx)
 
     remat = cfg.remat != "none" and torch.is_grad_enabled()
     for p_l in params["layers"]:

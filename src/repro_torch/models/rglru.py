@@ -63,6 +63,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.mamba import _causal_conv, _conv_halo
 from repro_torch.serving.kv_cache import apply_drop
+from repro_torch.sharding import layer_params
 
 __all__ = [
     "init_rg",
@@ -225,7 +226,9 @@ def _tail_block(p, x, *, cfg, pctx):
 
 def rg_apply(params, tokens, positions, *, cfg, pctx):
     """Hidden states ``(B,S,d)`` after the final norm: global tensors on
-    the virtual ring, this rank's contiguous shard on a process group."""
+    the virtual ring, this rank's contiguous shard on a process group.  A
+    superblock or tail layer of FSDP blocks (``sharding.LayerBlocks``) is
+    gathered first, inside the remat region."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
     x = params["embed"]["table"][tokens.long()].to(torch_dtype(cfg.dtype))
@@ -235,10 +238,10 @@ def rg_apply(params, tokens, positions, *, cfg, pctx):
         return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
 
     def sup(p_s, x):
-        return _super_block(p_s, x, positions, cfg=cfg, pctx=pctx)
+        return _super_block(layer_params(p_s), x, positions, cfg=cfg, pctx=pctx)
 
     def tail(p_t, x):
-        return _tail_block(p_t, x, cfg=cfg, pctx=pctx)
+        return _tail_block(layer_params(p_t), x, cfg=cfg, pctx=pctx)
 
     for p_s in params["supers"]:
         x = run(sup, p_s, x)

@@ -73,6 +73,7 @@ from repro_torch.serving.kv_cache import (
     view_indices,
     write_coords,
 )
+from repro_torch.sharding import layer_params
 
 # The families this module builds (``models.registry``).
 FAMILIES = ("dense", "moe", "vlm")
@@ -191,14 +192,17 @@ def _layers(params, x, cfg, attend, pctx, sharded=False):
 
 def lm_apply(params, tokens, positions, *, cfg, pctx, prefix_embeds=None):
     """Full forward, returns ``(hidden (B,S,d), aux)``; ``aux`` is the MoE
-    router loss summed over the layers, 0 for the other families."""
+    router loss summed over the layers, 0 for the other families.  A layer
+    of FSDP blocks (``sharding.LayerBlocks``) is gathered as the first step
+    of its block, inside the remat region."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
     sharded = pctx.active and not pctx.ring.folded
 
     def block(p_l, x):
-        return _block(p_l, x, cfg, lambda p, h: attention(p, h, positions, cfg=cfg, pctx=pctx,
-                                                          window=cfg.window),
+        return _block(layer_params(p_l), x, cfg,
+                      lambda p, h: attention(p, h, positions, cfg=cfg, pctx=pctx,
+                                             window=cfg.window),
                       pctx, sharded)
 
     x = _embed(params, tokens, cfg, prefix_embeds)

@@ -13,13 +13,15 @@ asynchronously: the host copy is taken before the next in-place step.
 **On a mesh** (``bundle.pctx.mesh``: a data axis, ``--data-degree`` > 1)
 the state holds FSDP blocks (``repro_torch.sharding``) of the parameters
 and of both AdamW moments, laid out by the rules on the mesh.  A step
-gathers the parameters once (one differentiable all-gather; its backward
-reduce-scatters and all-reduces the gradients), computes the loss and its
-gradients, and updates the blocks in place.  The loss is the token-weighted
-mean over the global batch, ``sum(loss_r * tokens_r) / sum(tokens_r)``
-over every rank, what the reference's SPMD loss is: on the virtual mesh the
-model sees the whole batch, so its loss is that mean already; on a process
-group each rank backpropagates ``loss_r * tokens_r / sum(tokens)``, and the
+gathers the parameters just in time (``sharding.gather_step_params``): the
+leaves outside the layer stacks at the start of the loss, each layer inside
+its layer loop's remat region, again when the backward recomputes it; each
+gather is a differentiable all-gather whose backward reduce-scatters and
+all-reduces the gradients.  The step then updates the blocks in place.
+The loss is the token-weighted mean over the global batch, ``sum(loss_r *
+tokens_r) / sum(tokens_r)`` over every rank, what the reference's SPMD loss
+is: on the virtual mesh the model sees the whole batch, so its loss is that
+mean already; on a process group each rank backpropagates ``loss_r * tokens_r / sum(tokens)``, and the
 gradient's reduce-scatter sums the ranks.  :func:`batch_to_device` cuts a
 process's (data, sequence) block of the numpy batch.  Checkpoints of the
 virtual mesh hold full arrays; a process group's hold each rank's blocks
@@ -141,16 +143,16 @@ class Trainer:
 
     def _loss(self, params, batch):
         """The loss to differentiate and its metrics: on a mesh the blocks
-        are gathered first, and on a process group each rank's loss is
-        weighted by its share of the global batch's tokens (module
+        are gathered just in time, and on a process group each rank's loss
+        is weighted by its share of the global batch's tokens (module
         docstring); ``metrics["loss"]`` is the global batch's loss."""
         if self.comm is None:
             loss, metrics = self.bundle.loss(params, batch)
             return loss, {**metrics, "loss": loss.detach()}
-        from repro_torch.sharding import gather_params
+        from repro_torch.sharding import gather_step_params
 
-        full = gather_params(params, self.params_layout, self.comm)
-        loss, metrics = self.bundle.loss(full, batch)
+        loss, metrics = self.bundle.loss(
+            gather_step_params(params, self.params_layout, self.comm), batch)
         if self.comm.folded:
             return loss, {**metrics, "loss": loss.detach()}
         tokens = metrics["tokens"].detach().float()

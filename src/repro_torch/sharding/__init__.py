@@ -12,20 +12,33 @@ virtual mesh (one process holds every distinct block once), ``k = 1`` on a
 process group (this rank's block).  A leaf whose spec is ``None`` (a
 scalar, the step counters) is stored whole.
 
-**The step.**  :func:`gather_params` is one ``torch.autograd.Function``
-over the whole parameter tree: its forward all-gathers each leaf over the
-axes its spec names and assembles the full tensor (a fresh buffer, never a
-view of the blocks the optimizer updates in place); its backward cuts each
-full gradient into blocks, reduce-scatters them (sum) over the same axes
-and all-reduces the block (sum) over the axes the spec leaves out, so every
-rank ends with its block of the gradient summed over every rank.  The
-trainer gathers once a step, outside the remat regions, so a remat of
-``"full"`` does not gather twice (the reference gathers per layer inside
-its scan).  On the virtual mesh the one full gradient already sums every
-rank's (the batch holds every data rank's rows), so the collectives only
-count their bytes and cut; on a process group they run over the mesh's
-subgroups.  :func:`fsdp_comm_bytes` is the closed form of one step's bytes
-a rank and direction, which the ledger's ``"data"`` class must equal.
+**The step.**  The gather is one ``torch.autograd.Function`` over a
+subtree: its forward all-gathers each leaf over the axes its spec names
+and assembles the full tensor (a fresh buffer, never a view of the blocks
+the optimizer updates in place); its backward cuts each full gradient into
+blocks, reduce-scatters them (sum) over the same axes and all-reduces the
+block (sum) over the axes the spec leaves out, so every rank ends with its
+block of the gradient summed over every rank.  A step gathers as the
+reference's XLA does, just in time (:func:`gather_step_params`): the
+leaves outside the layer stacks (embedding, head, final norm) once, at the
+start of the loss; each entry of a layer stack (``STACKED``: the entries
+of ``layers``, ``supers``, ``tail``, ``enc_layers`` and ``dec_layers``,
+the reference's scanned leaves) reaches its layer loop as a
+:class:`LayerBlocks`, which the loop gathers (:func:`layer_params`) as the
+first step inside the layer's remat region.  Under remat a rank holds
+one layer's full copy at a time and gathers each layer again when the
+backward recomputes it, as the reference's scan under ``jax.checkpoint``
+does (``"dots"`` saves the weight products' outputs, not the gather);
+with remat ``"none"`` the autograd graph keeps every layer's gathered
+weights for the backward, as the scan keeps its residuals.
+:func:`gather_params` gathers a whole tree at once.  On the virtual mesh
+the one full gradient already sums every rank's (the batch holds every
+data rank's rows), so the collectives only count their bytes and cut; on a
+process group they run over the mesh's subgroups.
+:func:`fsdp_comm_bytes` is the closed form of one step's bytes a rank and
+direction, which the ledger's ``"data"`` class must equal;
+:func:`fsdp_gathered_bytes` the most gathered bytes alive at once, which
+the ledger's high-water must equal under remat.
 """
 
 from __future__ import annotations
@@ -49,7 +62,13 @@ from repro_torch.sharding.rules import (
 __all__ = ["batch_shardings", "data_group", "param_pspec", "params_shardings",
            "serve_state_shardings", "Layout", "layout_for", "spec_axes", "block_index",
            "cut_blocks", "assemble_blocks", "shard_state", "shard_tree", "unshard_tree",
-           "gather_params", "fsdp_comm_bytes", "state_bytes", "batch_block", "spec_leaves"]
+           "gather_params", "fsdp_comm_bytes", "state_bytes", "batch_block", "spec_leaves",
+           "STACKED", "LayerBlocks", "layer_params", "gather_step_params", "fsdp_gathered_bytes",
+           "tree_bytes"]
+
+# The layer stacks: the reference's scanned leaves (``sharding/rules.py``'s
+# ``_STACKED``), each a list of per-layer entries here.
+STACKED = ("layers", "supers", "tail", "enc_layers", "dec_layers")
 
 
 def _entry_axes(e) -> tuple[str, ...]:
@@ -204,16 +223,16 @@ def unshard_tree(tree, layout: Layout, comm=None):
                                                       spec_leaves(layout.specs))])
 
 
-class _GatherParams(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, comm, mesh, specs, *blocks):
         ctx.comm, ctx.mesh, ctx.specs = comm, mesh, specs
         out = []
         for b, s in zip(blocks, specs):
-            if s is None:
-                out.append(b.clone())
-                continue
-            out.append(assemble_blocks(comm.gather(b, spec_axes(s, mesh)), s, mesh))
+            full = (b.clone() if s is None else
+                    assemble_blocks(comm.gather(b, spec_axes(s, mesh)), s, mesh))
+            comm.ledger.hold(full)
+            out.append(full)
         return tuple(out)
 
     @staticmethod
@@ -232,33 +251,95 @@ class _GatherParams(torch.autograd.Function):
 
 
 def gather_params(shards, layout: Layout, comm):
-    """The full parameter tree from its blocks (module docstring), one
-    differentiable gather over every leaf: every rank runs every leaf's
-    collectives in tree order, forward and backward (an unused output's
-    gradient is a zero tensor, so the backward's reduce-scatters still run
-    on every rank)."""
-    full = _GatherParams.apply(comm, layout.mesh, spec_leaves(layout.specs),
-                               *tree_leaves(shards))
+    """The full tree from its blocks (module docstring), one differentiable
+    gather over every leaf: every rank runs every leaf's collectives in
+    tree order, forward and backward (an unused output's gradient is a zero
+    tensor, so the backward's reduce-scatters still run on every rank)."""
+    full = _Gather.apply(comm, layout.mesh, spec_leaves(layout.specs), *tree_leaves(shards))
     return _rebuild(shards, full)
 
 
-def fsdp_comm_bytes(layout: Layout) -> dict[str, float]:
+@dataclass(frozen=True, eq=False)
+class LayerBlocks:
+    """One entry of a layer stack as its blocks (``blocks``, a subtree of
+    tensors of blocks, laid out by ``layout``), for the layer loop to gather
+    inside its remat region (:func:`layer_params`)."""
+
+    blocks: Any
+    layout: Layout
+    comm: Any
+
+    def gather(self):
+        return gather_params(self.blocks, self.layout, self.comm)
+
+
+def layer_params(p):
+    """A layer loop's entry as full tensors: gathered now if it is a
+    :class:`LayerBlocks`, else ``p`` itself (no mesh)."""
+    return p.gather() if isinstance(p, LayerBlocks) else p
+
+
+def gather_step_params(shards, layout: Layout, comm):
+    """The parameter tree a step's loss takes (module docstring): the leaves
+    outside ``STACKED`` gathered by one :func:`gather_params`, each entry
+    of a layer stack a :class:`LayerBlocks`."""
+    def sub(specs, meta):
+        return Layout(layout.mesh, specs, meta, layout.rank)
+
+    rest = [k for k in shards if k not in STACKED]
+    full = gather_params({k: shards[k] for k in rest},
+                         sub({k: layout.specs[k] for k in rest},
+                             {k: layout.meta[k] for k in rest}), comm)
+    for k in STACKED:
+        if k in shards:
+            full[k] = [LayerBlocks(b, sub(s, m), comm)
+                       for b, s, m in zip(shards[k], layout.specs[k], layout.meta[k])]
+    return full
+
+
+def _leaf_bytes(x) -> int:
+    return x.numel() * x.element_size()
+
+
+def tree_bytes(meta) -> int:
+    """Bytes of every leaf of a tree of (meta) tensors, in full."""
+    return sum(_leaf_bytes(x) for x in tree_leaves(meta))
+
+
+def fsdp_comm_bytes(layout: Layout, remat: str = "none",
+                    microbatches: int = 1) -> dict[str, float]:
     """One step's FSDP bytes a rank and direction (the transports'
-    conventions, ``core/collectives.py``): each leaf of ``n`` bytes with
-    ``G`` blocks all-gathers its blocks (``(G-1)/G * n / 2`` a direction),
-    reduce-scatters its gradient (the same) and all-reduces the gradient's
-    block over the ``A = ranks / G`` ranks that hold it (``(A-1)/A * n / G``);
-    the gradient has the parameter's dtype."""
+    conventions, ``core/collectives.py``) under the step of
+    :func:`gather_step_params`: each leaf of ``n`` bytes with ``G`` blocks
+    all-gathers its blocks (``(G-1)/G * n / 2`` a direction), reduce-scatters
+    its gradient (the same) and all-reduces the gradient's block over the
+    ``A = ranks / G`` ranks that hold it (``(A-1)/A * n / G``), once a
+    microbatch; a leaf of a layer stack all-gathers again when a remat other
+    than ``"none"`` recomputes its layer.  The gradient has the parameter's
+    dtype."""
     total = 0.0
     mesh = layout.mesh
-    for x, s in zip(tree_leaves(layout.meta), spec_leaves(layout.specs)):
-        if s is None:
-            continue
-        n = x.numel() * x.element_size()
-        G = math.prod(mesh.shape[a] for a in spec_axes(s, mesh))
-        A = mesh.size // G
-        total += (G - 1) / G * n + (A - 1) / A * n / G
+    for key in sorted(layout.specs):
+        gathers = 1 + (remat != "none") if key in STACKED else 1
+        for x, s in zip(tree_leaves(layout.meta[key]), spec_leaves(layout.specs[key])):
+            if s is None:
+                continue
+            n = _leaf_bytes(x)
+            G = math.prod(mesh.shape[a] for a in spec_axes(s, mesh))
+            A = mesh.size // G
+            total += (gathers + 1) * (G - 1) / G * n / 2 + (A - 1) / A * n / G
+    total *= microbatches
     return {"fwd": total, "bwd": total}
+
+
+def fsdp_gathered_bytes(layout: Layout) -> int:
+    """The most gathered bytes alive at once under :func:`gather_step_params`
+    with remat: the leaves outside the layer stacks and the largest entry of
+    a stack, in full.  What one rank of a real mesh holds beyond its blocks
+    (:func:`tree_bytes` of ``layout.meta``: the whole-tree gather's)."""
+    rest = sum(tree_bytes(layout.meta[k]) for k in layout.meta if k not in STACKED)
+    entries = [tree_bytes(e) for k in STACKED for e in layout.meta.get(k, ())]
+    return rest + max(entries, default=0)
 
 
 def state_bytes(layout: Layout, rank: int = 0) -> int:
@@ -267,7 +348,7 @@ def state_bytes(layout: Layout, rank: int = 0) -> int:
     mesh = layout.mesh
     total = 0
     for x, s in zip(tree_leaves(layout.meta), spec_leaves(layout.specs)):
-        n = x.numel() * x.element_size()
+        n = _leaf_bytes(x)
         total += n if s is None else n // math.prod(mesh.shape[a] for a in spec_axes(s, mesh))
     return total
 

@@ -4,9 +4,10 @@ the group, each rank holding its (data, sequence) block of the batch and
 its blocks of the parameters and moments.
 
 For each case ``(key, arch, overrides, clip norm, data config)``: three
-steps from the full parameters in ``<data_dir>/<key>.pt``, each step's
-loss, global norm and clip scale, and the gathered parameters after them
-(rank 0 writes them to ``out``, under ``key``).  Imports torch, numpy and
+steps from the full parameters in ``<data_dir>/<key>.pt`` (the ring in the
+data's sequence layout), each step's loss, global norm and clip scale, the
+data-axis bytes the rank's ledger counted, and the gathered parameters
+after them (rank 0 writes them to ``out``, under ``key``).  Imports torch, numpy and
 the port only."""
 
 import numpy as np
@@ -30,7 +31,8 @@ def run(rank: int, world: int, init_file: str, data_dir: str, out: str, cases,
         res = {}
         for key, arch, over, clip, data_cfg in cases:
             pctx = ParallelContext(device="cpu", impl="torch", data_degree=2,
-                                   sp_degree=world // 2, ring=dist.group.WORLD)
+                                   sp_degree=world // 2, ring=dist.group.WORLD,
+                                   layout=data_cfg["layout"])
             trainer = Trainer(build_model(ARCHS[arch].reduced(**over), pctx), TrainerConfig(
                 lr=1e-3, warmup_steps=1, total_steps=steps, opt=AdamWConfig(clip_norm=clip)))
             state = trainer.state_from_params(torch.load(f"{data_dir}/{key}.pt"))

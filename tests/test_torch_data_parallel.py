@@ -9,11 +9,16 @@ parameters after three steps, in float32 at ``MODEL_TOL``.
   reduced qwen3 at the default clip norm and at one small enough that
   every step clips (the global norm counts each replicated leaf, the
   norms of spec ``(None,)``, once, so the clip scale equals the JAX one),
-  and reduced qwen3-moe at capacity factor E / K (the router statistics
-  averaged over the group's data view as well as the ring);
+  reduced qwen3-moe at capacity factor E / K (the router statistics
+  averaged over the group's data view as well as the ring), all at remat
+  ``"none"``, and reduced qwen3 and falcon-mamba at remat ``"full"`` (each
+  layer gathered again when the backward recomputes it, its reduce-scatter
+  run from the backward); each dense rank's data-axis bytes equal to
+  ``fsdp_comm_bytes``;
 * reduced qwen3-moe on the virtual (2, 2) mesh with expert parallelism, at
   capacity factor E / K, where nothing drops (ROADMAP queue 3 item 8);
-* the ledger's ``"data"`` class equals ``fsdp_comm_bytes`` a step.
+* the ledger's ``"data"`` class equals ``fsdp_comm_bytes`` a step (the
+  per-layer gather's: ``test_torch_layer_gather.py``).
 """
 
 import torch.multiprocessing as mp
@@ -32,11 +37,12 @@ from repro.runtime import trainer as jtrainer
 from repro_torch.configs import ARCHS as TARCHS
 from repro_torch.core.api import ParallelContext as TPctx
 from repro_torch.data import synthetic as tsyn
+from repro_torch.launch.mesh import data_mesh
 from repro_torch.models.convert import from_jax_params
 from repro_torch.models.registry import build_model as tbuild
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.runtime import trainer as ttrainer
-from repro_torch.sharding import fsdp_comm_bytes, spec_leaves
+from repro_torch.sharding import fsdp_comm_bytes, layout_for, spec_leaves
 
 # Whole-model losses and parameters after AdamW: float32, a few layers,
 # reductions in another order (test_torch_training.py's limits).
@@ -55,8 +61,8 @@ def _few_threads():
     torch.set_num_threads(n)
 
 
-def _data_cfg(P, B=4, S=64, vocab=97):
-    return dict(vocab_size=vocab, seq_len=S, global_batch=B, seed=0, layout="zigzag",
+def _data_cfg(P, B=4, S=64, vocab=97, layout="zigzag"):
+    return dict(vocab_size=vocab, seq_len=S, global_batch=B, seed=0, layout=layout,
                 sp_degree=P)
 
 
@@ -117,8 +123,9 @@ def _check(trainer, state, hist, jmetrics, jfinal):
     full = trainer.full_params(state)
     for name, a, b in _pairs(full, jfinal):
         np.testing.assert_allclose(a.numpy(), b, err_msg=name, **MODEL_TOL)
-    # one gather and one reduce-scatter + all-reduce a step
-    want = fsdp_comm_bytes(trainer.params_layout)
+    # each leaf gathered once (remat "none") and reduce-scattered +
+    # all-reduced once a step
+    want = fsdp_comm_bytes(trainer.params_layout, trainer.bundle.cfg.remat)
     got = trainer.comm.ledger.class_bytes["data"]
     for way in ("fwd", "bwd"):
         assert got[way] == pytest.approx(STEPS * want[way], rel=1e-12)
@@ -155,7 +162,9 @@ def test_trainer_on_the_virtual_mesh_moe_with_expert_parallelism():
 def test_trainer_on_a_gloo_group_matches_jax(tmp_path):
     """Four spawned ranks, data 2 x model 2: reduced qwen3 at clip norm 1.0
     and at 0.05 (every step clips); reduced qwen3-moe (8 experts top-2,
-    experts over the ring) at capacity factor E / K = 4."""
+    experts over the ring) at capacity factor E / K = 4; reduced qwen3 and
+    falcon-mamba (the scan over the ring's contiguous shards) at remat
+    "full", every layer gathered inside its remat region."""
     from _dp_pg_worker import run
 
     moe = "qwen3-moe-30b-a3b"
@@ -163,6 +172,11 @@ def test_trainer_on_a_gloo_group_matches_jax(tmp_path):
     cases = [(f"dense{c}", "qwen3-1.7b", REDUCED, c, _data_cfg(2)) for c in (1.0, 0.05)]
     cases.append(("moe", moe, moe_over, 1.0,
                   _data_cfg(2, vocab=JARCHS[moe].reduced(**moe_over).vocab_size)))
+    cases.append(("dense_remat", "qwen3-1.7b", dict(REDUCED, remat="full"), 1.0,
+                  _data_cfg(2)))
+    cases.append(("mamba_remat", "falcon-mamba-7b", dict(n_layers=2, vocab_size=97,
+                                                          remat="full"), 1.0,
+                  _data_cfg(2, layout="contig")))
     tparams = {}
     for key, arch, over, clip, _ in cases:
         p0 = jax.tree.map(np.asarray, _jax_init(arch, over, clip)[1]["params"])
@@ -182,8 +196,13 @@ def test_trainer_on_a_gloo_group_matches_jax(tmp_path):
             p.join(SPAWN_TIMEOUT_S)
     assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
     res = np.load(tmp_path / "out.npz")
-    for key, _, _, clip, _ in cases:
+    for key, arch, over, clip, _ in cases:
         _, jm, jfinal = runs[key]
+        cfg = TARCHS[arch].reduced(**over)
+        if not cfg.n_experts:  # the router's statistics average over the data view too
+            want = fsdp_comm_bytes(layout_for(tparams[key], data_mesh(2, 2)), cfg.remat)
+            assert float(res[f"{key}/data_bytes"]) == pytest.approx(STEPS * want["fwd"],
+                                                                    rel=1e-12), key
         for i, m in enumerate(jm):
             for k in ("loss", "grad_norm", "clip_scale"):
                 np.testing.assert_allclose(res[f"{key}/{k}{i}"], m[k], err_msg=f"{key} {k}{i}",
