@@ -285,7 +285,33 @@ Phases, each fatal on failure:
      saved on (2, 4) restored onto (4, 2) bitwise, and
      ``compressed_psum_ef`` over a virtual data axis of 8 ranks on the
      model's gradient tree at the reference's limits; the phase's seconds;
- 23. a ``{"kernels": [...]}`` summary line, the card line, and last the
+ 23. the decode step under serve-mode (Megatron) storage (this slice's
+     main path): (a) qwen3-1.7b and qwen3-moe-30b-a3b (capacity factor
+     E / K) at full width, 2 layers, float32, on the virtual (1, 4) and
+     (2, 4) meshes: a common prefill, then 8 decode steps on the serve
+     blocks on the kernels teacher-forced with the replicated SP-4 decode
+     on the plain path, each step's logits within 1e-4 of its row's
+     largest |logit| (phase 8's limit) and each token within 1e-3 of the
+     plain path's max logit (phase 5's gate), a second run bitwise equal,
+     the ledger's bytes a step equal to ``serve_comm_bytes`` in every
+     class, each rank's blocks the rule's, A's decode launches one a layer
+     a step; (b) qwen2-72b at full width, 8 of its 80 layers, bf16: batch 8
+     prompts of 2048 prefilled through the replicated ``lm_prefill`` at SP
+     4, 32 greedy steps on the replicated tree (the reference), then the
+     tree cut to serve blocks over the virtual (1, 4) mesh and freed, the
+     reference's chain fed through the blocks (each token within
+     ``WITNESS_GAP`` and each logit within ``SERVE_TP_LOGIT_GAP`` of the
+     reference row's spread), then 32 greedy steps
+     timed with CUDA events beside the weight-read bound, the peak memory,
+     the TP bytes a step (= the closed form) and ``state_bytes`` at full
+     depth for a model axis of 4 and 8 (``RESULT serving_tp``); the qkv
+     biases are drawn at random (``SERVE_TP_BIAS_STD``), and the chain fed
+     once more with them zeroed on the blocks must fail the logit limit;
+     every call that kernel A served in (b)'s prefill and decode (the first
+     of each shape) is then replayed through its wrapper twice (bitwise
+     equal) and through its plain version at phase 3's limits; with
+     ``--profile``, 4 steps once more under torch.profiler;
+ 24. a ``{"kernels": [...]}`` summary line, the card line, and last the
      ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -297,6 +323,7 @@ between launches.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -725,7 +752,11 @@ DECODE_CASES = [
 # llama4-scout 40/8 (GQA group 5: 20 decode rows a KV head at Sq 4),
 # qwen3-moe 32/4 (group 8: 32 rows at Sq 4) at the serving shapes of phase
 # 17 (the resident call of a 256-token chunk against 2048 keys, decode
-# against them), and pixtral's one-shot prefill, 32/8 with Sq = Sk = 1280.
+# against them), and pixtral's one-shot prefill, 32/8 with Sq = Sk = 1280;
+# qwen2-72b 64/8 (group 8) at phase 23 (b)'s shapes: the decode against
+# the SP-4 fold of 8 rows (32 rank rows of 520 slots) and against the whole
+# 2080 slots, and a call of its TokenRing prefill (32 rank rows, 256
+# queries against a block of 512 keys).
 LAYOUT_CASES = [
     ("llama4 40/8 decode Sq=4", (2, 4, 1536, 40, 8, 128)),
     ("llama4 40/8 decode Sq=1", (4, 1, 2048, 40, 8, 128)),
@@ -734,6 +765,9 @@ LAYOUT_CASES = [
     ("qwen3-moe 32/4 decode Sq=1", (8, 1, 2048, 32, 4, 128)),
     ("qwen3-moe 32/4 chunk", (8, 256, 2048, 32, 4, 128)),
     ("pixtral 32/8 prefill Sq=Sk=1280", (2, 1280, 1280, 32, 8, 128)),
+    ("qwen2-72b 64/8 decode SP-4 fold", (32, 1, 520, 64, 8, 128)),
+    ("qwen2-72b 64/8 decode Sq=1", (8, 1, 2080, 64, 8, 128)),
+    ("qwen2-72b 64/8 ring chunk", (32, 256, 512, 64, 8, 128)),
 ]
 
 
@@ -1516,23 +1550,29 @@ def phase_full(torch, dev, with_profile, sp_degree=1, reference=None, cfg=None,
 WITNESS_GAP = 0.1
 
 
-def forced_logits(torch, dev, bundle, params, prompt, chain, max_len=2048, chunk=256):
-    """Logits ``(len(chain), vocab)`` of ``chain`` fed one token a step
-    after ``prompt[:-1]`` prefilled in ``chunk``-token chunks (the engine's
-    chunks, the last padded) into a dense slot of ``max_len``."""
-    head = prompt[:-1]
-    feed = [int(prompt[-1])] + list(chain[:-1])
-    state = bundle.init_serve_state(1, max_len, dev)
-    for i in range(0, len(head), chunk):
-        part = torch.zeros((1, chunk), dtype=torch.int32, device=dev)
-        n = min(chunk, len(head) - i)
-        part[0, :n] = torch.from_numpy(head[i:i + n].copy()).to(dev)
-        bundle.prefill_chunk(params, part, state, torch.tensor([n], device=dev, dtype=torch.int32))
+def forced_logits(torch, dev, bundle, params, prompts, chains, max_len=2048, chunk=256):
+    """Logits ``(len(chain), vocab)`` of each of ``chains`` fed one token a
+    step after its prompt's ``[:-1]`` prefilled in ``chunk``-token chunks
+    (the engine's chunks, the last padded) into a dense slot of
+    ``max_len``: one slot a prompt, all in one batch (a row whose head or
+    chain has ended is skipped: ``n_valid`` 0, ``active`` False)."""
+    heads = [p[:-1] for p in prompts]
+    feeds = [[int(p[-1])] + list(c[:-1]) for p, c in zip(prompts, chains)]
+    state = bundle.init_serve_state(len(prompts), max_len, dev)
+    for i in range(0, max(len(h) for h in heads), chunk):
+        part = torch.zeros((len(heads), chunk), dtype=torch.int32, device=dev)
+        n = [max(0, min(chunk, len(h) - i)) for h in heads]
+        for b, h in enumerate(heads):
+            part[b, :n[b]] = torch.from_numpy(h[i:i + n[b]].copy()).to(dev)
+        bundle.prefill_chunk(params, part, state, torch.tensor(n, device=dev, dtype=torch.int32))
     out = []
-    for tok in feed:
-        logits, state = bundle.decode_step(params, torch.tensor([tok], device=dev), state)
-        out.append(logits[0].float())
-    return torch.stack(out)
+    for t in range(max(len(f) for f in feeds)):
+        tok = torch.tensor([f[t] if t < len(f) else 0 for f in feeds], device=dev)
+        active = torch.tensor([t < len(f) for f in feeds], device=dev)
+        logits, state = bundle.decode_step(params, tok, state, active)
+        out.append(logits.float())
+    rows = torch.stack(out, 1)
+    return [rows[b, :len(f)] for b, f in enumerate(feeds)]
 
 
 def witness_gate(torch, dev, bundle, params, prompts, chains, label):
@@ -1540,8 +1580,7 @@ def witness_gate(torch, dev, bundle, params, prompts, chains, label):
     token must lie within ``WITNESS_GAP`` of the row spread (max minus mean
     logit) below the reference's max logit.  Returns the summary."""
     ratios, gaps, flips = [], [], 0
-    for prompt, chain in zip(prompts, chains):
-        ref = forced_logits(torch, dev, bundle, params, prompt, chain)
+    for ref, chain in zip(forced_logits(torch, dev, bundle, params, prompts, chains), chains):
         top = ref.max(dim=-1).values
         gap = top - ref.gather(1, torch.tensor(chain, device=dev)[:, None])[:, 0]
         ratios.append(gap / (top - ref.mean(dim=-1)))
@@ -1581,9 +1620,10 @@ def teacher_forced_witness(torch, dev, outputs, max_len=2048, chunk=256):
     for path, n_requests in (("paged", 16), ("dense", 4)):
         prompts = make_prompts(n_requests, 128, 1024, cfg.vocab_size)
         gaps, ratios, spreads, margins, d_sp4, d_plain, flips = ([] for _ in range(7))
-        for prompt, chain in zip(prompts, outputs[path]):
-            rows = {name: forced_logits(torch, dev, b, params, prompt, chain, max_len, chunk)
-                    for name, b in bundles.items()}
+        forced = {name: forced_logits(torch, dev, b, params, prompts, outputs[path], max_len,
+                                      chunk) for name, b in bundles.items()}
+        for i, chain in enumerate(outputs[path]):
+            rows = {name: f[i] for name, f in forced.items()}
             ref = rows["sp1"]
             top2 = ref.topk(2, dim=-1).values
             tok = torch.tensor(chain, device=dev)[:, None]
@@ -5908,7 +5948,371 @@ def phase_dp_elastic(torch, dev, cfg=None, B=DP_BATCH, S=DP_ELASTIC_SEQ):
         f"after 30 (limit 0.25), {t_comp:.1f} s")
 
 
-PROFILED_PHASES = (6, 9, 11, 13, 16, 17, 18, 19, 20)
+# ---------------------------------------------------------------------------
+# phase 23: the decode step under serve-mode (Megatron) storage
+# ---------------------------------------------------------------------------
+
+SERVE_CHECK_ARCHS = ("qwen3-1.7b", "qwen3-moe-30b-a3b")
+SERVE_CHECK_MESHES = ((1, 4), (2, 4))  # virtual (data, model) meshes
+SERVE_CHECK_LAYERS = 2
+SERVE_CHECK_BATCH, SERVE_CHECK_PROMPT, SERVE_CHECK_STEPS = 4, 256, 8
+# (a)'s logit limit, phase 8's: attention and the row projections' sums
+# differ only in the order of float32 sums
+SERVE_LOGIT_LIMIT = 1e-4
+SERVE_TP_ARCH = "qwen2-72b"
+SERVE_TP_LAYERS = 8  # of 80: 9.5 B parameters, 19.0 GB in bf16
+SERVE_TP_BATCH, SERVE_TP_PROMPT, SERVE_TP_STEPS = 8, 2048, 32
+# (b)'s qkv biases, drawn at random so that their split is exercised (the
+# seeded init makes them zero), and its limit on each logit's distance from
+# the replicated decode, a share of the reference row's spread.  At std 2
+# the blocks read 0.0104 of it and the blocks with those biases zeroed
+# 0.1042 (std 1: 0.0111 and 0.0544; H100, phase 23 (b)): the limit sits
+# ~5x above the first and ~2x below the second.
+SERVE_TP_BIAS_STD = 2.0
+SERVE_TP_LOGIT_GAP = 0.05
+
+
+def serve_prompts(torch, dev, cfg, B, S, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev,
+                           dtype=torch.int32)
+    return tokens, torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
+
+
+def serve_decode(torch, bundle, params, state, tok, steps, feed=None, timed=False):
+    """``steps`` decode steps of ``bundle`` on a copy of ``state`` from the
+    tokens ``tok (B,)``: greedy, or fed ``feed (B, steps)``.  Returns the
+    tokens fed ``(B, steps)``, the logits ``(B, steps, V)`` in float32,
+    each step's CUDA-event milliseconds (``timed``), A's launches counted
+    from zero and the mesh ledger's bytes by class (``{}`` without a
+    mesh)."""
+    state = {k: v.clone() for k, v in state.items()}
+    storage = bundle.pctx.storage
+    if storage is not None:
+        storage.ledger.reset()
+    reset_launch_counts()
+    chain, rows, times = [], [], []
+    for i in range(steps):
+        if feed is not None:
+            tok = feed[:, i]
+        chain.append(tok)
+        if timed:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        logits, state = bundle.decode_step(params, tok, state)
+        if timed:
+            end.record()
+            times.append((start, end))
+        rows.append(logits.float())
+        tok = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    ledger = ({c: dict(v) for c, v in storage.ledger.class_bytes.items()}
+              if storage is not None else {})
+    return (torch.stack(chain, 1), torch.stack(rows, 1), [a.elapsed_time(b) for a, b in times],
+            launch_counts()["flash_attention_fwd"], ledger)
+
+
+def draw_qkv_biases(torch, dev, params, std, seed):
+    """Each layer's q, k and v biases drawn from N(0, std^2), in place."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for layer in params["layers"]:
+        for k in ("wq", "wk", "wv"):
+            b = layer["attn"][k]["b"]
+            b.copy_(torch.randn(b.shape, generator=gen, device=dev) * std)
+
+
+@contextlib.contextmanager
+def recorded_a_calls(into):
+    """Kernel A's wrapper as the dispatcher (``kernels.ops``) calls it, the
+    first call of each signature (shapes, dtype, mask) kept in ``into``
+    with copies of its inputs; the launch and its count as before."""
+    from repro_torch.kernels import ops
+
+    launch = ops.flash_attention_fwd_cuda
+
+    def record(q, k, v, q_pos, k_pos, **kw):
+        key = (tuple(q.shape), tuple(k.shape), q.dtype, kw["causal"], kw["window"])
+        if key not in into:
+            into[key] = ([t.clone() for t in (q, k, v, q_pos, k_pos)], kw)
+        return launch(q, k, v, q_pos, k_pos, **kw)
+
+    ops.flash_attention_fwd_cuda = record
+    try:
+        yield into
+    finally:
+        ops.flash_attention_fwd_cuda = launch
+
+
+def replay_a_calls(torch, calls, label):
+    """Each recorded call of kernel A through its wrapper twice (bitwise
+    equal) and through its plain version at phase 3's limits.  Returns the
+    largest |out err|."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ops import pick_block
+
+    worst = 0.0
+    for (qs, ks, dtype, causal, window), (args, kw) in calls.items():
+        inst = fa.flash_fwd_instance(dtype, qs[1], qs[-1])
+        name = f"A {label} call q{qs} k{ks} causal={causal} window={window} [{inst}]"
+        got, again = (fa.flash_attention_fwd_cuda(*args, **kw) for _ in range(2))
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{name}: two runs on the same inputs differ")
+        want = fa.flash_attention_fwd_torch(*args, **kw, block_k=pick_block(ks[1], 512))
+        worst = max(worst, compare(name + " bitwise repeatable", got, want,
+                                   **tolerances(dtype)))
+        del got, again, want
+    return worst
+
+
+def serve_bytes_gate(label, ledger, layout, cfg, rows, steps):
+    """The ledger's bytes over ``steps`` decode steps against
+    ``serve_comm_bytes`` a step, every class (relative 1e-9)."""
+    from repro_torch.models.transformer import serve_comm_bytes
+
+    closed = serve_comm_bytes(layout, cfg, rows)
+    for cls in set(closed) | set(ledger):
+        want = closed.get(cls, {"fwd": 0.0, "bwd": 0.0})
+        got = ledger.get(cls, {"fwd": 0.0, "bwd": 0.0})
+        if any(abs(got[w] - steps * want[w]) > 1e-9 * steps * want[w] for w in ("fwd", "bwd")):
+            raise AssertionError(f"{label}: {cls} bytes over {steps} steps {got}, closed form "
+                                 f"{want} a step")
+    return closed
+
+
+def serve_blocks_gate(label, params, blocks, layout):
+    """Each split leaf's blocks are ``cut_blocks`` of the full leaf by
+    ``param_pspec(mode="serve")`` of its path (every rank's: the virtual
+    mesh), every other leaf the full one.  Returns the split leaves'
+    count."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.sharding import ServeBlocks, cut_blocks, param_pspec
+    from repro_torch.sharding.rules import map_with_path
+
+    paths, split = [], 0
+    map_with_path(lambda path, x: paths.append(path), params)
+    for path, full, leaf in zip(paths, tree_leaves(params), tree_leaves(blocks)):
+        if isinstance(leaf, ServeBlocks):
+            spec = param_pspec(path, tuple(full.shape), layout.mesh, "serve")
+            if leaf.spec != spec or not bool((leaf.blocks == cut_blocks(full, spec,
+                                                                        layout.mesh)).all()):
+                raise AssertionError(f"{label}: the blocks of {path} are not the rule's {spec}")
+            split += 1
+        elif not bool((leaf == full).all()):
+            raise AssertionError(f"{label}: the whole leaf {path} differs from the tree's")
+    return split
+
+
+def phase_serve_checked(torch, dev, name, mesh_shape, layers=SERVE_CHECK_LAYERS,
+                        B=SERVE_CHECK_BATCH, S=SERVE_CHECK_PROMPT, steps=SERVE_CHECK_STEPS):
+    """Phase 23 (a): ``name`` at full width, ``layers`` layers, float32 (an
+    MoE at capacity factor E / K), prefilled once on the plain path at SP
+    4; the replicated SP-4 decode on the plain path (greedy) against the
+    decode step on serve blocks over the virtual ``mesh_shape`` on the
+    kernels, fed the same tokens, twice."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.launch.mesh import data_mesh, make_pctx
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding import layout_for, shard_tree
+
+    cfg = ARCHS[name].with_(n_layers=layers, dtype="float32")
+    cfg = no_drop(cfg) if cfg.n_experts else cfg
+    mesh = data_mesh(*mesh_shape)
+    label = f"phase 23 (a) {name} {mesh_shape}"
+    P = mesh.shape["model"]
+    plain = build_model(cfg, ParallelContext(impl="torch", device="cuda", sp_degree=P))
+    params = plain.init(0)
+    tokens, positions = serve_prompts(torch, dev, cfg, B, S, seed=31)
+    state = plain.init_serve_state(B, S + steps, dev)
+    logits, state = plain.prefill(params, tokens, positions, state)
+    tok = logits.argmax(-1).to(torch.int32)
+    chain, ref, _, ran, _ = serve_decode(torch, plain, params, state, tok, steps)
+    if ran:
+        raise AssertionError(f"{label}: the plain path launched a kernel")
+    pctx = make_pctx(mesh, device="cuda", global_batch=B)
+    bundle = build_model(cfg, pctx)
+    layout = layout_for(params, mesh, mode="serve")
+    blocks = shard_tree(params, layout)
+    split = serve_blocks_gate(label, params, blocks, layout)
+    del params
+    free_device_memory(torch)
+    runs = [serve_decode(torch, bundle, blocks, state, tok, steps, feed=chain) for _ in range(2)]
+    (_, got, _, ran, ledger), (_, again, _, _, _) = runs
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: the second run is not bitwise the first")
+    if ran != cfg.n_layers * steps:
+        raise AssertionError(f"{label}: A launches {ran}, expected {cfg.n_layers * steps}")
+    err = float(((got - ref).abs().amax(-1) / ref.abs().amax(-1)).max())
+    gap, _ = forced_gaps(torch, ref, got.argmax(-1))
+    if not (bool(torch.isfinite(got).all()) and err <= SERVE_LOGIT_LIMIT
+            and float(gap.max()) <= 1e-3):
+        raise AssertionError(f"{label}: logits off by {err:.2e} of the row's max, a token "
+                             f"{float(gap.max()):.2e} below the plain path's max logit")
+    closed = serve_bytes_gate(label, ledger, layout, cfg, B // pctx.data_degree, steps)
+    log(f"  ok {label}: float32, batch {B}, prompt {S}, {steps} steps on serve blocks ("
+        f"{split} leaves split over model, each the rule's) against the replicated SP-{P} "
+        f"decode on the plain path: logits within {err:.2e} of the row's max (limit "
+        f"{SERVE_LOGIT_LIMIT}), tokens within {float(gap.max()):.2e} of its max logit; the second "
+        f"run bitwise equal; A launches {ran} = {cfg.n_layers} x {steps}; bytes a step and "
+        f"direction = serve_comm_bytes: tp {closed['tp']['fwd']:.0f}, link "
+        f"{closed['link']['fwd']:.0f}, data {closed['data']['fwd']:.0f}")
+    del runs, blocks, state
+    free_device_memory(torch)
+    return ran
+
+
+def phase_serve_tp(torch, dev, with_profile=False, layers=SERVE_TP_LAYERS, B=SERVE_TP_BATCH,
+                   S=SERVE_TP_PROMPT, steps=SERVE_TP_STEPS):
+    """Phase 23 (b): qwen2-72b at full width, ``layers`` of its 80, bf16,
+    on the virtual (1, 4) mesh: ``B`` prompts of ``S`` prefilled through
+    the replicated ``lm_prefill`` at SP 4 (TokenRing), ``steps`` greedy
+    steps on the replicated tree (the reference), the tree cut to serve
+    blocks and freed (the weights held at most twice), the reference's
+    tokens fed through the blocks (each token within ``WITNESS_GAP`` and
+    each logit within ``SERVE_TP_LOGIT_GAP`` of the reference row's
+    spread), then ``steps`` greedy
+    steps timed; the ledger's bytes = ``serve_comm_bytes``; ``state_bytes``
+    of the whole model for a model axis of 4 and 8.  The qkv biases are
+    drawn at random first; the chain fed with them zeroed on the blocks
+    must fail the logit limit.  Kernel A's calls of the prefill
+    and of the blocks' decode, the first of each shape, are replayed
+    against its plain version.  ``with_profile``: 4 steps on the blocks
+    once more under torch.profiler (the idle share)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import data_mesh, make_pctx
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import init_lm, serve_comm_bytes
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.sharding import ServeBlocks, layout_for, shard_tree, state_bytes
+
+    full_cfg = ARCHS[SERVE_TP_ARCH]
+    cfg = full_cfg.with_(n_layers=layers)
+    mesh = data_mesh(1, 4)
+    pctx = make_pctx(mesh, device="cuda", global_batch=B)
+    bundle = build_model(cfg, pctx)
+    label = "serving_tp"
+    torch.cuda.reset_peak_memory_stats()
+    params = bundle.init(0)
+    draw_qkv_biases(torch, dev, params, SERVE_TP_BIAS_STD, seed=41)
+    weight_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    tokens, positions = serve_prompts(torch, dev, cfg, B, S, seed=37)
+    state = bundle.init_serve_state(B, S + steps, dev)
+    calls = {}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_a_calls(calls):
+        logits, state = bundle.prefill(params, tokens, positions, state)
+    torch.cuda.synchronize()
+    t_prefill, prefill_a = time.perf_counter() - t0, launch_counts()["flash_attention_fwd"]
+    replay_err, replayed = replay_a_calls(torch, calls, label), list(calls)
+    calls.clear()
+    tok = logits.argmax(-1).to(torch.int32)
+    chain, ref, ref_ms, ref_a, _ = serve_decode(torch, bundle, params, state, tok, steps,
+                                                timed=True)
+    layout = layout_for(params, mesh, mode="serve")
+    blocks = shard_tree(params, layout)
+    del params
+    free_device_memory(torch)
+    cut_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_a_calls(calls):
+        _, forced, _, _, _ = serve_decode(torch, bundle, blocks, state, tok, steps, feed=chain)
+    own, got, ms, ran, ledger = serve_decode(torch, bundle, blocks, state, tok, steps,
+                                             timed=True)
+    serve_peak = torch.cuda.max_memory_allocated()
+    if ran != cfg.n_layers * steps:
+        raise AssertionError(f"{label}: A launches {ran}, expected {cfg.n_layers * steps}")
+    closed = serve_bytes_gate(label, ledger, layout, cfg, B, steps)
+    top = ref.amax(-1)
+    spread = top - ref.mean(-1)
+    gap = top - ref.gather(-1, forced.argmax(-1, keepdim=True))[..., 0]
+    tok_ratio = float((gap / spread).max())
+    logit_diff = (forced - ref).abs().amax(-1)
+    logit_ratio = float((logit_diff / spread).max())
+
+    def zeroed(b):
+        return (dataclasses.replace(b, blocks=torch.zeros_like(b.blocks))
+                if isinstance(b, ServeBlocks) else torch.zeros_like(b))
+
+    faulty = {**blocks, "layers": [
+        {**layer, "attn": {**layer["attn"], **{k: {**layer["attn"][k],
+                                                    "b": zeroed(layer["attn"][k]["b"])}
+                                               for k in ("wq", "wk", "wv")}}}
+        for layer in blocks["layers"]]}
+    _, wrong, _, _, _ = serve_decode(torch, bundle, faulty, state, tok, steps, feed=chain)
+    del faulty
+    fault_ratio = float(((wrong - ref).abs().amax(-1) / spread).max())
+    log(f"  {label} gates: forced tokens {tok_ratio:.4f} of the row spread below the replicated "
+        f"max (limit {WITNESS_GAP}), logits {logit_ratio:.4f} of it (max |diff| "
+        f"{float(logit_diff.max()):.4f}; limit {SERVE_TP_LOGIT_GAP}); the qkv biases (std "
+        f"{SERVE_TP_BIAS_STD}) zeroed on the blocks: logits {fault_ratio:.4f} of the row spread "
+        f"(must fail the limit)")
+    if not (bool(torch.isfinite(got).all()) and tok_ratio <= WITNESS_GAP
+            and logit_ratio <= SERVE_TP_LOGIT_GAP):
+        raise AssertionError(f"{label}: a token {tok_ratio:.4f} and a logit {logit_ratio:.4f} "
+                             f"of the row spread from the replicated decode (limits "
+                             f"{WITNESS_GAP}, {SERVE_TP_LOGIT_GAP})")
+    if not fault_ratio > SERVE_TP_LOGIT_GAP:
+        raise AssertionError(f"{label}: the chain fed with the qkv biases zeroed stays within "
+                             f"{fault_ratio:.4f} of the row spread: the limit "
+                             f"{SERVE_TP_LOGIT_GAP} would not see a dropped bias")
+    replay_err = max(replay_err, replay_a_calls(torch, calls, label))
+    replayed += list(calls)
+    del calls
+    blocks_bytes = sum(x.blocks.numel() * x.blocks.element_size() if isinstance(x, ServeBlocks)
+                       else x.numel() * x.element_size() for x in tree_leaves(blocks))
+    cache_bytes = sum(state[k].numel() * state[k].element_size() for k in ("k", "v"))
+    med, ref_med = statistics.median(ms), statistics.median(ref_ms)
+    full_meta = init_lm(full_cfg, None, device="meta")
+    full_state = {m: state_bytes(layout_for(full_meta, data_mesh(1, m), mode="serve"))
+                  for m in (4, 8)}
+    full_tp = serve_comm_bytes(layout_for(full_meta, mesh, mode="serve"), full_cfg, B)
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": dict(mesh.shape),
+           "storage": "serve", "batch": B, "prompt": S, "steps": steps,
+           "prefill_s": t_prefill, "prefill_launches": prefill_a,
+           "median_step_ms": med, "step_ms": ms, "replicated_median_step_ms": ref_med,
+           "weight_bytes": weight_bytes, "blocks_bytes": blocks_bytes,
+           "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+           "cache_bytes": cache_bytes,
+           "read_bound_ms": (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+           "tp_bytes_per_step": closed["tp"]["fwd"], "link_bytes_per_step":
+           closed["link"]["fwd"], "peak_bytes_cut": cut_peak, "peak_bytes_serve": serve_peak,
+           "state_bytes_80_layers": full_state, "tp_bytes_per_step_80_layers":
+           full_tp["tp"]["fwd"], "launches": ran, "replicated_launches": ref_a,
+           "max_token_gap_over_spread": tok_ratio, "max_logit_diff_over_spread": logit_ratio,
+           "max_logit_abs_diff": float(logit_diff.max()), "logit_limit": SERVE_TP_LOGIT_GAP,
+           "qkv_bias_std": SERVE_TP_BIAS_STD, "fault_logit_diff_over_spread": fault_ratio,
+           "a_calls_replayed": len(replayed),
+           "a_calls_max_abs_err": replay_err,
+           "median_spread": float(spread.median()),
+           "greedy_equal_to_replicated": int((own == chain).sum()), "tokens": chain.numel()}
+    log(f"  {cfg.name}: {layers} of {full_cfg.n_layers} layers, {weight_bytes / 1e9:.2f} GB in "
+        f"bf16, serve blocks over {dict(mesh.shape)}; batch {B} x prompt {S} prefilled at SP 4 in "
+        f"{t_prefill:.2f} s; decode step median {med:.3f} ms (replicated {ref_med:.3f} ms), "
+        f"weight-read bound {res['weight_read_bound_ms']:.3f} ms ({res['read_bound_ms']:.3f} "
+        f"with the cache); TP bytes a step, rank and direction {closed['tp']['fwd']:.0f} = "
+        f"serve_comm_bytes (link {closed['link']['fwd']:.0f}); peak {cut_peak / 1e9:.2f} GB at "
+        f"the cut, {serve_peak / 1e9:.2f} GB serving; A launches {ran}; forced tokens within "
+        f"{tok_ratio:.4f} and logits within {logit_ratio:.4f} of the row spread (limits "
+        f"{WITNESS_GAP} and {SERVE_TP_LOGIT_GAP}, median spread {res['median_spread']:.3f}); "
+        f"greedy tokens equal to the "
+        f"replicated decode's {res['greedy_equal_to_replicated']} of {chain.numel()}; "
+        f"qkv biases zeroed on the blocks: logits {fault_ratio:.4f} of the row spread (fails "
+        f"the limit, as it must); A's {len(replayed)} call shapes replayed "
+        f"against the plain version, max |out err| {replay_err:.3e}; "
+        f"state_bytes at 80 layers {full_state[4] / 1e9:.2f} GB (model 4), "
+        f"{full_state[8] / 1e9:.2f} GB (model 8)")
+    if with_profile:
+        res["profile"] = profile_step(torch, lambda: serve_decode(torch, bundle, blocks, state,
+                                                                  tok, 4), 4 * med / 1e3)
+    log("RESULT serving_tp " + json.dumps(res))
+    del blocks, state
+    free_device_memory(torch)
+    return ran
+
+
+PROFILED_PHASES = (6, 9, 11, 13, 16, 17, 18, 19, 20, 23)
 
 
 def profiled_phases(argv):
@@ -6158,7 +6562,21 @@ def main() -> int:
     free_device_memory(torch)
     log(f"  phase 22 took {time.perf_counter() - t22:.1f} s")
 
-    log("== phase 23: summary")
+    log("== phase 23: the decode step under serve-mode (Megatron) storage: qwen3-1.7b and "
+        "qwen3-moe-30b-a3b checked at full width (2 layers, float32) on the virtual (1, 4) and "
+        f"(2, 4) meshes; qwen2-72b at full width ({SERVE_TP_LAYERS} of 80 layers, main path) "
+        "decoded on serve blocks over the virtual (1, 4) mesh")
+    t23 = time.perf_counter()
+    for name in SERVE_CHECK_ARCHS:
+        for shape in SERVE_CHECK_MESHES:
+            phase_serve_checked(torch, dev, name, shape)
+    zero = {"flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "paged_decode_fwd": 0}
+    launches["serve_tp"] = {"flash_attention_fwd": phase_serve_tp(torch, dev, 23 in prof),
+                            **zero}
+    free_device_memory(torch)
+    log(f"  phase 23 took {time.perf_counter() - t23:.1f} s")
+
+    log("== phase 24: summary")
     # `launches` is the count of the main path that runs the kernel (A, B1
     # and B2: whisper-base trained at full width and depth at SP 1, phase
     # 18's first training run; C, which no encoder-decoder path runs:

@@ -277,7 +277,8 @@ class ParallelContext:
             elif ring is None or ring.folded:
                 if ring is None and self.sp_degree > 1:
                     ring = VirtualRing(self.sp_degree, self.device, groups=self.data_degree)
-                storage = VirtualMeshComm(mesh, ring.ledger if ring is not None else None)
+                storage = VirtualMeshComm(mesh, ring.ledger if ring is not None else None,
+                                          data_groups=self.data_degree)
             else:
                 raise ValueError("a mesh over processes takes their torch.distributed group "
                                  "as ring=, not a ring transport")

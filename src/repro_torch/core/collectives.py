@@ -85,6 +85,22 @@ tensor the FSDP gather hands out is held on the ledger until it is freed
 and the ledger keeps the high-water of those bytes, ``gathered_high``:
 what one rank of a real mesh holds at once beyond its blocks.
 
+**Tensor parallelism** (serve storage, ``repro_torch.sharding``): both mesh
+transports run the collectives of a weight split over ``model`` on
+*ranked* activations, a tensor with a leading dim of this process's model
+ranks (every one of them on the virtual mesh, this rank on a process
+group), as the blocks of the weights are laid out: :meth:`tp_split` (this
+process's slices of a replicated tensor, no traffic), :meth:`tp_gather`
+(the activation all-gather: the ranks' slices concatenated in model
+order) and :meth:`tp_sum` (the sum all-reduce), forward only.  They are
+charged to the ledger's ``"tp"`` class, apart from the SP decode merge's
+``"link"`` and the FSDP ``"data"``, at the conventions above: an
+all-gather of a slice of ``n`` bytes ``(G-1) * n / 2`` a direction, an
+all-reduce of ``n`` bytes ``(G-1)/G * n``; on the virtual mesh a slice
+holds every data rank's rows, so it is charged ``1 / data_groups`` of its
+bytes, one (data, model) rank's.  A serve leaf that a layer needs whole (a
+norm scale) comes over :meth:`VirtualMeshComm.gather` on the same class.
+
 **What is counted.**  Every transport counts what it is handed, per rank and
 per ring direction (``"fwd"`` for ``s > 0``, ``"bwd"`` for ``s < 0``), in
 the cost models' units, in one ledger that a ring shares with its views:
@@ -668,6 +684,8 @@ class _MeshCounts:
     ledger's ``"data"`` class, per rank."""
 
     link_class = "data"
+    tp_class = "tp"
+    data_groups = 1
 
     def _axes_size(self, axes) -> int:
         n = 1
@@ -675,14 +693,28 @@ class _MeshCounts:
             n *= self.mesh.shape[a]
         return n
 
-    def _charge(self, per_dir: float):
+    def _charge(self, per_dir: float, link_class: str | None = None):
         if per_dir:
-            self.ledger.add(self.link_class, "fwd", per_dir)
-            self.ledger.add(self.link_class, "bwd", per_dir)
+            self.ledger.add(link_class or self.link_class, "fwd", per_dir)
+            self.ledger.add(link_class or self.link_class, "bwd", per_dir)
 
-    def _count_gather(self, blocks, axes):
+    def _count_gather(self, blocks, axes, link_class=None):
         G = self._axes_size(axes)
-        self._charge((G - 1) * blocks[0].numel() * blocks.element_size() / 2)
+        self._charge((G - 1) * blocks[0].numel() * blocks.element_size() / 2, link_class)
+
+    @property
+    def tp_size(self) -> int:
+        return self.mesh.shape["model"]
+
+    def _slice_bytes(self, parts) -> float:
+        return parts[0].numel() * parts.element_size() / self.data_groups
+
+    def _count_tp_gather(self, parts):
+        self._charge((self.tp_size - 1) * self._slice_bytes(parts) / 2, self.tp_class)
+
+    def _count_tp_sum(self, parts):
+        G = self.tp_size
+        self._charge((G - 1) / G * self._slice_bytes(parts), self.tp_class)
 
     def _count_reduce_scatter(self, full_blocks, axes):
         G = self._axes_size(axes)
@@ -703,15 +735,38 @@ class VirtualMeshComm(_MeshCounts):
     folded = True
     rank = None
 
-    def __init__(self, mesh, ledger=None):
+    def __init__(self, mesh, ledger=None, data_groups: int = 1):
         self.mesh = mesh
         self.ledger = ledger if ledger is not None else _Ledger()
+        self.data_groups = data_groups
 
-    def gather(self, blocks, axes, count: bool = True):
+    def gather(self, blocks, axes, count: bool = True, link_class: str | None = None):
         """``(G, *block)`` blocks of the named group -> all of them."""
         if count:
-            self._count_gather(blocks, axes)
+            self._count_gather(blocks, axes, link_class)
         return blocks
+
+    def tp_split(self, x, dim: int):
+        """Every model rank's slice of a replicated ``x`` along ``dim``,
+        ranked: ``(G, ...)``."""
+        dim %= x.ndim
+        return x.unflatten(dim, (self.tp_size, x.shape[dim] // self.tp_size)).movedim(dim, 0)
+
+    def tp_gather(self, parts, dim: int):
+        """The ranks' slices ``(G, ...)`` concatenated along ``dim`` (of a
+        slice) in model order."""
+        self._count_tp_gather(parts)
+        dim %= parts.ndim - 1
+        return parts.movedim(0, dim).flatten(dim, dim + 1)
+
+    def tp_sum(self, parts):
+        """The ranks' ``(G, ...)`` summed."""
+        self._count_tp_sum(parts)
+        return parts.sum(0)
+
+    def tp_ranks(self, device):
+        """The model coordinates of the ranked dim."""
+        return torch.arange(self.tp_size, device=device)
 
     def reduce_scatter(self, full_blocks, axes):
         self._count_reduce_scatter(full_blocks, axes)
@@ -785,13 +840,13 @@ class ProcessGroupMeshComm(_MeshCounts):
             return None
         return ProcessGroupRing(self._pg(axes), ledger=self.ledger, link_class=link_class)
 
-    def gather(self, blocks, axes, count: bool = True):
+    def gather(self, blocks, axes, count: bool = True, link_class: str | None = None):
         """This rank's ``(1, *block)`` -> the group's ``(G, *block)`` in
         row-major order over ``axes``."""
         import torch.distributed as dist
 
         if count:
-            self._count_gather(blocks, axes)
+            self._count_gather(blocks, axes, link_class)
         G = self._axes_size(axes)
         if G == 1:
             return blocks
@@ -823,6 +878,38 @@ class ProcessGroupMeshComm(_MeshCounts):
         y = blocks.contiguous().clone()
         dist.all_reduce(y, group=self._pg(axes))
         return y
+
+    def _model_coord(self) -> int:
+        return self.mesh.coords(self.rank)["model"]
+
+    def tp_split(self, x, dim: int):
+        """This rank's slice of a replicated ``x`` along ``dim``, ranked:
+        ``(1, ...)``."""
+        n = x.shape[dim] // self.tp_size
+        return x.narrow(dim, self._model_coord() * n, n)[None]
+
+    def tp_gather(self, parts, dim: int):
+        """The model group's slices concatenated along ``dim`` (of a slice)
+        in model order, from this rank's ``(1, ...)``."""
+        import torch.distributed as dist
+
+        self._count_tp_gather(parts)
+        x = parts[0].contiguous()
+        out = [torch.empty_like(x) for _ in range(self.tp_size)]
+        dist.all_gather(out, x, group=self._pg(("model",)))
+        return torch.cat(out, dim=dim)
+
+    def tp_sum(self, parts):
+        """This rank's ``(1, ...)`` summed over the model group."""
+        import torch.distributed as dist
+
+        self._count_tp_sum(parts)
+        y = parts[0].contiguous().clone()
+        dist.all_reduce(y, group=self._pg(("model",)))
+        return y
+
+    def tp_ranks(self, device):
+        return torch.tensor([self._model_coord()], device=device)
 
     def world_sum(self, x):
         """A sum over every rank of the mesh, not counted (the step's

@@ -25,6 +25,12 @@ group the rank dimension is 1 (``x`` this rank's shard in training, the
 replicated chunk in serving).  Every scatter sends what it drops to an
 overflow slot that is sliced off, so no live slot is written twice and the
 accumulating ``index_put`` stays repeatable run to run on the card.
+
+In serve storage (``repro_torch.sharding.ServeBlocks``) the expert stacks
+are split by expert over ``model``, which is the expert parallelism above:
+a rank's block is its own experts.  The router, split by columns, gives
+its logits gathered whole before the top-k, and a shared expert runs as
+its column/row pair (``models.layers``).
 """
 
 from __future__ import annotations
@@ -35,9 +41,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.collectives import fold_ranks, unfold_ranks
-from repro_torch.models.layers import dense_init, mlp, mlp_init, torch_dtype
+from repro_torch.models.layers import dense, dense_init, mlp, mlp_init, torch_dtype
+from repro_torch.sharding import ServeBlocks
 
-__all__ = ["moe_init", "moe_ffn"]
+__all__ = ["moe_init", "moe_ffn", "ep_size"]
 
 
 def moe_init(gen, cfg, device="cuda", training: bool = False):
@@ -98,7 +105,7 @@ def moe_ffn(p, x, cfg, pctx, sharded: bool = False):
 
 def _route(router_w, x, K):
     """float32 routing: ``(probs, expert_idx, gates)`` over the last dim."""
-    logits = x.float() @ router_w.float()
+    logits = dense({"w": router_w}, x, torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(logits, K, dim=-1)
     return probs, expert_idx, torch.softmax(gate_vals, dim=-1)
@@ -180,20 +187,32 @@ def _ep_ring(cfg, pctx):
     divides by the SP degree; else the inner axis of a podded ring (e.g.
     llama4's 16 experts on a ring wider than 16: experts replicated across
     pods, tokens routed within their pod)."""
-    E, P = cfg.n_experts, pctx.sp_degree
+    n_ep = ep_size(cfg.n_experts, pctx.sp_degree, pctx.pods)
+    return (pctx.ring if n_ep == pctx.sp_degree else pctx.axis_rings[1]), n_ep
+
+
+def ep_size(E: int, P: int, pods: int = 1) -> int:
+    """The ranks :func:`_ep_ring` shards ``E`` experts over at SP degree
+    ``P``."""
     if E % P == 0:
-        return pctx.ring, P
-    if pctx.pods > 1 and E % (P // pctx.pods) == 0:
-        return pctx.axis_rings[1], P // pctx.pods
-    raise ValueError(f"experts {E} not shardable over an SP degree of {P} "
-                     f"({pctx.pods} pods)")
+        return P
+    if pods > 1 and E % (P // pods) == 0:
+        return P // pods
+    raise ValueError(f"experts {E} not shardable over an SP degree of {P} ({pods} pods)")
 
 
 def _local_experts(p, n_ep, R, ring, dt):
     """Each (folded) rank's slice of the expert stacks, ``(R, E_loc, ...)``:
     EP rank ``r % n_ep`` of flat rank ``r`` (the inner index on a podded
-    ring)."""
+    ring).  A stack in serve storage is already each rank's own experts:
+    its blocks."""
     def local(w):
+        if isinstance(w, ServeBlocks):
+            if w.split != 0 or w.blocks.shape[1] * n_ep != w.shape[0]:
+                raise ValueError(f"serve blocks {w.spec} of an expert stack {w.shape} are not "
+                                 f"its experts over {n_ep} ranks")
+            w = w.blocks.to(dt)
+            return w.repeat(R // n_ep, *([1] * (w.ndim - 1))) if ring.folded and R != n_ep else w
         w = w.to(dt).reshape(n_ep, w.shape[0] // n_ep, *w.shape[1:])
         if not ring.folded:
             return w[ring.rank % n_ep][None]

@@ -28,6 +28,20 @@ in the layout ``serving.kv_cache`` describes (dense slab rank-major on the
 virtual ring, page stripes on a process group); each step maps its global
 writes and views into that layout, and the attention merges the ranks'
 partials (``core/decode.py``).
+
+:func:`lm_decode_step` also takes parameters in serve storage
+(``sharding.shard_tree`` of a ``mode="serve"`` layout: the reference's
+Megatron layout, which its dry run compiles the decode step under): it
+binds their :class:`~repro_torch.sharding.ServeBlocks` leaves to the
+context's mesh transport, and each layer computes on its blocks with the
+tensor-parallel collectives of ``models/layers.py``.  q, k and v come out
+of their column blocks gathered, since the cache is sharded by sequence,
+not by head, and every rank reads every head; the output projection and
+the MLP's down projection end in a sum all-reduce; the head's logits are
+gathered (or summed) whole before they are returned.  The cache keeps
+its SP layout, which ``sharding.serve_state_shardings`` describes.
+:func:`serve_comm_bytes` is the closed form of such a step's bytes a
+rank and direction, per link class.
 """
 
 from __future__ import annotations
@@ -52,15 +66,18 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import (
     apply_norm,
+    dense,
     dense_init,
     embed_init,
+    embed_lookup,
     lm_cross_entropy,
     mlp,
     mlp_init,
     norm_init,
     torch_dtype,
+    tp_pair,
 )
-from repro_torch.models.moe import moe_ffn, moe_init
+from repro_torch.models.moe import ep_size, moe_ffn, moe_init
 from repro_torch.serving.kv_cache import (
     apply_drop,
     dense_write_index,
@@ -73,7 +90,7 @@ from repro_torch.serving.kv_cache import (
     view_indices,
     write_coords,
 )
-from repro_torch.sharding import layer_params
+from repro_torch.sharding import bind_serve, layer_params, serve_split, tree_bytes
 
 # The families this module builds (``models.registry``).
 FAMILIES = ("dense", "moe", "vlm")
@@ -87,6 +104,7 @@ __all__ = [
     "init_paged_decode_cache",
     "lm_prefill_chunk",
     "lm_decode_step",
+    "serve_comm_bytes",
     "lm_prefill_chunk_paged",
     "lm_decode_step_paged",
     "dots_policy",
@@ -155,14 +173,13 @@ def _lm_head_w(params, cfg):
 
 
 def _logits(params, x, cfg):
-    dt = torch_dtype(cfg.dtype)
-    return x.to(dt) @ _lm_head_w(params, cfg).to(dt)
+    return dense({"w": _lm_head_w(params, cfg)}, x, torch_dtype(cfg.dtype))
 
 
 def _embed(params, token_ids, cfg, prefix_embeds=None):
     """Token embeddings in ``cfg.dtype``; a VLM's patch embeddings
     ``prefix_embeds (B, n_img, d)`` occupy the first slots."""
-    x = params["embed"]["table"][token_ids.long()].to(torch_dtype(cfg.dtype))
+    x = embed_lookup(params["embed"]["table"], token_ids.long()).to(torch_dtype(cfg.dtype))
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x
@@ -388,7 +405,10 @@ def lm_decode_step(params, token_ids, cache, active=None, *, cfg, pctx):
     """One decode step for every row: ``token_ids (B,)`` -> ``logits (B, V)``.
 
     New K/V are written at slot ``len[b]``; ``active (B,)`` (bool) skips rows
-    entirely (no write, no length advance)."""
+    entirely (no write, no length advance).  ``params`` may be in serve
+    storage (module docstring)."""
+    if pctx.storage is not None:
+        bind_serve(params, pctx.storage)
     B = token_ids.shape[0]
     Smax = cache["pos"].shape[1] * sp_ranks(pctx)[0]
     length = cache["len"]
@@ -410,6 +430,96 @@ def lm_decode_step(params, token_ids, cache, active=None, *, cfg, pctx):
     logits = _logits(params, x, cfg)[:, 0]
     cache["len"].copy_(new_len)
     return logits, cache
+
+
+def serve_comm_bytes(layout, cfg, batch: int) -> dict[str, dict[str, float]]:
+    """One :func:`lm_decode_step`'s bytes a rank and direction, by link
+    class, on parameters in the serve layout ``layout``
+    (``sharding.layout_for(..., mode="serve")``), ``batch`` the rows one
+    rank's step carries (its data rank's).  With ``G`` the model size and
+    ``n`` a tensor's bytes whole:
+
+    * ``"tp"``: each product with a column-split weight all-gathers its
+      output (``(G-1) * n/G / 2``), with a row-split one all-reduces it
+      (``(G-1)/G * n``), and a split 1-D leaf a layer needs whole is
+      all-gathered (a norm scale, a row projection's bias; a column
+      projection's bias is added to its slice); a column/row pair of the
+      MLP (``layers.tp_pair``) moves only its all-reduce; the embedding
+      all-gathers its rows (split by ``d``) or all-reduces them (by
+      vocabulary); the head's logits come whole the same way.  Products
+      run in ``cfg.dtype``, the MoE router in float32;
+    * ``"link"``: the SP decode merge of every layer (``decode_comm_cost``)
+      and an MoE layer's expert-parallel sum of its float32 output;
+    * ``"data"``: nothing: serve storage replicates every leaf over the
+      data axis."""
+    from repro_torch.core.decode import decode_comm_cost
+
+    mesh = layout.mesh
+    G, pods = mesh.shape["model"], mesh.shape.get("pod", 1)
+    e = torch_dtype(cfg.dtype).itemsize
+    rows, d = batch, cfg.d_model
+
+    def split(spec):
+        return serve_split(spec, mesh)
+
+    def gathered(n):
+        return (G - 1) * n / G / 2
+
+    def summed(n):
+        return (G - 1) / G * n
+
+    def whole(spec, meta):
+        return 0.0 if split(spec) is None else gathered(tree_bytes(meta))
+
+    def norm(specs, meta):
+        return sum(whole(specs[k], meta[k]) for k in specs)
+
+    def product(specs, meta, out_bytes, transpose=False):
+        s = split(specs["w"][::-1] if transpose else specs["w"])
+        if s is None:
+            return 0.0
+        if s == 1:
+            return gathered(rows * out_bytes)
+        return summed(rows * out_bytes) + (whole(specs["b"], meta["b"]) if "b" in specs else 0.0)
+
+    def ffn(specs, meta, f):
+        keys = ("gate", "up", "down") if "gate" in specs else ("in", "out")
+        *cols, row = keys
+        if tp_pair([split(specs[k]["w"]) for k in cols], split(specs[row]["w"])):
+            return summed(rows * d * e) + (whole(specs[row]["b"], meta[row]["b"])
+                                           if "b" in specs[row] else 0.0)
+        return (sum(product(specs[k], meta[k], f * e) for k in cols)
+                + product(specs[row], meta[row], d * e))
+
+    tp = link = 0.0
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    table_row = rows * d * layout.meta["embed"]["table"].element_size()
+    tp += {None: 0.0, 1: gathered(table_row),
+           0: summed(table_row)}[split(layout.specs["embed"]["table"])]
+    for specs, meta in zip(layout.specs["layers"], layout.meta["layers"]):
+        a, am = specs["attn"], meta["attn"]
+        tp += norm(specs["ln1"], meta["ln1"]) + norm(specs["ln2"], meta["ln2"])
+        tp += product(a["wq"], am["wq"], Hq * Dh * e) + product(a["wo"], am["wo"], d * e)
+        tp += sum(product(a[k], am[k], Hkv * Dh * e) for k in ("wk", "wv"))
+        tp += sum(norm(a[k], am[k]) for k in ("q_norm", "k_norm") if k in a)
+        link += decode_comm_cost(rows, 1, Hq, Hkv, Dh, G * pods).fwd_bytes
+        if "moe" in specs:
+            m, mm = specs["moe"], meta["moe"]
+            tp += product(m["router"], mm["router"], cfg.n_experts * 4)
+            if "shared" in m:
+                tp += ffn(m["shared"], mm["shared"], cfg.moe_d_ff * cfg.n_shared_experts)
+            n_ep = ep_size(cfg.n_experts, G * pods, pods)
+            link += (n_ep - 1) / n_ep * rows * d * 4
+        else:
+            tp += ffn(specs["mlp"], meta["mlp"], cfg.d_ff)
+    tp += norm(layout.specs["final_norm"], layout.meta["final_norm"])
+    if "lm_head" in layout.specs:
+        tp += product(layout.specs["lm_head"], layout.meta["lm_head"], cfg.vocab_size * e)
+    else:
+        tp += product({"w": layout.specs["embed"]["table"]}, {}, cfg.vocab_size * e,
+                      transpose=True)
+    return {cls: {"fwd": n, "bwd": n} for cls, n in (("tp", tp), ("link", link),
+                                                      ("data", 0.0))}
 
 
 @torch.inference_mode()
@@ -479,3 +589,93 @@ def lm_decode_step_paged(params, token_ids, cache, active=None, *, cfg, pctx):
     logits = _logits(params, x, cfg)[:, 0]
     cache["len"].copy_(new_len)
     return logits, cache
+
+
+def serve_comm_bytes(layout, cfg, batch: int) -> dict[str, dict[str, float]]:
+    """One :func:`lm_decode_step`'s bytes a rank and direction, by link
+    class, on parameters in the serve layout ``layout``
+    (``sharding.layout_for(..., mode="serve")``), ``batch`` the rows one
+    rank's step carries (its data rank's).  With ``G`` the model size and
+    ``n`` a tensor's bytes whole:
+
+    * ``"tp"``: each product with a column-split weight all-gathers its
+      output (``(G-1) * n/G / 2``), with a row-split one all-reduces it
+      (``(G-1)/G * n``), and a split 1-D leaf a layer needs whole is
+      all-gathered (a norm scale, a row projection's bias; a column
+      projection's bias is added to its slice); a column/row pair of the
+      MLP (``layers.tp_pair``) moves only its all-reduce; the embedding
+      all-gathers its rows (split by ``d``) or all-reduces them (by
+      vocabulary); the head's logits come whole the same way.  Products
+      run in ``cfg.dtype``, the MoE router in float32;
+    * ``"link"``: the SP decode merge of every layer (``decode_comm_cost``)
+      and an MoE layer's expert-parallel sum of its float32 output;
+    * ``"data"``: nothing: serve storage replicates every leaf over the
+      data axis."""
+    from repro_torch.core.decode import decode_comm_cost
+
+    mesh = layout.mesh
+    G, pods = mesh.shape["model"], mesh.shape.get("pod", 1)
+    e = torch_dtype(cfg.dtype).itemsize
+    rows, d = batch, cfg.d_model
+
+    def split(spec):
+        return serve_split(spec, mesh)
+
+    def gathered(n):
+        return (G - 1) * n / G / 2
+
+    def summed(n):
+        return (G - 1) / G * n
+
+    def whole(spec, meta):
+        return 0.0 if split(spec) is None else gathered(tree_bytes(meta))
+
+    def norm(specs, meta):
+        return sum(whole(specs[k], meta[k]) for k in specs)
+
+    def product(specs, meta, out_bytes, transpose=False):
+        s = split(specs["w"][::-1] if transpose else specs["w"])
+        if s is None:
+            return 0.0
+        if s == 1:
+            return gathered(rows * out_bytes)
+        return summed(rows * out_bytes) + (whole(specs["b"], meta["b"]) if "b" in specs else 0.0)
+
+    def ffn(specs, meta, f):
+        keys = ("gate", "up", "down") if "gate" in specs else ("in", "out")
+        *cols, row = keys
+        if tp_pair([split(specs[k]["w"]) for k in cols], split(specs[row]["w"])):
+            return summed(rows * d * e) + (whole(specs[row]["b"], meta[row]["b"])
+                                           if "b" in specs[row] else 0.0)
+        return (sum(product(specs[k], meta[k], f * e) for k in cols)
+                + product(specs[row], meta[row], d * e))
+
+    tp = link = 0.0
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    table_row = rows * d * layout.meta["embed"]["table"].element_size()
+    tp += {None: 0.0, 1: gathered(table_row),
+           0: summed(table_row)}[split(layout.specs["embed"]["table"])]
+    for specs, meta in zip(layout.specs["layers"], layout.meta["layers"]):
+        a, am = specs["attn"], meta["attn"]
+        tp += norm(specs["ln1"], meta["ln1"]) + norm(specs["ln2"], meta["ln2"])
+        tp += product(a["wq"], am["wq"], Hq * Dh * e) + product(a["wo"], am["wo"], d * e)
+        tp += sum(product(a[k], am[k], Hkv * Dh * e) for k in ("wk", "wv"))
+        tp += sum(norm(a[k], am[k]) for k in ("q_norm", "k_norm") if k in a)
+        link += decode_comm_cost(rows, 1, Hq, Hkv, Dh, G * pods).fwd_bytes
+        if "moe" in specs:
+            m, mm = specs["moe"], meta["moe"]
+            tp += product(m["router"], mm["router"], cfg.n_experts * 4)
+            if "shared" in m:
+                tp += ffn(m["shared"], mm["shared"], cfg.moe_d_ff * cfg.n_shared_experts)
+            n_ep = ep_size(cfg.n_experts, G * pods, pods)
+            link += (n_ep - 1) / n_ep * rows * d * 4
+        else:
+            tp += ffn(specs["mlp"], meta["mlp"], cfg.d_ff)
+    tp += norm(layout.specs["final_norm"], layout.meta["final_norm"])
+    if "lm_head" in layout.specs:
+        tp += product(layout.specs["lm_head"], layout.meta["lm_head"], cfg.vocab_size * e)
+    else:
+        tp += product({"w": layout.specs["embed"]["table"]}, {}, cfg.vocab_size * e,
+                      transpose=True)
+    return {cls: {"fwd": n, "bwd": n} for cls, n in (("tp", tp), ("link", link),
+                                                      ("data", 0.0))}

@@ -39,12 +39,25 @@ process group they run over the mesh's subgroups.
 direction, which the ledger's ``"data"`` class must equal;
 :func:`fsdp_gathered_bytes` the most gathered bytes alive at once, which
 the ledger's high-water must equal under remat.
+
+**Serve storage** (``mode="serve"``, the reference's Megatron layout for
+decode): ``shard_tree`` of a serve layout turns each leaf that the rule
+splits over ``model`` into a :class:`ServeBlocks`, its blocks resident for
+good (the same ``(k, *block)`` tensor, ``k`` the model size on the virtual
+mesh, 1 on a process group), and keeps every other leaf whole.  The decode
+step binds them, once, to the context's mesh transport (:func:`bind_serve`)
+and the layers compute on the blocks with the tensor-parallel collectives
+their split implies (``models/layers.py``); nothing is gathered into a
+full weight but the 1-D leaves that need the whole vector (norm scales).
+:func:`serve_split` is the dim a serve spec splits; the closed form of a
+decode step's bytes on such blocks is ``models.transformer``'s
+``serve_comm_bytes``, beside the step it describes.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import torch
@@ -64,7 +77,7 @@ __all__ = ["batch_shardings", "data_group", "param_pspec", "params_shardings",
            "cut_blocks", "assemble_blocks", "shard_state", "shard_tree", "unshard_tree",
            "gather_params", "fsdp_comm_bytes", "state_bytes", "batch_block", "spec_leaves",
            "STACKED", "LayerBlocks", "layer_params", "gather_step_params", "fsdp_gathered_bytes",
-           "tree_bytes"]
+           "tree_bytes", "ServeBlocks", "bind_serve", "serve_split"]
 
 # The layer stacks: the reference's scanned leaves (``sharding/rules.py``'s
 # ``_STACKED``), each a list of per-layer entries here.
@@ -145,10 +158,12 @@ class Layout:
     specs: Any
     meta: Any
     rank: int | None = None
+    mode: str = "train"  # the rules' mode: "train" (FSDP) or "serve" (Megatron)
 
     def with_mesh(self, mesh, rank: int | None = None) -> "Layout":
-        """The same tree laid out by the rules on another mesh."""
-        return layout_for(self.meta, mesh, rank=rank)
+        """The same tree laid out by the rules, in the same mode, on
+        another mesh."""
+        return layout_for(self.meta, mesh, rank=rank, mode=self.mode)
 
 
 def layout_for(tree, mesh, rank: int | None = None, mode: str = "train") -> Layout:
@@ -161,7 +176,7 @@ def layout_for(tree, mesh, rank: int | None = None, mode: str = "train") -> Layo
         return param_pspec(path, tuple(x.shape), mesh, mode)
 
     meta = map_with_path(lambda _, x: torch.empty(x.shape, dtype=x.dtype, device="meta"), tree)
-    return Layout(mesh, map_with_path(spec, tree), meta, rank)
+    return Layout(mesh, map_with_path(spec, tree), meta, rank, mode)
 
 
 def spec_leaves(specs):
@@ -179,24 +194,30 @@ def _rebuild(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
-def _cut_leaf(x, spec, mesh, rank):
-    if spec is None:
+def _groups(spec, mesh) -> int:
+    return math.prod(mesh.shape[a] for a in spec_axes(spec, mesh))
+
+
+def _cut_leaf(x, spec, mesh, rank, mode="train"):
+    if spec is None or (mode == "serve" and _groups(spec, mesh) == 1):
         return x.detach().clone()
     blocks = cut_blocks(x.detach(), spec, mesh)
     if rank is not None:
         i = block_index(spec, mesh, rank)
         blocks = blocks[i:i + 1]
-    return blocks.contiguous().clone()
+    blocks = blocks.contiguous().clone()
+    return ServeBlocks(blocks, spec, mesh) if mode == "serve" else blocks
 
 
 def shard_tree(tree, layout: Layout):
     """Each leaf of ``tree`` (full tensors) cut to ``layout.rank``'s block
-    of its spec (every block with ``rank=None``), as new tensors."""
+    of its spec (every block with ``rank=None``), as new tensors; a serve
+    layout's split leaves as :class:`ServeBlocks`."""
     specs = spec_leaves(layout.specs)
     leaves = tree_leaves(tree)
     if len(specs) != len(leaves):
         raise ValueError(f"{len(leaves)} leaves against {len(specs)} specs")
-    return _rebuild(tree, [_cut_leaf(x, s, layout.mesh, layout.rank)
+    return _rebuild(tree, [_cut_leaf(x, s, layout.mesh, layout.rank, layout.mode)
                            for x, s in zip(leaves, specs)])
 
 
@@ -212,7 +233,9 @@ def unshard_tree(tree, layout: Layout, comm=None):
     virtual mesh; all-gathered over ``comm`` (a process group's mesh
     transport, collective) otherwise.  Not differentiable, not counted."""
     def leaf(x, spec):
-        if spec is None:
+        if isinstance(x, ServeBlocks):
+            x = x.blocks
+        elif spec is None or layout.mode == "serve":
             return x.detach().clone()
         blocks = x.detach()
         if layout.rank is not None:
@@ -297,6 +320,73 @@ def gather_step_params(shards, layout: Layout, comm):
     return full
 
 
+@dataclass(eq=False)
+class ServeBlocks:
+    """A leaf of serve storage (module docstring): ``blocks`` ``(k,
+    *block)``, the resident blocks this process holds of a weight whose
+    serve spec ``spec`` splits one dim over ``model`` (all ``k`` = model
+    size of them on the virtual mesh, this rank's on a process group);
+    ``comm`` the mesh transport whose tensor-parallel collectives the
+    layers run on, bound once by :func:`bind_serve`."""
+
+    blocks: torch.Tensor
+    spec: tuple
+    mesh: Any
+    comm: Any = None
+
+    @property
+    def split(self) -> int:
+        """The dim that the spec splits."""
+        return serve_split(self.spec, self.mesh)
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(n * math.prod(self.mesh.shape[a] for a in _entry_axes(e))
+                     for n, e in zip(self.blocks.shape[1:], self.spec))
+
+    @property
+    def T(self) -> "ServeBlocks":
+        """The transpose of a 2-D leaf (a tied head's ``table.T``)."""
+        return replace(self, blocks=self.blocks.transpose(1, 2), spec=self.spec[::-1])
+
+    def transport(self):
+        if self.comm is None:
+            raise RuntimeError("serve blocks reach a layer unbound: lm_decode_step binds them "
+                               "to its context's mesh transport, and no other step takes serve "
+                               "storage")
+        return self.comm
+
+    def whole(self):
+        """The full tensor, its blocks all-gathered over the spec's axes
+        (the ledger's ``"tp"`` class): a 1-D leaf that the layer needs
+        whole (a norm scale)."""
+        blocks = self.transport().gather(self.blocks, spec_axes(self.spec, self.mesh),
+                                         link_class="tp")
+        return assemble_blocks(blocks, self.spec, self.mesh)
+
+
+def bind_serve(tree, comm):
+    """Bind every :class:`ServeBlocks` leaf of ``tree`` to ``comm`` (the
+    context's mesh transport, ``pctx.storage``) in place, the first time;
+    a leaf bound to ``comm`` already stays as it is, one bound to another
+    transport is refused (``shard_tree`` cuts a tree for each context)."""
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, list):
+        tree = [tree]
+    for leaf in tree:
+        if isinstance(leaf, (dict, list)):
+            bind_serve(leaf, comm)
+        elif isinstance(leaf, ServeBlocks) and leaf.comm is not comm:
+            if comm is None or comm.mesh != leaf.mesh:
+                raise ValueError(f"serve blocks of the mesh {leaf.mesh.shape} need a context "
+                                 "over it (launch.mesh.make_pctx(mesh))")
+            if leaf.comm is not None:
+                raise ValueError("serve blocks bound to another context's transport: cut the "
+                                 "tree again (shard_tree) for this one")
+            leaf.comm = comm
+
+
 def _leaf_bytes(x) -> int:
     return x.numel() * x.element_size()
 
@@ -340,6 +430,13 @@ def fsdp_gathered_bytes(layout: Layout) -> int:
     rest = sum(tree_bytes(layout.meta[k]) for k in layout.meta if k not in STACKED)
     entries = [tree_bytes(e) for k in STACKED for e in layout.meta.get(k, ())]
     return rest + max(entries, default=0)
+
+
+def serve_split(spec, mesh):
+    """The dim a serve spec splits over more than one rank, else ``None``."""
+    if spec is None or _groups(spec, mesh) == 1:
+        return None
+    return next(i for i, e in enumerate(spec) if _entry_axes(e))
 
 
 def state_bytes(layout: Layout, rank: int = 0) -> int:
