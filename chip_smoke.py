@@ -311,7 +311,50 @@ Phases, each fatal on failure:
      of each shape) is then replayed through its wrapper twice (bitwise
      equal) and through its plain version at phase 3's limits; with
      ``--profile``, 4 steps once more under torch.profiler;
- 24. a ``{"kernels": [...]}`` summary line, the card line, and last the
+ 24. the encoder-decoder, SSM and hybrid decode steps under serve-mode
+     storage (this slice's main path): (a) whisper-base (2 + 2 layers),
+     falcon-mamba-7b (2 layers) and recurrentgemma-2b (5 layers: every
+     block kind) at full width, float32, on the virtual (1, 4) and (2, 4)
+     meshes: the replicated SP-4 decode on the plain path (greedy) against
+     the decode step on the serve blocks on the kernels, fed the same
+     tokens, from one start (whisper's encode on the plain path; a seeded
+     synthetic state for the recurrent two, recurrentgemma's at length 2040
+     with its ring buffer's positions in ring order, so that its 16 steps
+     wrap slot 2047 on rank 3 to slot 0 on rank 0), each step's logits
+     within ``SERVE_LOGIT_LIMIT`` of its row's largest |logit| and each
+     token within 1e-3 of the plain path's max logit, a second run bitwise
+     equal, each rank's blocks the rule's, the ledger's bytes a step equal
+     to the family's closed form, A's decode launches (two a whisper
+     layer, one a recurrentgemma superblock, none for falcon-mamba);
+     (b) each at full width, bf16, batch 8, over the virtual (1, 4) mesh:
+     recurrentgemma-2b at all 26 layers from the synthetic state at
+     length 2040 (A's D-256 decode instance on each rank's 512 ring slots,
+     8 launches a step), falcon-mamba-7b at ``MAMBA_SERVE_LAYERS`` of 64
+     layers from a synthetic state, whisper-base at its 6 layers from an
+     encode of 8 clips (12 launches a step): 32 greedy steps of the
+     replicated SP-1 decode on the kernels (the reference), the tree cut
+     to serve blocks and the whole tree freed, the reference's chain fed
+     through the blocks (their token and logit gaps from it logged as
+     shares of its row spread), then 32 greedy steps timed with CUDA
+     events beside the replicated step, the weight-read bound, the peak
+     memory, the TP bytes a step (= the closed form) and ``state_bytes``
+     at full depth for a model axis of 4 and 8 (``RESULT
+     serving_tp_<family>``); with ``--profile``, 4 of recurrentgemma's
+     steps once more under torch.profiler; A's calls on the blocks (the
+     first of each shape) replayed through its wrapper twice (bitwise
+     equal) and through its plain version at phase 3's limits.  The gate
+     of (b)'s values runs
+     in float32, at full width and depth (falcon-mamba at
+     ``FAMILY_F32_LAYERS``), since two bf16 decodes that sum in other
+     orders part by as much as either parts from its float32 run (logged
+     as the bf16 floor): ``FAMILY_GATE_STEPS`` greedy steps of the
+     replicated SP-1 decode, its chain fed through the blocks, each token within ``WITNESS_GAP`` and each logit within
+     ``SERVE_TP_LOGIT_GAP`` of the reference row's spread, the ledger =
+     the closed form; (c) the fault that this gate must catch:
+     falcon-mamba's ``in_proj`` blocks of ranks 1 and 2 swapped in every
+     layer (in this script only), 4 steps fed the chain, the logits above
+     ``SERVE_TP_LOGIT_GAP``; the phase's seconds;
+ 25. a ``{"kernels": [...]}`` summary line, the card line, and last the
      ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -4517,8 +4560,8 @@ def phase_mamba_decode(torch, dev, prompts=MAMBA_PROMPTS, prompt_len=MAMBA_PROMP
     calls = [0]
     real_layer = M.mamba_layer_decode
 
-    def recording_layer(p, x, ssm_state, conv_state, *, cfg):
-        out = real_layer(p, x, ssm_state, conv_state, cfg=cfg)
+    def recording_layer(p, x, ssm_state, conv_state, *, cfg, **kw):
+        out = real_layer(p, x, ssm_state, conv_state, cfg=cfg, **kw)
         layer = calls[0] % cfg.n_layers
         calls[0] += 1
         seen[layer].append(x)
@@ -5979,13 +6022,13 @@ def serve_prompts(torch, dev, cfg, B, S, seed):
     return tokens, torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
 
 
-def serve_decode(torch, bundle, params, state, tok, steps, feed=None, timed=False):
+def serve_decode(torch, bundle, params, state, tok, steps, feed=None, timed=False, final=None):
     """``steps`` decode steps of ``bundle`` on a copy of ``state`` from the
     tokens ``tok (B,)``: greedy, or fed ``feed (B, steps)``.  Returns the
     tokens fed ``(B, steps)``, the logits ``(B, steps, V)`` in float32,
     each step's CUDA-event milliseconds (``timed``), A's launches counted
     from zero and the mesh ledger's bytes by class (``{}`` without a
-    mesh)."""
+    mesh); ``final`` (a dict) receives the state after the last step."""
     state = {k: v.clone() for k, v in state.items()}
     storage = bundle.pctx.storage
     if storage is not None:
@@ -6006,6 +6049,8 @@ def serve_decode(torch, bundle, params, state, tok, steps, feed=None, timed=Fals
         rows.append(logits.float())
         tok = logits.argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
+    if final is not None:
+        final.update(state)
     ledger = ({c: dict(v) for c, v in storage.ledger.class_bytes.items()}
               if storage is not None else {})
     return (torch.stack(chain, 1), torch.stack(rows, 1), [a.elapsed_time(b) for a, b in times],
@@ -6064,12 +6109,22 @@ def replay_a_calls(torch, calls, label):
     return worst
 
 
-def serve_bytes_gate(label, ledger, layout, cfg, rows, steps):
-    """The ledger's bytes over ``steps`` decode steps against
-    ``serve_comm_bytes`` a step, every class (relative 1e-9)."""
+def closed_form(cfg):
+    """The closed form of ``cfg``'s decode step's bytes on serve storage."""
+    from repro_torch.models.encdec import encdec_serve_comm_bytes
+    from repro_torch.models.mamba import mamba_serve_comm_bytes
+    from repro_torch.models.rglru import rg_serve_comm_bytes
     from repro_torch.models.transformer import serve_comm_bytes
 
-    closed = serve_comm_bytes(layout, cfg, rows)
+    return {"encdec": encdec_serve_comm_bytes, "ssm": mamba_serve_comm_bytes,
+            "hybrid": rg_serve_comm_bytes}.get(cfg.family, serve_comm_bytes)
+
+
+def serve_bytes_gate(label, ledger, layout, cfg, rows, steps):
+    """The ledger's bytes over ``steps`` decode steps against the family's
+    closed form a step (:func:`closed_form`), every class (relative
+    1e-9)."""
+    closed = closed_form(cfg)(layout, cfg, rows)
     for cls in set(closed) | set(ledger):
         want = closed.get(cls, {"fwd": 0.0, "bwd": 0.0})
         got = ledger.get(cls, {"fwd": 0.0, "bwd": 0.0})
@@ -6312,7 +6367,411 @@ def phase_serve_tp(torch, dev, with_profile=False, layers=SERVE_TP_LAYERS, B=SER
     return ran
 
 
-PROFILED_PHASES = (6, 9, 11, 13, 16, 17, 18, 19, 20, 23)
+# ---------------------------------------------------------------------------
+# phase 24: the encoder-decoder, SSM and hybrid decode steps under serve-mode
+# (Megatron) storage
+# ---------------------------------------------------------------------------
+
+FAMILY_CHECKS = (("whisper-base", dict(n_layers=WHISPER_CHECK_LAYERS,
+                                       n_enc_layers=WHISPER_CHECK_LAYERS)),
+                 (MAMBA, dict(n_layers=MAMBA_CHECK_LAYERS)),
+                 (RG, dict(n_layers=RG_CHECK_LAYERS)))
+FAMILY_CHECK_BATCH, FAMILY_CHECK_STEPS = 4, 16
+# the synthetic start's length: the ring buffer's 2048 slots hold positions
+# 0..2039, so (a)'s 16 steps wrap slot 2047 (rank 3 at SP 4) to slot 0
+RG_SYNTH_LEN = 2040
+FAMILY_TP_BATCH, FAMILY_TP_STEPS = 8, 32
+FAMILY_TP_ARCHS = (RG, MAMBA, "whisper-base")
+MAMBA_SERVE_LAYERS = 64  # falcon-mamba-7b's layers in (b): all of them
+# (b)'s float32 gate at 32 of falcon-mamba's 64 layers: the whole float32
+# tree and its blocks at 64 (59.4 GB) would pass the phase's ~35 GB peak
+FAMILY_F32_LAYERS = {MAMBA: 32}
+FAMILY_GATE_STEPS = 16  # the float32 gate's steps (the timed bf16 runs take 32)
+FAULT_STEPS = 4
+# (batch dim, split dim) of each state leaf that serve_state_shardings
+# splits: the caches by sequence, the recurrent state by its width
+STATE_DIMS = {"k": (1, 2), "v": (1, 2), "pos": (0, 1), "xk": (1, 2), "xv": (1, 2),
+              "enc_pos": (0, 1), "ssm": (1, 2), "conv": (1, 3), "rec_h": (2, 3),
+              "rec_conv": (2, 4), "tail_h": (1, 2), "tail_conv": (1, 3)}
+
+
+def decode_a_calls(cfg) -> int:
+    """Kernel A's launches of one decode step: a whisper decoder layer's
+    self and cross reads, a recurrentgemma superblock's local attention,
+    none for falcon-mamba (every rank's rows in one launch)."""
+    return {"encdec": 2 * cfg.n_layers, "ssm": 0, "hybrid": attention_calls(cfg)}[cfg.family]
+
+
+def synthetic_state(torch, dev, cfg, B, seed):
+    """A seeded global decode state of ``B`` rows for the recurrent
+    families: falcon-mamba's ``ssm`` and ``conv``; recurrentgemma's
+    recurrent state and a ring buffer at length ``RG_SYNTH_LEN``, its
+    positions in ring order (``PAD_POS`` in the slots not yet written)."""
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.models.rglru import rg_layout
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch_dtype(cfg.dtype)
+
+    def rnd(*shape, dtype=dt, std=0.5):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    K = cfg.ssm_conv
+    if cfg.family == "ssm":
+        di, L = cfg.d_inner, cfg.n_layers
+        return {"ssm": rnd(L, B, di, cfg.ssm_state, dtype=torch.float32),
+                "conv": rnd(L, B, K - 1, di)}
+    n_super, n_tail = rg_layout(cfg)
+    lru, W = cfg.lru_width or cfg.d_model, cfg.window
+    slots = torch.arange(W, device=dev, dtype=torch.int32)
+    glob = {"rec_h": rnd(n_super, 2, B, lru, dtype=torch.float32),
+            "rec_conv": rnd(n_super, 2, B, K - 1, lru),
+            "k": rnd(n_super, B, W, cfg.n_kv_heads, cfg.head_dim, std=1.0),
+            "v": rnd(n_super, B, W, cfg.n_kv_heads, cfg.head_dim, std=1.0),
+            "pos": torch.where(slots < RG_SYNTH_LEN, slots, PAD_POS).expand(B, W).contiguous(),
+            "len": torch.full((B,), RG_SYNTH_LEN, dtype=torch.int32, device=dev)}
+    if n_tail:
+        glob["tail_h"] = rnd(n_tail, B, lru, dtype=torch.float32)
+        glob["tail_conv"] = rnd(n_tail, B, K - 1, lru)
+    return glob
+
+
+def placed_state(bundle, glob, B, dev):
+    """``bundle``'s serve state of ``B`` rows holding the global state
+    ``glob`` in its layout: each leaf's ranks rank-major in its batch dim,
+    each with its slice of the split dim (as many ranks as the layout has
+    row blocks: 1 where the leaf is whole)."""
+    state = bundle.init_serve_state(B, 0, dev)
+    for key, x in glob.items():
+        if key == "len":
+            state[key].copy_(x)
+            continue
+        b, d = STATE_DIMS[key]
+        P = state[key].shape[b] // B
+        state[key].copy_(x.unflatten(d, (P, -1)).movedim(d, b).flatten(b, b + 1))
+    return state
+
+
+def family_start(torch, dev, bundle, params, B, seed, max_len):
+    """A decode start of ``B`` rows for ``bundle``: whisper's encode of
+    seeded frames into a dense slab of ``max_len`` slots and its start
+    token, or the synthetic state and seeded tokens."""
+    cfg = bundle.cfg
+    if cfg.family == "encdec":
+        state = bundle.init_serve_state(B, max_len, dev)
+        bundle.encode(params, whisper_frames(torch, dev, cfg, B, seed), state)
+        return state, torch.full((B,), WHISPER_SOT, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=dev, dtype=torch.int32)
+    return placed_state(bundle, synthetic_state(torch, dev, cfg, B, seed), B, dev), tok
+
+
+def phase_family_checked(torch, dev, name, over, mesh_shape, B=FAMILY_CHECK_BATCH,
+                         steps=FAMILY_CHECK_STEPS):
+    """Phase 24 (a): ``name`` at full width, float32, ``over``'s depth: the
+    replicated SP-4 decode on the plain path (greedy) against the decode
+    step on serve blocks over the virtual ``mesh_shape`` on the kernels,
+    fed the same tokens from the same start, twice.  Returns A's launches
+    on the blocks."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.launch.mesh import data_mesh, make_pctx
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding import layout_for, shard_tree
+
+    cfg = ARCHS[name].with_(dtype="float32", **over)
+    mesh = data_mesh(*mesh_shape)
+    label = f"phase 24 (a) {name} {mesh_shape}"
+    P = mesh.shape["model"]
+    plain = build_model(cfg, ParallelContext(impl="torch", device="cuda", sp_degree=P,
+                                             layout=cfg.layout))
+    pctx = make_pctx(mesh, device="cuda", global_batch=B, layout=cfg.layout)
+    bundle = build_model(cfg, pctx)
+    params = plain.init(0)
+    ref_state, tok = family_start(torch, dev, plain, params, B, 43, WHISPER_MAX_LEN)
+    final = {}
+    chain, ref, _, ran, _ = serve_decode(torch, plain, params, ref_state, tok, steps,
+                                         final=final)
+    if ran:
+        raise AssertionError(f"{label}: the plain path launched a kernel")
+    if cfg.family == "encdec":  # the caches' layout is the plain SP-4 path's
+        state = ref_state
+    else:
+        state, _ = family_start(torch, dev, bundle, params, B, 43, WHISPER_MAX_LEN)
+    layout = layout_for(params, mesh, mode="serve")
+    blocks = shard_tree(params, layout)
+    split = serve_blocks_gate(label, params, blocks, layout)
+    del params
+    free_device_memory(torch)
+    mine = {}
+    runs = [serve_decode(torch, bundle, blocks, state, tok, steps, feed=chain, final=mine)
+            for _ in range(2)]
+    (_, got, _, ran, ledger), (_, again, _, _, _) = runs
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: the second run is not bitwise the first")
+    want_a = decode_a_calls(cfg) * steps
+    if ran != want_a:
+        raise AssertionError(f"{label}: A launches {ran}, expected {want_a}")
+    err = float(((got - ref).abs().amax(-1) / ref.abs().amax(-1)).max())
+    gap, _ = forced_gaps(torch, ref, got.argmax(-1))
+    if not (bool(torch.isfinite(got).all()) and err <= SERVE_LOGIT_LIMIT
+            and float(gap.max()) <= 1e-3):
+        raise AssertionError(f"{label}: logits off by {err:.2e} of the row's max, a token "
+                             f"{float(gap.max()):.2e} below the plain path's max logit")
+    closed = serve_bytes_gate(label, ledger, layout, cfg, B // pctx.data_degree, steps)
+    wrap = ""
+    if cfg.family == "hybrid":
+        # the ring buffer read back globally: the 16 steps wrote 2040..2047
+        # on the last rank, then wrapped to slots 0..7 on rank 0
+        n = RG_SYNTH_LEN + steps - cfg.window
+        pos = mine["pos"].unflatten(0, (P, B)).movedim(0, 1).flatten(1, 2)
+        want_pos = torch.arange(cfg.window, device=dev, dtype=torch.int32)
+        want_pos = torch.where(want_pos < n, want_pos + cfg.window, want_pos)
+        if not (n > 0 and bool((pos == want_pos).all())
+                and torch.equal(mine["pos"], final["pos"])):
+            raise AssertionError(f"{label}: the ring buffer did not wrap to rank 0's slot 0")
+        wrap = (f"; the ring buffer wrapped from slot {cfg.window - 1} (rank {P - 1}) to slots "
+                f"0..{n - 1} (rank 0), positions equal to the plain path's")
+    log(f"  ok {label}: float32, batch {B}, {steps} steps on serve blocks ({split} leaves split "
+        f"over model, each the rule's) against the replicated SP-{P} decode on the plain path: "
+        f"logits within {err:.2e} of the row's max (limit {SERVE_LOGIT_LIMIT}), tokens within "
+        f"{float(gap.max()):.2e} of its max logit; the second run bitwise equal; A launches "
+        f"{ran} = {decode_a_calls(cfg)} x {steps}; bytes a step and direction = the closed "
+        f"form: tp {closed['tp']['fwd']:.0f}, link {closed['link']['fwd']:.0f}, data "
+        f"{closed['data']['fwd']:.0f}{wrap}")
+    del runs, blocks, state, ref_state, mine, final
+    free_device_memory(torch)
+    return ran
+
+
+def meta_params(cfg):
+    """``cfg``'s full parameter tree as meta tensors."""
+    from repro_torch.models import encdec, mamba, rglru
+
+    init = {"encdec": encdec.init_encdec, "ssm": mamba.init_mamba_lm, "hybrid": rglru.init_rg}
+    return init[cfg.family](cfg, None, device="meta")
+
+
+def swapped_in_proj(blocks):
+    """``blocks`` with every layer's ``in_proj`` blocks of ranks 1 and 2
+    swapped (the fault (c) plants)."""
+    def swap(b):
+        return dataclasses.replace(b, blocks=b.blocks[[0, 2, 1, 3]])
+
+    return {**blocks, "layers": [{**layer, "in_proj": {**layer["in_proj"],
+                                                       "w": swap(layer["in_proj"]["w"])}}
+                                 for layer in blocks["layers"]]}
+
+
+def spread_gaps(torch, got, ref):
+    """``got``'s logits against the reference's ``ref`` (each ``(B, steps,
+    V)``), as shares of each reference row's spread (max minus mean):
+    ``(token, logit, max |diff|, median spread)``, the token gap of
+    ``got``'s argmax below the reference's max."""
+    top = ref.amax(-1)
+    spread = top - ref.mean(-1)
+    gap = top - ref.gather(-1, got.argmax(-1, keepdim=True))[..., 0]
+    diff = (got - ref).abs().amax(-1)
+    return (float((gap / spread).max()), float((diff / spread).max()), float(diff.max()),
+            float(spread.median()))
+
+
+def as_layout_of(tree, meta):
+    """``tree``'s leaves cast to the dtypes of ``meta`` (another storage
+    layout of the same tree)."""
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    it = iter([x.to(m.dtype) for x, m in zip(tree_leaves(tree), tree_leaves(meta))])
+    return tree_map(lambda _: next(it), tree)
+
+
+def phase_family_gate(torch, dev, cfg, B=FAMILY_TP_BATCH, steps=FAMILY_GATE_STEPS):
+    """Phase 24 (b)'s gate, in float32 at ``cfg``'s full width and depth
+    (falcon-mamba at ``FAMILY_F32_LAYERS``): ``steps`` greedy steps of the
+    replicated SP-1 decode (the reference), its chain fed through the serve
+    blocks over the virtual (1, 4) mesh (each token within ``WITNESS_GAP``
+    and each logit within ``SERVE_TP_LOGIT_GAP`` of the reference row's
+    spread; the ledger = the closed form) and through the replicated bf16
+    decode of the same weights (the bf16 floor: logged); falcon-mamba's
+    (c): ``FAULT_STEPS`` of the chain on blocks with ``in_proj``'s ranks 1
+    and 2 swapped, which must fail the logit limit."""
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.launch.mesh import data_mesh, make_pctx
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding import layout_for, shard_tree
+
+    cfg32 = cfg.with_(dtype="float32")
+    mesh = data_mesh(1, 4)
+    label = f"phase 24 (b) {cfg.name} float32 gate"
+    ref_bundle = build_model(cfg32, ParallelContext(device="cuda", layout=cfg.layout))
+    bundle = build_model(cfg32, make_pctx(mesh, device="cuda", global_batch=B,
+                                          layout=cfg.layout))
+    bf16 = build_model(cfg, ParallelContext(device="cuda", layout=cfg.layout))
+    params = ref_bundle.init(0)
+    ref_state, tok = family_start(torch, dev, ref_bundle, params, B, 53, WHISPER_MAX_LEN)
+    chain, ref, _, ref_a, _ = serve_decode(torch, ref_bundle, params, ref_state, tok, steps)
+    del ref_state
+    p16 = as_layout_of(params, meta_params(cfg))
+    state16, _ = family_start(torch, dev, bf16, p16, B, 53, WHISPER_MAX_LEN)
+    _, floor16, _, _, _ = serve_decode(torch, bf16, p16, state16, tok, steps, feed=chain)
+    del p16, state16
+    state, _ = family_start(torch, dev, bundle, params, B, 53, WHISPER_MAX_LEN)
+    layout = layout_for(params, mesh, mode="serve")
+    blocks = shard_tree(params, layout)
+    del params
+    free_device_memory(torch)
+    _, got, _, ran, ledger = serve_decode(torch, bundle, blocks, state, tok, steps, feed=chain)
+    want_a = decode_a_calls(cfg) * steps
+    if ran != want_a or ref_a != want_a:
+        raise AssertionError(f"{label}: A launches {ran} on the blocks, {ref_a} replicated, "
+                             f"expected {want_a}")
+    serve_bytes_gate(label, ledger, layout, cfg32, B, steps)
+    tok_ratio, logit_ratio, diff, spread = spread_gaps(torch, got, ref)
+    floor = spread_gaps(torch, floor16, ref)
+    gate = {"layers": cfg.n_layers, "dtype": "float32", "max_token_gap_over_spread": tok_ratio,
+            "max_logit_diff_over_spread": logit_ratio, "max_logit_abs_diff": diff,
+            "median_spread": spread, "bf16_floor_token_gap_over_spread": floor[0],
+            "bf16_floor_logit_diff_over_spread": floor[1]}
+    if cfg.family == "ssm":
+        _, wrong, _, _, _ = serve_decode(torch, bundle, swapped_in_proj(blocks), state, tok,
+                                         FAULT_STEPS, feed=chain)
+        gate.update(fault="in_proj blocks of ranks 1 and 2 swapped", fault_steps=FAULT_STEPS,
+                    fault_logit_diff_over_spread=spread_gaps(torch, wrong,
+                                                             ref[:, :FAULT_STEPS])[1])
+        del wrong
+    log(f"  {label}: {cfg.n_layers} layers, batch {B}, {steps} steps of the replicated SP-1 "
+        f"decode fed through the serve blocks: tokens within {tok_ratio:.2e} and logits within "
+        f"{logit_ratio:.2e} of the row spread (limits {WITNESS_GAP} and {SERVE_TP_LOGIT_GAP}; "
+        f"max |diff| {diff:.2e}, median spread {spread:.3f}), A launches {ran}, bytes = the "
+        f"closed form; the replicated bf16 decode of the same weights fed the same chain reads "
+        f"{floor[0]:.4f} and {floor[1]:.4f} (the bf16 floor)"
+        + (f"; in_proj's ranks 1 and 2 swapped: logits {gate['fault_logit_diff_over_spread']:.4f}"
+           f" of the row spread over {FAULT_STEPS} steps (must fail the limit)"
+           if "fault" in gate else ""))
+    if not (bool(torch.isfinite(got).all()) and tok_ratio <= WITNESS_GAP
+            and logit_ratio <= SERVE_TP_LOGIT_GAP):
+        raise AssertionError(f"{label}: a token {tok_ratio:.4f} and a logit {logit_ratio:.4f} "
+                             f"of the row spread from the replicated decode (limits "
+                             f"{WITNESS_GAP}, {SERVE_TP_LOGIT_GAP})")
+    if "fault" in gate and not gate["fault_logit_diff_over_spread"] > SERVE_TP_LOGIT_GAP:
+        raise AssertionError(f"{label}: the swapped in_proj blocks stay within "
+                             f"{gate['fault_logit_diff_over_spread']:.4f} of the row spread: "
+                             f"the limit {SERVE_TP_LOGIT_GAP} would not see them")
+    del blocks, state, got, ref, floor16
+    free_device_memory(torch)
+    return gate
+
+
+def phase_family_tp(torch, dev, name, layers=None, with_profile=False, B=FAMILY_TP_BATCH,
+                    steps=FAMILY_TP_STEPS):
+    """Phase 24 (b): ``name`` at full width (``layers`` of its layers),
+    bf16, on the virtual (1, 4) mesh, the slice's main path: ``steps``
+    greedy steps of the replicated SP-1 decode on the kernels, the tree cut
+    to serve blocks and freed, the reference's chain fed through the
+    blocks (their token and logit gaps from the replicated decode logged
+    as shares of its row spread), then ``steps`` greedy steps timed; the
+    ledger's bytes = the closed form; ``state_bytes`` of the whole model
+    for a model axis of 4 and 8.  The gate of the blocks' values is
+    :func:`phase_family_gate`'s, in float32: two bf16 decodes that sum in
+    other orders part by as much as either parts from its float32 run.
+    Returns A's launches of the timed steps."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.launch.mesh import data_mesh, make_pctx
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.sharding import ServeBlocks, layout_for, shard_tree, state_bytes
+
+    full_cfg = ARCHS[name]
+    cfg = full_cfg.with_(n_layers=layers) if layers else full_cfg
+    mesh = data_mesh(1, 4)
+    label = f"serving_tp_{cfg.family}"
+    ref_bundle = build_model(cfg, ParallelContext(device="cuda", layout=cfg.layout))
+    bundle = build_model(cfg, make_pctx(mesh, device="cuda", global_batch=B, layout=cfg.layout))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = ref_bundle.init(0)
+    weight_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    ref_state, tok = family_start(torch, dev, ref_bundle, params, B, 47, WHISPER_MAX_LEN)
+    state, _ = family_start(torch, dev, bundle, params, B, 47, WHISPER_MAX_LEN)
+    torch.cuda.synchronize()
+    t_start = time.perf_counter() - t0
+    chain, ref, ref_ms, ref_a, _ = serve_decode(torch, ref_bundle, params, ref_state, tok, steps,
+                                                timed=True)
+    layout = layout_for(params, mesh, mode="serve")
+    blocks = shard_tree(params, layout)
+    del params, ref_state
+    free_device_memory(torch)
+    cut_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    calls = {}
+    with recorded_a_calls(calls):
+        _, forced, _, _, _ = serve_decode(torch, bundle, blocks, state, tok, steps, feed=chain)
+    own, got, ms, ran, ledger = serve_decode(torch, bundle, blocks, state, tok, steps,
+                                             timed=True)
+    serve_peak = torch.cuda.max_memory_allocated()
+    want_a = decode_a_calls(cfg) * steps
+    if ran != want_a or ref_a != want_a:
+        raise AssertionError(f"{label}: A launches {ran} on the blocks, {ref_a} replicated, "
+                             f"expected {want_a}")
+    if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(forced).all())):
+        raise AssertionError(f"{label}: non-finite logits on the blocks")
+    replay_err, replayed = replay_a_calls(torch, calls, label), len(calls)
+    del calls
+    closed = serve_bytes_gate(label, ledger, layout, cfg, B, steps)
+    tok_ratio, logit_ratio, diff, spread = spread_gaps(torch, forced, ref)
+    blocks_bytes = sum(x.blocks.numel() * x.blocks.element_size() if isinstance(x, ServeBlocks)
+                       else x.numel() * x.element_size() for x in tree_leaves(blocks))
+    held = sum(x.numel() * x.element_size() for x in state.values())
+    med, ref_med = statistics.median(ms), statistics.median(ref_ms)
+    full_meta = meta_params(full_cfg)
+    full_state = {m: state_bytes(layout_for(full_meta, data_mesh(1, m), mode="serve"))
+                  for m in (4, 8)}
+    full_tp = closed_form(full_cfg)(layout_for(full_meta, mesh, mode="serve"), full_cfg, B)
+    res = {"arch": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+           "full_layers": full_cfg.n_layers, "mesh": dict(mesh.shape), "storage": "serve",
+           "batch": B, "steps": steps, "start_s": t_start, "median_step_ms": med,
+           "step_ms": ms, "replicated_median_step_ms": ref_med, "replicated_step_ms": ref_ms,
+           "weight_bytes": weight_bytes, "blocks_bytes": blocks_bytes,
+           "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+           "state_bytes_held": held,
+           "read_bound_ms": (weight_bytes + held) / HBM_BYTES_PER_S * 1e3,
+           "tp_bytes_per_step": closed["tp"]["fwd"], "link_bytes_per_step":
+           closed["link"]["fwd"], "peak_bytes_cut": cut_peak, "peak_bytes_serve": serve_peak,
+           "state_bytes_full_depth": full_state, "tp_bytes_per_step_full_depth":
+           full_tp["tp"]["fwd"], "launches": ran, "replicated_launches": ref_a,
+           "a_launches_per_step": decode_a_calls(cfg),
+           "bf16_token_gap_over_spread": tok_ratio, "bf16_logit_diff_over_spread": logit_ratio,
+           "bf16_max_logit_abs_diff": diff, "median_spread": spread,
+           "a_calls_replayed": replayed, "a_calls_max_abs_err": replay_err,
+           "greedy_equal_to_replicated": int((own == chain).sum()), "tokens": chain.numel()}
+    log(f"  {cfg.name}: {cfg.n_layers} of {full_cfg.n_layers} layers, {weight_bytes / 1e9:.2f} "
+        f"GB in bf16, serve blocks over {dict(mesh.shape)}, batch {B}, started in "
+        f"{t_start:.2f} s; decode step median {med:.3f} ms (replicated SP 1 {ref_med:.3f} ms), "
+        f"weight-read bound {res['weight_read_bound_ms']:.3f} ms ({res['read_bound_ms']:.3f} "
+        f"with the state); TP bytes a step, rank and direction {closed['tp']['fwd']:.0f} = the "
+        f"closed form (link {closed['link']['fwd']:.0f}); peak {cut_peak / 1e9:.2f} GB at the "
+        f"cut, {serve_peak / 1e9:.2f} GB serving; A launches {ran} ({decode_a_calls(cfg)} a "
+        f"step); the replicated chain fed through the blocks: tokens within {tok_ratio:.4f} and "
+        f"logits within {logit_ratio:.4f} of the row spread (max |diff| {diff:.4f}, median "
+        f"spread {spread:.3f}; bf16, logged: the gate is float32's); greedy tokens equal to the "
+        f"replicated decode's {res['greedy_equal_to_replicated']} of {chain.numel()}; A's "
+        f"{replayed} call shapes on the blocks replayed against the plain version, max |out "
+        f"err| {replay_err:.3e}; "
+        f"state_bytes at {full_cfg.n_layers} layers {full_state[4] / 1e9:.3f} GB (model 4), "
+        f"{full_state[8] / 1e9:.3f} GB (model 8)")
+    if with_profile:
+        res["profile"] = profile_step(torch, lambda: serve_decode(torch, bundle, blocks, state,
+                                                                  tok, 4), 4 * med / 1e3)
+    del blocks, state, forced, got, ref
+    free_device_memory(torch)
+    gate_cfg = full_cfg.with_(n_layers=FAMILY_F32_LAYERS.get(name, full_cfg.n_layers))
+    res["float32_gate"] = phase_family_gate(torch, dev, gate_cfg, B)
+    log(f"RESULT {label} " + json.dumps(res))
+    return ran
+
+
+PROFILED_PHASES = (6, 9, 11, 13, 16, 17, 18, 19, 20, 23, 24)
 
 
 def profiled_phases(argv):
@@ -6576,7 +7035,25 @@ def main() -> int:
     free_device_memory(torch)
     log(f"  phase 23 took {time.perf_counter() - t23:.1f} s")
 
-    log("== phase 24: summary")
+    log("== phase 24: the encoder-decoder, SSM and hybrid decode steps under serve-mode "
+        "(Megatron) storage: whisper-base, falcon-mamba-7b and recurrentgemma-2b checked at full "
+        "width (float32, a few layers) on the virtual (1, 4) and (2, 4) meshes, recurrentgemma "
+        "across its ring buffer's wrap at SP 4; recurrentgemma-2b (all 26 layers, main path), "
+        f"falcon-mamba-7b ({MAMBA_SERVE_LAYERS} of 64 layers) and whisper-base decoded at full "
+        "width on serve blocks over the virtual (1, 4) mesh; falcon-mamba's in_proj blocks "
+        "swapped must fail the gate")
+    t24 = time.perf_counter()
+    for name, over in FAMILY_CHECKS:
+        for shape in SERVE_CHECK_MESHES:
+            phase_family_checked(torch, dev, name, over, shape)
+    for name in FAMILY_TP_ARCHS:
+        layers = MAMBA_SERVE_LAYERS if name == MAMBA else None
+        ran = phase_family_tp(torch, dev, name, layers, with_profile=24 in prof and name == RG)
+        launches[f"serve_tp_{ARCHS[name].family}"] = {"flash_attention_fwd": ran, **zero}
+        free_device_memory(torch)
+    log(f"  phase 24 took {time.perf_counter() - t24:.1f} s")
+
+    log("== phase 25: summary")
     # `launches` is the count of the main path that runs the kernel (A, B1
     # and B2: whisper-base trained at full width and depth at SP 1, phase
     # 18's first training run; C, which no encoder-decoder path runs:
@@ -6594,6 +7071,10 @@ def main() -> int:
     # qwen3-1.7b's (16/8), and `sp4_calls` phase 13's SP-4 calls (phase 12).
     # Phase 19's paths are in `launches_by_path`: falcon-mamba's training
     # and decoding launch no kernel; `prefill_sp4` is lm_prefill at SP 4.
+    # Phase 24's are `serve_tp_hybrid` (recurrentgemma-2b's decode on serve
+    # blocks: A's D-256 decode instance, 8 launches a step),
+    # `serve_tp_ssm` (falcon-mamba-7b's: none) and `serve_tp_encdec`
+    # (whisper-base's: A's D-64 decode core, 12 launches a step).
     # `f32_step` holds A's, B1's and B2's CUDA-core instances at phase 8's
     # float32 step's call (phase 7, `f32_step_rows`).
     # `d256` holds the head-dim-256 instances (phase 20, recurrentgemma-2b):

@@ -21,8 +21,6 @@ the drop plans keep only the writes the rank holds.
 
 from __future__ import annotations
 
-import torch
-
 from repro_torch.core.api import (
     ParallelContext,
     sp_attention,
@@ -38,7 +36,7 @@ from repro_torch.models.layers import (
     norm_init,
     torch_dtype,
 )
-from repro_torch.serving.kv_cache import apply_drop, drop_plan, gather_pages
+from repro_torch.serving.kv_cache import apply_drop, gather_pages
 
 __all__ = [
     "attention_init",
@@ -47,7 +45,6 @@ __all__ = [
     "attention_prefill_chunk_paged",
     "attention_decode",
     "attention_decode_paged",
-    "ring_write_plan",
     "cross_attention",
     "encode_kv",
 ]
@@ -137,17 +134,6 @@ def attention_decode(p, x, positions, k_cache, v_cache, pos_cache, write_plan, *
     apply_drop(v_cache, write_plan, v[:, 0])
     out = sp_decode(q, k_cache, v_cache, pos_cache, positions, pctx=pctx, window=window)
     return _out_proj(p, out, cfg)
-
-
-def ring_write_plan(length, window: int):
-    """Drop plan of a decode step's writes into a K/V ring buffer of
-    exactly ``window`` slots ``(B, window, Hkv, D)``: row ``b``'s token at
-    position ``length[b]`` lands in slot ``length[b] % window`` (the JAX
-    hybrid's ``write_index``), overwriting the token ``window`` positions
-    back, which the window already hides.  The position table takes the
-    same plan."""
-    B = length.shape[0]
-    return drop_plan((torch.arange(B, device=length.device), length % window), (B, window))
 
 
 def attention_decode_paged(p, x, positions, k_pool, v_pool, pos_pool, block_tables, lengths,

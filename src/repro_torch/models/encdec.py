@@ -31,6 +31,15 @@ step's cross read is non-causal: every encoder frame is visible to every
 decoder position, as in training.  The JAX decode step reads it causally,
 a fault of the reference that the port does not copy (ROADMAP queue 3
 item 9).
+
+:func:`encdec_decode_step` also takes parameters in serve storage (the
+reference's Megatron layout, ``sharding.shard_tree`` of a ``mode="serve"``
+layout): the self and cross attention, the norms and the MLP run on their
+blocks (``models.layers``), the token and learned-position lookups follow
+their tables' split, and the tied head is a product with the table's
+transposed blocks.  The caches keep their sequence-sharded layout.
+:func:`encdec_serve_comm_bytes` is the closed form of the step's bytes on
+serve storage.
 """
 
 from __future__ import annotations
@@ -50,23 +59,28 @@ from repro_torch.models.attention import (
     encode_kv,
 )
 from repro_torch.models.layers import (
+    TPBytes,
     apply_norm,
+    comm_classes,
+    dense,
     embed_init,
+    embed_lookup,
     lm_cross_entropy,
     mlp,
     mlp_init,
     norm_init,
     torch_dtype,
 )
-from repro_torch.models.transformer import _dense_plan, init_decode_cache
+from repro_torch.models.transformer import _dense_plan, decode_link_bytes, init_decode_cache
 from repro_torch.serving.kv_cache import apply_drop, sp_ranks
-from repro_torch.sharding import layer_params
+from repro_torch.sharding import bind_serve, layer_params
 
 __all__ = [
     "init_encdec",
     "encdec_loss",
     "encdec_encode",
     "encdec_decode_step",
+    "encdec_serve_comm_bytes",
     "init_encdec_state",
     "sinusoid_positions",
 ]
@@ -191,7 +205,8 @@ def _embed(params, tokens, positions, cfg):
     dt = torch_dtype(cfg.dtype)
     table = params["dec_pos"]
     rows = positions.long().clamp(max=table.shape[0] - 1)
-    return params["embed"]["table"][tokens.long()].to(dt) + table[rows].to(dt)
+    return (embed_lookup(params["embed"]["table"], tokens.long()).to(dt)
+            + embed_lookup(table, rows).to(dt))
 
 
 def _decoder(params, tokens, positions, enc_x, enc_pos, *, cfg, pctx):
@@ -282,7 +297,10 @@ def encdec_encode(params, frames, state, *, cfg, pctx):
 def encdec_decode_step(params, token_ids, state, *, cfg, pctx):
     """One decode step for every row: ``token_ids (B,)`` -> ``logits (B,
     V)``.  The new self K/V land at slot ``len[b]`` (dropped past the slab),
-    every row's length advances; the cross read is non-causal."""
+    every row's length advances; the cross read is non-causal.  ``params``
+    may be in serve storage (module docstring)."""
+    if pctx.storage is not None:
+        bind_serve(params, pctx.storage)
     B = token_ids.shape[0]
     length = state["len"]
     positions = length[:, None].clone()  # global position == length
@@ -300,6 +318,31 @@ def encdec_decode_step(params, token_ids, state, *, cfg, pctx):
         h = _norm(p_l["ln2"], x, cfg)
         x = x + mlp(p_l["mlp"], h, mlp_type=cfg.mlp_type, compute_dtype=dt)
     x = _norm(params["dec_norm"], x, cfg)
-    logits = (x.to(dt) @ params["embed"]["table"].T.to(dt))[:, 0]
+    logits = dense({"w": params["embed"]["table"].T}, x, dt)[:, 0]
     state["len"].add_(1)
     return logits, state
+
+
+def encdec_serve_comm_bytes(layout, cfg, batch: int) -> dict[str, dict[str, float]]:
+    """One :func:`encdec_decode_step`'s bytes a rank and direction, by link
+    class, on parameters in the serve layout ``layout``, ``batch`` the rows
+    one rank's step carries (``models.transformer.serve_comm_bytes``'s
+    conventions, ``layers.TPBytes``'s closed forms).  ``"tp"``: the token's
+    and the learned position's rows, each decoder layer's three norms, its
+    self attention's four projections, its cross attention's ``wq`` and
+    ``wo`` (the cross K/V are resident) and its MLP; the final norm and the
+    tied head.  ``"link"``: the SP decode merge of each self and each cross
+    read.  ``"data"``: nothing."""
+    tb = TPBytes(layout.mesh, batch, torch_dtype(cfg.dtype).itemsize)
+    specs, meta = layout.specs, layout.meta
+    tp = (tb.embed(specs["embed"]["table"], meta["embed"]["table"])
+          + tb.embed(specs["dec_pos"], meta["dec_pos"]))
+    link = 0.0
+    for s, m in zip(specs["dec_layers"], meta["dec_layers"]):
+        tp += sum(tb.norm(s[k], m[k]) for k in ("ln1", "ln_x", "ln2"))
+        tp += tb.attention(s["self"], m["self"], cfg)
+        tp += tb.attention(s["cross"], m["cross"], cfg, keys=("wq", "wo"))
+        tp += tb.ffn(s["mlp"], m["mlp"], cfg.d_model, cfg.d_ff)
+        link += 2 * decode_link_bytes(cfg, batch, layout.mesh)
+    tp += tb.norm(specs["dec_norm"], meta["dec_norm"]) + tb.head(layout, cfg)
+    return comm_classes(tp, link)

@@ -28,6 +28,20 @@ a column pair's product split into its row-split output projection
 layer needs whole (a norm scale, a row projection's bias) is gathered.
 The embedding lookup follows its table's split: by ``d`` a local lookup
 then a gather, by vocabulary a masked lookup then a sum.
+
+The recurrent layers' decode state is split by its width over ``model``
+(``sharding.serve_state_shardings``: ``d_inner``, ``lru``), so their
+per-channel work runs on the ranks' slices, ranked ``(k, ...)`` as the
+transports rank them (``k`` the model size on the virtual mesh, 1 on a
+process group): :func:`state_tp` is the transport of such a state (one
+rank's, :data:`ONE_RANK`, where nothing is split), :func:`dense_split_out`
+a product left split by its output columns (a column-split weight's own
+products, no collective), :func:`dense_split_in` a product of an input
+that arrives split (a row-split weight's partials summed, any other
+weight's input gathered first), :func:`tp_slices` the ranks' slices of a
+leaf (gathered whole first where the rule splits it on another dim).
+:class:`TPBytes` holds the closed forms of these ops' bytes, which the
+decode steps' ``*serve_comm_bytes`` sum.
 """
 
 from __future__ import annotations
@@ -38,7 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.sharding import ServeBlocks
+from repro_torch.sharding import ServeBlocks, serve_split, tree_bytes
 
 __all__ = [
     "torch_dtype",
@@ -52,6 +66,14 @@ __all__ = [
     "mlp_init",
     "mlp",
     "tp_pair",
+    "ONE_RANK",
+    "state_tp",
+    "held_ranks",
+    "tp_slices",
+    "dense_split_out",
+    "dense_split_in",
+    "TPBytes",
+    "comm_classes",
     "chunked_cross_entropy",
     "lm_cross_entropy",
 ]
@@ -129,6 +151,169 @@ def _split(w):
 
 def _tp_pair(col_ps, row_p) -> bool:
     return tp_pair([_split(q["w"]) for q in col_ps], _split(row_p["w"]))
+
+
+class OneRank:
+    """The tensor-parallel collectives of one model rank (no mesh, or a
+    model axis of 1): a tensor's one slice is itself, ranked ``(1, ...)``."""
+
+    folded = True
+    tp_size = 1
+
+    def tp_split(self, x, dim: int):
+        return x[None]
+
+    def tp_gather(self, parts, dim: int):
+        return parts[0]
+
+    def tp_sum(self, parts):
+        return parts[0]
+
+
+ONE_RANK = OneRank()
+
+
+def state_tp(pctx):
+    """The transport of a decode state that serve storage splits by its
+    width over ``model`` (module docstring): the context's mesh transport
+    where its model axis has more than one rank, else :data:`ONE_RANK`.
+    The pod mesh, whose sequence axes are ``("pod", "model")``, is not
+    built for such a state."""
+    comm = getattr(pctx, "storage", None)
+    if comm is None or comm.tp_size == 1:
+        return ONE_RANK
+    if pctx.pods > 1:
+        raise NotImplementedError("a recurrent state split over the pod mesh's sequence axes "
+                                  "(\"pod\", \"model\") is not built: serve it on a (data, model) "
+                                  "mesh")
+    return comm
+
+
+def held_ranks(comm) -> int:
+    """How many ranks' slices a process holds: every model rank's on the
+    virtual mesh, its own on a process group."""
+    return comm.tp_size if comm.folded else 1
+
+
+def tp_slices(t, dim: int, comm):
+    """The ranks' slices ``(k, ...)`` of leaf ``t`` along ``dim``: serve
+    blocks split on ``dim`` are their blocks; split on another dim they are
+    gathered whole first (counted); a whole tensor is sliced."""
+    if isinstance(t, ServeBlocks) and t.split == dim % len(t.shape):
+        return t.blocks
+    return comm.tp_split(whole(t), dim)
+
+
+def dense_split_out(p, x, compute_dtype, comm):
+    """``dense(p, x)`` left split by its output columns, the ranks' slices
+    ``(k, *x.shape[:-1], n / G)``: a column-split weight's own products (no
+    collective); any other weight's whole output, sliced."""
+    if isinstance(p["w"], ServeBlocks) and p["w"].split == 1:
+        y = _column_parts(p, x.reshape(-1, x.shape[-1]), compute_dtype)
+        return y.reshape(y.shape[0], *x.shape[:-1], y.shape[-1])
+    return comm.tp_split(dense(p, x, compute_dtype), -1)
+
+
+def dense_split_in(p, parts, compute_dtype, comm):
+    """``dense(p, x)`` of an input that arrives as the ranks' slices ``parts
+    (k, ..., d_in / G)``: a row-split weight sums its partial products (one
+    all-reduce); any other weight takes the input gathered whole."""
+    if isinstance(p["w"], ServeBlocks) and p["w"].split == 0:
+        y = _row_sum(p, parts.reshape(parts.shape[0], -1, parts.shape[-1]), compute_dtype)
+        return y.reshape(*parts.shape[1:-1], y.shape[-1])
+    return dense(p, comm.tp_gather(parts, -1), compute_dtype)
+
+
+class TPBytes:
+    """Closed forms of the ops above on serve blocks: the ledger's ``"tp"``
+    bytes a rank and direction (the transports' conventions,
+    ``core/collectives.py``) of one call, on the serve layout's ``mesh``,
+    ``rows`` the rows one rank's step carries, ``e`` the compute dtype's
+    itemsize.  With ``G`` the model size and ``n`` a tensor's bytes whole,
+    a gather of its slices moves ``(G-1) * n/G / 2``, a sum ``(G-1)/G * n``.
+    Widths are bytes a row."""
+
+    def __init__(self, mesh, rows: int, e: int):
+        self.mesh, self.rows, self.e = mesh, rows, e
+        self.G = mesh.shape["model"]
+
+    def split(self, spec):
+        return serve_split(spec, self.mesh)
+
+    def gathered(self, n):
+        return (self.G - 1) * n / self.G / 2
+
+    def summed(self, n):
+        return (self.G - 1) / self.G * n
+
+    def whole(self, spec, meta):
+        """:func:`whole` of a leaf."""
+        return 0.0 if self.split(spec) is None else self.gathered(tree_bytes(meta))
+
+    def norm(self, specs, meta):
+        return sum(self.whole(specs[k], meta[k]) for k in specs)
+
+    def slices(self, spec, meta, dim: int):
+        """:func:`tp_slices` of a leaf."""
+        return 0.0 if self.split(spec) in (None, dim) else self.gathered(tree_bytes(meta))
+
+    def product(self, specs, meta, out_bytes, transpose=False):
+        """:func:`dense` (of ``w.T`` with ``transpose``)."""
+        s = self.split(specs["w"][::-1] if transpose else specs["w"])
+        if s is None:
+            return 0.0
+        if s == 1:
+            return self.gathered(self.rows * out_bytes)
+        return (self.summed(self.rows * out_bytes)
+                + (self.whole(specs["b"], meta["b"]) if "b" in specs else 0.0))
+
+    def split_out(self, specs, meta, out_bytes):
+        """:func:`dense_split_out`."""
+        return 0.0 if self.split(specs["w"]) == 1 else self.product(specs, meta, out_bytes)
+
+    def split_in(self, specs, meta, in_bytes, out_bytes):
+        """:func:`dense_split_in`."""
+        if self.split(specs["w"]) == 0:
+            return self.product(specs, meta, out_bytes)
+        return self.gathered(self.rows * in_bytes) + self.product(specs, meta, out_bytes)
+
+    def ffn(self, specs, meta, d: int, f: int):
+        """:func:`mlp` of widths ``d`` and ``f``."""
+        keys = ("gate", "up", "down") if "gate" in specs else ("in", "out")
+        *cols, row = keys
+        if tp_pair([self.split(specs[k]["w"]) for k in cols], self.split(specs[row]["w"])):
+            return self.summed(self.rows * d * self.e) + (
+                self.whole(specs[row]["b"], meta[row]["b"]) if "b" in specs[row] else 0.0)
+        return (sum(self.product(specs[k], meta[k], f * self.e) for k in cols)
+                + self.product(specs[row], meta[row], d * self.e))
+
+    def embed(self, spec, meta):
+        """:func:`embed_lookup` of a ``(rows, d)`` table's rows."""
+        row = self.rows * meta.shape[1] * meta.element_size()
+        return {None: 0.0, 1: self.gathered(row), 0: self.summed(row)}[self.split(spec)]
+
+    def attention(self, specs, meta, cfg, keys=("wq", "wk", "wv", "wo")):
+        """The projections ``keys`` of an attention layer (``models.attention``)
+        and its q/k norms."""
+        Hq, Hkv, Dh, e = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, self.e
+        width = {"wq": Hq * Dh * e, "wk": Hkv * Dh * e, "wv": Hkv * Dh * e, "wo": cfg.d_model * e}
+        return (sum(self.product(specs[k], meta[k], width[k]) for k in keys)
+                + sum(self.norm(specs[k], meta[k]) for k in ("q_norm", "k_norm") if k in specs))
+
+    def head(self, layout, cfg):
+        """The output head: ``lm_head`` or the tied ``embed.table.T``."""
+        if "lm_head" in layout.specs:
+            return self.product(layout.specs["lm_head"], layout.meta["lm_head"],
+                                cfg.vocab_size * self.e)
+        return self.product({"w": layout.specs["embed"]["table"]}, {}, cfg.vocab_size * self.e,
+                            transpose=True)
+
+
+def comm_classes(tp: float, link: float) -> dict[str, dict[str, float]]:
+    """A decode step's bytes by link class, both directions alike;
+    ``"data"`` is nothing: serve storage replicates every leaf over the
+    data axis."""
+    return {cls: {"fwd": n, "bwd": n} for cls, n in (("tp", tp), ("link", link), ("data", 0.0))}
 
 
 def norm_init(d: int, *, norm_type: str = "rmsnorm", dtype="float32", device="cuda"):

@@ -39,6 +39,21 @@ takes its ``K - 1`` rows of halo from the previous rank by a ring shift.
 Decode is O(1) a token: the state ``ssm (L, B, d_inner, N)`` float32 and
 the conv window ``conv (L, B, K-1, d_inner)``.  :func:`mamba_decode_step`
 updates the state in place and returns it (the port's serving convention).
+
+On a mesh whose model axis has ``G > 1`` ranks the state is split by
+``d_inner`` over ``model``, as ``sharding.serve_state_shardings`` gives it:
+``(L, G*B, d_inner/G, ...)`` rank-major on the virtual mesh, this rank's
+``(L, B, d_inner/G, ...)`` on a process group.  The step takes whole
+parameters or serve storage (``sharding.shard_tree`` of a ``mode="serve"``
+layout, the reference's Megatron layout), and each layer runs its
+channels on the ranks' slices (``models.layers``): the conv, ``dt``, the
+recurrence, ``D`` and the gate by ``d_inner``; ``in_proj``'s output
+gathered whole, since the rule splits its concatenated ``[x | z]``
+columns, which line up with no rank's slice; ``x_c`` gathered for
+``x_proj``, whose output (``dt_in``, B, C) is whole; ``A_log``, which the
+rule splits by ``N``, gathered whole; ``out_proj`` split by rows, one
+sum.  :func:`mamba_serve_comm_bytes` is the closed form of the step's
+bytes on serve storage.
 """
 
 from __future__ import annotations
@@ -52,15 +67,24 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.collectives import fold_ranks, unfold_ranks
 from repro_torch.core.recurrence import device_exclusive_scan, inclusive_scan
 from repro_torch.models.layers import (
+    ONE_RANK,
+    TPBytes,
     apply_norm,
+    comm_classes,
     dense,
     dense_init,
+    dense_split_in,
+    dense_split_out,
     embed_init,
+    embed_lookup,
+    held_ranks,
     lm_cross_entropy,
     norm_init,
+    state_tp,
     torch_dtype,
+    tp_slices,
 )
-from repro_torch.sharding import layer_params
+from repro_torch.sharding import bind_serve, layer_params
 
 __all__ = [
     "mamba_layer_init",
@@ -72,6 +96,7 @@ __all__ = [
     "mamba_apply",
     "mamba_loss",
     "mamba_decode_step",
+    "mamba_serve_comm_bytes",
 ]
 
 
@@ -259,39 +284,49 @@ def mamba_layer(p, x, *, cfg, pctx):
 # ---------------------------------------------------------------------------
 
 
-def init_mamba_state(cfg, batch: int, device="cuda"):
+def init_mamba_state(cfg, batch: int, device="cuda", pctx=None):
+    """The zero decode state of ``batch`` rows, split by ``d_inner`` over the
+    model axis of ``pctx``'s mesh (module docstring)."""
     di, N, K, L = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv, cfg.n_layers
+    tp = state_tp(pctx)
+    G, rows = tp.tp_size, held_ranks(tp) * batch
+    if di % G:
+        raise ValueError(f"d_inner={di} does not split over a model axis of {G}")
     return {
-        "ssm": torch.zeros((L, batch, di, N), dtype=torch.float32, device=device),
-        "conv": torch.zeros((L, batch, K - 1, di), dtype=torch_dtype(cfg.dtype), device=device),
+        "ssm": torch.zeros((L, rows, di // G, N), dtype=torch.float32, device=device),
+        "conv": torch.zeros((L, rows, K - 1, di // G), dtype=torch_dtype(cfg.dtype),
+                            device=device),
     }
 
 
-def mamba_layer_decode(p, x, ssm_state, conv_state, *, cfg):
-    """One-token step: x (B,1,d); returns ``(y, ssm_state', conv_state')``."""
+def mamba_layer_decode(p, x, ssm_state, conv_state, *, cfg, tp=ONE_RANK):
+    """One-token step: ``x (B,1,d)``; returns ``(y, ssm_state', conv_state')``.
+    The states are the ranks' slices by ``d_inner``, ``ssm (k,B,di/G,N)``
+    and ``conv (k,B,K-1,di/G)`` (``k = G = 1`` unsplit), on ``tp``'s
+    collectives (module docstring)."""
     di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_resolved
     dt_ = torch_dtype(cfg.dtype)
     h = apply_norm(p["norm"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
-    xz = dense(p["in_proj"], h, dt_)
-    xi, z = xz[..., :di], xz[..., di:]  # (B,1,di)
-    window = torch.cat([conv_state, xi], dim=1)  # (B,K,di): the state, then the new token
-    w = p["conv_w"].to(dt_)
+    xz = dense(p["in_proj"], h, dt_)  # (B,1,2di) whole
+    xi, z = tp.tp_split(xz[..., :di], -1), tp.tp_split(xz[..., di:], -1)  # (k,B,1,di/G)
+    window = torch.cat([conv_state, xi], dim=2)  # (k,B,K,di/G): the state, then the new token
+    w = tp_slices(p["conv_w"], 1, tp).to(dt_)  # (k,K,di/G)
     # the window's products summed in order, as _causal_conv sums them (the
     # reference's einsum over k): the same rounding as the forward pass's
-    conv = sum(window[:, k] * w[k] for k in range(w.shape[0]))
-    x_c = F.silu(conv + p["conv_b"].to(dt_))[:, None]
-    new_conv = window[:, 1:]
-    xdb = dense(p["x_proj"], x_c, dt_)
+    conv = sum(window[:, :, j] * w[:, None, j] for j in range(w.shape[1]))
+    x_c = F.silu(conv + tp_slices(p["conv_b"], 0, tp).to(dt_)[:, None])  # (k,B,di/G)
+    new_conv = window[:, :, 1:]
+    xdb = dense_split_in(p["x_proj"], x_c[:, :, None], dt_, tp)  # (B,1,R+2N) whole
     dt_in, Bs, Cs = xdb[..., :R], xdb[..., R:R + N], xdb[..., R + N:]
-    dtv = F.softplus(dense(p["dt_proj"], dt_in, torch.float32))[:, 0]  # (B,di)
-    A = -torch.exp(p["A_log"].float())
-    a = torch.exp(dtv[..., None] * A[None])  # (B,di,N)
-    b = (dtv * x_c[:, 0].float())[..., None] * Bs[:, 0, None, :].float()
+    dtv = F.softplus(dense_split_out(p["dt_proj"], dt_in, torch.float32, tp))[:, :, 0]
+    A = -torch.exp(tp_slices(p["A_log"], 0, tp).float())  # (k,di/G,N)
+    a = torch.exp(dtv[..., None] * A[:, None])  # (k,B,di/G,N)
+    b = (dtv * x_c.float())[..., None] * Bs[None, :, 0, None, :].float()
     h_new = a * ssm_state + b
-    y = torch.einsum("bdn,bn->bd", h_new, Cs[:, 0].float())
-    y = y + p["D"].float() * x_c[:, 0].float()
-    y = (y[:, None].to(dt_) * F.silu(z)).to(dt_)
-    out = x + dense(p["out_proj"], y, dt_)
+    y = torch.einsum("kbdn,bn->kbd", h_new, Cs[:, 0].float())
+    y = y + tp_slices(p["D"], 0, tp).float()[:, None] * x_c.float()
+    y = (y[:, :, None].to(dt_) * F.silu(z)).to(dt_)  # (k,B,1,di/G)
+    out = x + dense_split_in(p["out_proj"], y, dt_, tp)
     return out, h_new, new_conv
 
 
@@ -354,13 +389,48 @@ def mamba_loss(params, batch, *, cfg, pctx):
 @torch.inference_mode()
 def mamba_decode_step(params, token_ids, state, *, cfg, pctx):
     """``token_ids (B,)`` -> ``(logits (B,V), state)``, O(1) a token; the
-    state is updated in place."""
+    state is updated in place.  ``params`` may be in serve storage (module
+    docstring)."""
+    if pctx.storage is not None:
+        bind_serve(params, pctx.storage)
+    tp = state_tp(pctx)
+    k = held_ranks(tp)
     dt = torch_dtype(cfg.dtype)
-    x = params["embed"]["table"][token_ids.long()[:, None]].to(dt)
+    x = embed_lookup(params["embed"]["table"], token_ids.long()[:, None]).to(dt)
     for l, p_l in enumerate(params["layers"]):
-        x, h, c = mamba_layer_decode(p_l, x, state["ssm"][l], state["conv"][l], cfg=cfg)
-        state["ssm"][l].copy_(h)
-        state["conv"][l].copy_(c)
+        ssm, conv = state["ssm"][l], state["conv"][l]
+        x, h, c = mamba_layer_decode(p_l, x, ssm.unflatten(0, (k, -1)),
+                                     conv.unflatten(0, (k, -1)), cfg=cfg, tp=tp)
+        ssm.copy_(h.flatten(0, 1))
+        conv.copy_(c.flatten(0, 1))
     x = apply_norm(params["final_norm"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
-    logits = (x.to(dt) @ _head_w(params, cfg).to(dt))[:, 0]
+    logits = dense({"w": _head_w(params, cfg)}, x, dt)[:, 0]
     return logits, state
+
+
+def mamba_serve_comm_bytes(layout, cfg, batch: int) -> dict[str, dict[str, float]]:
+    """One :func:`mamba_decode_step`'s bytes a rank and direction, by link
+    class, on parameters in the serve layout ``layout``, ``batch`` the rows
+    one rank's step carries (``models.transformer.serve_comm_bytes``'s
+    conventions, ``layers.TPBytes``'s closed forms).  ``"tp"``: the
+    embedding's rows; a layer's norm scale, ``in_proj``'s output gathered
+    whole, ``x_c`` gathered for ``x_proj`` (summed partials if the rule
+    splits it by rows) and ``x_proj``'s output, ``dt_proj``'s output where
+    it is not split by its columns, each of ``conv_w``, ``conv_b``,
+    ``A_log`` and ``D`` that the rule splits off ``d_inner`` gathered
+    whole, ``out_proj``'s partials summed; the final norm and the head.
+    ``"link"`` and ``"data"``: nothing."""
+    di, N, R, d = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_resolved, cfg.d_model
+    e = torch_dtype(cfg.dtype).itemsize
+    tb = TPBytes(layout.mesh, batch, e)
+    tp = tb.embed(layout.specs["embed"]["table"], layout.meta["embed"]["table"])
+    for specs, meta in zip(layout.specs["layers"], layout.meta["layers"]):
+        tp += tb.norm(specs["norm"], meta["norm"])
+        tp += tb.product(specs["in_proj"], meta["in_proj"], 2 * di * e)
+        tp += sum(tb.slices(specs[key], meta[key], dim)
+                  for key, dim in (("conv_w", 1), ("conv_b", 0), ("A_log", 0), ("D", 0)))
+        tp += tb.split_in(specs["x_proj"], meta["x_proj"], di * e, (R + 2 * N) * e)
+        tp += tb.split_out(specs["dt_proj"], meta["dt_proj"], di * 4)
+        tp += tb.split_in(specs["out_proj"], meta["out_proj"], di * e, d * e)
+    tp += tb.norm(layout.specs["final_norm"], layout.meta["final_norm"]) + tb.head(layout, cfg)
+    return comm_classes(tp, 0.0)

@@ -9,8 +9,13 @@ engine refuses it, as the JAX engine does, and it serves through
 ``decode_step`` alone; ``"hybrid"`` (recurrentgemma) likewise, its local
 attention through kernel A's and B1/B2's head-dim-256 instances and its
 decode state a K/V ring buffer of ``window`` slots beside the recurrent
-state.  The serve-state initialisers lay the cache out for the bundle's
-``pctx`` (sequence-sharded over its ring when ``sp_degree > 1``).
+state.  The serve-state initialisers lay the state out for the bundle's
+``pctx``: caches sequence-sharded over its ring when ``sp_degree > 1``
+(the dense slab, the cross K/V, the hybrid's ring buffer), the recurrent
+state split by its width over the model axis of its mesh
+(``sharding.serve_state_shardings``).  Every family's ``decode_step``
+takes whole parameters or serve storage (``sharding.shard_tree`` of a
+``mode="serve"`` layout, the reference's Megatron layout for decode).
 """
 
 from __future__ import annotations
@@ -134,7 +139,8 @@ def _ssm_bundle(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
         loss=lambda params, batch: M.mamba_loss(params, batch, cfg=cfg, pctx=pctx),
         decode_step=lambda params, tok, state: M.mamba_decode_step(
             params, tok, state, cfg=cfg, pctx=pctx),
-        init_serve_state=lambda B, max_len, device: M.init_mamba_state(cfg, B, device=device),
+        init_serve_state=lambda B, max_len, device: M.init_mamba_state(cfg, B, device=device,
+                                                                       pctx=pctx),
         decode_rollback_safe=False,  # a recurrent state: no per-slot rollback
     )
 
@@ -153,6 +159,7 @@ def _hybrid_bundle(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
         loss=lambda params, batch: R.rg_loss(params, batch, cfg=cfg, pctx=pctx),
         decode_step=lambda params, tok, state: R.rg_decode_step(
             params, tok, state, cfg=cfg, pctx=pctx),
-        init_serve_state=lambda B, max_len, device: R.init_rg_state(cfg, B, device=device),
+        init_serve_state=lambda B, max_len, device: R.init_rg_state(cfg, B, device=device,
+                                                                    pctx=pctx),
         decode_rollback_safe=False,  # a recurrent state: no per-slot rollback
     )

@@ -32,6 +32,26 @@ shared by the layers.  :func:`rg_decode_step` updates the state in place
 and returns it (the port's serving convention).  The state is recurrent, so
 it cannot be rolled back per slot: the serving engine refuses the bundle,
 as the JAX engine does.
+
+With ``sp_degree > 1`` the ring buffer is sequence-sharded over the ring
+like the transformer's dense slab (``serving.kv_cache``): contiguous, slot
+``s`` on rank ``s // (window / P)``, so the write at ``len % window`` lands
+on the rank that holds that slot, and the attention merges the ranks'
+partials (``core/decode.py``).  On a mesh whose model axis has ``G > 1``
+ranks the recurrent state is split by ``lru`` over ``model``
+(``sharding.serve_state_shardings``): ``(..., G*B, ..., lru/G)``
+rank-major on the virtual mesh, this rank's ``(..., B, ..., lru/G)`` on a
+process group.  The step takes whole parameters or serve storage (the
+reference's Megatron layout), and a recurrent block runs its channels on
+the ranks' slices (``models.layers``): ``lin_x``, ``lin_y``, the conv and
+``lam`` by ``lru``; the conv's output gathered whole once for the gates,
+whose weights the rule splits by their output columns, so that each
+rank's gates match its slice of ``h``; ``lin_out`` split by rows, one sum.
+The attention's q, k and v come out gathered whole (the rule splits
+``wq`` inside a head: nothing assumes the heads divide the model size);
+the tied head is a row-split product over the vocabulary.
+:func:`rg_serve_comm_bytes` is the closed form of the step's bytes on
+serve storage.
 """
 
 from __future__ import annotations
@@ -44,26 +64,31 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.api import sp_scan
 from repro_torch.kernels.ref import PAD_POS
-from repro_torch.models.attention import (
-    attention,
-    attention_decode,
-    attention_init,
-    ring_write_plan,
-)
+from repro_torch.models.attention import attention, attention_decode, attention_init
 from repro_torch.models.layers import (
+    ONE_RANK,
+    TPBytes,
     apply_norm,
+    comm_classes,
     dense,
     dense_init,
+    dense_split_in,
+    dense_split_out,
     embed_init,
+    embed_lookup,
+    held_ranks,
     lm_cross_entropy,
     mlp,
     mlp_init,
     norm_init,
+    state_tp,
     torch_dtype,
+    tp_slices,
 )
 from repro_torch.models.mamba import _causal_conv, _conv_halo
-from repro_torch.serving.kv_cache import apply_drop
-from repro_torch.sharding import layer_params
+from repro_torch.models.transformer import _dense_plan, decode_link_bytes
+from repro_torch.serving.kv_cache import apply_drop, sp_ranks
+from repro_torch.sharding import bind_serve, layer_params
 
 __all__ = [
     "init_rg",
@@ -72,6 +97,7 @@ __all__ = [
     "rg_decode_step",
     "init_rg_state",
     "rg_layout",
+    "rg_serve_comm_bytes",
 ]
 
 _C_RGLRU = 8.0
@@ -171,13 +197,19 @@ def init_rg(cfg, gen: torch.Generator, device="cuda", training: bool = False):
 # ---------------------------------------------------------------------------
 
 
+def _decay(lam, r):
+    """``(a, sqrt(1 - a^2))``, float32, from ``lam`` and the recurrence gate
+    ``r``."""
+    a = torch.exp(-_C_RGLRU * F.softplus(lam.float()) * r)
+    return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9))
+
+
 def _gates(p, xb):
     """``(a, sqrt(1 - a^2))`` and the input gate ``i``, float32, from the
     conv'd branch ``xb``."""
     r = torch.sigmoid(dense(p["gate_a"], xb, torch.float32))
     i = torch.sigmoid(dense(p["gate_i"], xb, torch.float32))
-    a = torch.exp(-_C_RGLRU * F.softplus(p["lam"].float()) * r)
-    return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)), i
+    return (*_decay(p["lam"], r), i)
 
 
 def _rglru(p, xb, *, pctx):
@@ -270,68 +302,91 @@ def rg_loss(params, batch, *, cfg, pctx):
 # ---------------------------------------------------------------------------
 
 
-def init_rg_state(cfg, batch: int, device="cuda"):
+def init_rg_state(cfg, batch: int, device="cuda", pctx=None):
     """The decode state of ``batch`` rows, zero recurrent state and an empty
-    ring buffer (every slot at ``PAD_POS``)."""
+    ring buffer (every slot at ``PAD_POS``), laid out for ``pctx`` (module
+    docstring): the ring buffer sequence-sharded over its ring, the
+    recurrent state split by ``lru`` over its mesh's model axis."""
     n_super, n_tail = rg_layout(cfg)
     lru, K, W = cfg.lru_width or cfg.d_model, cfg.ssm_conv, cfg.window
     dt = torch_dtype(cfg.dtype)
-    kv = (n_super, batch, W, cfg.n_kv_heads, cfg.head_dim)
+    P, rank = sp_ranks(pctx)
+    tp = state_tp(pctx)
+    G = tp.tp_size
+    if W % P or lru % G:
+        raise ValueError(f"window={W} and lru_width={lru} must split over the SP degree {P} "
+                         f"and the model axis {G}")
+    kv_rows, rec_rows, wl = (batch * P if rank is None else batch), held_ranks(tp) * batch, lru // G
+    kv = (n_super, kv_rows, W // P, cfg.n_kv_heads, cfg.head_dim)
     state = {
-        "rec_h": torch.zeros((n_super, 2, batch, lru), dtype=torch.float32, device=device),
-        "rec_conv": torch.zeros((n_super, 2, batch, K - 1, lru), dtype=dt, device=device),
+        "rec_h": torch.zeros((n_super, 2, rec_rows, wl), dtype=torch.float32, device=device),
+        "rec_conv": torch.zeros((n_super, 2, rec_rows, K - 1, wl), dtype=dt, device=device),
         "k": torch.zeros(kv, dtype=dt, device=device),
         "v": torch.zeros(kv, dtype=dt, device=device),
-        "pos": torch.full((batch, W), PAD_POS, dtype=torch.int32, device=device),
+        "pos": torch.full((kv_rows, W // P), PAD_POS, dtype=torch.int32, device=device),
         "len": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
     if n_tail:
-        state["tail_h"] = torch.zeros((n_tail, batch, lru), dtype=torch.float32, device=device)
-        state["tail_conv"] = torch.zeros((n_tail, batch, K - 1, lru), dtype=dt, device=device)
+        state["tail_h"] = torch.zeros((n_tail, rec_rows, wl), dtype=torch.float32,
+                                      device=device)
+        state["tail_conv"] = torch.zeros((n_tail, rec_rows, K - 1, wl), dtype=dt, device=device)
     return state
 
 
-def _rec_block_decode(p, x, h_state, conv_state, *, cfg):
-    """One-token step of a recurrent block: ``x (B,1,d)``, ``h_state
-    (B,lru)`` float32, ``conv_state (B,K-1,lru)``; returns ``(y, h', conv')``."""
+def _rec_block_decode(p, x, h_state, conv_state, *, cfg, tp=ONE_RANK):
+    """One-token step of a recurrent block: ``x (B,1,d)``; the states are
+    the ranks' slices by ``lru``, ``h_state (k,B,lru/G)`` float32 and
+    ``conv_state (k,B,K-1,lru/G)`` (``k = G = 1`` unsplit), on ``tp``'s
+    collectives (module docstring).  Returns ``(y, h', conv')``."""
     dt = torch_dtype(cfg.dtype)
     h = apply_norm(p["norm"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
-    yb = F.gelu(dense(p["lin_y"], h, dt), approximate="tanh")  # (B,1,lru)
-    xb = dense(p["lin_x"], h, dt)
-    window = torch.cat([conv_state, xb], dim=1)  # (B,K,lru): the state, then the new token
-    w = p["conv_w"].to(dt)
+    yb = F.gelu(dense_split_out(p["lin_y"], h, dt, tp), approximate="tanh")  # (k,B,1,lru/G)
+    xb = dense_split_out(p["lin_x"], h, dt, tp)
+    window = torch.cat([conv_state, xb], dim=2)  # (k,B,K,lru/G): the state, then the new token
+    w = tp_slices(p["conv_w"], 1, tp).to(dt)
     # the window's products summed in order, as _causal_conv sums them (the
     # reference's einsum over k): the same rounding as the forward pass's
-    xb = (sum(window[:, k] * w[k] for k in range(w.shape[0])) + p["conv_b"].to(dt))[:, None]
-    a, norm_b, i = _gates(p, xb)
-    h_new = a[:, 0] * h_state + norm_b[:, 0] * (i[:, 0] * xb[:, 0].float())
-    y = (h_new.to(dt) * yb[:, 0])[:, None]
-    return x + dense(p["lin_out"], y, dt), h_new, window[:, 1:]
+    xb = (sum(window[:, :, j] * w[:, None, j] for j in range(w.shape[1]))
+          + tp_slices(p["conv_b"], 0, tp).to(dt)[:, None])  # (k,B,lru/G)
+    whole_xb = tp.tp_gather(xb, -1)[:, None]  # (B,1,lru): the gates split by output columns
+    r = torch.sigmoid(dense_split_out(p["gate_a"], whole_xb, torch.float32, tp))[:, :, 0]
+    i = torch.sigmoid(dense_split_out(p["gate_i"], whole_xb, torch.float32, tp))[:, :, 0]
+    a, norm_b = _decay(tp_slices(p["lam"], 0, tp)[:, None], r)
+    h_new = a * h_state + norm_b * (i * xb.float())
+    y = (h_new.to(dt) * yb[:, :, 0])[:, :, None]
+    return x + dense_split_in(p["lin_out"], y, dt, tp), h_new, window[:, :, 1:]
 
 
 @torch.inference_mode()
 def rg_decode_step(params, token_ids, state, *, cfg, pctx):
     """``token_ids (B,)`` -> ``(logits (B,V), state)``: one token a row at
     position ``len``, its K/V written at ring-buffer slot ``len % window``
-    (the drop plan every attention layer reuses); the state is updated in
-    place.  Sequence-parallel decode of the hybrid is not built (the JAX
-    package serves it on one device): ``sp_degree > 1`` raises."""
-    if pctx.active:
-        raise ValueError("rg_decode_step runs at sp_degree 1: the hybrid's ring-buffer state "
-                         "is not sequence-sharded")
+    (the drop plan every attention layer reuses, on the rank that holds
+    the slot with ``sp_degree > 1``); the state is updated in place.
+    ``params`` may be in serve storage (module docstring)."""
+    if pctx.storage is not None:
+        bind_serve(params, pctx.storage)
+    tp = state_tp(pctx)
+    k = held_ranks(tp)
     W = cfg.window
     dt = torch_dtype(cfg.dtype)
     length = state["len"]
     positions = length[:, None].clone()
-    plan = ring_write_plan(length, W)
+    plan = _dense_plan(state, torch.arange(length.shape[0], device=length.device), length % W,
+                       pctx)
     apply_drop(state["pos"], plan, positions[:, 0])  # includes the new token
-    x = params["embed"]["table"][token_ids.long()[:, None]].to(dt)
+
+    def rec(p, x, h_state, conv_state):
+        x, h, c = _rec_block_decode(p, x, h_state.unflatten(0, (k, -1)),
+                                    conv_state.unflatten(0, (k, -1)), cfg=cfg, tp=tp)
+        h_state.copy_(h.flatten(0, 1))
+        conv_state.copy_(c.flatten(0, 1))
+        return x
+
+    x = embed_lookup(params["embed"]["table"], token_ids.long()[:, None]).to(dt)
     for s, p_s in enumerate(params["supers"]):
         for j, name in enumerate(("rec1", "rec2")):
-            x, h, c = _rec_block_decode(p_s[name], x, state["rec_h"][s, j],
-                                        state["rec_conv"][s, j], cfg=cfg)
-            state["rec_h"][s, j].copy_(h)
-            state["rec_conv"][s, j].copy_(c)
+            x = rec(p_s[name], x, state["rec_h"][s, j], state["rec_conv"][s, j])
             x = _mlp_block(p_s[f"mlp{j + 1}"], x, cfg=cfg)
         h = apply_norm(p_s["attn"]["norm"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
         x = x + attention_decode(p_s["attn"]["attn"], h, positions, state["k"][s],
@@ -339,12 +394,53 @@ def rg_decode_step(params, token_ids, state, *, cfg, pctx):
                                  window=W)
         x = _mlp_block(p_s["mlp3"], x, cfg=cfg)
     for t, p_t in enumerate(params.get("tail", ())):
-        x, h, c = _rec_block_decode(p_t["rec"], x, state["tail_h"][t], state["tail_conv"][t],
-                                    cfg=cfg)
-        state["tail_h"][t].copy_(h)
-        state["tail_conv"][t].copy_(c)
+        x = rec(p_t["rec"], x, state["tail_h"][t], state["tail_conv"][t])
         x = _mlp_block(p_t["mlp"], x, cfg=cfg)
     x = apply_norm(params["final_norm"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
-    logits = (x.to(dt) @ _head_w(params, cfg).to(dt))[:, 0]
+    logits = dense({"w": _head_w(params, cfg)}, x, dt)[:, 0]
     length += 1
     return logits, state
+
+
+def rg_serve_comm_bytes(layout, cfg, batch: int) -> dict[str, dict[str, float]]:
+    """One :func:`rg_decode_step`'s bytes a rank and direction, by link
+    class, on parameters in the serve layout ``layout``, ``batch`` the rows
+    one rank's step carries (``models.transformer.serve_comm_bytes``'s
+    conventions, ``layers.TPBytes``'s closed forms).  ``"tp"``: the
+    embedding's rows; a recurrent block's norm scale, ``lin_x``'s and
+    ``lin_y``'s outputs where they are not split by their columns, each of
+    ``conv_w``, ``conv_b`` and ``lam`` that the rule splits off ``lru``
+    gathered whole, the conv's output gathered for the gates and their
+    outputs where not split by columns, ``lin_out``'s partials summed; an
+    MLP block's and an attention block's as the transformer's; the final
+    norm and the tied head.  ``"link"``: each attention layer's SP decode
+    merge.  ``"data"``: nothing."""
+    lru = cfg.lru_width or cfg.d_model
+    e = torch_dtype(cfg.dtype).itemsize
+    tb = TPBytes(layout.mesh, batch, e)
+
+    def rec(specs, meta):
+        return (tb.norm(specs["norm"], meta["norm"])
+                + sum(tb.split_out(specs[key], meta[key], lru * e) for key in ("lin_x", "lin_y"))
+                + sum(tb.slices(specs[key], meta[key], dim)
+                      for key, dim in (("conv_w", 1), ("conv_b", 0), ("lam", 0)))
+                + tb.gathered(batch * lru * e)
+                + sum(tb.split_out(specs[key], meta[key], lru * 4) for key in ("gate_a", "gate_i"))
+                + tb.split_in(specs["lin_out"], meta["lin_out"], lru * e, cfg.d_model * e))
+
+    def mlp_block(specs, meta):
+        return tb.norm(specs["norm"], meta["norm"]) + tb.ffn(specs["mlp"], meta["mlp"],
+                                                             cfg.d_model, cfg.d_ff)
+
+    tp = tb.embed(layout.specs["embed"]["table"], layout.meta["embed"]["table"])
+    link = 0.0
+    for specs, meta in zip(layout.specs["supers"], layout.meta["supers"]):
+        tp += rec(specs["rec1"], meta["rec1"]) + rec(specs["rec2"], meta["rec2"])
+        tp += sum(mlp_block(specs[f"mlp{j}"], meta[f"mlp{j}"]) for j in (1, 2, 3))
+        a, am = specs["attn"], meta["attn"]
+        tp += tb.norm(a["norm"], am["norm"]) + tb.attention(a["attn"], am["attn"], cfg)
+        link += decode_link_bytes(cfg, batch, layout.mesh)
+    for specs, meta in zip(layout.specs.get("tail", ()), layout.meta.get("tail", ())):
+        tp += rec(specs["rec"], meta["rec"]) + mlp_block(specs["mlp"], meta["mlp"])
+    tp += tb.norm(layout.specs["final_norm"], layout.meta["final_norm"]) + tb.head(layout, cfg)
+    return comm_classes(tp, link)

@@ -75,7 +75,8 @@ from repro_torch.models.layers import (
     mlp_init,
     norm_init,
     torch_dtype,
-    tp_pair,
+    TPBytes,
+    comm_classes,
 )
 from repro_torch.models.moe import ep_size, moe_ffn, moe_init
 from repro_torch.serving.kv_cache import (
@@ -90,7 +91,7 @@ from repro_torch.serving.kv_cache import (
     view_indices,
     write_coords,
 )
-from repro_torch.sharding import bind_serve, layer_params, serve_split, tree_bytes
+from repro_torch.sharding import bind_serve, layer_params
 
 # The families this module builds (``models.registry``).
 FAMILIES = ("dense", "moe", "vlm")
@@ -105,6 +106,7 @@ __all__ = [
     "lm_prefill_chunk",
     "lm_decode_step",
     "serve_comm_bytes",
+    "decode_link_bytes",
     "lm_prefill_chunk_paged",
     "lm_decode_step_paged",
     "dots_policy",
@@ -432,6 +434,16 @@ def lm_decode_step(params, token_ids, cache, active=None, *, cfg, pctx):
     return logits, cache
 
 
+def decode_link_bytes(cfg, rows: int, mesh) -> float:
+    """One SP decode merge's ``"link"`` bytes a rank and direction
+    (``core.decode.decode_comm_cost``): one attention layer's read of a
+    cache sequence-sharded over the mesh's sequence axes."""
+    from repro_torch.core.decode import decode_comm_cost
+
+    P = mesh.shape["model"] * mesh.shape.get("pod", 1)
+    return decode_comm_cost(rows, 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, P).fwd_bytes
+
+
 def serve_comm_bytes(layout, cfg, batch: int) -> dict[str, dict[str, float]]:
     """One :func:`lm_decode_step`'s bytes a rank and direction, by link
     class, on parameters in the serve layout ``layout``
@@ -447,79 +459,33 @@ def serve_comm_bytes(layout, cfg, batch: int) -> dict[str, dict[str, float]]:
       MLP (``layers.tp_pair``) moves only its all-reduce; the embedding
       all-gathers its rows (split by ``d``) or all-reduces them (by
       vocabulary); the head's logits come whole the same way.  Products
-      run in ``cfg.dtype``, the MoE router in float32;
-    * ``"link"``: the SP decode merge of every layer (``decode_comm_cost``)
+      run in ``cfg.dtype``, the MoE router in float32
+      (``layers.TPBytes``);
+    * ``"link"``: the SP decode merge of every layer (:func:`decode_link_bytes`)
       and an MoE layer's expert-parallel sum of its float32 output;
     * ``"data"``: nothing: serve storage replicates every leaf over the
       data axis."""
-    from repro_torch.core.decode import decode_comm_cost
-
     mesh = layout.mesh
     G, pods = mesh.shape["model"], mesh.shape.get("pod", 1)
-    e = torch_dtype(cfg.dtype).itemsize
-    rows, d = batch, cfg.d_model
-
-    def split(spec):
-        return serve_split(spec, mesh)
-
-    def gathered(n):
-        return (G - 1) * n / G / 2
-
-    def summed(n):
-        return (G - 1) / G * n
-
-    def whole(spec, meta):
-        return 0.0 if split(spec) is None else gathered(tree_bytes(meta))
-
-    def norm(specs, meta):
-        return sum(whole(specs[k], meta[k]) for k in specs)
-
-    def product(specs, meta, out_bytes, transpose=False):
-        s = split(specs["w"][::-1] if transpose else specs["w"])
-        if s is None:
-            return 0.0
-        if s == 1:
-            return gathered(rows * out_bytes)
-        return summed(rows * out_bytes) + (whole(specs["b"], meta["b"]) if "b" in specs else 0.0)
-
-    def ffn(specs, meta, f):
-        keys = ("gate", "up", "down") if "gate" in specs else ("in", "out")
-        *cols, row = keys
-        if tp_pair([split(specs[k]["w"]) for k in cols], split(specs[row]["w"])):
-            return summed(rows * d * e) + (whole(specs[row]["b"], meta[row]["b"])
-                                           if "b" in specs[row] else 0.0)
-        return (sum(product(specs[k], meta[k], f * e) for k in cols)
-                + product(specs[row], meta[row], d * e))
-
-    tp = link = 0.0
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    table_row = rows * d * layout.meta["embed"]["table"].element_size()
-    tp += {None: 0.0, 1: gathered(table_row),
-           0: summed(table_row)}[split(layout.specs["embed"]["table"])]
+    tb = TPBytes(mesh, batch, torch_dtype(cfg.dtype).itemsize)
+    tp = tb.embed(layout.specs["embed"]["table"], layout.meta["embed"]["table"])
+    link = 0.0
     for specs, meta in zip(layout.specs["layers"], layout.meta["layers"]):
-        a, am = specs["attn"], meta["attn"]
-        tp += norm(specs["ln1"], meta["ln1"]) + norm(specs["ln2"], meta["ln2"])
-        tp += product(a["wq"], am["wq"], Hq * Dh * e) + product(a["wo"], am["wo"], d * e)
-        tp += sum(product(a[k], am[k], Hkv * Dh * e) for k in ("wk", "wv"))
-        tp += sum(norm(a[k], am[k]) for k in ("q_norm", "k_norm") if k in a)
-        link += decode_comm_cost(rows, 1, Hq, Hkv, Dh, G * pods).fwd_bytes
+        tp += tb.norm(specs["ln1"], meta["ln1"]) + tb.norm(specs["ln2"], meta["ln2"])
+        tp += tb.attention(specs["attn"], meta["attn"], cfg)
+        link += decode_link_bytes(cfg, batch, mesh)
         if "moe" in specs:
             m, mm = specs["moe"], meta["moe"]
-            tp += product(m["router"], mm["router"], cfg.n_experts * 4)
+            tp += tb.product(m["router"], mm["router"], cfg.n_experts * 4)
             if "shared" in m:
-                tp += ffn(m["shared"], mm["shared"], cfg.moe_d_ff * cfg.n_shared_experts)
+                tp += tb.ffn(m["shared"], mm["shared"], cfg.d_model,
+                             cfg.moe_d_ff * cfg.n_shared_experts)
             n_ep = ep_size(cfg.n_experts, G * pods, pods)
-            link += (n_ep - 1) / n_ep * rows * d * 4
+            link += (n_ep - 1) / n_ep * batch * cfg.d_model * 4
         else:
-            tp += ffn(specs["mlp"], meta["mlp"], cfg.d_ff)
-    tp += norm(layout.specs["final_norm"], layout.meta["final_norm"])
-    if "lm_head" in layout.specs:
-        tp += product(layout.specs["lm_head"], layout.meta["lm_head"], cfg.vocab_size * e)
-    else:
-        tp += product({"w": layout.specs["embed"]["table"]}, {}, cfg.vocab_size * e,
-                      transpose=True)
-    return {cls: {"fwd": n, "bwd": n} for cls, n in (("tp", tp), ("link", link),
-                                                      ("data", 0.0))}
+            tp += tb.ffn(specs["mlp"], meta["mlp"], cfg.d_model, cfg.d_ff)
+    tp += tb.norm(layout.specs["final_norm"], layout.meta["final_norm"]) + tb.head(layout, cfg)
+    return comm_classes(tp, link)
 
 
 @torch.inference_mode()
@@ -589,93 +555,3 @@ def lm_decode_step_paged(params, token_ids, cache, active=None, *, cfg, pctx):
     logits = _logits(params, x, cfg)[:, 0]
     cache["len"].copy_(new_len)
     return logits, cache
-
-
-def serve_comm_bytes(layout, cfg, batch: int) -> dict[str, dict[str, float]]:
-    """One :func:`lm_decode_step`'s bytes a rank and direction, by link
-    class, on parameters in the serve layout ``layout``
-    (``sharding.layout_for(..., mode="serve")``), ``batch`` the rows one
-    rank's step carries (its data rank's).  With ``G`` the model size and
-    ``n`` a tensor's bytes whole:
-
-    * ``"tp"``: each product with a column-split weight all-gathers its
-      output (``(G-1) * n/G / 2``), with a row-split one all-reduces it
-      (``(G-1)/G * n``), and a split 1-D leaf a layer needs whole is
-      all-gathered (a norm scale, a row projection's bias; a column
-      projection's bias is added to its slice); a column/row pair of the
-      MLP (``layers.tp_pair``) moves only its all-reduce; the embedding
-      all-gathers its rows (split by ``d``) or all-reduces them (by
-      vocabulary); the head's logits come whole the same way.  Products
-      run in ``cfg.dtype``, the MoE router in float32;
-    * ``"link"``: the SP decode merge of every layer (``decode_comm_cost``)
-      and an MoE layer's expert-parallel sum of its float32 output;
-    * ``"data"``: nothing: serve storage replicates every leaf over the
-      data axis."""
-    from repro_torch.core.decode import decode_comm_cost
-
-    mesh = layout.mesh
-    G, pods = mesh.shape["model"], mesh.shape.get("pod", 1)
-    e = torch_dtype(cfg.dtype).itemsize
-    rows, d = batch, cfg.d_model
-
-    def split(spec):
-        return serve_split(spec, mesh)
-
-    def gathered(n):
-        return (G - 1) * n / G / 2
-
-    def summed(n):
-        return (G - 1) / G * n
-
-    def whole(spec, meta):
-        return 0.0 if split(spec) is None else gathered(tree_bytes(meta))
-
-    def norm(specs, meta):
-        return sum(whole(specs[k], meta[k]) for k in specs)
-
-    def product(specs, meta, out_bytes, transpose=False):
-        s = split(specs["w"][::-1] if transpose else specs["w"])
-        if s is None:
-            return 0.0
-        if s == 1:
-            return gathered(rows * out_bytes)
-        return summed(rows * out_bytes) + (whole(specs["b"], meta["b"]) if "b" in specs else 0.0)
-
-    def ffn(specs, meta, f):
-        keys = ("gate", "up", "down") if "gate" in specs else ("in", "out")
-        *cols, row = keys
-        if tp_pair([split(specs[k]["w"]) for k in cols], split(specs[row]["w"])):
-            return summed(rows * d * e) + (whole(specs[row]["b"], meta[row]["b"])
-                                           if "b" in specs[row] else 0.0)
-        return (sum(product(specs[k], meta[k], f * e) for k in cols)
-                + product(specs[row], meta[row], d * e))
-
-    tp = link = 0.0
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    table_row = rows * d * layout.meta["embed"]["table"].element_size()
-    tp += {None: 0.0, 1: gathered(table_row),
-           0: summed(table_row)}[split(layout.specs["embed"]["table"])]
-    for specs, meta in zip(layout.specs["layers"], layout.meta["layers"]):
-        a, am = specs["attn"], meta["attn"]
-        tp += norm(specs["ln1"], meta["ln1"]) + norm(specs["ln2"], meta["ln2"])
-        tp += product(a["wq"], am["wq"], Hq * Dh * e) + product(a["wo"], am["wo"], d * e)
-        tp += sum(product(a[k], am[k], Hkv * Dh * e) for k in ("wk", "wv"))
-        tp += sum(norm(a[k], am[k]) for k in ("q_norm", "k_norm") if k in a)
-        link += decode_comm_cost(rows, 1, Hq, Hkv, Dh, G * pods).fwd_bytes
-        if "moe" in specs:
-            m, mm = specs["moe"], meta["moe"]
-            tp += product(m["router"], mm["router"], cfg.n_experts * 4)
-            if "shared" in m:
-                tp += ffn(m["shared"], mm["shared"], cfg.moe_d_ff * cfg.n_shared_experts)
-            n_ep = ep_size(cfg.n_experts, G * pods, pods)
-            link += (n_ep - 1) / n_ep * rows * d * 4
-        else:
-            tp += ffn(specs["mlp"], meta["mlp"], cfg.d_ff)
-    tp += norm(layout.specs["final_norm"], layout.meta["final_norm"])
-    if "lm_head" in layout.specs:
-        tp += product(layout.specs["lm_head"], layout.meta["lm_head"], cfg.vocab_size * e)
-    else:
-        tp += product({"w": layout.specs["embed"]["table"]}, {}, cfg.vocab_size * e,
-                      transpose=True)
-    return {cls: {"fwd": n, "bwd": n} for cls, n in (("tp", tp), ("link", link),
-                                                      ("data", 0.0))}

@@ -45,13 +45,17 @@ decode): ``shard_tree`` of a serve layout turns each leaf that the rule
 splits over ``model`` into a :class:`ServeBlocks`, its blocks resident for
 good (the same ``(k, *block)`` tensor, ``k`` the model size on the virtual
 mesh, 1 on a process group), and keeps every other leaf whole.  The decode
-step binds them, once, to the context's mesh transport (:func:`bind_serve`)
-and the layers compute on the blocks with the tensor-parallel collectives
-their split implies (``models/layers.py``); nothing is gathered into a
-full weight but the 1-D leaves that need the whole vector (norm scales).
+step of every family binds them, once, to the context's mesh transport
+(:func:`bind_serve`) and the layers compute on the blocks with the
+tensor-parallel collectives their split implies (``models/layers.py``);
+nothing is gathered into a full weight but the 1-D leaves that need the
+whole vector (norm scales) and a leaf the rule splits on a dim that the
+decode state does not split (falcon-mamba's ``A_log``).
 :func:`serve_split` is the dim a serve spec splits; the closed form of a
-decode step's bytes on such blocks is ``models.transformer``'s
-``serve_comm_bytes``, beside the step it describes.
+decode step's bytes on such blocks sits beside the step it describes
+(``serve_comm_bytes`` in ``models.transformer``,
+``encdec_serve_comm_bytes``, ``mamba_serve_comm_bytes``,
+``rg_serve_comm_bytes``).
 """
 
 from __future__ import annotations
@@ -351,9 +355,10 @@ class ServeBlocks:
 
     def transport(self):
         if self.comm is None:
-            raise RuntimeError("serve blocks reach a layer unbound: lm_decode_step binds them "
-                               "to its context's mesh transport, and no other step takes serve "
-                               "storage")
+            raise RuntimeError("serve blocks reach a layer unbound: the decode steps "
+                               "(lm_decode_step, encdec_decode_step, mamba_decode_step, "
+                               "rg_decode_step) bind them to their context's mesh transport, "
+                               "and no other step takes serve storage")
         return self.comm
 
     def whole(self):

@@ -1,10 +1,13 @@
 """One rank of the serve-storage decode on a gloo group
-(``test_torch_serve_storage.py``): the (data, model) mesh over the group,
-this rank's blocks of the parameters by ``param_pspec(mode="serve")``
-(checked against ``cut_blocks`` of the full leaf), the replicated prefill
-of its data rank's rows, then greedy decode steps on the blocks.  Writes,
-per model, the logits and tokens of its rows, whether its blocks were the
-rule's, the bytes it holds and the ledger's bytes a step by class.
+(``test_torch_serve_storage.py``, ``test_torch_serve_families.py``): the
+(data, model) mesh over the group, this rank's blocks of the parameters by
+``param_pspec(mode="serve")`` (checked against ``cut_blocks`` of the full
+leaf), then decode steps on the blocks: after the replicated prefill of its
+data rank's rows, greedy (a case without ``feed``), or fed its rows of
+``feed`` from a fresh state (whisper's encoded first from the rank's
+sequence shard of its rows' frames).  Writes, per model, the logits and
+tokens (greedy, or the logits' argmax) of its rows, whether its blocks were
+the rule's, the bytes it holds and the ledger's bytes a step by class.
 Imports torch, numpy and the port only."""
 
 import numpy as np
@@ -54,24 +57,34 @@ def run(rank: int, shape, init_file: str, data_dir: str, models, out: str, steps
         for model in models:
             case = np.load(f"{data_dir}/{model}.npz")
             cfg = ArchConfig(**torch.load(f"{data_dir}/{model}_cfg.pt"))
-            B = case["tokens"].shape[0]
+            B = case["feed" if "feed" in case.files else "tokens"].shape[0]
             rows = slice(d * B // D, (d + 1) * B // D)
             pctx = make_pctx(mesh, device="cpu", impl="torch", global_batch=B,
-                             ring=dist.group.WORLD)
+                             layout=cfg.layout, ring=dist.group.WORLD)
             bundle = build_model(cfg, pctx)
             params = torch.load(f"{data_dir}/{model}_params.pt")
             layout = layout_for(params, mesh, rank=rank, mode="serve")
             tree = shard_tree(params, layout)
             res[f"{model}/blocks_ok"], res[f"{model}/held"] = _held(params, tree, layout, rank)
             state = bundle.init_serve_state(B // D, int(case["max_len"]), "cpu")
-            prefix = (torch.from_numpy(case["prefix"][rows]) if "prefix" in case.files
-                      else None)
-            logits, state = bundle.prefill(params, torch.from_numpy(case["tokens"][rows]),
-                                           torch.from_numpy(case["pos"][rows]), state, prefix)
+            fed = case["feed"][rows] if "feed" in case.files else None
+            if fed is None:
+                prefix = (torch.from_numpy(case["prefix"][rows]) if "prefix" in case.files
+                          else None)
+                logits, state = bundle.prefill(params, torch.from_numpy(case["tokens"][rows]),
+                                               torch.from_numpy(case["pos"][rows]), state,
+                                               prefix)
+                tok = logits.argmax(-1).to(torch.int32)
+            elif "frames" in case.files:
+                S = case["frames"].shape[1] // P
+                m = mesh.coords(rank)["model"]
+                bundle.encode(params, torch.from_numpy(case["frames"][rows, m * S:(m + 1) * S]),
+                              state)
             del params
             got, feed, ledger = [], [], {}
-            tok = logits.argmax(-1).to(torch.int32)
-            for _ in range(steps):
+            for t in range(steps if fed is None else fed.shape[1]):
+                if fed is not None:
+                    tok = torch.from_numpy(fed[:, t])
                 feed.append(tok)
                 pctx.storage.ledger.reset()
                 logits, state = bundle.decode_step(tree, tok, state)
@@ -79,7 +92,8 @@ def run(rank: int, shape, init_file: str, data_dir: str, models, out: str, steps
                 got.append(logits.numpy())
                 tok = logits.argmax(-1).to(torch.int32)
             res[f"{model}/logits"] = np.stack(got, 1)
-            res[f"{model}/tokens"] = torch.stack(feed, 1).numpy()
+            res[f"{model}/tokens"] = (torch.stack(feed, 1).numpy() if fed is None
+                                      else res[f"{model}/logits"].argmax(-1))
             for cls in ("tp", "link", "data"):
                 c = ledger.get(cls, {"fwd": 0.0, "bwd": 0.0})
                 res[f"{model}/{cls}"] = np.asarray([c["fwd"], c["bwd"]])

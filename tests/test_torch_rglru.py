@@ -18,7 +18,8 @@ with the JAX ``init_rg`` parameters carried across (``from_jax_params``).
   window against the JAX ``flash_attention`` (``impl="xla"`` and
   ``"pallas_interpret"``), and which instance of kernels A, B1 and B2 the
   card would take at D 256; kernel C refuses D 256;
-* the bundle: the serving layout's dtypes, the engine's refusal, the CLIs.
+* the bundle: the serving layout's dtypes, the engine's refusal, the
+  decode at SP 4 (its ring buffer sequence-sharded) against SP 1, the CLIs.
 
 Float32 throughout.  Model-level limits are ``MODEL_TOL`` of
 ``test_torch_training.py`` (atol 2e-5, rtol 2e-4); decode logits 1e-4 and
@@ -366,10 +367,17 @@ def test_serving_layout_and_engine_refusal():
     assert tb.prefill_chunk is tb.prefill is tb.decode_step_paged is None
     with pytest.raises(NotImplementedError, match="rolled back"):
         TEngine(tb, tparams, max_batch=2, max_len=32, device="cpu")
-    with pytest.raises(ValueError, match="sp_degree 1"):
-        _, _, tb4, _ = _models(training=False, sp_degree=4)
-        tb4.decode_step(tparams, torch.zeros((2,), dtype=torch.int32),
-                        tb4.init_serve_state(2, 32, "cpu"))
+    # at SP 4 the ring buffer is sequence-sharded over the ring (rank-major
+    # on the virtual ring): the same logits as at SP 1
+    _, _, tb4, _ = _models(training=False, sp_degree=4)
+    s1, s4 = tb.init_serve_state(2, 32, "cpu"), tb4.init_serve_state(2, 32, "cpu")
+    assert s4["k"].shape[1:3] == (4 * 2, tb.cfg.window // 4)
+    assert s4["pos"].shape == (4 * 2, tb.cfg.window // 4)
+    for t in range(3):
+        tok = torch.full((2,), 5 + t, dtype=torch.int32)
+        l1, _ = tb.decode_step(tparams, tok, s1)
+        l4, _ = tb4.decode_step(tparams, tok, s4)
+        np.testing.assert_allclose(l4.numpy(), l1.numpy(), **LOGIT_TOL)
 
 
 @pytest.mark.parametrize("sp", [1, 4])
