@@ -353,8 +353,38 @@ Phases, each fatal on failure:
      the closed form; (c) the fault that this gate must catch:
      falcon-mamba's ``in_proj`` blocks of ranks 1 and 2 swapped in every
      layer (in this script only), 4 steps fed the chain, the logits above
-     ``SERVE_TP_LOGIT_GAP``; the phase's seconds;
- 25. a ``{"kernels": [...]}`` summary line, the card line, and last the
+     ``SERVE_TP_LOGIT_GAP``; each rank's slice of a recurrent state in (a)
+     within ``SERVE_LOGIT_LIMIT`` of the leaf's max from its slice of the
+     plain path's state; the phase's seconds;
+ 25. every family's decode step under serve-mode storage over the pod mesh
+     (pod, data, model) (this slice's main path): (a) qwen3-moe-30b-a3b (2
+     layers, capacity factor E / K, prefilled as in 23 (a)),
+     falcon-mamba-7b (2 layers) and recurrentgemma-2b (5 layers, from
+     length 2040: its 16 steps wrap the ring buffer over the 4 sequence
+     ranks) at full width, float32, on the virtual (2, 1, 2) and (2, 2, 2)
+     meshes, as 23 (a) and 24 (a): the replicated SP-4 decode on the plain
+     path against the serve blocks on the kernels fed the same tokens,
+     logits within ``SERVE_LOGIT_LIMIT``, a second run bitwise equal, each
+     rank's blocks the rule's, each rank's slice of the recurrent state the
+     model-major slice (``m * pods + p``) of the plain path's, bytes = the
+     closed form, A's decode launches; (c) qwen3-moe's EP slices of pods 0
+     and 1 swapped inside every model block of its first layer (in this
+     script only): the logits must fail that limit; (b) qwen3-moe-30b-a3b
+     at full width, ``POD_LAYERS`` of 48 layers, bf16, batch 8, from a
+     seeded synthetic dense slab at length 2040: 32 greedy steps of the
+     replicated SP-1 decode on the kernels (the reference), the tree cut to
+     serve blocks over the virtual (2, 1, 2) and (1, 1, 4) meshes (both SP
+     4) and freed, the reference's chain fed through each (gaps logged as
+     shares of the row spread), 32 greedy steps on each timed with CUDA
+     events, twice, in the order (2, 1, 2), (1, 1, 4), (1, 1, 4), (2, 1,
+     2), beside the replicated step, the weight-read bound, the peak
+     memory, the bytes a step (= ``serve_comm_bytes``) and ``state_bytes``
+     at 48 layers on (2, 16, 16) (``RESULT serving_tp_pod``); the values
+     gated in float32 at the same depth on (2, 1, 2) as 24 (b)'s gate; A's
+     calls on the (2, 1, 2) blocks replayed through its wrapper twice and
+     against its plain version; with ``--profile``, 4 steps on (2, 1, 2)
+     under torch.profiler; the phase's seconds;
+ 26. a ``{"kernels": [...]}`` summary line, the card line, and last the
      ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -6022,6 +6052,20 @@ def serve_prompts(torch, dev, cfg, B, S, seed):
     return tokens, torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
 
 
+def serve_mesh(shape):
+    """The virtual mesh of ``shape``: ``(data, model)``, or ``(pod, data,
+    model)``."""
+    from repro_torch.launch.mesh import data_mesh
+
+    *pods, D, G = shape
+    return data_mesh(D, G, *pods)
+
+
+def sp_size(mesh) -> int:
+    """The SP degree of a mesh: its sequence axes, ``pod`` and ``model``."""
+    return mesh.shape["model"] * mesh.shape.get("pod", 1)
+
+
 def serve_decode(torch, bundle, params, state, tok, steps, feed=None, timed=False, final=None):
     """``steps`` decode steps of ``bundle`` on a copy of ``state`` from the
     tokens ``tok (B,)``: greedy, or fed ``feed (B, steps)``.  Returns the
@@ -6157,24 +6201,48 @@ def serve_blocks_gate(label, params, blocks, layout):
     return split
 
 
+def class_line(closed) -> str:
+    """A closed form's bytes a step and direction, by class."""
+    return ", ".join(f"{cls} {closed[cls]['fwd']:.0f}" for cls in closed)
+
+
+def swapped_ep_slices(blocks, pods):
+    """``blocks`` with the first layer's expert stacks' EP slices of pods 0
+    and 1 swapped inside every model block (the fault phase 25 (c)
+    plants)."""
+    order = [1, 0, *range(2, pods)]
+
+    def swap(b):
+        return dataclasses.replace(b, blocks=b.blocks.unflatten(1, (pods, -1))[:, order]
+                                   .flatten(1, 2))
+
+    first = blocks["layers"][0]
+    moe = {**first["moe"], **{k: swap(first["moe"][k]) for k in ("wg", "wu", "wd")}}
+    return {**blocks, "layers": [{**first, "moe": moe}, *blocks["layers"][1:]]}
+
+
 def phase_serve_checked(torch, dev, name, mesh_shape, layers=SERVE_CHECK_LAYERS,
-                        B=SERVE_CHECK_BATCH, S=SERVE_CHECK_PROMPT, steps=SERVE_CHECK_STEPS):
-    """Phase 23 (a): ``name`` at full width, ``layers`` layers, float32 (an
-    MoE at capacity factor E / K), prefilled once on the plain path at SP
-    4; the replicated SP-4 decode on the plain path (greedy) against the
-    decode step on serve blocks over the virtual ``mesh_shape`` on the
-    kernels, fed the same tokens, twice."""
+                        B=SERVE_CHECK_BATCH, S=SERVE_CHECK_PROMPT, steps=SERVE_CHECK_STEPS,
+                        phase=23):
+    """Phase 23 (a), and 25 (a) on a pod mesh: ``name`` at full width,
+    ``layers`` layers, float32 (an MoE at capacity factor E / K), prefilled
+    once on the plain path at SP 4; the replicated SP-4 decode on the plain
+    path (greedy) against the decode step on serve blocks over the virtual
+    ``mesh_shape`` on the kernels, fed the same tokens, twice.  An MoE on a
+    pod mesh then takes phase 25 (c): the chain fed once more with the EP
+    slices of pods 0 and 1 swapped in its first layer's expert stacks, which
+    must fail the logit limit."""
     from repro_torch.configs import ARCHS
     from repro_torch.core.api import ParallelContext
-    from repro_torch.launch.mesh import data_mesh, make_pctx
+    from repro_torch.launch.mesh import make_pctx
     from repro_torch.models.registry import build_model
     from repro_torch.sharding import layout_for, shard_tree
 
     cfg = ARCHS[name].with_(n_layers=layers, dtype="float32")
     cfg = no_drop(cfg) if cfg.n_experts else cfg
-    mesh = data_mesh(*mesh_shape)
-    label = f"phase 23 (a) {name} {mesh_shape}"
-    P = mesh.shape["model"]
+    mesh = serve_mesh(mesh_shape)
+    label = f"phase {phase} (a) {name} {mesh_shape}"
+    P = sp_size(mesh)
     plain = build_model(cfg, ParallelContext(impl="torch", device="cuda", sp_degree=P))
     params = plain.init(0)
     tokens, positions = serve_prompts(torch, dev, cfg, B, S, seed=31)
@@ -6204,13 +6272,25 @@ def phase_serve_checked(torch, dev, name, mesh_shape, layers=SERVE_CHECK_LAYERS,
         raise AssertionError(f"{label}: logits off by {err:.2e} of the row's max, a token "
                              f"{float(gap.max()):.2e} below the plain path's max logit")
     closed = serve_bytes_gate(label, ledger, layout, cfg, B // pctx.data_degree, steps)
+    fault = ""
+    pods = mesh.shape.get("pod", 1)
+    if cfg.n_experts and pods > 1:
+        _, wrong, _, _, _ = serve_decode(torch, bundle, swapped_ep_slices(blocks, pods), state,
+                                         tok, steps, feed=chain)
+        bad = float(((wrong - ref).abs().amax(-1) / ref.abs().amax(-1)).max())
+        if not bad > SERVE_LOGIT_LIMIT:
+            raise AssertionError(f"{label}: with the EP slices of pods 0 and 1 swapped the "
+                                 f"logits stay within {bad:.2e} of the row's max: the limit "
+                                 f"{SERVE_LOGIT_LIMIT} would not see them")
+        fault = (f"; (c) the EP slices of pods 0 and 1 swapped in layer 0: logits {bad:.2e} of "
+                 f"the row's max (fails the limit, as it must)")
+        del wrong
     log(f"  ok {label}: float32, batch {B}, prompt {S}, {steps} steps on serve blocks ("
         f"{split} leaves split over model, each the rule's) against the replicated SP-{P} "
         f"decode on the plain path: logits within {err:.2e} of the row's max (limit "
         f"{SERVE_LOGIT_LIMIT}), tokens within {float(gap.max()):.2e} of its max logit; the second "
         f"run bitwise equal; A launches {ran} = {cfg.n_layers} x {steps}; bytes a step and "
-        f"direction = serve_comm_bytes: tp {closed['tp']['fwd']:.0f}, link "
-        f"{closed['link']['fwd']:.0f}, data {closed['data']['fwd']:.0f}")
+        f"direction = serve_comm_bytes: {class_line(closed)}{fault}")
     del runs, blocks, state
     free_device_memory(torch)
     return ran
@@ -6380,6 +6460,9 @@ FAMILY_CHECK_BATCH, FAMILY_CHECK_STEPS = 4, 16
 # the synthetic start's length: the ring buffer's 2048 slots hold positions
 # 0..2039, so (a)'s 16 steps wrap slot 2047 (rank 3 at SP 4) to slot 0
 RG_SYNTH_LEN = 2040
+# the dense slab of a synthetic start at RG_SYNTH_LEN (phase 25 (b)): room
+# for 32 steps, a multiple of every SP degree up to 16
+SYNTH_MAX_LEN = 2080
 FAMILY_TP_BATCH, FAMILY_TP_STEPS = 8, 32
 FAMILY_TP_ARCHS = (RG, MAMBA, "whisper-base")
 MAMBA_SERVE_LAYERS = 64  # falcon-mamba-7b's layers in (b): all of them
@@ -6393,20 +6476,23 @@ FAULT_STEPS = 4
 STATE_DIMS = {"k": (1, 2), "v": (1, 2), "pos": (0, 1), "xk": (1, 2), "xv": (1, 2),
               "enc_pos": (0, 1), "ssm": (1, 2), "conv": (1, 3), "rec_h": (2, 3),
               "rec_conv": (2, 4), "tail_h": (1, 2), "tail_conv": (1, 3)}
+RECURRENT = ("ssm", "conv", "rec_h", "rec_conv", "tail_h", "tail_conv")
 
 
 def decode_a_calls(cfg) -> int:
     """Kernel A's launches of one decode step: a whisper decoder layer's
     self and cross reads, a recurrentgemma superblock's local attention,
-    none for falcon-mamba (every rank's rows in one launch)."""
-    return {"encdec": 2 * cfg.n_layers, "ssm": 0, "hybrid": attention_calls(cfg)}[cfg.family]
+    a transformer layer's read, none for falcon-mamba (every rank's rows
+    in one launch)."""
+    return 2 * cfg.n_layers if cfg.family == "encdec" else attention_calls(cfg)
 
 
 def synthetic_state(torch, dev, cfg, B, seed):
-    """A seeded global decode state of ``B`` rows for the recurrent
-    families: falcon-mamba's ``ssm`` and ``conv``; recurrentgemma's
-    recurrent state and a ring buffer at length ``RG_SYNTH_LEN``, its
-    positions in ring order (``PAD_POS`` in the slots not yet written)."""
+    """A seeded global decode state of ``B`` rows: falcon-mamba's ``ssm``
+    and ``conv``; recurrentgemma's recurrent state and a ring buffer at
+    length ``RG_SYNTH_LEN``, its positions in ring order (``PAD_POS`` in
+    the slots not yet written); a transformer's dense slab of
+    ``SYNTH_MAX_LEN`` slots at length ``RG_SYNTH_LEN``."""
     from repro_torch.models.layers import torch_dtype
     from repro_torch.models.rglru import rg_layout
 
@@ -6417,6 +6503,13 @@ def synthetic_state(torch, dev, cfg, B, seed):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
     K = cfg.ssm_conv
+    if cfg.family in ("dense", "moe"):
+        slots = torch.arange(SYNTH_MAX_LEN, device=dev, dtype=torch.int32)
+        kv = (cfg.n_layers, B, SYNTH_MAX_LEN, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": rnd(*kv, std=1.0), "v": rnd(*kv, std=1.0),
+                "pos": torch.where(slots < RG_SYNTH_LEN, slots, PAD_POS).expand(
+                    B, SYNTH_MAX_LEN).contiguous(),
+                "len": torch.full((B,), RG_SYNTH_LEN, dtype=torch.int32, device=dev)}
     if cfg.family == "ssm":
         di, L = cfg.d_inner, cfg.n_layers
         return {"ssm": rnd(L, B, di, cfg.ssm_state, dtype=torch.float32),
@@ -6441,7 +6534,7 @@ def placed_state(bundle, glob, B, dev):
     ``glob`` in its layout: each leaf's ranks rank-major in its batch dim,
     each with its slice of the split dim (as many ranks as the layout has
     row blocks: 1 where the leaf is whole)."""
-    state = bundle.init_serve_state(B, 0, dev)
+    state = bundle.init_serve_state(B, glob["pos"].shape[1] if "pos" in glob else 0, dev)
     for key, x in glob.items():
         if key == "len":
             state[key].copy_(x)
@@ -6452,13 +6545,13 @@ def placed_state(bundle, glob, B, dev):
     return state
 
 
-def family_start(torch, dev, bundle, params, B, seed, max_len):
+def family_start(torch, dev, bundle, params, B, seed):
     """A decode start of ``B`` rows for ``bundle``: whisper's encode of
-    seeded frames into a dense slab of ``max_len`` slots and its start
-    token, or the synthetic state and seeded tokens."""
+    seeded frames into a dense slab of ``WHISPER_MAX_LEN`` slots and its
+    start token, or the synthetic state and seeded tokens."""
     cfg = bundle.cfg
     if cfg.family == "encdec":
-        state = bundle.init_serve_state(B, max_len, dev)
+        state = bundle.init_serve_state(B, WHISPER_MAX_LEN, dev)
         bundle.encode(params, whisper_frames(torch, dev, cfg, B, seed), state)
         return state, torch.full((B,), WHISPER_SOT, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -6466,29 +6559,59 @@ def family_start(torch, dev, bundle, params, B, seed, max_len):
     return placed_state(bundle, synthetic_state(torch, dev, cfg, B, seed), B, dev), tok
 
 
+def state_slices_gate(label, mine, final, mesh, D):
+    """Each rank's slice of each recurrent leaf of the blocks' state
+    ``mine`` against the documented slice of the plain path's whole state
+    ``final``: rank ``(p, d, m)`` holds width slice ``m * pods + p``
+    (model-major, ``models.layers.state_tp``) of data rank ``d``'s rows
+    (``D`` data ranks), within ``SERVE_LOGIT_LIMIT`` of the leaf's largest
+    |value|.  Returns the worst such error (0.0 without a recurrent
+    leaf)."""
+    pods = mesh.shape.get("pod", 1)
+    K = pods * mesh.shape["model"]
+    worst = 0.0
+    for key in (k for k in RECURRENT if k in mine):
+        b, s = STATE_DIMS[key]
+        ref, held = final[key].float(), mine[key].float().unflatten(b, (K, -1))
+        w, n = ref.shape[s] // K, ref.shape[b] // D
+        for r in range(mesh.size):
+            c = mesh.coords(r)
+            j = c["model"] * pods + c.get("pod", 0)
+            d = c["data"] if D > 1 else 0
+            want = ref.narrow(s, j * w, w).narrow(b, d * n, n)
+            got = held.select(b, j).narrow(b, d * n, n)
+            worst = max(worst, float((got - want).abs().max() / ref.abs().max()))
+    if worst > SERVE_LOGIT_LIMIT:
+        raise AssertionError(f"{label}: a rank's slice of the recurrent state is {worst:.2e} of "
+                             f"the leaf's max from its model-major slice of the plain path's")
+    return worst
+
+
 def phase_family_checked(torch, dev, name, over, mesh_shape, B=FAMILY_CHECK_BATCH,
-                         steps=FAMILY_CHECK_STEPS):
-    """Phase 24 (a): ``name`` at full width, float32, ``over``'s depth: the
-    replicated SP-4 decode on the plain path (greedy) against the decode
-    step on serve blocks over the virtual ``mesh_shape`` on the kernels,
-    fed the same tokens from the same start, twice.  Returns A's launches
-    on the blocks."""
+                         steps=FAMILY_CHECK_STEPS, phase=24):
+    """Phase 24 (a), and 25 (a) on a pod mesh: ``name`` at full width,
+    float32, ``over``'s depth: the replicated SP-4 decode on the plain path
+    (greedy) against the decode step on serve blocks over the virtual
+    ``mesh_shape`` on the kernels, fed the same tokens from the same start,
+    twice; each rank's slice of the recurrent state against the plain
+    path's (:func:`state_slices_gate`).  Returns A's launches on the
+    blocks."""
     from repro_torch.configs import ARCHS
     from repro_torch.core.api import ParallelContext
-    from repro_torch.launch.mesh import data_mesh, make_pctx
+    from repro_torch.launch.mesh import make_pctx
     from repro_torch.models.registry import build_model
     from repro_torch.sharding import layout_for, shard_tree
 
     cfg = ARCHS[name].with_(dtype="float32", **over)
-    mesh = data_mesh(*mesh_shape)
-    label = f"phase 24 (a) {name} {mesh_shape}"
-    P = mesh.shape["model"]
+    mesh = serve_mesh(mesh_shape)
+    label = f"phase {phase} (a) {name} {mesh_shape}"
+    P = sp_size(mesh)
     plain = build_model(cfg, ParallelContext(impl="torch", device="cuda", sp_degree=P,
                                              layout=cfg.layout))
     pctx = make_pctx(mesh, device="cuda", global_batch=B, layout=cfg.layout)
     bundle = build_model(cfg, pctx)
     params = plain.init(0)
-    ref_state, tok = family_start(torch, dev, plain, params, B, 43, WHISPER_MAX_LEN)
+    ref_state, tok = family_start(torch, dev, plain, params, B, 43)
     final = {}
     chain, ref, _, ran, _ = serve_decode(torch, plain, params, ref_state, tok, steps,
                                          final=final)
@@ -6497,7 +6620,7 @@ def phase_family_checked(torch, dev, name, over, mesh_shape, B=FAMILY_CHECK_BATC
     if cfg.family == "encdec":  # the caches' layout is the plain SP-4 path's
         state = ref_state
     else:
-        state, _ = family_start(torch, dev, bundle, params, B, 43, WHISPER_MAX_LEN)
+        state, _ = family_start(torch, dev, bundle, params, B, 43)
     layout = layout_for(params, mesh, mode="serve")
     blocks = shard_tree(params, layout)
     split = serve_blocks_gate(label, params, blocks, layout)
@@ -6519,7 +6642,9 @@ def phase_family_checked(torch, dev, name, over, mesh_shape, B=FAMILY_CHECK_BATC
         raise AssertionError(f"{label}: logits off by {err:.2e} of the row's max, a token "
                              f"{float(gap.max()):.2e} below the plain path's max logit")
     closed = serve_bytes_gate(label, ledger, layout, cfg, B // pctx.data_degree, steps)
-    wrap = ""
+    slices = state_slices_gate(label, mine, final, mesh, pctx.data_degree)
+    wrap = (f"; each rank's slice of the recurrent state within {slices:.2e} of the leaf's max "
+            f"from its model-major slice of the plain path's" if cfg.family != "encdec" else "")
     if cfg.family == "hybrid":
         # the ring buffer read back globally: the 16 steps wrote 2040..2047
         # on the last rank, then wrapped to slots 0..7 on rank 0
@@ -6530,15 +6655,14 @@ def phase_family_checked(torch, dev, name, over, mesh_shape, B=FAMILY_CHECK_BATC
         if not (n > 0 and bool((pos == want_pos).all())
                 and torch.equal(mine["pos"], final["pos"])):
             raise AssertionError(f"{label}: the ring buffer did not wrap to rank 0's slot 0")
-        wrap = (f"; the ring buffer wrapped from slot {cfg.window - 1} (rank {P - 1}) to slots "
-                f"0..{n - 1} (rank 0), positions equal to the plain path's")
+        wrap += (f"; the ring buffer wrapped from slot {cfg.window - 1} (rank {P - 1}) to slots "
+                 f"0..{n - 1} (rank 0), positions equal to the plain path's")
     log(f"  ok {label}: float32, batch {B}, {steps} steps on serve blocks ({split} leaves split "
         f"over model, each the rule's) against the replicated SP-{P} decode on the plain path: "
         f"logits within {err:.2e} of the row's max (limit {SERVE_LOGIT_LIMIT}), tokens within "
         f"{float(gap.max()):.2e} of its max logit; the second run bitwise equal; A launches "
         f"{ran} = {decode_a_calls(cfg)} x {steps}; bytes a step and direction = the closed "
-        f"form: tp {closed['tp']['fwd']:.0f}, link {closed['link']['fwd']:.0f}, data "
-        f"{closed['data']['fwd']:.0f}{wrap}")
+        f"form: {class_line(closed)}{wrap}")
     del runs, blocks, state, ref_state, mine, final
     free_device_memory(torch)
     return ran
@@ -6546,10 +6670,10 @@ def phase_family_checked(torch, dev, name, over, mesh_shape, B=FAMILY_CHECK_BATC
 
 def meta_params(cfg):
     """``cfg``'s full parameter tree as meta tensors."""
-    from repro_torch.models import encdec, mamba, rglru
+    from repro_torch.models import encdec, mamba, rglru, transformer
 
     init = {"encdec": encdec.init_encdec, "ssm": mamba.init_mamba_lm, "hybrid": rglru.init_rg}
-    return init[cfg.family](cfg, None, device="meta")
+    return init.get(cfg.family, transformer.init_lm)(cfg, None, device="meta")
 
 
 def swapped_in_proj(blocks):
@@ -6585,37 +6709,39 @@ def as_layout_of(tree, meta):
     return tree_map(lambda _: next(it), tree)
 
 
-def phase_family_gate(torch, dev, cfg, B=FAMILY_TP_BATCH, steps=FAMILY_GATE_STEPS):
-    """Phase 24 (b)'s gate, in float32 at ``cfg``'s full width and depth
-    (falcon-mamba at ``FAMILY_F32_LAYERS``): ``steps`` greedy steps of the
-    replicated SP-1 decode (the reference), its chain fed through the serve
-    blocks over the virtual (1, 4) mesh (each token within ``WITNESS_GAP``
+def phase_family_gate(torch, dev, cfg, B=FAMILY_TP_BATCH, steps=FAMILY_GATE_STEPS,
+                      mesh_shape=(1, 4), phase=24):
+    """Phase 24 (b)'s gate (and 25 (b)'s), in float32 at ``cfg``'s full
+    width and depth (falcon-mamba at ``FAMILY_F32_LAYERS``): ``steps``
+    greedy steps of the replicated SP-1 decode (the reference), its chain
+    fed through the serve blocks over the virtual ``mesh_shape`` (each
+    token within ``WITNESS_GAP``
     and each logit within ``SERVE_TP_LOGIT_GAP`` of the reference row's
     spread; the ledger = the closed form) and through the replicated bf16
     decode of the same weights (the bf16 floor: logged); falcon-mamba's
     (c): ``FAULT_STEPS`` of the chain on blocks with ``in_proj``'s ranks 1
     and 2 swapped, which must fail the logit limit."""
     from repro_torch.core.api import ParallelContext
-    from repro_torch.launch.mesh import data_mesh, make_pctx
+    from repro_torch.launch.mesh import make_pctx
     from repro_torch.models.registry import build_model
     from repro_torch.sharding import layout_for, shard_tree
 
     cfg32 = cfg.with_(dtype="float32")
-    mesh = data_mesh(1, 4)
-    label = f"phase 24 (b) {cfg.name} float32 gate"
+    mesh = serve_mesh(mesh_shape)
+    label = f"phase {phase} (b) {cfg.name} {mesh_shape} float32 gate"
     ref_bundle = build_model(cfg32, ParallelContext(device="cuda", layout=cfg.layout))
     bundle = build_model(cfg32, make_pctx(mesh, device="cuda", global_batch=B,
                                           layout=cfg.layout))
     bf16 = build_model(cfg, ParallelContext(device="cuda", layout=cfg.layout))
     params = ref_bundle.init(0)
-    ref_state, tok = family_start(torch, dev, ref_bundle, params, B, 53, WHISPER_MAX_LEN)
+    ref_state, tok = family_start(torch, dev, ref_bundle, params, B, 53)
     chain, ref, _, ref_a, _ = serve_decode(torch, ref_bundle, params, ref_state, tok, steps)
     del ref_state
     p16 = as_layout_of(params, meta_params(cfg))
-    state16, _ = family_start(torch, dev, bf16, p16, B, 53, WHISPER_MAX_LEN)
+    state16, _ = family_start(torch, dev, bf16, p16, B, 53)
     _, floor16, _, _, _ = serve_decode(torch, bf16, p16, state16, tok, steps, feed=chain)
     del p16, state16
-    state, _ = family_start(torch, dev, bundle, params, B, 53, WHISPER_MAX_LEN)
+    state, _ = family_start(torch, dev, bundle, params, B, 53)
     layout = layout_for(params, mesh, mode="serve")
     blocks = shard_tree(params, layout)
     del params
@@ -6692,8 +6818,8 @@ def phase_family_tp(torch, dev, name, layers=None, with_profile=False, B=FAMILY_
     t0 = time.perf_counter()
     params = ref_bundle.init(0)
     weight_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
-    ref_state, tok = family_start(torch, dev, ref_bundle, params, B, 47, WHISPER_MAX_LEN)
-    state, _ = family_start(torch, dev, bundle, params, B, 47, WHISPER_MAX_LEN)
+    ref_state, tok = family_start(torch, dev, ref_bundle, params, B, 47)
+    state, _ = family_start(torch, dev, bundle, params, B, 47)
     torch.cuda.synchronize()
     t_start = time.perf_counter() - t0
     chain, ref, ref_ms, ref_a, _ = serve_decode(torch, ref_bundle, params, ref_state, tok, steps,
@@ -6771,7 +6897,159 @@ def phase_family_tp(torch, dev, name, layers=None, with_profile=False, B=FAMILY_
     return ran
 
 
-PROFILED_PHASES = (6, 9, 11, 13, 16, 17, 18, 19, 20, 23, 24)
+# ---------------------------------------------------------------------------
+# phase 25: every family's decode step on serve-mode storage over the pod
+# mesh (pod, data, model)
+# ---------------------------------------------------------------------------
+
+POD_CHECKS = (("qwen3-moe-30b-a3b", dict(n_layers=SERVE_CHECK_LAYERS)),
+              (MAMBA, dict(n_layers=MAMBA_CHECK_LAYERS)),
+              (RG, dict(n_layers=RG_CHECK_LAYERS)))
+POD_CHECK_MESHES = ((2, 1, 2), (2, 2, 2))  # virtual (pod, data, model) meshes
+POD_ARCH = "qwen3-moe-30b-a3b"
+POD_LAYERS = 8  # of 48: 10.9 GB in bf16
+POD_MESHES = ((2, 1, 2), (1, 1, 4))  # (b)'s timed meshes, both SP 4
+POD_FULL_MESH = (2, 16, 16)  # the reference's multi-pod production mesh
+
+
+def phase_serve_pod(torch, dev, with_profile=False, layers=POD_LAYERS, B=FAMILY_TP_BATCH,
+                    steps=FAMILY_TP_STEPS):
+    """Phase 25 (b): qwen3-moe-30b-a3b at full width, ``layers`` of its 48,
+    bf16, batch ``B``, from a seeded synthetic dense slab at length
+    ``RG_SYNTH_LEN``: ``steps`` greedy steps of the replicated SP-1 decode
+    on the kernels (the reference), the tree cut to serve blocks over the
+    virtual (2, 1, 2) and (1, 1, 4) meshes (both SP 4: experts over all 4
+    ranks, two EP slices in a model block on the first) and freed, the
+    reference's chain fed through each (token and logit gaps logged as
+    shares of its row spread), then ``steps`` greedy steps on each timed
+    with CUDA events beside the replicated step, the weight-read bound,
+    the peak memory, the bytes a step (= ``serve_comm_bytes``) and
+    ``state_bytes`` at 48 layers on (2, 16, 16); the timed runs go (2, 1,
+    2), (1, 1, 4), then again in the other order, each mesh's median over
+    both of its passes.  The gate of the blocks'
+    values is :func:`phase_family_gate`'s, in float32 at the same depth on
+    (2, 1, 2).  Kernel A's calls on the (2, 1, 2) blocks (the first of each
+    shape) are replayed through its wrapper twice and against its plain
+    version.  ``with_profile``: 4 steps on (2, 1, 2) under torch.profiler.
+    Returns A's launches of the timed (2, 1, 2) steps."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.launch.mesh import make_pctx
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.sharding import ServeBlocks, layout_for, shard_tree, state_bytes
+
+    full_cfg = ARCHS[POD_ARCH]
+    cfg = full_cfg.with_(n_layers=layers)
+    label = "serving_tp_pod"
+    meshes = {shape: serve_mesh(shape) for shape in POD_MESHES}
+    ref_bundle = build_model(cfg, ParallelContext(device="cuda"))
+    bundles = {shape: build_model(cfg, make_pctx(mesh, device="cuda", global_batch=B))
+               for shape, mesh in meshes.items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = ref_bundle.init(0)
+    weight_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    ref_state, tok = family_start(torch, dev, ref_bundle, params, B, 59)
+    states = {shape: family_start(torch, dev, b, params, B, 59)[0] for shape, b in bundles.items()}
+    torch.cuda.synchronize()
+    t_start = time.perf_counter() - t0
+    chain, ref, ref_ms, ref_a, _ = serve_decode(torch, ref_bundle, params, ref_state, tok, steps,
+                                                timed=True)
+    layouts = {shape: layout_for(params, mesh, mode="serve") for shape, mesh in meshes.items()}
+    blocks = {shape: shard_tree(params, lay) for shape, lay in layouts.items()}
+    del params, ref_state
+    free_device_memory(torch)
+    cut_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    want_a = cfg.n_layers * steps
+    if ref_a != want_a:
+        raise AssertionError(f"{label}: A launches {ref_a} replicated, expected {want_a}")
+    calls, runs = {}, {}
+    for shape in POD_MESHES:
+        tag = "x".join(map(str, shape))
+        bundle, tree, state = bundles[shape], blocks[shape], states[shape]
+        with recorded_a_calls(calls if shape == POD_MESHES[0] else {}):
+            _, forced, _, _, _ = serve_decode(torch, bundle, tree, state, tok, steps, feed=chain)
+        own, got, ms, ran, ledger = serve_decode(torch, bundle, tree, state, tok, steps,
+                                                 timed=True)
+        if ran != want_a:
+            raise AssertionError(f"{label} {tag}: A launches {ran}, expected {want_a}")
+        if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(forced).all())):
+            raise AssertionError(f"{label} {tag}: non-finite logits on the blocks")
+        closed = serve_bytes_gate(f"{label} {tag}", ledger, layouts[shape], cfg, B, steps)
+        tok_ratio, logit_ratio, diff, spread = spread_gaps(torch, forced, ref)
+        held = sum(x.blocks.numel() * x.blocks.element_size() if isinstance(x, ServeBlocks)
+                   else x.numel() * x.element_size() for x in tree_leaves(tree))
+        runs[tag] = {"mesh": dict(meshes[shape].shape), "median_step_ms": statistics.median(ms),
+                     "step_ms": ms, "launches": ran, "blocks_bytes": held,
+                     "bytes_per_step": {c: v["fwd"] for c, v in closed.items()},
+                     "bf16_token_gap_over_spread": tok_ratio,
+                     "bf16_logit_diff_over_spread": logit_ratio,
+                     "bf16_max_logit_abs_diff": diff, "median_spread": spread,
+                     "greedy_equal_to_replicated": int((own == chain).sum())}
+        del forced, got, own
+    for shape in reversed(POD_MESHES):  # a second timed pass in the other order: A B B A
+        tag = "x".join(map(str, shape))
+        _, _, ms, _, _ = serve_decode(torch, bundles[shape], blocks[shape], states[shape], tok,
+                                      steps, timed=True)
+        run = runs[tag]
+        run["pass_median_step_ms"] = [run["median_step_ms"], statistics.median(ms)]
+        run["step_ms"] += ms
+        run["median_step_ms"] = statistics.median(run["step_ms"])
+    serve_peak = torch.cuda.max_memory_allocated()
+    replay_err, replayed = replay_a_calls(torch, calls, label), len(calls)
+    del calls
+    pod, flat = ("x".join(map(str, shape)) for shape in POD_MESHES)
+    cache_bytes = sum(states[POD_MESHES[0]][k].numel() * states[POD_MESHES[0]][k].element_size()
+                      for k in ("k", "v"))
+    ref_med = statistics.median(ref_ms)
+    full_state = state_bytes(layout_for(meta_params(full_cfg), serve_mesh(POD_FULL_MESH),
+                                        mode="serve"))
+    res = {"arch": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+           "full_layers": full_cfg.n_layers, "storage": "serve", "batch": B, "steps": steps,
+           "start_len": RG_SYNTH_LEN, "start_s": t_start, "runs": runs,
+           "median_step_ms": runs[pod]["median_step_ms"],
+           "flat_median_step_ms": runs[flat]["median_step_ms"],
+           "replicated_median_step_ms": ref_med, "replicated_step_ms": ref_ms,
+           "weight_bytes": weight_bytes,
+           "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+           "cache_bytes": cache_bytes,
+           "read_bound_ms": (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+           "peak_bytes_cut": cut_peak, "peak_bytes_serve": serve_peak,
+           "state_bytes_full_depth_2x16x16": full_state, "launches": runs[pod]["launches"],
+           "replicated_launches": ref_a, "a_calls_replayed": replayed,
+           "a_calls_max_abs_err": replay_err, "tokens": chain.numel()}
+    log(f"  {cfg.name}: {cfg.n_layers} of {full_cfg.n_layers} layers, {weight_bytes / 1e9:.2f} "
+        f"GB in bf16, batch {B} from a synthetic slab at length {RG_SYNTH_LEN}, started in "
+        f"{t_start:.2f} s; decode step median {runs[pod]['median_step_ms']:.3f} ms on {pod}, "
+        f"{runs[flat]['median_step_ms']:.3f} ms on {flat} (replicated SP 1 {ref_med:.3f} ms), "
+        f"weight-read bound {res['weight_read_bound_ms']:.3f} ms ({res['read_bound_ms']:.3f} "
+        f"with the cache); bytes a step, rank and direction = serve_comm_bytes: {pod} "
+        f"{runs[pod]['bytes_per_step']}, {flat} {runs[flat]['bytes_per_step']}; peak "
+        f"{cut_peak / 1e9:.2f} GB at the cut, {serve_peak / 1e9:.2f} GB serving; A launches "
+        f"{runs[pod]['launches']} a run; the replicated chain fed through the blocks: tokens "
+        f"within {runs[pod]['bf16_token_gap_over_spread']:.4f} ({pod}) and "
+        f"{runs[flat]['bf16_token_gap_over_spread']:.4f} ({flat}), logits within "
+        f"{runs[pod]['bf16_logit_diff_over_spread']:.4f} and "
+        f"{runs[flat]['bf16_logit_diff_over_spread']:.4f} of the row spread (bf16, logged: the "
+        f"gate is float32's); A's {replayed} call shapes on the blocks replayed against the "
+        f"plain version, max |out err| {replay_err:.3e}; state_bytes at 48 layers on "
+        f"{POD_FULL_MESH} {full_state / 1e9:.3f} GB")
+    if with_profile:
+        res["profile"] = profile_step(torch, lambda: serve_decode(
+            torch, bundles[POD_MESHES[0]], blocks[POD_MESHES[0]], states[POD_MESHES[0]], tok, 4),
+            4 * runs[pod]["median_step_ms"] / 1e3)
+    ran = runs[pod]["launches"]
+    del blocks, states, ref
+    free_device_memory(torch)
+    res["float32_gate"] = phase_family_gate(torch, dev, cfg, B, mesh_shape=POD_MESHES[0],
+                                            phase=25)
+    log(f"RESULT {label} " + json.dumps(res))
+    return ran
+
+
+PROFILED_PHASES = (6, 9, 11, 13, 16, 17, 18, 19, 20, 23, 24, 25)
 
 
 def profiled_phases(argv):
@@ -7053,7 +7331,26 @@ def main() -> int:
         free_device_memory(torch)
     log(f"  phase 24 took {time.perf_counter() - t24:.1f} s")
 
-    log("== phase 25: summary")
+    log("== phase 25: every family's decode step under serve-mode (Megatron) storage over the "
+        "pod mesh (pod, data, model): qwen3-moe-30b-a3b, falcon-mamba-7b and recurrentgemma-2b "
+        "checked at full width (float32, a few layers) on the virtual (2, 1, 2) and (2, 2, 2) "
+        "meshes, recurrentgemma across its ring buffer's wrap; the EP slices of pods 0 and 1 "
+        f"swapped must fail the gate; qwen3-moe-30b-a3b ({POD_LAYERS} of 48 layers, main path) "
+        "decoded at full width on serve blocks over the virtual (2, 1, 2) and (1, 1, 4) meshes")
+    t25 = time.perf_counter()
+    for name, over in POD_CHECKS:
+        for shape in POD_CHECK_MESHES:
+            if name == POD_ARCH:
+                phase_serve_checked(torch, dev, name, shape, over["n_layers"], phase=25)
+            else:
+                phase_family_checked(torch, dev, name, over, shape, phase=25)
+            free_device_memory(torch)
+    launches["serve_tp_pod"] = {"flash_attention_fwd": phase_serve_pod(torch, dev, 25 in prof),
+                                **zero}
+    free_device_memory(torch)
+    log(f"  phase 25 took {time.perf_counter() - t25:.1f} s")
+
+    log("== phase 26: summary")
     # `launches` is the count of the main path that runs the kernel (A, B1
     # and B2: whisper-base trained at full width and depth at SP 1, phase
     # 18's first training run; C, which no encoder-decoder path runs:
@@ -7074,7 +7371,9 @@ def main() -> int:
     # Phase 24's are `serve_tp_hybrid` (recurrentgemma-2b's decode on serve
     # blocks: A's D-256 decode instance, 8 launches a step),
     # `serve_tp_ssm` (falcon-mamba-7b's: none) and `serve_tp_encdec`
-    # (whisper-base's: A's D-64 decode core, 12 launches a step).
+    # (whisper-base's: A's D-64 decode core, 12 launches a step).  Phase
+    # 25's is `serve_tp_pod` (qwen3-moe-30b-a3b's decode on serve blocks over
+    # the pod mesh (2, 1, 2): A's D-128 decode core, 8 launches a step).
     # `f32_step` holds A's, B1's and B2's CUDA-core instances at phase 8's
     # float32 step's call (phase 7, `f32_step_rows`).
     # `d256` holds the head-dim-256 instances (phase 20, recurrentgemma-2b):
@@ -7151,7 +7450,7 @@ def main() -> int:
          "sp4_calls": {"paged_decode": sp_rows["paged_decode"]},
          "d256": {**paged_rows["d256"], "launches": 0, "path": None}},
     ]
-    log(f"== done in {time.perf_counter() - t_start:.1f} s")
+    log(f"== done in {time.perf_counter() - t_start:.1f} s (limit 1200 s)")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -100,6 +100,12 @@ all-reduce of ``n`` bytes ``(G-1)/G * n``; on the virtual mesh a slice
 holds every data rank's rows, so it is charged ``1 / data_groups`` of its
 bytes, one (data, model) rank's.  A serve leaf that a layer needs whole (a
 norm scale) comes over :meth:`VirtualMeshComm.gather` on the same class.
+On the pod mesh a recurrent decode state is split by its width over the
+sequence axes ``("pod", "model")``, ``K = pods * G`` ways: :class:`SeqAxesTP`
+runs the same three collectives over those ``K`` ranks (slices ranked
+model-major, rank ``(p, m)``'s at ``m * pods + p``, so that each lies in
+its model rank's weight block) and cuts a weight's model blocks into the
+state's slices (:meth:`SeqAxesTP.sub_blocks`), on the same ledger class.
 
 **What is counted.**  Every transport counts what it is handed, per rank and
 per ring direction (``"fwd"`` for ``s > 0``, ``"bwd"`` for ``s < 0``), in
@@ -131,7 +137,7 @@ import weakref
 import torch
 
 __all__ = ["ring_perm", "Pending", "VirtualRing", "ProcessGroupRing", "fold_ranks",
-           "unfold_ranks", "VirtualMeshComm", "ProcessGroupMeshComm"]
+           "unfold_ranks", "VirtualMeshComm", "ProcessGroupMeshComm", "SeqAxesTP"]
 
 
 def ring_perm(P: int, shift: int):
@@ -724,6 +730,11 @@ class _MeshCounts:
         A = self._axes_size(axes)
         self._charge((A - 1) / A * blocks[0].numel() * blocks.element_size())
 
+    def sub_blocks(self, blocks, dim: int):
+        """A weight's ranked model blocks split along ``dim`` (of a block) as
+        this transport's slices: the blocks themselves."""
+        return blocks
+
 
 class VirtualMeshComm(_MeshCounts):
     """The data-parallel collectives of a virtual mesh: every rank in this
@@ -926,3 +937,75 @@ class ProcessGroupMeshComm(_MeshCounts):
         that counts it once."""
         c = self.mesh.coords(self.rank)
         return all(c[a] == 0 for a in self.mesh.axis_names if a not in axes)
+
+
+class SeqAxesTP(_MeshCounts):
+    """The tensor-parallel collectives of a decode state that the pod mesh
+    splits by its width over its sequence axes ``("pod", "model")``, on the
+    ``K = pods * G`` ranks of both (``comm`` the mesh's transport, whose
+    ledger it charges; module docstring, "Tensor parallelism").  The
+    slices are ranked model-major: rank ``(p, m)`` holds slice ``m * pods +
+    p``, the ``p``-th part of model rank ``m``'s share, so every weight slice
+    it needs lies in its own model block (:meth:`sub_blocks`).  A ranked
+    tensor holds every slice in that order on the virtual mesh, this
+    rank's on a process group."""
+
+    def __init__(self, comm):
+        self.comm, self.mesh, self.ledger = comm, comm.mesh, comm.ledger
+        self.folded, self.data_groups = comm.folded, comm.data_groups
+        self.pods = self.mesh.shape["pod"]
+
+    @property
+    def tp_size(self) -> int:
+        return self.pods * self.mesh.shape["model"]
+
+    def _coords(self):
+        c = self.mesh.coords(self.comm.rank)
+        return c["pod"], c["model"]
+
+    def sub_blocks(self, blocks, dim: int):
+        """A weight's ranked model blocks ``(G, ...)`` (this rank's ``(1,
+        ...)``) split along ``dim`` (of a block) -> the state's slices
+        ``(K, ...)`` (this rank's ``(1, ...)``): each block's ``pods``
+        parts, in order."""
+        dim = dim % (blocks.ndim - 1) + 1
+        n = blocks.shape[dim] // self.pods
+        if not self.folded:
+            return blocks.narrow(dim, self._coords()[0] * n, n)
+        return blocks.unflatten(dim, (self.pods, n)).movedim(dim, 1).flatten(0, 1)
+
+    def tp_split(self, x, dim: int):
+        """The ranks' slices of a replicated ``x`` along ``dim``, ranked."""
+        dim %= x.ndim
+        n = x.shape[dim] // self.tp_size
+        if not self.folded:
+            p, m = self._coords()
+            return x.narrow(dim, (m * self.pods + p) * n, n)[None]
+        return x.unflatten(dim, (self.tp_size, n)).movedim(dim, 0)
+
+    def tp_gather(self, parts, dim: int):
+        """The ranks' slices concatenated along ``dim`` (of a slice) in
+        slice order: an all-gather over ``("pod", "model")``."""
+        import torch.distributed as dist
+
+        self._count_tp_gather(parts)
+        if self.folded:
+            dim %= parts.ndim - 1
+            return parts.movedim(0, dim).flatten(dim, dim + 1)
+        x = parts[0].contiguous()
+        got = [torch.empty_like(x) for _ in range(self.tp_size)]
+        dist.all_gather(got, x, group=self.comm._pg(("pod", "model")))
+        G = self.mesh.shape["model"]  # the group ranks row-major: (p, m) at p * G + m
+        return torch.cat([got[(j % self.pods) * G + j // self.pods]
+                          for j in range(self.tp_size)], dim=dim)
+
+    def tp_sum(self, parts):
+        """The ranks' slices summed: an all-reduce over ``("pod", "model")``."""
+        import torch.distributed as dist
+
+        self._count_tp_sum(parts)
+        if self.folded:
+            return parts.sum(0)
+        y = parts[0].contiguous().clone()
+        dist.all_reduce(y, group=self.comm._pg(("pod", "model")))
+        return y

@@ -29,19 +29,23 @@ layer needs whole (a norm scale, a row projection's bias) is gathered.
 The embedding lookup follows its table's split: by ``d`` a local lookup
 then a gather, by vocabulary a masked lookup then a sum.
 
-The recurrent layers' decode state is split by its width over ``model``
-(``sharding.serve_state_shardings``: ``d_inner``, ``lru``), so their
+The recurrent layers' decode state is split by its width over the
+sequence axes (``sharding.serve_state_shardings``: ``d_inner``, ``lru``
+over ``model``, or ``("pod", "model")`` on the pod mesh), so their
 per-channel work runs on the ranks' slices, ranked ``(k, ...)`` as the
-transports rank them (``k`` the model size on the virtual mesh, 1 on a
-process group): :func:`state_tp` is the transport of such a state (one
-rank's, :data:`ONE_RANK`, where nothing is split), :func:`dense_split_out`
+transports rank them (``k`` the state's ``K`` slices on the virtual mesh,
+1 on a process group): :func:`state_tp` is the transport of such a state
+(one rank's, :data:`ONE_RANK`, where nothing is split), :func:`dense_split_out`
 a product left split by its output columns (a column-split weight's own
 products, no collective), :func:`dense_split_in` a product of an input
 that arrives split (a row-split weight's partials summed, any other
 weight's input gathered first), :func:`tp_slices` the ranks' slices of a
-leaf (gathered whole first where the rule splits it on another dim).
-:class:`TPBytes` holds the closed forms of these ops' bytes, which the
-decode steps' ``*serve_comm_bytes`` sum.
+leaf (gathered whole first where the rule splits it on another dim).  On
+the pod mesh the state has ``K = pods * G`` slices against the weights'
+``G`` blocks, ranked model-major (``core.collectives.SeqAxesTP``), so a
+split weight's slice for a rank is a part of its own block and no weight
+moves.  :class:`TPBytes` holds the closed forms of these ops' bytes, which
+the decode steps' ``*serve_comm_bytes`` sum.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.collectives import SeqAxesTP
 from repro_torch.sharding import ServeBlocks, serve_split, tree_bytes
 
 __all__ = [
@@ -119,20 +124,30 @@ def whole(t):
     return t.whole() if isinstance(t, ServeBlocks) else t
 
 
-def _column_parts(p, x2, compute_dtype):
-    """``x2 (M, d_in) @`` each block of a column-split ``w``, ranked ``(k, M,
-    n / G)``, with the bias's matching slice where it is split alike."""
-    y = x2.to(compute_dtype) @ p["w"].blocks.to(compute_dtype)
+def _held(t, dim: int, comm):
+    """The blocks of serve leaf ``t`` split along ``dim`` as ``comm``'s
+    slices (``core.collectives``' ``sub_blocks``); ``comm`` ``None``: the
+    leaf's own transport, its model blocks."""
+    return t.blocks if comm is None else comm.sub_blocks(t.blocks, dim)
+
+
+def _column_parts(p, x2, compute_dtype, comm=None):
+    """``x2 (M, d_in) @`` each block of a column-split ``w`` (each of
+    ``comm``'s slices of it), ranked ``(k, M, n / k)``, with the bias's
+    matching slice where it is split alike."""
+    y = x2.to(compute_dtype) @ _held(p["w"], 1, comm).to(compute_dtype)
     if isinstance(p.get("b"), ServeBlocks):
-        y = y + p["b"].blocks.to(compute_dtype)[:, None, :]
+        y = y + _held(p["b"], 0, comm).to(compute_dtype)[:, None, :]
     return y
 
 
-def _row_sum(p, parts, compute_dtype):
-    """Ranked input slices ``(k, M, d_in / G)`` through a row-split ``w``:
-    the partial products summed over ``model``, then the bias whole."""
+def _row_sum(p, parts, compute_dtype, comm=None):
+    """Ranked input slices ``(k, M, d_in / k)`` through a row-split ``w``:
+    the partial products summed over the ranks of ``comm`` (``None``: the
+    weight's own, ``model``), then the bias whole."""
     w = p["w"]
-    y = w.transport().tp_sum(parts.to(compute_dtype) @ w.blocks.to(compute_dtype))
+    y = (comm or w.transport()).tp_sum(parts.to(compute_dtype)
+                                       @ _held(w, 0, comm).to(compute_dtype))
     if "b" in p:
         y = y + whole(p["b"]).to(compute_dtype)
     return y
@@ -175,17 +190,23 @@ ONE_RANK = OneRank()
 
 def state_tp(pctx):
     """The transport of a decode state that serve storage splits by its
-    width over ``model`` (module docstring): the context's mesh transport
-    where its model axis has more than one rank, else :data:`ONE_RANK`.
-    The pod mesh, whose sequence axes are ``("pod", "model")``, is not
-    built for such a state."""
+    width over the sequence axes (module docstring): on a ``(data, model)``
+    mesh the context's mesh transport where its model axis has more than
+    one rank, else :data:`ONE_RANK`; on the pod mesh a
+    ``core.collectives.SeqAxesTP`` over ``("pod", "model")``.
+
+    The reference's spec ``("pod", "model")`` orders the slices pod-major
+    (rank ``(p, m)`` holds slice ``p * G + m``), which would have a rank
+    read weight rows of another model rank at every step.  The port keeps
+    that spec and orders them model-major, rank ``(p, m)`` holding slice
+    ``m * pods + p`` (ROADMAP queue 3 item 13): each rank's slice is a part
+    of its model rank's share, every weight slice it needs is in its own
+    block, and the state gathered back is the reference's."""
     comm = getattr(pctx, "storage", None)
+    if comm is not None and pctx.pods > 1:
+        return SeqAxesTP(comm)
     if comm is None or comm.tp_size == 1:
         return ONE_RANK
-    if pctx.pods > 1:
-        raise NotImplementedError("a recurrent state split over the pod mesh's sequence axes "
-                                  "(\"pod\", \"model\") is not built: serve it on a (data, model) "
-                                  "mesh")
     return comm
 
 
@@ -200,7 +221,7 @@ def tp_slices(t, dim: int, comm):
     blocks split on ``dim`` are their blocks; split on another dim they are
     gathered whole first (counted); a whole tensor is sliced."""
     if isinstance(t, ServeBlocks) and t.split == dim % len(t.shape):
-        return t.blocks
+        return _held(t, dim % len(t.shape), comm)
     return comm.tp_split(whole(t), dim)
 
 
@@ -209,7 +230,7 @@ def dense_split_out(p, x, compute_dtype, comm):
     ``(k, *x.shape[:-1], n / G)``: a column-split weight's own products (no
     collective); any other weight's whole output, sliced."""
     if isinstance(p["w"], ServeBlocks) and p["w"].split == 1:
-        y = _column_parts(p, x.reshape(-1, x.shape[-1]), compute_dtype)
+        y = _column_parts(p, x.reshape(-1, x.shape[-1]), compute_dtype, comm)
         return y.reshape(y.shape[0], *x.shape[:-1], y.shape[-1])
     return comm.tp_split(dense(p, x, compute_dtype), -1)
 
@@ -219,7 +240,7 @@ def dense_split_in(p, parts, compute_dtype, comm):
     (k, ..., d_in / G)``: a row-split weight sums its partial products (one
     all-reduce); any other weight takes the input gathered whole."""
     if isinstance(p["w"], ServeBlocks) and p["w"].split == 0:
-        y = _row_sum(p, parts.reshape(parts.shape[0], -1, parts.shape[-1]), compute_dtype)
+        y = _row_sum(p, parts.reshape(parts.shape[0], -1, parts.shape[-1]), compute_dtype, comm)
         return y.reshape(*parts.shape[1:-1], y.shape[-1])
     return dense(p, comm.tp_gather(parts, -1), compute_dtype)
 
@@ -230,12 +251,15 @@ class TPBytes:
     ``core/collectives.py``) of one call, on the serve layout's ``mesh``,
     ``rows`` the rows one rank's step carries, ``e`` the compute dtype's
     itemsize.  With ``G`` the model size and ``n`` a tensor's bytes whole,
-    a gather of its slices moves ``(G-1) * n/G / 2``, a sum ``(G-1)/G * n``.
+    a gather of its slices moves ``(G-1) * n/G / 2``, a sum ``(G-1)/G * n``;
+    a recurrent state's split input gathers and sums over its ``K = pods *
+    G`` ranks alike (:meth:`state_gathered`, :meth:`state_summed`).
     Widths are bytes a row."""
 
     def __init__(self, mesh, rows: int, e: int):
         self.mesh, self.rows, self.e = mesh, rows, e
         self.G = mesh.shape["model"]
+        self.K = self.G * mesh.shape.get("pod", 1)
 
     def split(self, spec):
         return serve_split(spec, self.mesh)
@@ -245,6 +269,13 @@ class TPBytes:
 
     def summed(self, n):
         return (self.G - 1) / self.G * n
+
+    def state_gathered(self, n):
+        """A gather of a recurrent state's ``K`` slices (:func:`state_tp`)."""
+        return (self.K - 1) * n / self.K / 2
+
+    def state_summed(self, n):
+        return (self.K - 1) / self.K * n
 
     def whole(self, spec, meta):
         """:func:`whole` of a leaf."""
@@ -272,10 +303,11 @@ class TPBytes:
         return 0.0 if self.split(specs["w"]) == 1 else self.product(specs, meta, out_bytes)
 
     def split_in(self, specs, meta, in_bytes, out_bytes):
-        """:func:`dense_split_in`."""
+        """:func:`dense_split_in` of an input split as the state is."""
         if self.split(specs["w"]) == 0:
-            return self.product(specs, meta, out_bytes)
-        return self.gathered(self.rows * in_bytes) + self.product(specs, meta, out_bytes)
+            return self.state_summed(self.rows * out_bytes) + (
+                self.whole(specs["b"], meta["b"]) if "b" in specs else 0.0)
+        return self.state_gathered(self.rows * in_bytes) + self.product(specs, meta, out_bytes)
 
     def ffn(self, specs, meta, d: int, f: int):
         """:func:`mlp` of widths ``d`` and ``f``."""
@@ -309,11 +341,15 @@ class TPBytes:
                             transpose=True)
 
 
-def comm_classes(tp: float, link: float) -> dict[str, dict[str, float]]:
+def comm_classes(tp: float, link: float, intra: float = 0.0) -> dict[str, dict[str, float]]:
     """A decode step's bytes by link class, both directions alike;
     ``"data"`` is nothing: serve storage replicates every leaf over the
-    data axis."""
-    return {cls: {"fwd": n, "bwd": n} for cls, n in (("tp", tp), ("link", link), ("data", 0.0))}
+    data axis; ``"intra"`` (the pod mesh's inner ring) only where it moves
+    bytes."""
+    out = {cls: {"fwd": n, "bwd": n} for cls, n in (("tp", tp), ("link", link), ("data", 0.0))}
+    if intra:
+        out["intra"] = {"fwd": intra, "bwd": intra}
+    return out
 
 
 def norm_init(d: int, *, norm_type: str = "rmsnorm", dtype="float32", device="cuda"):

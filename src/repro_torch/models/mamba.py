@@ -40,10 +40,12 @@ Decode is O(1) a token: the state ``ssm (L, B, d_inner, N)`` float32 and
 the conv window ``conv (L, B, K-1, d_inner)``.  :func:`mamba_decode_step`
 updates the state in place and returns it (the port's serving convention).
 
-On a mesh whose model axis has ``G > 1`` ranks the state is split by
-``d_inner`` over ``model``, as ``sharding.serve_state_shardings`` gives it:
-``(L, G*B, d_inner/G, ...)`` rank-major on the virtual mesh, this rank's
-``(L, B, d_inner/G, ...)`` on a process group.  The step takes whole
+On a mesh whose sequence axes have ``n > 1`` ranks the state is split by
+``d_inner`` over them, as ``sharding.serve_state_shardings`` gives it
+(``model``: ``n = G``; ``("pod", "model")`` on the pod mesh: ``n = pods *
+G``, the slices model-major, ``layers.state_tp``): ``(L, n*B, d_inner/n,
+...)`` slice-major on the virtual mesh, this rank's ``(L, B, d_inner/n,
+...)`` on a process group.  The step takes whole
 parameters or serve storage (``sharding.shard_tree`` of a ``mode="serve"``
 layout, the reference's Megatron layout), and each layer runs its
 channels on the ranks' slices (``models.layers``): the conv, ``dt``, the
@@ -52,8 +54,12 @@ gathered whole, since the rule splits its concatenated ``[x | z]``
 columns, which line up with no rank's slice; ``x_c`` gathered for
 ``x_proj``, whose output (``dt_in``, B, C) is whole; ``A_log``, which the
 rule splits by ``N``, gathered whole; ``out_proj`` split by rows, one
-sum.  :func:`mamba_serve_comm_bytes` is the closed form of the step's
-bytes on serve storage.
+sum.  On the pod mesh a rank's slice is a part of its model rank's share:
+it takes its part of ``in_proj``'s two halves, of the column-split
+``dt_proj`` and of ``conv_w``, ``conv_b`` and ``D``, gathers ``x_c`` over
+``("pod", "model")`` and sums ``out_proj``'s partials over both.
+:func:`mamba_serve_comm_bytes` is the closed form of the step's bytes on
+serve storage.
 """
 
 from __future__ import annotations
@@ -286,12 +292,12 @@ def mamba_layer(p, x, *, cfg, pctx):
 
 def init_mamba_state(cfg, batch: int, device="cuda", pctx=None):
     """The zero decode state of ``batch`` rows, split by ``d_inner`` over the
-    model axis of ``pctx``'s mesh (module docstring)."""
+    sequence axes of ``pctx``'s mesh (module docstring)."""
     di, N, K, L = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv, cfg.n_layers
     tp = state_tp(pctx)
     G, rows = tp.tp_size, held_ranks(tp) * batch
     if di % G:
-        raise ValueError(f"d_inner={di} does not split over a model axis of {G}")
+        raise ValueError(f"d_inner={di} does not split over the mesh's {G} sequence ranks")
     return {
         "ssm": torch.zeros((L, rows, di // G, N), dtype=torch.float32, device=device),
         "conv": torch.zeros((L, rows, K - 1, di // G), dtype=torch_dtype(cfg.dtype),
@@ -301,8 +307,8 @@ def init_mamba_state(cfg, batch: int, device="cuda", pctx=None):
 
 def mamba_layer_decode(p, x, ssm_state, conv_state, *, cfg, tp=ONE_RANK):
     """One-token step: ``x (B,1,d)``; returns ``(y, ssm_state', conv_state')``.
-    The states are the ranks' slices by ``d_inner``, ``ssm (k,B,di/G,N)``
-    and ``conv (k,B,K-1,di/G)`` (``k = G = 1`` unsplit), on ``tp``'s
+    The states are the ranks' slices by ``d_inner``, ``ssm (k,B,di/n,N)``
+    and ``conv (k,B,K-1,di/n)`` (``k = n = 1`` unsplit), on ``tp``'s
     collectives (module docstring)."""
     di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_resolved
     dt_ = torch_dtype(cfg.dtype)
@@ -414,11 +420,12 @@ def mamba_serve_comm_bytes(layout, cfg, batch: int) -> dict[str, dict[str, float
     one rank's step carries (``models.transformer.serve_comm_bytes``'s
     conventions, ``layers.TPBytes``'s closed forms).  ``"tp"``: the
     embedding's rows; a layer's norm scale, ``in_proj``'s output gathered
-    whole, ``x_c`` gathered for ``x_proj`` (summed partials if the rule
-    splits it by rows) and ``x_proj``'s output, ``dt_proj``'s output where
+    whole, ``x_c`` gathered for ``x_proj`` over the state's ranks (summed
+    partials if the rule splits it by rows) and ``x_proj``'s output, ``dt_proj``'s output where
     it is not split by its columns, each of ``conv_w``, ``conv_b``,
     ``A_log`` and ``D`` that the rule splits off ``d_inner`` gathered
-    whole, ``out_proj``'s partials summed; the final norm and the head.
+    whole, ``out_proj``'s partials summed over the state's ranks; the final
+    norm and the head.
     ``"link"`` and ``"data"``: nothing."""
     di, N, R, d = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_resolved, cfg.d_model
     e = torch_dtype(cfg.dtype).itemsize

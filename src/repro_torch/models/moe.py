@@ -27,10 +27,19 @@ overflow slot that is sliced off, so no live slot is written twice and the
 accumulating ``index_put`` stays repeatable run to run on the card.
 
 In serve storage (``repro_torch.sharding.ServeBlocks``) the expert stacks
-are split by expert over ``model``, which is the expert parallelism above:
-a rank's block is its own experts.  The router, split by columns, gives
-its logits gathered whole before the top-k, and a shared expert runs as
-its column/row pair (``models.layers``).
+are split by expert over ``model`` and replicated over ``pod`` and
+``data``; the decode step's expert parallelism (the replicated-sequence
+path) runs each rank's experts out of its own block and moves no expert
+weight.  Where the experts shard over ``model`` alone (``E`` divides the
+model size only: llama4's 16 on the production ring of 32), a rank's block
+is its EP slice.  Where they shard over every SP rank of the pod mesh
+(``E`` divides ``pods * G``: qwen3-moe's 128), a model block of ``E / G``
+experts holds ``pods`` EP slices, and rank ``(pod p, model m)`` runs the
+``p``-th of its own block: EP slice ``m * pods + p`` (:func:`_ep_slices`).
+The output does not depend on which rank runs which expert (each expert's
+entries keep their token order).  The router, split by columns, gives its
+logits gathered whole before the top-k, and a shared expert runs as its
+column/row pair (``models.layers``).
 """
 
 from __future__ import annotations
@@ -202,17 +211,10 @@ def ep_size(E: int, P: int, pods: int = 1) -> int:
 
 
 def _local_experts(p, n_ep, R, ring, dt):
-    """Each (folded) rank's slice of the expert stacks, ``(R, E_loc, ...)``:
-    EP rank ``r % n_ep`` of flat rank ``r`` (the inner index on a podded
-    ring).  A stack in serve storage is already each rank's own experts:
-    its blocks."""
+    """Each (folded) rank's slice of the whole expert stacks, ``(R, E_loc,
+    ...)``: EP rank ``r % n_ep`` of flat rank ``r`` (the inner index on a
+    podded ring), the all-to-all's rank order."""
     def local(w):
-        if isinstance(w, ServeBlocks):
-            if w.split != 0 or w.blocks.shape[1] * n_ep != w.shape[0]:
-                raise ValueError(f"serve blocks {w.spec} of an expert stack {w.shape} are not "
-                                 f"its experts over {n_ep} ranks")
-            w = w.blocks.to(dt)
-            return w.repeat(R // n_ep, *([1] * (w.ndim - 1))) if ring.folded and R != n_ep else w
         w = w.to(dt).reshape(n_ep, w.shape[0] // n_ep, *w.shape[1:])
         if not ring.folded:
             return w[ring.rank % n_ep][None]
@@ -336,12 +338,52 @@ def _moe_ffn_a2a(p, x, cfg, pctx, sharded=False):
     return y, aux[0]
 
 
+def _ep_slices(p, n_ep, pctx, dt, device):
+    """``(index, wg, wu, wd)``: the EP slices of ``E / n_ep`` experts that
+    this process runs in the replicated-sequence path, ``(k, E_loc, ...)``
+    each, and their EP indices ``(k,)``: every slice in EP order on the
+    virtual ring (``k = n_ep``), this rank's on a process group (``k = 1``).
+
+    A model block of ``E / G`` experts (``G = P / pods`` the inner ranks)
+    holds ``s = n_ep / G`` EP slices (``pods`` where EP runs over every SP
+    rank, else 1), and flat rank ``(pod q, inner i)`` runs EP slice ``e = i
+    * s + q % s``: on serve storage a part of its own block, so no expert
+    weight moves (module docstring)."""
+    ring, P = pctx.ring, pctx.sp_degree
+    G = P // pctx.pods
+    s = n_ep // G
+    if ring.folded:
+        index = torch.arange(n_ep, device=device)
+    else:
+        q, i = divmod(ring.rank, G)
+        e = i * s + q % s
+        index = torch.tensor([e], device=device)
+
+    def local(w):
+        if not isinstance(w, ServeBlocks):
+            w = w.to(dt).reshape(n_ep, w.shape[0] // n_ep, *w.shape[1:])
+            return w if ring.folded else w[e:e + 1]
+        E, b = w.shape[0], w.blocks
+        if w.split != 0 or b.shape[1] * G != E:
+            raise ValueError(f"serve blocks {w.spec} of an expert stack {w.shape} are not split "
+                             f"by expert over the {G} model ranks: EP slice e of {n_ep} "
+                             f"({E // n_ep} experts) must lie in model block e // {s}")
+        if ring.folded:
+            return b.reshape(n_ep, E // n_ep, *b.shape[2:]).to(dt)
+        n = E // n_ep
+        return b.narrow(1, e % s * n, n).to(dt)
+
+    return (index, *(local(p[k]) for k in ("wg", "wu", "wd")))
+
+
 def _moe_ffn_replicated_seq(p, x, cfg, pctx):
     """Expert parallelism for tokens that do not shard over the ring
     (decode, S = 1): every rank sees every token, runs the entries routed
-    to its own experts, and the contributions are summed over the EP ranks
-    (payload one ``(B, S, d)`` tensor).  Its aux is 0, as in the JAX
-    package."""
+    to its own experts (:func:`_ep_slices`), and the contributions are
+    summed over the EP ranks (payload one ``(B, S, d)`` tensor).  On the
+    virtual ring the slices are computed once each, in EP order, and each
+    rank of a pod's inner ring takes its slice's (EP over ``model`` only,
+    replicated over pods).  Its aux is 0, as in the JAX package."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.n_experts_per_token
     dt = torch_dtype(cfg.dtype)
@@ -350,13 +392,10 @@ def _moe_ffn_replicated_seq(p, x, cfg, pctx):
     E_loc = E // Pn
     T = B * S * K
     C_e = _round8(int(T / E_loc * cfg.capacity_factor))
-    R = ring.folded_ranks if ring.folded else 1
     dev = x.device
+    ep_rank, wg, wu, wd = _ep_slices(p, Pn, pctx, dt, dev)
+    R = ep_rank.shape[0]
     ranks = torch.arange(R, device=dev)[:, None]
-    if ring.folded:
-        ep_rank = torch.arange(R, device=dev) % Pn
-    else:
-        ep_rank = torch.full((1,), ring.rank % Pn, device=dev)
 
     _, expert_idx, gates = _route(p["router"]["w"], x, K)
     flat_e = expert_idx.reshape(1, T).expand(R, T)
@@ -368,9 +407,10 @@ def _moe_ffn_replicated_seq(p, x, cfg, pctx):
     pos = _positions(le, E_loc, mine.to(torch.int32))
     keep = mine & (pos < C_e)
     buf = _scatter((R, E_loc, C_e, d), (ranks, le, torch.where(keep, pos, C_e)), xe)
-    wg, wu, wd = _local_experts(p, Pn, R, ring, dt)
     yb = _swiglu_experts(buf, wg, wu, wd, ("rec", "re"))
     y_ent = yb[ranks, le, torch.where(keep, pos, C_e - 1)] * keep[..., None].to(dt)
     y = (y_ent.float() * flat_g[..., None]).reshape(R, B * S, K, d).sum(2)
-    y = ep.all_reduce(y.reshape(R * B, S, d), "sum")  # (G*B, S, d): one block a pod
+    if ring.folded and R != ring.folded_ranks:  # rank (pod, inner i) holds slice i's
+        y = y[None].expand(ring.folded_ranks // R, *y.shape).flatten(0, 1)
+    y = ep.all_reduce(y.reshape(-1, S, d), "sum")  # (pods*B, S, d): one block a pod
     return y[:B].to(dt), torch.zeros((), dtype=torch.float32, device=dev)

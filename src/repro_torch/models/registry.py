@@ -12,8 +12,9 @@ decode state a K/V ring buffer of ``window`` slots beside the recurrent
 state.  The serve-state initialisers lay the state out for the bundle's
 ``pctx``: caches sequence-sharded over its ring when ``sp_degree > 1``
 (the dense slab, the cross K/V, the hybrid's ring buffer), the recurrent
-state split by its width over the model axis of its mesh
-(``sharding.serve_state_shardings``).  Every family's ``decode_step``
+state split by its width over the sequence axes of its mesh (``model``, or
+``("pod", "model")`` on the pod mesh, model-major: ``layers.state_tp``;
+``sharding.serve_state_shardings``).  Every family's ``decode_step``
 takes whole parameters or serve storage (``sharding.shard_tree`` of a
 ``mode="serve"`` layout, the reference's Megatron layout for decode).
 """

@@ -37,16 +37,20 @@ With ``sp_degree > 1`` the ring buffer is sequence-sharded over the ring
 like the transformer's dense slab (``serving.kv_cache``): contiguous, slot
 ``s`` on rank ``s // (window / P)``, so the write at ``len % window`` lands
 on the rank that holds that slot, and the attention merges the ranks'
-partials (``core/decode.py``).  On a mesh whose model axis has ``G > 1``
-ranks the recurrent state is split by ``lru`` over ``model``
-(``sharding.serve_state_shardings``): ``(..., G*B, ..., lru/G)``
-rank-major on the virtual mesh, this rank's ``(..., B, ..., lru/G)`` on a
-process group.  The step takes whole parameters or serve storage (the
+partials (``core/decode.py``); on the pod mesh over ``("pod", "model")``
+in the reference's pod-major order, as the dense slab.  On a mesh whose
+sequence axes have ``n > 1`` ranks the recurrent state is split by ``lru``
+over them (``sharding.serve_state_shardings``; ``n = pods * G`` on the
+pod mesh, the slices model-major, ``layers.state_tp``): ``(..., n*B, ...,
+lru/n)`` slice-major on the virtual mesh, this rank's ``(..., B, ...,
+lru/n)`` on a process group.  The step takes whole parameters or serve storage (the
 reference's Megatron layout), and a recurrent block runs its channels on
 the ranks' slices (``models.layers``): ``lin_x``, ``lin_y``, the conv and
-``lam`` by ``lru``; the conv's output gathered whole once for the gates,
-whose weights the rule splits by their output columns, so that each
-rank's gates match its slice of ``h``; ``lin_out`` split by rows, one sum.
+``lam`` by ``lru``; the conv's output gathered whole once for the gates
+(over ``("pod", "model")`` on the pod mesh), whose weights the rule
+splits by their output columns, so that each rank's gates match its slice
+of ``h`` (its part of its model block's columns on the pod mesh);
+``lin_out`` split by rows, one sum over the state's ranks.
 The attention's q, k and v come out gathered whole (the rule splits
 ``wq`` inside a head: nothing assumes the heads divide the model size);
 the tied head is a row-split product over the vocabulary.
@@ -306,7 +310,7 @@ def init_rg_state(cfg, batch: int, device="cuda", pctx=None):
     """The decode state of ``batch`` rows, zero recurrent state and an empty
     ring buffer (every slot at ``PAD_POS``), laid out for ``pctx`` (module
     docstring): the ring buffer sequence-sharded over its ring, the
-    recurrent state split by ``lru`` over its mesh's model axis."""
+    recurrent state split by ``lru`` over its mesh's sequence axes."""
     n_super, n_tail = rg_layout(cfg)
     lru, K, W = cfg.lru_width or cfg.d_model, cfg.ssm_conv, cfg.window
     dt = torch_dtype(cfg.dtype)
@@ -315,7 +319,7 @@ def init_rg_state(cfg, batch: int, device="cuda", pctx=None):
     G = tp.tp_size
     if W % P or lru % G:
         raise ValueError(f"window={W} and lru_width={lru} must split over the SP degree {P} "
-                         f"and the model axis {G}")
+                         f"and the state's {G} ranks")
     kv_rows, rec_rows, wl = (batch * P if rank is None else batch), held_ranks(tp) * batch, lru // G
     kv = (n_super, kv_rows, W // P, cfg.n_kv_heads, cfg.head_dim)
     state = {
@@ -335,8 +339,8 @@ def init_rg_state(cfg, batch: int, device="cuda", pctx=None):
 
 def _rec_block_decode(p, x, h_state, conv_state, *, cfg, tp=ONE_RANK):
     """One-token step of a recurrent block: ``x (B,1,d)``; the states are
-    the ranks' slices by ``lru``, ``h_state (k,B,lru/G)`` float32 and
-    ``conv_state (k,B,K-1,lru/G)`` (``k = G = 1`` unsplit), on ``tp``'s
+    the ranks' slices by ``lru``, ``h_state (k,B,lru/n)`` float32 and
+    ``conv_state (k,B,K-1,lru/n)`` (``k = n = 1`` unsplit), on ``tp``'s
     collectives (module docstring).  Returns ``(y, h', conv')``."""
     dt = torch_dtype(cfg.dtype)
     h = apply_norm(p["norm"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
@@ -410,8 +414,9 @@ def rg_serve_comm_bytes(layout, cfg, batch: int) -> dict[str, dict[str, float]]:
     embedding's rows; a recurrent block's norm scale, ``lin_x``'s and
     ``lin_y``'s outputs where they are not split by their columns, each of
     ``conv_w``, ``conv_b`` and ``lam`` that the rule splits off ``lru``
-    gathered whole, the conv's output gathered for the gates and their
-    outputs where not split by columns, ``lin_out``'s partials summed; an
+    gathered whole, the conv's output gathered over the state's ranks for
+    the gates and their outputs where not split by columns, ``lin_out``'s
+    partials summed over the state's ranks; an
     MLP block's and an attention block's as the transformer's; the final
     norm and the tied head.  ``"link"``: each attention layer's SP decode
     merge.  ``"data"``: nothing."""
@@ -424,7 +429,7 @@ def rg_serve_comm_bytes(layout, cfg, batch: int) -> dict[str, dict[str, float]]:
                 + sum(tb.split_out(specs[key], meta[key], lru * e) for key in ("lin_x", "lin_y"))
                 + sum(tb.slices(specs[key], meta[key], dim)
                       for key, dim in (("conv_w", 1), ("conv_b", 0), ("lam", 0)))
-                + tb.gathered(batch * lru * e)
+                + tb.state_gathered(batch * lru * e)
                 + sum(tb.split_out(specs[key], meta[key], lru * 4) for key in ("gate_a", "gate_i"))
                 + tb.split_in(specs["lin_out"], meta["lin_out"], lru * e, cfg.d_model * e))
 

@@ -462,14 +462,17 @@ def serve_comm_bytes(layout, cfg, batch: int) -> dict[str, dict[str, float]]:
       run in ``cfg.dtype``, the MoE router in float32
       (``layers.TPBytes``);
     * ``"link"``: the SP decode merge of every layer (:func:`decode_link_bytes`)
-      and an MoE layer's expert-parallel sum of its float32 output;
+      and an MoE layer's expert-parallel sum of its float32 output over
+      every SP rank;
+    * ``"intra"``: that sum where the experts shard over ``model`` alone on
+      the pod mesh (``moe.ep_size``): within each pod, on the inner ring;
     * ``"data"``: nothing: serve storage replicates every leaf over the
       data axis."""
     mesh = layout.mesh
     G, pods = mesh.shape["model"], mesh.shape.get("pod", 1)
     tb = TPBytes(mesh, batch, torch_dtype(cfg.dtype).itemsize)
     tp = tb.embed(layout.specs["embed"]["table"], layout.meta["embed"]["table"])
-    link = 0.0
+    link = intra = 0.0
     for specs, meta in zip(layout.specs["layers"], layout.meta["layers"]):
         tp += tb.norm(specs["ln1"], meta["ln1"]) + tb.norm(specs["ln2"], meta["ln2"])
         tp += tb.attention(specs["attn"], meta["attn"], cfg)
@@ -481,11 +484,15 @@ def serve_comm_bytes(layout, cfg, batch: int) -> dict[str, dict[str, float]]:
                 tp += tb.ffn(m["shared"], mm["shared"], cfg.d_model,
                              cfg.moe_d_ff * cfg.n_shared_experts)
             n_ep = ep_size(cfg.n_experts, G * pods, pods)
-            link += (n_ep - 1) / n_ep * batch * cfg.d_model * 4
+            ep_sum = (n_ep - 1) / n_ep * batch * cfg.d_model * 4
+            if n_ep == G * pods:
+                link += ep_sum
+            else:
+                intra += ep_sum
         else:
             tp += tb.ffn(specs["mlp"], meta["mlp"], cfg.d_model, cfg.d_ff)
     tp += tb.norm(layout.specs["final_norm"], layout.meta["final_norm"]) + tb.head(layout, cfg)
-    return comm_classes(tp, link)
+    return comm_classes(tp, link, intra)
 
 
 @torch.inference_mode()

@@ -50,7 +50,10 @@ step of every family binds them, once, to the context's mesh transport
 tensor-parallel collectives their split implies (``models/layers.py``);
 nothing is gathered into a full weight but the 1-D leaves that need the
 whole vector (norm scales) and a leaf the rule splits on a dim that the
-decode state does not split (falcon-mamba's ``A_log``).
+decode state does not split (falcon-mamba's ``A_log``).  On the pod mesh
+the blocks are replicated over ``pod`` as over ``data``; a recurrent state
+split over ``("pod", "model")`` is finer than them, and each rank takes its
+part of its own block (``models.layers.state_tp``), so no weight moves.
 :func:`serve_split` is the dim a serve spec splits; the closed form of a
 decode step's bytes on such blocks sits beside the step it describes
 (``serve_comm_bytes`` in ``models.transformer``,

@@ -147,7 +147,10 @@ def batch_shardings(batch, mesh, pctx):
 
 
 def serve_state_shardings(state, mesh, pctx, cfg):
-    """Specs of decode caches and states (sequence dim over the SP axes)."""
+    """Specs of decode caches and states: the sequence dim of a cache and
+    the width of a recurrent state over the SP axes (``"model"``, or
+    ``("pod", "model")`` on the pod mesh, where the port orders a recurrent
+    state's slices model-major: ``models.layers.state_tp``)."""
     dp = pctx.data_axis
     seq = pctx.seq_spec()
 
@@ -162,7 +165,7 @@ def serve_state_shardings(state, mesh, pctx, cfg):
             return (dp, seq)
         if name == "len":
             return (dp,)
-        if name == "ssm":  # (L, B, di, N): d_inner over model
+        if name == "ssm":  # (L, B, di, N): d_inner over the SP axes
             return (None, dp, seq, None)
         if name == "conv":  # (L, B, K-1, di)
             return (None, dp, None, seq)

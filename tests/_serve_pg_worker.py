@@ -1,13 +1,15 @@
 """One rank of the serve-storage decode on a gloo group
-(``test_torch_serve_storage.py``, ``test_torch_serve_families.py``): the
-(data, model) mesh over the group, this rank's blocks of the parameters by
+(``test_torch_serve_storage.py``, ``test_torch_serve_families.py``,
+``test_torch_serve_pod.py``): the (data, model) or (pod, data, model) mesh
+over the group, this rank's blocks of the parameters by
 ``param_pspec(mode="serve")`` (checked against ``cut_blocks`` of the full
 leaf), then decode steps on the blocks: after the replicated prefill of its
 data rank's rows, greedy (a case without ``feed``), or fed its rows of
 ``feed`` from a fresh state (whisper's encoded first from the rank's
 sequence shard of its rows' frames).  Writes, per model, the logits and
 tokens (greedy, or the logits' argmax) of its rows, whether its blocks were
-the rule's, the bytes it holds and the ledger's bytes a step by class.
+the rule's, the bytes it holds, the ledger's bytes a step by class and,
+with ``keep_state``, its state after the last step.
 Imports torch, numpy and the port only."""
 
 import numpy as np
@@ -45,14 +47,16 @@ def _held(params, tree, layout, rank):
     return ok, held
 
 
-def run(rank: int, shape, init_file: str, data_dir: str, models, out: str, steps: int = 8):
+def run(rank: int, shape, init_file: str, data_dir: str, models, out: str, steps: int = 8,
+        keep_state: bool = False):
     torch.set_num_threads(1)
-    D, P = shape
+    *pods, D, P = shape  # (data, model) or (pod, data, model)
+    mesh = data_mesh(D, P, *pods)
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
-                            world_size=D * P)
+                            world_size=mesh.size)
     try:
-        mesh = data_mesh(D, P)
-        d = mesh.coords(rank)["data"]
+        c = mesh.coords(rank)
+        d = c["data"]
         res = {}
         for model in models:
             case = np.load(f"{data_dir}/{model}.npz")
@@ -75,9 +79,9 @@ def run(rank: int, shape, init_file: str, data_dir: str, models, out: str, steps
                                                torch.from_numpy(case["pos"][rows]), state,
                                                prefix)
                 tok = logits.argmax(-1).to(torch.int32)
-            elif "frames" in case.files:
-                S = case["frames"].shape[1] // P
-                m = mesh.coords(rank)["model"]
+            elif "frames" in case.files:  # its shard over the sequence axes, pod-major
+                S = case["frames"].shape[1] // pctx.sp_degree
+                m = c.get("pod", 0) * P + c["model"]
                 bundle.encode(params, torch.from_numpy(case["frames"][rows, m * S:(m + 1) * S]),
                               state)
             del params
@@ -94,9 +98,11 @@ def run(rank: int, shape, init_file: str, data_dir: str, models, out: str, steps
             res[f"{model}/logits"] = np.stack(got, 1)
             res[f"{model}/tokens"] = (torch.stack(feed, 1).numpy() if fed is None
                                       else res[f"{model}/logits"].argmax(-1))
-            for cls in ("tp", "link", "data"):
-                c = ledger.get(cls, {"fwd": 0.0, "bwd": 0.0})
-                res[f"{model}/{cls}"] = np.asarray([c["fwd"], c["bwd"]])
+            for cls in ("tp", "link", "data", "intra"):
+                n = ledger.get(cls, {"fwd": 0.0, "bwd": 0.0})
+                res[f"{model}/{cls}"] = np.asarray([n["fwd"], n["bwd"]])
+            if keep_state:
+                res.update({f"{model}/state/{k}": v.numpy() for k, v in state.items()})
         np.savez(out, **res)
     finally:
         dist.destroy_process_group()
