@@ -8,7 +8,8 @@ Phases, each fatal on failure:
   2. build every kernel in ``src/repro_torch/csrc`` with nvcc (sm_90a),
      failing if ptxas reports a spill or a serialised ``wgmma`` (C7512) in
      any wgmma instance of A, B1 or B2 or a spill in the decode core's
-     cluster instance (bf16 D 256) (the kernel lint's ptxas rules,
+     cluster instance (bf16 D 256) or in A's and B2's CUDA-core instances
+     at any head dim (the kernel lint's ptxas rules,
      ``repro_torch.analysis.kernel_lint``), whose registers, shared memory
      and admitted cluster sizes it logs; then the lint's closed forms of
      every instance's shared memory held equal, byte for byte, to the built
@@ -21,8 +22,10 @@ Phases, each fatal on failure:
      encoder and a training step's cross-attention at Sq 4096 against Sk
      1536, batch 16; a decode step's cross read, 8 clips), and the decode
      cases (Sq 1 and 3, GQA groups 1/2/8,
-     window, dead rows, ragged Sk) each run twice and required bitwise
-     equal; each
+     window, dead rows, ragged Sk) and the CUDA-core instance's tile edges
+     (``CORE_EDGE_CASES``: ragged 101 x 109, a window of 20 at every head
+     dim, GQA 10 at D 256, bf16 at D 32) each run twice and required
+     bitwise equal; each
      call's log names the instance that served it (decode: Sq <= 4; wgmma:
      bf16, D 64/128/256, Sq > 4; else the CUDA-core one);
   4. kernel C (fused paged decode) against its plain version on the card,
@@ -54,11 +57,14 @@ Phases, each fatal on failure:
      CUDA-core instances), in bf16 at the training shape and on zigzag,
      window, dead-row and ragged cases at D 64 and 128 and non-causal
      cases at Sq != Sk (the wgmma instances), each run twice and required
-     bitwise equal, gradients of rows that see no key exactly 0; B1, B2
+     bitwise equal, gradients of rows that see no key exactly 0, and
+     ``CORE_EDGE_CASES`` at the float32 limit; B1, B2
      and A held and timed at the training shapes beside SDPA (whisper-base's
      three at phase 18's batch of 16: cross, encoder, decoder), and A's, B1's
-     and B2's float32 instances at phase 8's step call (16/8 heads, D 128,
-     B 2 x S 512) beside their float32 bound, the plain version and SDPA's;
+     and B2's float32 instances at ``F32_CORE_CALLS`` (phase 8's step call,
+     16/8 heads, D 128, B 2 x S 512; the ``--reduced`` call, 4/4 heads of
+     32, B 8 x 256; phase 20 (b)'s, 10/1 heads of 256, window 2048, B 2 x
+     4096) beside their float32 bound, the plain version and SDPA's;
   8. one training step at qwen3-1.7b widths (2 layers, float32) on the
      kernels against the plain path: loss, every gradient, and the
      parameters after one AdamW step; then one bf16 step (kernel A's wgmma
@@ -412,10 +418,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 sys.path.insert(0, str(SRC))
 try:  # phase 2's ptxas rules are the kernel lint's
-    from repro_torch.analysis.kernel_lint import (CLUSTER_KERNEL, ptxas_functions,
-                                                  ptxas_wgmma_faults)
+    from repro_torch.analysis.kernel_lint import (CLUSTER_KERNEL, CORE_KERNELS,
+                                                  ptxas_functions, ptxas_wgmma_faults)
 except ImportError:  # no checkout (or no torch) beside this file: main() refuses to run
-    CLUSTER_KERNEL = ptxas_functions = ptxas_wgmma_faults = None
+    CLUSTER_KERNEL = CORE_KERNELS = ptxas_functions = ptxas_wgmma_faults = None
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core / fp32 CUDA core
@@ -694,6 +700,9 @@ def phase_flash(torch, dev):
 
     phase_flash_decode(torch, dev, check)
     phase_flash_layouts(torch, dev, check)
+    for case in CORE_EDGE_CASES:  # the CUDA-core instance's tile edges, bitwise repeated
+        label, (q, k, v, qp, kp, _, _), window = core_edge_inputs(torch, dev, case)
+        check(f"core edge {label}", q, k, v, qp, kp, True, window, repeat=True)
 
     # serving shapes: B=8, D=128, Sk=2048 (the resident call of a prefill
     # chunk and the dense decode call), each held in float32 and in
@@ -2346,22 +2355,37 @@ def training_shape_rows(torch, dev, rnd, train_shape):
 
 
 F32_STEP_SHAPE = dict(B=2, S=512, Hq=16, Hkv=8, D=128)  # phase 8's float32 step's attention
+# The float32 calls at which the CUDA-core instances are timed: phase 8's
+# step (qwen3-1.7b's 16/8 heads of 128), the `--reduced` quickstart's
+# (`ArchConfig.reduced()`: 4/4 heads of 32, the train CLI's batch 8 x 256)
+# and phase 20 (b)'s (recurrentgemma-2b's 10/1 heads of 256, window 2048,
+# batch 2 x 4096); all causal, contiguous positions.
+F32_CORE_CALLS = {
+    "phase8": F32_STEP_SHAPE,
+    "reduced_d32": dict(B=8, S=256, Hq=4, Hkv=4, D=32),
+    "rg_d256": dict(B=2, S=4096, Hq=10, Hkv=1, D=256, window=2048),
+}
 
 
-def f32_step_rows(torch, dev, shape=F32_STEP_SHAPE):
-    """B1 and B2's CUDA-core instances at phase 8's float32 step's call
-    (qwen3-1.7b's 16/8 heads, causal): held to the plain backward at 1e-4,
-    then each timed beside its float32 bound, the plain backward and SDPA's
-    whole float32 backward; A's CUDA-core instance at the same call, held to
-    the plain forward at 1e-4 and timed beside its float32 bound, the plain
-    forward and SDPA's float32 forward.  Returns the rows "dq", "dkv" and
-    "fwd"."""
+def f32_step_rows(torch, dev, shape):
+    """B1 and B2's CUDA-core instances at one float32 call (causal, window
+    ``shape.get("window")``): held to the plain backward at 1e-4 (each run
+    twice, bitwise), then each timed beside its float32 bound, the plain
+    backward and SDPA's whole float32 backward; A's CUDA-core instance at
+    the same call, held to the plain forward at 1e-4 (bitwise on a second
+    run) and timed beside its float32 bound, the plain forward and SDPA's
+    float32 forward.  Times are CUDA-event medians (``ms``) and, for the
+    kernels and SDPA, the kernels' device time (``device_ms``,
+    ``library_device_ms``), which leaves out the host's time between
+    launches.  Returns the rows "dq", "dkv" and "fwd"."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ops import pick_block
+    from repro_torch.kernels.ref import visibility_mask
 
     B, S, Hq, Hkv, D = (shape[x] for x in ("B", "S", "Hq", "Hkv", "D"))
+    window = shape.get("window")
     gen = torch.Generator(device=dev).manual_seed(8)
 
     def rnd(*shape_):
@@ -2370,59 +2394,133 @@ def f32_step_rows(torch, dev, shape=F32_STEP_SHAPE):
     q, dout, k, v = rnd(B, S, Hq, D), rnd(B, S, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
     dlse = rnd(B, S, Hq)
     qp = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
-    got, want, args, kw = run_bwd(torch, q, k, v, qp, qp, dout, dlse, True, None)
+    got, want, args, kw = run_bwd(torch, q, k, v, qp, qp, dout, dlse, True, window)
     inst = fa.flash_bwd_instance_built(torch.float32, D)
-    label = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} f32 causal"
-    err, _ = compare_grads(torch, f"B1/B2 f32 phase 8's step call {label} [{inst}]", got, want,
+    label = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} f32 causal" + (
+        f" window={window}" if window else "")
+    err, _ = compare_grads(torch, f"B1/B2 f32 call {label} [{inst}]", got, want,
                            atol=1e-4, rtol=1e-4,
-                           dead=dead_masks(torch, args[6], qp, qp, True, None))
+                           dead=dead_masks(torch, args[6], qp, qp, True, window))
     blk = pick_block(S, 512)
-    out = fa.flash_attention_fwd_torch(q, k, v, qp, qp, causal=True, window=None,
+    out = fa.flash_attention_fwd_torch(q, k, v, qp, qp, causal=True, window=window,
                                        scale=kw["scale"], block_k=blk)[0]
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-    o_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    if window:  # SDPA's yardstick with the window as a boolean mask
+        mask = visibility_mask(qp, qp, causal=True, window=window)[:, None]
+        o_t = F.scaled_dot_product_attention(qt, kt.repeat_interleave(Hq // Hkv, dim=1),
+                                             vt.repeat_interleave(Hq // Hkv, dim=1),
+                                             attn_mask=mask)
+    else:
+        o_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    big = D == 256  # phase 20 (b)'s call: fewer repeats of the slow plain version
+    dq_fn = lambda: fa.flash_attention_bwd_dq_cuda(*args, **kw)  # noqa: E731
+    dkv_fn = lambda: fa.flash_attention_bwd_dkv_cuda(*args, **kw)  # noqa: E731
+    lib_fn = lambda: torch.autograd.grad(o_t, (qt, kt, vt), dout.transpose(1, 2),  # noqa: E731
+                                         retain_graph=True)
     ms_dq, ms_dkv, plain_ms, lib_ms = (time_ms(f, iters=it, reps=3) for f, it in (
-        (lambda: fa.flash_attention_bwd_dq_cuda(*args, **kw), 5),
-        (lambda: fa.flash_attention_bwd_dkv_cuda(*args, **kw), 5),
+        (dq_fn, 5), (dkv_fn, 5),
         (lambda: fa.flash_attention_bwd_torch(q, k, v, qp, qp, out, args[6], dout, dlse,
-                                              causal=True, window=None, scale=kw["scale"],
+                                              causal=True, window=window, scale=kw["scale"],
                                               block_q=blk, block_k=blk), 1),
-        (lambda: torch.autograd.grad(o_t, (qt, kt, vt), dout.transpose(1, 2),
-                                     retain_graph=True), 5)))
+        (lib_fn, 2 if big else 5)))
+    (dev_dq, dev_dkv, dev_lib), how = device_times((dq_fn, 5 if big else 30),
+                                                   (dkv_fn, 5 if big else 30),
+                                                   (lib_fn, 2 if big else 10))
     rows = {}
-    for name, ms, per_pair, outs in (("dq", ms_dq, 6, got[:1]), ("dkv", ms_dkv, 8, got[1:])):
-        nbytes, flops = bwd_bytes_flops(q, k, qp, qp, True, None, per_pair, outs)
+    for name, ms, dms, per_pair, outs in (("dq", ms_dq, dev_dq, 6, got[:1]),
+                                          ("dkv", ms_dkv, dev_dkv, 8, got[1:])):
+        nbytes, flops = bwd_bytes_flops(q, k, qp, qp, True, window, per_pair, outs)
         bms, by = bound(nbytes, flops, "float32")
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                          max_abs_err=err, instance=inst, shape=label,
+        rows[name] = dict(ms=ms, device_ms=dms, plain_ms=plain_ms, library_ms=lib_ms,
+                          library_device_ms=dev_lib, bound_ms=bms, bound_by=by,
+                          max_abs_err=err, instance=inst, shape=label, timing=how,
                           plain_and_library_compute="dq, dk and dv in one call")
-        log(f"  B {name} {label} [{inst}]: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, "
-            f"67 TFLOP/s float32; {ms / bms:.2f}x), {flops / ms / 1e9:.2f} TFLOP/s; plain "
-            f"backward {plain_ms:.3f} ms, sdpa f32 backward {lib_ms:.3f} ms")
+        log(f"  B {name} {label} [{inst}]: kernel {ms:.4f} ms (device {dms:.4f}), bound "
+            f"{bms:.4f} ms ({by}, 67 TFLOP/s float32; {ms / bms:.2f}x), "
+            f"{flops / ms / 1e9:.2f} TFLOP/s; plain backward {plain_ms:.3f} ms, sdpa f32 "
+            f"backward {lib_ms:.3f} ms (device {dev_lib:.4f})")
     del o_t, qt, kt, vt
     fwd = lambda: fa.flash_attention_fwd_cuda(q, k, v, qp, qp, causal=True,  # noqa: E731
-                                              window=None, scale=kw["scale"])
+                                              window=window, scale=kw["scale"])
     finst = fa.flash_fwd_instance_built(torch.float32, S, D)
-    f_err = compare(f"A f32 phase 8's step call {label} [{finst}]", fwd(),
-                    fa.flash_attention_fwd_torch(q, k, v, qp, qp, causal=True, window=None,
+    first = fwd()
+    if not all(torch.equal(x, y) for x, y in zip(first, fwd())):
+        raise AssertionError(f"A f32 call {label}: two runs on the same inputs differ")
+    f_err = compare(f"A f32 call {label} [{finst}] bitwise repeatable", first,
+                    fa.flash_attention_fwd_torch(q, k, v, qp, qp, causal=True, window=window,
                                                  scale=kw["scale"], block_k=blk),
                     **tolerances(torch.float32))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window:
+        lib = sdpa_masked(torch, q, k, v, qp, qp, window)
+    else:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
     ms, plain_ms, lib_ms = (time_ms(f, iters=it, reps=3) for f, it in (
         (fwd, 5),
-        (lambda: fa.flash_attention_fwd_torch(q, k, v, qp, qp, causal=True, window=None,
+        (lambda: fa.flash_attention_fwd_torch(q, k, v, qp, qp, causal=True, window=window,
                                               scale=kw["scale"], block_k=blk), 1),
-        (lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
-         5)))
-    nbytes, flops = flash_bytes_flops(q, k, qp, qp, True, None)
+        (lib, 5)))
+    (dms, dev_lib), how = device_times((fwd, 10 if big else 30), (lib, 5 if big else 30))
+    nbytes, flops = flash_bytes_flops(q, k, qp, qp, True, window)
     bms, by = bound(nbytes, flops, "float32")
-    rows["fwd"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                       max_abs_err=f_err, instance=finst, shape=label,
-                       device_kernel=f"rt::flash_fwd_kernel<float, {D}>")
-    log(f"  A {label} [{finst}]: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, 67 TFLOP/s "
-        f"float32; {ms / bms:.2f}x), {flops / ms / 1e9:.2f} TFLOP/s; plain forward "
-        f"{plain_ms:.3f} ms, sdpa f32 forward {lib_ms:.4f} ms")
+    rows["fwd"] = dict(ms=ms, device_ms=dms, plain_ms=plain_ms, library_ms=lib_ms,
+                       library_device_ms=dev_lib, bound_ms=bms, bound_by=by,
+                       max_abs_err=f_err, instance=finst, shape=label, timing=how,
+                       device_kernel=f"rt::core::flash_fwd_core_kernel<float, {D}>")
+    log(f"  A {label} [{finst}]: kernel {ms:.4f} ms (device {dms:.4f}), bound {bms:.4f} ms "
+        f"({by}, 67 TFLOP/s float32; {ms / bms:.2f}x), {flops / ms / 1e9:.2f} TFLOP/s; plain "
+        f"forward {plain_ms:.3f} ms, sdpa f32 forward {lib_ms:.4f} ms (device {dev_lib:.4f})")
     return rows
+
+
+# A's and B2's CUDA-core instances at their tiles' edges (`core_fwd_tiling`,
+# `core_dkv_tiling`), phases 3 and 7: id, (B, Sq, Sk, Hq, Hkv, D), dtype,
+# layout, window; all causal.  101 and 109 are multiples of no tile (with
+# queries 8 positions past the keys); a window of 20 is shorter than any
+# key tile; recurrentgemma's GQA group 10 at D 256; bf16 at D 32, the only
+# bf16 instance, widened on load.
+CORE_EDGE_CASES = [case for D in (32, 64, 128, 256) for case in (
+    (f"ragged D={D}", (2, 101, 109, 4, 2, D), "f32", "offset", None),
+    (f"window=20 D={D}", (1, 256, 256, 2, 2, D), "f32", "contig", 20),
+)] + [
+    ("g10 D=256 window=100", (1, 300, 300, 10, 1, 256), "f32", "contig", 100),
+    ("g10 D=256 ragged window=48", (2, 101, 109, 10, 1, 256), "f32", "offset", 48),
+    ("bf16 ragged D=32", (2, 101, 109, 4, 2, 32), "bf16", "offset", None),
+    ("bf16 window=20 D=32", (1, 256, 256, 2, 2, 32), "bf16", "contig", 20),
+    ("bf16 dead rows D=32", (2, 256, 256, 4, 1, 32), "bf16", "dead", None),
+]
+
+
+def core_edge_inputs(torch, dev, case):
+    """``(label, (q, k, v, q_pos, k_pos, dout, dlse), window)`` of one
+    ``CORE_EDGE_CASES`` entry, from a generator seeded by the case."""
+    case_id, (B, Sq, Sk, Hq, Hkv, D), dt, layout, window = case
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    gen = torch.Generator(device=dev).manual_seed(9 + CORE_EDGE_CASES.index(case))
+
+    def rnd(shape, dtype=dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q, k, v, dout = (rnd(s) for s in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D),
+                                       (B, Sq, Hq, D)))
+    qp, kp = bwd_positions(torch, dev, B, Sq, Sk, layout)
+    return (f"{case_id} {(B, Sq, Sk, Hq, Hkv, D)}", (q, k, v, qp, kp, dout,
+                                                     rnd((B, Sq, Hq), torch.float32)), window)
+
+
+def phase_bwd_core_edges(torch, dev):
+    """B1 and B2 on ``CORE_EDGE_CASES``, each run twice and required
+    bitwise equal, against the plain backward at phase 7's float32 limit:
+    the bf16 cases too, which both sides widen to float32 on load."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for case in CORE_EDGE_CASES:
+        label, (q, k, v, qp, kp, dout, dlse), window = core_edge_inputs(torch, dev, case)
+        got, want, args, _ = run_bwd(torch, q, k, v, qp, kp, dout, dlse, True, window)
+        inst = fa.flash_bwd_instance_built(q.dtype, q.shape[-1])
+        compare_grads(torch, f"B1/B2 core edge {label} [{inst}]", got, want, atol=1e-4,
+                      rtol=1e-4, dead=dead_masks(torch, args[6], qp, kp, True, window))
 
 
 def phase_bwd(torch, dev, train_shape=TRAIN_SHAPE):
@@ -2467,7 +2565,9 @@ def phase_bwd(torch, dev, train_shape=TRAIN_SHAPE):
             shape, generator=gen_w, device=dev).to(dtype), shape)
         for name, shape in WHISPER_TRAIN_SHAPES.items()}
     phase_bwd_bf16(torch, dev)
-    rows["f32_step"] = f32_step_rows(torch, dev)
+    phase_bwd_core_edges(torch, dev)
+    rows["f32_step"] = {name: f32_step_rows(torch, dev, shape)
+                        for name, shape in F32_CORE_CALLS.items()}
     return rows
 
 
@@ -5382,7 +5482,8 @@ def phase_rg_wrap(torch, dev, cfg=None, n_tokens=RG_WRAP_TOKENS):
 def phase_build(torch, dev):
     """Phase 2: build every kernel, log ptxas's registers and spills, and
     fail on a spill or a C7512 in any wgmma instance of A, B1 or B2, or a
-    spill in the decode core's cluster instance; log the cluster instance's
+    spill in the decode core's cluster instance or in A's and B2's CUDA-core
+    instances (each instance found at every head dim); log the cluster instance's
     registers, shared memory and the clusters the card admits at once."""
     from repro_torch.kernels._build import build_all
 
@@ -5409,6 +5510,19 @@ def phase_build(torch, dev):
                              f"{len(fwd_regs)}")
     log(f"  ptxas: no spill and no C7512 in the {len(wgmma)} wgmma instances of A, B1 and B2 "
         "built here")
+    core = {(lib, n.split("_core_kernel")[0].rsplit("flash_", 1)[-1],
+             "bf16" if "bfloat16" in n else "f32", int(n.split("Li")[1].split("E")[0])):
+            f["registers"] for lib, t in info["ptxas"].items()
+            for n, f in ptxas_functions(t).items() if any(k in n for k in CORE_KERNELS)}
+    want = {(lib, kern, dt, D) for lib, kern in (("flash_fwd", "fwd"), ("flash_bwd", "bwd_dkv"))
+            if lib in info["ptxas"] for dt, D in (("f32", 32), ("f32", 64), ("f32", 128),
+                                                  ("f32", 256), ("bf16", 32))}
+    if set(core) != want:
+        raise AssertionError(f"ptxas: expected A's and B2's CUDA-core instances {sorted(want)}, "
+                             f"found {sorted(core)}")
+    log("  A's and B2's CUDA-core instances (256 threads, register-tiled FFMA, 2-stage cp.async "
+        "ring), no spill; ptxas registers " + ", ".join(
+            f"{kern} {dt} D={D}: {r}" for (_, kern, dt, D), r in sorted(core.items())))
     from repro_torch.kernels import flash_attention as fa
 
     log("  kernel A wgmma instance at D=64/128: 384 threads (producer warpgroup at 40 "
@@ -5466,7 +5580,8 @@ def smem_against_library(torch, dev, sms):
     main paths' lengths (``launch.analyze.FLASH_CALLS``), at the longest each
     admits (``kernel_lint.max_length``) and one tile past it, where the
     figure passes the opt-in maximum and A, B1 and B2 at D 256 refuse the
-    launch (``cudaErrorInvalidValue``); the cluster instance; the split
+    launch (``cudaErrorInvalidValue``); A's and B2's CUDA-core instances at
+    every head dim they are built for; the cluster instance; the split
     decode kernel, dense and paged, at every row layout and split it takes."""
     from repro_torch.analysis import kernel_lint as kl
     from repro_torch.kernels import flash_attention as fa
@@ -5496,6 +5611,11 @@ def smem_against_library(torch, dev, sms):
             if figure(D, top) > kl.KMAX_SMEM or figure(D, top + 1) <= kl.KMAX_SMEM:
                 mismatches.append(f"{inst} D={D}: {top} is not the longest length the library "
                                   "admits")
+    for kern, inst in (("fwd", "fwd_cuda_core"), ("dkv", "bwd_dkv_cuda_core")):
+        for dt, D in ((torch.float32, 32), (torch.float32, 64), (torch.float32, 128),
+                      (torch.float32, 256), (torch.bfloat16, 32)):
+            hold(f"{inst} {str(dt)[6:]} D={D}", kl.smem_estimate(inst, D, dtype=dt),
+                 fa.core_smem_bytes(kern, dt, D))
     hold("decode_cluster", kl.smem_estimate("decode_cluster", 256), fa.decode_cluster_occupancy(
         fa.DECODE_D256_MAX_CLUSTER)[1])
     splits = {(c[1], c[2], c[6] // c[7] * c[4], False,
@@ -7374,8 +7494,9 @@ def main() -> int:
     # (whisper-base's: A's D-64 decode core, 12 launches a step).  Phase
     # 25's is `serve_tp_pod` (qwen3-moe-30b-a3b's decode on serve blocks over
     # the pod mesh (2, 1, 2): A's D-128 decode core, 8 launches a step).
-    # `f32_step` holds A's, B1's and B2's CUDA-core instances at phase 8's
-    # float32 step's call (phase 7, `f32_step_rows`).
+    # `f32_step` holds A's, B1's and B2's CUDA-core instances at the float32
+    # calls of `F32_CORE_CALLS` (phase 7, `f32_step_rows`): phase 8's step,
+    # the `--reduced` quickstart's and phase 20 (b)'s D-256 call.
     # `d256` holds the head-dim-256 instances (phase 20, recurrentgemma-2b):
     # each row's time, errors and bound from phase 20 (a) at the main path's
     # shapes, its `launches` from the main path that runs it (A's wgmma
@@ -7402,7 +7523,8 @@ def main() -> int:
                                       "256)"],
                             "decode": ["rt::dec::decode_kernel<T, D, WR, RW, false>",
                                        "rt::dcl::decode_d256_kernel<false> (bf16, D 256)"],
-                            "cuda_core": ["rt::flash_fwd_kernel<T, D> (float32; bf16 at D 32)"]},
+                            "cuda_core": ["rt::core::flash_fwd_core_kernel<T, D> (float32; bf16 "
+                                          "at D 32)"]},
          **flash_rows[wb]["cross_prefill"],
          "training_shape": bwd_rows[wb]["cross"]["fwd"],
          "whisper_calls": {"encoder": flash_rows[wb]["encoder"],
@@ -7416,7 +7538,7 @@ def main() -> int:
                                    "training_shape": bwd_rows[dense]["fwd"]}},
          "sp4_calls": {k: v for k, v in sp_rows.items() if k != "paged_decode"},
          "ring_overlap_trace": ring_trace,
-         "f32_step": bwd_rows["f32_step"]["fwd"],
+         "f32_step": {c: r["fwd"] for c, r in bwd_rows["f32_step"].items()},
          "d256": {"wgmma": d256(rg_rows["wgmma"], "train_rg", "flash_attention_fwd"),
                   "decode": d256(rg_rows["decode"], "decode_rg", "flash_attention_fwd"),
                   "decode_short": d256(rg_rows["decode_short"], "decode_rg",
@@ -7428,7 +7550,7 @@ def main() -> int:
          "launches_by_path": by_path("flash_attention_bwd_dq"), **bwd_rows[wb]["cross"]["dq"],
          "whisper_calls": {k: bwd_rows[wb][k]["dq"] for k in ("encoder", "decoder")},
          "times_by_path": {moe: bwd_rows[moe]["dq"], dense: bwd_rows[dense]["dq"]},
-         "f32_step": bwd_rows["f32_step"]["dq"],
+         "f32_step": {c: r["dq"] for c, r in bwd_rows["f32_step"].items()},
          "d256": d256(rg_rows["dq"], "train_rg", "flash_attention_bwd_dq")},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_bwd.cu",
@@ -7437,7 +7559,7 @@ def main() -> int:
          "launches_by_path": by_path("flash_attention_bwd_dkv"), **bwd_rows[wb]["cross"]["dkv"],
          "whisper_calls": {k: bwd_rows[wb][k]["dkv"] for k in ("encoder", "decoder")},
          "times_by_path": {moe: bwd_rows[moe]["dkv"], dense: bwd_rows[dense]["dkv"]},
-         "f32_step": bwd_rows["f32_step"]["dkv"],
+         "f32_step": {c: r["dkv"] for c, r in bwd_rows["f32_step"].items()},
          "d256": d256(rg_rows["dkv"], "train_rg", "flash_attention_bwd_dkv")},
         {"name": "paged_decode_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",

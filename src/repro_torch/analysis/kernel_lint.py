@@ -9,8 +9,8 @@ clusters resident at once, so the rules are redesigned:
 
   * ``KERN-SMEM`` — :func:`smem_estimate` is a closed form of each
     instance's dynamic shared memory, written from the layouts in
-    ``csrc/`` (``flash_fwd.cu`` ``Smem<D>::bytes``, ``fwd_smem_bytes``;
-    ``flash_bwd.cu`` ``dq_smem_bytes``, ``dkv_smem_bytes``,
+    ``csrc/`` (``flash_fwd.cu`` ``Smem<D>::bytes``, ``core::Fwd<T, D>``;
+    ``flash_bwd.cu`` ``dq_smem_bytes``, ``core::Dkv<T, D>``,
     ``DqSmem<D>``, ``DkvSmem<D>``; ``decode.cuh`` ``Shape::smem_bytes``;
     ``decode_d256.cuh`` ``Smem::bytes``), held against the block's opt-in
     maximum.  The wgmma instances flag each KV tile (A, B1) or q-tile (B2)
@@ -21,13 +21,15 @@ clusters resident at once, so the rules are redesigned:
     library's own figures.
   * ``KERN-SPILL`` / ``KERN-WGMMA-SERIAL`` — ptxas's ``-v`` report: a spill
     or a serialised ``wgmma`` (C7512) in any ``*_wgmma_kernel`` fails, a
-    spill in the cluster instance fails; the CUDA-core kernels and the split
-    decode kernel are not gated.
+    spill in the cluster instance or in A's and B2's CUDA-core kernels
+    (``*_core_kernel``) fails; B1's CUDA-core kernel and the split decode
+    kernel are not gated.
   * ``KERN-CLUSTER`` — a call on the cluster instance launches ``units``
     clusters of ``G`` blocks (``decode_rule_d256``); it fires when that is
     more than the card holds at once.
   * ``KERN-GRID-COVER`` — each instance's tiles (``wgmma_fwd_tiling``,
-    ``wgmma_bwd_tiling``, the CUDA cores' 32 x 32, the decode core's 32-key
+    ``wgmma_bwd_tiling``, ``core_fwd_tiling``, ``core_dkv_tiling``, B1's
+    CUDA-core 32 x 32, the decode core's 32-key
     tiles and ``DECODE_MAX_ROWS`` row chunks) cover every row and key once.
     Every CUDA instance masks a ragged last tile, so a ragged tail is
     allowed (:func:`ragged`), not a finding; the decode rules' splits and
@@ -56,6 +58,8 @@ import torch
 from repro_torch.analysis.preconditions import check_tile_divisible, finding
 from repro_torch.analysis.report import Finding
 from repro_torch.kernels.flash_attention import (
+    CORE_FLAG_CHUNK,
+    CORE_STAGES,
     DECODE_D256_MAX_CLUSTER,
     DECODE_MAX_ROWS,
     DECODE_MAX_SPLIT_TILES,
@@ -64,6 +68,8 @@ from repro_torch.kernels.flash_attention import (
     decode_rule_d256,
     decode_split_rule,
     decode_units,
+    core_dkv_tiling,
+    core_fwd_tiling,
     flash_bwd_instance,
     flash_fwd_instance,
     tile_mask,
@@ -97,6 +103,7 @@ __all__ = [
     "ptxas_findings",
     "ptxas_wgmma_faults",
     "CLUSTER_KERNEL",
+    "CORE_KERNELS",
 ]
 
 # The opt-in maximum the library sets and checks every launch against
@@ -106,7 +113,7 @@ KMAX_SMEM = 232448
 # DECODE_D256_MAX_CLUSTER), and the next size, which the rule refuses.
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 _STAGES = 2  # K/V (A, B1) and Q/dout (B2) stages of the wgmma instances
-_CORE_TILE = 32  # q rows and keys of the CUDA-core tiles
+_CORE_TILE = 32  # q rows and keys of B1's CUDA-core tiles
 _SPLIT_STAGES = 3  # the split decode kernel's cp.async ring
 _MAX_GRID_Y = 65535  # splits of one decode launch (gridDim.y)
 
@@ -210,17 +217,30 @@ def smem_estimate(instance: str, D: int, S: int = 0, *, dtype=torch.bfloat16, ro
     dim ``D``.  ``S`` is the length the instance's memory grows with
     (``INSTANCES``): ``Sk`` for A's and B1's wgmma instances, ``Sq`` for
     B2's, the keys of one split for the split decode kernel (``rows``: GQA
-    group x Sq; ``dtype``; ``paged`` for kernel C); the others ignore it."""
+    group x Sq; ``dtype``; ``paged`` for kernel C); the others ignore it.
+    ``dtype`` also sets the staged type of A's and B2's CUDA-core
+    instances (bf16 at D 32, else float32)."""
     if instance in ("fwd_wgmma", "bwd_dq_wgmma", "bwd_dkv_wgmma"):
         fixed, per_tile, tile = _wgmma_layout(instance, D)
         return fixed + per_tile * -(-S // tile)
     t = _CORE_TILE
-    if instance == "fwd_cuda_core":  # flash_fwd.cu fwd_smem_bytes<D>
-        return 4 * (t * D + t * (D + 1) + t * D + t * t + 3 * t) + 4 * (2 * t)
+    # A's and B2's CUDA-core instances stage K/V (A) or Q/dout (B2) in the
+    # call's type, which is bf16 only at D 32 (the only bf16 instance)
+    item = 2 if dtype == torch.bfloat16 and D == 32 else 4
+    listing = 4 * CORE_FLAG_CHUNK + CORE_FLAG_CHUNK + 16  # live tiles, flags, misc
+    if instance == "fwd_cuda_core":  # flash_fwd.cu core::Fwd<T, D>
+        c = core_fwd_tiling(D)
+        bq, bk = c["q_rows"], c["keys"]
+        ring = CORE_STAGES * 2 * bk * (D + 16 // item) * item
+        return (4 * bq * (D + 4) + ring + 4 * bq * (bk + 16) + 4 * CORE_STAGES * bk + 4 * bq
+                + listing)
     if instance == "bwd_dq_cuda_core":  # flash_bwd.cu dq_smem_bytes<D>
         return 4 * (2 * t * D + 2 * t * (D + 1) + t * t + 3 * t) + 4 * (2 * t)
-    if instance == "bwd_dkv_cuda_core":  # dkv_smem_bytes<D>
-        return 4 * (2 * t * D + 2 * t * (D + 1) + 2 * t * t + 3 * t) + 4 * (2 * t)
+    if instance == "bwd_dkv_cuda_core":  # flash_bwd.cu core::Dkv<T, D>
+        c = core_dkv_tiling(D)
+        bk, bq = c["keys"], c["q_rows"]
+        ring = CORE_STAGES * (2 * bq * (D + 16 // item) * item + 16 * bq)
+        return 2 * 4 * bk * (D + 4) + ring + 2 * 4 * bk * (bq + 16) + 4 * bk + listing
     if instance == "decode_split":  # decode.cuh Shape<T, D, WR, RW, kPaged>
         layout = _split_rows(D, rows)
         if layout is None:
@@ -308,7 +328,10 @@ def instance_tiles(dtype, D: int, Sq: int) -> tuple[int, int] | None:
     if instance == "wgmma":
         t = wgmma_fwd_tiling(D)
         return t["q_rows"], t["keys"]
-    return None if instance == "decode" else (_CORE_TILE, _CORE_TILE)
+    if instance == "decode":
+        return None
+    c = core_fwd_tiling(D)
+    return c["q_rows"], c["keys"]
 
 
 def decode_cover_findings(n_keys: int, units: int, *, instance: str, sm_count: int,
@@ -488,7 +511,7 @@ def lint_flash_call(*, dtype, D: int, B: int, Sq: int, Sk: int, Hq: int, Hkv: in
                                      limits=limits, subject=subject)
     else:
         instance = "fwd_wgmma" if flash_fwd_instance(dtype, Sq, D) == "wgmma" else "fwd_cuda_core"
-        findings += smem_findings(instance, D, Sk, limits=limits, subject=subject)
+        findings += smem_findings(instance, D, Sk, limits=limits, subject=subject, dtype=dtype)
         findings += grid_findings(Sq, Sk, block_q=tiles[0], block_k=tiles[1], subject=subject)
     if not backward:
         return findings
@@ -501,9 +524,12 @@ def lint_flash_call(*, dtype, D: int, B: int, Sq: int, Sk: int, Hq: int, Hkv: in
         findings += grid_findings(Sq, Sk, block_q=t["dkv_rows"], block_k=t["dkv_keys"],
                                   subject=subject)
     else:
+        c = core_dkv_tiling(D)
         for inst in ("bwd_dq_cuda_core", "bwd_dkv_cuda_core"):
-            findings += smem_findings(inst, D, limits=limits, subject=subject)
+            findings += smem_findings(inst, D, limits=limits, subject=subject, dtype=dtype)
         findings += grid_findings(Sq, Sk, block_q=_CORE_TILE, block_k=_CORE_TILE,
+                                  subject=subject)
+        findings += grid_findings(Sq, Sk, block_q=c["q_rows"], block_k=c["keys"],
                                   subject=subject)
     return findings
 
@@ -534,6 +560,8 @@ def lint_paged_decode_config(*, dtype, group: int, page_size: int, n_pages: int,
 # --- ptxas's report --------------------------------------------------------
 
 CLUSTER_KERNEL = "decode_d256_kernel"  # the decode core's cluster instance
+# A's and B2's CUDA-core instances
+CORE_KERNELS = ("flash_fwd_core_kernel", "flash_bwd_dkv_core_kernel")
 
 
 def ptxas_functions(text):
@@ -564,9 +592,11 @@ def ptxas_functions(text):
 
 def gated(name: str) -> bool:
     """Whether ptxas's report on ``name`` is gated: the wgmma instances of
-    A, B1 and B2 and the decode core's cluster instance (not the CUDA-core
-    kernels, not the split decode kernel)."""
-    return "wgmma_kernel" in name or CLUSTER_KERNEL in name
+    A, B1 and B2, the decode core's cluster instance and A's and B2's
+    CUDA-core instances (not B1's CUDA-core kernel, not the split decode
+    kernel)."""
+    return ("wgmma_kernel" in name or CLUSTER_KERNEL in name
+            or any(k in name for k in CORE_KERNELS))
 
 
 def ptxas_findings(logs) -> list[Finding]:

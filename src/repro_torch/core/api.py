@@ -88,7 +88,7 @@ from repro_torch.core.strategies import (
 from repro_torch.kernels.ref import normalize_positions
 
 __all__ = ["ParallelContext", "ExecutionPlan", "AttnShapes", "PREFILL_CANDIDATES",
-           "sp_attention", "sp_decode", "sp_decode_paged", "sp_prefill", "sp_scan"]
+           "choose_strategy", "sp_attention", "sp_decode", "sp_decode_paged", "sp_prefill", "sp_scan"]
 
 # The prefill arbitration pool (``ParallelContext.choose_prefill_strategy``):
 # the resident all-reduce chunk path plus the two prefill rings of
@@ -834,6 +834,20 @@ def _hybrid_cost(inner_desc: SPStrategy, shapes: AttnShapes, *, n_pods: int, P_i
     )
     return CommCost(outer.fwd_bytes + n_pods * inner.fwd_bytes,
                     outer.bwd_bytes + n_pods * inner.bwd_bytes)
+
+
+def choose_strategy(strategy: str, Hq: int, Hkv: int, P_sp: int) -> str:
+    """The pre-registry chooser, kept for callers of the reference's API:
+    ``"auto"`` arbitrates the ring family (TokenRing against the
+    bidirectional KV ring) from head counts alone, by the registered cost
+    models at a representative shape; an explicit name is validated and
+    returned.  :func:`~repro_torch.core.strategies.resolve_strategy`
+    arbitrates over every strategy with the whole shape."""
+    if strategy != "auto":
+        get_strategy(strategy)
+        return strategy
+    return resolve_strategy("auto", S=1024 * max(P_sp, 1), Hq=Hq, Hkv=Hkv, D=128, P=P_sp,
+                            bytes_per_elem=2, candidates=("tokenring", "ring_bidir"))
 
 
 def _check_ring_device(pctx: ParallelContext, x):

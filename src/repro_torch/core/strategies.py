@@ -44,10 +44,12 @@ __all__ = [
     "unregister_strategy",
     "get_strategy",
     "available_strategies",
+    "registered_strategies",
     "ineligible_reason",
     "strategy_cost",
     "resolve_strategy",
     "attention_compute_flops",
+    "mean_ring_hops",
     "itemsize",
     "ceil_div",
     "KV_RESIDENT_MARGIN",
@@ -286,6 +288,12 @@ def available_strategies() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def registered_strategies() -> tuple[SPStrategy, ...]:
+    """Every registered strategy's descriptor, in name order."""
+    _ensure_builtins()
+    return tuple(_REGISTRY[n] for n in sorted(_REGISTRY))
+
+
 def ineligible_reason(
     desc: SPStrategy,
     *,
@@ -457,6 +465,14 @@ def attention_compute_flops(
         ctx = min(window, ctx, S_loc * (1 + halo))
         return 4.0 * B * S_loc * ctx * Hq * D
     return 4.0 * B * S_loc * ctx * Hq * D * (0.5 if causal else 1.0)
+
+
+def mean_ring_hops(P: int) -> float:
+    """Mean neighbour-hop distance between distinct ranks on a bidirectional
+    1-D torus of ``P`` ranks (what a far send or an all-to-all crosses)."""
+    if P <= 1:
+        return 0.0
+    return sum(min(d, P - d) for d in range(1, P)) / (P - 1)
 
 
 def itemsize(dtype_like) -> int:

@@ -1,6 +1,7 @@
 // Shared helpers of the attention kernels: element conversion, the
-// position mask, the whole-tile flag, the online-softmax constants and
-// warp reductions.
+// position mask, the whole-tile flag and the list of live tiles, the
+// online-softmax constants, warp reductions, cp.async copies and the
+// vector loads and stores of the CUDA-core instances.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -62,47 +63,108 @@ __device__ __forceinline__ int tile_flag(int qmin, int qmax, int kmin, int kmax,
   return skip ? 0 : (whole ? 1 : 2);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+// Max and sum over the 16 lanes of one half-warp (the threads of the
+// CUDA-core instances that share a tile row).
+__device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// Asynchronous copies from global to shared memory (cp.async): 16 bytes
+// (bypassing L1) or 4; a false `pred` fills the destination with zeros and
+// reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One online-softmax step for one query row, run by a whole warp over the
-// `n` scores at `p` (already masked to kNegInf): rewrites them as
-// probabilities and updates the row's running max `m`, denominator `l` and
-// the rescale factor `alpha` for its accumulator.  Written exactly as the
-// Pallas body: safe_m guards rows that are still fully masked, and alpha is
-// 0 while the previous max is still kNegInf.
-template <typename MaskFn>
-__device__ __forceinline__ void softmax_row(float* p, int n, MaskFn mask, float* m,
-                                            float* l, float* alpha) {
+// N = 4 or 2 consecutive elements (one vector load) widened to float32, and
+// N float32 values stored as N elements of T (one vector store).
+__device__ __forceinline__ void ld_vec(const float* p, float (&x)[4]) {
+  const float4 r = *reinterpret_cast<const float4*>(p);
+  x[0] = r.x, x[1] = r.y, x[2] = r.z, x[3] = r.w;
+}
+__device__ __forceinline__ void ld_vec(const float* p, float (&x)[2]) {
+  const float2 r = *reinterpret_cast<const float2*>(p);
+  x[0] = r.x, x[1] = r.y;
+}
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ void ld_vec(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  x[0] = bf16_lo(r.x), x[1] = bf16_hi(r.x), x[2] = bf16_lo(r.y), x[3] = bf16_hi(r.y);
+}
+__device__ __forceinline__ void ld_vec(const __nv_bfloat16* p, float (&x)[2]) {
+  const uint32_t r = *reinterpret_cast<const uint32_t*>(p);
+  x[0] = bf16_lo(r), x[1] = bf16_hi(r);
+}
+__device__ __forceinline__ void st_vec(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void st_vec(float* p, const float (&x)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+}
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16(lo));
+  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16(hi));
+  return l | (h << 16);
+}
+__device__ __forceinline__ void st_vec(__nv_bfloat16* p, const float (&x)[4]) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(bf16x2(x[0], x[1]), bf16x2(x[2], x[3]));
+}
+__device__ __forceinline__ void st_vec(__nv_bfloat16* p, const float (&x)[2]) {
+  *reinterpret_cast<uint32_t*>(p) = bf16x2(x[0], x[1]);
+}
+
+// A live tile of a walk as one int: its index, and its `tile_flag` (1 or 2)
+// at bit kFlagShift.
+constexpr int kFlagShift = 28;
+constexpr int kTileMask = (1 << kFlagShift) - 1;
+
+// Run by one warp: the tiles of `flags[0, n)` that are not dead, in order,
+// as entries (first + t) | flag << kFlagShift in `live`; their count in
+// `*count`.
+__device__ __forceinline__ void list_live(const uint8_t* flags, int n, int first, int* live,
+                                          int* count) {
   const int lane = threadIdx.x & 31;
-  float mcur = kNegInf;
-  for (int j = lane; j < n; j += 32) mcur = fmaxf(mcur, p[j]);
-  mcur = warp_max(mcur);
-  const float mprev = *m;
-  const float mnew = fmaxf(mprev, mcur);
-  const float safe = (mnew <= kNegInf / 2) ? 0.f : mnew;
-  float psum = 0.f;
-  for (int j = lane; j < n; j += 32) {
-    const float e = mask(j) ? expf(p[j] - safe) : 0.f;
-    p[j] = e;
-    psum += e;
+  int total = 0;
+  for (int t0 = 0; t0 < n; t0 += 32) {
+    const int t = t0 + lane;
+    const int f = t < n ? flags[t] : 0;
+    const unsigned ball = __ballot_sync(0xffffffffu, f != 0);
+    if (f) live[total + __popc(ball & ((1u << lane) - 1))] = (first + t) | (f << kFlagShift);
+    total += __popc(ball);
   }
-  psum = warp_sum(psum);
-  if (lane == 0) {
-    const float a = (mprev <= kNegInf / 2) ? 0.f : expf(fminf(mprev - safe, 0.f));
-    *alpha = a;
-    *l = a * (*l) + psum;
-    *m = mnew;
-  }
+  if (lane == 0) *count = total;
 }
+
+__device__ __forceinline__ bool is_neg_inf(float x) { return isinf(x) && x < 0.f; }
+
+// The CUDA-core instances of kernels A and B2 (`core::Fwd`, `core::Dkv`).
+namespace core {
+constexpr int kThreads = 256;    // a 16 x 16 grid of threads over every tile
+constexpr int kFlagChunk = 256;  // tiles of a walk whose flags one pass lists
+}  // namespace core
 
 }  // namespace rt

@@ -78,20 +78,6 @@ struct Args {
   int tiles_per_split, splits, rchunks;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 template <int Bytes>
 struct Raw;
 template <>

@@ -96,24 +96,42 @@
 //   64-key block streams the group's Q and dout again; each B1 block
 //   recomputes S and dP that B2 computes again.
 //
-// * The CUDA-core instances (float32 inputs, with D 256 for
-//   recurrentgemma's float32 checks, and D = 32): the reference.
-//   Blocks of 128 threads, tiles of BQ = 32 queries by BK = 32 keys, with
-//   float32 products on the CUDA cores out of shared memory.
-//   - B1 (dq): one block per (q-tile, query head, batch row) holds the q and
-//     dout tiles and the tile's lse/delta/dlse in shared memory and walks
-//     the KV tiles in order, accumulating dq in float32 registers.
-//   - B2 (dk, dv): one block per (KV tile, KV head, batch row) holds the K/V
-//     tile and walks every query head of its GQA group and every q-tile in
-//     a fixed order, accumulating dk and dv in float32 registers.
-//   The score loops keep one key's K/V value (B1) or one query's q/dout
-//   value (B2) in a register across eight rows, and the accumulation loops
-//   read four scores per 16-byte load.  Bound by shared-memory bandwidth
-//   and the CUDA-core rate, far from the tensor-core rate; exact to
-//   float32.  At D = 256 a thread owns two columns of every row of its tile
-//   (B2: 128 accumulators of dk and dv), and shared memory is 133 KB (B1)
-//   and 137 KB (B2).  Templated on the input type; only bf16 D = 32 is
-//   instantiated for bf16, widened to float32 on load.
+// * The CUDA-core instances (float32, and bf16 at D 32, widened to float32
+//   on load): exact float32 (FFMA on the CUDA cores, no TF32), the port's
+//   precision reference.  What bounds them: the FP32 rate, 67 TFLOP/s (6*D
+//   and 8*D flops a visible pair).
+//   - B1 (dq), `flash_bwd_dq_kernel`: blocks of 128 threads, tiles of 32
+//     queries by 32 keys with float32 products out of shared memory; one
+//     block per (q-tile, query head, batch row) holds the q and dout tiles
+//     and the tile's lse/delta/dlse and walks the KV tiles in order,
+//     accumulating dq in float32 registers.  Its score loops keep one
+//     key's K/V value in a register across eight rows and its accumulation
+//     reads four scores per 16-byte load: bound by shared-memory bandwidth.
+//     At D = 256 a thread owns two columns of every row (133 KB of shared
+//     memory).
+//   - B2 (dk, dv), `core::flash_bwd_dkv_core_kernel<T, D>` (`core::Dkv`):
+//     256 threads a block over a 32-key tile (twice the blocks of a 64-key
+//     tile: 256 at phase 8's call and at recurrentgemma's D-256 call, where
+//     a 64-key tile gives 128 blocks on 132 SMs, and the causal grid's
+//     heaviest block half as long) holding K and V in float32.  It walks
+//     every query head of the GQA group and then every live 64-row q-tile
+//     (32 at D 256, so that two stages fit: 214,416 B), in that fixed
+//     order; Q, dout and the rows' lse, delta, dlse and positions of each
+//     item stream through a 2-stage cp.async ring (16-byte and 4-byte
+//     copies, rows past Sq zero).  A 16 x 16 grid of threads: thread (ty,
+//     tx) computes S^T = K Q^T and dP^T = V dout^T for keys ty + 16 i and
+//     queries tx + 16 j (2 x 4; 2 x 2 at D 256) from 16-byte loads of four
+//     columns (12 loads feed 64 FFMAs), forms P^T and dS^T in registers and
+//     hands them over through shared memory; then dV += P^T dout and dK +=
+//     dS^T Q for its keys and D/16 columns (20 loads feed 128 FFMAs).  Rows
+//     are padded by 16 bytes (conflict-free reads), and dK and dV stay in
+//     registers across the walk, so the group sum stays in the block, with
+//     no atomics, and each block stores its rows once.  The q-tiles' flags
+//     are computed once and listed 256 at a time, as in A; a ragged last
+//     q-tile is masked element by element.  Two block barriers an item.
+//     What keeps it from the FP32 rate: one block of 8 warps an SM, 5.3 and
+//     6.4 FFMAs a shared load, the hand-over of P^T and dS^T, and the
+//     causal grid's imbalance.
 #include <type_traits>
 
 #include "common.cuh"
@@ -132,15 +150,6 @@ constexpr size_t dq_smem_bytes() {
          sizeof(int) * (kBQ + kBKb);
 }
 
-// B2: K and V tiles, padded q and dout tiles, the transposed p and ds tiles
-// and three per-row vectors.
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (2 * kBKb * D + 2 * kBQ * (D + 1) + 2 * kBKb * kBQ + 3 * kBQ) +
-         sizeof(int) * (kBQ + kBKb);
-}
-
-__device__ __forceinline__ bool is_neg_inf(float x) { return isinf(x) && x < 0.f; }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -311,193 +320,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         const float* __restrict__ dlse, const int* __restrict__ q_pos,
-                         const int* __restrict__ k_pos, float* __restrict__ dk,
-                         float* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv, int causal,
-                         int has_window, int window, float scale) {
-  static_assert(kThreads % D == 0 || D % kThreads == 0, "D must tile the block");
-  static_assert(kBQ == 32 && (kBQ * kBKb) % kThreads == 0, "one query per lane");
-  // As in B1: column tid % D of key rows tid / D + i * RSTEP, or columns
-  // tid + c * kThreads of every key row past the block's width.
-  constexpr int CPT = D > kThreads ? D / kThreads : 1;  // columns per thread
-  constexpr int RSTEP = D > kThreads ? 1 : kThreads / D;
-  constexpr int NR = kBKb / RSTEP;  // dk/dv rows per thread
-  constexpr int SPT = kBQ * kBKb / kThreads;  // score keys per thread
-  constexpr int SSTEP = kThreads / kBQ;
-  constexpr int QS = D + 1;  // padded q/dout row: lanes on distinct queries hit distinct banks
-
-  extern __shared__ __align__(16) float smem[];
-  float* sK = smem;
-  float* sV = sK + kBKb * D;
-  float* sPT = sV + kBKb * D;   // p transposed, (BK, BQ), 16-byte aligned rows
-  float* sDST = sPT + kBKb * kBQ;  // ds transposed
-  float* sQ = sDST + kBKb * kBQ;
-  float* sDO = sQ + kBQ * QS;
-  float* sL = sDO + kBQ * QS;
-  float* sDelta = sL + kBQ;
-  float* sDlse = sDelta + kBQ;
-  int* sQp = reinterpret_cast<int*>(sDlse + kBQ);
-  int* sKp = sQp + kBQ;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int k0 = blockIdx.x * kBKb;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int group = Hq / Hkv;
-  const bool is_causal = causal != 0, windowed = has_window != 0;
-  const int nkeys = min(kBKb, Sk - k0);
-
-  for (int i = tid; i < kBKb * D; i += kThreads) {
-    const int j = i / D;
-    float kv = 0.f, vv = 0.f;
-    if (j < nkeys) {
-      const size_t off = (((size_t)b * Sk + k0 + j) * Hkv + hk) * D + i % D;
-      kv = to_f(k[off]);
-      vv = to_f(v[off]);
-    }
-    sK[i] = kv;
-    sV[i] = vv;
-  }
-  if (tid < kBKb) sKp[tid] = tid < nkeys ? k_pos[(size_t)b * Sk + k0 + tid] : (2 * kPadHalf);
-  __syncthreads();
-  int kmin = INT32_MAX, kmax = INT32_MIN;
-  for (int j = 0; j < kBKb; ++j) {
-    kmin = min(kmin, sKp[j]);
-    kmax = max(kmax, sKp[j]);
-  }
-
-  float dk_acc[NR][CPT], dv_acc[NR][CPT];
-#pragma unroll
-  for (int i = 0; i < NR; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-  const int d = tid % D, row0 = tid / D;
-  const int n_qtiles = (Sq + kBQ - 1) / kBQ;
-
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    for (int t = 0; t < n_qtiles; ++t) {
-      const int q0 = t * kBQ;
-      const int nrows = min(kBQ, Sq - q0);
-      if (tid < kBQ) sQp[tid] = tid < nrows ? q_pos[(size_t)b * Sq + q0 + tid] : 0;
-      __syncthreads();
-      int qmin = INT32_MAX, qmax = INT32_MIN;
-      for (int r = 0; r < nrows; ++r) {
-        qmin = min(qmin, sQp[r]);
-        qmax = max(qmax, sQp[r]);
-      }
-      bool skip = kmin >= kPadHalf;
-      if (is_causal) skip = skip || qmax < kmin;
-      if (windowed) skip = skip || kmax <= qmin - window;
-      __syncthreads();  // every thread has read sQp's range before it is rewritten
-      if (skip) continue;
-      for (int i = tid; i < kBQ * D; i += kThreads) {
-        const int r = i / D, e = i % D;
-        float qv = 0.f, dov = 0.f;
-        if (r < nrows) {
-          const size_t off = (((size_t)b * Sq + q0 + r) * Hq + h) * D + e;
-          qv = to_f(q[off]);
-          dov = to_f(dout[off]);
-        }
-        sQ[r * QS + e] = qv;
-        sDO[r * QS + e] = dov;
-      }
-      if (tid < kBQ) {
-        float l = 0.f, dl = 0.f, de = 0.f;
-        if (tid < nrows) {
-          const size_t row = ((size_t)b * Sq + q0 + tid) * Hq + h;
-          l = lse[row];
-          dl = dlse[row];
-          de = delta[row];
-          if (is_neg_inf(l)) l = dl = 0.f;
-        }
-        sL[tid] = l;
-        sDlse[tid] = dl;
-        sDelta[tid] = de;
-      }
-      __syncthreads();
-      {
-        // Lane r owns query r; keys j = warp + SSTEP*i share its q/dout value.
-        const int r = lane;
-        float s[SPT], dp[SPT];
-#pragma unroll
-        for (int i = 0; i < SPT; ++i) s[i] = dp[i] = 0.f;
-#pragma unroll 4
-        for (int e = 0; e < D; ++e) {
-          const float qe = sQ[r * QS + e], de = sDO[r * QS + e];
-#pragma unroll
-          for (int i = 0; i < SPT; ++i) {
-            const int j = tid / kBQ + i * SSTEP;
-            s[i] = fmaf(qe, sK[j * D + e], s[i]);
-            dp[i] = fmaf(de, sV[j * D + e], dp[i]);
-          }
-        }
-        const int qp = sQp[r];
-        const bool row_ok = r < nrows;
-#pragma unroll
-        for (int i = 0; i < SPT; ++i) {
-          const int j = tid / kBQ + i * SSTEP;
-          const float p = row_ok && visible(qp, sKp[j], is_causal, windowed, window)
-                              ? expf(s[i] * scale - sL[r])
-                              : 0.f;
-          sPT[j * kBQ + r] = p;
-          sDST[j * kBQ + r] = p * (dp[i] - sDelta[r] + sDlse[r]) * scale;
-        }
-      }
-      __syncthreads();
-      // dv[j, d] += sum_r p[r, j] * dout[r, d]; dk[j, d] += sum_r ds[r, j] * q[r, d].
-#pragma unroll 2
-      for (int r = 0; r < kBQ; r += 4) {
-        float dov[4][CPT], qv[4][CPT];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) {
-            dov[u][c] = sDO[(r + u) * QS + d + c * kThreads];
-            qv[u][c] = sQ[(r + u) * QS + d + c * kThreads];
-          }
-#pragma unroll
-        for (int i = 0; i < NR; ++i) {
-          const int j = row0 + i * RSTEP;
-          const float4 p = *reinterpret_cast<const float4*>(sPT + j * kBQ + r);
-          const float4 ds = *reinterpret_cast<const float4*>(sDST + j * kBQ + r);
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) {
-            dv_acc[i][c] = fmaf(p.x, dov[0][c], dv_acc[i][c]);
-            dv_acc[i][c] = fmaf(p.y, dov[1][c], dv_acc[i][c]);
-            dv_acc[i][c] = fmaf(p.z, dov[2][c], dv_acc[i][c]);
-            dv_acc[i][c] = fmaf(p.w, dov[3][c], dv_acc[i][c]);
-            dk_acc[i][c] = fmaf(ds.x, qv[0][c], dk_acc[i][c]);
-            dk_acc[i][c] = fmaf(ds.y, qv[1][c], dk_acc[i][c]);
-            dk_acc[i][c] = fmaf(ds.z, qv[2][c], dk_acc[i][c]);
-            dk_acc[i][c] = fmaf(ds.w, qv[3][c], dk_acc[i][c]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    const int j = row0 + i * RSTEP;
-    if (j < nkeys) {
-      const size_t off = (((size_t)b * Sk + k0 + j) * Hkv + hk) * D + d;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        dk[off + c * kThreads] = dk_acc[i][c];
-        dv[off + c * kThreads] = dv_acc[i][c];
-      }
-    }
-  }
-}
-
 struct BwdArgs {
   const void *q, *k, *v, *dout;
   const float *lse, *delta, *dlse;
@@ -523,20 +345,305 @@ cudaError_t launch_dq(const BwdArgs& a, float* dq) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// B2's CUDA-core instance: float32, and bf16 at D 32.
+// ---------------------------------------------------------------------------
+
+namespace core {
+
+// The tiling and shared-memory layout (bytes) of one block at head dim D
+// with Q and dout staged in T (mirrored by `core_dkv_tiling` and the kernel
+// lint's closed form).  Thread (ty, tx) = (tid / 16, tid % 16) owns keys
+// ty + 16 i of the block: queries tx + 16 j of S^T and dP^T, and columns
+// VW tx + 16 VW c (c < NV) of dK and dV.
+template <typename T, int D>
+struct Dkv {
+  static constexpr int BK = 32;                  // keys a block
+  static constexpr int BQ = D == 256 ? 32 : 64;  // q rows a tile of the walk
+  static constexpr int kStages = 2;              // depth of the Q/dout ring
+  static constexpr int TK = BK / 16, TQ = BQ / 16;  // keys and queries of a thread's S^T
+  static constexpr int VW = D >= 64 ? 4 : 2;     // dK/dV columns a vector
+  static constexpr int NV = D / 16 / VW;         // vectors a key of a thread
+  static constexpr int KS = D + 4;               // float32 row of K and V: 16 bytes of padding
+  static constexpr int QS = D + 16 / (int)sizeof(T);  // row of Q and dout in T: 16 bytes too
+  static constexpr int PS = BQ + 16;             // row of P^T and dS^T
+  // A stage: Q, dout, then the rows' lse, delta, dlse and positions.
+  static constexpr int kRows = 2 * BQ * QS * (int)sizeof(T);
+  static constexpr int kStage = kRows + 4 * 4 * BQ;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + 4 * BK * KS;
+  static constexpr int kRing = kV + 4 * BK * KS;
+  static constexpr int kPT = kRing + kStages * kStage;
+  static constexpr int kDST = kPT + 4 * BK * PS;
+  static constexpr int kKp = kDST + 4 * BK * PS;
+  static constexpr int kLive = kKp + 4 * BK;
+  static constexpr int kFlags = kLive + 4 * kFlagChunk;
+  static constexpr int kMisc = kFlags + kFlagChunk;  // key range, live count
+  static constexpr int kBytes = kMisc + 16;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_core_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              const float* __restrict__ dlse, const int* __restrict__ q_pos,
+                              const int* __restrict__ k_pos, float* __restrict__ dk,
+                              float* __restrict__ dv, int B, int Sq, int Sk, int Hq, int Hkv,
+                              int causal, int has_window, int window, float scale) {
+  using L = Dkv<T, D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem + L::kK);
+  float* sV = reinterpret_cast<float*>(smem + L::kV);
+  unsigned char* ring = smem + L::kRing;
+  float* sPT = reinterpret_cast<float*>(smem + L::kPT);
+  float* sDST = reinterpret_cast<float*>(smem + L::kDST);
+  int* sKp = reinterpret_cast<int*>(smem + L::kKp);
+  int* sLive = reinterpret_cast<int*>(smem + L::kLive);
+  uint8_t* sFlags = smem + L::kFlags;
+  int* sMisc = reinterpret_cast<int*>(smem + L::kMisc);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tx = tid & 15, ty = tid >> 4;
+  // Blocks in tile-major order: under the causal mask key tile 0 has the
+  // most live q-tiles, so index order starts with the heaviest.
+  const int kt = blockIdx.x / (Hkv * B), hb = blockIdx.x % (Hkv * B);
+  const int k0 = kt * L::BK, hk = hb % Hkv, b = hb / Hkv, group = Hq / Hkv;
+  const int nkeys = min(L::BK, Sk - k0);
+  const bool is_causal = causal != 0, windowed = has_window != 0;
+  const int* qpb = q_pos + (size_t)b * Sq;
+
+  // K and V of the block's keys in float32 (keys past Sk are zero) and the
+  // keys' positions (past Sk: padding).
+  constexpr int QC = D / 4;
+  for (int i = tid; i < L::BK * QC; i += kThreads) {
+    const int j = i / QC, c = 4 * (i % QC);
+    float x[4] = {0.f, 0.f, 0.f, 0.f}, y[4] = {0.f, 0.f, 0.f, 0.f};
+    if (j < nkeys) {
+      const size_t off = (((size_t)b * Sk + k0 + j) * Hkv + hk) * D + c;
+      ld_vec(k + off, x);
+      ld_vec(v + off, y);
+    }
+    st_vec(sK + j * L::KS + c, x);
+    st_vec(sV + j * L::KS + c, y);
+  }
+  if (tid < L::BK) sKp[tid] = tid < nkeys ? k_pos[(size_t)b * Sk + k0 + tid] : 2 * kPadHalf;
+  __syncthreads();
+  if (warp == 0) {
+    int lo = INT32_MAX, hi = INT32_MIN;
+    for (int j = lane; j < L::BK; j += 32) lo = min(lo, sKp[j]), hi = max(hi, sKp[j]);
+    lo = warp_min_i(lo);
+    hi = warp_max_i(hi);
+    if (lane == 0) sMisc[0] = lo, sMisc[1] = hi;
+  }
+
+  // Item n of the walk: query head hk * group + n / n_live of the group, the
+  // live q-tile sLive[n % n_live]: its Q and dout rows (16 bytes a copy,
+  // rows past Sq zero) and its rows' lse, delta, dlse and positions (4
+  // bytes a copy, past Sq zero).
+  auto load_item = [&](int stage, int n, int n_live) {
+    constexpr int C = D * (int)sizeof(T) / 16, E = 16 / (int)sizeof(T);
+    const int q0 = (sLive[n % n_live] & kTileMask) * L::BQ, h = hk * group + n / n_live;
+    unsigned char* st = ring + stage * L::kStage;
+    T* dst = reinterpret_cast<T*>(st);
+    for (int i = tid; i < 2 * L::BQ * C; i += kThreads) {
+      const int which = i / (L::BQ * C), r = (i / C) % L::BQ, c = i % C;
+      const bool ok = q0 + r < Sq;
+      const T* src = (which ? dout : q) + (((size_t)b * Sq + (ok ? q0 + r : q0)) * Hq + h) * D +
+                     c * E;
+      cp_async16(dst + (which * L::BQ + r) * L::QS + c * E, src, ok);
+    }
+    if (tid < 4 * L::BQ) {
+      const int which = tid / L::BQ, r = tid % L::BQ;
+      const bool ok = q0 + r < Sq;
+      const size_t s = (size_t)b * Sq + (ok ? q0 + r : q0), row = s * Hq + h;
+      const void* src = which == 0   ? static_cast<const void*>(lse + row)
+                        : which == 1 ? static_cast<const void*>(delta + row)
+                        : which == 2 ? static_cast<const void*>(dlse + row)
+                                     : static_cast<const void*>(q_pos + s);
+      cp_async4(st + L::kRows + 4 * (which * L::BQ + r), src, ok);
+    }
+  };
+
+  float ak[L::TK][L::NV][L::VW], av[L::TK][L::NV][L::VW];
+#pragma unroll
+  for (int i = 0; i < L::TK; ++i)
+#pragma unroll
+    for (int c = 0; c < L::NV; ++c)
+#pragma unroll
+      for (int w = 0; w < L::VW; ++w) ak[i][c][w] = av[i][c][w] = 0.f;
+
+  const int nq = (Sq + L::BQ - 1) / L::BQ;
+  for (int c0 = 0; c0 < nq; c0 += kFlagChunk) {
+    const int cn = min(kFlagChunk, nq - c0);
+    __syncthreads();  // the key range is written; the last chunk's items are read
+    const int kmin = sMisc[0], kmax = sMisc[1];
+    // Each q-tile's flag from its real rows' positions; a ragged last tile
+    // is masked element by element (its missing rows must give P = 0).
+    for (int t = warp; t < cn; t += kThreads / 32) {
+      const int base = (c0 + t) * L::BQ;
+      int lo = INT32_MAX, hi = INT32_MIN;
+      for (int r = lane; r < L::BQ; r += 32)
+        if (base + r < Sq) lo = min(lo, qpb[base + r]), hi = max(hi, qpb[base + r]);
+      lo = warp_min_i(lo);
+      hi = warp_max_i(hi);
+      if (lane == 0) {
+        const int f = tile_flag(lo, hi, kmin, kmax, is_causal, windowed, window);
+        sFlags[t] = (uint8_t)(f == 1 && base + L::BQ > Sq ? 2 : f);
+      }
+    }
+    __syncthreads();
+    if (warp == 0) list_live(sFlags, cn, c0, sLive, sMisc + 2);
+    __syncthreads();
+    const int n_live = sMisc[2], n_items = group * n_live;
+#pragma unroll
+    for (int s = 0; s < L::kStages - 1; ++s) {
+      if (s < n_items) load_item(s, s, n_live);
+      cp_async_commit();
+    }
+    // The walk: every head of the group, then every live q-tile, in order.
+    for (int it = 0; it < n_items; ++it) {
+      cp_async_wait<L::kStages - 2>();
+      __syncthreads();  // item `it` has landed; every thread is done with item it - 1
+      if (it + L::kStages - 1 < n_items)
+        load_item((it + L::kStages - 1) % L::kStages, it + L::kStages - 1, n_live);
+      cp_async_commit();
+      const int entry = sLive[it % n_live];
+      const int q0 = (entry & kTileMask) * L::BQ;
+      const unsigned char* st = ring + (it % L::kStages) * L::kStage;
+      const T* sQ = reinterpret_cast<const T*>(st);
+      const T* sDO = sQ + L::BQ * L::QS;
+      const float* sL = reinterpret_cast<const float*>(st + L::kRows);
+      const float* sDelta = sL + L::BQ;
+      const float* sDlse = sDelta + L::BQ;
+      const int* sQp = reinterpret_cast<const int*>(sDlse + L::BQ);
+
+      // S^T = K Q^T and dP^T = V dout^T: four columns a step.
+      float s[L::TK][L::TQ], dp[L::TK][L::TQ];
+#pragma unroll
+      for (int i = 0; i < L::TK; ++i)
+#pragma unroll
+        for (int j = 0; j < L::TQ; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        float ka[L::TK][4], va[L::TK][4], qa[L::TQ][4], da[L::TQ][4];
+#pragma unroll
+        for (int i = 0; i < L::TK; ++i) {
+          ld_vec(sK + (ty + 16 * i) * L::KS + d, ka[i]);
+          ld_vec(sV + (ty + 16 * i) * L::KS + d, va[i]);
+        }
+#pragma unroll
+        for (int j = 0; j < L::TQ; ++j) {
+          ld_vec(sQ + (tx + 16 * j) * L::QS + d, qa[j]);
+          ld_vec(sDO + (tx + 16 * j) * L::QS + d, da[j]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int i = 0; i < L::TK; ++i)
+#pragma unroll
+            for (int j = 0; j < L::TQ; ++j) {
+              s[i][j] = fmaf(qa[j][e], ka[i][e], s[i][j]);
+              dp[i][j] = fmaf(da[j][e], va[i][e], dp[i][j]);
+            }
+      }
+      // P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta + dlse) scale.
+      const bool masked = (entry >> kFlagShift) == 2;
+#pragma unroll
+      for (int j = 0; j < L::TQ; ++j) {
+        const int r = tx + 16 * j;
+        float lr = sL[r], dl = sDlse[r];
+        if (is_neg_inf(lr)) lr = dl = 0.f;
+        const float de = sDelta[r];
+#pragma unroll
+        for (int i = 0; i < L::TK; ++i) {
+          const int key = ty + 16 * i;
+          const bool vis = !masked || (q0 + r < Sq && visible(sQp[r], sKp[key], is_causal,
+                                                              windowed, window));
+          const float p = vis ? expf(s[i][j] * scale - lr) : 0.f;
+          sPT[key * L::PS + r] = p;
+          sDST[key * L::PS + r] = p * (dp[i][j] - de + dl) * scale;
+        }
+      }
+      __syncthreads();  // P^T and dS^T are whole
+      // dV += P^T dout and dK += dS^T Q: four queries a step.
+#pragma unroll
+      for (int r = 0; r < L::BQ; r += 4) {
+        float pa[L::TK][4], sa[L::TK][4];
+#pragma unroll
+        for (int i = 0; i < L::TK; ++i) {
+          ld_vec(sPT + (ty + 16 * i) * L::PS + r, pa[i]);
+          ld_vec(sDST + (ty + 16 * i) * L::PS + r, sa[i]);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float dov[L::NV][L::VW], qv[L::NV][L::VW];
+#pragma unroll
+          for (int c = 0; c < L::NV; ++c) {
+            ld_vec(sDO + (r + u) * L::QS + L::VW * (tx + 16 * c), dov[c]);
+            ld_vec(sQ + (r + u) * L::QS + L::VW * (tx + 16 * c), qv[c]);
+          }
+#pragma unroll
+          for (int i = 0; i < L::TK; ++i)
+#pragma unroll
+            for (int c = 0; c < L::NV; ++c)
+#pragma unroll
+              for (int w = 0; w < L::VW; ++w) {
+                av[i][c][w] = fmaf(pa[i][u], dov[c][w], av[i][c][w]);
+                ak[i][c][w] = fmaf(sa[i][u], qv[c][w], ak[i][c][w]);
+              }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < L::TK; ++i) {
+    const int key = ty + 16 * i;
+    if (key >= nkeys) continue;
+    const size_t off = (((size_t)b * Sk + k0 + key) * Hkv + hk) * D;
+#pragma unroll
+    for (int c = 0; c < L::NV; ++c) {
+      st_vec(dk + off + L::VW * (tx + 16 * c), ak[i][c]);
+      st_vec(dv + off + L::VW * (tx + 16 * c), av[i][c]);
+    }
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch_dkv(const BwdArgs& a, float* dk, float* dv) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  auto kern = flash_bwd_dkv_kernel<T, D>;
+  using L = Dkv<T, D>;
+  auto kern = flash_bwd_dkv_core_kernel<T, D>;
+  // The shared-memory opt-in is set once per template instance (per process).
   static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (attr != cudaSuccess) return attr;
-  dim3 grid((a.Sk + kBKb - 1) / kBKb, a.Hkv, a.B);
-  kern<<<grid, kThreads, smem, a.stream>>>(
+  // 16-byte cp.async copies of q and dout, vector loads of k and v.
+  if (((uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v | (uintptr_t)a.dout) & 15)
+    return cudaErrorMisalignedAddress;
+  const long long blocks = (long long)((a.Sk + L::BK - 1) / L::BK) * a.Hkv * a.B;
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, kThreads, L::kBytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, a.dlse, a.q_pos, a.k_pos, dk, dv, a.Sq,
-      a.Sk, a.Hq, a.Hkv, a.causal, a.has_window, a.window, a.scale);
+      static_cast<const T*>(a.dout), a.lse, a.delta, a.dlse, a.q_pos, a.k_pos, dk, dv, a.B,
+      a.Sq, a.Sk, a.Hq, a.Hkv, a.causal, a.has_window, a.window, a.scale);
   return cudaGetLastError();
 }
+
+// Dynamic shared memory of one block (bytes) at head dim D and type (`bf16`
+// 1: D 32 only), or 0 where no instance exists.
+inline size_t dkv_smem_bytes(int D, int bf16) {
+  if (bf16) return D == 32 ? Dkv<__nv_bfloat16, 32>::kBytes : 0;
+  switch (D) {
+    case 32: return Dkv<float, 32>::kBytes;
+    case 64: return Dkv<float, 64>::kBytes;
+    case 128: return Dkv<float, 128>::kBytes;
+    case 256: return Dkv<float, 256>::kBytes;
+  }
+  return 0;
+}
+
+}  // namespace core
 
 // bf16 calls with D 64/128/256 go to the wgmma instances: only float32
 // instantiates the CUDA-core kernels at those widths.
@@ -559,12 +666,12 @@ template <typename T>
 cudaError_t dkv_dim(int D, const BwdArgs& a, float* dk, float* dv) {
   constexpr bool f32 = std::is_same_v<T, float>;
   switch (D) {
-    case 32: return launch_dkv<T, 32>(a, dk, dv);
-    case 64: if constexpr (f32) return launch_dkv<T, 64>(a, dk, dv);
+    case 32: return core::launch_dkv<T, 32>(a, dk, dv);
+    case 64: if constexpr (f32) return core::launch_dkv<T, 64>(a, dk, dv);
       break;
-    case 128: if constexpr (f32) return launch_dkv<T, 128>(a, dk, dv);
+    case 128: if constexpr (f32) return core::launch_dkv<T, 128>(a, dk, dv);
       break;
-    case 256: if constexpr (f32) return launch_dkv<T, 256>(a, dk, dv);
+    case 256: if constexpr (f32) return core::launch_dkv<T, 256>(a, dk, dv);
       break;
   }
   return cudaErrorInvalidValue;
@@ -1299,6 +1406,13 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
 // 1 if the wgmma instances take a call of this dtype and D, else 0: lets
 // the host check its copy of the rule (`flash_bwd_instance`) on the card.
 extern "C" int flash_bwd_takes_wgmma(int bf16, int D) { return rt::takes_wgmma_bwd(bf16, D); }
+
+// Dynamic shared memory of one block of B2's CUDA-core instance (bytes) at
+// head dim D and type (`bf16` 1: D 32 only), or -1 where none exists.
+extern "C" int flash_bwd_dkv_core_smem(int D, int bf16) {
+  const size_t bytes = rt::core::dkv_smem_bytes(D, bf16);
+  return bytes ? (int)bytes : -1;
+}
 
 // Dynamic shared memory of one wgmma-instance block (bytes): B1 (`dkv` 0)
 // at Sk = `S`, or B2 (`dkv` 1) at Sq = `S`; -1 where no wgmma instance has

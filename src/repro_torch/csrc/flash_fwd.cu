@@ -80,15 +80,41 @@
 //   the tensor cores idle while exponentials run; at D 256 a 64-key tile
 //   also gives each wait for the products half the work of a 128-key one.
 //
-// * The CUDA-core instance (float32 inputs, and D = 32, Sq > 4): one block
-//   of 128 threads per (q-tile of 32 rows, head, batch row) walks KV tiles
-//   of 32 keys with the softmax state in shared memory and float32 products
-//   on the CUDA cores, one multiply-add per shared-memory read: bound by
-//   shared-memory bandwidth, far from the tensor-core rate.  It is exact to
-//   float32 and stays as the reference instance (recurrentgemma's float32
-//   checks run on it).  At D = 256 a thread owns two columns of every row
-//   of the q-tile (64 accumulators) and the block's shared memory is 101
-//   KB.  Only float32 instantiates it at D 64/128/256.
+// * The CUDA-core instance (float32, and bf16 at D 32, Sq > 4: every
+//   float32 check of the port, and the `--reduced` training path):
+//   `core::flash_fwd_core_kernel<T, D>`, exact float32 (FFMA on the CUDA
+//   cores, no TF32), the port's precision reference.  What bounds it: the
+//   FP32 rate, 67 TFLOP/s (4*D flops a visible pair), once shared memory
+//   feeds the FFMAs fast enough.  The design, in `core::Fwd<T, D>`:
+//   - 256 threads a block over a 64-row q-tile; KV tiles of 64 keys (32 at
+//     D 256, so that Q and two stages of K and V fit the block's 227 KB:
+//     213,776 B; 191,504 B at D 128).  A 16 x 16 grid of threads: thread
+//     (ty, tx) holds S for rows ty + 16 i and keys tx + 16 j (4 x 4, 4 x 2
+//     at D 256) and O for the same rows and D/16 columns, so the softmax's
+//     row state is the thread's own.
+//   - S = (Q scale) K^T reads four columns of each row as one 16-byte
+//     load: 8 loads feed 64 FFMAs (8 a load).  Q is held scaled in float32;
+//     K and V in their stored type (bf16 is widened as it is read).  Rows
+//     are padded by 16 bytes, so the 8 rows a quarter-warp reads fall in
+//     distinct banks; Q's reads are broadcasts (two rows a warp).
+//   - K and V tiles stream through a ring of 2 stages by 16-byte cp.async
+//     (rows past Sk zero-filled), with the keys' positions by 4-byte
+//     copies: tile t + 1 loads while tile t computes.
+//   - The online softmax runs in registers: a row's max and sum by
+//     shuffles over its 16 threads (a half-warp), m and l in registers, the
+//     alpha rescale applied to O's registers (the Pallas `safe_m` and
+//     `alpha` guards); only P goes through shared memory for O += P V
+//     (four keys of P as one load, V's rows as 16-byte loads).  Two block
+//     barriers a tile.
+//   - Before the walk the block flags every KV tile once (dead, wholly
+//     visible, masked; a missing key counts as padding) and lists the live
+//     ones, 256 tiles at a time (so shared memory does not grow with Sk);
+//     the ring walks the list, the elementwise mask runs only on masked
+//     tiles.  Blocks are tile-major; causal grids start with the q-tiles
+//     that have the most live tiles.
+//   What keeps it from the FP32 rate: one block of 8 warps an SM (its
+//   shared memory), two barriers and a half-warp's shuffles a tile, the
+//   diagonal tiles' masked half and the causal grid's imbalance.
 #include <type_traits>
 
 #include "common.cuh"
@@ -97,193 +123,277 @@
 
 namespace rt {
 
-constexpr int kBK = 32;  // keys per tile: one per lane in the softmax pass
-constexpr int kBQ = 32;  // q rows per block
+// ---------------------------------------------------------------------------
+// The CUDA-core instance: float32, and bf16 at D 32, Sq > 4.
+// ---------------------------------------------------------------------------
 
-template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (kBQ * D + kBK * (D + 1) + kBK * D + kBQ * kBK + 3 * kBQ) +
-         sizeof(int) * (kBQ + kBK);
-}
+namespace core {
+
+// The tiling and shared-memory layout (bytes) of one block at head dim D
+// with K and V staged in T (mirrored by `core_fwd_tiling` and the kernel
+// lint's closed form).  Thread (ty, tx) = (tid / 16, tid % 16) owns rows
+// ty + 16 i of the q-tile: keys tx + 16 j of S, and columns VW tx + 16 VW c
+// (c < NV) of O.
+template <typename T, int D>
+struct Fwd {
+  static constexpr int BQ = 64;                // q rows a block
+  static constexpr int BK = D == 256 ? 32 : 64;  // keys a KV tile
+  static constexpr int kStages = 2;             // depth of the K/V ring
+  static constexpr int TR = BQ / 16, TK = BK / 16;  // rows and keys of a thread's S
+  static constexpr int VW = D >= 64 ? 4 : 2;    // O columns a vector
+  static constexpr int NV = D / 16 / VW;        // O vectors a row of a thread
+  static constexpr int QS = D + 4;              // float32 row of Q: 16 bytes of padding
+  static constexpr int KS = D + 16 / (int)sizeof(T);  // row of K and V in T: 16 bytes too
+  static constexpr int PS = BK + 16;            // row of P
+  static constexpr int kStage = 2 * BK * KS * (int)sizeof(T);  // K, then V
+  static constexpr int kQ = 0;
+  static constexpr int kKV = kQ + 4 * BQ * QS;
+  static constexpr int kP = kKV + kStages * kStage;
+  static constexpr int kKp = kP + 4 * BQ * PS;    // key positions, a stage each
+  static constexpr int kQp = kKp + 4 * kStages * BK;
+  static constexpr int kLive = kQp + 4 * BQ;
+  static constexpr int kFlags = kLive + 4 * kFlagChunk;
+  static constexpr int kMisc = kFlags + kFlagChunk;  // q range, live count
+  static constexpr int kBytes = kMisc + 16;
+};
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ q_pos,
-                     const int* __restrict__ k_pos, T* __restrict__ out,
-                     float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int causal,
-                     int has_window, int window, float scale) {
-  static_assert(kThreads % D == 0 || D % kThreads == 0, "D must tile the block");
-  static_assert((kBQ * D) % kThreads == 0 && (kBQ * kBK) % kThreads == 0, "tile split");
-  // A thread owns column tid % D of rows tid / D + i * RSTEP when D <= the
-  // block; past it (D = 256) columns tid + c * kThreads of every row.
-  constexpr int CPT = D > kThreads ? D / kThreads : 1;  // columns per thread
-  constexpr int RSTEP = D > kThreads ? 1 : kThreads / D;
-  constexpr int NR = kBQ / RSTEP;  // rows per thread
-  constexpr int SPT = kBQ * kBK / kThreads;  // scores per thread
-  constexpr int SSTEP = kThreads / kBK;
-  constexpr int KS = D + 1;  // padded K row: lanes on distinct keys hit distinct banks
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_core_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const int* __restrict__ q_pos,
+                          const int* __restrict__ k_pos, T* __restrict__ out,
+                          float* __restrict__ lse, int B, int Sq, int Sk, int Hq, int Hkv,
+                          int causal, int has_window, int window, float scale) {
+  using L = Fwd<T, D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem + L::kQ);
+  T* sKV = reinterpret_cast<T*>(smem + L::kKV);
+  float* sP = reinterpret_cast<float*>(smem + L::kP);
+  int* sKp = reinterpret_cast<int*>(smem + L::kKp);
+  int* sQp = reinterpret_cast<int*>(smem + L::kQp);
+  int* sLive = reinterpret_cast<int*>(smem + L::kLive);
+  uint8_t* sFlags = smem + L::kFlags;
+  int* sMisc = reinterpret_cast<int*>(smem + L::kMisc);
 
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kBQ * D;
-  float* sV = sK + kBK * KS;
-  float* sP = sV + kBK * D;
-  float* sM = sP + kBQ * kBK;
-  float* sL = sM + kBQ;
-  float* sA = sL + kBQ;
-  int* sQp = reinterpret_cast<int*>(sA + kBQ);
-  int* sKp = sQp + kBQ;
-  __shared__ int s_qmin, s_qmax;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tx = tid & 15, ty = tid >> 4;
+  // Blocks in tile-major order; causal grids start with the q-tiles that
+  // have the most live KV tiles.
+  const int nq = (Sq + L::BQ - 1) / L::BQ;
+  const int rank = blockIdx.x / (Hq * B), hb = blockIdx.x % (Hq * B);
+  const int qt = causal ? nq - 1 - rank : rank;
+  const int q0 = qt * L::BQ, h = hb % Hq, b = hb / Hq, hk = h / (Hq / Hkv);
   const bool is_causal = causal != 0, windowed = has_window != 0;
+  const size_t key_stride = (size_t)Hkv * D;  // elements from one key to the next
+  const T* kb = k + (size_t)b * Sk * key_stride + (size_t)hk * D;
+  const T* vb = v + (size_t)b * Sk * key_stride + (size_t)hk * D;
+  const int* kpb = k_pos + (size_t)b * Sk;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, s = q0 + r;
-    sQ[i] = s < Sq ? to_f(q[(((size_t)b * Sq + s) * Hq + h) * D + i % D]) * scale : 0.f;
+  // Q, scaled, in float32 (rows past Sq are zero), and the q positions.
+  constexpr int QC = D / 4;
+  for (int i = tid; i < L::BQ * QC; i += kThreads) {
+    const int r = i / QC, c = 4 * (i % QC);
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (q0 + r < Sq) ld_vec(q + (((size_t)b * Sq + q0 + r) * Hq + h) * D + c, x);
+    const float y[4] = {x[0] * scale, x[1] * scale, x[2] * scale, x[3] * scale};
+    st_vec(sQ + r * L::QS + c, y);
   }
-  for (int r = tid; r < kBQ; r += kThreads) {
-    const int s = q0 + r;
-    sQp[r] = s < Sq ? q_pos[(size_t)b * Sq + s] : 0;
-    sM[r] = kNegInf;
-    sL[r] = 0.f;
-  }
+  if (tid < L::BQ) sQp[tid] = q0 + tid < Sq ? q_pos[(size_t)b * Sq + q0 + tid] : 0;
   __syncthreads();
-  if (tid == 0) {
+  if (warp == 0) {
     int lo = INT32_MAX, hi = INT32_MIN;
-    for (int r = 0; r < kBQ && q0 + r < Sq; ++r) {
-      lo = min(lo, sQp[r]);
-      hi = max(hi, sQp[r]);
-    }
-    s_qmin = lo;
-    s_qmax = hi;
+    for (int r = lane; r < L::BQ; r += 32)
+      if (q0 + r < Sq) lo = min(lo, sQp[r]), hi = max(hi, sQp[r]);
+    lo = warp_min_i(lo);
+    hi = warp_max_i(hi);
+    if (lane == 0) sMisc[0] = lo, sMisc[1] = hi;
   }
 
-  float acc[NR][CPT];
-#pragma unroll
-  for (int i = 0; i < NR; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  const int d = tid % D, row0 = tid / D;
+  // K and V rows of a tile, 16 bytes a copy, rows past Sk zero; the keys'
+  // positions, 4 bytes a copy (past Sk: masked by index below).
+  auto load_tile = [&](int stage, int entry) {
+    constexpr int C = D * (int)sizeof(T) / 16, E = 16 / (int)sizeof(T);
+    const int k0 = (entry & kTileMask) * L::BK;
+    T* dst = sKV + stage * (L::kStage / (int)sizeof(T));
+    for (int i = tid; i < 2 * L::BK * C; i += kThreads) {
+      const int which = i / (L::BK * C), r = (i / C) % L::BK, c = i % C;
+      const bool ok = k0 + r < Sk;
+      const T* src = (which ? vb : kb) + (size_t)(ok ? k0 + r : k0) * key_stride + c * E;
+      cp_async16(dst + (which * L::BK + r) * L::KS + c * E, src, ok);
+    }
+    if (tid < L::BK) {
+      const bool ok = k0 + tid < Sk;
+      cp_async4(sKp + stage * L::BK + tid, kpb + (ok ? k0 + tid : k0), ok);
+    }
+  };
 
-  for (int k0 = 0; k0 < Sk; k0 += kBK) {
-    if (tid < kBK) {
-      const int j = k0 + tid;
-      sKp[tid] = j < Sk ? k_pos[(size_t)b * Sk + j] : (2 * kPadHalf);
-    }
-    __syncthreads();
-    // Whole-tile skip: the Pallas `_tile_skip` predicate on this tile's
-    // positions (uniform across the block, so the branch is too).
-    int kmin = INT32_MAX, kmax = INT32_MIN;
-    for (int j = 0; j < kBK; ++j) {
-      kmin = min(kmin, sKp[j]);
-      kmax = max(kmax, sKp[j]);
-    }
-    bool skip = kmin >= kPadHalf;
-    if (is_causal) skip = skip || s_qmax < kmin;
-    if (windowed) skip = skip || kmax <= s_qmin - window;
-    if (skip) {
-      __syncthreads();
-      continue;
-    }
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int j = i / D, dd = i % D, kj = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (kj < Sk) {
-        const size_t off = (((size_t)b * Sk + kj) * Hkv + hk) * D + dd;
-        kv = to_f(k[off]);
-        vv = to_f(v[off]);
+  float o[L::TR][L::NV][L::VW], m[L::TR], l[L::TR];
+#pragma unroll
+  for (int i = 0; i < L::TR; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < L::NV; ++c)
+#pragma unroll
+      for (int w = 0; w < L::VW; ++w) o[i][c][w] = 0.f;
+  }
+
+  const int nk = (Sk + L::BK - 1) / L::BK;
+  for (int c0 = 0; c0 < nk; c0 += kFlagChunk) {
+    const int cn = min(kFlagChunk, nk - c0);
+    __syncthreads();  // the q range is written; the last chunk's tiles are read
+    const int qmin = sMisc[0], qmax = sMisc[1];
+    // Each tile's flag from its key range (a missing key counts as padding).
+    for (int t = warp; t < cn; t += kThreads / 32) {
+      const int base = (c0 + t) * L::BK;
+      int lo = INT32_MAX, hi = INT32_MIN;
+      for (int j = lane; j < L::BK; j += 32) {
+        const int p = base + j < Sk ? kpb[base + j] : 2 * kPadHalf;
+        lo = min(lo, p);
+        hi = max(hi, p);
       }
-      sK[j * KS + dd] = kv;
-      sV[j * D + dd] = vv;
+      lo = warp_min_i(lo);
+      hi = warp_max_i(hi);
+      if (lane == 0) sFlags[t] = (uint8_t)tile_flag(qmin, qmax, lo, hi, is_causal, windowed, window);
     }
     __syncthreads();
-    {
-      const int j = tid % kBK;
-      const int kp = sKp[j];
+    if (warp == 0) list_live(sFlags, cn, c0, sLive, sMisc + 2);
+    __syncthreads();
+    const int n_live = sMisc[2];
 #pragma unroll
-      for (int i = 0; i < SPT; ++i) {
-        const int r = tid / kBK + i * SSTEP;
-        const float* qr = sQ + r * D;
-        const float* kr = sK + j * KS;
-        float s = 0.f;
-#pragma unroll 16
-        for (int e = 0; e < D; ++e) s = fmaf(qr[e], kr[e], s);
-        sP[r * kBK + j] = visible(sQp[r], kp, is_causal, windowed, window) ? s : kNegInf;
+    for (int s = 0; s < L::kStages - 1; ++s) {
+      if (s < n_live) load_tile(s, sLive[s]);
+      cp_async_commit();
+    }
+    for (int it = 0; it < n_live; ++it) {
+      cp_async_wait<L::kStages - 2>();
+      __syncthreads();  // tile `it` has landed; every thread is done with tile it - 1
+      if (it + L::kStages - 1 < n_live)
+        load_tile((it + L::kStages - 1) % L::kStages, sLive[it + L::kStages - 1]);
+      cp_async_commit();
+      const int entry = sLive[it], stage = it % L::kStages;
+      const int k0 = (entry & kTileMask) * L::BK;
+      const T* sK = sKV + stage * (L::kStage / (int)sizeof(T));
+      const T* sV = sK + L::BK * L::KS;
+      const int* kp = sKp + stage * L::BK;
+
+      // S = (Q scale) K^T: four columns of a row of Q and of each key a step.
+      float s[L::TR][L::TK];
+#pragma unroll
+      for (int i = 0; i < L::TR; ++i)
+#pragma unroll
+        for (int j = 0; j < L::TK; ++j) s[i][j] = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        float qa[L::TR][4], ka[L::TK][4];
+#pragma unroll
+        for (int i = 0; i < L::TR; ++i) ld_vec(sQ + (ty + 16 * i) * L::QS + d, qa[i]);
+#pragma unroll
+        for (int j = 0; j < L::TK; ++j) ld_vec(sK + (tx + 16 * j) * L::KS + d, ka[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int i = 0; i < L::TR; ++i)
+#pragma unroll
+            for (int j = 0; j < L::TK; ++j) s[i][j] = fmaf(qa[i][e], ka[j][e], s[i][j]);
+      }
+      if ((entry >> kFlagShift) == 2) {  // masked element by element
+#pragma unroll
+        for (int i = 0; i < L::TR; ++i)
+#pragma unroll
+          for (int j = 0; j < L::TK; ++j) {
+            const int key = tx + 16 * j;
+            if (!(k0 + key < Sk &&
+                  visible(sQp[ty + 16 * i], kp[key], is_causal, windowed, window)))
+              s[i][j] = kNegInf;
+          }
+      }
+      // The online softmax in registers (the Pallas body's safe_m and
+      // alpha guards); a row's max and sum over its 16 threads.
+#pragma unroll
+      for (int i = 0; i < L::TR; ++i) {
+        float mx = s[i][0];
+#pragma unroll
+        for (int j = 1; j < L::TK; ++j) mx = fmaxf(mx, s[i][j]);
+        const float mnew = fmaxf(m[i], half_warp_max(mx));
+        const float safe = mnew <= kNegInf / 2 ? 0.f : mnew;
+        float ps = 0.f;
+#pragma unroll
+        for (int j = 0; j < L::TK; ++j) {
+          const float p = s[i][j] > kNegInf ? expf(s[i][j] - safe) : 0.f;
+          sP[(ty + 16 * i) * L::PS + tx + 16 * j] = p;
+          ps += p;
+        }
+        const float a = m[i] <= kNegInf / 2 ? 0.f : expf(fminf(m[i] - safe, 0.f));
+        l[i] = a * l[i] + half_warp_sum(ps);
+        m[i] = mnew;
+#pragma unroll
+        for (int c = 0; c < L::NV; ++c)
+#pragma unroll
+          for (int w = 0; w < L::VW; ++w) o[i][c][w] *= a;
+      }
+      __syncthreads();  // P is whole
+      // O += P V: four keys of P's rows a step, one row of V at a time.
+#pragma unroll
+      for (int n = 0; n < L::BK; n += 4) {
+        float pa[L::TR][4];
+#pragma unroll
+        for (int i = 0; i < L::TR; ++i) ld_vec(sP + (ty + 16 * i) * L::PS + n, pa[i]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float vv[L::NV][L::VW];
+#pragma unroll
+          for (int c = 0; c < L::NV; ++c)
+            ld_vec(sV + (n + u) * L::KS + L::VW * (tx + 16 * c), vv[c]);
+#pragma unroll
+          for (int i = 0; i < L::TR; ++i)
+#pragma unroll
+            for (int c = 0; c < L::NV; ++c)
+#pragma unroll
+              for (int w = 0; w < L::VW; ++w) o[i][c][w] = fmaf(pa[i][u], vv[c][w], o[i][c][w]);
+        }
       }
     }
-    __syncthreads();
-    for (int r = warp; r < kBQ; r += kThreads / 32) {
-      const int qp = sQp[r];
-      softmax_row(
-          sP + r * kBK, kBK,
-          [&](int j) { return visible(qp, sKp[j], is_causal, windowed, window); },
-          sM + r, sL + r, sA + r);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < NR; ++i)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= sA[row0 + i * RSTEP];
-    for (int j = 0; j < kBK; ++j) {
-      float vv[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) vv[c] = sV[j * D + d + c * kThreads];
-#pragma unroll
-      for (int i = 0; i < NR; ++i) {
-        const float p = sP[(row0 + i * RSTEP) * kBK + j];
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
-    }
-    __syncthreads();
   }
 
 #pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    const int r = row0 + i * RSTEP, s = q0 + r;
-    if (s < Sq) {
-      const float l = sL[r];
+  for (int i = 0; i < L::TR; ++i) {
+    const int sq = q0 + ty + 16 * i;
+    if (sq >= Sq) continue;
+    const size_t row = ((size_t)b * Sq + sq) * Hq + h;
+    const float li = l[i];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float o = l > 0.f ? acc[i][c] / l : 0.f;
-        out[(((size_t)b * Sq + s) * Hq + h) * D + d + c * kThreads] = from_f<T>(o);
-      }
+    for (int c = 0; c < L::NV; ++c) {
+      float x[L::VW];
+#pragma unroll
+      for (int w = 0; w < L::VW; ++w) x[w] = li > 0.f ? o[i][c][w] / li : 0.f;
+      st_vec(out + row * D + L::VW * (tx + 16 * c), x);
     }
-  }
-  for (int r = tid; r < kBQ; r += kThreads) {
-    const int s = q0 + r;
-    if (s < Sq) {
-      const float l = sL[r];
-      lse[((size_t)b * Sq + s) * Hq + h] = l > 0.f ? sM[r] + logf(l) : -INFINITY;
-    }
+    if (tx == 0) lse[row] = li > 0.f ? m[i] + logf(li) : -INFINITY;
   }
 }
 
-// The CUDA-core instance's launch.
 template <typename T, int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* qp,
-                       const int* kp, void* out, float* lse, int B, int Sq, int Sk, int Hq,
-                       int Hkv, int causal, int has_window, int window, float scale,
-                       cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<D>();
-  auto kern = flash_fwd_kernel<T, D>;
+cudaError_t launch(const void* q, const void* k, const void* v, const int* qp, const int* kp,
+                   void* out, float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+                   int has_window, int window, float scale, cudaStream_t stream) {
+  using L = Fwd<T, D>;
+  auto kern = flash_fwd_core_kernel<T, D>;
   // The shared-memory opt-in is set once per template instance (per process).
   static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (attr != cudaSuccess) return attr;
-  dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  kern<<<grid, kThreads, smem, stream>>>(
+  // Vector loads of q and 16-byte cp.async copies of k and v.
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15) return cudaErrorMisalignedAddress;
+  const long long blocks = (long long)((Sq + L::BQ - 1) / L::BQ) * Hq * B;
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, kThreads, L::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), qp, kp,
-      static_cast<T*>(out), lse, Sq, Sk, Hq, Hkv, causal, has_window, window, scale);
+      static_cast<T*>(out), lse, B, Sq, Sk, Hq, Hkv, causal, has_window, window, scale);
   return cudaGetLastError();
 }
+
+}  // namespace core
 
 // bf16 calls with D 64/128/256 are the wgmma instance's (Sq > 4) or the
 // decode instance's (Sq <= 4): only float32 instantiates the CUDA-core
@@ -296,25 +406,38 @@ cudaError_t pick_dim(int D, const void* q, const void* k, const void* v, const i
   constexpr bool f32 = std::is_same_v<T, float>;
   switch (D) {
     case 32:
-      return launch_fwd<T, 32>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
-                               has_window, window, scale, stream);
+      return core::launch<T, 32>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
+                                 has_window, window, scale, stream);
     case 64:
       if constexpr (f32)
-        return launch_fwd<T, 64>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
-                                 has_window, window, scale, stream);
+        return core::launch<T, 64>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
+                                   has_window, window, scale, stream);
       break;
     case 128:
       if constexpr (f32)
-        return launch_fwd<T, 128>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
-                                  has_window, window, scale, stream);
+        return core::launch<T, 128>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
+                                    has_window, window, scale, stream);
       break;
     case 256:
       if constexpr (f32)
-        return launch_fwd<T, 256>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
-                                  has_window, window, scale, stream);
+        return core::launch<T, 256>(q, k, v, qp, kp, out, lse, B, Sq, Sk, Hq, Hkv, causal,
+                                    has_window, window, scale, stream);
       break;
   }
   return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one CUDA-core block at head dim D (bytes), or 0
+// where no instance exists (bf16 is instantiated at D 32 only).
+inline size_t core_smem_bytes(int D, int bf16) {
+  if (bf16) return D == 32 ? core::Fwd<__nv_bfloat16, 32>::kBytes : 0;
+  switch (D) {
+    case 32: return core::Fwd<float, 32>::kBytes;
+    case 64: return core::Fwd<float, 64>::kBytes;
+    case 128: return core::Fwd<float, 128>::kBytes;
+    case 256: return core::Fwd<float, 256>::kBytes;
+  }
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -742,6 +865,13 @@ extern "C" int flash_fwd_wgmma_smem(int D, int Sk) {
   if (D == 128) return wgmma_smem<128>(Sk);
   if (D == 64) return wgmma_smem<64>(Sk);
   return -1;
+}
+
+// Dynamic shared memory of one CUDA-core block (bytes) at head dim D and
+// type (`bf16` 1: D 32 only), or -1 where no CUDA-core instance exists.
+extern "C" int flash_fwd_core_smem(int D, int bf16) {
+  const size_t bytes = rt::core_smem_bytes(D, bf16);
+  return bytes ? (int)bytes : -1;
 }
 
 // 1 if a decode call of this type and head dim runs on the cluster

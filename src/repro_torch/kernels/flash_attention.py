@@ -20,7 +20,9 @@ Counterpart of ``repro.kernels.flash_attention``.
   attention, split by O's columns: :func:`wgmma_fwd_tiling`) run on the tensor
   cores, with TMA-fed K/V tiles, ``wgmma`` products and the online softmax
   in registers, and are bound by the tensor-core rate; float32 and D = 32
-  calls with Sq > 4 run on the CUDA cores, bound by shared-memory traffic.
+  calls with Sq > 4 run on the CUDA cores in exact float32 (register-tiled
+  FFMA products, a cp.async ring, the softmax in registers:
+  :func:`core_fwd_tiling`), bound by the FP32 rate.
   Head dims
   32, 64, 128 and 256 (``FLASH_DIMS``); the decode core's D-256 instances
   take 1 to 16 rows a KV head (:func:`check_decode_rows`).  All skip dead
@@ -36,7 +38,8 @@ Counterpart of ``repro.kernels.flash_attention``.
   64, 128 or 256 (recurrentgemma's local attention; there the block's work
   is split by dQ's, dK's and dV's columns) run on the tensor cores (TMA-fed
   tiles, ``wgmma`` products, P and dS rounded to bf16 as operands), float32
-  calls and D = 32 on the CUDA cores.  Both use kernel
+  calls and D = 32 on the CUDA cores (B2's register-tiled like A's:
+  :func:`core_dkv_tiling`).  Both use kernel
   A's tile skip; B2 sums the GQA group inside one block, without atomics,
   so gradients are bitwise reproducible.
 * :func:`flash_attention_bwd_torch` is their plain version, a port of
@@ -63,6 +66,9 @@ __all__ = [
     "flash_fwd_instance_built",
     "flash_fwd_smem_bytes",
     "wgmma_fwd_tiling",
+    "core_fwd_tiling",
+    "core_dkv_tiling",
+    "core_smem_bytes",
     "decode_split_rule",
     "decode_rule_d256",
     "decode_core_instance",
@@ -212,6 +218,7 @@ _ARGTYPES = {"flash_fwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
              "flash_fwd_takes_wgmma": [ctypes.c_int] * 3,
              "flash_fwd_wgmma_smem": [ctypes.c_int] * 2,
+             "flash_fwd_core_smem": [ctypes.c_int] * 2,
              "decode_takes_cluster": [ctypes.c_int] * 2,
              "decode_cluster_max_active": [ctypes.c_int],
              "decode_cluster_smem": [],
@@ -223,6 +230,7 @@ _BWD_ARGTYPES = {
                                                                      ctypes.c_void_p],
     "flash_bwd_takes_wgmma": [ctypes.c_int] * 2,
     "flash_bwd_wgmma_smem": [ctypes.c_int] * 3,
+    "flash_bwd_dkv_core_smem": [ctypes.c_int] * 2,
 }
 
 
@@ -272,6 +280,13 @@ def check_decode_rows(name: str, D: int, group: int, Sq: int):
                          f"head (GQA group x Sq), got {group} x {Sq} = {group * Sq}")
 
 
+def check_aligned(name: str, *tensors):
+    """Raise unless every tensor starts on a 16-byte boundary (the decode
+    core and the CUDA-core instances copy rows 16 bytes at a time)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must be 16-byte aligned")
+
+
 def _raise_on(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
@@ -301,6 +316,35 @@ def wgmma_fwd_tiling(D: int) -> dict:
     by_cols = D > 128
     return dict(q_rows=64 if by_cols else 128, keys=64 if by_cols else 128,
                 o_cols=D // 2 if by_cols else D)
+
+
+# The CUDA-core instances of A and B2 (``core::Fwd`` and ``core::Dkv`` in
+# csrc/flash_fwd.cu and csrc/flash_bwd.cu): a ring of CORE_STAGES tiles
+# fed by cp.async, and the walk's live tiles listed CORE_FLAG_CHUNK at a
+# time.
+CORE_STAGES = 2
+CORE_FLAG_CHUNK = 256
+
+
+def core_fwd_tiling(D: int) -> dict:
+    """Kernel A's CUDA-core tiling at head dim ``D`` (``core::Fwd<T, D>``):
+    q rows a block and keys a KV tile.  64 x 64 up to D 128; at D 256 the
+    KV tiles are 32 keys, so that Q and two stages of K and V fit the
+    block's shared memory."""
+    if D not in FLASH_DIMS:
+        raise ValueError(f"core_fwd_tiling: no CUDA-core instance at head dim {D}")
+    return dict(q_rows=64, keys=32 if D == 256 else 64)
+
+
+def core_dkv_tiling(D: int) -> dict:
+    """Kernel B2's CUDA-core tiling at head dim ``D`` (``core::Dkv<T, D>``):
+    keys a block and q rows a tile of its walk.  32-key blocks (twice the
+    blocks of 64-key ones, so that the causal grid's heaviest blocks are
+    short enough to balance over the SMs) and 64-row q-tiles; 32-row
+    q-tiles at D 256, so that K, V and two stages of Q and dout fit."""
+    if D not in FLASH_DIMS:
+        raise ValueError(f"core_dkv_tiling: no CUDA-core instance at head dim {D}")
+    return dict(keys=32, q_rows=32 if D == 256 else 64)
 
 
 # The split-KV decode core (csrc/decode.cuh), shared by kernel A's decode
@@ -403,6 +447,19 @@ def flash_fwd_smem_bytes(D: int, Sk: int) -> int:
     from repro_torch.kernels._build import load_library
 
     return load_library("flash_fwd", _ARGTYPES).flash_fwd_wgmma_smem(D, Sk)
+
+
+def core_smem_bytes(kernel: str, dtype, D: int) -> int:
+    """Dynamic shared memory of one block of A's (``kernel="fwd"``) or B2's
+    (``"dkv"``) CUDA-core instance at head dim ``D`` and ``dtype`` (bf16 at
+    D 32 only), as the built library states it (builds the library on first
+    use; needs the CUDA toolchain)."""
+    from repro_torch.kernels._build import load_library
+
+    bf16 = int(dtype == torch.bfloat16)
+    if kernel == "fwd":
+        return load_library("flash_fwd", _ARGTYPES).flash_fwd_core_smem(D, bf16)
+    return load_library("flash_bwd", _BWD_ARGTYPES).flash_bwd_dkv_core_smem(D, bf16)
 
 
 def flash_fwd_instance_built(dtype, Sq: int, D: int) -> str:
@@ -519,11 +576,13 @@ def flash_attention_fwd_cuda(q, k, v, q_pos, k_pos, *, causal: bool, window: int
     if out.numel() == 0:
         return out, lse
     per, part_out, part_lse, counters = 1, None, None, None
-    if flash_fwd_instance(q.dtype, Sq, D) == "decode":
+    instance = flash_fwd_instance(q.dtype, Sq, D)
+    if instance == "cuda_core":
+        check_aligned("flash_attention_fwd_cuda", q, k, v)
+    if instance == "decode":
         check_decode_rows("flash_attention_fwd_cuda", D, Hq // Hkv, Sq)
-        for t in (q, k, v) if decode_core_instance(q.dtype, D) == "cluster" else (k, v):
-            if t.data_ptr() % 16:
-                raise ValueError("flash_attention_fwd_cuda: q/k/v must be 16-byte aligned")
+        check_aligned("flash_attention_fwd_cuda",
+                      *((q, k, v) if decode_core_instance(q.dtype, D) == "cluster" else (k, v)))
         per, part_out, part_lse, counters = decode_scratch(q.device, q.dtype, B, Sq, Hq, Hkv,
                                                            D, Sk)
     err = load_library("flash_fwd", _ARGTYPES).flash_fwd(
@@ -600,6 +659,8 @@ def flash_attention_bwd_dkv_cuda(q, k, v, q_pos, k_pos, dout, lse, delta, dlse, 
     dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     if dk.numel() == 0:
         return dk, dv
+    if flash_bwd_instance(q.dtype, q.shape[-1]) == "cuda_core":
+        check_aligned(name, q, k, v, dout)
     err = load_library("flash_bwd", _BWD_ARGTYPES).flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dlse.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(), dk.data_ptr(),

@@ -10,9 +10,16 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.optim.adamw import AdamWConfig, adamw_update, tree_leaves, tree_map
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update, tree_leaves,
+                                     tree_map)
 
-__all__ = ["make_train_step", "value_and_grad"]
+__all__ = ["make_opt_init", "make_train_step", "value_and_grad"]
+
+
+def make_opt_init():
+    """The optimizer-state initialiser that :func:`make_train_step`'s step
+    updates: ``adamw_init(params)``."""
+    return adamw_init
 
 
 def value_and_grad(loss_fn, params, batch):

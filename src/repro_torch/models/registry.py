@@ -27,9 +27,9 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core.api import ParallelContext
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, ShapeConfig
 
-__all__ = ["ModelBundle", "build_model"]
+__all__ = ["ModelBundle", "build_model", "input_specs", "runnable"]
 
 
 @dataclass
@@ -164,3 +164,43 @@ def _hybrid_bundle(cfg: ArchConfig, pctx: ParallelContext) -> ModelBundle:
                                                                     pctx=pctx),
         decode_rollback_safe=False,  # a recurrent state: no per-slot rollback
     )
+
+
+# ---------------------------------------------------------------------------
+# input specs per (arch x shape) cell
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig):
+    """``(kind, specs)``: the step a cell runs and its batch as ``{name:
+    (shape, dtype)}`` (the reference's ``ShapeDtypeStruct``s as plain
+    shapes and ``torch`` dtypes).  ``kind`` is ``"train"`` (loss and
+    gradients), ``"prefill"`` (forward and cache fill) or ``"decode"`` (one
+    token)."""
+    B, S = shape.global_batch, shape.seq_len
+    kind = shape.kind
+    i32, dt = torch.int32, getattr(torch, cfg.dtype)
+    if kind in ("train", "prefill"):
+        if cfg.family == "encdec":
+            specs = {"frames": ((B, cfg.enc_seq, cfg.d_model), dt), "tokens": ((B, S), i32),
+                     "labels": ((B, S), i32), "positions": ((B, S), i32)}
+        elif cfg.family == "vlm":
+            S_text = S - cfg.frontend_tokens
+            specs = {"tokens": ((B, S_text), i32), "labels": ((B, S_text), i32),
+                     "positions": ((B, S), i32),
+                     "patch_embeds": ((B, cfg.frontend_tokens, cfg.d_model), dt)}
+        else:
+            specs = {"tokens": ((B, S), i32), "labels": ((B, S), i32),
+                     "positions": ((B, S), i32)}
+        return kind, specs
+    if kind == "decode":
+        return kind, {"token_ids": ((B,), i32)}
+    raise ValueError(kind)
+
+
+def runnable(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether an (arch x shape) cell runs, and why not: the 500k-token
+    decode needs sub-quadratic attention."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "pure full-attention arch: 500k-context decode skipped"
+    return True, ""
