@@ -8,8 +8,8 @@ Phases, each fatal on failure:
   2. build every kernel in ``src/repro_torch/csrc`` with nvcc (sm_90a),
      failing if ptxas reports a spill or a serialised ``wgmma`` (C7512) in
      any wgmma instance of A, B1 or B2 or a spill in the decode core's
-     cluster instance (bf16 D 256) or in A's and B2's CUDA-core instances
-     at any head dim (the kernel lint's ptxas rules,
+     cluster instance (bf16 D 256) or in A's, B1's and B2's CUDA-core
+     instances at any head dim (the kernel lint's ptxas rules,
      ``repro_torch.analysis.kernel_lint``), whose registers, shared memory
      and admitted cluster sizes it logs; then the lint's closed forms of
      every instance's shared memory held equal, byte for byte, to the built
@@ -2434,7 +2434,8 @@ def f32_step_rows(torch, dev, shape):
         rows[name] = dict(ms=ms, device_ms=dms, plain_ms=plain_ms, library_ms=lib_ms,
                           library_device_ms=dev_lib, bound_ms=bms, bound_by=by,
                           max_abs_err=err, instance=inst, shape=label, timing=how,
-                          plain_and_library_compute="dq, dk and dv in one call")
+                          plain_and_library_compute="dq, dk and dv in one call",
+                          device_kernel=f"rt::core::flash_bwd_{name}_core_kernel<float, {D}>")
         log(f"  B {name} {label} [{inst}]: kernel {ms:.4f} ms (device {dms:.4f}), bound "
             f"{bms:.4f} ms ({by}, 67 TFLOP/s float32; {ms / bms:.2f}x), "
             f"{flops / ms / 1e9:.2f} TFLOP/s; plain backward {plain_ms:.3f} ms, sdpa f32 "
@@ -2474,12 +2475,12 @@ def f32_step_rows(torch, dev, shape):
     return rows
 
 
-# A's and B2's CUDA-core instances at their tiles' edges (`core_fwd_tiling`,
-# `core_dkv_tiling`), phases 3 and 7: id, (B, Sq, Sk, Hq, Hkv, D), dtype,
-# layout, window; all causal.  101 and 109 are multiples of no tile (with
-# queries 8 positions past the keys); a window of 20 is shorter than any
-# key tile; recurrentgemma's GQA group 10 at D 256; bf16 at D 32, the only
-# bf16 instance, widened on load.
+# The CUDA-core instances at their tiles' edges (`core_fwd_tiling`,
+# `core_dq_tiling`, `core_dkv_tiling`), phases 3 and 7: id, (B, Sq, Sk, Hq,
+# Hkv, D), dtype, layout, window; all causal.  101 and 109 are multiples of
+# no tile (with queries 8 positions past the keys); a window of 20 is
+# shorter than any key tile; recurrentgemma's GQA group 10 at D 256; bf16 at
+# D 32, the only bf16 instance, widened on load.
 CORE_EDGE_CASES = [case for D in (32, 64, 128, 256) for case in (
     (f"ragged D={D}", (2, 101, 109, 4, 2, D), "f32", "offset", None),
     (f"window=20 D={D}", (1, 256, 256, 2, 2, D), "f32", "contig", 20),
@@ -5482,8 +5483,8 @@ def phase_rg_wrap(torch, dev, cfg=None, n_tokens=RG_WRAP_TOKENS):
 def phase_build(torch, dev):
     """Phase 2: build every kernel, log ptxas's registers and spills, and
     fail on a spill or a C7512 in any wgmma instance of A, B1 or B2, or a
-    spill in the decode core's cluster instance or in A's and B2's CUDA-core
-    instances (each instance found at every head dim); log the cluster instance's
+    spill in the decode core's cluster instance or in A's, B1's and B2's
+    CUDA-core instances (each instance found at every head dim); log the cluster instance's
     registers, shared memory and the clusters the card admits at once."""
     from repro_torch.kernels._build import build_all
 
@@ -5514,14 +5515,16 @@ def phase_build(torch, dev):
              "bf16" if "bfloat16" in n else "f32", int(n.split("Li")[1].split("E")[0])):
             f["registers"] for lib, t in info["ptxas"].items()
             for n, f in ptxas_functions(t).items() if any(k in n for k in CORE_KERNELS)}
-    want = {(lib, kern, dt, D) for lib, kern in (("flash_fwd", "fwd"), ("flash_bwd", "bwd_dkv"))
+    want = {(lib, kern, dt, D)
+            for lib, kern in (("flash_fwd", "fwd"), ("flash_bwd", "bwd_dq"),
+                              ("flash_bwd", "bwd_dkv"))
             if lib in info["ptxas"] for dt, D in (("f32", 32), ("f32", 64), ("f32", 128),
                                                   ("f32", 256), ("bf16", 32))}
     if set(core) != want:
-        raise AssertionError(f"ptxas: expected A's and B2's CUDA-core instances {sorted(want)}, "
-                             f"found {sorted(core)}")
-    log("  A's and B2's CUDA-core instances (256 threads, register-tiled FFMA, 2-stage cp.async "
-        "ring), no spill; ptxas registers " + ", ".join(
+        raise AssertionError(f"ptxas: expected A's, B1's and B2's CUDA-core instances "
+                             f"{sorted(want)}, found {sorted(core)}")
+    log("  A's, B1's and B2's CUDA-core instances (256 threads, register-tiled FFMA, 2-stage "
+        "cp.async ring), no spill; ptxas registers " + ", ".join(
             f"{kern} {dt} D={D}: {r}" for (_, kern, dt, D), r in sorted(core.items())))
     from repro_torch.kernels import flash_attention as fa
 
@@ -5580,8 +5583,8 @@ def smem_against_library(torch, dev, sms):
     main paths' lengths (``launch.analyze.FLASH_CALLS``), at the longest each
     admits (``kernel_lint.max_length``) and one tile past it, where the
     figure passes the opt-in maximum and A, B1 and B2 at D 256 refuse the
-    launch (``cudaErrorInvalidValue``); A's and B2's CUDA-core instances at
-    every head dim they are built for; the cluster instance; the split
+    launch (``cudaErrorInvalidValue``); A's, B1's and B2's CUDA-core
+    instances at every head dim they are built for; the cluster instance; the split
     decode kernel, dense and paged, at every row layout and split it takes."""
     from repro_torch.analysis import kernel_lint as kl
     from repro_torch.kernels import flash_attention as fa
@@ -5611,7 +5614,8 @@ def smem_against_library(torch, dev, sms):
             if figure(D, top) > kl.KMAX_SMEM or figure(D, top + 1) <= kl.KMAX_SMEM:
                 mismatches.append(f"{inst} D={D}: {top} is not the longest length the library "
                                   "admits")
-    for kern, inst in (("fwd", "fwd_cuda_core"), ("dkv", "bwd_dkv_cuda_core")):
+    for kern, inst in (("fwd", "fwd_cuda_core"), ("dq", "bwd_dq_cuda_core"),
+                       ("dkv", "bwd_dkv_cuda_core")):
         for dt, D in ((torch.float32, 32), (torch.float32, 64), (torch.float32, 128),
                       (torch.float32, 256), (torch.bfloat16, 32)):
             hold(f"{inst} {str(dt)[6:]} D={D}", kl.smem_estimate(inst, D, dtype=dt),
@@ -7546,6 +7550,10 @@ def main() -> int:
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_bwd.cu",
          "replaces": bwd, "pallas_body": "src/repro/kernels/flash_attention.py:367",
+         "device_kernels": {"wgmma": ["rt::wgb::flash_bwd_dq_wgmma_kernel<D> (bf16; D 64, 128, "
+                                      "256)"],
+                            "cuda_core": ["rt::core::flash_bwd_dq_core_kernel<T, D> (float32; "
+                                          "bf16 at D 32)"]},
          "launches": launches["train_whisper"]["flash_attention_bwd_dq"],
          "launches_by_path": by_path("flash_attention_bwd_dq"), **bwd_rows[wb]["cross"]["dq"],
          "whisper_calls": {k: bwd_rows[wb][k]["dq"] for k in ("encoder", "decoder")},

@@ -10,7 +10,7 @@ clusters resident at once, so the rules are redesigned:
   * ``KERN-SMEM`` — :func:`smem_estimate` is a closed form of each
     instance's dynamic shared memory, written from the layouts in
     ``csrc/`` (``flash_fwd.cu`` ``Smem<D>::bytes``, ``core::Fwd<T, D>``;
-    ``flash_bwd.cu`` ``dq_smem_bytes``, ``core::Dkv<T, D>``,
+    ``flash_bwd.cu`` ``core::Dq<T, D>``, ``core::Dkv<T, D>``,
     ``DqSmem<D>``, ``DkvSmem<D>``; ``decode.cuh`` ``Shape::smem_bytes``;
     ``decode_d256.cuh`` ``Smem::bytes``), held against the block's opt-in
     maximum.  The wgmma instances flag each KV tile (A, B1) or q-tile (B2)
@@ -21,15 +21,15 @@ clusters resident at once, so the rules are redesigned:
     library's own figures.
   * ``KERN-SPILL`` / ``KERN-WGMMA-SERIAL`` — ptxas's ``-v`` report: a spill
     or a serialised ``wgmma`` (C7512) in any ``*_wgmma_kernel`` fails, a
-    spill in the cluster instance or in A's and B2's CUDA-core kernels
-    (``*_core_kernel``) fails; B1's CUDA-core kernel and the split decode
-    kernel are not gated.
+    spill in the cluster instance or in A's, B1's and B2's CUDA-core
+    kernels (``*_core_kernel``) fails; the split decode kernel is not
+    gated.
   * ``KERN-CLUSTER`` — a call on the cluster instance launches ``units``
     clusters of ``G`` blocks (``decode_rule_d256``); it fires when that is
     more than the card holds at once.
   * ``KERN-GRID-COVER`` — each instance's tiles (``wgmma_fwd_tiling``,
-    ``wgmma_bwd_tiling``, ``core_fwd_tiling``, ``core_dkv_tiling``, B1's
-    CUDA-core 32 x 32, the decode core's 32-key
+    ``wgmma_bwd_tiling``, ``core_fwd_tiling``, ``core_dq_tiling``,
+    ``core_dkv_tiling``, the decode core's 32-key
     tiles and ``DECODE_MAX_ROWS`` row chunks) cover every row and key once.
     Every CUDA instance masks a ragged last tile, so a ragged tail is
     allowed (:func:`ragged`), not a finding; the decode rules' splits and
@@ -69,6 +69,7 @@ from repro_torch.kernels.flash_attention import (
     decode_split_rule,
     decode_units,
     core_dkv_tiling,
+    core_dq_tiling,
     core_fwd_tiling,
     flash_bwd_instance,
     flash_fwd_instance,
@@ -113,7 +114,6 @@ KMAX_SMEM = 232448
 # DECODE_D256_MAX_CLUSTER), and the next size, which the rule refuses.
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 _STAGES = 2  # K/V (A, B1) and Q/dout (B2) stages of the wgmma instances
-_CORE_TILE = 32  # q rows and keys of B1's CUDA-core tiles
 _SPLIT_STAGES = 3  # the split decode kernel's cp.async ring
 _MAX_GRID_Y = 65535  # splits of one decode launch (gridDim.y)
 
@@ -218,13 +218,12 @@ def smem_estimate(instance: str, D: int, S: int = 0, *, dtype=torch.bfloat16, ro
     (``INSTANCES``): ``Sk`` for A's and B1's wgmma instances, ``Sq`` for
     B2's, the keys of one split for the split decode kernel (``rows``: GQA
     group x Sq; ``dtype``; ``paged`` for kernel C); the others ignore it.
-    ``dtype`` also sets the staged type of A's and B2's CUDA-core
-    instances (bf16 at D 32, else float32)."""
+    ``dtype`` also sets the staged type of the CUDA-core instances (bf16
+    at D 32, else float32)."""
     if instance in ("fwd_wgmma", "bwd_dq_wgmma", "bwd_dkv_wgmma"):
         fixed, per_tile, tile = _wgmma_layout(instance, D)
         return fixed + per_tile * -(-S // tile)
-    t = _CORE_TILE
-    # A's and B2's CUDA-core instances stage K/V (A) or Q/dout (B2) in the
+    # The CUDA-core instances stage K/V (A, B1) or Q/dout (B2) in the
     # call's type, which is bf16 only at D 32 (the only bf16 instance)
     item = 2 if dtype == torch.bfloat16 and D == 32 else 4
     listing = 4 * CORE_FLAG_CHUNK + CORE_FLAG_CHUNK + 16  # live tiles, flags, misc
@@ -234,8 +233,12 @@ def smem_estimate(instance: str, D: int, S: int = 0, *, dtype=torch.bfloat16, ro
         ring = CORE_STAGES * 2 * bk * (D + 16 // item) * item
         return (4 * bq * (D + 4) + ring + 4 * bq * (bk + 16) + 4 * CORE_STAGES * bk + 4 * bq
                 + listing)
-    if instance == "bwd_dq_cuda_core":  # flash_bwd.cu dq_smem_bytes<D>
-        return 4 * (2 * t * D + 2 * t * (D + 1) + t * t + 3 * t) + 4 * (2 * t)
+    if instance == "bwd_dq_cuda_core":  # flash_bwd.cu core::Dq<T, D>
+        c = core_dq_tiling(D)
+        bq, bk = c["q_rows"], c["keys"]
+        ring = CORE_STAGES * 2 * bk * (D + 16 // item) * item
+        return (2 * 4 * bq * (D + 4) + ring + 4 * bq * (bk + 16) + 4 * CORE_STAGES * bk
+                + 4 * 4 * bq + listing)
     if instance == "bwd_dkv_cuda_core":  # flash_bwd.cu core::Dkv<T, D>
         c = core_dkv_tiling(D)
         bk, bq = c["keys"], c["q_rows"]
@@ -524,13 +527,11 @@ def lint_flash_call(*, dtype, D: int, B: int, Sq: int, Sk: int, Hq: int, Hkv: in
         findings += grid_findings(Sq, Sk, block_q=t["dkv_rows"], block_k=t["dkv_keys"],
                                   subject=subject)
     else:
-        c = core_dkv_tiling(D)
         for inst in ("bwd_dq_cuda_core", "bwd_dkv_cuda_core"):
             findings += smem_findings(inst, D, limits=limits, subject=subject, dtype=dtype)
-        findings += grid_findings(Sq, Sk, block_q=_CORE_TILE, block_k=_CORE_TILE,
-                                  subject=subject)
-        findings += grid_findings(Sq, Sk, block_q=c["q_rows"], block_k=c["keys"],
-                                  subject=subject)
+        for c in (core_dq_tiling(D), core_dkv_tiling(D)):
+            findings += grid_findings(Sq, Sk, block_q=c["q_rows"], block_k=c["keys"],
+                                      subject=subject)
     return findings
 
 
@@ -560,8 +561,8 @@ def lint_paged_decode_config(*, dtype, group: int, page_size: int, n_pages: int,
 # --- ptxas's report --------------------------------------------------------
 
 CLUSTER_KERNEL = "decode_d256_kernel"  # the decode core's cluster instance
-# A's and B2's CUDA-core instances
-CORE_KERNELS = ("flash_fwd_core_kernel", "flash_bwd_dkv_core_kernel")
+# A's, B1's and B2's CUDA-core instances
+CORE_KERNELS = ("flash_fwd_core_kernel", "flash_bwd_dq_core_kernel", "flash_bwd_dkv_core_kernel")
 
 
 def ptxas_functions(text):
@@ -592,9 +593,8 @@ def ptxas_functions(text):
 
 def gated(name: str) -> bool:
     """Whether ptxas's report on ``name`` is gated: the wgmma instances of
-    A, B1 and B2, the decode core's cluster instance and A's and B2's
-    CUDA-core instances (not B1's CUDA-core kernel, not the split decode
-    kernel)."""
+    A, B1 and B2, the decode core's cluster instance and A's, B1's and B2's
+    CUDA-core instances (not the split decode kernel)."""
     return ("wgmma_kernel" in name or CLUSTER_KERNEL in name
             or any(k in name for k in CORE_KERNELS))
 

@@ -161,10 +161,68 @@ __device__ __forceinline__ void list_live(const uint8_t* flags, int n, int first
 
 __device__ __forceinline__ bool is_neg_inf(float x) { return isinf(x) && x < 0.f; }
 
-// The CUDA-core instances of kernels A and B2 (`core::Fwd`, `core::Dkv`).
+// The CUDA-core instances of kernels A, B1 and B2 (`core::Fwd`, `core::Dq`,
+// `core::Dkv`).
 namespace core {
 constexpr int kThreads = 256;    // a 16 x 16 grid of threads over every tile
 constexpr int kFlagChunk = 256;  // tiles of a walk whose flags one pass lists
+
+// Run by one warp: the least and the greatest of p[0, n) into out[0] and
+// out[1].
+__device__ __forceinline__ void warp_range(const int* p, int n, int* out) {
+  const int lane = threadIdx.x & 31;
+  int lo = INT32_MAX, hi = INT32_MIN;
+  for (int r = lane; r < n; r += 32) lo = min(lo, p[r]), hi = max(hi, p[r]);
+  lo = warp_min_i(lo);
+  hi = warp_max_i(hi);
+  if (lane == 0) out[0] = lo, out[1] = hi;
+}
+
+// A walk of a q-tile over KV tiles of BK keys (kernels A and B1): the flags
+// of tiles c0 .. c0 + cn - 1 into flags[0, cn), one warp a tile, from the
+// tile's key range (a key past Sk counts as padding) and the q-tile's
+// position range [qmin, qmax].
+template <int BK>
+__device__ __forceinline__ void flag_kv_tiles(uint8_t* flags, const int* kpb, int Sk, int c0,
+                                              int cn, int qmin, int qmax, bool causal,
+                                              bool windowed, int window) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int t = warp; t < cn; t += kThreads / 32) {
+    const int base = (c0 + t) * BK;
+    int lo = INT32_MAX, hi = INT32_MIN;
+    for (int j = lane; j < BK; j += 32) {
+      const int p = base + j < Sk ? kpb[base + j] : 2 * kPadHalf;
+      lo = min(lo, p);
+      hi = max(hi, p);
+    }
+    lo = warp_min_i(lo);
+    hi = warp_max_i(hi);
+    if (lane == 0) flags[t] = (uint8_t)tile_flag(qmin, qmax, lo, hi, causal, windowed, window);
+  }
+}
+
+// The K and V rows of the KV tile at key k0 into a ring stage `dst` (BK rows
+// of K, then BK of V, each of KS elements), 16 bytes a copy, rows past Sk
+// zero; the keys' positions into kp[0, BK), 4 bytes a copy (past Sk: read
+// nothing; the walk masks them by index).  kb, vb and kpb point at the
+// batch row's (and KV head's) first key.
+template <typename T, int D, int BK, int KS>
+__device__ __forceinline__ void load_kv_tile(T* dst, int* kp, const T* kb, const T* vb,
+                                             const int* kpb, size_t key_stride, int k0,
+                                             int Sk) {
+  constexpr int C = D * (int)sizeof(T) / 16, E = 16 / (int)sizeof(T);
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 2 * BK * C; i += kThreads) {
+    const int which = i / (BK * C), r = (i / C) % BK, c = i % C;
+    const bool ok = k0 + r < Sk;
+    const T* src = (which ? vb : kb) + (size_t)(ok ? k0 + r : k0) * key_stride + c * E;
+    cp_async16(dst + (which * BK + r) * KS + c * E, src, ok);
+  }
+  if (tid < BK) {
+    const bool ok = k0 + tid < Sk;
+    cp_async4(kp + tid, kpb + (ok ? k0 + tid : k0), ok);
+  }
+}
 }  // namespace core
 
 }  // namespace rt

@@ -100,15 +100,35 @@
 //   on load): exact float32 (FFMA on the CUDA cores, no TF32), the port's
 //   precision reference.  What bounds them: the FP32 rate, 67 TFLOP/s (6*D
 //   and 8*D flops a visible pair).
-//   - B1 (dq), `flash_bwd_dq_kernel`: blocks of 128 threads, tiles of 32
-//     queries by 32 keys with float32 products out of shared memory; one
-//     block per (q-tile, query head, batch row) holds the q and dout tiles
-//     and the tile's lse/delta/dlse and walks the KV tiles in order,
-//     accumulating dq in float32 registers.  Its score loops keep one
-//     key's K/V value in a register across eight rows and its accumulation
-//     reads four scores per 16-byte load: bound by shared-memory bandwidth.
-//     At D = 256 a thread owns two columns of every row (133 KB of shared
-//     memory).
+//   - B1 (dq), `core::flash_bwd_dq_core_kernel<T, D>` (`core::Dq`),
+//     replacing `_bwd_dq_kernel`: 256 threads a block over a 64-row
+//     q-tile, one block per (q-tile, query head, batch row), tile-major,
+//     causal grids heaviest first.  The block loads Q and dout of its rows
+//     once, in float32, and the rows' lse, delta, dlse and positions (a
+//     row whose lse is -inf as lse = dlse = 0).  It flags every KV tile of
+//     64 keys once (dead, wholly visible, masked; a missing key counts as
+//     padding), lists the live ones 256 at a time, and walks them in index
+//     order through a 2-stage cp.async ring of K and V in their stored
+//     type (rows past Sk zero) and the keys' positions.  A 16 x 16 grid of
+//     threads: thread (ty, tx) forms S = Q K^T and then dP = dout V^T for
+//     rows ty + 16 i and keys tx + 16 j (4 x 4) from 16-byte loads of four
+//     columns (8 loads feed 64 FFMAs), P and dS in registers (the mask only
+//     on masked tiles), writes only dS to shared memory, and then dQ += dS
+//     K for its rows and D/16 columns (12 loads feed 128 FFMAs at D 128).
+//     dQ stays in float32 registers across the walk and each block stores
+//     its rows once, summed over the keys in one fixed order: no atomics.
+//     Rows past Sq are computed on zeros and never stored (a row of dS
+//     feeds only its own row of dQ).  Two block barriers a tile.  At D 128
+//     the block holds 226,064 B of shared memory (Q and dout 67,584, two
+//     K/V stages 135,168, dS 20,480), within the 232,448 B opt-in.  D 256
+//     takes 32-row q-tiles over 32-key tiles (2 x 2 register tiles, 4
+//     loads feed 16 FFMAs in S and dP; 207,888 B): 64 rows there would
+//     need 266 KB for Q, dout and two stages, and 64-row tiles over 16
+//     keys would give each key one thread and fewer FFMAs a load still.
+//     What keeps it from the FP32 rate: one block of 8 warps an SM, S and
+//     dP recomputed here and again in B2, the diagonal tiles' masked half,
+//     the causal grid's imbalance, and at D 256 the 2 x 2 tiles' 4 FFMAs a
+//     shared load.
 //   - B2 (dk, dv), `core::flash_bwd_dkv_core_kernel<T, D>` (`core::Dkv`):
 //     256 threads a block over a 32-key tile (twice the blocks of a 64-key
 //     tile: 256 at phase 8's call and at recurrentgemma's D-256 call, where
@@ -139,187 +159,6 @@
 
 namespace rt {
 
-constexpr int kBQ = 32;  // queries per tile
-constexpr int kBKb = 32;  // keys per tile
-
-// float32 words of B1's shared memory: q and dout tiles, padded K and V
-// tiles, the ds tile and three per-row vectors.
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (2 * kBQ * D + 2 * kBKb * (D + 1) + kBQ * kBKb + 3 * kBQ) +
-         sizeof(int) * (kBQ + kBKb);
-}
-
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        const float* __restrict__ dlse, const int* __restrict__ q_pos,
-                        const int* __restrict__ k_pos, float* __restrict__ dq, int Sq, int Sk,
-                        int Hq, int Hkv, int causal, int has_window, int window, float scale) {
-  static_assert(kThreads % D == 0 || D % kThreads == 0, "D must tile the block");
-  static_assert(kBKb == 32 && (kBQ * kBKb) % kThreads == 0, "one key per lane");
-  // A thread owns column tid % D of dq rows tid / D + i * RSTEP when D <=
-  // the block; past it (D = 256) columns tid + c * kThreads of every row.
-  constexpr int CPT = D > kThreads ? D / kThreads : 1;  // columns per thread
-  constexpr int RSTEP = D > kThreads ? 1 : kThreads / D;
-  constexpr int NR = kBQ / RSTEP;  // dq rows per thread
-  constexpr int SPT = kBQ * kBKb / kThreads;  // score rows per thread
-  constexpr int SSTEP = kThreads / kBKb;
-  constexpr int KS = D + 1;  // padded K/V row: lanes on distinct keys hit distinct banks
-
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sDO = sQ + kBQ * D;
-  float* sK = sDO + kBQ * D;
-  float* sV = sK + kBKb * KS;
-  float* sDS = sV + kBKb * KS;  // (BQ, BK), 16-byte aligned rows
-  float* sL = sDS + kBQ * kBKb;
-  float* sDelta = sL + kBQ;
-  float* sDlse = sDelta + kBQ;
-  int* sQp = reinterpret_cast<int*>(sDlse + kBQ);
-  int* sKp = sQp + kBQ;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const bool is_causal = causal != 0, windowed = has_window != 0;
-  const int nrows = min(kBQ, Sq - q0);
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, s = q0 + r;
-    const size_t off = (((size_t)b * Sq + s) * Hq + h) * D + i % D;
-    sQ[i] = r < nrows ? to_f(q[off]) : 0.f;
-    sDO[i] = r < nrows ? to_f(dout[off]) : 0.f;
-  }
-  for (int r = tid; r < kBQ; r += kThreads) {
-    const int s = q0 + r;
-    float l = 0.f, dl = 0.f, de = 0.f;
-    int qp = 0;
-    if (r < nrows) {
-      const size_t row = ((size_t)b * Sq + s) * Hq + h;
-      l = lse[row];
-      dl = dlse[row];
-      de = delta[row];
-      if (is_neg_inf(l)) l = dl = 0.f;
-      qp = q_pos[(size_t)b * Sq + s];
-    }
-    sL[r] = l;
-    sDlse[r] = dl;
-    sDelta[r] = de;
-    sQp[r] = qp;
-  }
-  __syncthreads();
-  int qmin = INT32_MAX, qmax = INT32_MIN;
-  for (int r = 0; r < nrows; ++r) {
-    qmin = min(qmin, sQp[r]);
-    qmax = max(qmax, sQp[r]);
-  }
-
-  float acc[NR][CPT];
-#pragma unroll
-  for (int i = 0; i < NR; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  const int d = tid % D, row0 = tid / D;
-
-  for (int k0 = 0; k0 < Sk; k0 += kBKb) {
-    if (tid < kBKb) {
-      const int j = k0 + tid;
-      sKp[tid] = j < Sk ? k_pos[(size_t)b * Sk + j] : (2 * kPadHalf);
-    }
-    __syncthreads();
-    int kmin = INT32_MAX, kmax = INT32_MIN;
-    for (int j = 0; j < kBKb; ++j) {
-      kmin = min(kmin, sKp[j]);
-      kmax = max(kmax, sKp[j]);
-    }
-    bool skip = kmin >= kPadHalf;
-    if (is_causal) skip = skip || qmax < kmin;
-    if (windowed) skip = skip || kmax <= qmin - window;
-    if (skip) {
-      __syncthreads();
-      continue;
-    }
-    for (int i = tid; i < kBKb * D; i += kThreads) {
-      const int j = i / D, dd = i % D, kj = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (kj < Sk) {
-        const size_t off = (((size_t)b * Sk + kj) * Hkv + hk) * D + dd;
-        kv = to_f(k[off]);
-        vv = to_f(v[off]);
-      }
-      sK[j * KS + dd] = kv;
-      sV[j * KS + dd] = vv;
-    }
-    __syncthreads();
-    {
-      // Lane j owns key j; rows r = warp + SSTEP*i share its K/V value.
-      const int j = lane;
-      float s[SPT], dp[SPT];
-#pragma unroll
-      for (int i = 0; i < SPT; ++i) s[i] = dp[i] = 0.f;
-#pragma unroll 4
-      for (int e = 0; e < D; ++e) {
-        const float ke = sK[j * KS + e], ve = sV[j * KS + e];
-#pragma unroll
-        for (int i = 0; i < SPT; ++i) {
-          const int r = tid / kBKb + i * SSTEP;
-          s[i] = fmaf(sQ[r * D + e], ke, s[i]);
-          dp[i] = fmaf(sDO[r * D + e], ve, dp[i]);
-        }
-      }
-      const int kp = sKp[j];
-#pragma unroll
-      for (int i = 0; i < SPT; ++i) {
-        const int r = tid / kBKb + i * SSTEP;
-        const float p = visible(sQp[r], kp, is_causal, windowed, window)
-                            ? expf(s[i] * scale - sL[r])
-                            : 0.f;
-        sDS[r * kBKb + j] = p * (dp[i] - sDelta[r] + sDlse[r]) * scale;
-      }
-    }
-    __syncthreads();
-    // dq[r, d] += sum_j ds[r, j] * k[j, d], four keys per 16-byte load of ds.
-#pragma unroll 2
-    for (int j = 0; j < kBKb; j += 4) {
-      float kv[4][CPT];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) kv[u][c] = sK[(j + u) * KS + d + c * kThreads];
-#pragma unroll
-      for (int i = 0; i < NR; ++i) {
-        const int r = row0 + i * RSTEP;
-        const float4 ds = *reinterpret_cast<const float4*>(sDS + r * kBKb + j);
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          acc[i][c] = fmaf(ds.x, kv[0][c], acc[i][c]);
-          acc[i][c] = fmaf(ds.y, kv[1][c], acc[i][c]);
-          acc[i][c] = fmaf(ds.z, kv[2][c], acc[i][c]);
-          acc[i][c] = fmaf(ds.w, kv[3][c], acc[i][c]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    const int r = row0 + i * RSTEP;
-    if (r < nrows) {
-#pragma unroll
-      for (int c = 0; c < CPT; ++c)
-        dq[(((size_t)b * Sq + q0 + r) * Hq + h) * D + d + c * kThreads] = acc[i][c];
-    }
-  }
-}
-
 struct BwdArgs {
   const void *q, *k, *v, *dout;
   const float *lse, *delta, *dlse;
@@ -329,29 +168,257 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-cudaError_t launch_dq(const BwdArgs& a, float* dq) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  auto kern = flash_bwd_dq_kernel<T, D>;
-  // The shared-memory opt-in is set once per template instance (per process).
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return attr;
-  dim3 grid((a.Sq + kBQ - 1) / kBQ, a.Hq, a.B);
-  kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, a.dlse, a.q_pos, a.k_pos, dq, a.Sq, a.Sk,
-      a.Hq, a.Hkv, a.causal, a.has_window, a.window, a.scale);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// B2's CUDA-core instance: float32, and bf16 at D 32.
+// B1's and B2's CUDA-core instances: float32, and bf16 at D 32.
 // ---------------------------------------------------------------------------
 
 namespace core {
 
-// The tiling and shared-memory layout (bytes) of one block at head dim D
+// B1's tiling and shared-memory layout (bytes) of one block at head dim D
+// with K and V staged in T (mirrored by `core_dq_tiling` and the kernel
+// lint's closed form).  Thread (ty, tx) = (tid / 16, tid % 16) owns rows
+// ty + 16 i of the q-tile: keys tx + 16 j of S, dP and dS, and columns
+// VW tx + 16 VW c (c < NV) of dQ.
+template <typename T, int D>
+struct Dq {
+  static constexpr int BQ = D == 256 ? 32 : 64;  // q rows a block
+  static constexpr int BK = D == 256 ? 32 : 64;  // keys a KV tile
+  static constexpr int kStages = 2;              // depth of the K/V ring
+  static constexpr int TR = BQ / 16, TK = BK / 16;  // rows and keys of a thread's S
+  static constexpr int VW = D >= 64 ? 4 : 2;     // dQ columns a vector
+  static constexpr int NV = D / 16 / VW;         // dQ vectors a row of a thread
+  static constexpr int QS = D + 4;               // float32 row of Q and dout: 16 bytes of padding
+  static constexpr int KS = D + 16 / (int)sizeof(T);  // row of K and V in T: 16 bytes too
+  static constexpr int PS = BK + 16;             // row of dS
+  static constexpr int kStage = 2 * BK * KS * (int)sizeof(T);  // K, then V
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + 4 * BQ * QS;
+  static constexpr int kKV = kDO + 4 * BQ * QS;
+  static constexpr int kDS = kKV + kStages * kStage;
+  static constexpr int kKp = kDS + 4 * BQ * PS;  // key positions, a stage each
+  static constexpr int kRows = kKp + 4 * kStages * BK;  // lse, delta, dlse, positions
+  static constexpr int kLive = kRows + 4 * 4 * BQ;
+  static constexpr int kFlags = kLive + 4 * kFlagChunk;
+  static constexpr int kMisc = kFlags + kFlagChunk;  // q range, live count
+  static constexpr int kBytes = kMisc + 16;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_core_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             const float* __restrict__ dlse, const int* __restrict__ q_pos,
+                             const int* __restrict__ k_pos, float* __restrict__ dq, int B,
+                             int Sq, int Sk, int Hq, int Hkv, int causal, int has_window,
+                             int window, float scale) {
+  using L = Dq<T, D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem + L::kQ);
+  float* sDO = reinterpret_cast<float*>(smem + L::kDO);
+  T* sKV = reinterpret_cast<T*>(smem + L::kKV);
+  float* sDS = reinterpret_cast<float*>(smem + L::kDS);
+  int* sKp = reinterpret_cast<int*>(smem + L::kKp);
+  float* sL = reinterpret_cast<float*>(smem + L::kRows);
+  float* sDelta = sL + L::BQ;
+  float* sDlse = sDelta + L::BQ;
+  int* sQp = reinterpret_cast<int*>(sDlse + L::BQ);
+  int* sLive = reinterpret_cast<int*>(smem + L::kLive);
+  uint8_t* sFlags = smem + L::kFlags;
+  int* sMisc = reinterpret_cast<int*>(smem + L::kMisc);
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tx = tid & 15, ty = tid >> 4;
+  // Blocks in tile-major order; causal grids start with the q-tiles that
+  // have the most live KV tiles.
+  const int nq = (Sq + L::BQ - 1) / L::BQ;
+  const int rank = blockIdx.x / (Hq * B), hb = blockIdx.x % (Hq * B);
+  const int qt = causal ? nq - 1 - rank : rank;
+  const int q0 = qt * L::BQ, h = hb % Hq, b = hb / Hq, hk = h / (Hq / Hkv);
+  const bool is_causal = causal != 0, windowed = has_window != 0;
+  const size_t key_stride = (size_t)Hkv * D;  // elements from one key to the next
+  const T* kb = k + (size_t)b * Sk * key_stride + (size_t)hk * D;
+  const T* vb = v + (size_t)b * Sk * key_stride + (size_t)hk * D;
+  const int* kpb = k_pos + (size_t)b * Sk;
+
+  // Q and dout in float32 (rows past Sq are zero); the rows' lse, delta,
+  // dlse and positions, with a row that saw no key (lse -inf) taken as lse
+  // = dlse = 0, as the Pallas `_bwd_p_ds` does.
+  constexpr int QC = D / 4;
+  for (int i = tid; i < 2 * L::BQ * QC; i += kThreads) {
+    const int which = i / (L::BQ * QC), r = (i / QC) % L::BQ, c = 4 * (i % QC);
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (q0 + r < Sq) ld_vec((which ? dout : q) + (((size_t)b * Sq + q0 + r) * Hq + h) * D + c, x);
+    st_vec((which ? sDO : sQ) + r * L::QS + c, x);
+  }
+  if (tid < L::BQ) {
+    float l = 0.f, de = 0.f, dl = 0.f;
+    int qp = 0;
+    if (q0 + tid < Sq) {
+      const size_t s = (size_t)b * Sq + q0 + tid, row = s * Hq + h;
+      l = lse[row];
+      de = delta[row];
+      dl = dlse[row];
+      if (is_neg_inf(l)) l = dl = 0.f;
+      qp = q_pos[s];
+    }
+    sL[tid] = l;
+    sDelta[tid] = de;
+    sDlse[tid] = dl;
+    sQp[tid] = qp;
+  }
+  __syncthreads();
+  if (warp == 0) warp_range(sQp, min(L::BQ, Sq - q0), sMisc);  // the real rows' range
+
+  auto load_tile = [&](int stage, int entry) {
+    load_kv_tile<T, D, L::BK, L::KS>(sKV + stage * (L::kStage / (int)sizeof(T)),
+                                     sKp + stage * L::BK, kb, vb, kpb, key_stride,
+                                     (entry & kTileMask) * L::BK, Sk);
+  };
+
+  float acc[L::TR][L::NV][L::VW];
+#pragma unroll
+  for (int i = 0; i < L::TR; ++i)
+#pragma unroll
+    for (int c = 0; c < L::NV; ++c)
+#pragma unroll
+      for (int w = 0; w < L::VW; ++w) acc[i][c][w] = 0.f;
+
+  const int nk = (Sk + L::BK - 1) / L::BK;
+  for (int c0 = 0; c0 < nk; c0 += kFlagChunk) {
+    const int cn = min(kFlagChunk, nk - c0);
+    __syncthreads();  // the q range is written; the last chunk's tiles are read
+    const int qmin = sMisc[0], qmax = sMisc[1];
+    flag_kv_tiles<L::BK>(sFlags, kpb, Sk, c0, cn, qmin, qmax, is_causal, windowed, window);
+    __syncthreads();
+    if (warp == 0) list_live(sFlags, cn, c0, sLive, sMisc + 2);
+    __syncthreads();
+    const int n_live = sMisc[2];
+#pragma unroll
+    for (int s = 0; s < L::kStages - 1; ++s) {
+      if (s < n_live) load_tile(s, sLive[s]);
+      cp_async_commit();
+    }
+    for (int it = 0; it < n_live; ++it) {
+      cp_async_wait<L::kStages - 2>();
+      __syncthreads();  // tile `it` has landed; every thread is done with tile it - 1
+      if (it + L::kStages - 1 < n_live)
+        load_tile((it + L::kStages - 1) % L::kStages, sLive[it + L::kStages - 1]);
+      cp_async_commit();
+      const int entry = sLive[it], stage = it % L::kStages;
+      const int k0 = (entry & kTileMask) * L::BK;
+      const T* sK = sKV + stage * (L::kStage / (int)sizeof(T));
+      const T* sV = sK + L::BK * L::KS;
+      const int* kp = sKp + stage * L::BK;
+
+      // S = Q K^T, then dP = dout V^T: four columns of a row and of each key
+      // a step.
+      float s[L::TR][L::TK], dp[L::TR][L::TK];
+#pragma unroll
+      for (int i = 0; i < L::TR; ++i)
+#pragma unroll
+        for (int j = 0; j < L::TK; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        float qa[L::TR][4], ka[L::TK][4];
+#pragma unroll
+        for (int i = 0; i < L::TR; ++i) ld_vec(sQ + (ty + 16 * i) * L::QS + d, qa[i]);
+#pragma unroll
+        for (int j = 0; j < L::TK; ++j) ld_vec(sK + (tx + 16 * j) * L::KS + d, ka[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int i = 0; i < L::TR; ++i)
+#pragma unroll
+            for (int j = 0; j < L::TK; ++j) s[i][j] = fmaf(qa[i][e], ka[j][e], s[i][j]);
+      }
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        float da[L::TR][4], va[L::TK][4];
+#pragma unroll
+        for (int i = 0; i < L::TR; ++i) ld_vec(sDO + (ty + 16 * i) * L::QS + d, da[i]);
+#pragma unroll
+        for (int j = 0; j < L::TK; ++j) ld_vec(sV + (tx + 16 * j) * L::KS + d, va[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int i = 0; i < L::TR; ++i)
+#pragma unroll
+            for (int j = 0; j < L::TK; ++j) dp[i][j] = fmaf(da[i][e], va[j][e], dp[i][j]);
+      }
+      // P = exp(S scale - lse) and dS = P (dP - delta + dlse) scale; the
+      // elementwise mask only on masked tiles.  Rows past Sq are computed
+      // on zeros and never stored: a row of dS feeds only its own row of dQ.
+      const bool masked = (entry >> kFlagShift) == 2;
+#pragma unroll
+      for (int i = 0; i < L::TR; ++i) {
+        const int r = ty + 16 * i;
+        const float lr = sL[r], de = sDelta[r], dl = sDlse[r];
+#pragma unroll
+        for (int j = 0; j < L::TK; ++j) {
+          const int key = tx + 16 * j;
+          const bool vis = !masked || (k0 + key < Sk && visible(sQp[r], kp[key], is_causal,
+                                                                windowed, window));
+          const float p = vis ? expf(s[i][j] * scale - lr) : 0.f;
+          sDS[r * L::PS + key] = p * (dp[i][j] - de + dl) * scale;
+        }
+      }
+      __syncthreads();  // dS is whole
+      // dQ += dS K: four keys of dS's rows a step, one row of K at a time.
+#pragma unroll
+      for (int n = 0; n < L::BK; n += 4) {
+        float sa[L::TR][4];
+#pragma unroll
+        for (int i = 0; i < L::TR; ++i) ld_vec(sDS + (ty + 16 * i) * L::PS + n, sa[i]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float kv[L::NV][L::VW];
+#pragma unroll
+          for (int c = 0; c < L::NV; ++c)
+            ld_vec(sK + (n + u) * L::KS + L::VW * (tx + 16 * c), kv[c]);
+#pragma unroll
+          for (int i = 0; i < L::TR; ++i)
+#pragma unroll
+            for (int c = 0; c < L::NV; ++c)
+#pragma unroll
+              for (int w = 0; w < L::VW; ++w)
+                acc[i][c][w] = fmaf(sa[i][u], kv[c][w], acc[i][c][w]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < L::TR; ++i) {
+    const int sq = q0 + ty + 16 * i;
+    if (sq >= Sq) continue;
+    float* row = dq + (((size_t)b * Sq + sq) * Hq + h) * D;
+#pragma unroll
+    for (int c = 0; c < L::NV; ++c) st_vec(row + L::VW * (tx + 16 * c), acc[i][c]);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const BwdArgs& a, float* dq) {
+  using L = Dq<T, D>;
+  auto kern = flash_bwd_dq_core_kernel<T, D>;
+  // The shared-memory opt-in is set once per template instance (per process).
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (attr != cudaSuccess) return attr;
+  // Vector loads of q and dout, 16-byte cp.async copies of k and v.
+  if (((uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v | (uintptr_t)a.dout) & 15)
+    return cudaErrorMisalignedAddress;
+  const long long blocks = (long long)((a.Sq + L::BQ - 1) / L::BQ) * a.Hq * a.B;
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, kThreads, L::kBytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.delta, a.dlse, a.q_pos, a.k_pos, dq, a.B, a.Sq,
+      a.Sk, a.Hq, a.Hkv, a.causal, a.has_window, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+// B2's tiling and shared-memory layout (bytes) of one block at head dim D
 // with Q and dout staged in T (mirrored by `core_dkv_tiling` and the kernel
 // lint's closed form).  Thread (ty, tx) = (tid / 16, tid % 16) owns keys
 // ty + 16 i of the block: queries tx + 16 j of S^T and dP^T, and columns
@@ -429,13 +496,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   if (tid < L::BK) sKp[tid] = tid < nkeys ? k_pos[(size_t)b * Sk + k0 + tid] : 2 * kPadHalf;
   __syncthreads();
-  if (warp == 0) {
-    int lo = INT32_MAX, hi = INT32_MIN;
-    for (int j = lane; j < L::BK; j += 32) lo = min(lo, sKp[j]), hi = max(hi, sKp[j]);
-    lo = warp_min_i(lo);
-    hi = warp_max_i(hi);
-    if (lane == 0) sMisc[0] = lo, sMisc[1] = hi;
-  }
+  if (warp == 0) warp_range(sKp, L::BK, sMisc);  // the keys' range
 
   // Item n of the walk: query head hk * group + n / n_live of the group, the
   // live q-tile sLive[n % n_live]: its Q and dout rows (16 bytes a copy,
@@ -630,15 +691,16 @@ cudaError_t launch_dkv(const BwdArgs& a, float* dk, float* dv) {
   return cudaGetLastError();
 }
 
-// Dynamic shared memory of one block (bytes) at head dim D and type (`bf16`
-// 1: D 32 only), or 0 where no instance exists.
-inline size_t dkv_smem_bytes(int D, int bf16) {
-  if (bf16) return D == 32 ? Dkv<__nv_bfloat16, 32>::kBytes : 0;
+// Dynamic shared memory of one block of layout L (`Dq` or `Dkv`, bytes) at
+// head dim D and type (`bf16` 1: D 32 only), or 0 where no instance exists.
+template <template <typename, int> class L>
+inline size_t smem_bytes(int D, int bf16) {
+  if (bf16) return D == 32 ? L<__nv_bfloat16, 32>::kBytes : 0;
   switch (D) {
-    case 32: return Dkv<float, 32>::kBytes;
-    case 64: return Dkv<float, 64>::kBytes;
-    case 128: return Dkv<float, 128>::kBytes;
-    case 256: return Dkv<float, 256>::kBytes;
+    case 32: return L<float, 32>::kBytes;
+    case 64: return L<float, 64>::kBytes;
+    case 128: return L<float, 128>::kBytes;
+    case 256: return L<float, 256>::kBytes;
   }
   return 0;
 }
@@ -651,12 +713,12 @@ template <typename T>
 cudaError_t dq_dim(int D, const BwdArgs& a, float* dq) {
   constexpr bool f32 = std::is_same_v<T, float>;
   switch (D) {
-    case 32: return launch_dq<T, 32>(a, dq);
-    case 64: if constexpr (f32) return launch_dq<T, 64>(a, dq);
+    case 32: return core::launch_dq<T, 32>(a, dq);
+    case 64: if constexpr (f32) return core::launch_dq<T, 64>(a, dq);
       break;
-    case 128: if constexpr (f32) return launch_dq<T, 128>(a, dq);
+    case 128: if constexpr (f32) return core::launch_dq<T, 128>(a, dq);
       break;
-    case 256: if constexpr (f32) return launch_dq<T, 256>(a, dq);
+    case 256: if constexpr (f32) return core::launch_dq<T, 256>(a, dq);
       break;
   }
   return cudaErrorInvalidValue;
@@ -1407,10 +1469,15 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
 // the host check its copy of the rule (`flash_bwd_instance`) on the card.
 extern "C" int flash_bwd_takes_wgmma(int bf16, int D) { return rt::takes_wgmma_bwd(bf16, D); }
 
-// Dynamic shared memory of one block of B2's CUDA-core instance (bytes) at
-// head dim D and type (`bf16` 1: D 32 only), or -1 where none exists.
+// Dynamic shared memory of one block of B1's or B2's CUDA-core instance
+// (bytes) at head dim D and type (`bf16` 1: D 32 only), or -1 where none
+// exists.
+extern "C" int flash_bwd_dq_core_smem(int D, int bf16) {
+  const size_t bytes = rt::core::smem_bytes<rt::core::Dq>(D, bf16);
+  return bytes ? (int)bytes : -1;
+}
 extern "C" int flash_bwd_dkv_core_smem(int D, int bf16) {
-  const size_t bytes = rt::core::dkv_smem_bytes(D, bf16);
+  const size_t bytes = rt::core::smem_bytes<rt::core::Dkv>(D, bf16);
   return bytes ? (int)bytes : -1;
 }
 

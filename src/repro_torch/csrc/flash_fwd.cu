@@ -175,7 +175,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint8_t* sFlags = smem + L::kFlags;
   int* sMisc = reinterpret_cast<int*>(smem + L::kMisc);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int tx = tid & 15, ty = tid >> 4;
   // Blocks in tile-major order; causal grids start with the q-tiles that
   // have the most live KV tiles.
@@ -200,31 +200,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   if (tid < L::BQ) sQp[tid] = q0 + tid < Sq ? q_pos[(size_t)b * Sq + q0 + tid] : 0;
   __syncthreads();
-  if (warp == 0) {
-    int lo = INT32_MAX, hi = INT32_MIN;
-    for (int r = lane; r < L::BQ; r += 32)
-      if (q0 + r < Sq) lo = min(lo, sQp[r]), hi = max(hi, sQp[r]);
-    lo = warp_min_i(lo);
-    hi = warp_max_i(hi);
-    if (lane == 0) sMisc[0] = lo, sMisc[1] = hi;
-  }
+  if (warp == 0) warp_range(sQp, min(L::BQ, Sq - q0), sMisc);  // the real rows' range
 
-  // K and V rows of a tile, 16 bytes a copy, rows past Sk zero; the keys'
-  // positions, 4 bytes a copy (past Sk: masked by index below).
   auto load_tile = [&](int stage, int entry) {
-    constexpr int C = D * (int)sizeof(T) / 16, E = 16 / (int)sizeof(T);
-    const int k0 = (entry & kTileMask) * L::BK;
-    T* dst = sKV + stage * (L::kStage / (int)sizeof(T));
-    for (int i = tid; i < 2 * L::BK * C; i += kThreads) {
-      const int which = i / (L::BK * C), r = (i / C) % L::BK, c = i % C;
-      const bool ok = k0 + r < Sk;
-      const T* src = (which ? vb : kb) + (size_t)(ok ? k0 + r : k0) * key_stride + c * E;
-      cp_async16(dst + (which * L::BK + r) * L::KS + c * E, src, ok);
-    }
-    if (tid < L::BK) {
-      const bool ok = k0 + tid < Sk;
-      cp_async4(sKp + stage * L::BK + tid, kpb + (ok ? k0 + tid : k0), ok);
-    }
+    load_kv_tile<T, D, L::BK, L::KS>(sKV + stage * (L::kStage / (int)sizeof(T)),
+                                     sKp + stage * L::BK, kb, vb, kpb, key_stride,
+                                     (entry & kTileMask) * L::BK, Sk);
   };
 
   float o[L::TR][L::NV][L::VW], m[L::TR], l[L::TR];
@@ -243,19 +224,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int cn = min(kFlagChunk, nk - c0);
     __syncthreads();  // the q range is written; the last chunk's tiles are read
     const int qmin = sMisc[0], qmax = sMisc[1];
-    // Each tile's flag from its key range (a missing key counts as padding).
-    for (int t = warp; t < cn; t += kThreads / 32) {
-      const int base = (c0 + t) * L::BK;
-      int lo = INT32_MAX, hi = INT32_MIN;
-      for (int j = lane; j < L::BK; j += 32) {
-        const int p = base + j < Sk ? kpb[base + j] : 2 * kPadHalf;
-        lo = min(lo, p);
-        hi = max(hi, p);
-      }
-      lo = warp_min_i(lo);
-      hi = warp_max_i(hi);
-      if (lane == 0) sFlags[t] = (uint8_t)tile_flag(qmin, qmax, lo, hi, is_causal, windowed, window);
-    }
+    flag_kv_tiles<L::BK>(sFlags, kpb, Sk, c0, cn, qmin, qmax, is_causal, windowed, window);
     __syncthreads();
     if (warp == 0) list_live(sFlags, cn, c0, sLive, sMisc + 2);
     __syncthreads();

@@ -38,8 +38,8 @@ Counterpart of ``repro.kernels.flash_attention``.
   64, 128 or 256 (recurrentgemma's local attention; there the block's work
   is split by dQ's, dK's and dV's columns) run on the tensor cores (TMA-fed
   tiles, ``wgmma`` products, P and dS rounded to bf16 as operands), float32
-  calls and D = 32 on the CUDA cores (B2's register-tiled like A's:
-  :func:`core_dkv_tiling`).  Both use kernel
+  calls and D = 32 on the CUDA cores (register-tiled like A's:
+  :func:`core_dq_tiling`, :func:`core_dkv_tiling`).  Both use kernel
   A's tile skip; B2 sums the GQA group inside one block, without atomics,
   so gradients are bitwise reproducible.
 * :func:`flash_attention_bwd_torch` is their plain version, a port of
@@ -67,6 +67,7 @@ __all__ = [
     "flash_fwd_smem_bytes",
     "wgmma_fwd_tiling",
     "core_fwd_tiling",
+    "core_dq_tiling",
     "core_dkv_tiling",
     "core_smem_bytes",
     "decode_split_rule",
@@ -230,6 +231,7 @@ _BWD_ARGTYPES = {
                                                                      ctypes.c_void_p],
     "flash_bwd_takes_wgmma": [ctypes.c_int] * 2,
     "flash_bwd_wgmma_smem": [ctypes.c_int] * 3,
+    "flash_bwd_dq_core_smem": [ctypes.c_int] * 2,
     "flash_bwd_dkv_core_smem": [ctypes.c_int] * 2,
 }
 
@@ -318,10 +320,10 @@ def wgmma_fwd_tiling(D: int) -> dict:
                 o_cols=D // 2 if by_cols else D)
 
 
-# The CUDA-core instances of A and B2 (``core::Fwd`` and ``core::Dkv`` in
-# csrc/flash_fwd.cu and csrc/flash_bwd.cu): a ring of CORE_STAGES tiles
-# fed by cp.async, and the walk's live tiles listed CORE_FLAG_CHUNK at a
-# time.
+# The CUDA-core instances of A, B1 and B2 (``core::Fwd`` in
+# csrc/flash_fwd.cu, ``core::Dq`` and ``core::Dkv`` in csrc/flash_bwd.cu):
+# a ring of CORE_STAGES tiles fed by cp.async, and the walk's live tiles
+# listed CORE_FLAG_CHUNK at a time.
 CORE_STAGES = 2
 CORE_FLAG_CHUNK = 256
 
@@ -334,6 +336,17 @@ def core_fwd_tiling(D: int) -> dict:
     if D not in FLASH_DIMS:
         raise ValueError(f"core_fwd_tiling: no CUDA-core instance at head dim {D}")
     return dict(q_rows=64, keys=32 if D == 256 else 64)
+
+
+def core_dq_tiling(D: int) -> dict:
+    """Kernel B1's CUDA-core tiling at head dim ``D`` (``core::Dq<T, D>``):
+    q rows a block and keys a KV tile.  64 x 64 up to D 128; 32 x 32 at D
+    256, so that Q, dout and two stages of K and V fit the block's shared
+    memory."""
+    if D not in FLASH_DIMS:
+        raise ValueError(f"core_dq_tiling: no CUDA-core instance at head dim {D}")
+    side = 32 if D == 256 else 64
+    return dict(q_rows=side, keys=side)
 
 
 def core_dkv_tiling(D: int) -> dict:
@@ -450,8 +463,8 @@ def flash_fwd_smem_bytes(D: int, Sk: int) -> int:
 
 
 def core_smem_bytes(kernel: str, dtype, D: int) -> int:
-    """Dynamic shared memory of one block of A's (``kernel="fwd"``) or B2's
-    (``"dkv"``) CUDA-core instance at head dim ``D`` and ``dtype`` (bf16 at
+    """Dynamic shared memory of one block of A's (``kernel="fwd"``), B1's
+    (``"dq"``) or B2's (``"dkv"``) CUDA-core instance at head dim ``D`` and ``dtype`` (bf16 at
     D 32 only), as the built library states it (builds the library on first
     use; needs the CUDA toolchain)."""
     from repro_torch.kernels._build import load_library
@@ -459,7 +472,10 @@ def core_smem_bytes(kernel: str, dtype, D: int) -> int:
     bf16 = int(dtype == torch.bfloat16)
     if kernel == "fwd":
         return load_library("flash_fwd", _ARGTYPES).flash_fwd_core_smem(D, bf16)
-    return load_library("flash_bwd", _BWD_ARGTYPES).flash_bwd_dkv_core_smem(D, bf16)
+    lib = load_library("flash_bwd", _BWD_ARGTYPES)
+    if kernel == "dq":
+        return lib.flash_bwd_dq_core_smem(D, bf16)
+    return lib.flash_bwd_dkv_core_smem(D, bf16)
 
 
 def flash_fwd_instance_built(dtype, Sq: int, D: int) -> str:
@@ -637,6 +653,8 @@ def flash_attention_bwd_dq_cuda(q, k, v, q_pos, k_pos, dout, lse, delta, dlse, *
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq
+    if flash_bwd_instance(q.dtype, q.shape[-1]) == "cuda_core":
+        check_aligned(name, q, k, v, dout)
     err = load_library("flash_bwd", _BWD_ARGTYPES).flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dlse.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(), dq.data_ptr(),

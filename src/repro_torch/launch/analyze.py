@@ -81,9 +81,10 @@ PAGED_CALLS = (
     ("recurrentgemma-2b paged decode", _BF16, 256, 8, 10, 1, 16, 128, 1024),
 )
 # The port's tiles (q rows x keys) the tile-skip predicate is checked at:
-# A's wgmma instance up to D 128 and at D 256 (and A's CUDA-core instance
-# up to D 128), B1's at D 128, A's CUDA-core instance at D 256 and B2's
-# (64 q rows x 32 keys), B1's CUDA-core and the decode core's 32-key tiles.
+# A's wgmma instance up to D 128 and at D 256 (and A's and B1's CUDA-core
+# instances up to D 128), B1's at D 128, A's CUDA-core instance at D 256
+# and B2's (64 q rows x 32 keys), B1's and B2's CUDA-core instances at D
+# 256 and the decode core's 32-key tiles.
 SKIP_TILES = ((128, 128), (64, 64), (128, 64), (64, 32), (32, 32))
 
 

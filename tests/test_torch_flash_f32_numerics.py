@@ -1,17 +1,20 @@
-"""The tile walks of kernels A's and B2's CUDA-core instances, emulated in
-plain torch, held against the JAX package on the same inputs.
+"""The tile walks of kernels A's, B1's and B2's CUDA-core instances,
+emulated in plain torch, held against the JAX package on the same inputs.
 
 A's CUDA-core instance (``core::flash_fwd_core_kernel`` in
 ``csrc/flash_fwd.cu``: float32, and bf16 at D 32, with Sq > 4) gives each
 block one q-tile of :func:`core_fwd_tiling`'s rows, flags every KV tile
 once (dead, wholly visible, masked element by element; a missing key counts
 as padding), lists the live tiles ``CORE_FLAG_CHUNK`` at a time, and walks
-them in order with the online softmax rescaled per tile.  B2's
+them in order with the online softmax rescaled per tile.  B1's
+(``core::flash_bwd_dq_core_kernel`` in ``csrc/flash_bwd.cu``) walks the
+same way over :func:`core_dq_tiling`'s tiles and sums dQ tile by tile in
+index order.  B2's
 (``core::flash_bwd_dkv_core_kernel`` in ``csrc/flash_bwd.cu``) gives each
 block one key tile, flags the q-tiles (a ragged last q-tile is masked) and
 sums dK and dV over the GQA group's heads and then the live q-tiles, in
-that fixed order.  :func:`emulate_core_fwd` and :func:`emulate_core_dkv`
-repeat those walks in float32; here they are held against
+that fixed order.  :func:`emulate_core_fwd`, :func:`emulate_core_dq` and
+:func:`emulate_core_dkv` repeat those walks in float32; here they are held against
 ``repro.kernels.ops.flash_attention(impl="xla")`` and its ``jax.vjp`` at the
 limits ``chip_smoke.py`` holds the kernels to on the card (1e-4), and
 every flag's skip decision against the JAX ``_tile_skip`` at the new tile
@@ -19,6 +22,7 @@ sizes.  The kernels themselves are held against the plain versions on the
 card.
 """
 
+import functools
 import zlib
 
 import jax
@@ -33,6 +37,7 @@ from repro.kernels.flash_attention import tile_skip as j_tile_skip
 from repro_torch.kernels.flash_attention import (
     CORE_FLAG_CHUNK,
     core_dkv_tiling,
+    core_dq_tiling,
     core_fwd_tiling,
     flash_bwd_instance,
     flash_fwd_instance,
@@ -125,6 +130,54 @@ def emulate_core_fwd(q, k, v, q_pos, k_pos, *, causal: bool, window: int | None,
             lse[b, rows] = torch.where(live, m + torch.log(torch.where(live, l, 1.0)),
                                        -torch.inf).transpose(0, 1)
     return out.to(q.dtype), lse, flags
+
+
+def emulate_core_dq(q, k, v, q_pos, k_pos, out, lse, dout, dlse, *, causal: bool,
+                    window: int | None, scale: float):
+    """B1's CUDA-core walk -> ``dq`` in float32, each q-tile's sum over its
+    live KV tiles in index order (P and dS recomputed per tile, the mask
+    only on masked tiles); also the flags it computed, ``{(b, q-tile, key
+    tile): flag}``."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    t = core_dq_tiling(D)
+    bq, bk = t["q_rows"], t["keys"]
+    qf, dof = q.float(), dout.float()
+    kf = k.float().repeat_interleave(group, dim=2)
+    vf = v.float().repeat_interleave(group, dim=2)
+    delta = (dof * out.float()).sum(dim=-1)  # outside the kernels, as on the card
+    dead = torch.isneginf(lse)
+    lse0 = torch.where(dead, 0.0, lse)
+    dlse0 = torch.where(dead, 0.0, dlse)
+    dq = torch.zeros((B, Sq, Hq, D), dtype=torch.float32)
+    flags = {}
+    for b in range(B):
+        for q0 in range(0, Sq, bq):
+            rows = slice(q0, min(Sq, q0 + bq))
+            qp = q_pos[b, rows]
+            qb, dob = (x[b, rows].transpose(0, 1) for x in (qf, dof))  # (Hq, rows, D)
+            lr, de, dl = (x[b, rows].T[..., None] for x in (lse0, delta, dlse0))
+            acc = torch.zeros(qb.shape, dtype=torch.float32)
+
+            def flag_of(kt):
+                f = tile_flag(qp, _padded_keys(k_pos[b], kt * bk, bk), causal=causal,
+                              window=window)
+                flags[(b, q0 // bq, kt)] = f
+                return f
+
+            for kt, f in live_walk(-(-Sk // bk), flag_of):
+                keys = slice(kt * bk, min(Sk, (kt + 1) * bk))
+                s = torch.einsum("hqd,khd->hqk", qb, kf[b, keys])
+                dp = torch.einsum("hqd,khd->hqk", dob, vf[b, keys])
+                p = torch.exp(s * scale - lr)
+                if f == 2:
+                    mask = visibility_mask(qp[None], k_pos[b, keys][None], causal=causal,
+                                           window=window)
+                    p = torch.where(mask, p, 0.0)
+                acc += torch.einsum("hqk,khd->hqd", p * (dp - de + dl) * scale, kf[b, keys])
+            dq[b, rows] = acc.transpose(0, 1)
+    return dq, flags
 
 
 def emulate_core_dkv(q, k, v, q_pos, k_pos, out, lse, dout, dlse, *, causal: bool,
@@ -240,24 +293,47 @@ def _check_fwd(key, B, Sq, Sk, Hq, Hkv, D, layout, *, causal, window):
     return out, lse, flags
 
 
-def _check_dkv(key, B, Sq, Sk, Hq, Hkv, D, layout, *, causal, window):
+@functools.lru_cache(maxsize=None)
+def _jax_bwd(key, B, Sq, Sk, Hq, Hkv, D, layout, causal, window):
+    """The inputs of ``key``, their positions, and the JAX flash's ``(out,
+    lse)`` and ``(dq, dk, dv)`` from its ``jax.vjp``, computed once for B1's
+    and B2's checks on the same inputs."""
     q, k, v, dout, dlse = _inputs(key, B, Sq, Sk, Hq, Hkv, D)
     q_pos, k_pos = _positions(layout, B, Sq, Sk)
-    scale = 1.0 / D ** 0.5
 
     def fwd(q, k, v):
         return jops.flash_attention(q, k, v, q_pos=jnp.asarray(q_pos), k_pos=jnp.asarray(k_pos),
                                     causal=causal, window=window, impl="xla")
 
     (out, lse), vjp = jax.vjp(fwd, *(jnp.asarray(x.numpy()) for x in (q, k, v)))
-    _, want_dk, want_dv = vjp((jnp.asarray(dout.numpy()), jnp.asarray(dlse.numpy())))
+    grads = vjp((jnp.asarray(dout.numpy()), jnp.asarray(dlse.numpy())))
+    return ((q, k, v, dout, dlse), (q_pos, k_pos),
+            tuple(torch.from_numpy(np.array(x)) for x in (out, lse, *grads)))
+
+
+def _check_dq(key, B, Sq, Sk, Hq, Hkv, D, layout, *, causal, window):
+    (q, k, v, dout, dlse), (q_pos, k_pos), (out, lse, want_dq, _, _) = _jax_bwd(
+        key, B, Sq, Sk, Hq, Hkv, D, layout, causal, window)
+    dq, flags = emulate_core_dq(q, k, v, torch.from_numpy(q_pos), torch.from_numpy(k_pos), out,
+                                lse, dout, dlse, causal=causal, window=window,
+                                scale=1.0 / D ** 0.5)
+    assert torch.isfinite(dq).all()
+    np.testing.assert_allclose(dq.numpy(), want_dq.numpy(), **F32)
+    t = core_dq_tiling(D)
+    _skips_match_jax(flags, q_pos, k_pos, t["q_rows"], t["keys"], by_key=False, causal=causal,
+                     window=window)
+    return dq, lse, flags
+
+
+def _check_dkv(key, B, Sq, Sk, Hq, Hkv, D, layout, *, causal, window):
+    (q, k, v, dout, dlse), (q_pos, k_pos), (out, lse, _, want_dk, want_dv) = _jax_bwd(
+        key, B, Sq, Sk, Hq, Hkv, D, layout, causal, window)
     dk, dv, flags = emulate_core_dkv(
-        q, k, v, torch.from_numpy(q_pos), torch.from_numpy(k_pos),
-        torch.from_numpy(np.array(out)), torch.from_numpy(np.array(lse)), dout, dlse,
-        causal=causal, window=window, scale=scale)
+        q, k, v, torch.from_numpy(q_pos), torch.from_numpy(k_pos), out, lse, dout, dlse,
+        causal=causal, window=window, scale=1.0 / D ** 0.5)
     for got, want in ((dk, want_dk), (dv, want_dv)):
         assert torch.isfinite(got).all()
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **F32)
     t = core_dkv_tiling(D)
     _skips_match_jax(flags, q_pos, k_pos, t["q_rows"], t["keys"], by_key=True, causal=causal,
                      window=window)
@@ -293,6 +369,22 @@ BWD_CASES = [
 def test_core_dkv_walk_on_kernel_cases(case):
     case_id, (B, S, Hq, Hkv, D), causal, layout, window = case
     _check_dkv(("dkv", case_id), B, S, S, Hq, Hkv, D, layout, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_core_dq_walk_on_kernel_shapes(shape, causal):
+    B, Sq, Sk, Hq, Hkv, D = shape
+    _check_dq(("dq", shape, causal), B, Sq, Sk, Hq, Hkv, D, "contig", causal=causal,
+              window=None)
+
+
+# B1's checks take B2's inputs (the same keys), so each case's JAX gradients
+# are computed once.
+@pytest.mark.parametrize("case", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_core_dq_walk_on_kernel_cases(case):
+    case_id, (B, S, Hq, Hkv, D), causal, layout, window = case
+    _check_dq(("dkv", case_id), B, S, S, Hq, Hkv, D, layout, causal=causal, window=window)
 
 
 @pytest.mark.parametrize("case", BWD_CASES, ids=[c[0] for c in BWD_CASES])
@@ -343,9 +435,60 @@ def test_core_dkv_walk_edges(case, D):
         assert all(f != 1 for (_, _, qt), f in flags.items() if (qt + 1) * bq > Sq)
 
 
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("case", EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
+def test_core_dq_walk_edges(case, D):
+    case_id, (B, Sq, Sk, Hq, Hkv), layout, window = case
+    dq, lse, flags = _check_dq(("dkv-edge", case_id, D), B, Sq, Sk, Hq, Hkv, D, layout,
+                               causal=True, window=window)
+    if layout == "dead":  # rows that see no key get exactly 0; batch row 1 has no live tile
+        dead = torch.isneginf(lse)
+        assert dead[0, :16].all() and dead[1].all()
+        assert dq[dead].count_nonzero() == 0
+        assert all(f == 0 for (b, _, _), f in flags.items() if b == 1)
+    if window == 20:  # a short window leaves some tiles dead and masks the rest
+        assert {0, 2} <= set(flags.values())
+
+
+def test_core_dq_walk_lists_tiles_chunk_by_chunk():
+    """More KV tiles than one chunk of flags (257 at D 32): B1's walk holds
+    against JAX across the chunks' boundary, with dead tiles in the first
+    chunk (left of the window, and a run of padding keys) and live tiles in
+    both; its last q-tile is ragged (72 rows)."""
+    D, Sq = 32, 72
+    bk = core_dq_tiling(D)["keys"]
+    Sk = CORE_FLAG_CHUNK * bk + bk
+    rng = _rng("dq-chunks")
+    q, dout = (torch.from_numpy(rng.standard_normal((1, Sq, 2, D)).astype(np.float32))
+               for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((1, Sk, 1, D)).astype(np.float32))
+            for _ in range(2))
+    dlse = torch.from_numpy(rng.standard_normal((1, Sq, 2)).astype(np.float32))
+    q_pos = (Sk - Sq + np.arange(Sq, dtype=np.int32))[None]
+    k_pos = np.arange(Sk, dtype=np.int32)[None].copy()
+    k_pos[0, 9000:9100] = PAD_POS
+    window = 12000
+
+    def fwd(q, k, v):
+        return jops.flash_attention(q, k, v, q_pos=jnp.asarray(q_pos), k_pos=jnp.asarray(k_pos),
+                                    causal=True, window=window, impl="xla")
+
+    (out, lse), vjp = jax.vjp(fwd, *(jnp.asarray(x.numpy()) for x in (q, k, v)))
+    want_dq = vjp((jnp.asarray(dout.numpy()), jnp.asarray(dlse.numpy())))[0]
+    dq, flags = emulate_core_dq(q, k, v, torch.from_numpy(q_pos), torch.from_numpy(k_pos),
+                                torch.from_numpy(np.array(out)), torch.from_numpy(np.array(lse)),
+                                dout, dlse, causal=True, window=window, scale=D ** -0.5)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(want_dq), **F32)
+    _skips_match_jax(flags, q_pos, k_pos, core_dq_tiling(D)["q_rows"], bk, by_key=False,
+                     causal=True, window=window)
+    live = {kt for (_, _, kt), f in flags.items() if f}
+    assert max(live) >= CORE_FLAG_CHUNK and min(live) < CORE_FLAG_CHUNK
+    assert flags[(0, 0, 9024 // bk)] == 0 and flags[(0, 0, 0)] == 0
+
+
 def test_core_walks_without_keys():
-    """Sk = 0: A gives every row exactly (0, -inf) without a tile; B2 has no
-    block and returns empty gradients."""
+    """Sk = 0: A gives every row exactly (0, -inf) without a tile, and B1
+    exactly 0 for dq; B2 has no block and returns empty gradients."""
     B, Sq, Hq, Hkv, D = 1, 165, 2, 1, 32
     q = torch.from_numpy(_rng("nokeys").standard_normal((B, Sq, Hq, D)).astype(np.float32))
     k = torch.zeros((B, 0, Hkv, D))
@@ -355,6 +498,9 @@ def test_core_walks_without_keys():
                                        scale=D ** -0.5)
     assert flags == {}
     assert torch.equal(out, torch.zeros_like(out)) and torch.isneginf(lse).all()
+    dq, flags = emulate_core_dq(q, k, k, q_pos, k_pos, out, lse, q, lse, causal=True,
+                                window=None, scale=D ** -0.5)
+    assert flags == {} and torch.equal(dq, torch.zeros_like(q))
     dk, dv, flags = emulate_core_dkv(q, k, k, q_pos, k_pos, out, lse, q, lse, causal=True,
                                      window=None, scale=D ** -0.5)
     assert flags == {} and dk.shape == (B, 0, Hkv, D) and dv.shape == dk.shape
@@ -370,11 +516,15 @@ def test_core_walk_lists_tiles_chunk_by_chunk():
 
 
 def test_core_tilings_and_dispatch():
-    """The tile sizes the kernels are built with (``core::Fwd`` and
-    ``core::Dkv``), and the calls that reach them: float32 at every head dim
-    with Sq > 4, bf16 at D 32."""
+    """The tile sizes the kernels are built with (``core::Fwd``,
+    ``core::Dq`` and ``core::Dkv``), and the calls that reach them: float32
+    at every head dim with Sq > 4, bf16 at D 32."""
     assert [core_fwd_tiling(D)["keys"] for D in (32, 64, 128, 256)] == [64, 64, 64, 32]
     assert {core_fwd_tiling(D)["q_rows"] for D in (32, 64, 128, 256)} == {64}
+    assert [tuple(core_dq_tiling(D).values()) for D in (32, 64, 128, 256)] == [
+        (64, 64), (64, 64), (64, 64), (32, 32)]
+    with pytest.raises(ValueError, match="head dim 48"):
+        core_dq_tiling(48)
     assert [core_dkv_tiling(D)["q_rows"] for D in (32, 64, 128, 256)] == [64, 64, 64, 32]
     assert {core_dkv_tiling(D)["keys"] for D in (32, 64, 128, 256)} == {32}
     with pytest.raises(ValueError, match="head dim 48"):

@@ -60,15 +60,16 @@ def test_fixed_instances_fit_at_every_head_dim():
             for dtype in (torch.float32, torch.bfloat16):
                 assert kl.smem_findings(inst, D, subject=inst, dtype=dtype) == []
     # the layouts' comments: A 191,504 B at D 128 and 213,776 at D 256, B1
-    # 133 KB and B2 214,416 B at D 256; bf16 staging at D 32 halves the
-    # rings; the cluster instance's 140,880 B (what decode_cluster_smem reads
-    # on the card)
+    # 226,064 B at D 128 and 207,888 at D 256, B2 214,416 B at D 256; bf16
+    # staging at D 32 halves the rings; the cluster instance's 140,880 B
+    # (what decode_cluster_smem reads on the card)
     f32 = torch.float32
     assert kl.smem_estimate("fwd_cuda_core", 128, dtype=f32) == 191504
     assert kl.smem_estimate("fwd_cuda_core", 256, dtype=f32) == 213776
-    assert round(kl.smem_estimate("bwd_dq_cuda_core", 256) / 1024) == 133
+    assert kl.smem_estimate("bwd_dq_cuda_core", 128, dtype=f32) == 226064
+    assert kl.smem_estimate("bwd_dq_cuda_core", 256, dtype=f32) == 207888
     assert kl.smem_estimate("bwd_dkv_cuda_core", 256, dtype=f32) == 214416
-    for inst in ("fwd_cuda_core", "bwd_dkv_cuda_core"):
+    for inst in ("fwd_cuda_core", "bwd_dq_cuda_core", "bwd_dkv_cuda_core"):
         assert (kl.smem_estimate(inst, 32, dtype=torch.bfloat16)
                 < kl.smem_estimate(inst, 32, dtype=f32))
         # only D 32 has a bf16 instance: wider calls are staged in float32
@@ -255,7 +256,8 @@ def test_paged_address_rule_and_a_corrupted_one():
 DQ256 = "_ZN2rt3wgb25flash_bwd_dq_wgmma_kernelILi256EEEv14CUtensorMap_stS2_S2_S2_PKfS4_Pfiiif"
 DKV256 = "_ZN2rt3wgb26flash_bwd_dkv_wgmma_kernelILi256EEEv14CUtensorMap_stS2_S2_PfS7_iiif"
 FWD128 = "_ZN2rt2wg22flash_fwd_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_PKiS3_Pfiiif"
-DQCORE256 = "_ZN2rt19flash_bwd_dq_kernelIfLi256EEEvPKT_S3_S3_S3_PKfS5_S5_PKiS7_Pfiiiiiiif"
+DQCORE256 = ("_ZN2rt4core24flash_bwd_dq_core_kernelIfLi256EEEvPKT_S4_S4_S4_PKfS6_S6_PKiS8_"
+             "Pfiiiiiiiif")
 FWDCORE256 = "_ZN2rt4core21flash_fwd_core_kernelIfLi256EEEvPKT_S4_S4_PKiS6_PS2_Pfiiiiiiiiif"
 DKVCORE32 = ("_ZN2rt4core25flash_bwd_dkv_core_kernelI13__nv_bfloat16Li32EEEvPKT_S5_S5_S5_PKfS7_"
              "S7_PKiS9_PfSA_iiiiiiiiif")
@@ -284,11 +286,12 @@ PTXAS_CASES = [
     ("c7512_b1_d256", {"flash_bwd": c7512(DQ256) + entry(DQ256) + entry(DKV256)},
      [("KERN-WGMMA-SERIAL", DQ256)]),
     ("spill_a", {"flash_fwd": entry(FWD128, spill=16)}, [("KERN-SPILL", FWD128)]),
-    ("cuda_core_spill_not_gated", {"flash_bwd": entry(DQCORE256, spill=4, regs=255)}, []),
+    ("spill_b1_cuda_core", {"flash_bwd": entry(DQCORE256, spill=4, regs=255)},
+     [("KERN-SPILL", DQCORE256)]),
     ("spill_a_cuda_core", {"flash_fwd": entry(FWDCORE256, spill=8, regs=255)},
      [("KERN-SPILL", FWDCORE256)]),
-    ("spill_b2_cuda_core", {"flash_bwd": entry(DQCORE256, spill=4, regs=255)
-                            + entry(DKVCORE32, spill=16)}, [("KERN-SPILL", DKVCORE32)]),
+    ("spill_b2_cuda_core", {"flash_bwd": entry(DKVCORE32, spill=16)},
+     [("KERN-SPILL", DKVCORE32)]),
     ("cluster_clean", {"flash_fwd": entry(CLUSTER), "paged_decode": entry(CLUSTER_PAGED)}, []),
     ("cluster_spill", {"flash_fwd": entry(CLUSTER),
                        "paged_decode": entry(CLUSTER_PAGED, spill=24)},
