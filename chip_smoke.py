@@ -390,7 +390,23 @@ Phases, each fatal on failure:
      calls on the (2, 1, 2) blocks replayed through its wrapper twice and
      against its plain version; with ``--profile``, 4 steps on (2, 1, 2)
      under torch.profiler; the phase's seconds;
- 26. a ``{"kernels": [...]}`` summary line, the card line, and last the
+ 26. the dry run (``repro_torch.launch.dryrun``: a step traced on fake
+     tensors, its per-rank memory predicted by ``launch.step_analysis``)
+     against the card: (a) phase 9's training step at world 1 (qwen3-1.7b
+     at full width and depth, batch 2 x 4096, remat "full", bf16 compute,
+     float32 AdamW): its predicted peak within ``DRYRUN_LIMIT`` (10%) of
+     phase 9's measured ``peak_bytes_timed_steps``; (b) qwen3-1.7b's
+     ``decode_step`` at full depth, bf16, batch 8 over a dense slab of 4096,
+     SP 1: 4 steps on the card after ``reset_peak_memory_stats`` against
+     the prediction, within the same limit; no kernel launch counted by
+     either trace; (c) logged only: qwen2-72b ``decode_32k`` on (16, 16),
+     traced on rank 0 over a fake group of 256 ranks in a process of its
+     own with no card visible, started as the phase begins and collected
+     after (b) (per-rank state, peak, dominant term, the trace's seconds;
+     a train cell's trace outlasts the phase's minute, and
+     ``tests/test_torch_dryrun.py`` traces qwen3-1.7b ``train_4k``);
+     ``RESULT dryrun``; the phase's seconds;
+ 27. a ``{"kernels": [...]}`` summary line, the card line, and last the
      ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -2883,6 +2899,7 @@ def phase_train_full(torch, dev, with_profile, cfg=None, B=2, S=4096, steps=3,
     if with_profile:
         res["profile"] = profile_step(torch, lambda: trainer.run(
             state, data, steps=2 + steps, log=lambda m: None), med)
+    RESULTS[result] = res
     log(f"RESULT {result} " + json.dumps(res))
     return got
 
@@ -7190,6 +7207,165 @@ def profiled_phases(argv):
     return set()
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the dry run (repro_torch.launch.dryrun) against the card
+# ---------------------------------------------------------------------------
+
+# Each RESULT's dict by its name (phase 26 reads phase 9's peak).
+RESULTS: dict = {}
+# The dry run's predicted peak against the card's measured one, relative:
+# the tracker counts every storage an operation makes, rounded to the
+# caching allocator's 512 bytes; the card also holds what the tracker cannot
+# see (cuBLAS's workspace, the allocator's unsplit block remainders).
+DRYRUN_LIMIT = 0.10
+# (c)'s cells: traced on rank 0 of (16, 16) in processes of their own.  A
+# train cell's trace takes minutes of one core, more than the phase's
+# minute: the tests and the sweep trace those.
+DRYRUN_CELLS = (("qwen2-72b", "decode_32k"),)
+DRYRUN_OUT = ROOT / "build" / "dryrun_cells"
+_DRYRUN_PROCS: list = []
+
+
+def start_dryrun_cells():
+    """Start (c)'s dry runs, one process a cell, with no card visible (the
+    trace's fakes are CPU tensors then, as on a machine without a card);
+    phase 26 runs (a) and (b) while they trace, then collects them."""
+    import atexit
+    import os
+
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": str(SRC)}
+    atexit.register(stop_dryrun_cells)
+    for arch, shape in DRYRUN_CELLS:
+        out = open(DRYRUN_OUT / f"{arch}__{shape}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--out", str(DRYRUN_OUT), "--force"],
+            env=env, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+        out.close()
+        _DRYRUN_PROCS.append((arch, shape, proc))
+
+
+def stop_dryrun_cells():
+    for _, _, proc in _DRYRUN_PROCS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_dryrun(torch, dev):
+    """Phase 26 (module docstring)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.launch.dryrun import memory_record, trace_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.registry import build_model
+
+    t0 = time.perf_counter()
+    start_dryrun_cells()
+    res = {"limit": DRYRUN_LIMIT}
+
+    def held(label, pred, meas):
+        rel = abs(pred - meas) / meas
+        if not rel <= DRYRUN_LIMIT:
+            raise AssertionError(f"phase 26 {label}: the dry run predicts a peak of {pred} B, "
+                                 f"the card measured {meas} B ({100 * rel:.2f}% apart, limit "
+                                 f"{100 * DRYRUN_LIMIT:.0f}%)")
+        return rel
+
+    def traced(cfg, shape):
+        reset_launch_counts()
+        t = time.perf_counter()
+        tr = trace_step(cfg, shape, ParallelContext(device="cuda"))
+        secs = time.perf_counter() - t
+        if any(launch_counts().values()) or _paged_launches():
+            raise AssertionError(f"phase 26: the dry run of {cfg.name} counted launches "
+                                 f"{launch_counts()}")
+        mem = memory_record(tr)
+        return mem, tr["analysis"].stats.as_dict(), secs
+
+    # (a) phase 9's step at world 1
+    cfg = ARCHS["qwen3-1.7b"]
+    mem, stats, secs = traced(cfg, ShapeConfig("phase9", 4096, 2, "train"))
+    meas = RESULTS["training"]["peak_bytes_timed_steps"]
+    rel = held("(a)", mem["peak_bytes_per_device"], meas)
+    res["a"] = {"arch": cfg.name, "batch": 2, "seq": 4096, "remat": cfg.remat,
+                "predicted_peak_bytes": mem["peak_bytes_per_device"],
+                "measured_peak_bytes": meas, "relative_gap": rel, "memory": mem,
+                "step_stats": stats, "trace_s": secs}
+    log(f"  (a) {cfg.name} training step (batch 2 x 4096, remat {cfg.remat}): predicted peak "
+        f"{mem['peak_bytes_per_device'] / 2**30:.3f} GiB against phase 9's "
+        f"{meas / 2**30:.3f} GiB ({100 * rel:.2f}% apart; split at the peak "
+        f"{ {k: round(v / 2**30, 3) for k, v in mem['split_at_peak'].items()} } GiB); "
+        f"traced in {secs:.1f} s, no launch counted")
+
+    # (b) the decode step at SP 1 on the card against its prediction
+    cfg = ARCHS["qwen3-1.7b"].with_(param_dtype="bfloat16", remat="none")
+    B, S, steps = 8, 4096, 4
+    mem, stats, secs = traced(cfg, ShapeConfig("decode_4k", S, B, "decode"))
+    free_device_memory(torch)
+    base = torch.cuda.memory_allocated()
+    bundle = build_model(cfg, ParallelContext(device="cuda"))
+    params = bundle.init(0)
+    state = bundle.init_serve_state(B, S, "cuda")
+    tok = torch.zeros((B,), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        logits, state = bundle.decode_step(params, tok, state)
+        tok = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    meas = torch.cuda.max_memory_allocated() - base
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("phase 26 (b): non-finite logits")
+    rel = held("(b)", mem["peak_bytes_per_device"], meas)
+    res["b"] = {"arch": cfg.name, "batch": B, "slab": S, "steps": steps,
+                "predicted_peak_bytes": mem["peak_bytes_per_device"],
+                "measured_peak_bytes": meas, "allocated_before_bytes": base,
+                "relative_gap": rel, "memory": mem, "step_stats": stats, "trace_s": secs}
+    log(f"  (b) {cfg.name} decode step (bf16, batch {B}, dense slab {S}, SP 1), {steps} steps: "
+        f"predicted peak {mem['peak_bytes_per_device'] / 2**30:.3f} GiB against "
+        f"{meas / 2**30:.3f} GiB on the card above the {base / 2**20:.1f} MiB held before "
+        f"({100 * rel:.2f}% apart); traced in {secs:.1f} s, no launch counted")
+    del params, state, logits, bundle
+    free_device_memory(torch)
+
+    # (c) the (16, 16) cells, traced in their own processes since the
+    # phase began
+    res["c"] = []
+    for arch, shape, proc in _DRYRUN_PROCS:
+        t = time.perf_counter()
+        rc = proc.wait(timeout=300)
+        waited = time.perf_counter() - t
+        logf = DRYRUN_OUT / f"{arch}__{shape}.log"
+        if rc != 0:
+            raise AssertionError(f"phase 26 (c) {arch} {shape}: the dry run exited {rc}: "
+                                 + logf.read_text()[-2000:])
+        rec = json.loads((DRYRUN_OUT / f"{arch}__{shape}__pod__tokenring.json").read_text())
+        m, roof = rec["memory"], rec["roofline"]
+        row = {"arch": arch, "shape": shape, "status": rec["status"],
+               "state_bytes_per_rank": m["argument_bytes_per_device"],
+               "peak_bytes_per_rank": m["peak_bytes_per_device"], "dominant": roof["dominant"],
+               "bound_s": roof["bound_s"], "trace_s": rec["timing"]["trace_s"],
+               "groups_s": rec["timing"]["groups_s"], "waited_s": waited}
+        res["c"].append(row)
+        log(f"  (c) {arch} {shape} on (16, 16), rank 0 of 256: state "
+            f"{row['state_bytes_per_rank'] / 2**30:.3f} GiB, peak "
+            f"{row['peak_bytes_per_rank'] / 2**30:.3f} GiB, dominant {row['dominant']} (bound "
+            f"{row['bound_s'] * 1e3:.2f} ms); traced in {row['trace_s']:.1f} s (subgroups "
+            f"{row['groups_s']:.2f} s), waited {waited:.1f} s for it here")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"RESULT dryrun " + json.dumps(res))
+    log(f"  phase 26 took {res['seconds']:.1f} s")
+
+
+def _paged_launches() -> int:
+    from repro_torch.kernels import paged_attention as pa
+
+    return pa.paged_decode_fwd_cuda.launches
+
+
 def free_device_memory(torch):
     gc.collect()
     torch.cuda.empty_cache()
@@ -7474,7 +7650,12 @@ def main() -> int:
     free_device_memory(torch)
     log(f"  phase 25 took {time.perf_counter() - t25:.1f} s")
 
-    log("== phase 26: summary")
+    log("== phase 26: the dry run against the card: (a) phase 9's training step and (b) "
+        "qwen3-1.7b's decode step traced on fake tensors, their predicted peaks against the "
+        "card's; (c) qwen2-72b decode_32k on rank 0 of (16, 16)")
+    phase_dryrun(torch, dev)
+
+    log("== phase 27: summary")
     # `launches` is the count of the main path that runs the kernel (A, B1
     # and B2: whisper-base trained at full width and depth at SP 1, phase
     # 18's first training run; C, which no encoder-decoder path runs:

@@ -17,6 +17,10 @@ from repro_torch.configs.whisper_base import CONFIG as whisper_base
 ARCHS = {c.name: c for c in [qwen3_moe_30b_a3b, llama4_scout_17b_a16e, granite_3_8b, qwen3_1_7b,
                              olmo_1b, qwen2_72b, pixtral_12b, llama2_7b, whisper_base,
                              falcon_mamba_7b, recurrentgemma_2b]}
+# the dry run's archs, in the reference's order (its ASSIGNED)
+ASSIGNED = ["falcon-mamba-7b", "qwen3-moe-30b-a3b", "llama4-scout-17b-a16e", "whisper-base",
+            "recurrentgemma-2b", "granite-3-8b", "qwen3-1.7b", "olmo-1b", "qwen2-72b",
+            "pixtral-12b"]
 
 
 def get_config(name: str):

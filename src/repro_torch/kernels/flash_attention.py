@@ -49,6 +49,18 @@ Counterpart of ``repro.kernels.flash_attention``.
 The forward returns the TokenRing partial ``(out, lse)``; rows that see no
 key give ``out = 0, lse = -inf`` and, in the backward, exactly zero
 gradients.
+
+**Fake tensors** (``torch._subclasses.fake_tensor``, which the dry run,
+``launch/dryrun.py``, traces a step on: CUDA fakes where the build has CUDA,
+CPU fakes where it has not, since autograd needs the device's guard) take
+each wrapper's *shape path*:
+after the argument checks the wrapper allocates exactly what its launch
+would (the outputs, and a decode call's partials by the split rule at
+``DRYRUN_SM_COUNT``, an H100 SXM5's SMs), hands the call to every observer
+in ``FAKE_CALL_OBSERVERS`` (``launch.step_analysis`` counts its flops by the
+tile skip) and returns, launching nothing and counting no launch.  A fake
+tensor holds no data, so no kernel could take it; a real tensor never takes
+this path.
 """
 
 from __future__ import annotations
@@ -84,6 +96,10 @@ __all__ = [
     "tile_skip_grid",
     "tile_mask",
     "check_kernel_args",
+    "is_fake",
+    "report_fake_call",
+    "FAKE_CALL_OBSERVERS",
+    "DRYRUN_SM_COUNT",
 ]
 
 
@@ -251,13 +267,14 @@ DECODE_ROWS_D256 = (1, 16)
 def check_kernel_args(name: str, device, dtype, D: int, ints=(), floats=(),
                       dims=FLASH_DIMS):
     """The checks every kernel wrapper runs before handing pointers to C:
-    a head dim in ``dims`` (checked first), one CUDA device, a supported
-    dtype, contiguous tensors."""
+    a head dim in ``dims`` (checked first), one CUDA device (one device of
+    fake tensors: module docstring), a supported dtype, contiguous
+    tensors."""
     if D not in dims:
         raise ValueError(f"{name}: head dim {D} not supported "
                          f"({', '.join(map(str, dims))})")
     for t in (*floats, *ints):
-        if not t.is_cuda or t.device != device:
+        if not (t.is_cuda or is_fake(t)) or t.device != device:
             raise ValueError(f"{name}: every tensor must be on one CUDA device ({device}), "
                              f"got {t.device}")
         if not t.is_contiguous():
@@ -420,7 +437,8 @@ _SM_COUNT: dict[int, int] = {}
 _COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def decode_scratch(device, dtype, B: int, Sq: int, Hq: int, Hkv: int, D: int, n_keys: int):
+def decode_scratch(device, dtype, B: int, Sq: int, Hq: int, Hkv: int, D: int, n_keys: int,
+                   *, fake: bool = False):
     """What a decode launch needs besides its inputs: ``tiles_per_split``
     and the float32 partials ``(part_out, part_lse)`` plus the int32 merge
     counters, or three ``None`` when one split covers the range or the
@@ -428,24 +446,61 @@ def decode_scratch(device, dtype, B: int, Sq: int, Hq: int, Hkv: int, D: int, n_
     The counters are zero at rest and every launch leaves them zero;
     launches on one stream run one after another, so one buffer per
     (device, current stream) serves every call, and launches on two streams
-    at once never share one."""
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _SM_COUNT:
-        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    at once never share one.  ``fake``: a shape path's call (module
+    docstring), split at ``DRYRUN_SM_COUNT`` SMs, with counters of its own."""
+    if fake:
+        sm_count = DRYRUN_SM_COUNT
+    else:
+        idx = device.index if device.index is not None else torch.cuda.current_device()
+        if idx not in _SM_COUNT:
+            _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+        sm_count = _SM_COUNT[idx]
     units = decode_units(B, Hq, Hkv, Sq)
     if decode_core_instance(dtype, D) == "cluster":
-        return decode_rule_d256(n_keys, units, _SM_COUNT[idx])[0], None, None, None
-    per, splits = decode_split_rule(n_keys, units, _SM_COUNT[idx])
+        return decode_rule_d256(n_keys, units, sm_count)[0], None, None, None
+    per, splits = decode_split_rule(n_keys, units, sm_count)
     if splits == 1:
         return per, None, None, None
     rows = B * Sq * Hq
-    key = (idx, torch.cuda.current_stream(idx).stream_id)
-    counters = _COUNTERS.get(key)
-    if counters is None or counters.numel() < units:
-        counters = _COUNTERS[key] = torch.zeros(units, dtype=torch.int32, device=device)
+    if fake:
+        counters = torch.zeros(units, dtype=torch.int32, device=device)
+    else:
+        key = (idx, torch.cuda.current_stream(idx).stream_id)
+        counters = _COUNTERS.get(key)
+        if counters is None or counters.numel() < units:
+            counters = _COUNTERS[key] = torch.zeros(units, dtype=torch.int32, device=device)
     part_out = torch.empty((splits, rows, D), dtype=torch.float32, device=device)
     part_lse = torch.empty((splits, rows), dtype=torch.float32, device=device)
     return per, part_out, part_lse, counters
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor: a shape and a device, no storage."""
+    from torch._subclasses.fake_tensor import is_fake as _is_fake
+
+    return _is_fake(t)
+
+
+# An H100 SXM5's SMs: the split rule's count on fake tensors, which have no
+# card to ask.
+DRYRUN_SM_COUNT = 132
+# Callables ``(kernel, **call)`` that a wrapper's shape path reports to.
+FAKE_CALL_OBSERVERS: list = []
+
+
+def report_fake_call(kernel: str, *, q, Sk: int, q_pos, k_pos, causal: bool,
+                     window: int | None, tiles: tuple[int, int], nbytes: int):
+    """Hand one call on fake tensors to every observer: the kernel's name,
+    its query tensor and key count, the positions (a paged call's ``k_pos``
+    is ``(pos_pool, block_tables)``), the mask, the ``(q rows, keys)`` tiles
+    its instance skips by and the bytes it reads and writes."""
+    for obs in FAKE_CALL_OBSERVERS:
+        obs(kernel, q=q, Sk=Sk, q_pos=q_pos, k_pos=k_pos, causal=causal, window=window,
+            tiles=tiles, nbytes=nbytes)
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _ptr(t) -> int:
@@ -593,14 +648,24 @@ def flash_attention_fwd_cuda(q, k, v, q_pos, k_pos, *, causal: bool, window: int
         return out, lse
     per, part_out, part_lse, counters = 1, None, None, None
     instance = flash_fwd_instance(q.dtype, Sq, D)
-    if instance == "cuda_core":
+    fake = is_fake(q)
+    if instance == "cuda_core" and not fake:
         check_aligned("flash_attention_fwd_cuda", q, k, v)
     if instance == "decode":
         check_decode_rows("flash_attention_fwd_cuda", D, Hq // Hkv, Sq)
-        check_aligned("flash_attention_fwd_cuda",
-                      *((q, k, v) if decode_core_instance(q.dtype, D) == "cluster" else (k, v)))
+        if not fake:
+            check_aligned("flash_attention_fwd_cuda", *((q, k, v) if decode_core_instance(
+                q.dtype, D) == "cluster" else (k, v)))
         per, part_out, part_lse, counters = decode_scratch(q.device, q.dtype, B, Sq, Hq, Hkv,
-                                                           D, Sk)
+                                                           D, Sk, fake=fake)
+    if fake:
+        tiles = ((Sq, DECODE_TILE_KEYS) if instance == "decode" else
+                 tuple(wgmma_fwd_tiling(D)[k] for k in ("q_rows", "keys"))
+                 if instance == "wgmma" else tuple(core_fwd_tiling(D).values()))
+        report_fake_call("flash_attention_fwd", q=q, Sk=Sk, q_pos=q_pos, k_pos=k_pos,
+                         causal=causal, window=window, tiles=tiles,
+                         nbytes=tensor_bytes(q, k, v, q_pos, k_pos, out, lse))
+        return out, lse
     err = load_library("flash_fwd", _ARGTYPES).flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
         out.data_ptr(), lse.data_ptr(), _ptr(part_out), _ptr(part_lse), _ptr(counters),
@@ -630,6 +695,21 @@ def _check_bwd_args(name, q, k, v, q_pos, k_pos, dout, lse, delta, dlse):
     check_kernel_args(name, q.device, torch.float32, D, floats=(lse, delta, dlse))
 
 
+def _report_bwd(name, q, k, v, q_pos, k_pos, dout, lse, delta, dlse, outs, causal, window):
+    """The shape path's report of a B1 or B2 call, at its instance's tiles."""
+    D = q.shape[-1]
+    dq_kernel = name.endswith("_dq_cuda")
+    if flash_bwd_instance(q.dtype, D) == "wgmma":
+        t = wgmma_bwd_tiling(D)
+        tiles = (t["dq_rows"], t["dq_keys"]) if dq_kernel else (t["dkv_rows"], t["dkv_keys"])
+    else:
+        t = core_dq_tiling(D) if dq_kernel else core_dkv_tiling(D)
+        tiles = (t["q_rows"], t["keys"])
+    report_fake_call(name[:-len("_cuda")], q=q, Sk=k.shape[1], q_pos=q_pos, k_pos=k_pos,
+                     causal=causal, window=window, tiles=tiles,
+                     nbytes=tensor_bytes(q, k, v, q_pos, k_pos, dout, lse, delta, dlse, *outs))
+
+
 def _bwd_scalars(q, k, causal, window, scale):
     B, Sq, Hq, D = q.shape
     return (B, Sq, k.shape[1], Hq, k.shape[2], D, _KERNEL_DTYPES[q.dtype], int(causal),
@@ -652,6 +732,10 @@ def flash_attention_bwd_dq_cuda(q, k, v, q_pos, k_pos, dout, lse, delta, dlse, *
     _check_bwd_args(name, q, k, v, q_pos, k_pos, dout, lse, delta, dlse)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
+        return dq
+    if is_fake(q):
+        _report_bwd(name, q, k, v, q_pos, k_pos, dout, lse, delta, dlse, (dq,), causal,
+                    window)
         return dq
     if flash_bwd_instance(q.dtype, q.shape[-1]) == "cuda_core":
         check_aligned(name, q, k, v, dout)
@@ -676,6 +760,10 @@ def flash_attention_bwd_dkv_cuda(q, k, v, q_pos, k_pos, dout, lse, delta, dlse, 
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     if dk.numel() == 0:
+        return dk, dv
+    if is_fake(q):
+        _report_bwd(name, q, k, v, q_pos, k_pos, dout, lse, delta, dlse, (dk, dv), causal,
+                    window)
         return dk, dv
     if flash_bwd_instance(q.dtype, q.shape[-1]) == "cuda_core":
         check_aligned(name, q, k, v, dout)

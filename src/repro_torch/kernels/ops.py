@@ -28,6 +28,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd_torch,
     flash_attention_fwd_cuda,
     flash_attention_fwd_torch,
+    is_fake,
 )
 from repro_torch.kernels.flash_attention import tile_skip_grid as _tile_skip_grid
 from repro_torch.kernels.paged_attention import paged_decode_fwd_cuda, paged_decode_fwd_torch
@@ -68,10 +69,16 @@ class FlashConfig:
     def bwd_block_k(self) -> int:
         return self.block_k_bwd if self.block_k_bwd is not None else self.block_k
 
-    def resolve_impl(self, device: torch.device) -> str:
-        """``"cuda"`` or ``"torch"`` for tensors on ``device``."""
+    def resolve_impl(self, device: torch.device, fake: bool = False) -> str:
+        """``"cuda"`` or ``"torch"`` for tensors on ``device``; ``fake``
+        tensors (a dry run's, ``kernels.flash_attention``'s shape path) count
+        as the card's whatever their device: a build without CUDA cannot run
+        autograd on fake CUDA tensors, so the dry run traces fake CPU ones
+        there."""
         if self.impl not in IMPLS:
             raise ValueError(f"unknown impl {self.impl!r}; expected one of {IMPLS}")
+        if fake and self.impl != "torch":
+            return "cuda"
         if self.impl == "auto":
             return "cuda" if device.type == "cuda" else "torch"
         if self.impl == "cuda" and device.type != "cuda":
@@ -128,7 +135,7 @@ def _scale(cfg: FlashConfig, D: int) -> float:
 
 def _flash_fwd(cfg: FlashConfig, q, k, v, q_pos, k_pos):
     scale = _scale(cfg, q.shape[-1])
-    if cfg.resolve_impl(q.device) == "cuda":
+    if cfg.resolve_impl(q.device, is_fake(q)) == "cuda":
         return flash_attention_fwd_cuda(
             q.contiguous(), k.contiguous(), v.contiguous(), q_pos.contiguous(),
             k_pos.contiguous(), causal=cfg.causal, window=cfg.window, scale=scale,
@@ -141,7 +148,7 @@ def _flash_fwd(cfg: FlashConfig, q, k, v, q_pos, k_pos):
 def _flash_bwd(cfg: FlashConfig, q, k, v, q_pos, k_pos, out, lse, dout, dlse):
     """``(dq, dk, dv)`` in float32: kernels B1 and B2, or the plain version."""
     scale = _scale(cfg, q.shape[-1])
-    if cfg.resolve_impl(q.device) != "cuda":
+    if cfg.resolve_impl(q.device, is_fake(q)) != "cuda":
         return flash_attention_bwd_torch(
             q, k, v, q_pos, k_pos, out, lse, dout, dlse, causal=cfg.causal,
             window=cfg.window, scale=scale, block_q=pick_block(q.shape[1], cfg.bwd_block_q),
@@ -221,7 +228,7 @@ def paged_decode_attention(q, k_pool, v_pool, pos_pool, block_tables, q_pos, *,
     the kernel masks by the pool's PAD positions and needs none).
     """
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
-    if FlashConfig(impl=impl).resolve_impl(q.device) == "cuda":
+    if FlashConfig(impl=impl).resolve_impl(q.device, is_fake(q)) == "cuda":
         return paged_decode_fwd_cuda(
             q.contiguous(), k_pool, v_pool, pos_pool, block_tables.to(torch.int32).contiguous(),
             q_pos.to(torch.int32).contiguous(), window=window, scale=scale,

@@ -46,6 +46,9 @@ from repro_torch.kernels.flash_attention import (
     decode_core_instance,
     decode_scratch,
     flash_attention_fwd_torch,
+    is_fake,
+    report_fake_call,
+    tensor_bytes,
 )
 from repro_torch.kernels.ref import PAD_POS
 
@@ -125,8 +128,9 @@ def paged_decode_fwd_cuda(q, k_pool, v_pool, pos_pool, block_tables, q_pos, *,
     check_decode_rows(name, D, Hq // Hkv, 1)
     if pos_pool.shape != (n_pages, ps) or block_tables.shape[0] != B or q_pos.shape != (B, 1):
         raise ValueError(f"{name}: bad pos_pool/block_tables/q_pos shapes")
-    for t in (q, k_pool, v_pool) if decode_core_instance(q.dtype, D) == "cluster" else (
-            k_pool, v_pool):
+    fake = is_fake(q)
+    for t in () if fake else (q, k_pool, v_pool) if decode_core_instance(
+            q.dtype, D) == "cluster" else (k_pool, v_pool):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: q and the pools must be 16-byte aligned for 16-byte "
                              "copies")
@@ -135,7 +139,15 @@ def paged_decode_fwd_cuda(q, k_pool, v_pool, pos_pool, block_tables, q_pos, *,
     if out.numel() == 0:
         return out, lse
     per, part_out, part_lse, counters = decode_scratch(q.device, q.dtype, B, 1, Hq, Hkv, D,
-                                                       W * ps)
+                                                       W * ps, fake=fake)
+    if fake:
+        # every page the table maps is read whole, once
+        page = ps * Hkv * D * k_pool.element_size()
+        report_fake_call("paged_decode_fwd", q=q, Sk=W * ps, q_pos=q_pos,
+                         k_pos=(pos_pool, block_tables), causal=True, window=window,
+                         tiles=(1, ps), nbytes=tensor_bytes(q, block_tables, q_pos, out, lse)
+                         + 2 * B * W * page)
+        return out, lse
     err = load_library("paged_decode", _ARGTYPES).paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pos_pool.data_ptr(),
         block_tables.data_ptr(), q_pos.data_ptr(), out.data_ptr(), lse.data_ptr(),

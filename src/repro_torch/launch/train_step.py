@@ -13,7 +13,7 @@ import torch
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update, tree_leaves,
                                      tree_map)
 
-__all__ = ["make_opt_init", "make_train_step", "value_and_grad"]
+__all__ = ["make_opt_init", "make_train_step", "step_loss", "value_and_grad"]
 
 
 def make_opt_init():
@@ -36,15 +36,46 @@ def value_and_grad(loss_fn, params, batch):
     return (loss.detach(), metrics), tree_map(lambda _: next(grads), params)
 
 
-def make_train_step(bundle, *, lr=3e-4, opt_cfg: AdamWConfig = AdamWConfig()):
+def step_loss(bundle, layout=None):
+    """``loss_fn(params, batch) -> (loss, metrics)``, what a step
+    differentiates.  ``layout``: the parameters' FSDP layout
+    (``sharding.Layout``) when the bundle's context stores them over a mesh;
+    the step then gathers the blocks just in time
+    (``sharding.gather_step_params``), and on a process group each rank's
+    loss is weighted by its share of the global batch's tokens, so that the
+    gradients' reduce-scatter sums the global mean's (``runtime.trainer``).
+    ``metrics["loss"]`` is the global batch's loss."""
+    comm = bundle.pctx.storage
+
+    def loss_fn(params, batch):
+        if layout is None:
+            loss, metrics = bundle.loss(params, batch)
+            return loss, {**metrics, "loss": loss.detach()}
+        from repro_torch.sharding import gather_step_params
+
+        loss, metrics = bundle.loss(gather_step_params(params, layout, comm), batch)
+        if comm.folded:
+            return loss, {**metrics, "loss": loss.detach()}
+        tokens = metrics["tokens"].detach().float()
+        total = comm.world_sum(tokens)
+        weighted = loss * (tokens / total)
+        return weighted, {**metrics, "loss": comm.world_sum(weighted.detach())}
+
+    return loss_fn
+
+
+def make_train_step(bundle, *, lr=3e-4, opt_cfg: AdamWConfig = AdamWConfig(), layout=None):
     """``train_step(params, opt_state, batch) -> (params, opt, metrics)``:
-    gradients of the bundle loss and one AdamW step (in place, see
-    ``optim.adamw``)."""
+    gradients of :func:`step_loss` and one AdamW step (in place, see
+    ``optim.adamw``).  ``layout``: the parameters' FSDP layout when they
+    are stored as blocks over the bundle's mesh (the moments mirror them)."""
+    loss_fn = step_loss(bundle, layout)
+    comm = bundle.pctx.storage if layout is not None else None
 
     def train_step(params, opt_state, batch):
-        (loss, metrics), grads = value_and_grad(bundle.loss, params, batch)
+        (_, metrics), grads = value_and_grad(loss_fn, params, batch)
         new_params, new_opt, opt_metrics = adamw_update(grads, opt_state, params, lr=lr,
-                                                        cfg=opt_cfg)
-        return new_params, new_opt, {"loss": loss, **metrics, **opt_metrics}
+                                                        cfg=opt_cfg, layout=layout, comm=comm)
+        return new_params, new_opt, {**metrics, **opt_metrics}
 
     return train_step

@@ -187,6 +187,25 @@ def _embed(params, token_ids, cfg, prefix_embeds=None):
     return x
 
 
+def _embed_rows(params, token_ids, cfg, prefix_embeds, lo: int, hi: int):
+    """Rows ``[lo, hi)`` of :func:`_embed`'s sequence (the image's
+    ``n_img`` slots, then the text): a rank of a process group holds the
+    whole text and image (``sharding.batch_block``) and embeds only its own
+    sequence shard."""
+    n_img = prefix_embeds.shape[1]
+    text = token_ids[:, max(lo - n_img, 0):max(hi - n_img, 0)]
+    x = embed_lookup(params["embed"]["table"], text.long()).to(torch_dtype(cfg.dtype))
+    return torch.cat([prefix_embeds[:, min(lo, n_img):min(hi, n_img)].to(x.dtype), x], dim=1)
+
+
+def _own_rows(pctx, positions) -> tuple[int, int]:
+    """``[lo, hi)``: the rows of the sequence this rank of a process group
+    holds, its contiguous shard of the (layout-ordered) batch."""
+    n = positions.shape[1]
+    rank = sp_ranks(pctx)[1]
+    return rank * n, (rank + 1) * n
+
+
 def _block(p_l, x, cfg, attend, pctx, sharded=False):
     """One pre-norm block; ``attend(p_attn, h)`` is its attention.  Returns
     ``(x, aux)``: the MoE router loss of the layer, ``None`` for an MLP
@@ -203,9 +222,12 @@ def _block(p_l, x, cfg, attend, pctx, sharded=False):
 
 def _layers(params, x, cfg, attend, pctx, sharded=False):
     """Run every block of a serving step; ``attend(l, p_attn, h)`` is the
-    layer's attention (``sharded``: ``x`` is this rank's sequence shard)."""
+    layer's attention (``sharded``: ``x`` is this rank's sequence shard).  A
+    layer of FSDP blocks (a prefill on training storage) is gathered just
+    before its block."""
     for l, p_l in enumerate(params["layers"]):
-        x, _ = _block(p_l, x, cfg, lambda p, h, l=l: attend(l, p, h), pctx, sharded)
+        x, _ = _block(layer_params(p_l), x, cfg, lambda p, h, l=l: attend(l, p, h), pctx,
+                      sharded)
     return apply_norm(params["final_norm"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
 
 
@@ -224,7 +246,10 @@ def lm_apply(params, tokens, positions, *, cfg, pctx, prefix_embeds=None):
                                              window=cfg.window),
                       pctx, sharded)
 
-    x = _embed(params, tokens, cfg, prefix_embeds)
+    if sharded and prefix_embeds is not None:
+        x = _embed_rows(params, tokens, cfg, prefix_embeds, *_own_rows(pctx, positions))
+    else:
+        x = _embed(params, tokens, cfg, prefix_embeds)
     remat = cfg.remat != "none" and torch.is_grad_enabled()
     kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts, dots_policy)
           } if cfg.remat == "dots" else {}
@@ -252,6 +277,9 @@ def lm_loss(params, batch, *, cfg, pctx):
         text = torch.ones(batch["labels"].shape, dtype=torch.float32, device=labels.device)
         mask = torch.cat([torch.zeros((B, n_img), dtype=torch.float32, device=labels.device),
                           text if mask is None else mask], dim=1)
+        if pctx.active and not pctx.ring.folded:  # this rank's rows (_embed_rows)
+            lo, hi = _own_rows(pctx, batch["positions"])
+            labels, mask = labels[:, lo:hi], mask[:, lo:hi]
     dt = torch_dtype(cfg.dtype)
     loss, denom = lm_cross_entropy(x, _lm_head_w(params, cfg).to(dt), labels, mask=mask,
                                    chunk=cfg.logits_chunk, compute_dtype=dt)

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.launch.train_step import value_and_grad
+from repro_torch.launch.train_step import step_loss, value_and_grad
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, tree_leaves, tree_map
 from repro_torch.runtime.straggler import StragglerDetector
 
@@ -142,23 +142,13 @@ class Trainer:
     # ------------------------------------------------------------- step
 
     def _loss(self, params, batch):
-        """The loss to differentiate and its metrics: on a mesh the blocks
-        are gathered just in time, and on a process group each rank's loss
-        is weighted by its share of the global batch's tokens (module
-        docstring); ``metrics["loss"]`` is the global batch's loss."""
-        if self.comm is None:
-            loss, metrics = self.bundle.loss(params, batch)
-            return loss, {**metrics, "loss": loss.detach()}
-        from repro_torch.sharding import gather_step_params
-
-        loss, metrics = self.bundle.loss(
-            gather_step_params(params, self.params_layout, self.comm), batch)
-        if self.comm.folded:
-            return loss, {**metrics, "loss": loss.detach()}
-        tokens = metrics["tokens"].detach().float()
-        total = self.comm.world_sum(tokens)
-        weighted = loss * (tokens / total)
-        return weighted, {**metrics, "loss": self.comm.world_sum(weighted.detach())}
+        """The loss to differentiate and its metrics
+        (``launch.train_step.step_loss``: on a mesh the blocks are gathered
+        just in time, and on a process group each rank's loss is weighted by
+        its share of the global batch's tokens); ``metrics["loss"]`` is the
+        global batch's loss."""
+        return step_loss(self.bundle, self.params_layout if self.comm is not None else None)(
+            params, batch)
 
     def _step(self, state, batch):
         cfg = self.cfg

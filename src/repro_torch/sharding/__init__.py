@@ -396,12 +396,15 @@ def bind_serve(tree, comm):
 
 
 def _leaf_bytes(x) -> int:
-    return x.numel() * x.element_size()
+    if isinstance(x, ServeBlocks):
+        x = x.blocks
+    return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else 0
 
 
-def tree_bytes(meta) -> int:
-    """Bytes of every leaf of a tree of (meta) tensors, in full."""
-    return sum(_leaf_bytes(x) for x in tree_leaves(meta))
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor of a tree (meta or not; serve blocks by their
+    blocks; other leaves none), in full."""
+    return sum(_leaf_bytes(x) for x in tree_leaves(tree))
 
 
 def fsdp_comm_bytes(layout: Layout, remat: str = "none",
@@ -460,9 +463,15 @@ def state_bytes(layout: Layout, rank: int = 0) -> int:
 
 def batch_block(batch, pctx, rank: int):
     """``rank``'s (data, sequence) block of a batch dict (numpy arrays or
-    tensors) by :func:`batch_shardings` on ``pctx.mesh``."""
+    tensors) by :func:`batch_shardings` on ``pctx.mesh``; a VLM's text
+    (tokens, labels, mask) stays whole over the sequence axes, as its image
+    does: the sequence (image, then text) is cut as the positions are, and
+    each rank embeds its own shard of it (``models.transformer._embed_rows``)."""
     mesh = pctx.mesh
     specs = batch_shardings(batch, mesh, pctx)
+    if "patch_embeds" in batch:
+        specs = {k: (v[0], None) if k in ("tokens", "labels", "mask") else v
+                 for k, v in specs.items()}
 
     def leaf(x, spec):
         spec = tuple(spec)[:x.ndim]

@@ -18,12 +18,19 @@ parameters after three steps, in float32 at ``MODEL_TOL``.
 * reduced qwen3-moe on the virtual (2, 2) mesh with expert parallelism, at
   capacity factor E / K, where nothing drops (ROADMAP queue 3 item 8);
 * the ledger's ``"data"`` class equals ``fsdp_comm_bytes`` a step (the
-  per-layer gather's: ``test_torch_layer_gather.py``).
+  per-layer gather's: ``test_torch_layer_gather.py``);
+* reduced pixtral-12b on gloo groups of data 1 x model 2 and data 2 x
+  model 2 (one spawn of ``_dp_pg_worker.run_vlm`` a group): the loss and
+  every gradient of one step, on a batch whose positions are contiguous and
+  on one whose positions are zigzag, against JAX ``value_and_grad`` at
+  ``mesh=None`` on the same batch (each rank holds the whole image and text
+  and embeds its own shard of the sequence).
 """
 
 import torch.multiprocessing as mp
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -31,6 +38,7 @@ import torch
 from repro.configs import ARCHS as JARCHS
 from repro.core.api import ParallelContext as JPctx
 from repro.data import synthetic as jsyn
+from repro.data.synthetic import apply_layout
 from repro.models import build_model as jbuild
 from repro.optim import adamw as jadamw
 from repro.runtime import trainer as jtrainer
@@ -241,3 +249,69 @@ def test_plan_divides_the_batch_over_the_data_axis():
     b = sp.plan(AttnShapes(B=4, Sq=4096, Hq=16, Hkv=8, D=128))
     assert a.strategy == b.strategy and a.cost == b.cost
     assert a.compute_flops == b.compute_flops
+
+
+VLM_MESHES = {"1x2": 1, "2x2": 2}  # the data degree; model 2
+
+
+def _vlm_batch(layout, B=4, S_text=48, seed=5):
+    """Seeded text behind ``frontend_tokens`` patch embeddings; the
+    positions cover both, contiguous or in the zigzag order of 2 ranks."""
+    cfg = JARCHS["pixtral-12b"].reduced(**REDUCED)
+    n_img = cfg.frontend_tokens
+    rng = np.random.default_rng(seed)
+    S = n_img + S_text
+    pos = apply_layout(np.zeros((1, S), np.int32), np.zeros((1, S), np.int32), S, 2,
+                       layout)[2]
+    return {"tokens": rng.integers(0, cfg.vocab_size, (B, S_text)).astype(np.int32),
+            "labels": rng.integers(0, cfg.vocab_size, (B, S_text)).astype(np.int32),
+            "positions": np.broadcast_to(pos, (B, S)).copy(),
+            "patch_embeds": rng.standard_normal((B, n_img, cfg.d_model)).astype(np.float32)}
+
+
+@pytest.fixture(scope="module", params=sorted(VLM_MESHES))
+def vlm_group(request, tmp_path_factory):
+    """One spawn of ``run_vlm`` on a group of the mesh and the JAX loss and
+    gradients on each layout's batch: ``(results, JAX's by layout, port
+    parameters)``."""
+    from _dp_pg_worker import run_vlm
+
+    data = VLM_MESHES[request.param]
+    tmp = tmp_path_factory.mktemp(f"vlm{request.param}")
+    jb = jbuild(JARCHS["pixtral-12b"].reduced(**REDUCED), JPctx(mesh=None, impl="xla"))
+    jparams = jb.init(jax.random.PRNGKey(3))
+    tparams = from_jax_params(TARCHS["pixtral-12b"].reduced(**REDUCED),
+                              jax.tree.map(np.asarray, jparams), device="cpu", training=True)
+    torch.save(tparams, tmp / "params.pt")
+    layouts = ("contig", "zigzag")
+    for layout in layouts:
+        np.savez(tmp / f"{layout}.npz", **_vlm_batch(layout))
+    ctx = mp.get_context("spawn")
+    world = 2 * data
+    procs = [ctx.Process(target=run_vlm, args=(r, world, str(tmp / "init"), str(tmp),
+                                               str(tmp / "out.npz"), data, REDUCED,
+                                               [(lay, lay) for lay in layouts]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:  # the JAX oracles while the ranks run
+        vg = jax.jit(jax.value_and_grad(jb.loss, has_aux=True))
+        jax_runs = {lay: vg(jparams, {k: jnp.asarray(v) for k, v in _vlm_batch(lay).items()})
+                    for lay in layouts}
+    finally:
+        for p in procs:
+            p.join(SPAWN_TIMEOUT_S)
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    return np.load(tmp / "out.npz"), jax_runs, tparams
+
+
+@pytest.mark.parametrize("layout", ["contig", "zigzag"])
+def test_vlm_on_a_gloo_group_matches_jax(vlm_group, layout):
+    res, jax_runs, tparams = vlm_group
+    (jloss, _), jgrads = jax_runs[layout]
+    np.testing.assert_allclose(res[f"{layout}/loss"], float(jloss), **MODEL_TOL)
+    pairs = _pairs(tparams, jgrads)
+    assert len(pairs) == len(tree_leaves(tparams))
+    for j, (name, _, g) in enumerate(pairs):
+        np.testing.assert_allclose(res[f"{layout}/leaf{j}"], g, err_msg=f"{layout} {name}",
+                                   **MODEL_TOL)
